@@ -1,0 +1,117 @@
+"""Layers, counterparts of ``cnn_tpu/nn/module.py``, as ``nn.Module``s.
+
+Parameters keep ``cnn_tpu``'s names and layouts (conv ``w`` [k,k,Cin,Cout]
+HWIO and ``b``; dense ``w`` [in,out] and ``b``; BN ``gamma``/``beta`` with
+``mean``/``var`` buffers), so a ``cnn_tpu`` param tree loads as it is
+(``utils/checkpoint.py:load_jax_params``). Activations are NHWC.
+
+Conv2D and MaxPool2D go through the kernel wrappers in ``ops/hopper``: the
+CUDA kernel for a CUDA tensor, the plain version for a CPU tensor. This slice
+serves: BatchNorm2D and Dropout run in eval mode only, and the kernels have
+no backward yet.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from cnn_tpu_torch.ops.activations import relu
+from cnn_tpu_torch.ops.batchnorm import batch_norm2d_eval
+from cnn_tpu_torch.ops.hopper.conv import conv2d_bias_relu
+from cnn_tpu_torch.ops.hopper.pool import max_pool2d_fwd
+from cnn_tpu_torch.ops.linear import linear
+
+
+def _normal(shape, generator, device) -> nn.Parameter:
+    """N(0, 1) / 10, ``cnn_tpu``'s init for conv and dense weights."""
+    return nn.Parameter(
+        (torch.randn(shape, generator=generator) * 0.1).to(device))
+
+
+class Layer(nn.Module):
+    def __init__(self, name: str):
+        super().__init__()
+        self.name = name
+
+
+class Conv2D(Layer):
+    """VALID NHWC/HWIO conv + bias; ``forward(x, relu=True)`` fuses the ReLU."""
+
+    def __init__(self, name, in_channels=3, out_channels=16, kernel_size=3,
+                 stride=2, *, device=None, generator=None):
+        super().__init__(name)
+        self.in_channels, self.out_channels = in_channels, out_channels
+        self.kernel_size, self.stride = kernel_size, stride
+        k = kernel_size
+        self.w = _normal((k, k, in_channels, out_channels), generator, device)
+        self.b = _normal((out_channels,), generator, device)
+
+    def forward(self, x, relu: bool = False):
+        return conv2d_bias_relu(x, self.w, self.b, self.stride, relu)
+
+
+class MaxPool2D(Layer):
+    """2x2 stride-2 max pool, the window AlexNet uses and the kernel takes."""
+
+    def forward(self, x):
+        return max_pool2d_fwd(x)
+
+
+class ReLU(Layer):
+    def forward(self, x):
+        return relu(x)
+
+
+class Flatten(Layer):
+    """[B,H,W,C] -> [B, H*W*C], NHWC order."""
+
+    def forward(self, x):
+        return x.reshape(x.shape[0], -1)
+
+
+class Linear(Layer):
+    def __init__(self, name, in_features=4608, out_features=3, *,
+                 device=None, generator=None):
+        super().__init__(name)
+        self.in_features, self.out_features = in_features, out_features
+        self.w = _normal((in_features, out_features), generator, device)
+        self.b = _normal((out_features,), generator, device)
+
+    def forward(self, x):
+        return linear(x, self.w, self.b)
+
+
+class BatchNorm2D(Layer):
+    """Per-channel BN over NHWC, eval mode (moving statistics)."""
+
+    def __init__(self, name, num_channels=16, eps=1e-5, *, device=None):
+        super().__init__(name)
+        self.num_channels, self.eps = num_channels, eps
+        self.gamma = nn.Parameter(torch.ones(num_channels, device=device))
+        self.beta = nn.Parameter(torch.zeros(num_channels, device=device))
+        self.register_buffer("mean", torch.zeros(num_channels, device=device))
+        self.register_buffer("var", torch.ones(num_channels, device=device))
+
+    def forward(self, x):
+        if self.training:
+            raise NotImplementedError(
+                f"{self.name}: training-mode BatchNorm is not ported yet; "
+                "call .eval()")
+        return batch_norm2d_eval(x, self.gamma, self.beta, self.mean,
+                                 self.var, self.eps)
+
+
+class Dropout(Layer):
+    """Channel dropout: the identity in eval mode."""
+
+    def __init__(self, name, p=0.5):
+        super().__init__(name)
+        self.p = p
+
+    def forward(self, x):
+        if self.training and self.p > 0:
+            raise NotImplementedError(
+                f"{self.name}: training-mode dropout is not ported yet; "
+                "call .eval()")
+        return x

@@ -1,0 +1,31 @@
+"""2x2 stride-2 max pooling, NHWC (plain version of the pool kernel).
+
+Counterpart of ``cnn_tpu/ops/pool.py:max_pool2d`` and of the forward of
+``cnn_tpu/ops/pallas/pool.py``. VALID: odd extents crop the last row/col.
+Ties go to the earliest tap in row-major window order (00, 01, 10, 11),
+which matters after ReLU, where exact zeros tie. The CUDA kernel is
+``ops/hopper/pool.py``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def max_pool2d_taps(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """[B,H,W,C] -> (max [B,H//2,W//2,C], tap index 0..3 as uint8)."""
+    h2, w2 = x.shape[1] // 2, x.shape[2] // 2
+    x = x[:, : 2 * h2, : 2 * w2]
+    x00, x01 = x[:, 0::2, 0::2], x[:, 0::2, 1::2]
+    x10, x11 = x[:, 1::2, 0::2], x[:, 1::2, 1::2]
+    r0, r1 = x01 > x00, x11 > x10
+    m0, m1 = torch.where(r0, x01, x00), torch.where(r1, x11, x10)
+    down = m1 > m0
+    i0 = r0.to(torch.uint8)
+    i1 = r1.to(torch.uint8) + 2
+    return torch.where(down, m1, m0), torch.where(down, i1, i0)
+
+
+def max_pool2d(x: torch.Tensor) -> torch.Tensor:
+    """[B,H,W,C] -> [B,H//2,W//2,C]."""
+    return max_pool2d_taps(x)[0]

@@ -1,0 +1,19 @@
+"""uint8 -> float preprocessing (plain version of the normalize kernel).
+
+Counterpart of ``cnn_tpu/ops/preprocess.py``. The CUDA kernel is
+``ops/hopper/normalize.py``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def uint8_to_float(x: torch.Tensor) -> torch.Tensor:
+    """[.., H, W, C] uint8 -> float32 in [0, 1] by true division.
+
+    Divides by a 0-d tensor on ``x``'s device rather than by a Python
+    number: on CUDA, PyTorch turns division by a host scalar into a
+    reciprocal multiply, which differs by 1 ulp for some byte values.
+    """
+    return x.float() / torch.tensor(255.0, device=x.device)

@@ -1,0 +1,86 @@
+"""cnn_tpu_torch stands alone: it imports none of JAX, optax, cv2 or cnn_tpu,
+runs on the CPU only when asked, and chip_smoke.py refuses to run without a
+CUDA device."""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import cnn_tpu_torch
+from cnn_tpu_torch.models import get_model
+from cnn_tpu_torch.serving import InferenceEngine
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+BLOCKER = r"""
+import sys
+
+BLOCKED = ("jax", "jaxlib", "optax", "cv2", "cnn_tpu")
+for name in list(sys.modules):
+    if name.split(".")[0] in BLOCKED:
+        del sys.modules[name]
+
+
+class Blocker:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in BLOCKED:
+            raise ImportError(f"blocked import: {name}")
+        return None
+
+
+sys.meta_path.insert(0, Blocker())
+import cnn_tpu_torch, cnn_tpu_torch.serving, cnn_tpu_torch.models
+import cnn_tpu_torch.utils.checkpoint, cnn_tpu_torch.ops.hopper
+import chip_smoke
+leaked = sorted(n for n in sys.modules if n.split(".")[0] in BLOCKED)
+assert not leaked, leaked
+print("clean")
+"""
+
+
+def _no_cuda_env():
+    return {**os.environ, "CUDA_VISIBLE_DEVICES": ""}
+
+
+def test_port_imports_nothing_of_jax_optax_cv2_or_cnn_tpu():
+    out = subprocess.run([sys.executable, "-c", BLOCKER], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("clean")
+
+
+def test_chip_smoke_fails_without_cuda():
+    out = subprocess.run([sys.executable, "chip_smoke.py"], cwd=REPO,
+                         env=_no_cuda_env(), capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode != 0
+    assert '"ok": true' not in out.stdout
+
+
+def test_chip_smoke_fails_alone(tmp_path):
+    with open(os.path.join(REPO, "chip_smoke.py")) as f:
+        (tmp_path / "chip_smoke.py").write_text(f.read())
+    env = {k: v for k, v in _no_cuda_env().items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tmp_path,
+                         env=env, capture_output=True, text=True, timeout=300)
+    assert out.returncode != 0
+    assert '"ok": true' not in out.stdout
+
+
+def test_entry_points_need_cuda_or_an_explicit_cpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError):
+        cnn_tpu_torch.default_device()
+    with pytest.raises(RuntimeError):
+        get_model("alexnet", image_size=64)
+    model = get_model("alexnet", image_size=64, device="cpu")
+    with pytest.raises(RuntimeError):
+        InferenceEngine(model, buckets=(1,))
+    assert cnn_tpu_torch.default_device("cpu") == torch.device("cpu")
+    labels, probs = InferenceEngine(model, buckets=(1,), device="cpu").predict(
+        np.zeros((2, 64, 64, 3), np.uint8))
+    assert labels.shape == (2,) and probs.shape == (2, 3)
