@@ -16,7 +16,26 @@
    reference ``.model`` behind ``InferenceEngine`` (buckets 1, 8, 64) and
    ``BatchingServer``; every kernel's launch count must move as the path
    dictates, and the results must match the same engine run on the plain
-   versions on the card and on the CPU.
+   versions on the card and on the CPU;
+5. training kernels, at the training shapes (batch 256): the pool backward
+   bit-exact against its plain version and against autograd through the
+   plain forward, on 33% exact ties, its cropped row and column zero; the
+   rotation on [256,256,256,3] in float32 (bit-exact) and bf16 (within one
+   bf16 ulp) at 0, +-15, +-44, +-46, +-75 degrees and random angles; the
+   conv Function's dx/dw/db for the four layers, ReLU on and off, within
+   1e-5 * max(1, max|ref|) of autograd through the plain conv; each timed
+   beside its plain version, a library call and its bound;
+6. gradients at full width against the reference C++: one step at lr 1 on
+   ``tests/fixtures/grad_parity_bn.npz`` through the normalize, conv and
+   pool kernels; logits 1e-4, loss 1e-5, every gradient tensor
+   1e-4 * max(1, max|ref|) (BN's B times), moving statistics 1e-4;
+7. training: ``make_device_train_step`` on 1,024 synthetic 256 px canvases
+   held on the card, full augmentation, BN AlexNet at 224 px, batch 256,
+   momentum SGD on a cosine schedule, 40 steps: one step with the kernels
+   against the same step on the plain versions (same weights, batch and
+   drawn augmentation), finite and falling loss, the exact launch counts,
+   img/s, the device time per step split by stage, and the eval accuracy on
+   held-out images.
 
 Every phase prints one flushed line with the seconds since start. Any failed
 check raises, so the exit code is not 0. Without a CUDA device it exits 1
@@ -26,6 +45,7 @@ JSON; the last line is ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import copy
 import json
 import subprocess
 import sys
@@ -41,20 +61,41 @@ import torch.nn.functional as F
 
 import cnn_tpu_torch.nn.module as nn_module
 import cnn_tpu_torch.serving as serving
+from cnn_tpu_torch.data import DeviceDataset, make_device_train_step
 from cnn_tpu_torch.models import get_model
 from cnn_tpu_torch.nn import Conv2D, ReLU
+from cnn_tpu_torch.ops import augment as aug
+from cnn_tpu_torch.ops.activations import relu as ops_relu
 from cnn_tpu_torch.ops.conv import conv2d, conv_out_size
-from cnn_tpu_torch.ops.hopper import (_build, conv2d_bias_relu, max_pool2d_fwd,
-                                      reset_launches, uint8_normalize)
+from cnn_tpu_torch.ops.hopper import (_build, conv2d_bias_relu,
+                                      conv2d_bias_relu_fn, max_pool2d_bwd,
+                                      max_pool2d_fn, max_pool2d_fwd,
+                                      reset_launches, rotate_shear,
+                                      uint8_normalize)
+from cnn_tpu_torch.ops.losses import softmax_cross_entropy
 from cnn_tpu_torch.ops.pool import max_pool2d, max_pool2d_taps
+from cnn_tpu_torch.ops.pool import max_pool2d_bwd as pool_bwd_plain
 from cnn_tpu_torch.ops.preprocess import uint8_to_float
-from cnn_tpu_torch.utils.checkpoint import load_reference_model
+from cnn_tpu_torch.optim import make_optimizer, sgd
+from cnn_tpu_torch.parallel import (create_train_state, make_eval_step,
+                                    make_train_step)
+from cnn_tpu_torch.parallel.train_step import named_params
+from cnn_tpu_torch.utils.checkpoint import (import_reference_array,
+                                            load_jax_params,
+                                            load_reference_model)
 
 ROOT = Path(__file__).resolve().parent
 MODEL = (ROOT / "checkpoints" / "alexnet_bn_device"
          / "iter_12000_train_0.997_valid_0.937.model")
+GRAD_FIXTURE = ROOT / "tests" / "fixtures" / "grad_parity_bn.npz"
 BUCKETS = (1, 8, 64)
 B = 64
+TRAIN_B = 256          # the training batch
+CANVAS = 256           # canvas_size, cut and resized to 224
+TRAIN_N = 1024         # canvases held on the card
+TRAIN_STEPS = 40
+GRAD_TOL = 1e-4        # per gradient tensor, times max(1, max|ref|)
+CONV_GRAD_TOL = 1e-5   # conv Function against autograd, times max(1, max|ref|)
 # NVIDIA H100 SXM data sheet: HBM3 rate, and float32 outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
@@ -64,13 +105,19 @@ LOGIT_ATOL = 1e-4   # the logit bar cnn_tpu holds against the reference
 REPLACES = {
     "uint8_normalize": "cnn_tpu/ops/pallas/normalize.py:28",
     "max_pool2d_fwd": "cnn_tpu/ops/pallas/pool.py:61",
+    "max_pool2d_bwd": "cnn_tpu/ops/pallas/pool.py:82",
     "conv2d_bias_relu": "cnn_tpu/ops/pallas/conv.py:103",
+    "rotate_shear": "cnn_tpu/ops/pallas/augment.py:173",
 }
 SOURCES = {
     "uint8_normalize": "cnn_tpu_torch/csrc/normalize.cu",
     "max_pool2d_fwd": "cnn_tpu_torch/csrc/pool.cu",
+    "max_pool2d_bwd": "cnn_tpu_torch/csrc/pool.cu",
     "conv2d_bias_relu": "cnn_tpu_torch/csrc/conv.cu",
+    "rotate_shear": "cnn_tpu_torch/csrc/rotate.cu",
 }
+KERNELS = ("uint8_normalize", "max_pool2d_fwd", "max_pool2d_bwd",
+           "conv2d_bias_relu", "rotate_shear")
 
 T0 = time.perf_counter()
 
@@ -393,6 +440,462 @@ def layer_times(model, x) -> dict:
         i += 2 if fuse else 1
     return out
 
+def launch_counts() -> dict:
+    return {name: globals()[name].launches for name in KERNELS}
+
+
+def scaled_dev(got: torch.Tensor, ref: torch.Tensor) -> tuple[float, float]:
+    """max |got - ref| and the bar's scale max(1, max |ref|)."""
+    return ((got.double() - ref.double()).abs().max().item(),
+            max(1.0, ref.abs().max().item()))
+
+
+def rotate_ops(b: int, s: int, c: int) -> int:
+    """Float operations of the three shears: a blend is 1 - a, two products
+    and a sum, over the S x L padded rows twice and the S x S*C window."""
+    lane = aug.geometry(s, c).lane
+    return 4 * b * (2 * s * lane + s * s * c)
+
+
+def train_kernel_phase() -> dict:
+    """The two new kernels and the conv Function at the training shapes."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(2)
+    out = {}
+
+    # pool backward: the tap of a forward on ReLU output quantized to
+    # quarters (a third of the first two taps tie exactly)
+    x = torch.randn((TRAIN_B, 111, 111, 16), generator=gen, device=dev)
+    x = torch.relu(torch.round(x * 4) / 4)
+    y, tap = max_pool2d_fwd(x, with_tap=True)
+    fwd = (time_ms(lambda: max_pool2d_fwd(x, with_tap=True)),
+           time_ms(lambda: max_pool2d_taps(x)),
+           time_ms(lambda: F.max_pool2d(x.permute(0, 3, 1, 2), 2, 2,
+                                        return_indices=True)),
+           bound_ms(4 * TRAIN_B * 110 * 110 * 16 + nbytes(y, tap),
+                    3 * y.numel()))
+    phase(f"pool forward with tap [256,111,111,16] (training): ms={fwd[:3]} "
+          f"bound={fwd[3][0]:.4f}")
+    g = torch.randn((TRAIN_B, 55, 55, 16), generator=gen, device=dev)
+    dx, ref = max_pool2d_bwd(tap, g, 111, 111), pool_bwd_plain(tap, g, 111, 111)
+    check(bits_equal(dx, ref), "pool backward: differs from the plain version")
+    check(not dx[:, 110].any().item() and not dx[:, :, 110].any().item(),
+          "pool backward: the cropped row or column is not zero")
+    xa = x.clone().requires_grad_(True)
+    (auto,) = torch.autograd.grad(max_pool2d(xa), xa, g)
+    check(bits_equal(dx, auto),
+          "pool backward: differs from autograd through the plain forward")
+    ties = (x[:, :110:2, :110:2] == x[:, :110:2, 1:110:2]).float().mean().item()
+    xn, gn = x.permute(0, 3, 1, 2), g.permute(0, 3, 1, 2)
+    _, ind = F.max_pool2d(xn, 2, 2, return_indices=True)
+    lib = time_ms(lambda: torch.ops.aten.max_pool2d_with_indices_backward(
+        gn, xn, [2, 2], [2, 2], [0, 0], [1, 1], False, ind))
+    out["max_pool2d_bwd"] = (
+        (dx - ref).abs().max().item(),
+        time_ms(lambda: max_pool2d_bwd(tap, g, 111, 111)),
+        time_ms(lambda: pool_bwd_plain(tap, g, 111, 111)), lib,
+        bound_ms(nbytes(tap, g, dx), 0))
+    phase(f"pool backward [256,55,55,16]->[256,111,111,16] (tie share "
+          f"{ties:.3f}): bit-exact against the plain version and autograd, "
+          f"cropped row and column zero; ms={out['max_pool2d_bwd'][1:4]} "
+          f"bound={out['max_pool2d_bwd'][4][0]:.4f}")
+
+    # rotation: fixed angles around the 45-degree turn of the shears, the
+    # rest random in +-75 degrees
+    fixed = torch.tensor([0, 15, -15, 44, -44, 46, -46, 75, -75],
+                         dtype=torch.float32, device=dev)
+    rand = (torch.rand(TRAIN_B - fixed.numel(), generator=gen, device=dev)
+            * 2 - 1) * 75
+    theta = torch.deg2rad(torch.cat([fixed, rand]))
+    imgs = torch.rand((TRAIN_B, CANVAS, CANVAS, 3), generator=gen, device=dev)
+    y, ref = rotate_shear(imgs, theta), aug.rotate_shear_plain(imgs, theta)
+    check(bits_equal(y, ref), "rotation f32: differs from the plain version: "
+          f"max |dev| {(y - ref).abs().max().item():.3g}")
+    hb = imgs.bfloat16()
+    yb, rb = rotate_shear(hb, theta), aug.rotate_shear_plain(hb, theta)
+    ulps = (yb.view(torch.int16).int() - rb.view(torch.int16).int()).abs()
+    check(ulps.max().item() <= 1, f"rotation bf16: {ulps.max().item()} ulp "
+          "from the plain version")
+    vecs = aug.shift_vectors(theta, CANVAS, 3)
+    bnd = bound_ms(nbytes(imgs, y, *vecs), rotate_ops(TRAIN_B, CANVAS, 3))
+    out["rotate_shear"] = (
+        (y - ref).abs().max().item(),
+        time_ms(lambda: rotate_shear(imgs, theta)),
+        time_ms(lambda: aug.rotate_shear_plain(imgs, theta), iters=5), None,
+        bnd)
+    ms_b = time_ms(lambda: rotate_shear(hb, theta))
+    plain_b = time_ms(lambda: aug.rotate_shear_plain(hb, theta), iters=5)
+    bnd_b = bound_ms(nbytes(hb, yb, *vecs), rotate_ops(TRAIN_B, CANVAS, 3))
+    phase(f"rotation [256,256,256,3] f32 bit-exact, bf16 "
+          f"{int((ulps > 0).sum().item())} elements 1 ulp off; f32 ms="
+          f"{out['rotate_shear'][1:3]} bound={bnd[0]:.4f}; bf16 ms="
+          f"{ms_b:.4f} plain={plain_b:.4f} bound={bnd_b[0]:.4f}")
+
+    # the conv Function against autograd through the plain conv, and the
+    # training-shape forward times (kernel, plain, cuDNN)
+    h = 224
+    for i, (cin, cout) in enumerate([(3, 16), (16, 32), (32, 64), (64, 128)],
+                                    start=1):
+        x = torch.rand((TRAIN_B, h, h, cin), generator=gen, device=dev)
+        w = torch.randn((3, 3, cin, cout), generator=gen, device=dev) * 0.1
+        b = torch.randn((cout,), generator=gen, device=dev) * 0.1
+        ho = conv_out_size(h, 3, 2)
+        g = torch.randn((TRAIN_B, ho, ho, cout), generator=gen, device=dev)
+        worst, flips = 0.0, 0
+        for relu in (False, True):
+            leaves = [t.clone().requires_grad_(True) for t in (x, w, b)]
+            got = torch.autograd.grad(
+                conv2d_bias_relu_fn(*leaves, 2, relu), leaves, g)
+            # the reference takes the Function's own ReLU mask: where the
+            # kernel's and the plain sums straddle 0 (they differ by
+            # ~1e-6), the two masks differ and route whole cotangents
+            gm = g
+            if relu:
+                pre = conv2d_bias_relu(x, w, b, 2, False)
+                gm = torch.where(pre > 0, g, torch.zeros_like(g))
+                flips = int(((pre > 0) != (conv2d(x, w, b, 2, False) > 0))
+                            .sum().item())
+            leaves = [t.clone().requires_grad_(True) for t in (x, w, b)]
+            ref = torch.autograd.grad(conv2d(*leaves, 2, False), leaves, gm)
+            for what, a, r in zip(("dx", "dw", "db"), got, ref):
+                d, scale = scaled_dev(a, r)
+                check(d <= CONV_GRAD_TOL * scale,
+                      f"conv_layer_{i} relu={relu} {what}: max |dev| {d:.3g} "
+                      f"over {CONV_GRAD_TOL} * {scale:.3g}")
+                worst = max(worst, d / scale)
+        # the gradients training asks for: no dx of the first layer's images
+        leaves = [t.clone().requires_grad_(True) for t in (x, w, b)]
+        wrt = leaves if i > 1 else leaves[1:]
+
+        def train_fn():
+            torch.autograd.grad(conv2d_bias_relu_fn(*leaves, 2, False), wrt, g)
+
+        def train_plain():
+            torch.autograd.grad(conv2d(*leaves, 2, False), wrt, g)
+
+        xn, wn = leaves[0].permute(0, 3, 1, 2), leaves[1].permute(3, 2, 0, 1)
+
+        def train_lib():
+            torch.autograd.grad(F.conv2d(xn, wn, leaves[2], 2), wrt,
+                                g.permute(0, 3, 1, 2))
+
+        fwd = time_ms(lambda: conv2d_bias_relu(x, w, b, 2, False))
+        fwd_lib = time_ms(lambda: F.conv2d(x.permute(0, 3, 1, 2),
+                                           w.permute(3, 2, 0, 1), b, 2))
+        m = TRAIN_B * ho * ho
+        r = read_extent(h, 3, 2)
+        fwd_bnd = bound_ms(4 * TRAIN_B * r * r * cin + nbytes(w, b) + 4 * m * cout,
+                           2 * m * cout * 9 * cin + m * cout)
+        phase(f"conv_layer_{i} [{TRAIN_B},{h},{h},{cin}]->[{TRAIN_B},{ho},"
+              f"{ho},{cout}]: Function dx/dw/db max |dev| {worst:.3g} x "
+              f"max(1,|ref|) ({flips} ReLU mask elements differ between the "
+              f"kernel's and the plain sums); forward kernel {fwd:.4f} ms, "
+              f"cuDNN {fwd_lib:.4f}, bound {fwd_bnd[0]:.4f} ({fwd_bnd[1]}); "
+              "forward+backward: "
+              f"Function {time_ms(train_fn, iters=10):.4f} plain "
+              f"{time_ms(train_plain, iters=5):.4f} cuDNN "
+              f"{time_ms(train_lib, iters=10):.4f} ms")
+        h = ho if i > 1 else conv_out_size(ho, 2, 2)
+    return out
+
+
+def grad_parity_phase() -> None:
+    """One step at lr 1 on the reference C++'s fixture, at full width."""
+    fx = np.load(GRAD_FIXTURE)
+    model = get_model("alexnet", num_classes=3, batch_norm=True,
+                      image_size=224, device="cuda")
+    p0, s0 = import_reference_array(fx["before"], model.net)
+    p1, s1 = import_reference_array(fx["after_lr1"], model.net)
+    load_jax_params(model, p0, s0)
+    x = torch.from_numpy(fx["images_u8"]).cuda()
+    y = torch.from_numpy(fx["labels"].astype(np.int64)).cuda()
+    bsz = x.shape[0]
+    probe = copy.deepcopy(model).train()   # the forward moves BN's stats
+    with torch.no_grad():
+        logits = probe(uint8_normalize(x)).cpu().numpy()
+    logit_dev = float(np.abs(logits - fx["logits"]).max())
+    check(logit_dev <= 1e-4, f"grad parity: logits {logit_dev:.3g} over 1e-4")
+    opt = sgd(1.0)
+    ts = create_train_state(model, opt)
+    before = {k: v.detach().clone() for k, v in named_params(model).items()}
+    ts, m = make_train_step(model, opt)(ts, x, y)
+    loss_dev = abs(m["loss"].item() - float(fx["loss"]))
+    check(loss_dev <= 1e-5 + 1e-5 * abs(float(fx["loss"])),
+          f"grad parity: loss {loss_dev:.3g}")
+    worst = {}
+    for name, p in named_params(model).items():
+        layer, key = name.split(".")
+        ours = (before[name] - p.detach()).double().cpu().numpy()
+        ref = np.float64(p0[layer][key]) - np.float64(p1[layer][key])
+        if layer.startswith("bn"):
+            ours = bsz * ours     # the reference sums BN's grads over B
+        if layer.startswith("conv") and key == "b":
+            # a conv bias feeding BN has an analytically zero gradient
+            check(np.abs(ref).max() < 5e-4 and np.abs(ours).max() < 5e-4,
+                  f"grad parity: {name} is not noise-small")
+            continue
+        d = float(np.abs(ours - ref).max())
+        worst[name] = d / max(1.0, float(np.abs(ref).max()))
+        check(d <= GRAD_TOL * max(1.0, float(np.abs(ref).max())),
+              f"grad parity: {name} max |dev| {d:.3g}")
+    for layer, st in s1.items():
+        for key in ("mean", "var"):
+            d = float(np.abs(getattr(model.net[layer], key).cpu().numpy()
+                             - st[key]).max())
+            check(d <= 1e-4, f"grad parity: {layer}.{key} {d:.3g}")
+    top = sorted(worst.items(), key=lambda kv: -kv[1])[:3]
+    phase(f"grad parity (4 images, lr 1, BN AlexNet 224 px, kernels): "
+          f"logits max |dev| {logit_dev:.3g}, loss {loss_dev:.3g}; worst "
+          f"gradients x max(1,|ref|): "
+          + ", ".join(f"{k} {v:.3g}" for k, v in top)
+          + "; moving statistics within 1e-4")
+
+
+def synthetic_canvases(rng, n: int, size: int):
+    """[n,size,size,3] uint8 in 8x8 blocks of colour whose label's channel
+    is raised by 90, plus 25% pixel noise; labels [n] in 0..2."""
+    labels = rng.integers(0, 3, n)
+    lo = rng.integers(0, 160, (n, 8, 8, 3)).astype(np.float32)
+    lo += 90 * np.eye(3, dtype=np.float32)[labels][:, None, None, :]
+    img = np.kron(lo, np.ones((1, size // 8, size // 8, 1), np.float32))
+    img = 0.75 * img + 0.25 * rng.integers(0, 256, (n, size, size, 3))
+    return img.astype(np.uint8), labels
+
+
+def snapshot(ts) -> dict:
+    trace = ts.opt_state["trace"]
+    return {"model": copy.deepcopy(ts.model.state_dict()),
+            "trace": {k: v.clone() for k, v in trace.items()},
+            "count": ts.opt_state["count"], "step": ts.step,
+            "rng": ts.rng.get_state()}
+
+
+def restore(ts, snap: dict) -> None:
+    ts.model.load_state_dict(snap["model"])
+    for k, v in ts.opt_state["trace"].items():
+        v.copy_(snap["trace"][k])
+    ts.opt_state["count"], ts.step = snap["count"], snap["step"]
+    ts.rng.set_state(snap["rng"])
+
+
+def plain_training():
+    """Routes the training step's kernel calls to the plain versions (which
+    autograd differentiates)."""
+    stack = ExitStack()
+    stack.enter_context(mock.patch.object(nn_module, "conv2d_bias_relu_fn",
+                                          conv2d))
+    stack.enter_context(mock.patch.object(nn_module, "max_pool2d_fn",
+                                          max_pool2d))
+    return stack
+
+
+class Decisions:
+    """The ReLU masks and pool taps of one training step: recorded on the
+    kernel step, replayed on the plain step.
+
+    At batch 256 a few dozen of the 50M post-BN activations lie within
+    1e-6 of 0 or of their pool window's runner-up; the kernel's and the
+    plain conv's float32 sums differ by that much, so the two steps route
+    those cotangents to different places. Replaying the kernel step's
+    decisions holds everything else to the bars; the differing decisions
+    are counted and the unreplayed deviation is reported beside."""
+
+    def __init__(self):
+        self.masks, self.taps = [], []
+        self.mask_flips = self.tap_flips = 0
+
+    def record(self):
+        def relu(x):
+            self.masks.append(x.detach() > 0)
+            return ops_relu(x)
+
+        def pool(x):
+            self.taps.append(max_pool2d_taps(x.detach())[1])
+            return max_pool2d_fn(x)
+
+        return self._patch(relu, pool)
+
+    def replay(self):
+        masks, taps = iter(self.masks), iter(self.taps)
+
+        def relu(x):
+            m = next(masks)
+            self.mask_flips += int((m != (x.detach() > 0)).sum().item())
+            return torch.where(m, x, torch.zeros((), dtype=x.dtype,
+                                                 device=x.device))
+
+        def pool(x):
+            tap = next(taps)
+            self.tap_flips += int((tap != max_pool2d_taps(x.detach())[1])
+                                  .sum().item())
+            h2, w2 = x.shape[1] // 2, x.shape[2] // 2
+            win = torch.stack([x[:, dy:2 * h2:2, dx:2 * w2:2]
+                               for dy in (0, 1) for dx in (0, 1)], dim=-1)
+            return win.gather(-1, tap.long().unsqueeze(-1)).squeeze(-1)
+
+        return self._patch(relu, pool)
+
+    @staticmethod
+    def _patch(relu, pool):
+        stack = ExitStack()
+        stack.enter_context(mock.patch.object(nn_module, "relu", relu))
+        stack.enter_context(mock.patch.object(nn_module, "max_pool2d_fn",
+                                              pool))
+        return stack
+
+
+def plain_augment(gen, images):
+    return aug.augment_batch(gen, images, rotate=aug.rotate_shear_plain)
+
+
+def state_tensors(ts) -> dict:
+    out = {f"param {k}": v.detach().clone()
+           for k, v in named_params(ts.model).items()}
+    out.update({f"grad {k}": v.clone()
+                for k, v in ts.opt_state["trace"].items()})
+    return out
+
+
+def bn_stats(model) -> dict:
+    return {f"{l.name}.{k}": getattr(l, k).clone() for l in model.net
+            if hasattr(l, "var") for k in ("mean", "var")}
+
+
+def training_phase() -> dict:
+    """The slice: full-augmentation training at batch 256 on the card."""
+    rng = np.random.default_rng(3)
+    imgs, labels = synthetic_canvases(rng, TRAIN_N, CANVAS)
+    held, held_labels = synthetic_canvases(rng, 2 * TRAIN_B, 224)
+    ds = DeviceDataset.from_arrays(imgs, labels, device="cuda")
+    held = torch.from_numpy(held).cuda()
+    held_labels = torch.from_numpy(held_labels).cuda()
+    model = get_model("alexnet", num_classes=3, batch_norm=True,
+                      image_size=224, device="cuda",
+                      generator=torch.Generator().manual_seed(5))
+    opt = make_optimizer("momentum", 1.5e-2, schedule="cosine",
+                         total_steps=TRAIN_STEPS)
+    ts = create_train_state(model, opt, seed=7)
+    step = make_device_train_step(model, opt, ds, TRAIN_B,
+                                  augment_fn=aug.augment_batch)
+
+    # one step on the kernels against the same step on the plain versions
+    # (same weights, batch and drawn augmentation: the generator is
+    # restored); the first step's momentum trace is its gradient
+    snap = snapshot(ts)
+    decisions = Decisions()
+    with decisions.record():
+        ts, mk = step(ts)
+    got, got_bn = state_tensors(ts), bn_stats(model)
+    plain_step = make_device_train_step(model, opt, ds, TRAIN_B,
+                                        augment_fn=plain_augment)
+    restore(ts, snap)
+    with plain_training():
+        ts, _ = plain_step(ts)
+    free = state_tensors(ts)
+    free_worst = max(d / scale for d, scale in
+                     (scaled_dev(got[k], free[k]) for k in free))
+    restore(ts, snap)
+    reset_launches()
+    with plain_training(), decisions.replay():
+        ts, mp = plain_step(ts)
+    torch.cuda.synchronize()
+    check(not any(launch_counts().values()),
+          f"the plain training step launched a kernel: {launch_counts()}")
+    ref, ref_bn = state_tensors(ts), bn_stats(model)
+    loss_k, loss_p = mk["loss"].item(), mp["loss"].item()
+    check(abs(loss_k - loss_p) <= 1e-5 * abs(loss_p),
+          f"train step: loss {loss_k} against plain {loss_p}")
+    worst = 0.0
+    for name in ref:
+        d, scale = scaled_dev(got[name], ref[name])
+        check(d <= GRAD_TOL * scale, f"train step: {name} max |dev| {d:.3g}")
+        worst = max(worst, d / scale)
+    worst_bn = 0.0
+    for name in ref_bn:
+        d, scale = scaled_dev(got_bn[name], ref_bn[name])
+        check(d <= 1e-5 * scale, f"train step: {name} max |dev| {d:.3g}")
+        worst_bn = max(worst_bn, d / scale)
+    phase(f"train step, kernels against plain versions on the card: loss "
+          f"{loss_k:.6f} / {loss_p:.6f}; gradients and new params max |dev| "
+          f"{worst:.3g} x max(1,|ref|) with the kernel step's ReLU masks and "
+          f"pool taps replayed ({decisions.mask_flips} mask and "
+          f"{decisions.tap_flips} tap decisions differ), {free_worst:.3g} "
+          f"without; BN moving statistics {worst_bn:.3g}")
+
+    # the counted run: TRAIN_STEPS steps from the same start, then eval
+    restore(ts, snap)
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    losses = []
+    for _ in range(TRAIN_STEPS):
+        ts, m = step(ts)
+        losses.append(m["loss"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    eval_step = make_eval_step(model)
+    correct = 0
+    for i in range(0, held.shape[0], TRAIN_B):
+        correct += eval_step(held[i:i + TRAIN_B],
+                             held_labels[i:i + TRAIN_B])["correct"].item()
+    counts = launch_counts()
+    n_eval = -(-held.shape[0] // TRAIN_B)
+    want = {"uint8_normalize": n_eval, "max_pool2d_fwd": TRAIN_STEPS + n_eval,
+            "max_pool2d_bwd": TRAIN_STEPS,
+            "conv2d_bias_relu": 4 * (TRAIN_STEPS + n_eval),
+            "rotate_shear": TRAIN_STEPS}
+    check(counts == want, f"training launches {counts}, expected {want}")
+    losses = torch.stack(losses).cpu()
+    check(bool(torch.isfinite(losses).all()), f"non-finite loss: {losses}")
+    first, last = losses[:5].mean().item(), losses[-5:].mean().item()
+    check(last < first, f"loss did not fall: first 5 {first}, last 5 {last}")
+    acc = correct / held.shape[0]
+    phase(f"trained {TRAIN_STEPS} steps at batch {TRAIN_B}: loss "
+          f"{losses[0].item():.4f} -> {losses[-1].item():.4f} (mean of the "
+          f"first 5 {first:.4f}, last 5 {last:.4f}); "
+          f"{TRAIN_STEPS * TRAIN_B / wall:.1f} img/s end to end "
+          f"({1e3 * wall / TRAIN_STEPS:.2f} ms per step); eval accuracy "
+          f"{acc:.4f} on {held.shape[0]} held-out images; launches {counts}")
+    split = step_split(ts, ds, opt)
+    phase("device ms per step (mean of 5): " + ", ".join(
+        f"{k} {v:.4f}" for k, v in split.items())
+        + f"; sum {sum(split.values()):.4f}")
+    return counts
+
+
+def step_split(ts, ds, opt, reps: int = 5) -> dict:
+    """Device time of each stage of ``make_device_train_step``'s step, the
+    stages run as the step runs them, with CUDA events between."""
+    names = ("sample", "place", "rotate", "crop", "forward", "backward",
+             "update")
+    total = dict.fromkeys(names, 0.0)
+    model = ts.model.train()
+    params = named_params(model)
+    for _ in range(reps):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(8)]
+        ev[0].record()
+        images, labels = ds.sample(ts.rng, TRAIN_B)
+        ev[1].record()
+        p = aug.draw_full(ts.rng, TRAIN_B)
+        j = aug.place(aug.to_unit(images), p)
+        ev[2].record()
+        j = rotate_shear(j, p.angle)
+        ev[3].record()
+        x = aug.crop_full(j, p)
+        ev[4].record()
+        logits = model(x).float()
+        loss = softmax_cross_entropy(logits, labels)
+        ev[5].record()
+        grads = torch.autograd.grad(loss, list(params.values()))
+        ev[6].record()
+        opt.update(dict(zip(params, grads)), ts.opt_state, params)
+        ts.step += 1
+        ev[7].record()
+        ev[7].synchronize()
+        for k, name in enumerate(names):
+            total[name] += ev[k].elapsed_time(ev[k + 1]) / reps
+    return total
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -423,10 +926,12 @@ def main() -> int:
     measured = kernel_phase(model)
     off_path_phase()
     launches = serving_phase(model)
+    measured.update(train_kernel_phase())
+    grad_parity_phase()
+    trained = training_phase()
 
-    kernels = [entry(name, launches[name], *measured[name])
-               for name in ("uint8_normalize", "max_pool2d_fwd",
-                            "conv2d_bias_relu")]
+    kernels = [entry(name, launches.get(name, 0) + trained[name],
+                     *measured[name]) for name in KERNELS]
     phase("all checks passed")
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -1,0 +1,121 @@
+"""Device-resident dataset and the fully on-device train step, counterpart
+of ``cnn_tpu/data/device_dataset.py``.
+
+The uint8 canvases and their labels are uploaded to the GPU once; each step
+samples its batch there (uniform with replacement, or by walking per-epoch
+permutations), augments it, and trains on it, with no host traffic but the
+launches.
+
+Built from in-memory arrays only (``DeviceDataset.from_arrays``):
+``cnn_tpu`` decodes a dataset directory with cv2, which the port does not
+use yet.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from cnn_tpu_torch import default_device
+from cnn_tpu_torch.ops.hopper.normalize import uint8_normalize
+from cnn_tpu_torch.parallel.train_step import (TrainState, apply_gradients,
+                                               check_supported)
+
+
+class DeviceDataset:
+    """[N,S,S,C] uint8 canvases and [N] int64 labels held on one device."""
+
+    def __init__(self, images: torch.Tensor, labels: torch.Tensor):
+        if images.shape[:1] != labels.shape:
+            raise ValueError(f"{images.shape[0]} images, {labels.shape} labels")
+        self.images, self.labels = images, labels.long()
+        self.n = self.n_real = images.shape[0]
+        self.image_size = images.shape[1]
+
+    @classmethod
+    def from_arrays(cls, images: np.ndarray, labels: np.ndarray,
+                    sharding=None, mesh=None, device=None) -> "DeviceDataset":
+        """Uploads in-memory arrays to ``device`` (default: the GPU)."""
+        check_supported(mesh=mesh)
+        if sharding is not None:
+            raise NotImplementedError("sharding is not ported yet")
+        dev = default_device(device)
+        return cls(torch.from_numpy(np.ascontiguousarray(images)).to(dev),
+                   torch.from_numpy(np.asarray(labels, np.int64)).to(dev))
+
+    def sample(self, generator: torch.Generator, batch_size: int):
+        """Uniform sampling with replacement, on the device."""
+        idx = torch.randint(0, self.n, (batch_size,), generator=generator,
+                            device=self.images.device)
+        return self.images.index_select(0, idx), self.labels.index_select(0, idx)
+
+    def epoch_sample(self, seed: int, step: int, batch_size: int,
+                     fixed: bool):
+        """The batch of ``step`` when walking per-epoch permutations."""
+        idx = epoch_indices(seed, step, batch_size, self.n, fixed,
+                            self.images.device)
+        return self.images.index_select(0, idx), self.labels.index_select(0, idx)
+
+
+def _epoch_perm(seed: int, epoch: int, n: int, device) -> torch.Tensor:
+    g = torch.Generator(device=device)
+    g.manual_seed((seed * 0x9E3779B1 + 0x45504F43 + epoch) % 2**63)
+    return torch.randperm(n, generator=g, device=device)
+
+
+def epoch_indices(seed: int, step: int, batch_size: int, n: int, fixed: bool,
+                  device) -> torch.Tensor:
+    """Rows of batch ``step`` without replacement: positions
+    ``step*bs + i`` walk a permutation of ``[0, n)`` per epoch, and a batch
+    that straddles an epoch boundary takes its tail from the next epoch's
+    permutation, so every sample is seen once per epoch (the reference's
+    protocol). ``fixed`` uses the same permutation every epoch (the
+    reference reseeds its shuffle each epoch)."""
+    if batch_size > n:
+        raise ValueError(f"batch {batch_size} exceeds the dataset ({n} rows)")
+    g = step * batch_size + torch.arange(batch_size, device=device)
+    e, pos = g // n, g % n
+    e0 = step * batch_size // n
+    p0 = _epoch_perm(seed, 0 if fixed else e0, n, device)
+    p1 = _epoch_perm(seed, 0 if fixed else e0 + 1, n, device)
+    return torch.where(e == e0, p0[pos], p1[pos])
+
+
+def make_device_train_step(model, optimizer, dataset: DeviceDataset,
+                           batch_size: int, *, compute_dtype=None,
+                           augment_fn=None, label_smoothing: float = 0.0,
+                           mesh=None,
+                           sample_mode: str = "local",
+                           steps_per_call: int = 1, grad_accum: int = 1,
+                           mixup: float = 0.0, cutmix: float = 0.0,
+                           distill=None):
+    """Fully on-device train step: sampling, augmentation (or the normalize
+    kernel when ``augment_fn`` is None), forward, backward and update.
+
+    Returns ``(ts) -> (ts, metrics)``. ``sample_mode``: 'local' (or
+    'global', the same without a mesh) samples uniformly with replacement
+    from ``ts.rng``; 'epoch' walks a fresh permutation per epoch, keyed by
+    ``ts.seed`` and ``ts.step``; 'epoch_fixed' the same permutation every
+    epoch. ``augment_fn(generator, images)`` draws from ``ts.rng``.
+    """
+    check_supported(compute_dtype=compute_dtype, mesh=mesh,
+                    steps_per_call=steps_per_call, grad_accum=grad_accum,
+                    mixup=mixup, cutmix=cutmix, distill=distill)
+    if sample_mode not in ("local", "global", "epoch", "epoch_fixed"):
+        raise ValueError(f"unknown sample_mode '{sample_mode}'")
+    epoch_mode = sample_mode.startswith("epoch")
+
+    def step(ts: TrainState):
+        if epoch_mode:
+            images, labels = dataset.epoch_sample(
+                ts.seed, ts.step, batch_size, sample_mode == "epoch_fixed")
+        else:
+            images, labels = dataset.sample(ts.rng, batch_size)
+        images = (augment_fn(ts.rng, images) if augment_fn is not None
+                  else uint8_normalize(images))
+        metrics = apply_gradients(ts, optimizer, images, labels,
+                                  label_smoothing)
+        metrics["batch"] = batch_size
+        return ts, metrics
+
+    return step

@@ -25,11 +25,13 @@ from cnn_tpu_torch.nn import (BatchNorm2D, Conv2D, Dropout, Linear, MaxPool2D,
 
 def build_alexnet(num_classes: int = 3, batch_norm: bool = False,
                   dropout: float = 0.0, image_size: int = 224, *,
-                  device=None) -> Sequential:
-    """The layer stack on ``device``, with weights drawn from a fixed seed
-    (serving loads its weights over them)."""
+                  device=None, generator=None) -> Sequential:
+    """The layer stack on ``device``. Conv and dense weights and biases are
+    N(0, 1) / 10, ``cnn_tpu``'s init, drawn in layer order from
+    ``generator`` (a CPU ``torch.Generator``; default: seed 0). BN starts at
+    gamma 1, beta 0, moving mean 0 and variance 1."""
     device = default_device(device)
-    gen = torch.Generator().manual_seed(0)
+    gen = generator if generator is not None else torch.Generator().manual_seed(0)
     layers = []
     spatial = image_size
     channels = 3
@@ -57,15 +59,19 @@ def build_alexnet(num_classes: int = 3, batch_norm: bool = False,
 
 
 class AlexNet(nn.Module):
+    """``train()`` (the default of an ``nn.Module``) normalizes BN by batch
+    statistics and updates the moving ones; ``eval()`` uses the moving
+    statistics and, with no gradient asked for, runs the bare kernels."""
+
     def __init__(self, num_classes: int = 3, batch_norm: bool = False,
                  dropout: float = 0.0, image_size: int = 224, *,
-                 device=None):
+                 device=None, generator=None):
         super().__init__()
         self.num_classes = num_classes
         self.batch_norm = batch_norm
         self.image_size = image_size
         self.net = build_alexnet(num_classes, batch_norm, dropout, image_size,
-                                 device=device)
+                                 device=device, generator=generator)
 
     def forward(self, x):
         """[B, S, S, 3] float -> logits [B, num_classes]."""

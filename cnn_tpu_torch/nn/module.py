@@ -5,10 +5,14 @@ HWIO and ``b``; dense ``w`` [in,out] and ``b``; BN ``gamma``/``beta`` with
 ``mean``/``var`` buffers), so a ``cnn_tpu`` param tree loads as it is
 (``utils/checkpoint.py:load_jax_params``). Activations are NHWC.
 
-Conv2D and MaxPool2D go through the kernel wrappers in ``ops/hopper``: the
-CUDA kernel for a CUDA tensor, the plain version for a CPU tensor. This slice
-serves: BatchNorm2D and Dropout run in eval mode only, and the kernels have
-no backward yet.
+Conv2D and MaxPool2D go through the kernels in ``ops/hopper``: the CUDA
+kernel for a CUDA tensor, the plain version for a CPU tensor. When a
+gradient is asked for, they call the kernels' autograd Functions
+(``conv2d_bias_relu_fn``, ``max_pool2d_fn``), whose backward is the conv's
+ATen gradients and the pool backward kernel; otherwise the bare wrappers.
+BatchNorm2D normalizes by batch statistics in training mode and updates its
+moving statistics in place. Dropout runs in eval mode only (AlexNet's
+default ``dropout=0.0`` builds none).
 """
 
 from __future__ import annotations
@@ -17,10 +21,14 @@ import torch
 from torch import nn
 
 from cnn_tpu_torch.ops.activations import relu
-from cnn_tpu_torch.ops.batchnorm import batch_norm2d_eval
-from cnn_tpu_torch.ops.hopper.conv import conv2d_bias_relu
-from cnn_tpu_torch.ops.hopper.pool import max_pool2d_fwd
+from cnn_tpu_torch.ops.batchnorm import batch_norm2d_eval, batch_norm2d_train
+from cnn_tpu_torch.ops.hopper.conv import conv2d_bias_relu, conv2d_bias_relu_fn
+from cnn_tpu_torch.ops.hopper.pool import max_pool2d_fn, max_pool2d_fwd
 from cnn_tpu_torch.ops.linear import linear
+
+
+def _wants_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
 def _normal(shape, generator, device) -> nn.Parameter:
@@ -48,6 +56,8 @@ class Conv2D(Layer):
         self.b = _normal((out_channels,), generator, device)
 
     def forward(self, x, relu: bool = False):
+        if _wants_grad(x, self.w, self.b):
+            return conv2d_bias_relu_fn(x, self.w, self.b, self.stride, relu)
         return conv2d_bias_relu(x, self.w, self.b, self.stride, relu)
 
 
@@ -55,6 +65,8 @@ class MaxPool2D(Layer):
     """2x2 stride-2 max pool, the window AlexNet uses and the kernel takes."""
 
     def forward(self, x):
+        if _wants_grad(x):
+            return max_pool2d_fn(x)
         return max_pool2d_fwd(x)
 
 
@@ -83,23 +95,27 @@ class Linear(Layer):
 
 
 class BatchNorm2D(Layer):
-    """Per-channel BN over NHWC, eval mode (moving statistics)."""
+    """Per-channel BN over NHWC: batch statistics in training mode (which
+    also update ``mean``/``var`` in place), moving statistics in eval."""
 
-    def __init__(self, name, num_channels=16, eps=1e-5, *, device=None):
+    def __init__(self, name, num_channels=16, eps=1e-5, momentum=0.1, *,
+                 device=None):
         super().__init__(name)
-        self.num_channels, self.eps = num_channels, eps
+        self.num_channels, self.eps, self.momentum = num_channels, eps, momentum
         self.gamma = nn.Parameter(torch.ones(num_channels, device=device))
         self.beta = nn.Parameter(torch.zeros(num_channels, device=device))
         self.register_buffer("mean", torch.zeros(num_channels, device=device))
         self.register_buffer("var", torch.ones(num_channels, device=device))
 
     def forward(self, x):
-        if self.training:
-            raise NotImplementedError(
-                f"{self.name}: training-mode BatchNorm is not ported yet; "
-                "call .eval()")
-        return batch_norm2d_eval(x, self.gamma, self.beta, self.mean,
-                                 self.var, self.eps)
+        if not self.training:
+            return batch_norm2d_eval(x, self.gamma, self.beta, self.mean,
+                                     self.var, self.eps)
+        y, mean, var = batch_norm2d_train(x, self.gamma, self.beta, self.mean,
+                                          self.var, self.eps, self.momentum)
+        self.mean.copy_(mean)
+        self.var.copy_(var)
+        return y
 
 
 class Dropout(Layer):

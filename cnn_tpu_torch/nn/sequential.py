@@ -1,10 +1,11 @@
 """Sequential container, counterpart of ``cnn_tpu/nn/sequential.py``.
 
 Layers are kept in order under the same names as in ``cnn_tpu`` (the keys of
-its param and state trees). In eval mode a Conv2D directly followed by a
-ReLU runs as one fused ``relu=True`` conv launch, the fusion the conv kernel
-exists for. With BN in between, the conv runs ``relu=False`` and BN and ReLU
-follow as plain tensor ops.
+its param and state trees). A Conv2D directly followed by a ReLU runs as one
+fused ``relu=True`` conv launch, the fusion the conv kernel exists for; in
+training its autograd Function keeps the output for the ReLU mask, as
+``_vjp_bwd`` does. With BN in between, the conv runs ``relu=False`` and BN
+and ReLU follow as plain tensor ops.
 """
 
 from __future__ import annotations
@@ -35,8 +36,8 @@ class Sequential(nn.Module):
         i = 0
         while i < len(layers):
             layer = layers[i]
-            fuse = (isinstance(layer, Conv2D) and not self.training
-                    and i + 1 < len(layers) and isinstance(layers[i + 1], ReLU))
+            fuse = (isinstance(layer, Conv2D) and i + 1 < len(layers)
+                    and isinstance(layers[i + 1], ReLU))
             x = layer(x, relu=True) if fuse else layer(x)
             i += 2 if fuse else 1
         return x

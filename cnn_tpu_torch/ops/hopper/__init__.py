@@ -5,11 +5,15 @@ its kernel for a CUDA tensor, or raises; it counts its launches in
 ``<wrapper>.launches``.
 """
 
-from cnn_tpu_torch.ops.hopper.conv import conv2d_bias_relu  # noqa: F401
+from cnn_tpu_torch.ops.hopper.augment import rotate_shear  # noqa: F401
+from cnn_tpu_torch.ops.hopper.conv import (conv2d_bias_relu,  # noqa: F401
+                                           conv2d_bias_relu_fn)
 from cnn_tpu_torch.ops.hopper.normalize import uint8_normalize  # noqa: F401
-from cnn_tpu_torch.ops.hopper.pool import max_pool2d_fwd  # noqa: F401
+from cnn_tpu_torch.ops.hopper.pool import (max_pool2d_bwd,  # noqa: F401
+                                           max_pool2d_fn, max_pool2d_fwd)
 
-WRAPPERS = (uint8_normalize, max_pool2d_fwd, conv2d_bias_relu)
+WRAPPERS = (uint8_normalize, max_pool2d_fwd, max_pool2d_bwd, conv2d_bias_relu,
+            rotate_shear)
 
 
 def reset_launches() -> None:

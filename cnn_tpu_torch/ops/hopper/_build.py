@@ -1,8 +1,10 @@
 """Builds and loads the CUDA kernels under ``cnn_tpu_torch/csrc/``.
 
-One ``nvcc`` call compiles every ``csrc/*.cu`` for ``sm_90a`` into one shared
-library with a plain C interface, which ``ctypes`` loads. No PyTorch headers,
-no ``torch.utils.cpp_extension``, no ninja: the build takes seconds.
+Every ``csrc/*.cu`` is compiled for ``sm_90a`` by its own ``nvcc`` process,
+all started together, and one more ``nvcc`` links the objects into one
+shared library with a plain C interface, which ``ctypes`` loads. No PyTorch
+headers, no ``torch.utils.cpp_extension``, no ninja: the build takes
+seconds.
 
 No ``--use_fast_math``: the normalize kernel needs IEEE division to be
 bit-identical to its plain version.
@@ -34,7 +36,7 @@ _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG.parent / "build" / "cnn_tpu_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 P, I, I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 # entry point -> argument types after the leading stream
@@ -43,8 +45,12 @@ SIGNATURES = {
     "cnn_normalize_u8": [P, P, I64],
     # x, y, tap (null: not written), B, H, W, C
     "cnn_maxpool2x2_fwd": [P, P, P, I, I, I, I],
+    # tap, g, dx, B, H, W, C (H, W: the forward's input extent)
+    "cnn_maxpool2x2_bwd": [P, P, P, I, I, I, I],
     # x, w, b, y, B, H, W, Cin, Cout, k, stride, relu
     "cnn_conv2d_bias_relu": [P, P, P, P, I, I, I, I, I, I, I, I],
+    # img, s1, s2, s3, out, B, S, C, L, pad_l, bf16
+    "cnn_rotate_shear": [P, P, P, P, P, I, I, I, I, I, I],
 }
 
 _lock = threading.Lock()
@@ -72,20 +78,45 @@ def library_path() -> Path:
     return BUILD_ROOT / h.hexdigest()[:16] / "libcnn_tpu_torch.so"
 
 
+def _run_all(cmds: list[list[str]]) -> str:
+    """Runs the commands side by side; returns their joined output, or
+    raises with it if any failed."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    log = "".join(outs)
+    for cmd, p in zip(cmds, procs):
+        if p.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({p.returncode}): {' '.join(cmd)}\n{log}")
+    return log
+
+
 def _build(out: Path) -> None:
     global build_seconds, build_log
     out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *map(str, sorted(CSRC.glob("*.cu")))]
+    tag = f"{os.getpid()}.tmp"
+    tmp = out.with_name(f"{out.name}.{tag}")
+    nvcc = _nvcc()
+    objs, compiles = [], []
+    for src in sorted(CSRC.glob("*.cu")):
+        obj = out.parent / f"{src.stem}.{tag}.o"
+        objs.append(obj)
+        compiles.append([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)])
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    build_seconds = time.perf_counter() - t0
-    build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
+    try:
+        log = _run_all(compiles)
+        log += _run_all([[nvcc, "-shared", "-o", str(tmp),
+                          *map(str, objs)]])
+    except RuntimeError:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{build_log}")
+        raise
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+    build_seconds = time.perf_counter() - t0
+    build_log = log
     (out.parent / "nvcc.log").write_text(build_log)
     os.replace(tmp, out)   # atomic: a concurrent loader sees all or nothing
 
@@ -122,8 +153,10 @@ def cuda_args(name: str, *tensors, dtypes) -> int:
     stream of their device.
 
     Each tensor must be a contiguous CUDA tensor of its dtype in ``dtypes``,
-    all on one device, and no gradient may be asked of them: the kernels
-    have no backward yet, and a silent one would be wrong.
+    all on one device, and no gradient may be asked of them: a wrapper has
+    no backward of its own. Gradients go through the autograd Functions
+    (``conv2d_bias_relu_fn``, ``max_pool2d_fn``), whose forward calls the
+    wrapper with grad mode off.
     """
     dev = tensors[0].device
     for t, dt in zip(tensors, dtypes):
@@ -136,6 +169,6 @@ def cuda_args(name: str, *tensors, dtypes) -> int:
         if not t.is_contiguous():
             raise ValueError(f"{name}: expects contiguous tensors")
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise RuntimeError(f"{name}: the CUDA kernel has no backward; run "
-                           "under torch.no_grad() or torch.inference_mode()")
+        raise RuntimeError(f"{name}: the wrapper has no backward; use its "
+                           "autograd Function, or run under torch.no_grad()")
     return torch.cuda.current_stream(dev).cuda_stream

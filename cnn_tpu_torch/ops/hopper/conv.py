@@ -1,12 +1,16 @@
 """VALID conv + bias (+ ReLU), NHWC/HWIO float32: wrapper of ``csrc/conv.cu``.
 
-Replaces the forward of ``cnn_tpu/ops/pallas/conv.py:conv2d_bias_relu_pallas``
-(``_forward``). Its backward is for the training slice.
+Replaces ``cnn_tpu/ops/pallas/conv.py:conv2d_bias_relu_pallas``: the kernel
+is its forward (``_forward``); ``conv2d_bias_relu_fn`` is its ``custom_vjp``
+as a ``torch.autograd.Function``. ``cnn_tpu`` computes that backward with
+XLA convolutions outside any Pallas kernel (``_vjp_bwd``), so here ATen's
+convolution gradients compute it, in full float32.
 """
 
 from __future__ import annotations
 
 import torch
+from torch.nn import grad as nn_grad
 
 from cnn_tpu_torch.ops.conv import conv2d, conv_out_size
 from cnn_tpu_torch.ops.hopper._build import cuda_args, launch
@@ -42,3 +46,52 @@ def conv2d_bias_relu(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
 
 
 conv2d_bias_relu.launches = 0
+
+
+class Conv2dBiasReluFn(torch.autograd.Function):
+    """The conv kernel with ``_vjp_bwd``'s backward: the cotangent masked
+    where ``out <= 0`` (ReLU on), ``dx`` the transposed conv at the exact
+    input extent (rows and columns the VALID window never read get 0),
+    ``dw`` cropped to k x k, ``db`` the sum of the cotangent.
+
+    ``cnn_tpu`` runs those convolutions at ``Precision.HIGHEST``; cuDNN
+    would take TF32 by default (``torch.backends.cudnn.allow_tf32``), so the
+    backward turns TF32 off for its own calls whatever the global setting.
+    """
+
+    @staticmethod
+    def forward(ctx, x, w, b, stride, relu):
+        out = conv2d_bias_relu(x, w, b, stride, relu)
+        ctx.save_for_backward(x, w, out if relu else None)
+        ctx.stride, ctx.relu = stride, relu
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w, out = ctx.saved_tensors
+        if ctx.relu:
+            g = torch.where(out > 0, g, torch.zeros((), dtype=g.dtype,
+                                                    device=g.device))
+        # NHWC / HWIO viewed as NCHW / OIHW: no copies
+        g_nchw, x_nchw = g.permute(0, 3, 1, 2), x.permute(0, 3, 1, 2)
+        w_oihw = w.permute(3, 2, 0, 1)
+        dx = None
+        tf32 = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = False
+        try:
+            if ctx.needs_input_grad[0]:   # not for the first layer's images
+                dx = nn_grad.conv2d_input(x_nchw.shape, w_oihw, g_nchw,
+                                          stride=ctx.stride)
+                dx = dx.permute(0, 2, 3, 1).contiguous()
+            dw = nn_grad.conv2d_weight(x_nchw, w_oihw.shape, g_nchw,
+                                       stride=ctx.stride)
+        finally:
+            torch.backends.cudnn.allow_tf32 = tf32
+        return (dx, dw.permute(2, 3, 1, 0).contiguous(), g.sum(dim=(0, 1, 2)),
+                None, None)
+
+
+def conv2d_bias_relu_fn(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                        stride: int = 2, relu: bool = True) -> torch.Tensor:
+    """Differentiable ``conv2d_bias_relu``."""
+    return Conv2dBiasReluFn.apply(x, w, b, stride, relu)

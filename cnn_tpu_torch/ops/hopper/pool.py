@@ -1,16 +1,17 @@
-"""2x2 stride-2 max pool forward: wrapper of ``csrc/pool.cu``.
+"""2x2 stride-2 max pool, forward and backward: wrappers of ``csrc/pool.cu``.
 
-Replaces ``cnn_tpu/ops/pallas/pool.py:_fwd_call``. The tap index is the
-kernel's 2-bit window argmax, kept as uint8 (``cnn_tpu`` stores int32); the
-pool backward that reads it is still to be ported.
+Replaces ``cnn_tpu/ops/pallas/pool.py``: ``_fwd_call`` (``max_pool2d_fwd``)
+and ``_bwd_call`` (``max_pool2d_bwd``), and its ``custom_vjp``
+(``max_pool2d_fn``, a ``torch.autograd.Function``). The tap index is the
+forward's 2-bit window argmax, kept as uint8 (``cnn_tpu`` stores int32).
 """
 
 from __future__ import annotations
 
 import torch
 
+from cnn_tpu_torch.ops import pool as plain
 from cnn_tpu_torch.ops.hopper._build import cuda_args, launch
-from cnn_tpu_torch.ops.pool import max_pool2d_taps
 
 
 def max_pool2d_fwd(x: torch.Tensor, with_tap: bool = False):
@@ -19,7 +20,7 @@ def max_pool2d_fwd(x: torch.Tensor, with_tap: bool = False):
     if x.dim() != 4:
         raise ValueError(f"max_pool2d_fwd: expects [B,H,W,C], got {tuple(x.shape)}")
     if x.device.type == "cpu":
-        out, tap = max_pool2d_taps(x)
+        out, tap = plain.max_pool2d_taps(x)
         return (out, tap) if with_tap else out
     stream = cuda_args("max_pool2d_fwd", x, dtypes=(torch.float32,))
     b, h, w, c = x.shape
@@ -35,3 +36,51 @@ def max_pool2d_fwd(x: torch.Tensor, with_tap: bool = False):
 
 
 max_pool2d_fwd.launches = 0
+
+
+def max_pool2d_bwd(tap: torch.Tensor, g: torch.Tensor, h: int,
+                   w: int) -> torch.Tensor:
+    """g [B,h//2,w//2,C] float32 through the uint8 taps -> dx [B,h,w,C],
+    bit-identical to ``ops/pool.py:max_pool2d_bwd``. A CPU tensor takes the
+    plain version."""
+    if g.dim() != 4 or tap.shape != g.shape:
+        raise ValueError(f"max_pool2d_bwd: tap {tuple(tap.shape)} and g "
+                         f"{tuple(g.shape)} must be one [B,H2,W2,C] shape")
+    b, h2, w2, c = g.shape
+    if h // 2 != h2 or w // 2 != w2:
+        raise ValueError(f"max_pool2d_bwd: extent {h}x{w} does not pool to "
+                         f"{h2}x{w2}")
+    if g.device.type == "cpu":
+        return plain.max_pool2d_bwd(tap, g, h, w)
+    stream = cuda_args("max_pool2d_bwd", tap, g,
+                       dtypes=(torch.uint8, torch.float32))
+    dx = torch.empty((b, h, w, c), dtype=g.dtype, device=g.device)
+    launch("cnn_maxpool2x2_bwd", g.device, stream, tap.data_ptr(),
+           g.data_ptr(), dx.data_ptr(), b, h, w, c)
+    max_pool2d_bwd.launches += 1
+    return dx
+
+
+max_pool2d_bwd.launches = 0
+
+
+class MaxPool2dFn(torch.autograd.Function):
+    """Max pool whose forward keeps the uint8 tap and whose backward runs
+    the backward kernel (``cnn_tpu``'s ``_vjp_fwd`` / ``_vjp_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        out, tap = max_pool2d_fwd(x, with_tap=True)
+        ctx.save_for_backward(tap)
+        ctx.extent = x.shape[1], x.shape[2]
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        (tap,) = ctx.saved_tensors
+        return max_pool2d_bwd(tap, g.contiguous(), *ctx.extent)
+
+
+def max_pool2d_fn(x: torch.Tensor) -> torch.Tensor:
+    """Differentiable 2x2 max pool through the two kernels."""
+    return MaxPool2dFn.apply(x)

@@ -1,15 +1,17 @@
 """2x2 stride-2 max pooling, NHWC (plain version of the pool kernel).
 
-Counterpart of ``cnn_tpu/ops/pool.py:max_pool2d`` and of the forward of
-``cnn_tpu/ops/pallas/pool.py``. VALID: odd extents crop the last row/col.
-Ties go to the earliest tap in row-major window order (00, 01, 10, 11),
-which matters after ReLU, where exact zeros tie. The CUDA kernel is
+Counterpart of ``cnn_tpu/ops/pool.py:max_pool2d`` and of
+``cnn_tpu/ops/pallas/pool.py`` (forward and backward). VALID: odd extents
+crop the last row/col. Ties go to the earliest tap in row-major window order
+(00, 01, 10, 11), which matters after ReLU, where exact zeros tie; the
+backward routes each window's cotangent to that tap. The CUDA kernels are
 ``ops/hopper/pool.py``.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 
 def max_pool2d_taps(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -29,3 +31,18 @@ def max_pool2d_taps(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 def max_pool2d(x: torch.Tensor) -> torch.Tensor:
     """[B,H,W,C] -> [B,H//2,W//2,C]."""
     return max_pool2d_taps(x)[0]
+
+
+def max_pool2d_bwd(tap: torch.Tensor, g: torch.Tensor, h: int,
+                   w: int) -> torch.Tensor:
+    """Cotangent g [B,H//2,W//2,C] through the taps -> dx [B,h,w,C].
+
+    Each g goes to its window's recorded tap, zeros elsewhere and in the row
+    and column an odd extent cropped (``_bwd_kernel``)."""
+    b, h2, w2, c = g.shape
+    zero = torch.zeros((), dtype=g.dtype, device=g.device)
+    taps = [torch.where(tap == k, g, zero) for k in range(4)]
+    top = torch.stack(taps[:2], dim=3)               # [B,h2,w2,2,C]
+    bot = torch.stack(taps[2:], dim=3)
+    dx = torch.stack([top, bot], dim=2).reshape(b, 2 * h2, 2 * w2, c)
+    return F.pad(dx, (0, 0, 0, w - 2 * w2, 0, h - 2 * h2))

@@ -8,7 +8,9 @@ with ``in`` in CHW flatten order, then ``b``; BN ``gamma``, ``beta``,
 ``mean``, ``var`` (or only ``gamma``, ``beta`` in the older 2-vector format).
 ``import_reference_model`` returns it as ``cnn_tpu`` lays it out (HWIO conv
 weights, an NHWC-ordered dense in-dim), and ``load_jax_params`` copies such
-param/state trees into a port model.
+param/state trees into a port model. ``load_jax_train_state`` carries a
+whole ``cnn_tpu`` ``TrainState`` across: params, BN state, optax's momentum
+trace (a tree shaped like the params) and its update count, and the step.
 
 The native ``.ckpt`` pickle is not read here: it names optax classes, which
 the port does not import.
@@ -49,17 +51,23 @@ def reference_param_count(net, bn_vectors: int = 4) -> int:
 
 def import_reference_model(path, net) -> tuple[dict, dict]:
     """Reads a reference ``.model`` file into ``(params, state)`` numpy trees
-    in ``cnn_tpu``'s layout.
+    in ``cnn_tpu``'s layout (see ``import_reference_array``)."""
+    return import_reference_array(np.fromfile(path, dtype="<f4"), net, path)
+
+
+def import_reference_array(raw: np.ndarray, net,
+                           what="reference array") -> tuple[dict, dict]:
+    """A ``.model`` file's flat float32 contents as ``(params, state)``.
 
     The dense layer's input is taken as the last conv's C x hw x hw
-    features, hw from its in-dim. A file in the older 2-vector BN format
-    gets identity moving statistics.
+    features, hw from its in-dim. The older 2-vector BN format gets
+    identity moving statistics.
     """
-    raw = np.fromfile(path, dtype="<f4")
+    raw = np.asarray(raw, "<f4").ravel()
     expected = reference_param_count(net)
     legacy = reference_param_count(net, bn_vectors=2)
     if raw.size not in (expected, legacy):
-        raise ValueError(f"{path}: has {raw.size} f32, model needs {expected} "
+        raise ValueError(f"{what}: has {raw.size} f32, model needs {expected} "
                          f"(or {legacy} in the legacy 2-vector-BN format)")
     legacy_bn = raw.size == legacy != expected
     params: dict = {}
@@ -126,3 +134,27 @@ def load_jax_params(model, params: dict, state: dict) -> None:
 def load_reference_model(model, path) -> None:
     """Loads a reference ``.model`` file into ``model`` in place."""
     load_jax_params(model, *import_reference_model(path, model))
+
+
+def load_jax_train_state(ts, params: dict, state: dict, trace=None,
+                         count: int = 0, step: int = 0) -> None:
+    """Copies a ``cnn_tpu`` ``TrainState``, given as numpy trees, into the
+    port's ``TrainState`` ``ts`` in place: the params and BN state into
+    ``ts.model``, optax's momentum ``trace`` (``{layer: {key: array}}``, or
+    None for plain SGD) and update ``count`` into ``ts.opt_state``, and the
+    step counter."""
+    load_jax_params(ts.model, params, state)
+    if (trace is None) != (ts.opt_state["trace"] is None):
+        raise ValueError("a momentum trace must come with a momentum "
+                         "optimizer, and only with one")
+    if trace is not None:
+        with torch.no_grad():
+            for name, dst in ts.opt_state["trace"].items():
+                layer, key = name.split(".")
+                src = torch.tensor(np.asarray(trace[layer][key], np.float32))
+                if tuple(src.shape) != tuple(dst.shape):
+                    raise ValueError(f"trace {name}: shape {tuple(src.shape)} "
+                                     f"!= {tuple(dst.shape)}")
+                dst.copy_(src)
+    ts.opt_state["count"] = int(count)
+    ts.step = int(step)

@@ -11,7 +11,10 @@ import pytest
 import torch
 
 import cnn_tpu_torch
+from cnn_tpu_torch.data import DeviceDataset, make_device_train_step
 from cnn_tpu_torch.models import get_model
+from cnn_tpu_torch.optim import make_optimizer
+from cnn_tpu_torch.parallel import create_train_state
 from cnn_tpu_torch.serving import InferenceEngine
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -35,6 +38,9 @@ class Blocker:
 sys.meta_path.insert(0, Blocker())
 import cnn_tpu_torch, cnn_tpu_torch.serving, cnn_tpu_torch.models
 import cnn_tpu_torch.utils.checkpoint, cnn_tpu_torch.ops.hopper
+import cnn_tpu_torch.data, cnn_tpu_torch.parallel, cnn_tpu_torch.optim
+import cnn_tpu_torch.ops.augment, cnn_tpu_torch.ops.losses
+import cnn_tpu_torch.ops.hopper.augment
 import chip_smoke
 leaked = sorted(n for n in sys.modules if n.split(".")[0] in BLOCKED)
 assert not leaked, leaked
@@ -84,3 +90,22 @@ def test_entry_points_need_cuda_or_an_explicit_cpu(monkeypatch):
     labels, probs = InferenceEngine(model, buckets=(1,), device="cpu").predict(
         np.zeros((2, 64, 64, 3), np.uint8))
     assert labels.shape == (2,) and probs.shape == (2, 3)
+
+
+def test_training_entry_points_need_cuda_or_an_explicit_cpu(monkeypatch):
+    """The training slice's entry points take the card by default too: the
+    device dataset uploads to CUDA unless asked for the CPU, and the train
+    state's generator lives on the model's device."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    images = np.zeros((4, 64, 64, 3), np.uint8)
+    labels = np.zeros(4, np.int64)
+    with pytest.raises(RuntimeError):
+        DeviceDataset.from_arrays(images, labels)
+    ds = DeviceDataset.from_arrays(images, labels, device="cpu")
+    assert ds.images.device.type == "cpu" and ds.images.dtype == torch.uint8
+    model = get_model("alexnet", image_size=64, device="cpu")
+    opt = make_optimizer("momentum", 0.01)
+    ts = create_train_state(model, opt)
+    assert ts.rng.device.type == "cpu"
+    ts, m = make_device_train_step(model, opt, ds, 2)(ts)
+    assert torch.isfinite(m["loss"])

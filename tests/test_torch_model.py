@@ -70,10 +70,58 @@ def test_eval_fuses_conv_and_relu_only_when_adjacent(monkeypatch, batch_norm,
 
 @pytest.mark.parametrize("batch_norm,dropout", [(True, 0.0), (False, 0.5)])
 def test_training_mode_bn_and_dropout_are_refused(batch_norm, dropout):
+    """Training-mode dropout is not ported and is refused. Training-mode BN
+    is ported: it normalizes by the batch statistics and moves the moving
+    ones, so a BN model without dropout trains."""
     model = get_model("alexnet", batch_norm=batch_norm, dropout=dropout,
                       image_size=64, device="cpu")
-    with pytest.raises(NotImplementedError):
-        model.train()(torch.zeros(1, 64, 64, 3))
+    x = torch.rand(2, 64, 64, 3, generator=torch.Generator().manual_seed(0))
+    if dropout > 0:
+        with pytest.raises(NotImplementedError):
+            model.train()(x)
+        return
+    bn = model.net["bn_layer_1"]
+    mean, var = bn.mean.clone(), bn.var.clone()
+    y = model.train()(x)
+    assert torch.isfinite(y).all()
+    assert not torch.equal(bn.mean, mean) and not torch.equal(bn.var, var)
+
+
+@pytest.mark.parametrize("batch_norm,fused", [(False, True), (True, False)])
+def test_training_runs_the_functions_and_fuses_conv_and_relu(
+        monkeypatch, batch_norm, fused):
+    """With a gradient asked for, Conv2D and MaxPool2D go through the
+    autograd Functions; conv+ReLU still fuse where no BN sits between."""
+    seen, pools = [], []
+    real_conv, real_pool = nn_module.conv2d_bias_relu_fn, nn_module.max_pool2d_fn
+
+    def conv_spy(x, w, b, stride, relu):
+        seen.append(relu)
+        return real_conv(x, w, b, stride, relu)
+
+    def pool_spy(x):
+        pools.append(x.shape)
+        return real_pool(x)
+
+    monkeypatch.setattr(nn_module, "conv2d_bias_relu_fn", conv_spy)
+    monkeypatch.setattr(nn_module, "max_pool2d_fn", pool_spy)
+    model = get_model("alexnet", batch_norm=batch_norm, image_size=64,
+                      device="cpu").train()
+    model(torch.rand(2, 64, 64, 3)).sum().backward()
+    assert seen == [fused] * 4 and len(pools) == 1
+    assert all(p.grad is not None for p in model.parameters())
+
+
+def test_init_draws_from_the_given_generator():
+    def weights(seed):
+        m = get_model("alexnet", image_size=64, device="cpu",
+                      generator=torch.Generator().manual_seed(seed))
+        return torch.cat([p.detach().flatten() for p in m.parameters()])
+
+    assert torch.equal(weights(4), weights(4))
+    assert not torch.equal(weights(4), weights(5))
+    w = weights(6)
+    assert abs(w.std().item() - 0.1) < 0.01    # N(0, 1) / 10, cnn_tpu's init
 
 
 @pytest.mark.parametrize("batch_norm", [False, True])

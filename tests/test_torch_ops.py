@@ -192,3 +192,146 @@ def test_relu_linear_batchnorm_vs_jax(rng):
     # the same formula in float32; XLA may fuse the multiply-add
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-6,
                                rtol=1e-6)
+
+
+# --- training slice: the VJPs, training-mode BN and the loss ---------------
+
+import jax  # noqa: E402
+
+from cnn_tpu.ops.losses import softmax_cross_entropy as j_softmax_ce  # noqa: E402
+from cnn_tpu.ops.pallas.conv import _vjp_bwd as pallas_conv_vjp_bwd  # noqa: E402
+from cnn_tpu.ops.pallas.pool import _bwd_call as pallas_pool_bwd  # noqa: E402
+from cnn_tpu_torch.ops import losses  # noqa: E402
+from cnn_tpu_torch.ops.batchnorm import batch_norm2d_train  # noqa: E402
+from cnn_tpu_torch.ops.hopper import (conv2d_bias_relu_fn,  # noqa: E402
+                                      max_pool2d_bwd, max_pool2d_fn)
+from cnn_tpu_torch.ops.pool import max_pool2d_bwd as max_pool2d_bwd_plain  # noqa: E402
+
+
+@pytest.mark.parametrize("case", ["ties", "odd_7x9", "conv1_111"])
+def test_pool_vjp_vs_pallas_interpret_and_xla(rng, case):
+    """The pool Function's gradient, exactly: g routed to the first max of
+    each window, zeros elsewhere and in the cropped row and column."""
+    x = _pool_inputs(rng)[case]
+    b, h, w, c = x.shape
+    g = rng.standard_normal((b, h // 2, w // 2, c)).astype(np.float32)
+    _, mask = pallas_pool_fwd(jnp.asarray(x), interpret=True)
+    want = np.asarray(pallas_pool_bwd(mask, jnp.asarray(g), h, w,
+                                      interpret=True))
+    _, vjp = jax.vjp(lambda v: jops.max_pool2d(v, 2, 2), jnp.asarray(x))
+    np.testing.assert_array_equal(np.asarray(vjp(jnp.asarray(g))[0]), want)
+
+    xt = _t(x).requires_grad_(True)
+    (got,) = torch.autograd.grad(max_pool2d_fn(xt), xt, _t(g))
+    np.testing.assert_array_equal(got.numpy(), want)
+    _, tap = max_pool2d_fwd(_t(x), with_tap=True)
+    for fn in (max_pool2d_bwd, max_pool2d_bwd_plain):
+        np.testing.assert_array_equal(fn(tap, _t(g), h, w).numpy(), want)
+
+
+@pytest.mark.parametrize("relu_on", [False, True])
+@pytest.mark.parametrize("case", ["cin3_s2", "odd_33_to_16", "rect_s1",
+                                  "k5_s3"])
+def test_conv_vjp_vs_pallas_interpret_and_xla(rng, case, relu_on):
+    """dx/dw/db of the conv Function against the Pallas conv's VJP (its
+    forward in interpret mode) and against jax.vjp of the XLA conv."""
+    x, wt, bias = _conv_inputs(rng, case)
+    stride = CONV_CASES[case][-1]
+    xj, wj, bj = jnp.asarray(x), jnp.asarray(wt), jnp.asarray(bias)
+    out = pallas_conv_forward(xj, wj, bj, stride, relu_on, interpret=True)
+    g = rng.standard_normal(out.shape).astype(np.float32)
+    want_pallas = pallas_conv_vjp_bwd(stride, relu_on,
+                                      (xj, wj, out if relu_on else None),
+                                      jnp.asarray(g))
+
+    def xla(x_, w_, b_):
+        y = jops.conv2d({"w": w_, "b": b_}, x_, stride)
+        return jops.relu(y) if relu_on else y
+
+    _, vjp = jax.vjp(xla, xj, wj, bj)
+    want_xla = vjp(jnp.asarray(g))
+    leaves = [_t(a).requires_grad_(True) for a in (x, wt, bias)]
+    got = torch.autograd.grad(conv2d_bias_relu_fn(*leaves, stride, relu_on),
+                              leaves, _t(g))
+    for name, a, p, q in zip(("dx", "dw", "db"), got, want_pallas, want_xla):
+        np.testing.assert_allclose(a.numpy(), np.asarray(p), **CONV_TOL,
+                                   err_msg=name)
+        np.testing.assert_allclose(a.numpy(), np.asarray(q), **CONV_TOL,
+                                   err_msg=name)
+
+
+def test_conv_vjp_skips_dx_of_an_input_without_grad(rng):
+    x, wt, bias = _conv_inputs(rng, "cin3_s2")
+    w = _t(wt).requires_grad_(True)
+    y = conv2d_bias_relu_fn(_t(x), w, _t(bias), 2, True)
+    (dw,) = torch.autograd.grad(y.sum(), w)
+    assert dw.shape == w.shape
+
+
+def _scaled_close(got, want, tol):
+    """max |got - want| <= tol * max(1, max |want|)."""
+    want = np.asarray(want)
+    dev = float(np.abs(np.asarray(got, np.float64) - want).max())
+    assert dev <= tol * max(1.0, float(np.abs(want).max())), dev
+
+
+def test_batchnorm_train_vs_jax(rng):
+    """Training-mode BN: output, new moving statistics (biased variance,
+    momentum 0.1) and the VJP through the batch statistics, at 1e-6
+    (times max(1, max|ref|))."""
+    x = (rng.standard_normal((4, 5, 6, 8)) * 3 + 2).astype(np.float32)
+    g = rng.standard_normal(x.shape).astype(np.float32)
+    gamma = rng.standard_normal(8).astype(np.float32)
+    beta = rng.standard_normal(8).astype(np.float32)
+    mean0 = rng.standard_normal(8).astype(np.float32)
+    var0 = rng.uniform(0.1, 2.0, 8).astype(np.float32)
+    state = {"mean": jnp.asarray(mean0), "var": jnp.asarray(var0)}
+
+    def jfn(x_, gamma_, beta_):
+        return jops.batch_norm2d({"gamma": gamma_, "beta": beta_}, state, x_,
+                                 train=True)
+
+    args = (jnp.asarray(x), jnp.asarray(gamma), jnp.asarray(beta))
+    want, new_state = jfn(*args)
+    _, vjp = jax.vjp(lambda *a: jfn(*a)[0], *args)
+    want_grads = vjp(jnp.asarray(g))
+
+    leaves = [_t(a).requires_grad_(True) for a in (x, gamma, beta)]
+    y, mean, var = batch_norm2d_train(*leaves, _t(mean0), _t(var0))
+    got_grads = torch.autograd.grad(y, leaves, _t(g))
+    _scaled_close(y.detach().numpy(), want, 1e-6)
+    _scaled_close(mean.numpy(), new_state["mean"], 1e-6)
+    _scaled_close(var.numpy(), new_state["var"], 1e-6)
+    for a, b_ in zip(got_grads, want_grads):
+        _scaled_close(a.numpy(), b_, 1e-6)
+
+
+@pytest.mark.parametrize("smoothing", [0.0, 0.1])
+def test_loss_and_its_gradient_vs_jax(rng, smoothing):
+    logits = (rng.standard_normal((6, 3)) * 4).astype(np.float32)
+    labels = rng.integers(0, 3, 6)
+    want, grad = jax.value_and_grad(j_softmax_ce)(
+        jnp.asarray(logits), jnp.asarray(labels), smoothing)
+    lt = _t(logits).requires_grad_(True)
+    got = losses.softmax_cross_entropy(lt, torch.from_numpy(labels), smoothing)
+    (got_grad,) = torch.autograd.grad(got, lt)
+    _scaled_close(got.item(), want, 1e-6)
+    _scaled_close(got_grad.numpy(), grad, 1e-6)
+    one_hot = losses.one_hot(torch.from_numpy(labels), 3)
+    _scaled_close(losses.softmax_cross_entropy(_t(logits), one_hot,
+                                               smoothing).item(), want, 1e-6)
+    _scaled_close(losses.softmax(_t(logits)).numpy(),
+                  jax.nn.softmax(jnp.asarray(logits)), 1e-6)
+
+
+@pytest.mark.parametrize("wrapper,args", [
+    (max_pool2d_bwd, lambda: (torch.zeros(2, 2, 2, 3, dtype=torch.uint8,
+                                          device="meta"),
+                              torch.zeros(2, 2, 2, 3, device="meta"), 4, 4)),
+])
+def test_training_wrappers_take_plain_version_only_on_cpu(wrapper, args):
+    """No fallback for the training slice's wrappers either."""
+    before = wrapper.launches
+    with pytest.raises((ValueError, TypeError)):
+        wrapper(*args())
+    assert wrapper.launches == before
