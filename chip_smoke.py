@@ -5,13 +5,18 @@
 
 1. environment: the card's name and power limit, torch and CUDA versions;
    TF32 off for every float32 product and convolution;
-2. build: one ``nvcc`` call compiles ``cnn_tpu_torch/csrc/*.cu`` for sm_90a;
+2. build: one ``nvcc`` per ``cnn_tpu_torch/csrc/*.cu`` for sm_90a, side by
+   side; each kernel's registers, shared memory and spills (the tiled conv
+   must not spill);
 3. kernels: each CUDA kernel against its plain PyTorch version on the card,
    at the serving path's shapes with batch 64 (normalize and max-pool
    bit-exact, conv within atol 1e-5 + rtol 1e-5), timed with CUDA events
-   beside the plain version, one PyTorch library call and the bound; then
-   the branches those shapes do not take (conv with Cout 7 or with weights
-   off 16-byte alignment, normalize of an odd length or a misaligned input);
+   beside the plain version, one PyTorch library call and the bound; for
+   conv2-4 the tiled conv kernel beside the direct one on the same shape,
+   and two launches bit-identical; then the branches those shapes do not
+   take (the direct conv with Cout 7 or with weights off 16-byte alignment,
+   the tiled conv with an M tail, stride 1, k = 5 and Cin 8 / Cout 12,
+   normalize of an odd length or a misaligned input);
 4. serving: the full-width 224 px BatchNorm AlexNet from the committed
    reference ``.model`` behind ``InferenceEngine`` (buckets 1, 8, 64) and
    ``BatchingServer``; every kernel's launch count must move as the path
@@ -23,8 +28,11 @@
    rotation on [256,256,256,3] in float32 (bit-exact) and bf16 (within one
    bf16 ulp) at 0, +-15, +-44, +-46, +-75 degrees and random angles; the
    conv Function's dx/dw/db for the four layers, ReLU on and off, within
-   1e-5 * max(1, max|ref|) of autograd through the plain conv; each timed
-   beside its plain version, a library call and its bound;
+   1e-5 * max(1, max|ref|) of autograd through the plain conv; the conv
+   forward of each layer within atol 1e-5 + rtol 1e-5, bit-identical from
+   launch to launch, timed beside the direct kernel, cuDNN, the plain
+   version and its bound; each timed beside its plain version, a library
+   call and its bound;
 6. gradients at full width against the reference C++: one step at lr 1 on
    ``tests/fixtures/grad_parity_bn.npz`` through the normalize, conv and
    pool kernels; logits 1e-4, loss 1e-5, every gradient tensor
@@ -33,7 +41,8 @@
    held on the card, full augmentation, BN AlexNet at 224 px, batch 256,
    momentum SGD on a cosine schedule, 40 steps: one step with the kernels
    against the same step on the plain versions (same weights, batch and
-   drawn augmentation), finite and falling loss, the exact launch counts,
+   drawn augmentation), finite and falling loss, the exact launch counts
+   (conv2-4 through the tiled conv kernel, conv1 through the direct one),
    img/s, the device time per step split by stage, and the eval accuracy on
    held-out images.
 
@@ -47,6 +56,7 @@ from __future__ import annotations
 
 import copy
 import json
+import re
 import subprocess
 import sys
 import time
@@ -67,11 +77,11 @@ from cnn_tpu_torch.nn import Conv2D, ReLU
 from cnn_tpu_torch.ops import augment as aug
 from cnn_tpu_torch.ops.activations import relu as ops_relu
 from cnn_tpu_torch.ops.conv import conv2d, conv_out_size
-from cnn_tpu_torch.ops.hopper import (_build, conv2d_bias_relu,
+from cnn_tpu_torch.ops.hopper import (TILES, _build, conv2d_bias_relu,
                                       conv2d_bias_relu_fn, max_pool2d_bwd,
                                       max_pool2d_fn, max_pool2d_fwd,
-                                      reset_launches, rotate_shear,
-                                      uint8_normalize)
+                                      conv_tile_plan, reset_launches,
+                                      rotate_shear, uint8_normalize)
 from cnn_tpu_torch.ops.losses import softmax_cross_entropy
 from cnn_tpu_torch.ops.pool import max_pool2d, max_pool2d_taps
 from cnn_tpu_torch.ops.pool import max_pool2d_bwd as pool_bwd_plain
@@ -198,6 +208,64 @@ def plain_versions():
     return stack
 
 
+def conv_entry(x, w, b, stride, relu, tile=None) -> torch.Tensor:
+    """The direct conv kernel (``tile`` None) or the tiled one with tile id
+    ``tile``, called through its C entry point: no plan and no count, for
+    comparisons beside the wrapper."""
+    bsz, h, wid, cin = x.shape
+    k, cout = w.shape[0], w.shape[-1]
+    out = torch.empty((bsz, conv_out_size(h, k, stride),
+                       conv_out_size(wid, k, stride), cout), device=x.device)
+    args = (x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(), bsz, h,
+            wid, cin, cout, k, stride, int(relu))
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    if tile is None:
+        _build.launch("cnn_conv2d_bias_relu", x.device, stream, *args)
+    else:
+        _build.launch("cnn_conv2d_bias_relu_tiled", x.device, stream, *args,
+                      tile)
+    return out
+
+
+def plan_of(x, w, stride):
+    bsz, h, wid, cin = x.shape
+    return conv_tile_plan(bsz, h, wid, cin, w.shape[-1], w.shape[0], stride,
+                          x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0)
+
+
+def plan_name(plan) -> str:
+    if plan.variant == "direct":
+        return "direct"
+    t = TILES[plan.tile]
+    return f"tiled {t.bm}x{t.bn} ({t.tm}x{t.tn}/thread, grid {plan.grid})"
+
+
+def tile_sweep(x, w, b, stride) -> str:
+    """ms of every tile the plan can return, ReLU off, through the entry
+    point: how far the plan's pick is from the fastest on this shape."""
+    ms = {i: time_ms(lambda i=i: conv_entry(x, w, b, stride, False, i))
+          for i in range(len(TILES))}
+    return ", ".join(f"{t.bm}x{t.bn}/{t.tm}x{t.tn} {ms[i]:.4f}"
+                     for i, t in enumerate(TILES))
+
+
+def check_conv(x, w, b, stride, what, conv=conv2d_bias_relu) -> float:
+    """``conv`` (the wrapper) against the plain conv, ReLU off and on,
+    within atol 1e-5 + rtol 1e-5, and two launches bit-identical; max
+    |dev|."""
+    err = 0.0
+    for relu in (False, True):
+        y, ref = conv(x, w, b, stride, relu), conv2d(x, w, b, stride, relu)
+        dev_ = (y - ref).abs()
+        check(bool((dev_ <= CONV_ATOL + CONV_RTOL * ref.abs()).all()),
+              f"{what} relu={relu}: max deviation {dev_.max().item():.3g} "
+              "over atol/rtol 1e-5")
+        check(bits_equal(y, conv(x, w, b, stride, relu)),
+              f"{what} relu={relu}: two launches differ")
+        err = max(err, dev_.max().item())
+    return err
+
+
 def kernel_phase(model) -> dict:
     """Each kernel against its plain version at the serving shapes, B = 64."""
     dev = torch.device("cuda")
@@ -249,6 +317,7 @@ def kernel_phase(model) -> dict:
     sums = [0.0, 0.0, 0.0, 0.0, 0.0]
     by = {"bytes": 0.0, "operations": 0.0}
     worst = 0.0
+    tiled = [0.0, 0.0, 0.0]   # conv2-4: tiled kernel, direct kernel, cuDNN
     h = 224
     for i, cin in enumerate((3, 16, 32, 64), start=1):
         layer = model.net[f"conv_layer_{i}"]
@@ -257,19 +326,17 @@ def kernel_phase(model) -> dict:
             x = torch.rand((B, h, h, cin), generator=gen, device=dev)
         else:
             x = torch.relu(torch.randn((B, h, h, cin), generator=gen, device=dev))
-        err = 0.0
-        for relu in (False, True):
-            y, ref = conv2d_bias_relu(x, w, b, 2, relu), conv2d(x, w, b, 2, relu)
-            dev_ = (y - ref).abs()
-            check(bool((dev_ <= CONV_ATOL + CONV_RTOL * ref.abs()).all()),
-                  f"conv_layer_{i} relu={relu}: max deviation "
-                  f"{dev_.max().item():.3g} over atol/rtol 1e-5")
-            err = max(err, dev_.max().item())
+        plan = plan_of(x, w, 2)
+        check((plan.variant == "tiled") == (i > 1),
+              f"conv_layer_{i}: planned {plan}")
+        err = check_conv(x, w, b, 2, f"conv_layer_{i}")
         worst = max(worst, err)
+        y = conv2d_bias_relu(x, w, b, 2, False)
         ho = conv_out_size(h, 3, 2)
         w_oihw = w.permute(3, 2, 0, 1).contiguous()
         ms = time_ms(lambda: conv2d_bias_relu(x, w, b, 2, False))
         ms_relu = time_ms(lambda: conv2d_bias_relu(x, w, b, 2, True))
+        direct = time_ms(lambda: conv_entry(x, w, b, 2, False))
         plain = time_ms(lambda: conv2d(x, w, b, 2, False))
         lib = time_ms(lambda: F.conv2d(x.permute(0, 3, 1, 2), w_oihw, b, 2))
         m = B * ho * ho
@@ -279,24 +346,36 @@ def kernel_phase(model) -> dict:
         for j, v in enumerate((ms, plain, lib, bnd[0], ms_relu)):
             sums[j] += v
         by[bnd[1]] += bnd[0]
+        same = ""
+        if i > 1:
+            for j, v in enumerate((ms, direct, lib)):
+                tiled[j] += v
+            same = (f"; bits equal to the direct kernel's: "
+                    f"{bits_equal(y, conv_entry(x, w, b, 2, False))}; every "
+                    f"tile (ms): {tile_sweep(x, w, b, 2)}")
         phase(f"conv_layer_{i} [{B},{h},{h},{cin}]->[{B},{ho},{ho},"
-              f"{layer.out_channels}]: max|dev| {err:.3g}; ms={ms:.4f} "
-              f"(relu {ms_relu:.4f}) plain={plain:.4f} library={lib:.4f} "
-              f"bound={bnd[0]:.4f} ({bnd[1]})")
+              f"{layer.out_channels}] {plan_name(plan)}: max|dev| {err:.3g}, "
+              f"two launches bit-identical{same}; ms={ms:.4f} "
+              f"(relu {ms_relu:.4f}) direct={direct:.4f} plain={plain:.4f} "
+              f"library={lib:.4f} bound={bnd[0]:.4f} ({bnd[1]})")
         h = ho if i > 1 else conv_out_size(ho, 2, 2)
     out["conv2d_bias_relu"] = (worst, sums[0], sums[1], sums[2],
                                (sums[3], max(by, key=by.get)))
     phase(f"conv, 4 layers per batch: ms={sums[0]:.4f} (relu {sums[4]:.4f}) "
           f"plain={sums[1]:.4f} library={sums[2]:.4f} bound={sums[3]:.4f} "
-          f"(bytes {by['bytes']:.4f} + operations {by['operations']:.4f})")
+          f"(bytes {by['bytes']:.4f} + operations {by['operations']:.4f}); "
+          f"conv2-4 tiled {tiled[0]:.4f}, direct {tiled[1]:.4f}, cuDNN "
+          f"{tiled[2]:.4f}")
     return out
 
 
 def off_path_phase() -> None:
     """The kernels' branches that the serving shapes do not take, against
-    the plain versions: conv's scalar path (Cout not a multiple of 4, or
-    weights not 16-byte aligned) and normalize's scalar path (input not
-    4-byte aligned) and its tail (a length that is no multiple of 4)."""
+    the plain versions: the direct conv's scalar path (Cout not a multiple
+    of 4, or weights not 16-byte aligned), the tiled conv at an M tail,
+    stride 1, k = 5 and the smallest channels it takes (Cin 8, Cout 12, an
+    N tail), and normalize's scalar path (input not 4-byte aligned) and its
+    tail (a length that is no multiple of 4)."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(1)
     cases = []
@@ -312,6 +391,8 @@ def off_path_phase() -> None:
     cases.append(("weights off 16-byte alignment", x, w, b, 2))
     worst = 0.0
     for what, x, w, b, stride in cases:
+        check(plan_of(x, w, stride).variant == "direct",
+              f"conv scalar path ({what}): not planned on the direct kernel")
         for relu in (False, True):
             y, ref = (conv2d_bias_relu(x, w, b, stride, relu),
                       conv2d(x, w, b, stride, relu))
@@ -320,6 +401,27 @@ def off_path_phase() -> None:
                   f"conv scalar path ({what}, relu={relu}): max deviation "
                   f"{dev_.max().item():.3g} over atol/rtol 1e-5")
             worst = max(worst, dev_.max().item())
+    tiled_cases = [   # (what, B, H, W, Cin, Cout, k, stride)
+        ("M tail: B 3, 13x13x32 -> 6x6x64, 108 rows", 3, 13, 13, 32, 64, 3, 2),
+        ("stride 1", 2, 15, 17, 16, 32, 3, 1),
+        ("k 5", 2, 29, 23, 32, 64, 5, 2),
+        ("Cin 8, Cout 12", 3, 21, 19, 8, 12, 3, 2),
+    ]
+    tiled_worst, seen = 0.0, []
+    for what, bsz, h, wid, cin, cout, k, stride in tiled_cases:
+        x = torch.relu(torch.randn((bsz, h, wid, cin), generator=gen, device=dev))
+        w = torch.randn((k, k, cin, cout), generator=gen, device=dev) * 0.1
+        b = torch.randn((cout,), generator=gen, device=dev)
+        plan = plan_of(x, w, stride)
+        check(plan.variant == "tiled", f"tiled conv ({what}): planned {plan}")
+        seen.append(plan.tile)
+        tiled_worst = max(tiled_worst,
+                          check_conv(x, w, b, stride, f"tiled conv ({what})"))
+        # and every tile the plan can return, through the entry point
+        for tile, t in enumerate(TILES):
+            tiled_worst = max(tiled_worst, check_conv(
+                x, w, b, stride, f"tiled conv ({what}) tile {t}",
+                lambda *a, tile=tile: conv_entry(*a, tile=tile)))
     n = 1_000_003
     buf = torch.randint(0, 256, (n + 1,), generator=gen, device=dev,
                         dtype=torch.uint8)
@@ -328,7 +430,10 @@ def off_path_phase() -> None:
         check(bits_equal(uint8_normalize(x), uint8_to_float(x)),
               f"normalize ({what}): differs from the plain version")
     phase(f"off the serving shapes: conv scalar path (Cout 7 at stride 1; "
-          f"misaligned weights) max|dev| {worst:.3g}; normalize odd length "
+          f"misaligned weights) max|dev| {worst:.3g}; tiled conv (M tail, "
+          f"stride 1, k 5, Cin 8 / Cout 12; planned tiles {seen}, then "
+          f"all {len(TILES)}) max|dev| "
+          f"{tiled_worst:.3g}, launches bit-identical; normalize odd length "
           f"and misaligned input bit-exact")
 
 
@@ -345,9 +450,11 @@ def serving_phase(model) -> dict:
     results = {n: engine.predict(imgs[n]) for n in sizes}
     torch.cuda.synchronize()
     counts = [uint8_normalize.launches, max_pool2d_fwd.launches,
-              conv2d_bias_relu.launches]
-    check(counts == [calls, calls, 4 * calls],
-          f"predict launches {counts}, expected {[calls, calls, 4 * calls]}")
+              conv2d_bias_relu.launches, conv2d_bias_relu.launches_tiled,
+              conv2d_bias_relu.launches_direct]
+    want = [calls, calls, 4 * calls, 3 * calls, calls]
+    check(counts == want, f"predict launches {counts} (normalize, pool, "
+          f"conv, conv tiled, conv direct), expected {want}")
     for n, (labels, probs) in results.items():
         check(labels.shape == (n,) and probs.shape == (n, 3), f"shape at {n}")
         check(bool(np.isfinite(probs).all()), f"non-finite probs at {n}")
@@ -362,9 +469,12 @@ def serving_phase(model) -> dict:
                 "max_pool2d_fwd": max_pool2d_fwd.launches,
                 "conv2d_bias_relu": conv2d_bias_relu.launches}
     served = launches["uint8_normalize"] - calls
+    variants = (conv2d_bias_relu.launches_tiled,
+                conv2d_bias_relu.launches_direct)
     check(served >= 2 and launches["max_pool2d_fwd"] == calls + served
-          and launches["conv2d_bias_relu"] == 4 * (calls + served),
-          f"server launches {launches}")
+          and launches["conv2d_bias_relu"] == 4 * (calls + served)
+          and variants == (3 * (calls + served), calls + served),
+          f"server launches {launches}, conv tiled/direct {variants}")
     labels64, probs64 = results[64]
     for i, (label, probs) in enumerate(answers):
         check(label == labels64[i], f"server label {i}")
@@ -372,7 +482,8 @@ def serving_phase(model) -> dict:
               f"server probs {i}")
     phase(f"served {sum(sizes)} images in {calls} bucket calls and 16 "
           f"concurrent submits in {served} calls (incl. warmup); "
-          f"launches {launches}")
+          f"launches {launches}; conv tiled {variants[0]}, direct "
+          f"{variants[1]}")
 
     # the same engine on the plain versions, on the card: no kernel may run
     x = torch.from_numpy(imgs[64]).cuda()
@@ -532,8 +643,10 @@ def train_kernel_phase() -> dict:
           f"{ms_b:.4f} plain={plain_b:.4f} bound={bnd_b[0]:.4f}")
 
     # the conv Function against autograd through the plain conv, and the
-    # training-shape forward times (kernel, plain, cuDNN)
+    # training-shape forward: parity, the tiled kernel beside the direct
+    # one, cuDNN and the plain version
     h = 224
+    tiled = [0.0, 0.0, 0.0, 0.0]   # conv2-4: tiled, direct, cuDNN, bound
     for i, (cin, cout) in enumerate([(3, 16), (16, 32), (32, 64), (64, 128)],
                                     start=1):
         x = torch.rand((TRAIN_B, h, h, cin), generator=gen, device=dev)
@@ -579,23 +692,39 @@ def train_kernel_phase() -> dict:
             torch.autograd.grad(F.conv2d(xn, wn, leaves[2], 2), wrt,
                                 g.permute(0, 3, 1, 2))
 
+        plan = plan_of(x, w, 2)
+        check((plan.variant == "tiled") == (i > 1),
+              f"conv_layer_{i} at batch {TRAIN_B}: planned {plan}")
+        fwd_err = check_conv(x, w, b, 2, f"conv_layer_{i} at batch {TRAIN_B}")
         fwd = time_ms(lambda: conv2d_bias_relu(x, w, b, 2, False))
+        fwd_direct = time_ms(lambda: conv_entry(x, w, b, 2, False))
         fwd_lib = time_ms(lambda: F.conv2d(x.permute(0, 3, 1, 2),
                                            w.permute(3, 2, 0, 1), b, 2))
+        fwd_plain = time_ms(lambda: conv2d(x, w, b, 2, False), iters=5)
         m = TRAIN_B * ho * ho
         r = read_extent(h, 3, 2)
         fwd_bnd = bound_ms(4 * TRAIN_B * r * r * cin + nbytes(w, b) + 4 * m * cout,
                            2 * m * cout * 9 * cin + m * cout)
+        sweep = ""
+        if i > 1:
+            for j, v in enumerate((fwd, fwd_direct, fwd_lib, fwd_bnd[0])):
+                tiled[j] += v
+            sweep = f"; every tile (ms): {tile_sweep(x, w, b, 2)}"
         phase(f"conv_layer_{i} [{TRAIN_B},{h},{h},{cin}]->[{TRAIN_B},{ho},"
               f"{ho},{cout}]: Function dx/dw/db max |dev| {worst:.3g} x "
               f"max(1,|ref|) ({flips} ReLU mask elements differ between the "
-              f"kernel's and the plain sums); forward kernel {fwd:.4f} ms, "
-              f"cuDNN {fwd_lib:.4f}, bound {fwd_bnd[0]:.4f} ({fwd_bnd[1]}); "
-              "forward+backward: "
+              f"kernel's and the plain sums); forward {plan_name(plan)} "
+              f"max|dev| {fwd_err:.3g}, two launches bit-identical, "
+              f"{fwd:.4f} ms, direct kernel {fwd_direct:.4f}, cuDNN "
+              f"{fwd_lib:.4f}, plain {fwd_plain:.4f}, bound {fwd_bnd[0]:.4f} "
+              f"({fwd_bnd[1]}){sweep}; forward+backward: "
               f"Function {time_ms(train_fn, iters=10):.4f} plain "
               f"{time_ms(train_plain, iters=5):.4f} cuDNN "
               f"{time_ms(train_lib, iters=10):.4f} ms")
         h = ho if i > 1 else conv_out_size(ho, 2, 2)
+    phase(f"conv2-4 forward at batch {TRAIN_B}: tiled {tiled[0]:.4f} ms, "
+          f"direct {tiled[1]:.4f} ({tiled[0] / tiled[1]:.3f} of it), cuDNN "
+          f"{tiled[2]:.4f}, bound {tiled[3]:.4f}")
     return out
 
 
@@ -839,12 +968,17 @@ def training_phase() -> dict:
         correct += eval_step(held[i:i + TRAIN_B],
                              held_labels[i:i + TRAIN_B])["correct"].item()
     counts = launch_counts()
+    variants = (conv2d_bias_relu.launches_tiled,
+                conv2d_bias_relu.launches_direct)
     n_eval = -(-held.shape[0] // TRAIN_B)
     want = {"uint8_normalize": n_eval, "max_pool2d_fwd": TRAIN_STEPS + n_eval,
             "max_pool2d_bwd": TRAIN_STEPS,
             "conv2d_bias_relu": 4 * (TRAIN_STEPS + n_eval),
             "rotate_shear": TRAIN_STEPS}
     check(counts == want, f"training launches {counts}, expected {want}")
+    want_variants = (3 * (TRAIN_STEPS + n_eval), TRAIN_STEPS + n_eval)
+    check(variants == want_variants, f"training conv launches tiled/direct "
+          f"{variants}, expected {want_variants}")
     losses = torch.stack(losses).cpu()
     check(bool(torch.isfinite(losses).all()), f"non-finite loss: {losses}")
     first, last = losses[:5].mean().item(), losses[-5:].mean().item()
@@ -855,7 +989,8 @@ def training_phase() -> dict:
           f"first 5 {first:.4f}, last 5 {last:.4f}); "
           f"{TRAIN_STEPS * TRAIN_B / wall:.1f} img/s end to end "
           f"({1e3 * wall / TRAIN_STEPS:.2f} ms per step); eval accuracy "
-          f"{acc:.4f} on {held.shape[0]} held-out images; launches {counts}")
+          f"{acc:.4f} on {held.shape[0]} held-out images; launches {counts}; "
+          f"conv tiled {variants[0]}, direct {variants[1]}")
     split = step_split(ts, ds, opt)
     phase("device ms per step (mean of 5): " + ", ".join(
         f"{k} {v:.4f}" for k, v in split.items())
@@ -897,6 +1032,32 @@ def step_split(ts, ds, opt, reps: int = 5) -> dict:
     return total
 
 
+def ptxas_report(log: str) -> dict:
+    """kernel -> (its ``Used ... registers ... smem`` line, its spills) from
+    ``-Xptxas -v``; a template's arguments are kept, shortened, in the name."""
+    out, name = {}, None
+    spills = ""
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            mangled = ln.split("'")[1]
+            # _Z[N] <len><namespace> <len><name> I<template args>E ...
+            rest, base = re.sub(r"^_ZN?", "", mangled), mangled
+            while (hit := re.match(r"(\d+)", rest)):
+                n, rest = int(hit.group(1)), rest[len(hit.group(1)):]
+                base, rest = rest[:n], rest[n:]
+            args = "x".join(re.findall(r"L[ib](\d+)E", rest.split("EEv")[0]))
+            name = base.replace("_kernel", "") + (f"<{args}>" if args else "")
+        elif name and "spill stores" in ln:
+            spills = ("" if ln.strip().startswith("0 bytes stack frame, 0 "
+                                                  "bytes spill stores, 0 bytes"
+                                                  " spill loads")
+                      else ln.strip())
+        elif name and "Used" in ln and "registers" in ln:
+            out[name] = (ln.split("info    :")[-1].strip(), spills)
+            name = None
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this run needs one NVIDIA GPU",
@@ -913,10 +1074,14 @@ def main() -> int:
           f"{torch.cuda.device_count()}; TF32 off")
 
     _build.load()
-    regs = [ln.strip() for ln in _build.build_log.splitlines()
-            if "registers" in ln]
+    report = ptxas_report(_build.build_log)
+    for name, (regs, spills) in report.items():
+        check(not (name.startswith("conv2d_tiled") and spills),
+              f"{name} spills: {spills}")
     phase(f"build: {_build.library_path()} "
-          + (f"built in {_build.build_seconds:.1f}s; " + " | ".join(regs)
+          + (f"built in {_build.build_seconds:.1f}s; " + " | ".join(
+              f"{name}: {regs}, {spills or 'no spills'}"
+              for name, (regs, spills) in report.items())
              if _build.build_seconds is not None else "(already built)"))
 
     model = get_model("alexnet", num_classes=3, batch_norm=True,

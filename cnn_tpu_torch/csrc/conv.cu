@@ -1,27 +1,65 @@
-// VALID k x k convolution + bias (+ ReLU), NHWC / HWIO, float32, for Hopper.
+// VALID k x k convolution + bias (+ ReLU), NHWC / HWIO, float32, for Hopper:
+// two kernels, chosen by shape in ops/hopper/conv.py:conv_tile_plan.
 //
 // Replaces: cnn_tpu/ops/pallas/conv.py, conv2d_bias_relu_pallas -> _forward
 // (kernel body _conv_kernel): k*k shifted [Ho*Wo, Cin] x [Cin, Cout]
 // products summed in f32, then + bias, then an optional ReLU, any stride,
 // output extent (H - k) / stride + 1.
 //
+// Both are implicit GEMMs: M = B*Ho*Wo output pixels, N = Cout,
+// K = k*k*Cin in (dy, dx, ci) order, in which the HWIO weights are already a
+// row-major [K, N] matrix. No TF32 and no tensor cores: every sum is a chain
+// of full float32 FMAs in k order, one thread per output, as the 1e-5 parity
+// with the plain version and JAX's Precision.HIGHEST need. No split-K and no
+// atomics, so a launch is bit-identical to the next.
+//
 // Bound on this card: on the AlexNet shapes, bytes for conv1 (Cin = 3, so
 // K = 27 multiply-adds per output) and float32 operations for conv2-4
-// (K = 144..576). No TF32: the sums are full float32 FMAs, as the 1e-5
-// parity with the plain version and the JAX reference needs.
+// (K = 144..576, 67 TFLOP/s).
 //
-// Design: a direct implicit GEMM (M = B*Ho*Wo pixels, N = Cout, K = k*k*Cin)
-// with no staging. Each thread owns one output pixel and four neighbouring
-// output channels, so one input load feeds four FMAs and the four weights
-// come in one 16-byte load. Neighbouring threads take neighbouring channel
-// groups of the same pixel, then the next pixel: the weight loads of a warp
-// are one contiguous run (shared by every pixel of the warp), its input
-// loads are broadcast, and its stores are one contiguous run. Weights are
-// read through the read-only cache instead of being staged in shared
-// memory: conv4's HWIO tensor (3*3*64*128 floats, 295 KB) is larger than
-// the 227 KB a block can have. Bias and ReLU are applied before the one
-// store, so the activation makes a single trip to device memory. Conv1's
-// 3-channel pixels give unaligned 4-byte input loads; that is fine here.
+// The tiled kernel (conv2-4: Cin % 8 == 0, Cout % 4 == 0, x and w 16-byte
+// aligned). The direct kernel below feeds 4 FMAs from each 4-byte input load
+// and each 16-byte weight load, about 0.2 FMA per byte through L1, so the
+// load/store units and not the FMA pipes set its pace, and every weight is
+// fetched again for every pixel (conv4's 295 KB of weights from L2). The
+// tiled kernel is a register-tiled GEMM over shared memory:
+//  - a block computes a BM x BN output tile; K goes in slices of BK = 8,
+//    which never straddle a tap since Cin % 8 == 0, so the slice of A row m
+//    (pixel b, oy, ox) is 8 contiguous floats of x at
+//    ((b*H + oy*s + dy)*W + ox*s + dx)*Cin + ci0: two 16-byte cp.async. The
+//    int64 base of each row the thread loads is computed once, before the
+//    K loop; a slice adds one scalar offset, walked from slice to slice
+//    with no division. Rows past M are zero-filled (cp.async with a source
+//    size of 0), as are columns past Cout.
+//  - three stages of A and B slices in shared memory (cp.async, commit and
+//    wait groups), so two slices are in flight while one is multiplied.
+//  - each thread holds a TM x TN micro-tile in registers: rows tm + i*BM/TM
+//    and column groups of 4 at tn*4 + g*BN/(TN/4), so the threads of a warp
+//    read consecutive 16-byte words of A (row stride padded to 12 floats)
+//    and of B, free of bank conflicts. Each 16-byte read of A feeds 4*TN
+//    FMAs and each of B 4*TM: every loaded value is used BM or BN times
+//    per block instead of 4.
+//  - epilogue: bias, the optional ReLU, 16-byte stores masked at the M and
+//    N tails: the activation still makes one trip to device memory.
+//  - the tile (BM, BN, TM, TN) is a template argument; the entry point's
+//    switch maps tile ids to the variants in the order of TILES in
+//    ops/hopper/conv.py, whose plan picks one per shape (about two or more
+//    waves of 132 SMs where M allows). Static shared memory stays under
+//    48 KB.
+// The sum runs over k in the direct kernel's order (dy, dx, ci), so on the
+// same inputs the two kernels give the same bits.
+//
+// The direct kernel (conv1, Cout 7, misaligned pointers, anything else): a
+// direct implicit GEMM with no staging. Each thread owns one output pixel
+// and four neighbouring output channels, so one input load feeds four FMAs
+// and the four weights come in one 16-byte load. Neighbouring threads take
+// neighbouring channel groups of the same pixel, then the next pixel: the
+// weight loads of a warp are one contiguous run (shared by every pixel of
+// the warp), its input loads are broadcast, and its stores are one
+// contiguous run. Weights are read through the read-only cache. Bias and
+// ReLU are applied before the one store. Conv1's 3-channel pixels give
+// unaligned 4-byte input loads; that is fine here, as conv1 is bound by
+// bytes.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -118,4 +156,224 @@ extern "C" int cnn_conv2d_bias_relu(void* stream, const void* x, const void* w,
                                      (cudaStream_t)stream>>>(
         xf, wf, bf, yf, B, H, W, Cin, Cout, k, stride, Ho, Wo, relu != 0);
   return (int)cudaGetLastError();
+}
+
+namespace {
+
+constexpr int kBK = 8;       // K slice: within one tap, as Cin % 8 == 0
+constexpr int kBKPad = 12;   // A row stride in shared memory (floats)
+constexpr int kStages = 3;
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
+                                           bool valid) {
+  const unsigned dst =
+      static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  const int bytes = valid ? 16 : 0;   // 0: the 16 bytes are zero-filled
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(gmem), "r"(bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+template <int BM, int BN, int TM, int TN>
+__global__ void __launch_bounds__((BM / TM) * (BN / TN))
+    conv2d_tiled_kernel(const float* __restrict__ x,
+                        const float* __restrict__ w,
+                        const float* __restrict__ bias,
+                        float* __restrict__ y, int H, int W, int Cin,
+                        int Cout, int k, int s, int Ho, int Wo, int M,
+                        bool relu) {
+  constexpr int kThreads = (BM / TM) * (BN / TN);
+  constexpr int kAChunks = BM * kBK / 4;   // 16-byte chunks per A slice
+  constexpr int kBChunks = kBK * BN / 4;
+  constexpr int kAIters = (kAChunks + kThreads - 1) / kThreads;
+  constexpr int kBIters = (kBChunks + kThreads - 1) / kThreads;
+  constexpr int kGroups = TN / 4;          // column groups of 4 per thread
+  constexpr int kGroupStride = BN / kGroups;
+  static_assert(BM % TM == 0 && BN % TN == 0 && TN % 4 == 0 && TM >= 1,
+                "tile");
+  static_assert(kStages * (BM * kBKPad + kBK * BN) * 4 <= 48 * 1024,
+                "static shared memory");
+
+  __shared__ __align__(16) float sa[kStages][BM * kBKPad];
+  __shared__ __align__(16) float sb[kStages][kBK * BN];
+
+  const int tid = threadIdx.x;
+  const int tn = tid % (BN / TN);
+  const int tm = tid / (BN / TN);
+  const int m0 = blockIdx.x * BM;
+  const int n0 = blockIdx.y * BN;
+
+  // the rows this thread copies, and their int64 bases in x
+  int64_t a_base[kAIters];
+  bool a_valid[kAIters];
+#pragma unroll
+  for (int i = 0; i < kAIters; ++i) {
+    const int c = tid + i * kThreads;
+    const int m = m0 + c / 2;
+    a_valid[i] = c < kAChunks && m < M;
+    const int mm = a_valid[i] ? m : 0;
+    const int ox = mm % Wo;
+    const int t = mm / Wo;
+    const int oy = t % Ho;
+    const int64_t b = t / Ho;
+    a_base[i] = ((b * H + (int64_t)oy * s) * W + (int64_t)ox * s) * Cin +
+                (c % 2) * 4;
+  }
+
+  // slices are loaded in k order: the offset of slice kt in x,
+  // (dy*W + dx)*Cin + ci0, grows by 8 within a row of taps (the next dx
+  // starts where the last one's channels end) and jumps by (W - k)*Cin to
+  // the next dy
+  int64_t koff = 0;
+  int row_left = k * Cin / kBK;   // slices left in this row of taps
+  auto load_slice = [&](int buf, int kt) {
+    const int k0 = kt * kBK;
+#pragma unroll
+    for (int i = 0; i < kAIters; ++i) {
+      const int c = tid + i * kThreads;
+      if (c < kAChunks)
+        cp_async16(&sa[buf][(c / 2) * kBKPad + (c % 2) * 4],
+                   a_valid[i] ? x + a_base[i] + koff : x, a_valid[i]);
+    }
+#pragma unroll
+    for (int i = 0; i < kBIters; ++i) {
+      const int c = tid + i * kThreads;
+      if (c >= kBChunks) break;
+      const int r = c / (BN / 4);
+      const int n = n0 + (c % (BN / 4)) * 4;
+      const bool ok = n < Cout;
+      cp_async16(&sb[buf][r * BN + (c % (BN / 4)) * 4],
+                 ok ? w + (int64_t)(k0 + r) * Cout + n : w, ok);
+    }
+    koff += kBK;
+    if (--row_left == 0) {
+      row_left = k * Cin / kBK;
+      koff += (int64_t)(W - k) * Cin;
+    }
+  };
+
+  float acc[TM][TN];
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
+
+  const int KT = k * k * Cin / kBK;
+#pragma unroll
+  for (int st = 0; st < kStages - 1; ++st) {
+    if (st < KT) load_slice(st, st);
+    cp_async_commit();
+  }
+  for (int kt = 0; kt < KT; ++kt) {
+    cp_async_wait<kStages - 2>();   // slice kt has landed (this thread's)
+    __syncthreads();                // ... every thread's; slice kt-1 is read
+    const int next = kt + kStages - 1;
+    if (next < KT) load_slice(next % kStages, next);
+    cp_async_commit();
+
+    const float* As = sa[kt % kStages];
+    const float* Bs = sb[kt % kStages];
+#pragma unroll
+    for (int kk = 0; kk < kBK; kk += 4) {
+      float a[TM][4];
+#pragma unroll
+      for (int i = 0; i < TM; ++i) {
+        const float4 v = *reinterpret_cast<const float4*>(
+            &As[(tm + i * (BM / TM)) * kBKPad + kk]);
+        a[i][0] = v.x;
+        a[i][1] = v.y;
+        a[i][2] = v.z;
+        a[i][3] = v.w;
+      }
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        float bv[TN];
+#pragma unroll
+        for (int g = 0; g < kGroups; ++g) {
+          const float4 v = *reinterpret_cast<const float4*>(
+              &Bs[(kk + q) * BN + g * kGroupStride + tn * 4]);
+          bv[g * 4 + 0] = v.x;
+          bv[g * 4 + 1] = v.y;
+          bv[g * 4 + 2] = v.z;
+          bv[g * 4 + 3] = v.w;
+        }
+#pragma unroll
+        for (int i = 0; i < TM; ++i)
+#pragma unroll
+          for (int j = 0; j < TN; ++j)
+            acc[i][j] = fmaf(a[i][q], bv[j], acc[i][j]);
+      }
+    }
+  }
+  cp_async_wait<0>();   // only empty groups can be pending here
+
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int m = m0 + tm + i * (BM / TM);
+    if (m >= M) continue;
+    float* yrow = y + (int64_t)m * Cout;
+#pragma unroll
+    for (int g = 0; g < kGroups; ++g) {
+      const int n = n0 + g * kGroupStride + tn * 4;
+      if (n >= Cout) continue;
+      float v[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float t = acc[i][g * 4 + j] + __ldg(bias + n + j);
+        v[j] = relu ? (t > 0.f ? t : 0.f) : t;
+      }
+      *reinterpret_cast<float4*>(yrow + n) = make_float4(v[0], v[1], v[2], v[3]);
+    }
+  }
+}
+
+template <int BM, int BN, int TM, int TN>
+cudaError_t launch_tiled(cudaStream_t stream, const float* x, const float* w,
+                         const float* b, float* y, int B, int H, int W,
+                         int Cin, int Cout, int k, int s, bool relu) {
+  const int Ho = (H - k) / s + 1, Wo = (W - k) / s + 1;
+  const int M = B * Ho * Wo;
+  const dim3 grid((M + BM - 1) / BM, (Cout + BN - 1) / BN);
+  conv2d_tiled_kernel<BM, BN, TM, TN>
+      <<<grid, (BM / TM) * (BN / TN), 0, stream>>>(x, w, b, y, H, W, Cin,
+                                                   Cout, k, s, Ho, Wo, M,
+                                                   relu);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int cnn_conv2d_bias_relu_tiled(void* stream, const void* x,
+                                          const void* w, const void* b,
+                                          void* y, int B, int H, int W,
+                                          int Cin, int Cout, int k,
+                                          int stride, int relu, int tile) {
+  if (Cin % kBK != 0 || Cout % 4 != 0 ||
+      reinterpret_cast<uintptr_t>(x) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(w) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(y) % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  const float* xf = static_cast<const float*>(x);
+  const float* wf = static_cast<const float*>(w);
+  const float* bf = static_cast<const float*>(b);
+  float* yf = static_cast<float*>(y);
+  const bool r = relu != 0;
+  switch (tile) {
+    case 0: return (int)launch_tiled<128, 128, 8, 8>(st, xf, wf, bf, yf, B, H, W, Cin, Cout, k, stride, r);
+    case 1: return (int)launch_tiled<64, 128, 8, 8>(st, xf, wf, bf, yf, B, H, W, Cin, Cout, k, stride, r);
+    case 2: return (int)launch_tiled<128, 64, 8, 8>(st, xf, wf, bf, yf, B, H, W, Cin, Cout, k, stride, r);
+    case 3: return (int)launch_tiled<64, 64, 8, 4>(st, xf, wf, bf, yf, B, H, W, Cin, Cout, k, stride, r);
+    case 4: return (int)launch_tiled<128, 32, 8, 4>(st, xf, wf, bf, yf, B, H, W, Cin, Cout, k, stride, r);
+    case 5: return (int)launch_tiled<64, 32, 4, 4>(st, xf, wf, bf, yf, B, H, W, Cin, Cout, k, stride, r);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

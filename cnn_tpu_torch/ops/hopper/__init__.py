@@ -6,8 +6,10 @@ its kernel for a CUDA tensor, or raises; it counts its launches in
 """
 
 from cnn_tpu_torch.ops.hopper.augment import rotate_shear  # noqa: F401
-from cnn_tpu_torch.ops.hopper.conv import (conv2d_bias_relu,  # noqa: F401
-                                           conv2d_bias_relu_fn)
+from cnn_tpu_torch.ops.hopper.conv import (TILES,  # noqa: F401
+                                           conv2d_bias_relu,
+                                           conv2d_bias_relu_fn,
+                                           conv_tile_plan)
 from cnn_tpu_torch.ops.hopper.normalize import uint8_normalize  # noqa: F401
 from cnn_tpu_torch.ops.hopper.pool import (max_pool2d_bwd,  # noqa: F401
                                            max_pool2d_fn, max_pool2d_fwd)
@@ -19,3 +21,4 @@ WRAPPERS = (uint8_normalize, max_pool2d_fwd, max_pool2d_bwd, conv2d_bias_relu,
 def reset_launches() -> None:
     for fn in WRAPPERS:
         fn.launches = 0
+    conv2d_bias_relu.launches_tiled = conv2d_bias_relu.launches_direct = 0

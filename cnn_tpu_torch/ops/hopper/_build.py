@@ -49,6 +49,8 @@ SIGNATURES = {
     "cnn_maxpool2x2_bwd": [P, P, P, I, I, I, I],
     # x, w, b, y, B, H, W, Cin, Cout, k, stride, relu
     "cnn_conv2d_bias_relu": [P, P, P, P, I, I, I, I, I, I, I, I],
+    # the same, then the tile id of ops/hopper/conv.py:TILES
+    "cnn_conv2d_bias_relu_tiled": [P, P, P, P, I, I, I, I, I, I, I, I, I],
     # img, s1, s2, s3, out, B, S, C, L, pad_l, bf16
     "cnn_rotate_shear": [P, P, P, P, P, I, I, I, I, I, I],
 }

@@ -1,19 +1,94 @@
 """VALID conv + bias (+ ReLU), NHWC/HWIO float32: wrapper of ``csrc/conv.cu``.
 
-Replaces ``cnn_tpu/ops/pallas/conv.py:conv2d_bias_relu_pallas``: the kernel
-is its forward (``_forward``); ``conv2d_bias_relu_fn`` is its ``custom_vjp``
+Replaces ``cnn_tpu/ops/pallas/conv.py:conv2d_bias_relu_pallas``: the kernels
+are its forward (``_forward``); ``conv2d_bias_relu_fn`` is its ``custom_vjp``
 as a ``torch.autograd.Function``. ``cnn_tpu`` computes that backward with
 XLA convolutions outside any Pallas kernel (``_vjp_bwd``), so here ATen's
 convolution gradients compute it, in full float32.
+
+Two kernels compute the forward: a tiled implicit GEMM over shared memory
+(``cnn_conv2d_bias_relu_tiled``) for the shapes whose vector loads it can
+make, conv2-4 of the AlexNet, and the direct kernel
+(``cnn_conv2d_bias_relu``) for the rest, conv1 among them. ``conv_tile_plan``
+chooses by shape and alignment alone.
 """
 
 from __future__ import annotations
+
+import functools
+from typing import NamedTuple
 
 import torch
 from torch.nn import grad as nn_grad
 
 from cnn_tpu_torch.ops.conv import conv2d, conv_out_size
 from cnn_tpu_torch.ops.hopper._build import cuda_args, launch
+
+
+class Tile(NamedTuple):
+    """A block tile of the tiled kernel: BM x BN outputs, TM x TN a thread."""
+    bm: int
+    bn: int
+    tm: int
+    tn: int
+
+    @property
+    def threads(self) -> int:
+        return (self.bm // self.tm) * (self.bn // self.tn)
+
+    @property
+    def smem_bytes(self) -> int:
+        """Static shared memory: the stages of A (rows padded) and B slices."""
+        return 4 * TILED_STAGES * (self.bm * TILED_BK_PAD + TILED_BK * self.bn)
+
+
+# tile id -> tile, in the order of csrc/conv.cu's switch on the tile id
+TILES = (Tile(128, 128, 8, 8), Tile(64, 128, 8, 8), Tile(128, 64, 8, 8),
+         Tile(64, 64, 8, 4), Tile(128, 32, 8, 4), Tile(64, 32, 4, 4))
+TILED_BK, TILED_BK_PAD, TILED_STAGES = 8, 12, 3
+STATIC_SMEM_LIMIT = 48 * 1024
+H100_SMS = 132
+
+
+class ConvPlan(NamedTuple):
+    """``variant`` "direct", or "tiled" with its ``tile`` id and grid."""
+    variant: str
+    tile: int | None = None
+    grid: tuple[int, int] | None = None
+
+
+@functools.lru_cache(maxsize=256)   # a pure function, called every launch
+def conv_tile_plan(b: int, h: int, w: int, cin: int, cout: int, k: int,
+                   stride: int, aligned: bool) -> ConvPlan:
+    """The kernel for this shape.
+
+    The tiled kernel needs Cin % 8 == 0 (a K slice of 8 stays inside one
+    tap and loads as 16-byte vectors), Cout % 4 == 0 and x and w 16-byte
+    aligned (``aligned``); anything else takes the direct kernel. Its BN is
+    Cout rounded up to 32, 64 or 128, or half of that; of those tiles, the
+    largest one that still gives two waves of 132 SMs, else the one with
+    the most blocks.
+    """
+    if cin % TILED_BK or cout % 4 or not aligned:
+        return ConvPlan("direct")
+    m = b * conv_out_size(h, k, stride) * conv_out_size(w, k, stride)
+    full = next((n for n in (32, 64, 128) if n >= cout), 128)
+    cands = [i for i, t in enumerate(TILES) if t.bn in (full, full // 2)]
+
+    def grid(i):
+        return (-(-m // TILES[i].bm), -(-cout // TILES[i].bn))
+
+    def blocks(i):
+        gx, gy = grid(i)
+        return gx * gy
+
+    def area(i):
+        return TILES[i].bm * TILES[i].bn
+
+    enough = [i for i in cands if blocks(i) >= 2 * H100_SMS]
+    best = (max(enough, key=area) if enough
+            else max(cands, key=lambda i: (blocks(i), area(i))))
+    return ConvPlan("tiled", best, grid(best))
 
 
 def conv2d_bias_relu(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
@@ -38,14 +113,24 @@ def conv2d_bias_relu(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     out = torch.empty((bsz, conv_out_size(h, k, stride),
                        conv_out_size(wid, k, stride), cout),
                       dtype=torch.float32, device=x.device)
-    launch("cnn_conv2d_bias_relu", x.device, stream, x.data_ptr(),
-           w.data_ptr(), b.data_ptr(), out.data_ptr(), bsz, h, wid, cin, cout,
-           k, stride, int(relu))
+    args = (x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(), bsz, h,
+            wid, cin, cout, k, stride, int(relu))
+    plan = conv_tile_plan(bsz, h, wid, cin, cout, k, stride,
+                          x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0)
+    if plan.variant == "tiled":
+        launch("cnn_conv2d_bias_relu_tiled", x.device, stream, *args,
+               plan.tile)
+        conv2d_bias_relu.launches_tiled += 1
+    else:
+        launch("cnn_conv2d_bias_relu", x.device, stream, *args)
+        conv2d_bias_relu.launches_direct += 1
     conv2d_bias_relu.launches += 1
     return out
 
 
-conv2d_bias_relu.launches = 0
+conv2d_bias_relu.launches = 0          # every launch, either kernel
+conv2d_bias_relu.launches_tiled = 0
+conv2d_bias_relu.launches_direct = 0
 
 
 class Conv2dBiasReluFn(torch.autograd.Function):
