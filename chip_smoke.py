@@ -7,7 +7,7 @@
    TF32 off for every float32 product and convolution;
 2. build: one ``nvcc`` per ``cnn_tpu_torch/csrc/*.cu`` for sm_90a, side by
    side; each kernel's registers, shared memory and spills (the tiled conv
-   must not spill);
+   and the rotation kernels must not spill);
 3. kernels: each CUDA kernel against its plain PyTorch version on the card,
    at the serving path's shapes with batch 64 (normalize and max-pool
    bit-exact, conv within atol 1e-5 + rtol 1e-5), timed with CUDA events
@@ -26,7 +26,11 @@
    bit-exact against its plain version and against autograd through the
    plain forward, on 33% exact ties, its cropped row and column zero; the
    rotation on [256,256,256,3] in float32 (bit-exact) and bf16 (within one
-   bf16 ulp) at 0, +-15, +-44, +-46, +-75 degrees and random angles; the
+   bf16 ulp) at 0, +-15, +-44, +-46, +-75 degrees and random angles, two
+   launches bit-identical, through the tiled kernel (the wrapper), each tile
+   shape of its plan's table and the previous design, then off that shape
+   (B = 1, S = 40 and 100, C = 1, +-100, +-135 and 180 degrees), the tiled
+   kernel timed beside the previous design in turns, and every tile; the
    conv Function's dx/dw/db for the four layers, ReLU on and off, within
    1e-5 * max(1, max|ref|) of autograd through the plain conv; the conv
    forward of each layer within atol 1e-5 + rtol 1e-5, bit-identical from
@@ -78,10 +82,12 @@ from cnn_tpu_torch.ops import augment as aug
 from cnn_tpu_torch.ops.activations import relu as ops_relu
 from cnn_tpu_torch.ops.conv import conv2d, conv_out_size
 from cnn_tpu_torch.ops.hopper import (TILES, _build, conv2d_bias_relu,
-                                      conv2d_bias_relu_fn, max_pool2d_bwd,
-                                      max_pool2d_fn, max_pool2d_fwd,
-                                      conv_tile_plan, reset_launches,
-                                      rotate_shear, uint8_normalize)
+                                      conv2d_bias_relu_fn, launch_rotate,
+                                      max_pool2d_bwd, max_pool2d_fn,
+                                      max_pool2d_fwd, conv_tile_plan,
+                                      reset_launches, rotate_shear,
+                                      rotate_tile_plan, uint8_normalize)
+from cnn_tpu_torch.ops.hopper.augment import TILES as ROTATE_TILES
 from cnn_tpu_torch.ops.losses import softmax_cross_entropy
 from cnn_tpu_torch.ops.pool import max_pool2d, max_pool2d_taps
 from cnn_tpu_torch.ops.pool import max_pool2d_bwd as pool_bwd_plain
@@ -568,6 +574,126 @@ def rotate_ops(b: int, s: int, c: int) -> int:
     return 4 * b * (2 * s * lane + s * s * c)
 
 
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Equal bit for bit, float32 or bf16."""
+    view = torch.int32 if a.dtype == torch.float32 else torch.int16
+    return a.shape == b.shape and a.dtype == b.dtype and bool(
+        torch.equal(a.view(view), b.view(view)))
+
+
+def direct_rotate(imgs, theta):
+    """The previous rotation design through its entry point; no count."""
+    return launch_rotate(imgs, theta, direct=True)
+
+
+def check_rotation(imgs, theta, what, fn=rotate_shear) -> tuple[float, int]:
+    """``fn`` against ``rotate_shear_plain`` on float32 ``imgs`` (bit-exact)
+    and on their bf16 cast (within one bf16 ulp), two launches bit-identical
+    in each; max |dev| in float32 and the bf16 elements 1 ulp off."""
+    y, ref = fn(imgs, theta), aug.rotate_shear_plain(imgs, theta)
+    check(bits_equal(y, ref), f"rotation f32 ({what}): differs from the plain "
+          f"version: max |dev| {(y - ref).abs().max().item():.3g}")
+    check(bits_equal(y, fn(imgs, theta)), f"rotation f32 ({what}): two "
+          "launches differ")
+    hb = imgs.bfloat16()
+    yb, rb = fn(hb, theta), aug.rotate_shear_plain(hb, theta)
+    ulps = (yb.view(torch.int16).int() - rb.view(torch.int16).int()).abs()
+    check(ulps.max().item() <= 1, f"rotation bf16 ({what}): "
+          f"{ulps.max().item()} ulp from the plain version")
+    check(same_bits(yb, fn(hb, theta)), f"rotation bf16 ({what}): two "
+          "launches differ")
+    return (y - ref).abs().max().item(), int((ulps > 0).sum().item())
+
+
+def rotation_checks(gen) -> tuple:
+    """The rotation at the training shape: the tiled kernel (the wrapper)
+    and the previous design against the plain version, the cases off the
+    training shape, both designs timed in this run, every tile of the
+    plan's table timed; the kernel table's row."""
+    dev = torch.device("cuda")
+    # fixed angles around the 45-degree turn of the shears, the rest random
+    # in +-75 degrees
+    fixed = torch.tensor([0, 15, -15, 44, -44, 46, -46, 75, -75],
+                         dtype=torch.float32, device=dev)
+    rand = (torch.rand(TRAIN_B - fixed.numel(), generator=gen, device=dev)
+            * 2 - 1) * 75
+    theta = torch.deg2rad(torch.cat([fixed, rand]))
+    imgs = torch.rand((TRAIN_B, CANVAS, CANVAS, 3), generator=gen, device=dev)
+    err, off = check_rotation(imgs, theta, "training batch")
+    check_rotation(imgs, theta, "training batch, previous design",
+                   direct_rotate)
+    y = rotate_shear(imgs, theta)
+    check(bits_equal(y, direct_rotate(imgs, theta)),
+          "rotation f32: the two designs differ")
+    for tile in range(len(ROTATE_TILES)):
+        check_rotation(imgs[:16], theta[:16], f"tile {ROTATE_TILES[tile]}",
+                       lambda i, t, tile=tile: launch_rotate(i, t, tile))
+
+    # off the training shape: one image, canvases that no tile divides,
+    # one channel, and angles past 90 degrees (the per-element branch)
+    wide = torch.tensor([100, -100, 135, -135, 180], dtype=torch.float32,
+                        device=dev)
+    cases = [("B=1, 75 deg", imgs[7:8], theta[7:8])]
+    for s, c, n in ((40, 3, 24), (100, 3, 24), (CANVAS, 1, 24),
+                    (CANVAS, 3, 0), (100, 1, 0)):
+        deg = torch.cat([fixed, wide, (torch.rand(n, generator=gen, device=dev)
+                                       * 2 - 1) * 75])
+        cases.append((f"S={s}, C={c}, {deg.numel()} angles incl. +-100, "
+                      "+-135, 180 deg",
+                      torch.rand((deg.numel(), s, s, c), generator=gen,
+                                 device=dev), torch.deg2rad(deg)))
+    for what, x, t in cases:
+        check_rotation(x, t, what)
+        for tile in range(len(ROTATE_TILES)):
+            check_rotation(x, t, f"{what}, tile {ROTATE_TILES[tile]}",
+                           lambda i, t_, tile=tile: launch_rotate(i, t_, tile))
+        check_rotation(x, t, f"{what}, previous design", direct_rotate)
+
+    # times: the tiled kernel beside the previous design, in turns
+    hb = imgs.bfloat16()
+    ms = {}
+    for key, x, fn in (("f32", imgs, rotate_shear), ("bf16", hb, rotate_shear),
+                       ("f32 direct", imgs, direct_rotate),
+                       ("bf16 direct", hb, direct_rotate)):
+        ms[key] = [time_ms(lambda: fn(x, theta))]
+    for key, x, fn in (("bf16 direct", hb, direct_rotate),
+                       ("f32 direct", imgs, direct_rotate),
+                       ("bf16", hb, rotate_shear), ("f32", imgs, rotate_shear)):
+        ms[key].append(time_ms(lambda: fn(x, theta)))
+    ms = {k: sum(v) / len(v) for k, v in ms.items()}
+    plain = time_ms(lambda: aug.rotate_shear_plain(imgs, theta), iters=5)
+    plain_b = time_ms(lambda: aug.rotate_shear_plain(hb, theta), iters=5)
+    vecs = aug.shift_vectors(theta, CANVAS, 3)
+    ops = rotate_ops(TRAIN_B, CANVAS, 3)
+    bnd = bound_ms(nbytes(imgs, y, *vecs), ops)
+    bnd_b = bound_ms(2 * nbytes(hb) + nbytes(*vecs), ops)
+    sweep = {}
+    for tile, t in enumerate(ROTATE_TILES):
+        sweep[t] = [time_ms(lambda tile=tile: launch_rotate(x, theta, tile))
+                    for x in (imgs, hb)]
+    plans = ", ".join(
+        f"{name} {p.rows}x{p.pixels} tiles, {p.grid[0]} per image, "
+        f"{p.smem_bytes} B shared memory" for name, p in (
+            ("f32", rotate_tile_plan(CANVAS, 3, torch.float32)),
+            ("bf16", rotate_tile_plan(CANVAS, 3, torch.bfloat16))))
+    phase(f"rotation [{TRAIN_B},{CANVAS},{CANVAS},3], tiled kernel ({plans}"
+          f"): f32 bit-exact, bf16 {off} elements 1 ulp off, two launches "
+          f"bit-identical; previous design the same, and equal to the tiled "
+          f"kernel bit for bit; off the training shape ("
+          + "; ".join(w for w, _, _ in cases) + f") every tile of "
+          f"{len(ROTATE_TILES)} and the previous design bit-exact in f32, "
+          f"within 1 ulp in bf16")
+    phase(f"rotation ms (mean of two turns): f32 {ms['f32']:.4f} (previous "
+          f"design {ms['f32 direct']:.4f}, {ms['f32'] / ms['f32 direct']:.3f} "
+          f"of it) plain={plain:.4f} bound={bnd[0]:.4f}; bf16 "
+          f"{ms['bf16']:.4f} (previous design {ms['bf16 direct']:.4f}, "
+          f"{ms['bf16'] / ms['bf16 direct']:.3f} of it) plain={plain_b:.4f} "
+          f"bound={bnd_b[0]:.4f}; every tile (f32, bf16 ms): "
+          + ", ".join(f"{t.rows}x{t.pixels} {a:.4f} {b:.4f}"
+                      for t, (a, b) in sweep.items()))
+    return err, ms["f32"], plain, None, bnd
+
+
 def train_kernel_phase() -> dict:
     """The two new kernels and the conv Function at the training shapes."""
     dev = torch.device("cuda")
@@ -611,36 +737,7 @@ def train_kernel_phase() -> dict:
           f"cropped row and column zero; ms={out['max_pool2d_bwd'][1:4]} "
           f"bound={out['max_pool2d_bwd'][4][0]:.4f}")
 
-    # rotation: fixed angles around the 45-degree turn of the shears, the
-    # rest random in +-75 degrees
-    fixed = torch.tensor([0, 15, -15, 44, -44, 46, -46, 75, -75],
-                         dtype=torch.float32, device=dev)
-    rand = (torch.rand(TRAIN_B - fixed.numel(), generator=gen, device=dev)
-            * 2 - 1) * 75
-    theta = torch.deg2rad(torch.cat([fixed, rand]))
-    imgs = torch.rand((TRAIN_B, CANVAS, CANVAS, 3), generator=gen, device=dev)
-    y, ref = rotate_shear(imgs, theta), aug.rotate_shear_plain(imgs, theta)
-    check(bits_equal(y, ref), "rotation f32: differs from the plain version: "
-          f"max |dev| {(y - ref).abs().max().item():.3g}")
-    hb = imgs.bfloat16()
-    yb, rb = rotate_shear(hb, theta), aug.rotate_shear_plain(hb, theta)
-    ulps = (yb.view(torch.int16).int() - rb.view(torch.int16).int()).abs()
-    check(ulps.max().item() <= 1, f"rotation bf16: {ulps.max().item()} ulp "
-          "from the plain version")
-    vecs = aug.shift_vectors(theta, CANVAS, 3)
-    bnd = bound_ms(nbytes(imgs, y, *vecs), rotate_ops(TRAIN_B, CANVAS, 3))
-    out["rotate_shear"] = (
-        (y - ref).abs().max().item(),
-        time_ms(lambda: rotate_shear(imgs, theta)),
-        time_ms(lambda: aug.rotate_shear_plain(imgs, theta), iters=5), None,
-        bnd)
-    ms_b = time_ms(lambda: rotate_shear(hb, theta))
-    plain_b = time_ms(lambda: aug.rotate_shear_plain(hb, theta), iters=5)
-    bnd_b = bound_ms(nbytes(hb, yb, *vecs), rotate_ops(TRAIN_B, CANVAS, 3))
-    phase(f"rotation [256,256,256,3] f32 bit-exact, bf16 "
-          f"{int((ulps > 0).sum().item())} elements 1 ulp off; f32 ms="
-          f"{out['rotate_shear'][1:3]} bound={bnd[0]:.4f}; bf16 ms="
-          f"{ms_b:.4f} plain={plain_b:.4f} bound={bnd_b[0]:.4f}")
+    out["rotate_shear"] = rotation_checks(gen)
 
     # the conv Function against autograd through the plain conv, and the
     # training-shape forward: parity, the tiled kernel beside the direct
@@ -1045,7 +1142,9 @@ def ptxas_report(log: str) -> dict:
             while (hit := re.match(r"(\d+)", rest)):
                 n, rest = int(hit.group(1)), rest[len(hit.group(1)):]
                 base, rest = rest[:n], rest[n:]
-            args = "x".join(re.findall(r"L[ib](\d+)E", rest.split("EEv")[0]))
+            targs = rest.split("EEv")[0]
+            args = "x".join(re.findall(r"L[ib](\d+)E", targs)) or {
+                "If": "f32", "I13__nv_bfloat16": "bf16"}.get(targs, "")
             name = base.replace("_kernel", "") + (f"<{args}>" if args else "")
         elif name and "spill stores" in ln:
             spills = ("" if ln.strip().startswith("0 bytes stack frame, 0 "
@@ -1076,8 +1175,8 @@ def main() -> int:
     _build.load()
     report = ptxas_report(_build.build_log)
     for name, (regs, spills) in report.items():
-        check(not (name.startswith("conv2d_tiled") and spills),
-              f"{name} spills: {spills}")
+        check(not (name.startswith(("conv2d_tiled", "rotate_shear"))
+                   and spills), f"{name} spills: {spills}")
     phase(f"build: {_build.library_path()} "
           + (f"built in {_build.build_seconds:.1f}s; " + " | ".join(
               f"{name}: {regs}, {spills or 'no spills'}"

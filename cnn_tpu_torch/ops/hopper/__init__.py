@@ -5,7 +5,9 @@ its kernel for a CUDA tensor, or raises; it counts its launches in
 ``<wrapper>.launches``.
 """
 
-from cnn_tpu_torch.ops.hopper.augment import rotate_shear  # noqa: F401
+from cnn_tpu_torch.ops.hopper.augment import (launch_rotate,  # noqa: F401
+                                              rotate_shear,
+                                              rotate_tile_plan)
 from cnn_tpu_torch.ops.hopper.conv import (TILES,  # noqa: F401
                                            conv2d_bias_relu,
                                            conv2d_bias_relu_fn,

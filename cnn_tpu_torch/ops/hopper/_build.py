@@ -51,8 +51,11 @@ SIGNATURES = {
     "cnn_conv2d_bias_relu": [P, P, P, P, I, I, I, I, I, I, I, I],
     # the same, then the tile id of ops/hopper/conv.py:TILES
     "cnn_conv2d_bias_relu_tiled": [P, P, P, P, I, I, I, I, I, I, I, I, I],
-    # img, s1, s2, s3, out, B, S, C, L, pad_l, bf16
-    "cnn_rotate_shear": [P, P, P, P, P, I, I, I, I, I, I],
+    # img, s1, s2, s3, out, B, S, C, L, pad_l, bf16, then the tile plan of
+    # ops/hopper/augment.py: rows, pixels, lanes_max, table_max, smem_bytes
+    "cnn_rotate_shear": [P, P, P, P, P, I, I, I, I, I, I, I, I, I, I, I],
+    # img, s1, s2, s3, out, B, S, C, L, pad_l, bf16: the previous design
+    "cnn_rotate_shear_direct": [P, P, P, P, P, I, I, I, I, I, I],
 }
 
 _lock = threading.Lock()

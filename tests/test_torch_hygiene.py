@@ -40,7 +40,7 @@ import cnn_tpu_torch, cnn_tpu_torch.serving, cnn_tpu_torch.models
 import cnn_tpu_torch.utils.checkpoint, cnn_tpu_torch.ops.hopper
 import cnn_tpu_torch.data, cnn_tpu_torch.parallel, cnn_tpu_torch.optim
 import cnn_tpu_torch.ops.augment, cnn_tpu_torch.ops.losses
-import cnn_tpu_torch.ops.hopper.augment
+import cnn_tpu_torch.ops.hopper.augment, cnn_tpu_torch.tools.rotate_phases
 import chip_smoke
 leaked = sorted(n for n in sys.modules if n.split(".")[0] in BLOCKED)
 assert not leaked, leaked
