@@ -6,15 +6,20 @@
 1. environment: the card's name and power limit, torch and CUDA versions;
    TF32 off for every float32 product and convolution;
 2. build: one ``nvcc`` per ``cnn_tpu_torch/csrc/*.cu`` for sm_90a, side by
-   side; each kernel's registers, shared memory and spills (the tiled conv
-   and the rotation kernels must not spill);
+   side; each kernel's registers, shared memory and spills (the strip and
+   tiled conv, the window pool backward and the rotation kernels must not
+   spill);
 3. kernels: each CUDA kernel against its plain PyTorch version on the card,
    at the serving path's shapes with batch 64 (normalize and max-pool
    bit-exact, conv within atol 1e-5 + rtol 1e-5), timed with CUDA events
-   beside the plain version, one PyTorch library call and the bound; for
-   conv2-4 the tiled conv kernel beside the direct one on the same shape,
-   and two launches bit-identical; then the branches those shapes do not
-   take (the direct conv with Cout 7 or with weights off 16-byte alignment,
+   beside the plain version, one PyTorch library call and the bound; conv1
+   through the strip kernel and conv2-4 through the tiled one, each equal
+   bit for bit to the direct kernel on the same shape and timed beside it
+   in turns, every strip R and every tile swept, two launches
+   bit-identical; then the branches those shapes do not take (the strip
+   conv at B = 1, Cin 1 and 4, Cout 8 and 32, stride 1, k = 5 and a row
+   past 128 pixels, through every R; the direct conv with Cout 7, weights
+   off 16-byte alignment, x off 16-byte alignment and a row of 669 floats;
    the tiled conv with an M tail, stride 1, k = 5 and Cin 8 / Cout 12,
    normalize of an odd length or a misaligned input);
 4. serving: the full-width 224 px BatchNorm AlexNet from the committed
@@ -23,8 +28,11 @@
    dictates, and the results must match the same engine run on the plain
    versions on the card and on the CPU;
 5. training kernels, at the training shapes (batch 256): the pool backward
-   bit-exact against its plain version and against autograd through the
-   plain forward, on 33% exact ties, its cropped row and column zero; the
+   through the window kernel bit-exact against its plain version and
+   against autograd through the plain forward, on 33% exact ties, its
+   cropped row and column zero, and against the element kernel (the
+   previous design); a 7 x 9 extent with C 8 through the window kernel and
+   C 6 through the element kernel; the two timed in turns; the
    rotation on [256,256,256,3] in float32 (bit-exact) and bf16 (within one
    bf16 ulp) at 0, +-15, +-44, +-46, +-75 degrees and random angles, two
    launches bit-identical, through the tiled kernel (the wrapper), each tile
@@ -34,9 +42,10 @@
    conv Function's dx/dw/db for the four layers, ReLU on and off, within
    1e-5 * max(1, max|ref|) of autograd through the plain conv; the conv
    forward of each layer within atol 1e-5 + rtol 1e-5, bit-identical from
-   launch to launch, timed beside the direct kernel, cuDNN, the plain
-   version and its bound; each timed beside its plain version, a library
-   call and its bound;
+   launch to launch and to the direct kernel, timed beside the direct
+   kernel, cuDNN, the plain version and its bound, with every strip R
+   (conv1) or tile (conv2-4); each timed beside its plain version, a
+   library call and its bound;
 6. gradients at full width against the reference C++: one step at lr 1 on
    ``tests/fixtures/grad_parity_bn.npz`` through the normalize, conv and
    pool kernels; logits 1e-4, loss 1e-5, every gradient tensor
@@ -46,7 +55,9 @@
    momentum SGD on a cosine schedule, 40 steps: one step with the kernels
    against the same step on the plain versions (same weights, batch and
    drawn augmentation), finite and falling loss, the exact launch counts
-   (conv2-4 through the tiled conv kernel, conv1 through the direct one),
+   (conv1 through the strip conv kernel, conv2-4 through the tiled one,
+   none through the direct one; the pool backward through the window
+   kernel),
    img/s, the device time per step split by stage, and the eval accuracy on
    held-out images.
 
@@ -81,12 +92,14 @@ from cnn_tpu_torch.nn import Conv2D, ReLU
 from cnn_tpu_torch.ops import augment as aug
 from cnn_tpu_torch.ops.activations import relu as ops_relu
 from cnn_tpu_torch.ops.conv import conv2d, conv_out_size
-from cnn_tpu_torch.ops.hopper import (TILES, _build, conv2d_bias_relu,
-                                      conv2d_bias_relu_fn, launch_rotate,
-                                      max_pool2d_bwd, max_pool2d_fn,
-                                      max_pool2d_fwd, conv_tile_plan,
-                                      reset_launches, rotate_shear,
-                                      rotate_tile_plan, uint8_normalize)
+from cnn_tpu_torch.ops.hopper import (STRIP_ROWS, TILES, _build,
+                                      conv2d_bias_relu, conv2d_bias_relu_fn,
+                                      conv_tile_plan, launch_pool_bwd,
+                                      launch_rotate, max_pool2d_bwd,
+                                      max_pool2d_fn, max_pool2d_fwd,
+                                      pool_bwd_variant, reset_launches,
+                                      rotate_shear, rotate_tile_plan,
+                                      uint8_normalize)
 from cnn_tpu_torch.ops.hopper.augment import TILES as ROTATE_TILES
 from cnn_tpu_torch.ops.losses import softmax_cross_entropy
 from cnn_tpu_torch.ops.pool import max_pool2d, max_pool2d_taps
@@ -214,10 +227,11 @@ def plain_versions():
     return stack
 
 
-def conv_entry(x, w, b, stride, relu, tile=None) -> torch.Tensor:
-    """The direct conv kernel (``tile`` None) or the tiled one with tile id
-    ``tile``, called through its C entry point: no plan and no count, for
-    comparisons beside the wrapper."""
+def conv_entry(x, w, b, stride, relu, tile=None, strip=None) -> torch.Tensor:
+    """The direct conv kernel (``tile`` and ``strip`` None), the tiled one
+    with tile id ``tile`` or the strip one with strip id ``strip``, called
+    through its C entry point: no plan and no count, for comparisons beside
+    the wrapper."""
     bsz, h, wid, cin = x.shape
     k, cout = w.shape[0], w.shape[-1]
     out = torch.empty((bsz, conv_out_size(h, k, stride),
@@ -225,11 +239,14 @@ def conv_entry(x, w, b, stride, relu, tile=None) -> torch.Tensor:
     args = (x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(), bsz, h,
             wid, cin, cout, k, stride, int(relu))
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    if tile is None:
-        _build.launch("cnn_conv2d_bias_relu", x.device, stream, *args)
-    else:
+    if strip is not None:
+        _build.launch("cnn_conv2d_bias_relu_strip", x.device, stream, *args,
+                      strip)
+    elif tile is not None:
         _build.launch("cnn_conv2d_bias_relu_tiled", x.device, stream, *args,
                       tile)
+    else:
+        _build.launch("cnn_conv2d_bias_relu", x.device, stream, *args)
     return out
 
 
@@ -242,6 +259,8 @@ def plan_of(x, w, stride):
 def plan_name(plan) -> str:
     if plan.variant == "direct":
         return "direct"
+    if plan.variant == "strip":
+        return f"strip R={plan.rows} (grid {plan.grid})"
     t = TILES[plan.tile]
     return f"tiled {t.bm}x{t.bn} ({t.tm}x{t.tn}/thread, grid {plan.grid})"
 
@@ -253,6 +272,29 @@ def tile_sweep(x, w, b, stride) -> str:
           for i in range(len(TILES))}
     return ", ".join(f"{t.bm}x{t.bn}/{t.tm}x{t.tn} {ms[i]:.4f}"
                      for i, t in enumerate(TILES))
+
+
+def strip_sweep(x, w, b, stride) -> str:
+    """ms of every strip R, ReLU off, through the entry point."""
+    ms = [time_ms(lambda i=i: conv_entry(x, w, b, stride, False, strip=i))
+          for i in range(len(STRIP_ROWS))]
+    return ", ".join(f"R={r} {t:.4f}" for r, t in zip(STRIP_ROWS, ms))
+
+
+def in_turns(fa, fb, iters: int = 20) -> tuple[float, float]:
+    """Mean ms of ``fa`` and ``fb`` timed a, b, b, a."""
+    a1, b1 = time_ms(fa, iters), time_ms(fb, iters)
+    b2, a2 = time_ms(fb, iters), time_ms(fa, iters)
+    return (a1 + a2) / 2, (b1 + b2) / 2
+
+
+def check_same_as_direct(x, w, b, stride, what) -> None:
+    """The wrapper's kernel equal bit for bit to the direct kernel, ReLU off
+    and on: the three conv kernels sum in one order."""
+    for relu in (False, True):
+        check(bits_equal(conv2d_bias_relu(x, w, b, stride, relu),
+                         conv_entry(x, w, b, stride, relu)),
+              f"{what} relu={relu}: differs from the direct kernel")
 
 
 def check_conv(x, w, b, stride, what, conv=conv2d_bias_relu) -> float:
@@ -333,16 +375,16 @@ def kernel_phase(model) -> dict:
         else:
             x = torch.relu(torch.randn((B, h, h, cin), generator=gen, device=dev))
         plan = plan_of(x, w, 2)
-        check((plan.variant == "tiled") == (i > 1),
+        check(plan.variant == ("strip" if i == 1 else "tiled"),
               f"conv_layer_{i}: planned {plan}")
         err = check_conv(x, w, b, 2, f"conv_layer_{i}")
         worst = max(worst, err)
         y = conv2d_bias_relu(x, w, b, 2, False)
         ho = conv_out_size(h, 3, 2)
         w_oihw = w.permute(3, 2, 0, 1).contiguous()
-        ms = time_ms(lambda: conv2d_bias_relu(x, w, b, 2, False))
+        ms, direct = in_turns(lambda: conv2d_bias_relu(x, w, b, 2, False),
+                              lambda: conv_entry(x, w, b, 2, False))
         ms_relu = time_ms(lambda: conv2d_bias_relu(x, w, b, 2, True))
-        direct = time_ms(lambda: conv_entry(x, w, b, 2, False))
         plain = time_ms(lambda: conv2d(x, w, b, 2, False))
         lib = time_ms(lambda: F.conv2d(x.permute(0, 3, 1, 2), w_oihw, b, 2))
         m = B * ho * ho
@@ -352,16 +394,20 @@ def kernel_phase(model) -> dict:
         for j, v in enumerate((ms, plain, lib, bnd[0], ms_relu)):
             sums[j] += v
         by[bnd[1]] += bnd[0]
-        same = ""
         if i > 1:
             for j, v in enumerate((ms, direct, lib)):
                 tiled[j] += v
-            same = (f"; bits equal to the direct kernel's: "
+            same = (f"bits equal to the direct kernel's: "
                     f"{bits_equal(y, conv_entry(x, w, b, 2, False))}; every "
                     f"tile (ms): {tile_sweep(x, w, b, 2)}")
+        else:
+            check_same_as_direct(x, w, b, 2, f"conv_layer_{i}")
+            strip = (ms, direct, lib, bnd[0])
+            same = (f"equal to the direct kernel bit for bit; every R (ms): "
+                    f"{strip_sweep(x, w, b, 2)}")
         phase(f"conv_layer_{i} [{B},{h},{h},{cin}]->[{B},{ho},{ho},"
               f"{layer.out_channels}] {plan_name(plan)}: max|dev| {err:.3g}, "
-              f"two launches bit-identical{same}; ms={ms:.4f} "
+              f"two launches bit-identical, {same}; ms={ms:.4f} "
               f"(relu {ms_relu:.4f}) direct={direct:.4f} plain={plain:.4f} "
               f"library={lib:.4f} bound={bnd[0]:.4f} ({bnd[1]})")
         h = ho if i > 1 else conv_out_size(ho, 2, 2)
@@ -370,18 +416,24 @@ def kernel_phase(model) -> dict:
     phase(f"conv, 4 layers per batch: ms={sums[0]:.4f} (relu {sums[4]:.4f}) "
           f"plain={sums[1]:.4f} library={sums[2]:.4f} bound={sums[3]:.4f} "
           f"(bytes {by['bytes']:.4f} + operations {by['operations']:.4f}); "
-          f"conv2-4 tiled {tiled[0]:.4f}, direct {tiled[1]:.4f}, cuDNN "
-          f"{tiled[2]:.4f}")
+          f"conv1 strip {strip[0]:.4f}, direct {strip[1]:.4f}, cuDNN "
+          f"{strip[2]:.4f}, bound {strip[3]:.4f}; conv2-4 tiled "
+          f"{tiled[0]:.4f}, direct {tiled[1]:.4f}, cuDNN {tiled[2]:.4f}")
     return out
 
 
 def off_path_phase() -> None:
     """The kernels' branches that the serving shapes do not take, against
-    the plain versions: the direct conv's scalar path (Cout not a multiple
-    of 4, or weights not 16-byte aligned), the tiled conv at an M tail,
-    stride 1, k = 5 and the smallest channels it takes (Cin 8, Cout 12, an
-    N tail), and normalize's scalar path (input not 4-byte aligned) and its
-    tail (a length that is no multiple of 4)."""
+    the plain versions: the strip conv at B = 1, Cin 1 and 4, Cout 8 and 32
+    (a partial and a second pass of 16 channels), stride 1, k = 5 and a row
+    of more than 128 pixels, through the plan's R and every R; the direct
+    conv on the shapes the plan keeps from the strip kernel (a row of W*Cin
+    floats that is no multiple of 4, x off 16-byte alignment) and its scalar
+    path (Cout not a multiple of 4, or weights not 16-byte aligned), the
+    tiled conv at an M tail, stride 1, k = 5 and the smallest channels it
+    takes (Cin 8, Cout 12, an N tail), and normalize's scalar path (input
+    not 4-byte aligned) and its tail (a length that is no multiple of
+    4)."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(1)
     cases = []
@@ -395,6 +447,40 @@ def off_path_phase() -> None:
     check(w.is_contiguous() and w.data_ptr() % 16 != 0, "misaligned weights")
     b = torch.randn((64,), generator=gen, device=dev)
     cases.append(("weights off 16-byte alignment", x, w, b, 2))
+    strip_cases = [   # (what, B, H, W, Cin, Cout, k, stride)
+        ("B 1, conv1", 1, 224, 224, 3, 16, 3, 2),
+        ("Cin 1", 2, 40, 44, 1, 16, 3, 2),
+        ("Cin 4", 2, 27, 28, 4, 16, 3, 2),
+        ("Cout 8", 2, 36, 36, 3, 8, 3, 2),
+        ("Cout 32", 2, 36, 36, 3, 32, 3, 2),
+        ("stride 1", 2, 20, 24, 3, 16, 3, 1),
+        ("k 5", 2, 33, 36, 2, 12, 5, 2),
+        ("a row of 298 pixels", 1, 9, 300, 1, 8, 3, 1),
+    ]
+    strip_worst, strip_seen = 0.0, []
+    for what, bsz, h, wid, cin, cout, k, stride in strip_cases:
+        x = torch.rand((bsz, h, wid, cin), generator=gen, device=dev)
+        w = torch.randn((k, k, cin, cout), generator=gen, device=dev) * 0.3
+        b = torch.randn((cout,), generator=gen, device=dev) * 0.1
+        plan = plan_of(x, w, stride)
+        check(plan.variant == "strip", f"strip conv ({what}): planned {plan}")
+        strip_seen.append(plan.rows)
+        strip_worst = max(strip_worst,
+                          check_conv(x, w, b, stride, f"strip conv ({what})"))
+        check_same_as_direct(x, w, b, stride, f"strip conv ({what})")
+        for i, r in enumerate(STRIP_ROWS):
+            strip_worst = max(strip_worst, check_conv(
+                x, w, b, stride, f"strip conv ({what}) R={r}",
+                lambda *a, i=i: conv_entry(*a, strip=i)))
+    w1 = torch.randn((3, 3, 3, 16), generator=gen, device=dev) * 0.3
+    b1 = torch.randn((16,), generator=gen, device=dev) * 0.1
+    cases.append(("conv1, a row of 669 floats",
+                  torch.rand((2, 223, 223, 3), generator=gen, device=dev),
+                  w1, b1, 2))
+    buf = torch.rand((2 * 224 * 224 * 3 + 1,), generator=gen, device=dev)
+    x = buf[1:].view(2, 224, 224, 3)   # contiguous, 4 bytes past alignment
+    check(x.is_contiguous() and x.data_ptr() % 16 != 0, "misaligned x")
+    cases.append(("conv1, x off 16-byte alignment", x, w1, b1, 2))
     worst = 0.0
     for what, x, w, b, stride in cases:
         check(plan_of(x, w, stride).variant == "direct",
@@ -435,8 +521,13 @@ def off_path_phase() -> None:
                                               buf[1:])):
         check(bits_equal(uint8_normalize(x), uint8_to_float(x)),
               f"normalize ({what}): differs from the plain version")
-    phase(f"off the serving shapes: conv scalar path (Cout 7 at stride 1; "
-          f"misaligned weights) max|dev| {worst:.3g}; tiled conv (M tail, "
+    phase(f"off the serving shapes: strip conv ("
+          + "; ".join(c[0] for c in strip_cases) + f"; planned R {strip_seen}"
+          f", then all {len(STRIP_ROWS)}) max|dev| {strip_worst:.3g}, "
+          f"launches bit-identical and equal to the direct kernel; direct "
+          f"conv (Cout 7 at stride 1; misaligned weights; conv1 with a row "
+          f"of 669 floats; conv1 with x misaligned) max|dev| {worst:.3g}; "
+          f"tiled conv (M tail, "
           f"stride 1, k 5, Cin 8 / Cout 12; planned tiles {seen}, then "
           f"all {len(TILES)}) max|dev| "
           f"{tiled_worst:.3g}, launches bit-identical; normalize odd length "
@@ -456,11 +547,12 @@ def serving_phase(model) -> dict:
     results = {n: engine.predict(imgs[n]) for n in sizes}
     torch.cuda.synchronize()
     counts = [uint8_normalize.launches, max_pool2d_fwd.launches,
-              conv2d_bias_relu.launches, conv2d_bias_relu.launches_tiled,
+              conv2d_bias_relu.launches, conv2d_bias_relu.launches_strip,
+              conv2d_bias_relu.launches_tiled,
               conv2d_bias_relu.launches_direct]
-    want = [calls, calls, 4 * calls, 3 * calls, calls]
+    want = [calls, calls, 4 * calls, calls, 3 * calls, 0]
     check(counts == want, f"predict launches {counts} (normalize, pool, "
-          f"conv, conv tiled, conv direct), expected {want}")
+          f"conv, conv strip, conv tiled, conv direct), expected {want}")
     for n, (labels, probs) in results.items():
         check(labels.shape == (n,) and probs.shape == (n, 3), f"shape at {n}")
         check(bool(np.isfinite(probs).all()), f"non-finite probs at {n}")
@@ -475,12 +567,13 @@ def serving_phase(model) -> dict:
                 "max_pool2d_fwd": max_pool2d_fwd.launches,
                 "conv2d_bias_relu": conv2d_bias_relu.launches}
     served = launches["uint8_normalize"] - calls
-    variants = (conv2d_bias_relu.launches_tiled,
+    variants = (conv2d_bias_relu.launches_strip,
+                conv2d_bias_relu.launches_tiled,
                 conv2d_bias_relu.launches_direct)
     check(served >= 2 and launches["max_pool2d_fwd"] == calls + served
           and launches["conv2d_bias_relu"] == 4 * (calls + served)
-          and variants == (3 * (calls + served), calls + served),
-          f"server launches {launches}, conv tiled/direct {variants}")
+          and variants == (calls + served, 3 * (calls + served), 0),
+          f"server launches {launches}, conv strip/tiled/direct {variants}")
     labels64, probs64 = results[64]
     for i, (label, probs) in enumerate(answers):
         check(label == labels64[i], f"server label {i}")
@@ -488,8 +581,8 @@ def serving_phase(model) -> dict:
               f"server probs {i}")
     phase(f"served {sum(sizes)} images in {calls} bucket calls and 16 "
           f"concurrent submits in {served} calls (incl. warmup); "
-          f"launches {launches}; conv tiled {variants[0]}, direct "
-          f"{variants[1]}")
+          f"launches {launches}; conv strip {variants[0]}, tiled "
+          f"{variants[1]}, direct {variants[2]}")
 
     # the same engine on the plain versions, on the card: no kernel may run
     x = torch.from_numpy(imgs[64]).cuda()
@@ -714,6 +807,8 @@ def train_kernel_phase() -> dict:
     phase(f"pool forward with tap [256,111,111,16] (training): ms={fwd[:3]} "
           f"bound={fwd[3][0]:.4f}")
     g = torch.randn((TRAIN_B, 55, 55, 16), generator=gen, device=dev)
+    check(pool_bwd_variant(TRAIN_B, 55, 55, 16, True) == "window",
+          "pool backward: not planned on the window kernel")
     dx, ref = max_pool2d_bwd(tap, g, 111, 111), pool_bwd_plain(tap, g, 111, 111)
     check(bits_equal(dx, ref), "pool backward: differs from the plain version")
     check(not dx[:, 110].any().item() and not dx[:, :, 110].any().item(),
@@ -722,20 +817,49 @@ def train_kernel_phase() -> dict:
     (auto,) = torch.autograd.grad(max_pool2d(xa), xa, g)
     check(bits_equal(dx, auto),
           "pool backward: differs from autograd through the plain forward")
+    check(bits_equal(dx, launch_pool_bwd(tap, g, 111, 111, "element")),
+          "pool backward: the window and element kernels differ")
     ties = (x[:, :110:2, :110:2] == x[:, :110:2, 1:110:2]).float().mean().item()
+    # off the training shape: an odd small extent through the window
+    # kernel, and C 6 through the element kernel, both against the plain
+    # version and autograd, cropped rows and columns zero
+    for (bsz, h, w_, c), variant in (((3, 7, 9, 8), "window"),
+                                     ((3, 7, 9, 6), "element")):
+        xs = torch.relu(torch.round(torch.randn(
+            (bsz, h, w_, c), generator=gen, device=dev) * 4) / 4)
+        _, ts = max_pool2d_fwd(xs, with_tap=True)
+        gs = torch.randn((bsz, h // 2, w_ // 2, c), generator=gen, device=dev)
+        check(pool_bwd_variant(bsz, h // 2, w_ // 2, c, True) == variant,
+              f"pool backward {h}x{w_}x{c}: not planned on the {variant} "
+              "kernel")
+        before = getattr(max_pool2d_bwd, f"launches_{variant}")
+        got = max_pool2d_bwd(ts, gs, h, w_)
+        check(getattr(max_pool2d_bwd, f"launches_{variant}") == before + 1,
+              f"pool backward {h}x{w_}x{c}: the {variant} kernel did not run")
+        xa = xs.clone().requires_grad_(True)
+        (auto,) = torch.autograd.grad(max_pool2d(xa), xa, gs)
+        check(bits_equal(got, pool_bwd_plain(ts, gs, h, w_))
+              and bits_equal(got, auto)
+              and not got[:, h - 1].any().item()
+              and not got[:, :, w_ - 1].any().item(),
+              f"pool backward {h}x{w_}x{c} ({variant} kernel): differs")
     xn, gn = x.permute(0, 3, 1, 2), g.permute(0, 3, 1, 2)
     _, ind = F.max_pool2d(xn, 2, 2, return_indices=True)
     lib = time_ms(lambda: torch.ops.aten.max_pool2d_with_indices_backward(
         gn, xn, [2, 2], [2, 2], [0, 0], [1, 1], False, ind))
+    ms, prev = in_turns(lambda: max_pool2d_bwd(tap, g, 111, 111),
+                        lambda: launch_pool_bwd(tap, g, 111, 111, "element"))
     out["max_pool2d_bwd"] = (
-        (dx - ref).abs().max().item(),
-        time_ms(lambda: max_pool2d_bwd(tap, g, 111, 111)),
+        (dx - ref).abs().max().item(), ms,
         time_ms(lambda: pool_bwd_plain(tap, g, 111, 111)), lib,
         bound_ms(nbytes(tap, g, dx), 0))
     phase(f"pool backward [256,55,55,16]->[256,111,111,16] (tie share "
-          f"{ties:.3f}): bit-exact against the plain version and autograd, "
-          f"cropped row and column zero; ms={out['max_pool2d_bwd'][1:4]} "
-          f"bound={out['max_pool2d_bwd'][4][0]:.4f}")
+          f"{ties:.3f}), window kernel: bit-exact against the plain version, "
+          f"autograd and the element kernel, cropped row and column zero; "
+          f"7x9x8 (window) and 7x9x6 (element) bit-exact; ms (window, plain, "
+          f"ATen)={out['max_pool2d_bwd'][1:4]}, element kernel {prev:.4f} "
+          f"({ms / prev:.3f} of it), bound="
+          f"{out['max_pool2d_bwd'][4][0]:.4f}")
 
     out["rotate_shear"] = rotation_checks(gen)
 
@@ -790,11 +914,13 @@ def train_kernel_phase() -> dict:
                                 g.permute(0, 3, 1, 2))
 
         plan = plan_of(x, w, 2)
-        check((plan.variant == "tiled") == (i > 1),
+        check(plan.variant == ("strip" if i == 1 else "tiled"),
               f"conv_layer_{i} at batch {TRAIN_B}: planned {plan}")
         fwd_err = check_conv(x, w, b, 2, f"conv_layer_{i} at batch {TRAIN_B}")
-        fwd = time_ms(lambda: conv2d_bias_relu(x, w, b, 2, False))
-        fwd_direct = time_ms(lambda: conv_entry(x, w, b, 2, False))
+        check_same_as_direct(x, w, b, 2, f"conv_layer_{i} at batch {TRAIN_B}")
+        fwd, fwd_direct = in_turns(
+            lambda: conv2d_bias_relu(x, w, b, 2, False),
+            lambda: conv_entry(x, w, b, 2, False))
         fwd_lib = time_ms(lambda: F.conv2d(x.permute(0, 3, 1, 2),
                                            w.permute(3, 2, 0, 1), b, 2))
         fwd_plain = time_ms(lambda: conv2d(x, w, b, 2, False), iters=5)
@@ -802,26 +928,32 @@ def train_kernel_phase() -> dict:
         r = read_extent(h, 3, 2)
         fwd_bnd = bound_ms(4 * TRAIN_B * r * r * cin + nbytes(w, b) + 4 * m * cout,
                            2 * m * cout * 9 * cin + m * cout)
-        sweep = ""
         if i > 1:
             for j, v in enumerate((fwd, fwd_direct, fwd_lib, fwd_bnd[0])):
                 tiled[j] += v
             sweep = f"; every tile (ms): {tile_sweep(x, w, b, 2)}"
+        else:
+            sweep = f"; every R (ms): {strip_sweep(x, w, b, 2)}"
+            conv1 = (fwd, fwd_direct, fwd_lib, fwd_bnd[0])
         phase(f"conv_layer_{i} [{TRAIN_B},{h},{h},{cin}]->[{TRAIN_B},{ho},"
               f"{ho},{cout}]: Function dx/dw/db max |dev| {worst:.3g} x "
               f"max(1,|ref|) ({flips} ReLU mask elements differ between the "
               f"kernel's and the plain sums); forward {plan_name(plan)} "
-              f"max|dev| {fwd_err:.3g}, two launches bit-identical, "
-              f"{fwd:.4f} ms, direct kernel {fwd_direct:.4f}, cuDNN "
+              f"max|dev| {fwd_err:.3g}, two launches bit-identical and equal "
+              f"to the direct kernel, {fwd:.4f} ms, direct kernel "
+              f"{fwd_direct:.4f} ({fwd / fwd_direct:.3f} of it), cuDNN "
               f"{fwd_lib:.4f}, plain {fwd_plain:.4f}, bound {fwd_bnd[0]:.4f} "
               f"({fwd_bnd[1]}){sweep}; forward+backward: "
               f"Function {time_ms(train_fn, iters=10):.4f} plain "
               f"{time_ms(train_plain, iters=5):.4f} cuDNN "
               f"{time_ms(train_lib, iters=10):.4f} ms")
         h = ho if i > 1 else conv_out_size(ho, 2, 2)
-    phase(f"conv2-4 forward at batch {TRAIN_B}: tiled {tiled[0]:.4f} ms, "
-          f"direct {tiled[1]:.4f} ({tiled[0] / tiled[1]:.3f} of it), cuDNN "
-          f"{tiled[2]:.4f}, bound {tiled[3]:.4f}")
+    phase(f"conv1 forward at batch {TRAIN_B}: strip {conv1[0]:.4f} ms, "
+          f"direct {conv1[1]:.4f} ({conv1[0] / conv1[1]:.3f} of it), cuDNN "
+          f"{conv1[2]:.4f}, bound {conv1[3]:.4f} ({conv1[3] / conv1[0]:.3f} "
+          f"of the strip kernel's time); conv2-4 forward: tiled "
+          f"{tiled[0]:.4f} ms, direct {tiled[1]:.4f} ({tiled[0] / tiled[1]:.3f}"
+          f" of it), cuDNN {tiled[2]:.4f}, bound {tiled[3]:.4f}")
     return out
 
 
@@ -1065,17 +1197,23 @@ def training_phase() -> dict:
         correct += eval_step(held[i:i + TRAIN_B],
                              held_labels[i:i + TRAIN_B])["correct"].item()
     counts = launch_counts()
-    variants = (conv2d_bias_relu.launches_tiled,
+    variants = (conv2d_bias_relu.launches_strip,
+                conv2d_bias_relu.launches_tiled,
                 conv2d_bias_relu.launches_direct)
+    pool_variants = (max_pool2d_bwd.launches_window,
+                     max_pool2d_bwd.launches_element)
     n_eval = -(-held.shape[0] // TRAIN_B)
     want = {"uint8_normalize": n_eval, "max_pool2d_fwd": TRAIN_STEPS + n_eval,
             "max_pool2d_bwd": TRAIN_STEPS,
             "conv2d_bias_relu": 4 * (TRAIN_STEPS + n_eval),
             "rotate_shear": TRAIN_STEPS}
     check(counts == want, f"training launches {counts}, expected {want}")
-    want_variants = (3 * (TRAIN_STEPS + n_eval), TRAIN_STEPS + n_eval)
-    check(variants == want_variants, f"training conv launches tiled/direct "
-          f"{variants}, expected {want_variants}")
+    want_variants = (TRAIN_STEPS + n_eval, 3 * (TRAIN_STEPS + n_eval), 0)
+    check(variants == want_variants, f"training conv launches strip/tiled/"
+          f"direct {variants}, expected {want_variants}")
+    check(pool_variants == (TRAIN_STEPS, 0), f"training pool backward "
+          f"launches window/element {pool_variants}, expected "
+          f"{(TRAIN_STEPS, 0)}")
     losses = torch.stack(losses).cpu()
     check(bool(torch.isfinite(losses).all()), f"non-finite loss: {losses}")
     first, last = losses[:5].mean().item(), losses[-5:].mean().item()
@@ -1087,7 +1225,9 @@ def training_phase() -> dict:
           f"{TRAIN_STEPS * TRAIN_B / wall:.1f} img/s end to end "
           f"({1e3 * wall / TRAIN_STEPS:.2f} ms per step); eval accuracy "
           f"{acc:.4f} on {held.shape[0]} held-out images; launches {counts}; "
-          f"conv tiled {variants[0]}, direct {variants[1]}")
+          f"conv strip {variants[0]}, tiled {variants[1]}, direct "
+          f"{variants[2]}; pool backward window {pool_variants[0]}, element "
+          f"{pool_variants[1]}")
     split = step_split(ts, ds, opt)
     phase("device ms per step (mean of 5): " + ", ".join(
         f"{k} {v:.4f}" for k, v in split.items())
@@ -1174,8 +1314,14 @@ def main() -> int:
 
     _build.load()
     report = ptxas_report(_build.build_log)
+    if _build.build_seconds is not None:
+        new = [f"conv2d_strip<{r}>" for r in STRIP_ROWS] + [
+            "maxpool2x2_bwd_window"]
+        check(all(n in report for n in new), f"ptxas reported no {new}: "
+              f"{sorted(report)}")
     for name, (regs, spills) in report.items():
-        check(not (name.startswith(("conv2d_tiled", "rotate_shear"))
+        check(not (name.startswith(("conv2d_tiled", "conv2d_strip",
+                                     "maxpool2x2_bwd_window", "rotate_shear"))
                    and spills), f"{name} spills: {spills}")
     phase(f"build: {_build.library_path()} "
           + (f"built in {_build.build_seconds:.1f}s; " + " | ".join(

@@ -1,24 +1,58 @@
 // VALID k x k convolution + bias (+ ReLU), NHWC / HWIO, float32, for Hopper:
-// two kernels, chosen by shape in ops/hopper/conv.py:conv_tile_plan.
+// three kernels, chosen by shape in ops/hopper/conv.py:conv_tile_plan.
 //
 // Replaces: cnn_tpu/ops/pallas/conv.py, conv2d_bias_relu_pallas -> _forward
 // (kernel body _conv_kernel): k*k shifted [Ho*Wo, Cin] x [Cin, Cout]
 // products summed in f32, then + bias, then an optional ReLU, any stride,
 // output extent (H - k) / stride + 1.
 //
-// Both are implicit GEMMs: M = B*Ho*Wo output pixels, N = Cout,
+// All three are implicit GEMMs: M = B*Ho*Wo output pixels, N = Cout,
 // K = k*k*Cin in (dy, dx, ci) order, in which the HWIO weights are already a
 // row-major [K, N] matrix. No TF32 and no tensor cores: every sum is a chain
 // of full float32 FMAs in k order, one thread per output, as the 1e-5 parity
 // with the plain version and JAX's Precision.HIGHEST need. No split-K and no
-// atomics, so a launch is bit-identical to the next.
+// atomics, so a launch is bit-identical to the next, and the three kernels
+// sum in the same order: on the same inputs they give the same bits.
 //
 // Bound on this card: on the AlexNet shapes, bytes for conv1 (Cin = 3, so
 // K = 27 multiply-adds per output) and float32 operations for conv2-4
 // (K = 144..576, 67 TFLOP/s).
 //
+// The strip kernel (conv1: Cin <= 4, Cout % 4 == 0 and <= 32, W*Cin % 4 ==
+// 0, x 16-byte aligned). The direct kernel below holds conv1 to 5x its byte
+// bound: it is bound by instruction issue, not bytes. Each of its threads
+// decodes its position with 64-bit divisions (emulated in software), issues
+// 27 unaligned 4-byte input loads (repeated by the three other threads of
+// its pixel at Cout = 16) and 27 16-byte weight loads for 108 FMAs. The
+// strip kernel removes that work:
+//  - one block per strip of R output rows of one image (blockIdx.x the
+//    strip, blockIdx.y the image: no division). The block copies the
+//    (R-1)*s + k input rows its strip reads, whole, into shared memory with
+//    16-byte cp.async, coalesced across the block: rows of one image are
+//    contiguous in NHWC and W*Cin % 4 == 0 keeps every row 16-byte aligned.
+//    At stride 2 a strip shares one row with the next, so x is read
+//    (2R+1)/2R times. The weights and bias (1,792 B for conv1) are staged
+//    beside them once per block.
+//  - one warp per output row. Lane l owns pixels l, l+32, l+64 and l+96 of
+//    a 128-pixel chunk of the row and 16 output channels of each (64
+//    accumulators; wider Cout takes more passes over the chunk). Lanes sit
+//    on neighbouring pixels, so their shared-memory reads of one tap are
+//    s*Cin words apart (6 for conv1: a 2-way bank conflict at most; four
+//    adjacent pixels a lane would put 24 words between lanes, 8-way). Each
+//    weight read is a warp-wide broadcast of 16 bytes that feeds 4 pixels
+//    x 4 FMAs; each input value read feeds 16 FMAs. Index math is 32-bit
+//    except for the base pointers.
+//  - epilogue: bias, the optional ReLU, 16-byte stores; for one pixel slot
+//    the warp's stores cover 32 consecutive pixels, one contiguous run.
+//  - R is a template argument; the entry point's switch maps ids to R in
+//    the order of STRIP_ROWS in ops/hopper/conv.py, whose plan takes the R
+//    with the most blocks (a block stages all its rows before it sums, so
+//    more, shorter blocks on an SM overlap staging with sums better) and
+//    checks that the staged rows and the weights fit in 48 KB of (dynamic)
+//    shared memory.
+//
 // The tiled kernel (conv2-4: Cin % 8 == 0, Cout % 4 == 0, x and w 16-byte
-// aligned). The direct kernel below feeds 4 FMAs from each 4-byte input load
+// aligned). The direct kernel feeds 4 FMAs from each 4-byte input load
 // and each 16-byte weight load, about 0.2 FMA per byte through L1, so the
 // load/store units and not the FMA pipes set its pace, and every weight is
 // fetched again for every pixel (conv4's 295 KB of weights from L2). The
@@ -46,10 +80,9 @@
 //    ops/hopper/conv.py, whose plan picks one per shape (about two or more
 //    waves of 132 SMs where M allows). Static shared memory stays under
 //    48 KB.
-// The sum runs over k in the direct kernel's order (dy, dx, ci), so on the
-// same inputs the two kernels give the same bits.
 //
-// The direct kernel (conv1, Cout 7, misaligned pointers, anything else): a
+// The direct kernel (Cout 7, misaligned pointers, rows of W*Cin floats that
+// are no multiple of 4, anything else neither of the others takes): a
 // direct implicit GEMM with no staging. Each thread owns one output pixel
 // and four neighbouring output channels, so one input load feeds four FMAs
 // and the four weights come in one 16-byte load. Neighbouring threads take
@@ -57,9 +90,16 @@
 // weight loads of a warp are one contiguous run (shared by every pixel of
 // the warp), its input loads are broadcast, and its stores are one
 // contiguous run. Weights are read through the read-only cache. Bias and
-// ReLU are applied before the one store. Conv1's 3-channel pixels give
-// unaligned 4-byte input loads; that is fine here, as conv1 is bound by
-// bytes.
+// ReLU are applied before the one store. It is the reference the other two
+// are held to bit for bit on the card.
+//
+// Tests. On the CPU, the plan and a torch emulation of the strip walk,
+// held against the plain conv and the Pallas kernel in interpret mode:
+//   JAX_PLATFORMS=cpu python -m pytest -q (one command)
+//       tests/test_torch_conv_plan.py tests/test_torch_ops.py
+// On the card, python3 chip_smoke.py builds the three kernels and holds
+// each against the plain conv, and the strip and tiled kernels bit for bit
+// against the direct one.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -374,6 +414,150 @@ extern "C" int cnn_conv2d_bias_relu_tiled(void* stream, const void* x,
     case 3: return (int)launch_tiled<64, 64, 8, 4>(st, xf, wf, bf, yf, B, H, W, Cin, Cout, k, stride, r);
     case 4: return (int)launch_tiled<128, 32, 8, 4>(st, xf, wf, bf, yf, B, H, W, Cin, Cout, k, stride, r);
     case 5: return (int)launch_tiled<64, 32, 4, 4>(st, xf, wf, bf, yf, B, H, W, Cin, Cout, k, stride, r);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+
+namespace {
+
+constexpr int kStripSlots = 4;   // pixels a lane holds: l, l+32, l+64, l+96
+constexpr int kStripCo = 16;     // output channels a lane holds at once
+
+// floats of shared memory before the staged rows: weights and bias,
+// rounded up to keep the rows 16-byte aligned
+__host__ __device__ inline int strip_weight_floats(int k, int Cin, int Cout) {
+  return (k * k * Cin * Cout + Cout + 3) / 4 * 4;
+}
+
+template <int R>
+__global__ void __launch_bounds__(R * 32)
+    conv2d_strip_kernel(const float* __restrict__ x,
+                        const float* __restrict__ w,
+                        const float* __restrict__ bias,
+                        float* __restrict__ y, int H, int W, int Cin,
+                        int Cout, int k, int s, int Ho, int Wo, bool relu) {
+  extern __shared__ __align__(16) float smem[];
+  const int nw = k * k * Cin * Cout;
+  float* sw = smem;                                   // [K, Cout], then bias
+  float* sx = smem + strip_weight_floats(k, Cin, Cout);
+  const int oy0 = blockIdx.x * R;
+  const int rows = min(R, Ho - oy0);
+  const int b = blockIdx.y;
+  const int rowlen = W * Cin;   // floats of one input row, a multiple of 4
+
+  // stage the strip's input rows (one contiguous run of x) and the weights
+  const int n4 = ((rows - 1) * s + k) * rowlen / 4;
+  const float4* src = reinterpret_cast<const float4*>(
+      x + ((int64_t)b * H + (int64_t)oy0 * s) * rowlen);
+  for (int i = threadIdx.x; i < n4; i += R * 32)
+    cp_async16(sx + 4 * i, src + i, true);
+  cp_async_commit();
+  for (int i = threadIdx.x; i < nw + Cout; i += R * 32)
+    sw[i] = i < nw ? __ldg(w + i) : __ldg(bias + (i - nw));
+  cp_async_wait<0>();
+  __syncthreads();
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (warp >= rows) return;   // the last strip of an image may be short
+  const float* xrow = sx + warp * s * rowlen;   // tap row dy = 0
+  float* yrow = y + ((int64_t)b * Ho + oy0 + warp) * Wo * Cout;
+  const float* sb = sw + nw;
+  for (int c0 = 0; c0 < Wo; c0 += 32 * kStripSlots) {
+    int base[kStripSlots];
+    bool valid[kStripSlots];
+#pragma unroll
+    for (int j = 0; j < kStripSlots; ++j) {
+      const int ox = c0 + 32 * j + lane;
+      valid[j] = ox < Wo;
+      base[j] = (valid[j] ? ox : 0) * s * Cin;   // a masked slot reads pixel 0
+    }
+    for (int co0 = 0; co0 < Cout; co0 += kStripCo) {
+      float acc[kStripSlots][kStripCo];
+#pragma unroll
+      for (int j = 0; j < kStripSlots; ++j)
+#pragma unroll
+        for (int c = 0; c < kStripCo; ++c) acc[j][c] = 0.f;
+      const float* wp = sw + co0;   // row (dy*k + dx)*Cin + ci of [K, Cout]
+      for (int dy = 0; dy < k; ++dy) {
+        for (int dx = 0; dx < k; ++dx) {
+          const float* xp = xrow + dy * rowlen + dx * Cin;
+          for (int ci = 0; ci < Cin; ++ci, wp += Cout) {
+            float xv[kStripSlots];
+#pragma unroll
+            for (int j = 0; j < kStripSlots; ++j) xv[j] = xp[base[j] + ci];
+#pragma unroll
+            for (int g = 0; g < kStripCo / 4; ++g) {
+              if (co0 + 4 * g >= Cout) break;
+              const float4 wv = *reinterpret_cast<const float4*>(wp + 4 * g);
+#pragma unroll
+              for (int j = 0; j < kStripSlots; ++j) {
+                acc[j][4 * g + 0] = fmaf(xv[j], wv.x, acc[j][4 * g + 0]);
+                acc[j][4 * g + 1] = fmaf(xv[j], wv.y, acc[j][4 * g + 1]);
+                acc[j][4 * g + 2] = fmaf(xv[j], wv.z, acc[j][4 * g + 2]);
+                acc[j][4 * g + 3] = fmaf(xv[j], wv.w, acc[j][4 * g + 3]);
+              }
+            }
+          }
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < kStripSlots; ++j) {
+        if (!valid[j]) continue;
+        float* yp = yrow + (int64_t)(c0 + 32 * j + lane) * Cout + co0;
+#pragma unroll
+        for (int g = 0; g < kStripCo / 4; ++g) {
+          if (co0 + 4 * g >= Cout) break;
+          float v[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float t = acc[j][4 * g + e] + sb[co0 + 4 * g + e];
+            v[e] = relu ? (t > 0.f ? t : 0.f) : t;
+          }
+          *reinterpret_cast<float4*>(yp + 4 * g) =
+              make_float4(v[0], v[1], v[2], v[3]);
+        }
+      }
+    }
+  }
+}
+
+template <int R>
+cudaError_t launch_strip(cudaStream_t stream, const float* x, const float* w,
+                         const float* b, float* y, int B, int H, int W,
+                         int Cin, int Cout, int k, int s, bool relu) {
+  const int Ho = (H - k) / s + 1, Wo = (W - k) / s + 1;
+  const int rows = Ho < R ? Ho : R;
+  const size_t smem = 4 * ((size_t)strip_weight_floats(k, Cin, Cout) +
+                           (size_t)((rows - 1) * s + k) * W * Cin);
+  if (smem > 48 * 1024) return cudaErrorInvalidValue;
+  const dim3 grid((Ho + R - 1) / R, B);
+  conv2d_strip_kernel<R><<<grid, R * 32, smem, stream>>>(
+      x, w, b, y, H, W, Cin, Cout, k, s, Ho, Wo, relu);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int cnn_conv2d_bias_relu_strip(void* stream, const void* x,
+                                          const void* w, const void* b,
+                                          void* y, int B, int H, int W,
+                                          int Cin, int Cout, int k,
+                                          int stride, int relu, int rows) {
+  if (Cin < 1 || Cin > 4 || Cout % 4 != 0 || (W * Cin) % 4 != 0 ||
+      B > 65535 || reinterpret_cast<uintptr_t>(x) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(y) % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  const float* xf = static_cast<const float*>(x);
+  const float* wf = static_cast<const float*>(w);
+  const float* bf = static_cast<const float*>(b);
+  float* yf = static_cast<float*>(y);
+  const bool r = relu != 0;
+  switch (rows) {
+    case 0: return (int)launch_strip<2>(st, xf, wf, bf, yf, B, H, W, Cin, Cout, k, stride, r);
+    case 1: return (int)launch_strip<4>(st, xf, wf, bf, yf, B, H, W, Cin, Cout, k, stride, r);
+    case 2: return (int)launch_strip<8>(st, xf, wf, bf, yf, B, H, W, Cin, Cout, k, stride, r);
     default: return (int)cudaErrorInvalidValue;
   }
 }

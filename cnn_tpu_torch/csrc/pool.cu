@@ -20,11 +20,34 @@
 // Backward: dx[b, y, x, c] = g[b, y/2, x/2, c] where the window's tap is
 // (y%2)*2 + x%2, else 0; the row and column that an odd extent cropped get
 // 0. Bound on this card: bytes (it reads g and the tap once and writes dx
-// once; no arithmetic). One thread per dx element, channel fastest: every
-// element of dx is written, so the cropped row and column of the
-// torch.empty output are zeros and no memset is needed. The four threads
-// that read one g / tap element are neighbours in the same or the next warp
-// row, so g and the tap come from device memory about once.
+// once; no arithmetic). Two kernels, chosen by shape in ops/hopper/pool.py:
+//  - the window kernel (C % 4 == 0, g 16-byte and tap 4-byte aligned): one
+//    block per pooled row (blockIdx.x = b*H2 + i, so B*H2 may pass 65,535),
+//    one thread per pooled pixel j and group of 4 channels. A thread makes
+//    one 16-byte load of g and one 4-byte load of the four uint8 taps, and
+//    four 16-byte stores of its 2x2 window into dx rows 2i and 2i+1, each
+//    g where the tap matches, else 0. At C = 16 a warp covers 8 windows, 1
+//    KB contiguous in each of its two dx rows. The one block-uniform
+//    division splits the row index; the rest of the index math is 32-bit
+//    but for the base pointers. The threads of the last pooled row and
+//    column also write the cropped row and column of an odd extent (and
+//    their corner) as zeros, so every element of the torch.empty output is
+//    written and no memset is needed.
+//  - the element kernel, the previous design (any C, any alignment): one
+//    thread per dx element, channel fastest, with 64-bit index math; the
+//    four threads that read one g / tap element are neighbours in the same
+//    or the next warp row. It is bound by instruction issue, not bytes:
+//    three 64-bit divisions and three modulos a thread, and g and the tap
+//    loaded again by each of the four threads of a window.
+//
+// Tests. On the CPU, the backward's variant choice and a torch emulation
+// of the window kernel's stores, held against the plain backward and the
+// Pallas kernel in interpret mode:
+//   JAX_PLATFORMS=cpu python -m pytest -q (one command)
+//       tests/test_torch_pool_plan.py tests/test_torch_ops.py
+// On the card, python3 chip_smoke.py builds the three kernels and holds
+// each against its plain version, and the two backward kernels against
+// each other, bit for bit.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -81,6 +104,52 @@ __global__ void maxpool2x2_bwd_kernel(const uint8_t* __restrict__ tap,
   }
 }
 
+__global__ void maxpool2x2_bwd_window_kernel(const uint8_t* __restrict__ tap,
+                                             const float* __restrict__ g,
+                                             float* __restrict__ dx, int H,
+                                             int W, int C, int H2, int W2) {
+  const int row = blockIdx.x;   // b * H2 + i
+  const int b = row / H2, i = row - b * H2;
+  const int C4 = C >> 2, n = W2 * C4;
+  const int WC = W * C;
+  // g and the tap of one pooled row are W2*C contiguous elements, and
+  // thread t's four channels are the t-th group of 4 in that run
+  const float4* grow =
+      reinterpret_cast<const float4*>(g + (int64_t)row * W2 * C);
+  const uint32_t* trow =
+      reinterpret_cast<const uint32_t*>(tap + (int64_t)row * W2 * C);
+  float* drow = dx + ((int64_t)b * H + 2 * i) * WC;   // dx row 2i
+  const bool crop_row = (H & 1) && i == H2 - 1;
+  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int t = threadIdx.x; t < n; t += blockDim.x) {
+    const int j = t / C4;
+    const float4 gv = __ldg(grow + t);
+    const uint32_t tp = __ldg(trow + t);   // tap of channel c+e in byte e
+    float4 o[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      o[q].x = (tp & 0xff) == (uint32_t)q ? gv.x : 0.f;
+      o[q].y = ((tp >> 8) & 0xff) == (uint32_t)q ? gv.y : 0.f;
+      o[q].z = ((tp >> 16) & 0xff) == (uint32_t)q ? gv.z : 0.f;
+      o[q].w = (tp >> 24) == (uint32_t)q ? gv.w : 0.f;
+    }
+    float* p = drow + 2 * j * C + (t - j * C4) * 4;   // (2i, 2j, c)
+    *reinterpret_cast<float4*>(p) = o[0];
+    *reinterpret_cast<float4*>(p + C) = o[1];
+    *reinterpret_cast<float4*>(p + WC) = o[2];
+    *reinterpret_cast<float4*>(p + WC + C) = o[3];
+    if (crop_row) {   // row H-1
+      *reinterpret_cast<float4*>(p + 2 * WC) = zero;
+      *reinterpret_cast<float4*>(p + 2 * WC + C) = zero;
+    }
+    if ((W & 1) && j == W2 - 1) {   // column W-1, and the corner
+      *reinterpret_cast<float4*>(p + 2 * C) = zero;
+      *reinterpret_cast<float4*>(p + WC + 2 * C) = zero;
+      if (crop_row) *reinterpret_cast<float4*>(p + 2 * WC + 2 * C) = zero;
+    }
+  }
+}
+
 }  // namespace
 
 extern "C" int cnn_maxpool2x2_bwd(void* stream, const void* tap, const void* g,
@@ -94,6 +163,24 @@ extern "C" int cnn_maxpool2x2_bwd(void* stream, const void* tap, const void* g,
                           (cudaStream_t)stream>>>(
       static_cast<const uint8_t*>(tap), static_cast<const float*>(g),
       static_cast<float*>(dx), B, H, W, C);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int cnn_maxpool2x2_bwd_window(void* stream, const void* tap,
+                                         const void* g, void* dx, int B,
+                                         int H, int W, int C) {
+  const int H2 = H / 2, W2 = W / 2;
+  if (C % 4 != 0 || H2 < 1 || W2 < 1 || B < 1 ||
+      reinterpret_cast<uintptr_t>(g) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(tap) % 4 != 0 ||
+      reinterpret_cast<uintptr_t>(dx) % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  const int n = W2 * (C / 4);
+  const int threads = n >= 256 ? 256 : (n + 31) / 32 * 32;
+  maxpool2x2_bwd_window_kernel<<<(unsigned)((int64_t)B * H2), threads, 0,
+                                 (cudaStream_t)stream>>>(
+      static_cast<const uint8_t*>(tap), static_cast<const float*>(g),
+      static_cast<float*>(dx), H, W, C, H2, W2);
   return (int)cudaGetLastError();
 }
 

@@ -47,10 +47,14 @@ SIGNATURES = {
     "cnn_maxpool2x2_fwd": [P, P, P, I, I, I, I],
     # tap, g, dx, B, H, W, C (H, W: the forward's input extent)
     "cnn_maxpool2x2_bwd": [P, P, P, I, I, I, I],
+    # the same: one thread per window and 4 channels (C % 4 == 0)
+    "cnn_maxpool2x2_bwd_window": [P, P, P, I, I, I, I],
     # x, w, b, y, B, H, W, Cin, Cout, k, stride, relu
     "cnn_conv2d_bias_relu": [P, P, P, P, I, I, I, I, I, I, I, I],
     # the same, then the tile id of ops/hopper/conv.py:TILES
     "cnn_conv2d_bias_relu_tiled": [P, P, P, P, I, I, I, I, I, I, I, I, I],
+    # the same, then the strip id of ops/hopper/conv.py:STRIP_ROWS
+    "cnn_conv2d_bias_relu_strip": [P, P, P, P, I, I, I, I, I, I, I, I, I],
     # img, s1, s2, s3, out, B, S, C, L, pad_l, bf16, then the tile plan of
     # ops/hopper/augment.py: rows, pixels, lanes_max, table_max, smem_bytes
     "cnn_rotate_shear": [P, P, P, P, P, I, I, I, I, I, I, I, I, I, I, I],

@@ -6,11 +6,13 @@ as a ``torch.autograd.Function``. ``cnn_tpu`` computes that backward with
 XLA convolutions outside any Pallas kernel (``_vjp_bwd``), so here ATen's
 convolution gradients compute it, in full float32.
 
-Two kernels compute the forward: a tiled implicit GEMM over shared memory
+Three kernels compute the forward: a row-strip kernel over shared memory
+(``cnn_conv2d_bias_relu_strip``) for few input channels, conv1 of the
+AlexNet; a tiled implicit GEMM over shared memory
 (``cnn_conv2d_bias_relu_tiled``) for the shapes whose vector loads it can
-make, conv2-4 of the AlexNet, and the direct kernel
-(``cnn_conv2d_bias_relu``) for the rest, conv1 among them. ``conv_tile_plan``
-chooses by shape and alignment alone.
+make, conv2-4; and the direct kernel (``cnn_conv2d_bias_relu``) for the
+rest. ``conv_tile_plan`` chooses by shape and alignment alone. All three
+sum in the same order and give the same bits.
 """
 
 from __future__ import annotations
@@ -48,13 +50,35 @@ TILES = (Tile(128, 128, 8, 8), Tile(64, 128, 8, 8), Tile(128, 64, 8, 8),
 TILED_BK, TILED_BK_PAD, TILED_STAGES = 8, 12, 3
 STATIC_SMEM_LIMIT = 48 * 1024
 H100_SMS = 132
+MAX_GRID_Y = 65535
+
+# strip id -> output rows per block (one warp each), in the order of
+# csrc/conv.cu's switch on the strip id
+STRIP_ROWS = (2, 4, 8)
+STRIP_CIN_MAX, STRIP_COUT_MAX = 4, 32
+
+
+def strip_input_rows(rows: int, k: int, stride: int) -> int:
+    """Input rows a strip of ``rows`` output rows stages."""
+    return (rows - 1) * stride + k
+
+
+def strip_smem_bytes(rows: int, w: int, cin: int, cout: int, k: int,
+                     stride: int) -> int:
+    """Shared memory of a strip of ``rows`` output rows: the weights and
+    bias (rounded up to 16 bytes), then the (rows-1)*stride + k whole input
+    rows the strip reads, as ``csrc/conv.cu:launch_strip`` computes it."""
+    weights = -(-(k * k * cin * cout + cout) // 4) * 4
+    return 4 * (weights + strip_input_rows(rows, k, stride) * w * cin)
 
 
 class ConvPlan(NamedTuple):
-    """``variant`` "direct", or "tiled" with its ``tile`` id and grid."""
+    """``variant`` "direct"; "tiled" with its ``tile`` id and grid; or
+    "strip" with its ``rows`` per block and grid (strips, images)."""
     variant: str
     tile: int | None = None
     grid: tuple[int, int] | None = None
+    rows: int | None = None
 
 
 @functools.lru_cache(maxsize=256)   # a pure function, called every launch
@@ -62,13 +86,33 @@ def conv_tile_plan(b: int, h: int, w: int, cin: int, cout: int, k: int,
                    stride: int, aligned: bool) -> ConvPlan:
     """The kernel for this shape.
 
+    The strip kernel needs 1 <= Cin <= 4, Cout % 4 == 0 and <= 32, input
+    rows of W*Cin floats that are a multiple of 4 (16-byte copies), x and w
+    16-byte aligned (``aligned``), B <= 65,535 (the grid's y) and a strip
+    whose staged rows and weights fit in 48 KB. Of the R in ``STRIP_ROWS``
+    that fit, it takes the one with the most blocks (the fewest idle warps
+    on a tie): a block stages all its rows before any warp sums, so more,
+    shorter blocks resident on an SM overlap one block's staging with
+    another's sums, which gains more than larger strips save in rows read
+    twice (on the H100 at conv1's shape, R = 2 takes 11% less time than
+    R = 8: ``chip_smoke.py``'s sweep, ``PERF.md`` §5).
+
     The tiled kernel needs Cin % 8 == 0 (a K slice of 8 stays inside one
     tap and loads as 16-byte vectors), Cout % 4 == 0 and x and w 16-byte
-    aligned (``aligned``); anything else takes the direct kernel. Its BN is
-    Cout rounded up to 32, 64 or 128, or half of that; of those tiles, the
-    largest one that still gives two waves of 132 SMs, else the one with
-    the most blocks.
+    aligned; anything else takes the direct kernel. Its BN is Cout rounded
+    up to 32, 64 or 128, or half of that; of those tiles, the largest one
+    that still gives two waves of 132 SMs, else the one with the most
+    blocks.
     """
+    if (1 <= cin <= STRIP_CIN_MAX and cout % 4 == 0
+            and cout <= STRIP_COUT_MAX and (w * cin) % 4 == 0 and aligned
+            and b <= MAX_GRID_Y):
+        ho = conv_out_size(h, k, stride)
+        fits = [r for r in STRIP_ROWS if strip_smem_bytes(
+            min(r, ho), w, cin, cout, k, stride) <= STATIC_SMEM_LIMIT]
+        if fits:
+            r = max(fits, key=lambda r: (-(-ho // r), -r))
+            return ConvPlan("strip", grid=(-(-ho // r), b), rows=r)
     if cin % TILED_BK or cout % 4 or not aligned:
         return ConvPlan("direct")
     m = b * conv_out_size(h, k, stride) * conv_out_size(w, k, stride)
@@ -117,7 +161,11 @@ def conv2d_bias_relu(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
             wid, cin, cout, k, stride, int(relu))
     plan = conv_tile_plan(bsz, h, wid, cin, cout, k, stride,
                           x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0)
-    if plan.variant == "tiled":
+    if plan.variant == "strip":
+        launch("cnn_conv2d_bias_relu_strip", x.device, stream, *args,
+               STRIP_ROWS.index(plan.rows))
+        conv2d_bias_relu.launches_strip += 1
+    elif plan.variant == "tiled":
         launch("cnn_conv2d_bias_relu_tiled", x.device, stream, *args,
                plan.tile)
         conv2d_bias_relu.launches_tiled += 1
@@ -128,7 +176,8 @@ def conv2d_bias_relu(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     return out
 
 
-conv2d_bias_relu.launches = 0          # every launch, either kernel
+conv2d_bias_relu.launches = 0          # every launch, any kernel
+conv2d_bias_relu.launches_strip = 0
 conv2d_bias_relu.launches_tiled = 0
 conv2d_bias_relu.launches_direct = 0
 
