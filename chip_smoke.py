@@ -7,12 +7,18 @@
    TF32 off for every float32 product and convolution;
 2. build: one ``nvcc`` per ``cnn_tpu_torch/csrc/*.cu`` for sm_90a, side by
    side; each kernel's registers, shared memory and spills (the strip and
-   tiled conv, the window pool backward and the rotation kernels must not
-   spill);
+   tiled conv, the window pool backward, the rotation and the wide
+   normalize kernels must not spill);
 3. kernels: each CUDA kernel against its plain PyTorch version on the card,
    at the serving path's shapes with batch 64 (normalize and max-pool
    bit-exact, conv within atol 1e-5 + rtol 1e-5), timed with CUDA events
-   beside the plain version, one PyTorch library call and the bound; conv1
+   beside the plain version, one PyTorch library call and the bound, both
+   through the wrapper (``time_ms``) and graph-timed (``graph_ms``: 20
+   calls captured into one CUDA graph, no host cost); normalize through
+   the wide kernel bit-exact on every byte and at B = 1, 8 and 64, beside
+   the previous design, ``torch.true_divide`` and the plain version,
+   graph-timed L2-warm and HBM-cold (four input/output pairs), one launch
+   captured into a graph and replayed bit-exact; conv1
    through the strip kernel and conv2-4 through the tiled one, each equal
    bit for bit to the direct kernel on the same shape and timed beside it
    in turns, every strip R and every tile swept, two launches
@@ -21,12 +27,18 @@
    past 128 pixels, through every R; the direct conv with Cout 7, weights
    off 16-byte alignment, x off 16-byte alignment and a row of 669 floats;
    the tiled conv with an M tail, stride 1, k = 5 and Cin 8 / Cout 12,
-   normalize of an odd length or a misaligned input);
+   normalize at lengths 1, 15, 16, 17 and 1,000,003 and from every input
+   byte offset 0-15 into every output float offset 0-15, through the
+   variant its plan picks);
 4. serving: the full-width 224 px BatchNorm AlexNet from the committed
-   reference ``.model`` behind ``InferenceEngine`` (buckets 1, 8, 64) and
-   ``BatchingServer``; every kernel's launch count must move as the path
-   dictates, and the results must match the same engine run on the plain
-   versions on the card and on the CPU;
+   reference ``.model`` behind ``InferenceEngine`` (buckets 1, 8, 64, one
+   CUDA graph each, captured by ``warmup()``) and ``BatchingServer``; each
+   bucket's replay bit-equal to the eager forward; every kernel's launch
+   count, per variant, must move as the path dictates through the replays;
+   the results must match a fresh engine whose graphs are captured from
+   the plain versions on the card (0 launches) and the engine on the CPU;
+   the warmup's seconds and memory, each bucket's first call, and the
+   bucket-64 forward through the graph beside the eager one;
 5. training kernels, at the training shapes (batch 256): the pool backward
    through the window kernel bit-exact against its plain version and
    against autograd through the plain forward, on 33% exact ties, its
@@ -70,6 +82,7 @@ JSON; the last line is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import copy
+import itertools
 import json
 import re
 import subprocess
@@ -94,10 +107,12 @@ from cnn_tpu_torch.ops.activations import relu as ops_relu
 from cnn_tpu_torch.ops.conv import conv2d, conv_out_size
 from cnn_tpu_torch.ops.hopper import (STRIP_ROWS, TILES, _build,
                                       conv2d_bias_relu, conv2d_bias_relu_fn,
-                                      conv_tile_plan, launch_pool_bwd,
+                                      conv_tile_plan, counted_capture,
+                                      launch_normalize, launch_pool_bwd,
                                       launch_rotate, max_pool2d_bwd,
                                       max_pool2d_fn, max_pool2d_fwd,
-                                      pool_bwd_variant, reset_launches,
+                                      normalize_plan, pool_bwd_variant,
+                                      read_counters, reset_launches,
                                       rotate_shear, rotate_tile_plan,
                                       uint8_normalize)
 from cnn_tpu_torch.ops.hopper.augment import TILES as ROTATE_TILES
@@ -167,6 +182,36 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
         fn()
     end.record()
     end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Device time of one ``fn()`` without the host's cost: ``iters`` calls
+    captured into one CUDA graph (after ``warmup`` eager calls on a side
+    stream), replayed once, then one replay timed with CUDA events. The
+    counters that the captured wrapper calls moved are taken back."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(warmup):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+
+    def capture():
+        with torch.cuda.graph(graph):
+            for _ in range(iters):
+                fn()
+
+    counted_capture(capture)
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    graph.reset()
     return start.elapsed_time(end) / iters
 
 
@@ -314,30 +359,111 @@ def check_conv(x, w, b, stride, what, conv=conv2d_bias_relu) -> float:
     return err
 
 
+def normalize_graph_check(x: torch.Tensor) -> None:
+    """One ``uint8_normalize`` captured alone into a CUDA graph (the kernel
+    is launched through the ctypes library, a second CUDA runtime beside
+    PyTorch's): the replay on new input equals the plain version."""
+    static = torch.zeros_like(x)
+    graph = torch.cuda.CUDAGraph()
+
+    def capture():
+        with torch.cuda.graph(graph):
+            return uint8_normalize(static)
+
+    y, delta = counted_capture(capture)
+    check(delta == {"uint8_normalize.launches": 1,
+                    "uint8_normalize.launches_wide": 1},
+          f"normalize capture counted {delta}")
+    static.copy_(x)
+    graph.replay()
+    check(bits_equal(y, uint8_to_float(x)),
+          "normalize replayed from a CUDA graph differs from the plain version")
+    graph.reset()
+
+
+def normalize_phase(gen) -> tuple:
+    """The normalize kernel at the serving shapes: bit-exact on every byte
+    and at B = 1, 8, 64, two launches bit-identical, the previous design
+    bit-equal, one launch captured and replayed; times through the wrapper
+    and graph-timed (L2-warm on one input, HBM-cold over four input/output
+    pairs, 193 MB), the previous design in turns; the kernels line's row."""
+    dev = torch.device("cuda")
+    every = torch.arange(256, dtype=torch.uint8, device=dev)
+    want = np.arange(256, dtype=np.float32) / np.float32(255.0)
+    check(np.array_equal(uint8_normalize(every).cpu().numpy().view(np.int32),
+                         want.view(np.int32)), "normalize: not IEEE x/255")
+    for bsz in (1, 8, B):
+        x = torch.randint(0, 256, (bsz, 224, 224, 3), generator=gen,
+                          device=dev, dtype=torch.uint8)
+        before = uint8_normalize.launches_wide
+        y, ref = uint8_normalize(x), uint8_to_float(x)
+        check(uint8_normalize.launches_wide == before + 1,
+              f"normalize B={bsz}: not the wide variant")
+        check(bits_equal(y, ref), f"normalize B={bsz}: differs from the plain "
+              "version")
+    check(bits_equal(y, uint8_normalize(x)), "normalize: two launches differ")
+    check(bits_equal(launch_normalize(x, direct=True)[0], ref),
+          "normalize: the previous design differs")
+    normalize_graph_check(x)
+    plan = normalize_plan(x.numel(), x.data_ptr(), y.data_ptr())
+    err = (y - ref).abs().max().item()
+
+    ms, direct = in_turns(lambda: uint8_normalize(x),
+                          lambda: launch_normalize(x, direct=True))
+    plain = time_ms(lambda: uint8_to_float(x))
+    lib = time_ms(lambda: torch.true_divide(x, 255.0))
+    bound = bound_ms(nbytes(x, y), x.numel())
+
+    # graph-timed: L2-warm (one pair, back to back) and HBM-cold (four
+    # pairs in turn, 4 x 48.2 MB, beyond the 50 MB L2)
+    xs = [x] + [torch.randint(0, 256, x.shape, generator=gen, device=dev,
+                              dtype=torch.uint8) for _ in range(3)]
+    ys = [torch.empty(x.shape, device=dev) for _ in xs]
+    turn = itertools.count()
+
+    def cold(fn):
+        def call():
+            i = next(turn) % len(xs)
+            fn(xs[i], ys[i])
+        return call
+
+    fns = {
+        "kernel": lambda a, b: launch_normalize(a, b),
+        "previous": lambda a, b: launch_normalize(a, b, direct=True),
+        "true_divide": lambda a, b: torch.true_divide(a, 255.0, out=b),
+        "plain": lambda a, b: uint8_to_float(a),
+    }
+    warm, hbm = {}, {}
+    for order in (list(fns), list(fns)[::-1]):   # in turns: a, b, ..., b, a
+        for k in order:
+            warm.setdefault(k, []).append(
+                graph_ms(lambda f=fns[k]: f(xs[0], ys[0])))
+            hbm.setdefault(k, []).append(graph_ms(cold(fns[k])))
+    warm = {k: sum(v) / 2 for k, v in warm.items()}
+    hbm = {k: sum(v) / 2 for k, v in hbm.items()}
+    phase(f"normalize [64,224,224,3] u8->f32, {plan.variant} variant "
+          f"({plan.blocks} blocks of 256, head {plan.head}, tail "
+          f"{plan.tail}): bit-exact on every byte and at B = 1, 8, 64, two "
+          f"launches bit-identical, the previous design bit-equal, a captured "
+          f"launch replays bit-exact; through the wrapper ms: kernel "
+          f"{ms:.4f}, previous design {direct:.4f}, plain {plain:.4f}, "
+          f"true_divide {lib:.4f}; graph-timed L2-warm ms: "
+          + ", ".join(f"{k} {v:.4f}" for k, v in warm.items())
+          + "; graph-timed HBM-cold ms: "
+          + ", ".join(f"{k} {v:.4f}" for k, v in hbm.items())
+          + f"; bound {bound[0]:.4f} ({bound[1]}); kernel HBM-cold at "
+          f"{bound[0] / hbm['kernel']:.3f} of the bound")
+    del xs, ys
+    return err, ms, plain, lib, bound
+
+
 def kernel_phase(model) -> dict:
     """Each kernel against its plain version at the serving shapes, B = 64."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     out = {}
 
-    # normalize: every byte value against numpy's IEEE float32 division,
-    # then a [64,224,224,3] batch bit for bit against the plain version
-    every = torch.arange(256, dtype=torch.uint8, device=dev)
-    want = np.arange(256, dtype=np.float32) / np.float32(255.0)
-    check(np.array_equal(uint8_normalize(every).cpu().numpy().view(np.int32),
-                         want.view(np.int32)), "normalize: not IEEE x/255")
-    x = torch.randint(0, 256, (B, 224, 224, 3), generator=gen, device=dev,
-                      dtype=torch.uint8)
-    y, ref = uint8_normalize(x), uint8_to_float(x)
-    check(bits_equal(y, ref), "normalize: differs from the plain version")
-    err = (y - ref).abs().max().item()
-    out["uint8_normalize"] = (
-        err, time_ms(lambda: uint8_normalize(x)),
-        time_ms(lambda: uint8_to_float(x)),
-        time_ms(lambda: torch.true_divide(x, 255.0)),
-        bound_ms(nbytes(x, y), x.numel()))
-    phase(f"normalize [64,224,224,3] u8->f32: bit-exact; "
-          f"ms={out['uint8_normalize'][1:4]}")
+    out["uint8_normalize"] = normalize_phase(gen)
 
     # max pool: ReLU output quantized to quarters, so exact ties are common
     # (zeros and equal positives); value and tap index bit for bit
@@ -355,8 +481,12 @@ def kernel_phase(model) -> dict:
         time_ms(lambda: F.max_pool2d(x.permute(0, 3, 1, 2), 2, 2)),
         bound_ms(4 * bsz * read_extent(h, 2, 2) * read_extent(w_, 2, 2) * c
                  + nbytes(y), 3 * y.numel()))
+    graphed = (graph_ms(lambda: max_pool2d_fwd(x)),
+               graph_ms(lambda: F.max_pool2d(x.permute(0, 3, 1, 2), 2, 2)))
     phase(f"max pool [64,111,111,16] (tie share {ties:.3f}): value and tap "
-          f"exact; ms={out['max_pool2d_fwd'][1:4]}")
+          f"exact; ms (wrapper, plain, ATen)={out['max_pool2d_fwd'][1:4]}; "
+          f"graph-timed kernel {graphed[0]:.4f}, ATen {graphed[1]:.4f}; bound "
+          f"{out['max_pool2d_fwd'][4][0]:.4f}")
 
     # conv: the four layers with the checkpoint's weights, ReLU off (the BN
     # path) and on (the fused path); times are for ReLU off, as served. The
@@ -366,6 +496,7 @@ def kernel_phase(model) -> dict:
     by = {"bytes": 0.0, "operations": 0.0}
     worst = 0.0
     tiled = [0.0, 0.0, 0.0]   # conv2-4: tiled kernel, direct kernel, cuDNN
+    graphed = [0.0, 0.0]      # conv2-4 graph-timed: tiled kernel, cuDNN
     h = 224
     for i, cin in enumerate((3, 16, 32, 64), start=1):
         layer = model.net[f"conv_layer_{i}"]
@@ -387,6 +518,8 @@ def kernel_phase(model) -> dict:
         ms_relu = time_ms(lambda: conv2d_bias_relu(x, w, b, 2, True))
         plain = time_ms(lambda: conv2d(x, w, b, 2, False))
         lib = time_ms(lambda: F.conv2d(x.permute(0, 3, 1, 2), w_oihw, b, 2))
+        g_ms = graph_ms(lambda: conv2d_bias_relu(x, w, b, 2, False))
+        g_lib = graph_ms(lambda: F.conv2d(x.permute(0, 3, 1, 2), w_oihw, b, 2))
         m = B * ho * ho
         flops = 2 * m * layer.out_channels * 9 * cin + m * layer.out_channels
         r = read_extent(h, 3, 2)
@@ -397,19 +530,22 @@ def kernel_phase(model) -> dict:
         if i > 1:
             for j, v in enumerate((ms, direct, lib)):
                 tiled[j] += v
+            graphed[0] += g_ms
+            graphed[1] += g_lib
             same = (f"bits equal to the direct kernel's: "
                     f"{bits_equal(y, conv_entry(x, w, b, 2, False))}; every "
                     f"tile (ms): {tile_sweep(x, w, b, 2)}")
         else:
             check_same_as_direct(x, w, b, 2, f"conv_layer_{i}")
-            strip = (ms, direct, lib, bnd[0])
+            strip = (ms, direct, lib, bnd[0], g_ms, g_lib)
             same = (f"equal to the direct kernel bit for bit; every R (ms): "
                     f"{strip_sweep(x, w, b, 2)}")
         phase(f"conv_layer_{i} [{B},{h},{h},{cin}]->[{B},{ho},{ho},"
               f"{layer.out_channels}] {plan_name(plan)}: max|dev| {err:.3g}, "
               f"two launches bit-identical, {same}; ms={ms:.4f} "
               f"(relu {ms_relu:.4f}) direct={direct:.4f} plain={plain:.4f} "
-              f"library={lib:.4f} bound={bnd[0]:.4f} ({bnd[1]})")
+              f"library={lib:.4f} bound={bnd[0]:.4f} ({bnd[1]}); graph-timed "
+              f"kernel {g_ms:.4f}, cuDNN {g_lib:.4f}")
         h = ho if i > 1 else conv_out_size(ho, 2, 2)
     out["conv2d_bias_relu"] = (worst, sums[0], sums[1], sums[2],
                                (sums[3], max(by, key=by.get)))
@@ -417,8 +553,10 @@ def kernel_phase(model) -> dict:
           f"plain={sums[1]:.4f} library={sums[2]:.4f} bound={sums[3]:.4f} "
           f"(bytes {by['bytes']:.4f} + operations {by['operations']:.4f}); "
           f"conv1 strip {strip[0]:.4f}, direct {strip[1]:.4f}, cuDNN "
-          f"{strip[2]:.4f}, bound {strip[3]:.4f}; conv2-4 tiled "
-          f"{tiled[0]:.4f}, direct {tiled[1]:.4f}, cuDNN {tiled[2]:.4f}")
+          f"{strip[2]:.4f}, bound {strip[3]:.4f}, graph-timed {strip[4]:.4f} "
+          f"(cuDNN {strip[5]:.4f}); conv2-4 tiled {tiled[0]:.4f}, direct "
+          f"{tiled[1]:.4f}, cuDNN {tiled[2]:.4f}, graph-timed {graphed[0]:.4f} "
+          f"(cuDNN {graphed[1]:.4f})")
     return out
 
 
@@ -431,9 +569,8 @@ def off_path_phase() -> None:
     floats that is no multiple of 4, x off 16-byte alignment) and its scalar
     path (Cout not a multiple of 4, or weights not 16-byte aligned), the
     tiled conv at an M tail, stride 1, k = 5 and the smallest channels it
-    takes (Cin 8, Cout 12, an N tail), and normalize's scalar path (input
-    not 4-byte aligned) and its tail (a length that is no multiple of
-    4)."""
+    takes (Cin 8, Cout 12, an N tail), and normalize off the serving
+    shapes (``normalize_off_path``)."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(1)
     cases = []
@@ -514,13 +651,7 @@ def off_path_phase() -> None:
             tiled_worst = max(tiled_worst, check_conv(
                 x, w, b, stride, f"tiled conv ({what}) tile {t}",
                 lambda *a, tile=tile: conv_entry(*a, tile=tile)))
-    n = 1_000_003
-    buf = torch.randint(0, 256, (n + 1,), generator=gen, device=dev,
-                        dtype=torch.uint8)
-    for what, x in (("odd length", buf[:n]), ("input off 4-byte alignment",
-                                              buf[1:])):
-        check(bits_equal(uint8_normalize(x), uint8_to_float(x)),
-              f"normalize ({what}): differs from the plain version")
+    normalized = normalize_off_path(gen)
     phase(f"off the serving shapes: strip conv ("
           + "; ".join(c[0] for c in strip_cases) + f"; planned R {strip_seen}"
           f", then all {len(STRIP_ROWS)}) max|dev| {strip_worst:.3g}, "
@@ -530,15 +661,133 @@ def off_path_phase() -> None:
           f"tiled conv (M tail, "
           f"stride 1, k 5, Cin 8 / Cout 12; planned tiles {seen}, then "
           f"all {len(TILES)}) max|dev| "
-          f"{tiled_worst:.3g}, launches bit-identical; normalize odd length "
-          f"and misaligned input bit-exact")
+          f"{tiled_worst:.3g}, launches bit-identical; normalize {normalized}")
+
+
+def normalize_off_path(gen) -> str:
+    """normalize at lengths 1, 15, 16, 17 and 1,000,003 through the wrapper,
+    then at 4,099 and 1,000,003 elements from every input offset 0-15 bytes
+    into every output offset 0-15 floats (a float32 tensor starts on a
+    multiple of 4 bytes) through ``launch_normalize``, the output filled
+    with NaN first: each bit-exact, its variant the plan's rule, a
+    misaligned launch repeated bit-identical, and plans the entry point
+    must refuse refused."""
+    dev = torch.device("cuda")
+    big = 1_000_003
+    buf = torch.randint(0, 256, (big + 16,), generator=gen, device=dev,
+                        dtype=torch.uint8)
+    out_buf = torch.empty(big + 16, device=dev)
+    for n in (1, 15, 16, 17, big):
+        check(bits_equal(uint8_normalize(buf[:n]), uint8_to_float(buf[:n])),
+              f"normalize length {n}: differs from the plain version")
+    seen = {"wide": 0, "bytes": 0}
+    for n in (4099, big):
+        for xo in range(16):
+            x = buf[xo:xo + n]
+            ref = uint8_to_float(x)
+            for yo in range(16):
+                y = out_buf[yo:yo + n].fill_(float("nan"))
+                _, variant = launch_normalize(x, y)
+                want = ("wide" if (4 * x.data_ptr() - y.data_ptr()) % 16 == 0
+                        else "bytes")
+                check(variant == want and bits_equal(y, ref),
+                      f"normalize n={n}, x +{xo} bytes, y +{yo} floats: "
+                      f"{variant} variant (rule: {want}) differs")
+                seen[variant] += 1
+    x, y = buf[3:3 + big], out_buf[1:1 + big]
+    check(bits_equal(launch_normalize(x, y)[0].clone(),
+                     launch_normalize(x, y)[0]),
+          "normalize misaligned: two launches differ")
+    # the entry point refuses a plan its variant cannot run aligned
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    for what, plan in (("wide chunks off 16 bytes", (0, 1, 1)),
+                       ("variant 2", (2, 1, 0)), ("no blocks", (0, 0, 0))):
+        try:
+            _build.launch("cnn_normalize_u8", dev, stream, buf.data_ptr(),
+                          out_buf.data_ptr(), 4099, *plan)
+        except RuntimeError:
+            continue
+        raise AssertionError(f"normalize entry point took {what}")
+    return (f"lengths 1, 15, 16, 17, {big} bit-exact; every input offset "
+            f"0-15 bytes x output offset 0-15 floats at 4,099 and {big} "
+            f"elements bit-exact ({seen['wide']} wide, {seen['bytes']} bytes "
+            f"variant launches, each the plan's rule); misaligned, "
+            f"unknown and empty plans refused")
+
+
+SERVING_KERNELS = ("uint8_normalize", "max_pool2d_fwd", "conv2d_bias_relu")
+
+
+def serving_counts() -> dict:
+    """The counters of the serving path's wrappers, per variant."""
+    return {k: v for k, v in read_counters().items()
+            if k.split(".")[0] in SERVING_KERNELS}
+
+
+def serving_want(calls: int) -> dict:
+    """Those counters after ``calls`` bucket calls: normalize through the
+    wide kernel, conv1 through the strip kernel, conv2-4 through the tiled
+    one, one pool forward."""
+    return {"uint8_normalize.launches": calls,
+            "uint8_normalize.launches_wide": calls,
+            "uint8_normalize.launches_bytes": 0,
+            "max_pool2d_fwd.launches": calls,
+            "conv2d_bias_relu.launches": 4 * calls,
+            "conv2d_bias_relu.launches_strip": calls,
+            "conv2d_bias_relu.launches_tiled": 3 * calls,
+            "conv2d_bias_relu.launches_direct": 0}
+
+
+def same_arrays(a: np.ndarray, b: np.ndarray) -> bool:
+    return a.shape == b.shape and a.dtype == b.dtype and bool(
+        np.array_equal(a.view(np.uint8), b.view(np.uint8)))
 
 
 def serving_phase(model) -> dict:
-    """The serving path through all three kernels, with launch counts."""
+    """The serving path through all three kernels, one CUDA graph per
+    bucket, with launch counts."""
     rng = np.random.default_rng(0)
+    dev = torch.device("cuda")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    held0 = torch.cuda.memory_reserved()
     engine = serving.InferenceEngine(model, buckets=BUCKETS, device="cuda")
+    t = time.perf_counter()
     engine.warmup()
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t
+    torch.cuda.empty_cache()    # what stays reserved is the graphs'
+    held = (torch.cuda.memory_reserved() - held0) / 2 ** 20
+    check(engine.ready_buckets == BUCKETS, f"ready after warmup: "
+          f"{engine.ready_buckets}")
+    want1 = {k: v for k, v in serving_want(1).items() if v}
+    for b in BUCKETS:
+        check(engine._ready[b].launches == want1, f"bucket {b}'s capture "
+              f"recorded {engine._ready[b].launches}, expected {want1}")
+
+    # the first call of each bucket after warmup, host clock, synchronised
+    first = {}
+    for b in BUCKETS:
+        batch = synthetic_images(rng, b)
+        t = time.perf_counter()
+        engine.predict(batch)
+        first[b] = (time.perf_counter() - t) * 1e3
+
+    # each bucket's replay against the eager forward on the same padded
+    # batch, bit for bit: a full chunk and a padded one
+    for b in BUCKETS:
+        for n in sorted({b, max(1, b - 3)}):
+            chunk = synthetic_images(rng, n)
+            labels, probs = engine.predict(chunk)
+            batch = np.zeros((b, 224, 224, 3), np.uint8)
+            batch[:n] = chunk
+            with torch.no_grad():
+                ep, el = engine._forward(torch.from_numpy(batch).to(dev))
+            check(same_arrays(labels, el[:n].cpu().numpy())
+                  and same_arrays(probs, ep[:n].cpu().numpy()),
+                  f"bucket {b}, {n} images: the replay differs from the "
+                  "eager forward")
+
     sizes = (1, 5, 64, 100)
     imgs = {n: synthetic_images(rng, n) for n in sizes}
     calls = sum(-(-n // BUCKETS[-1]) for n in sizes)   # 1 + 1 + 1 + 2
@@ -546,55 +795,55 @@ def serving_phase(model) -> dict:
     reset_launches()
     results = {n: engine.predict(imgs[n]) for n in sizes}
     torch.cuda.synchronize()
-    counts = [uint8_normalize.launches, max_pool2d_fwd.launches,
-              conv2d_bias_relu.launches, conv2d_bias_relu.launches_strip,
-              conv2d_bias_relu.launches_tiled,
-              conv2d_bias_relu.launches_direct]
-    want = [calls, calls, 4 * calls, calls, 3 * calls, 0]
-    check(counts == want, f"predict launches {counts} (normalize, pool, "
-          f"conv, conv strip, conv tiled, conv direct), expected {want}")
+    check(serving_counts() == serving_want(calls),
+          f"predict launches {serving_counts()}, expected "
+          f"{serving_want(calls)}")
     for n, (labels, probs) in results.items():
         check(labels.shape == (n,) and probs.shape == (n, 3), f"shape at {n}")
         check(bool(np.isfinite(probs).all()), f"non-finite probs at {n}")
         check(bool(np.allclose(probs.sum(-1), 1.0, atol=1e-5)), f"sum at {n}")
         check(bool((labels == probs.argmax(-1)).all()), f"argmax at {n}")
 
+    # the server (its start finds every bucket ready: no capture, no call)
     with serving.BatchingServer(engine) as srv, ThreadPoolExecutor(16) as pool:
         futs = list(pool.map(srv.submit, imgs[64][:16]))
         answers = [f.result(timeout=120) for f in futs]
     torch.cuda.synchronize()
-    launches = {"uint8_normalize": uint8_normalize.launches,
-                "max_pool2d_fwd": max_pool2d_fwd.launches,
-                "conv2d_bias_relu": conv2d_bias_relu.launches}
-    served = launches["uint8_normalize"] - calls
-    variants = (conv2d_bias_relu.launches_strip,
-                conv2d_bias_relu.launches_tiled,
-                conv2d_bias_relu.launches_direct)
-    check(served >= 2 and launches["max_pool2d_fwd"] == calls + served
-          and launches["conv2d_bias_relu"] == 4 * (calls + served)
-          and variants == (calls + served, 3 * (calls + served), 0),
-          f"server launches {launches}, conv strip/tiled/direct {variants}")
+    served = uint8_normalize.launches - calls
+    check(served >= 1 and serving_counts() == serving_want(calls + served),
+          f"server launches {serving_counts()} after {served} calls")
+    launches = {k: serving_counts()[f"{k}.launches"] for k in SERVING_KERNELS}
     labels64, probs64 = results[64]
     for i, (label, probs) in enumerate(answers):
         check(label == labels64[i], f"server label {i}")
         check(bool(np.allclose(probs, probs64[i], rtol=0, atol=PROB_ATOL)),
               f"server probs {i}")
-    phase(f"served {sum(sizes)} images in {calls} bucket calls and 16 "
-          f"concurrent submits in {served} calls (incl. warmup); "
-          f"launches {launches}; conv strip {variants[0]}, tiled "
-          f"{variants[1]}, direct {variants[2]}")
+    phase(f"warmup captured buckets {engine.ready_buckets} in {warm_s:.2f} s "
+          f"({held:.1f} MiB of device memory held by the graphs' pool and "
+          f"buffers); first call after warmup (ms): "
+          + ", ".join(f"bucket {b} {v:.3f}" for b, v in first.items())
+          + f"; replays equal to the eager forward bit for bit at every "
+          f"bucket, full and padded; served {sum(sizes)} images in {calls} "
+          f"bucket calls and 16 concurrent submits in {served}; launches "
+          f"{serving_counts()} (exact, replays included)")
 
-    # the same engine on the plain versions, on the card: no kernel may run
+    # a fresh engine on the plain versions, on the card, its graphs captured
+    # from them: no kernel may run
     x = torch.from_numpy(imgs[64]).cuda()
     with torch.inference_mode():
         logits = engine.model(uint8_normalize(x))
     reset_launches()
-    with plain_versions(), torch.inference_mode():
-        plain = {n: engine.predict(imgs[n]) for n in sizes}
-        plain_logits = engine.model(uint8_to_float(x))
-    check([f.launches for f in (uint8_normalize, max_pool2d_fwd,
-                                conv2d_bias_relu)] == [0, 0, 0],
-          "the plain run launched a kernel")
+    with plain_versions():
+        plain_engine = serving.InferenceEngine(model, buckets=BUCKETS,
+                                               device="cuda")
+        plain_engine.warmup()
+        plain = {n: plain_engine.predict(imgs[n]) for n in sizes}
+        with torch.inference_mode():
+            plain_logits = engine.model(uint8_to_float(x))
+    torch.cuda.synchronize()
+    check(not any(read_counters().values()),
+          f"the plain run launched a kernel: {read_counters()}")
+    del plain_engine
     worst = 0.0
     for n in sizes:
         check(np.array_equal(results[n][0], plain[n][0]), f"labels at {n}")
@@ -612,14 +861,16 @@ def serving_phase(model) -> dict:
     cpu_dev = float(np.abs(cp - results[5][1]).max())
     check(np.array_equal(cl, results[5][0]) and cpu_dev <= PROB_ATOL,
           f"probs vs the CPU: {cpu_dev:.3g}")
-    phase(f"probs max|dev| vs plain on the card {worst:.3g}, vs the CPU "
-          f"{cpu_dev:.3g} (atol {PROB_ATOL}); labels equal; logits at bucket "
-          f"64 (|logit| <= {logits.abs().max().item():.1f}) max|dev| vs plain "
+    phase(f"plain run on the card (a fresh engine, its graphs captured from "
+          f"the plain versions): 0 launches; probs max|dev| vs plain on the "
+          f"card {worst:.3g}, vs the CPU {cpu_dev:.3g} (atol {PROB_ATOL}); "
+          f"labels equal; logits at bucket 64 (|logit| <= "
+          f"{logits.abs().max().item():.1f}) max|dev| vs plain "
           f"{logit_dev:.3g} (atol {LOGIT_ATOL}); labels "
           f"{np.bincount(results[100][0], minlength=3).tolist()} over 100")
 
-    # throughput at bucket 64: end to end (host arrays in, host arrays out)
-    # and the device time of one bucket's forward
+    # bucket 64: end to end (host arrays in, host arrays out), and the
+    # device forward through the graph beside the eager one, in turns
     engine.predict(imgs[64])
     torch.cuda.synchronize()
     t = time.perf_counter()
@@ -627,11 +878,14 @@ def serving_phase(model) -> dict:
     for _ in range(reps):
         engine.predict(imgs[64])
     e2e = reps * 64 / (time.perf_counter() - t)
-    with torch.inference_mode():
-        fwd = time_ms(lambda: engine.model(uint8_normalize(x)))
+    replay = engine._ready[64].graph.replay
+    with torch.no_grad():
+        graphed, eager = in_turns(replay, lambda: engine._forward(x))
         split = layer_times(engine.model, uint8_normalize(x))
-    phase(f"bucket 64: {e2e:.1f} img/s end to end; device forward "
-          f"{fwd:.4f} ms = {64e3 / fwd:.1f} img/s; per layer (ms): "
+    phase(f"bucket 64: {e2e:.1f} img/s end to end; device forward through "
+          f"the graph {graphed:.4f} ms = {64e3 / graphed:.1f} img/s, eager "
+          f"{eager:.4f} ms = {64e3 / eager:.1f} img/s ({graphed / eager:.3f} "
+          f"of it); per layer, eager (ms): "
           + ", ".join(f"{k} {v:.4f}" for k, v in split.items()))
     return launches
 
@@ -1316,12 +1570,14 @@ def main() -> int:
     report = ptxas_report(_build.build_log)
     if _build.build_seconds is not None:
         new = [f"conv2d_strip<{r}>" for r in STRIP_ROWS] + [
-            "maxpool2x2_bwd_window"]
+            "maxpool2x2_bwd_window", "normalize_u8_wide<1>",
+            "normalize_u8_wide<0>"]
         check(all(n in report for n in new), f"ptxas reported no {new}: "
               f"{sorted(report)}")
     for name, (regs, spills) in report.items():
         check(not (name.startswith(("conv2d_tiled", "conv2d_strip",
-                                     "maxpool2x2_bwd_window", "rotate_shear"))
+                                     "maxpool2x2_bwd_window", "rotate_shear",
+                                     "normalize_u8_wide"))
                    and spills), f"{name} spills: {spills}")
     phase(f"build: {_build.library_path()} "
           + (f"built in {_build.build_seconds:.1f}s; " + " | ".join(

@@ -2,7 +2,11 @@
 
 Each wrapper takes its plain PyTorch version for a CPU tensor and launches
 its kernel for a CUDA tensor, or raises; it counts its launches in
-``<wrapper>.launches``.
+``<wrapper>.launches``, and those of each kernel variant beside it.
+
+A CUDA graph replays launches without calling the wrappers, so their
+counters do not move; ``counted_capture`` records what a capture would
+have counted, and the graph's owner adds it per replay (``add_counters``).
 """
 
 from cnn_tpu_torch.ops.hopper.augment import (launch_rotate,  # noqa: F401
@@ -12,18 +16,52 @@ from cnn_tpu_torch.ops.hopper.conv import (STRIP_ROWS,  # noqa: F401
                                            TILES, conv2d_bias_relu,
                                            conv2d_bias_relu_fn,
                                            conv_tile_plan)
-from cnn_tpu_torch.ops.hopper.normalize import uint8_normalize  # noqa: F401
+from cnn_tpu_torch.ops.hopper.normalize import (launch_normalize,  # noqa: F401
+                                                normalize_plan,
+                                                uint8_normalize)
 from cnn_tpu_torch.ops.hopper.pool import (launch_pool_bwd,  # noqa: F401
                                            max_pool2d_bwd, max_pool2d_fn,
                                            max_pool2d_fwd, pool_bwd_variant)
 
-WRAPPERS = (uint8_normalize, max_pool2d_fwd, max_pool2d_bwd, conv2d_bias_relu,
-            rotate_shear)
+# every counter of each wrapper: all its launches, then each variant's
+COUNTERS = {
+    uint8_normalize: ("launches", "launches_wide", "launches_bytes"),
+    max_pool2d_fwd: ("launches",),
+    max_pool2d_bwd: ("launches", "launches_window", "launches_element"),
+    conv2d_bias_relu: ("launches", "launches_strip", "launches_tiled",
+                       "launches_direct"),
+    rotate_shear: ("launches",),
+}
+_BY_NAME = {fn.__name__: fn for fn in COUNTERS}
+
+
+def read_counters() -> dict[str, int]:
+    """Every counter, keyed ``"<wrapper>.<counter>"``."""
+    return {f"{fn.__name__}.{c}": getattr(fn, c)
+            for fn, names in COUNTERS.items() for c in names}
+
+
+def add_counters(delta: dict[str, int]) -> None:
+    """Adds ``delta`` (keyed as ``read_counters``) to the counters."""
+    for key, n in delta.items():
+        name, counter = key.split(".")
+        fn = _BY_NAME[name]
+        setattr(fn, counter, getattr(fn, counter) + n)
 
 
 def reset_launches() -> None:
-    for fn in WRAPPERS:
-        fn.launches = 0
-    conv2d_bias_relu.launches_strip = conv2d_bias_relu.launches_tiled = 0
-    conv2d_bias_relu.launches_direct = 0
-    max_pool2d_bwd.launches_window = max_pool2d_bwd.launches_element = 0
+    for fn, names in COUNTERS.items():
+        for c in names:
+            setattr(fn, c, 0)
+
+
+def counted_capture(capture):
+    """Calls ``capture()`` and takes back what its wrapper calls counted, as
+    nothing ran: returns its result and the counters it moved (only the
+    non-zero ones), which each replay of the captured work adds."""
+    before = read_counters()
+    out = capture()
+    after = read_counters()
+    delta = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+    add_counters({k: -n for k, n in delta.items()})
+    return out, delta

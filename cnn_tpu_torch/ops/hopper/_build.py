@@ -6,8 +6,8 @@ shared library with a plain C interface, which ``ctypes`` loads. No PyTorch
 headers, no ``torch.utils.cpp_extension``, no ninja: the build takes
 seconds.
 
-No ``--use_fast_math``: the normalize kernel needs IEEE division to be
-bit-identical to its plain version.
+No ``--use_fast_math``: the normalize kernels' division must be correctly
+rounded to be bit-identical to its plain version.
 
 The library lands in ``build/cnn_tpu_torch/<hash>/`` beside the package,
 keyed by a hash of the sources and flags, so a checkout builds once and an
@@ -41,8 +41,10 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 P, I, I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 # entry point -> argument types after the leading stream
 SIGNATURES = {
-    # x_u8, y_f32, n
-    "cnn_normalize_u8": [P, P, I64],
+    # x_u8, y_f32, n, then normalize_plan's variant index, blocks, head
+    "cnn_normalize_u8": [P, P, I64, I, I, I64],
+    # x_u8, y_f32, n: the previous design
+    "cnn_normalize_u8_direct": [P, P, I64],
     # x, y, tap (null: not written), B, H, W, C
     "cnn_maxpool2x2_fwd": [P, P, P, I, I, I, I],
     # tap, g, dx, B, H, W, C (H, W: the forward's input extent)

@@ -14,6 +14,8 @@ def uint8_to_float(x: torch.Tensor) -> torch.Tensor:
 
     Divides by a 0-d tensor on ``x``'s device rather than by a Python
     number: on CUDA, PyTorch turns division by a host scalar into a
-    reciprocal multiply, which differs by 1 ulp for some byte values.
+    reciprocal multiply, which differs by 1 ulp for some byte values. The
+    divisor is filled on the device (``torch.full``), not copied from the
+    host, so that a CUDA graph can capture the call.
     """
-    return x.float() / torch.tensor(255.0, device=x.device)
+    return x.float() / torch.full((), 255.0, device=x.device)

@@ -7,6 +7,13 @@ holds it. Each bucket call runs, on the engine's device: the uint8 normalize
 kernel, the model (conv and max-pool kernels), then an f32 softmax and
 argmax. Weights stay on the device.
 
+``warmup()`` makes every bucket ready, as ``cnn_tpu``'s compiles one
+executable per bucket. On a CUDA device it captures one CUDA graph per
+bucket (largest first, one memory pool shared by all), from a static uint8
+input to static probs and labels, so that a bucket call is a copy in, one
+replay and a copy out. On the CPU, which the caller has to ask for, every
+call runs eagerly and warmup runs each bucket once.
+
 Usage:
     engine = InferenceEngine(model, buckets=(1, 8, 64))
     engine.warmup()
@@ -20,12 +27,26 @@ import queue
 import threading
 import time
 from concurrent.futures import Future
+from dataclasses import dataclass
 
 import numpy as np
 import torch
 
 from cnn_tpu_torch import default_device
+from cnn_tpu_torch.ops.hopper import add_counters, counted_capture
 from cnn_tpu_torch.ops.hopper.normalize import uint8_normalize
+
+
+@dataclass
+class BucketGraph:
+    """One bucket's CUDA graph and the buffers it reads and writes."""
+    graph: torch.cuda.CUDAGraph
+    host: torch.Tensor      # pinned uint8 staging, [bucket,H,W,3]
+    images: torch.Tensor    # the graph's uint8 input on the device
+    probs: torch.Tensor     # its outputs
+    labels: torch.Tensor
+    launches: dict          # the kernel counters one replay moves
+    stale: int = 0          # rows of ``host`` holding an earlier request
 
 
 class InferenceEngine:
@@ -35,10 +56,58 @@ class InferenceEngine:
         self.buckets = tuple(sorted(buckets))
         size = model.image_size
         self.image_shape = (size, size, 3)
+        # bucket -> its BucketGraph on CUDA, None on the CPU
+        self._ready: dict[int, BucketGraph | None] = {}
+        # graphs share static buffers: one bucket call at a time
+        self._lock = threading.Lock()
+        self._pool = None
+
+    @property
+    def ready_buckets(self) -> tuple[int, ...]:
+        return tuple(sorted(self._ready))
 
     def warmup(self) -> None:
-        """Runs one throwaway batch, which builds the kernels on first use."""
-        self.predict(np.zeros((1, *self.image_shape), np.uint8))
+        """Makes every bucket ready that is not, largest first, and runs it
+        once: on CUDA it captures the bucket's graph and replays it; on the
+        CPU it runs the bucket eagerly. Call it before the first request on
+        CUDA, and before other threads use the device: a capture refuses
+        unsafe CUDA calls from any thread while it runs."""
+        for b in sorted(self.buckets, reverse=True):
+            if b in self._ready:
+                continue
+            with self._lock:
+                self._ready[b] = (self._capture(b) if self.device.type == "cuda"
+                                  else None)
+            self._run(b, np.zeros((b, *self.image_shape), np.uint8))
+
+    def _forward(self, images: torch.Tensor):
+        """uint8 [B,H,W,3] on the device -> (probs [B,C] f32, labels [B])."""
+        logits = self.model(uint8_normalize(images))
+        probs = torch.softmax(logits.float(), dim=-1)
+        return probs, torch.argmax(probs, dim=-1)
+
+    def _capture(self, bucket: int) -> BucketGraph:
+        """One eager pass on a side stream, then the capture. The capture's
+        own kernel calls count nothing; ``launches`` is what a replay adds."""
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        shape = (bucket, *self.image_shape)
+        images = torch.zeros(shape, dtype=torch.uint8, device=self.device)
+        host = torch.zeros(shape, dtype=torch.uint8, pin_memory=True)
+        main = torch.cuda.current_stream(self.device)
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(main)
+        with torch.cuda.stream(side), torch.no_grad():
+            self._forward(images)
+        main.wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+
+        def capture():
+            with torch.no_grad(), torch.cuda.graph(graph, pool=self._pool):
+                return self._forward(images)
+
+        (probs, labels), launches = counted_capture(capture)
+        return BucketGraph(graph, host, images, probs, labels, launches)
 
     def predict(self, images_u8: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
         """[N,H,W,3] uint8 -> (labels [N] int64, probs [N,C] f32)."""
@@ -66,14 +135,30 @@ class InferenceEngine:
         return np.concatenate(labels_out), np.concatenate(probs_out)
 
     def _run(self, bucket: int, chunk: np.ndarray):
+        if self.device.type != "cuda":
+            return self._run_eager(bucket, chunk)
+        if bucket not in self._ready:
+            raise RuntimeError(f"bucket {bucket} has no CUDA graph: call "
+                               "warmup() before the first request")
+        rem = chunk.shape[0]
+        with self._lock:
+            g = self._ready[bucket]
+            staging = g.host.numpy()
+            staging[:rem] = chunk
+            if g.stale > rem:                 # zero the padding
+                staging[rem:g.stale] = 0
+            g.stale = rem
+            g.images.copy_(g.host, non_blocking=True)
+            g.graph.replay()
+            add_counters(g.launches)
+            return g.labels[:rem].cpu().numpy(), g.probs[:rem].cpu().numpy()
+
+    def _run_eager(self, bucket: int, chunk: np.ndarray):
         rem = chunk.shape[0]
         batch = np.zeros((bucket, *self.image_shape), np.uint8)
         batch[:rem] = chunk
         with torch.inference_mode():
-            x = uint8_normalize(torch.from_numpy(batch).to(self.device))
-            logits = self.model(x)
-            probs = torch.softmax(logits.float(), dim=-1)
-            labels = torch.argmax(probs, dim=-1)
+            probs, labels = self._forward(torch.from_numpy(batch).to(self.device))
             return labels[:rem].cpu().numpy(), probs[:rem].cpu().numpy()
 
 

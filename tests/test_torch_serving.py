@@ -13,14 +13,22 @@ from cnn_tpu.models import get_model as j_get_model
 from cnn_tpu.serving import InferenceEngine as JInferenceEngine
 from cnn_tpu.utils.checkpoint import import_reference_model as j_import
 from cnn_tpu_torch.models import get_model
+from cnn_tpu_torch.ops.hopper import (add_counters, conv2d_bias_relu,
+                                      counted_capture, max_pool2d_fwd,
+                                      read_counters, reset_launches,
+                                      uint8_normalize)
+from cnn_tpu_torch.ops.hopper import conv as hconv
+from cnn_tpu_torch.ops.hopper import normalize as hnorm
+from cnn_tpu_torch.ops.hopper import pool as hpool
 from cnn_tpu_torch.ops.preprocess import uint8_to_float
-from cnn_tpu_torch.serving import BatchingServer, InferenceEngine
+from cnn_tpu_torch.serving import BatchingServer, BucketGraph, InferenceEngine
 from cnn_tpu_torch.utils.checkpoint import load_reference_model
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BN_MODEL = os.path.join(REPO, "checkpoints", "alexnet_bn_device",
                         "iter_12000_train_0.997_valid_0.937.model")
 BUCKETS = (1, 8)
+CARD_BUCKETS = (1, 8, 64)   # the buckets chip_smoke.py serves on the card
 
 
 def _images(rng, n):
@@ -42,6 +50,132 @@ def engines():
     load_reference_model(model, BN_MODEL)
     return jeng, InferenceEngine(model, buckets=BUCKETS, device="cpu"), \
         (jmodel, params, state)
+
+
+@pytest.fixture(scope="module")
+def card_bucket_engines():
+    """Both engines at the card's buckets, not yet warmed up."""
+    jmodel = j_get_model("alexnet", num_classes=3, batch_norm=True)
+    params, state = j_import(BN_MODEL, jmodel.net)
+    model = get_model("alexnet", num_classes=3, batch_norm=True,
+                      image_size=224, device="cpu")
+    load_reference_model(model, BN_MODEL)
+    return (JInferenceEngine(jmodel, params, state, buckets=CARD_BUCKETS),
+            InferenceEngine(model, buckets=CARD_BUCKETS, device="cpu"))
+
+
+def test_warmup_makes_every_bucket_ready_as_jax(card_bucket_engines):
+    """JAX's warmup compiles every bucket; the port's runs each once on the
+    CPU (on the card it captures each one's graph)."""
+    jeng, eng = card_bucket_engines
+    assert eng.ready_buckets == ()
+    jeng.warmup()
+    eng.warmup()
+    assert eng.ready_buckets == tuple(sorted(jeng._compiled)) == CARD_BUCKETS
+    eng.warmup()                       # nothing left to make ready
+    assert eng.ready_buckets == CARD_BUCKETS
+
+
+@pytest.mark.parametrize("n", [1, 5, 8, 64, 100])
+def test_predict_at_the_card_buckets_matches_jax(card_bucket_engines, n):
+    """100 images stream one 64-chunk and pad 36 into bucket 64."""
+    jeng, eng = card_bucket_engines
+    eng.warmup()
+    imgs = _images(np.random.default_rng(100 + n), n)
+    want_labels, want_probs = jeng.predict(imgs)
+    labels, probs = eng.predict(imgs)
+    assert labels.shape == (n,) and probs.shape == (n, 3)
+    np.testing.assert_array_equal(labels, want_labels)
+    np.testing.assert_allclose(probs, want_probs, atol=1e-5, rtol=0)
+
+
+def _count_on_meta(monkeypatch):
+    """Wrappers on meta tensors take their CUDA branch; launches are dropped
+    and counted as on the card."""
+    for mod in (hnorm, hconv, hpool):
+        monkeypatch.setattr(mod, "cuda_args", lambda *a, **k: 0)
+        monkeypatch.setattr(mod, "launch", lambda *a: None)
+
+
+def test_capture_counts_nothing_and_replays_add_its_launches(monkeypatch):
+    """The bookkeeping of a captured bucket, without a graph: the capture's
+    wrapper calls are taken back, per counter and variant, and each replay
+    adds them."""
+    _count_on_meta(monkeypatch)
+    model = get_model("alexnet", num_classes=3, batch_norm=True,
+                      image_size=224, device="meta")
+    eng = InferenceEngine(model, buckets=(8,), device="meta")
+    images = torch.empty((8, 224, 224, 3), dtype=torch.uint8, device="meta")
+    reset_launches()
+    add_counters({"uint8_normalize.launches": 5,
+                  "conv2d_bias_relu.launches_direct": 2})
+    before = read_counters()
+    with torch.no_grad():
+        (probs, labels), delta = counted_capture(lambda: eng._forward(images))
+    assert probs.shape == (8, 3) and labels.shape == (8,)
+    assert read_counters() == before   # the capture counted nothing
+    assert delta == {"uint8_normalize.launches": 1,
+                     "uint8_normalize.launches_wide": 1,
+                     "max_pool2d_fwd.launches": 1,
+                     "conv2d_bias_relu.launches": 4,
+                     "conv2d_bias_relu.launches_strip": 1,
+                     "conv2d_bias_relu.launches_tiled": 3}
+    for _ in range(3):
+        add_counters(delta)
+    assert (uint8_normalize.launches, uint8_normalize.launches_wide,
+            uint8_normalize.launches_bytes) == (8, 3, 0)
+    assert max_pool2d_fwd.launches == 3
+    assert (conv2d_bias_relu.launches, conv2d_bias_relu.launches_strip,
+            conv2d_bias_relu.launches_tiled,
+            conv2d_bias_relu.launches_direct) == (12, 3, 9, 2)
+    reset_launches()
+
+
+class _StubGraph:
+    """Stands in for a CUDA graph: a replay writes each row's pixel sum."""
+
+    def __init__(self, images, probs, labels):
+        self.images, self.probs, self.labels = images, probs, labels
+        self.replays = 0
+
+    def replay(self):
+        self.replays += 1
+        sums = self.images.reshape(self.images.shape[0], -1).sum(1)
+        self.labels.copy_(sums % 3)
+        self.probs.copy_(sums.float()[:, None].expand_as(self.probs))
+
+
+def test_bucket_call_stages_replays_and_counts(engines):
+    """``_run``'s card branch on CPU tensors and a stub graph: the chunk is
+    staged and its padding zeroed (also rows an earlier, larger request
+    left), one replay per call adds the capture's launches, and the first
+    rows come back."""
+    _, cpu_eng, _ = engines
+    eng = InferenceEngine(cpu_eng.model, buckets=(8,), device="cpu")
+    eng.device = torch.device("cuda")       # take the graph branch
+    shape = (8, *eng.image_shape)
+    images = torch.zeros(shape, dtype=torch.uint8)
+    probs = torch.zeros((8, 3))
+    labels = torch.zeros((8,), dtype=torch.int64)
+    graph = _StubGraph(images, probs, labels)
+    launches = {"uint8_normalize.launches": 1,
+                "uint8_normalize.launches_wide": 1}
+    eng._ready[8] = BucketGraph(graph, torch.zeros(shape, dtype=torch.uint8),
+                                images, probs, labels, launches)
+    with pytest.raises(RuntimeError):
+        eng._run(1, np.zeros((1, *eng.image_shape), np.uint8))
+    reset_launches()
+    rng = np.random.default_rng(3)
+    for n in (6, 2, 8, 1):
+        chunk = rng.integers(0, 256, (n, *eng.image_shape), dtype=np.uint8)
+        got_labels, got_probs = eng.predict(chunk)
+        sums = chunk.reshape(n, -1).sum(1, dtype=np.int64)
+        np.testing.assert_array_equal(got_labels, sums % 3)
+        np.testing.assert_array_equal(got_probs[:, 0], sums.astype(np.float32))
+        assert not images[n:].any()          # padding rows are zero
+    assert graph.replays == 4
+    assert (uint8_normalize.launches, uint8_normalize.launches_wide) == (4, 4)
+    reset_launches()
 
 
 @pytest.mark.parametrize("n", [3, 10])
