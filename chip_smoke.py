@@ -6,9 +6,9 @@
 1. environment: the card's name and power limit, torch and CUDA versions;
    TF32 off for every float32 product and convolution;
 2. build: one ``nvcc`` per ``cnn_tpu_torch/csrc/*.cu`` for sm_90a, side by
-   side; each kernel's registers, shared memory and spills (the strip and
-   tiled conv, the window pool backward, the rotation and the wide
-   normalize kernels must not spill);
+   side; each kernel's registers, shared memory and spills (the strip,
+   tiled and bf16 conv, the pool forward and window backward in both
+   dtypes, the rotation and the wide normalize kernels must not spill);
 3. kernels: each CUDA kernel against its plain PyTorch version on the card,
    at the serving path's shapes with batch 64 (normalize and max-pool
    bit-exact, conv within atol 1e-5 + rtol 1e-5), timed with CUDA events
@@ -71,7 +71,34 @@
    none through the direct one; the pool backward through the window
    kernel),
    img/s, the device time per step split by stage, and the eval accuracy on
-   held-out images.
+   held-out images;
+8. the bf16 conv kernel (tensor cores, ``cnn_conv2d_bias_relu_bf16``) at
+   each AlexNet layer at batch 256 and B = 64, ReLU off and on, against the
+   plain bf16 conv: each element within one bf16 ulp of the plain value
+   plus 1e-5 x S (S the same conv of |x| and |w|), the count of elements
+   that differ at all, two launches bit-identical; alone, through the
+   wrapper, plain and cuDNN bf16 beside the float32 kernels and cuDNN
+   float32 on the same values, every tile swept at batch 256; off those
+   shapes (B = 1 and 8, an odd extent, Cin 3 and 64 against Cout 16 and
+   128, Cout 8 and 48, k 5 at stride 1, x off alignment) through the plan
+   and every tile;
+9. the bf16 pool forward with tap and window backward at [256,111,111,16]
+   and B = 64 on forced ties and at 7 x 9 and 5 x 4 extents, bit-exact
+   against the plain versions and autograd, timed beside the float32
+   kernels and ATen bf16;
+10. the conv Function in bf16 at the four training shapes: dx/dw/db within
+   2 bf16 ulps of max|ref| of autograd through the plain bf16 conv;
+   forward+backward timed in bf16 and float32;
+11. bf16 training: the configuration of phase 7 with
+   ``compute_dtype=bf16`` and ``augment_batch(dtype=bf16)``, 40 steps:
+   finite, falling loss, eval accuracy, img/s and the device split beside
+   phase 7's, the exact bf16 launch counts (no float32 conv or pool
+   kernel), the cuBLAS reduced-precision flag;
+12. bf16 serving: ``InferenceEngine(compute_dtype=bf16)`` on the committed
+   checkpoint, buckets 1, 8, 64: replays bit-equal to the eager bf16
+   forward, exact launch counts, labels, probabilities and logits against
+   the float32 engine (logits within 5e-2 x max(1, max|ref|), probs 5e-2),
+   bucket-64 img/s and graph ms beside float32, per-layer eager times.
 
 Every phase prints one flushed line with the seconds since start. Any failed
 check raises, so the exit code is not 0. Without a CUDA device it exits 1
@@ -101,13 +128,15 @@ import cnn_tpu_torch.nn.module as nn_module
 import cnn_tpu_torch.serving as serving
 from cnn_tpu_torch.data import DeviceDataset, make_device_train_step
 from cnn_tpu_torch.models import get_model
-from cnn_tpu_torch.nn import Conv2D, ReLU
+from cnn_tpu_torch.nn import Conv2D, Linear, ReLU
 from cnn_tpu_torch.ops import augment as aug
 from cnn_tpu_torch.ops.activations import relu as ops_relu
 from cnn_tpu_torch.ops.conv import conv2d, conv_out_size
-from cnn_tpu_torch.ops.hopper import (STRIP_ROWS, TILES, _build,
-                                      conv2d_bias_relu, conv2d_bias_relu_fn,
+from cnn_tpu_torch.ops.hopper import (BF16_TILES, STRIP_ROWS, TILES,
+                                      _build, conv2d_bias_relu,
+                                      conv2d_bias_relu_fn, conv_bf16_plan,
                                       conv_tile_plan, counted_capture,
+                                      launch_conv_bf16,
                                       launch_normalize, launch_pool_bwd,
                                       launch_rotate, max_pool2d_bwd,
                                       max_pool2d_fn, max_pool2d_fwd,
@@ -140,9 +169,19 @@ TRAIN_N = 1024         # canvases held on the card
 TRAIN_STEPS = 40
 GRAD_TOL = 1e-4        # per gradient tensor, times max(1, max|ref|)
 CONV_GRAD_TOL = 1e-5   # conv Function against autograd, times max(1, max|ref|)
-# NVIDIA H100 SXM data sheet: HBM3 rate, and float32 outside the tensor cores
+# NVIDIA H100 SXM data sheet: HBM3 rate, float32 outside the tensor cores,
+# and dense bf16 on the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+BF16_FLOP_PER_S = 989e12
+BF16 = torch.bfloat16
+# the bf16 conv kernel against the plain bf16 conv: one bf16 ulp of the
+# plain value, plus 1e-5 x S (S the same conv of |x| and |w|), the float32
+# reassociation bound of a tensor-core sum taken in another order
+BF16_CONV_SREL = 1e-5
+# the bf16 model against the float32 one (logits, times max(1, max|f32|),
+# and probabilities): the bar of the CPU tests against cnn_tpu's bf16
+BF16_MODEL_TOL = 5e-2
 CONV_ATOL = CONV_RTOL = 1e-5
 PROB_ATOL = 1e-5
 LOGIT_ATOL = 1e-4   # the logit bar cnn_tpu holds against the reference
@@ -152,6 +191,9 @@ REPLACES = {
     "max_pool2d_bwd": "cnn_tpu/ops/pallas/pool.py:82",
     "conv2d_bias_relu": "cnn_tpu/ops/pallas/conv.py:103",
     "rotate_shear": "cnn_tpu/ops/pallas/augment.py:173",
+    "conv2d_bias_relu_bf16": "cnn_tpu/ops/pallas/conv.py:77",
+    "max_pool2d_fwd_bf16": "cnn_tpu/ops/pallas/pool.py:61",
+    "max_pool2d_bwd_bf16": "cnn_tpu/ops/pallas/pool.py:82",
 }
 SOURCES = {
     "uint8_normalize": "cnn_tpu_torch/csrc/normalize.cu",
@@ -159,9 +201,16 @@ SOURCES = {
     "max_pool2d_bwd": "cnn_tpu_torch/csrc/pool.cu",
     "conv2d_bias_relu": "cnn_tpu_torch/csrc/conv.cu",
     "rotate_shear": "cnn_tpu_torch/csrc/rotate.cu",
+    "conv2d_bias_relu_bf16": "cnn_tpu_torch/csrc/conv.cu",
+    "max_pool2d_fwd_bf16": "cnn_tpu_torch/csrc/pool.cu",
+    "max_pool2d_bwd_bf16": "cnn_tpu_torch/csrc/pool.cu",
 }
 KERNELS = ("uint8_normalize", "max_pool2d_fwd", "max_pool2d_bwd",
            "conv2d_bias_relu", "rotate_shear")
+# the bf16 rows of the kernels line: row -> (wrapper, its bf16 counter)
+BF16_KERNELS = {"conv2d_bias_relu_bf16": "conv2d_bias_relu.launches_bf16",
+                "max_pool2d_fwd_bf16": "max_pool2d_fwd.launches_bf16",
+                "max_pool2d_bwd_bf16": "max_pool2d_bwd.launches_bf16"}
 
 T0 = time.perf_counter()
 
@@ -215,8 +264,9 @@ def graph_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S
+def bound_ms(nbytes: float, flops: float,
+             peak: float = FP32_FLOP_PER_S) -> tuple[float, str]:
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -732,10 +782,12 @@ def serving_want(calls: int) -> dict:
             "uint8_normalize.launches_wide": calls,
             "uint8_normalize.launches_bytes": 0,
             "max_pool2d_fwd.launches": calls,
+            "max_pool2d_fwd.launches_bf16": 0,
             "conv2d_bias_relu.launches": 4 * calls,
             "conv2d_bias_relu.launches_strip": calls,
             "conv2d_bias_relu.launches_tiled": 3 * calls,
-            "conv2d_bias_relu.launches_direct": 0}
+            "conv2d_bias_relu.launches_direct": 0,
+            "conv2d_bias_relu.launches_bf16": 0}
 
 
 def same_arrays(a: np.ndarray, b: np.ndarray) -> bool:
@@ -890,15 +942,19 @@ def serving_phase(model) -> dict:
     return launches
 
 
-def layer_times(model, x) -> dict:
+def layer_times(model, x, compute_dtype=None) -> dict:
     """Device ms of each step of the model's eval forward, fused conv+ReLU
-    counted under the conv's name, as ``Sequential.forward`` runs them."""
+    counted under the conv's name, as ``Sequential.forward`` runs them (a
+    conv's or the linear layer's casts to ``compute_dtype`` in its time)."""
     layers, out, i = list(model.net), {}, 0
     while i < len(layers):
         fuse = (isinstance(layers[i], Conv2D) and i + 1 < len(layers)
                 and isinstance(layers[i + 1], ReLU))
-        step = (lambda l=layers[i], x=x: l(x, relu=True)) if fuse else \
-            (lambda l=layers[i], x=x: l(x))
+        kw = {"relu": True} if fuse else {}
+        if compute_dtype is not None and isinstance(layers[i],
+                                                    (Conv2D, Linear)):
+            kw["compute_dtype"] = compute_dtype
+        step = (lambda l=layers[i], x=x, kw=kw: l(x, **kw))
         out[layers[i].name] = time_ms(step)
         x = step()
         i += 2 if fuse else 1
@@ -1486,12 +1542,14 @@ def training_phase() -> dict:
     phase("device ms per step (mean of 5): " + ", ".join(
         f"{k} {v:.4f}" for k, v in split.items())
         + f"; sum {sum(split.values()):.4f}")
-    return counts
+    return counts, {"img_s": TRAIN_STEPS * TRAIN_B / wall, "split": split,
+                    "acc": acc}
 
 
-def step_split(ts, ds, opt, reps: int = 5) -> dict:
+def step_split(ts, ds, opt, reps: int = 5, dtype=torch.float32) -> dict:
     """Device time of each stage of ``make_device_train_step``'s step, the
-    stages run as the step runs them, with CUDA events between."""
+    stages run as the step runs them (in ``dtype``, the augmentation's and
+    the compute dtype), with CUDA events between."""
     names = ("sample", "place", "rotate", "crop", "forward", "backward",
              "update")
     total = dict.fromkeys(names, 0.0)
@@ -1503,13 +1561,13 @@ def step_split(ts, ds, opt, reps: int = 5) -> dict:
         images, labels = ds.sample(ts.rng, TRAIN_B)
         ev[1].record()
         p = aug.draw_full(ts.rng, TRAIN_B)
-        j = aug.place(aug.to_unit(images), p)
+        j = aug.place(aug.to_unit(images, dtype), p)
         ev[2].record()
         j = rotate_shear(j, p.angle)
         ev[3].record()
-        x = aug.crop_full(j, p)
+        x = aug.crop_full(j, p, dtype=dtype)
         ev[4].record()
-        logits = model(x).float()
+        logits = model(x, compute_dtype=dtype).float()
         loss = softmax_cross_entropy(logits, labels)
         ev[5].record()
         grads = torch.autograd.grad(loss, list(params.values()))
@@ -1521,6 +1579,456 @@ def step_split(ts, ds, opt, reps: int = 5) -> dict:
         for k, name in enumerate(names):
             total[name] += ev[k].elapsed_time(ev[k + 1]) / reps
     return total
+
+
+# ---------------------------------------------------------------------------
+# bf16: the three bf16 kernels, the bf16 conv Function, bf16 training and
+# bf16 serving
+# ---------------------------------------------------------------------------
+
+def bf16_ulp(ref: torch.Tensor) -> torch.Tensor:
+    """One bf16 ulp of each (bf16) value, as float32; 0 at 0."""
+    r = ref.float().abs()
+    _, e = torch.frexp(r)
+    return torch.where(r > 0, torch.ldexp(torch.ones_like(r), e - 8),
+                       torch.zeros_like(r))
+
+
+def same16(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return a.shape == b.shape and a.dtype == b.dtype == BF16 and bool(
+        torch.equal(a.view(torch.int16), b.view(torch.int16)))
+
+
+def check_conv_bf16(x, w, b, stride, what, conv=conv2d_bias_relu):
+    """``conv`` on bf16 against the plain bf16 conv, ReLU off and on: every
+    element within one bf16 ulp of the plain value plus BF16_CONV_SREL x S,
+    two launches bit-identical. Returns (max |dev|, max |dev| / bar,
+    elements that differ at all, elements)."""
+    s_abs = conv2d(x.float().abs(), w.float().abs(),
+                   torch.zeros_like(b, dtype=torch.float32), stride, False)
+    worst = [0.0, 0.0, 0, 0]
+    for relu in (False, True):
+        y, ref = conv(x, w, b, stride, relu), conv2d(x, w, b, stride, relu)
+        check(y.dtype == BF16 and y.shape == ref.shape,
+              f"{what} relu={relu}: {y.dtype} {tuple(y.shape)}")
+        dev_ = (y.float() - ref.float()).abs()
+        bar = bf16_ulp(ref) + BF16_CONV_SREL * s_abs
+        check(bool((dev_ <= bar).all()), f"{what} relu={relu}: max deviation "
+              f"{dev_.max().item():.3g}, {(dev_ / bar).max().item():.3g} x "
+              "the bar (1 bf16 ulp + 1e-5 S)")
+        check(same16(y, conv(x, w, b, stride, relu)),
+              f"{what} relu={relu}: two launches differ")
+        worst[0] = max(worst[0], dev_.max().item())
+        worst[1] = max(worst[1], (dev_ / bar).max().item())
+        worst[2] += int((y.view(torch.int16) != ref.view(torch.int16))
+                        .sum().item())
+        worst[3] += y.numel()
+    return tuple(worst)
+
+
+def bf16_conv_inputs(gen, bsz, h, wid, cin, cout):
+    dev = torch.device("cuda")
+    x = torch.rand((bsz, h, wid, cin), generator=gen, device=dev) if cin == 3 \
+        else torch.relu(torch.randn((bsz, h, wid, cin), generator=gen,
+                                    device=dev))
+    w = torch.randn((3, 3, cin, cout), generator=gen, device=dev) * 0.1
+    b = torch.randn((cout,), generator=gen, device=dev) * 0.1
+    return x.to(BF16), w.to(BF16), b.to(BF16)
+
+
+def bf16_conv_phase(gen) -> tuple:
+    """The bf16 conv kernel at each AlexNet layer at batch 256 and B = 64,
+    then off those shapes, against the plain bf16 conv; times beside the
+    float32 kernels on the same values; the kernels line's row."""
+    rows, layers = {}, [(3, 16, 224), (16, 32, 55), (32, 64, 27),
+                        (64, 128, 13)]
+    worst = [0.0, 0.0, 0, 0]
+    for bsz in (TRAIN_B, B):
+        sums = dict.fromkeys(("ms", "graph", "plain", "lib", "bound",
+                              "f32_ms", "f32_graph", "lib32"), 0.0)
+        by = {"bytes": 0.0, "operations": 0.0}
+        for i, (cin, cout, h) in enumerate(layers, start=1):
+            x, w, b = bf16_conv_inputs(gen, bsz, h, h, cin, cout)
+            plan = conv_bf16_plan(bsz, h, h, cin, cout, 3, 2,
+                                  x.data_ptr() % 16 == 0)
+            check(plan.variant == ("gather" if i == 1 else "vec"),
+                  f"bf16 conv_layer_{i}: planned {plan}")
+            got = check_conv_bf16(x, w, b, 2, f"bf16 conv_layer_{i} B={bsz}")
+            worst = [max(worst[0], got[0]), max(worst[1], got[1]),
+                     worst[2] + got[2], worst[3] + got[3]]
+            x32, w32, b32 = x.float(), w.float(), b.float()
+            xn, wn = x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1).contiguous()
+            xn32, wn32 = xn.float(), wn.float()
+            ho = conv_out_size(h, 3, 2)
+            m = bsz * ho * ho
+            r = read_extent(h, 3, 2)
+            bnd = bound_ms(2 * bsz * r * r * cin + nbytes(w, b) + 2 * m * cout,
+                           2 * m * cout * 9 * cin + m * cout, BF16_FLOP_PER_S)
+            t = {"ms": time_ms(lambda: conv2d_bias_relu(x, w, b, 2, False)),
+                 "graph": graph_ms(lambda: conv2d_bias_relu(x, w, b, 2,
+                                                            False)),
+                 "plain": time_ms(lambda: conv2d(x, w, b, 2, False), iters=5),
+                 "lib": graph_ms(lambda: F.conv2d(xn, wn, b, 2)),
+                 "f32_ms": time_ms(lambda: conv2d_bias_relu(x32, w32, b32, 2,
+                                                            False)),
+                 "f32_graph": graph_ms(lambda: conv2d_bias_relu(
+                     x32, w32, b32, 2, False)),
+                 "lib32": graph_ms(lambda: F.conv2d(xn32, wn32, b32, 2)),
+                 "bound": bnd[0]}
+            for k, v in t.items():
+                sums[k] += v
+            by[bnd[1]] += bnd[0]
+            sweep = ""
+            if bsz == TRAIN_B:
+                tiles = {f"{64 * mt}x{8 * nt}": graph_ms(
+                    lambda j=j: launch_conv_bf16(x, w, b, 2, False, tile=j))
+                    for j, (mt, nt) in enumerate(BF16_TILES)}
+                sweep = "; every tile alone (ms): " + ", ".join(
+                    f"{k} {v:.4f}" for k, v in tiles.items())
+            phase(f"bf16 conv_layer_{i} [{bsz},{h},{h},{cin}]->[{bsz},{ho},"
+                  f"{ho},{cout}] {plan.variant} {plan.bm}x{plan.bn} (grid "
+                  f"{plan.grid}, K {9 * cin} -> {plan.k_pad}): max|dev| "
+                  f"{got[0]:.3g} ({got[1]:.3g} of the bar), {got[2]} of "
+                  f"{got[3]} elements differ from the plain version, two "
+                  f"launches bit-identical; ms alone {t['graph']:.4f} "
+                  f"(float32 kernel {t['f32_graph']:.4f}), through the "
+                  f"wrapper {t['ms']:.4f} (float32 {t['f32_ms']:.4f}), bound "
+                  f"{bnd[0]:.4f} ({bnd[1]}), plain {t['plain']:.4f}, cuDNN "
+                  f"bf16 alone {t['lib']:.4f} (float32 {t['lib32']:.4f})"
+                  f"{sweep}")
+        sums["bound_by"] = max(by, key=by.get)
+        rows[bsz] = sums
+        phase(f"bf16 conv, 4 layers at B={bsz}: alone {sums['graph']:.4f} ms "
+              f"(float32 kernels {sums['f32_graph']:.4f}), through the "
+              f"wrapper {sums['ms']:.4f} (float32 {sums['f32_ms']:.4f}), "
+              f"bound {sums['bound']:.4f}, plain {sums['plain']:.4f}, cuDNN "
+              f"bf16 {sums['lib']:.4f} (float32 {sums['lib32']:.4f})")
+
+    # off the AlexNet shapes: the ragged M edge of the serving buckets, an
+    # odd extent, Cin 3 and 64 against Cout 16 and 128, Cout 8 and 48, k 5
+    # at stride 1, x off 16-byte alignment; through the plan and every tile
+    cases = []
+    for bsz in (1, 8):
+        for cin, cout, h in layers:
+            cases.append((f"B {bsz}, {h}x{h}x{cin}->{cout}", bsz, h, h, cin,
+                          cout))
+    cases += [("odd 27x31x16->32", 2, 27, 31, 16, 32),
+              ("Cin 3 -> Cout 128", 2, 33, 35, 3, 128),
+              ("Cin 64 -> Cout 16", 2, 15, 13, 64, 16),
+              ("Cout 8", 3, 17, 17, 16, 8), ("Cout 48, Cin 12", 2, 21, 19, 12,
+                                             48)]
+    off = [0.0, 0.0, 0, 0]
+    seen = set()
+    for what, bsz, h, wid, cin, cout in cases:
+        x, w, b = bf16_conv_inputs(gen, bsz, h, wid, cin, cout)
+        plan = conv_bf16_plan(bsz, h, wid, cin, cout, 3, 2, True)
+        seen.add((plan.variant, plan.tile))
+        got = check_conv_bf16(x, w, b, 2, f"bf16 conv ({what})")
+        for tile in range(len(BF16_TILES)):
+            g2 = check_conv_bf16(
+                x, w, b, 2, f"bf16 conv ({what}) tile {tile}",
+                lambda *a, tile=tile: launch_conv_bf16(*a, tile=tile)[0])
+            got = tuple(max(a, c) for a, c in zip(got[:2], g2[:2])) + got[2:]
+        off = [max(off[0], got[0]), max(off[1], got[1]), off[2] + got[2],
+               off[3] + got[3]]
+    x, w, b = bf16_conv_inputs(gen, 2, 20, 24, 4, 16)
+    w5 = torch.randn((5, 5, 4, 16), generator=gen, device="cuda").to(BF16)
+    got = check_conv_bf16(x, w5, b, 1, "bf16 conv (k 5, stride 1)")
+    buf = torch.rand((2 * 27 * 27 * 16 + 1,), generator=gen,
+                     device="cuda").to(BF16)
+    xm = buf[1:].view(2, 27, 27, 16)    # 2 bytes past 16-byte alignment
+    wm, bm_ = bf16_conv_inputs(gen, 1, 3, 3, 16, 32)[1:]
+    check(conv_bf16_plan(2, 27, 27, 16, 32, 3, 2, xm.data_ptr() % 16 == 0)
+          .variant == "gather", "bf16 conv: misaligned x not on gather")
+    got2 = check_conv_bf16(xm, wm, bm_, 2, "bf16 conv (x off 16-byte "
+                           "alignment)")
+    phase(f"bf16 conv off the AlexNet shapes (" + "; ".join(c[0] for c in cases)
+          + f"; k 5 stride 1; x off alignment), through the plan (variant and "
+          f"tile {sorted(seen)}) and every tile of {len(BF16_TILES)}: max|dev| "
+          f"{max(off[0], got[0], got2[0]):.3g} "
+          f"({max(off[1], got[1], got2[1]):.3g} of the bar), "
+          f"{off[2] + got[2] + got2[2]} of {off[3] + got[3] + got2[3]} "
+          f"elements differ, two launches bit-identical")
+    return worst, rows
+
+
+def bf16_pool_phase(gen) -> tuple:
+    """The bf16 pool forward with tap and the window backward at
+    [256,111,111,16] and B = 64, bit-exact against the plain versions on
+    forced ties, a 7 x 9 extent; times beside the float32 kernels."""
+    dev = torch.device("cuda")
+    out = {}
+    for bsz in (TRAIN_B, B):
+        x = torch.randn((bsz, 111, 111, 16), generator=gen, device=dev)
+        x = torch.relu(torch.round(x * 4) / 4).to(BF16)
+        (y, tap), (ref, ref_tap) = (max_pool2d_fwd(x, with_tap=True),
+                                    max_pool2d_taps(x))
+        check(same16(y, ref) and torch.equal(tap, ref_tap),
+              f"bf16 pool forward B={bsz}: differs from the plain version")
+        check(same16(y, max_pool2d_fwd(x)), "bf16 pool forward: differs "
+              "without the tap")
+        ties = (x[:, :110:2, :110:2] == x[:, :110:2, 1:110:2]).float().mean()
+        g = torch.randn((bsz, 55, 55, 16), generator=gen, device=dev).to(BF16)
+        dx, dref = max_pool2d_bwd(tap, g, 111, 111), pool_bwd_plain(tap, g,
+                                                                   111, 111)
+        check(same16(dx, dref) and not dx[:, 110].any().item()
+              and not dx[:, :, 110].any().item(),
+              f"bf16 pool backward B={bsz}: differs from the plain version")
+        xa = x.clone().requires_grad_(True)
+        (auto,) = torch.autograd.grad(max_pool2d(xa), xa, g)
+        check(same16(dx, auto), "bf16 pool backward: differs from autograd "
+              "through the plain forward")
+        x32, g32 = x.float(), g.float()
+        _, tap32 = max_pool2d_fwd(x32, with_tap=True)
+        xn, gn = x.permute(0, 3, 1, 2), g.permute(0, 3, 1, 2)
+        _, ind = F.max_pool2d(xn, 2, 2, return_indices=True)
+        t = {
+            "fwd": (time_ms(lambda: max_pool2d_fwd(x, with_tap=True)),
+                    graph_ms(lambda: max_pool2d_fwd(x, with_tap=True)),
+                    time_ms(lambda: max_pool2d_taps(x)),
+                    graph_ms(lambda: F.max_pool2d(xn, 2, 2,
+                                                  return_indices=True)),
+                    bound_ms(2 * bsz * 110 * 110 * 16 + nbytes(y, tap),
+                             3 * y.numel()),
+                    graph_ms(lambda: max_pool2d_fwd(x32, with_tap=True))),
+            "bwd": (time_ms(lambda: max_pool2d_bwd(tap, g, 111, 111)),
+                    graph_ms(lambda: max_pool2d_bwd(tap, g, 111, 111)),
+                    time_ms(lambda: pool_bwd_plain(tap, g, 111, 111)),
+                    graph_ms(lambda: torch.ops.aten
+                             .max_pool2d_with_indices_backward(
+                                 gn, xn, [2, 2], [2, 2], [0, 0], [1, 1],
+                                 False, ind)),
+                    bound_ms(nbytes(tap, g, dx), 0),
+                    graph_ms(lambda: max_pool2d_bwd(tap32, g32, 111, 111)))}
+        out[bsz] = t
+        phase(f"bf16 pool [{bsz},111,111,16] (tie share {ties.item():.3f}): "
+              f"forward value and tap and the window backward bit-exact "
+              f"against the plain versions and autograd, cropped row and "
+              f"column zero; " + "; ".join(
+                  f"{k} ms through the wrapper {v[0]:.4f}, alone {v[1]:.4f} "
+                  f"(float32 kernel {v[5]:.4f}), plain {v[2]:.4f}, ATen bf16 "
+                  f"alone {v[3]:.4f}, bound {v[4][0]:.4f}"
+                  for k, v in t.items()))
+    for (bsz, h, w_, c) in ((3, 7, 9, 8), (2, 5, 4, 4)):
+        xs = torch.relu(torch.round(torch.randn((bsz, h, w_, c), generator=gen,
+                                                device=dev) * 2) / 2).to(BF16)
+        (ys, ts), (rs, rts) = max_pool2d_fwd(xs, with_tap=True), \
+            max_pool2d_taps(xs)
+        gs = torch.randn(ys.shape, generator=gen, device=dev).to(BF16)
+        got = max_pool2d_bwd(ts, gs, h, w_)
+        check(same16(ys, rs) and torch.equal(ts, rts)
+              and same16(got, pool_bwd_plain(ts, gs, h, w_))
+              and not got[:, h - 1].any().item()
+              and (w_ % 2 == 0 or not got[:, :, w_ - 1].any().item()),
+              f"bf16 pool {h}x{w_}x{c}: differs")
+    phase("bf16 pool 7x9x8 and 5x4x4: forward and window backward bit-exact, "
+          "cropped rows and columns zero")
+    return out
+
+
+def bf16_function_phase(gen) -> float:
+    """The conv Function in bf16 at the four training shapes: dx/dw/db
+    against autograd through the plain bf16 conv with the Function's own
+    ReLU mask, within 2 bf16 ulps of max|ref| per tensor; forward and
+    backward timed in bf16 and in float32."""
+    worst, times = 0.0, {}
+    for cin, cout, h in ((3, 16, 224), (16, 32, 55), (32, 64, 27),
+                         (64, 128, 13)):
+        x, w, b = bf16_conv_inputs(gen, TRAIN_B, h, h, cin, cout)
+        ho = conv_out_size(h, 3, 2)
+        g = torch.randn((TRAIN_B, ho, ho, cout), generator=gen,
+                        device="cuda").to(BF16)
+        for relu in (False, True):
+            leaves = [t.clone().requires_grad_(True) for t in (x, w, b)]
+            got = torch.autograd.grad(conv2d_bias_relu_fn(*leaves, 2, relu),
+                                      leaves, g)
+            gm = g
+            if relu:
+                pre = conv2d_bias_relu(x, w, b, 2, False)
+                gm = torch.where(pre > 0, g, torch.zeros_like(g))
+            leaves = [t.clone().requires_grad_(True) for t in (x, w, b)]
+            ref = torch.autograd.grad(conv2d(*leaves, 2, False), leaves, gm)
+            for what, a, r in zip(("dx", "dw", "db"), got, ref):
+                check(a.dtype == r.dtype == BF16, f"bf16 Function {what} "
+                      f"dtype {a.dtype}")
+                top = r.float().abs().max()
+                ulp = bf16_ulp(top.reshape(1))[0].item()
+                d = (a.float() - r.float()).abs().max().item()
+                check(d <= 2 * ulp, f"bf16 Function conv {cin}->{cout} "
+                      f"relu={relu} {what}: max |dev| {d:.3g} over 2 ulps "
+                      f"of {top.item():.3g}")
+                worst = max(worst, d / ulp if ulp else 0.0)
+        # forward + backward as training asks it (no dx of the images), in
+        # bf16 and in float32 on the same values
+        for dt in (BF16, torch.float32):
+            leaves = [t.to(dt).requires_grad_(True) for t in (x, w, b)]
+            wrt = leaves if cin > 3 else leaves[1:]
+            gd = g.to(dt)
+            times.setdefault(dt, []).append(time_ms(
+                lambda: torch.autograd.grad(
+                    conv2d_bias_relu_fn(*leaves, 2, False), wrt, gd),
+                iters=10))
+    phase(f"bf16 conv Function at batch {TRAIN_B}, four layers, ReLU off and "
+          f"on: dx/dw/db within {worst:.3g} bf16 ulps of max|ref| (bar 2) of "
+          f"autograd through the plain bf16 conv; forward+backward per layer "
+          f"(ms), bf16 " + ", ".join(f"{t:.4f}" for t in times[BF16])
+          + "; float32 " + ", ".join(f"{t:.4f}" for t in times[torch.float32]))
+    return worst
+
+
+def bf16_training_phase(f32: dict) -> dict:
+    """The training configuration of the float32 run, in bf16: the same
+    data, model seed, optimizer and steps, ``compute_dtype=bf16`` and the
+    augmentation in bf16; exact bf16 launch counts, no float32 kernel."""
+    rng = np.random.default_rng(3)
+    imgs, labels = synthetic_canvases(rng, TRAIN_N, CANVAS)
+    held, held_labels = synthetic_canvases(rng, 2 * TRAIN_B, 224)
+    ds = DeviceDataset.from_arrays(imgs, labels, device="cuda")
+    held = torch.from_numpy(held).cuda()
+    held_labels = torch.from_numpy(held_labels).cuda()
+    model = get_model("alexnet", num_classes=3, batch_norm=True,
+                      image_size=224, device="cuda",
+                      generator=torch.Generator().manual_seed(5))
+    opt = make_optimizer("momentum", 1.5e-2, schedule="cosine",
+                         total_steps=TRAIN_STEPS)
+    ts = create_train_state(model, opt, seed=7)
+    step = make_device_train_step(
+        model, opt, ds, TRAIN_B, compute_dtype=BF16,
+        augment_fn=lambda gen, im: aug.augment_batch(gen, im, dtype=BF16))
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    losses = []
+    for _ in range(TRAIN_STEPS):
+        ts, m = step(ts)
+        losses.append(m["loss"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    eval_step = make_eval_step(model, compute_dtype=BF16)
+    correct = 0
+    for i in range(0, held.shape[0], TRAIN_B):
+        correct += eval_step(held[i:i + TRAIN_B],
+                             held_labels[i:i + TRAIN_B])["correct"].item()
+    counts = {k: v for k, v in read_counters().items() if v}
+    n_eval = -(-held.shape[0] // TRAIN_B)
+    fwd = TRAIN_STEPS + n_eval
+    want = {"uint8_normalize.launches": n_eval,
+            "uint8_normalize.launches_wide": n_eval,
+            "max_pool2d_fwd.launches": fwd, "max_pool2d_fwd.launches_bf16": fwd,
+            "max_pool2d_bwd.launches": TRAIN_STEPS,
+            "max_pool2d_bwd.launches_bf16": TRAIN_STEPS,
+            "conv2d_bias_relu.launches": 4 * fwd,
+            "conv2d_bias_relu.launches_bf16": 4 * fwd,
+            "rotate_shear.launches": TRAIN_STEPS}
+    check(counts == want, f"bf16 training launches {counts}, expected {want}")
+    losses = torch.stack(losses).cpu()
+    check(bool(torch.isfinite(losses).all()), f"bf16 non-finite loss: {losses}")
+    first, last = losses[:5].mean().item(), losses[-5:].mean().item()
+    check(last < first, f"bf16 loss did not fall: first 5 {first}, last 5 "
+          f"{last}")
+    check(all(p.dtype == torch.float32 for p in model.parameters())
+          and all(v.dtype == torch.float32 for v in ts.opt_state["trace"]
+                  .values()), "bf16 training: a master tensor left float32")
+    acc = correct / held.shape[0]
+    img_s = TRAIN_STEPS * TRAIN_B / wall
+    phase(f"bf16 trained {TRAIN_STEPS} steps at batch {TRAIN_B} "
+          f"(allow_bf16_reduced_precision_reduction "
+          f"{torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction}"
+          f" outside the port's products): loss {losses[0].item():.4f} -> "
+          f"{losses[-1].item():.4f} (mean of the first 5 {first:.4f}, last 5 "
+          f"{last:.4f}); {img_s:.1f} img/s end to end (float32 "
+          f"{f32['img_s']:.1f}), {1e3 * wall / TRAIN_STEPS:.2f} ms per step; "
+          f"eval accuracy {acc:.4f} (float32 {f32['acc']:.4f}) on "
+          f"{held.shape[0]} held-out images; launches {counts} (exact: bf16 "
+          f"kernels only, no float32 conv or pool kernel)")
+    split = step_split(ts, ds, opt, dtype=BF16)
+    phase("bf16 device ms per step (mean of 5): " + ", ".join(
+        f"{k} {v:.4f} (float32 {f32['split'][k]:.4f})"
+        for k, v in split.items())
+        + f"; sum {sum(split.values()):.4f} (float32 "
+        f"{sum(f32['split'].values()):.4f})")
+    return counts
+
+
+def bf16_serving_phase(model) -> dict:
+    """``InferenceEngine(compute_dtype=bf16)`` on the committed checkpoint:
+    each bucket's replay bit-equal to the eager bf16 forward, launch counts
+    exact through the replays, against the float32 engine; bucket-64 times
+    beside float32."""
+    rng = np.random.default_rng(4)
+    dev = torch.device("cuda")
+    engine = serving.InferenceEngine(model, buckets=BUCKETS, device="cuda",
+                                     compute_dtype=BF16)
+    engine.warmup()
+    f32 = serving.InferenceEngine(model, buckets=BUCKETS, device="cuda")
+    f32.warmup()
+    want1 = {"uint8_normalize.launches": 1, "uint8_normalize.launches_wide": 1,
+             "max_pool2d_fwd.launches": 1, "max_pool2d_fwd.launches_bf16": 1,
+             "conv2d_bias_relu.launches": 4,
+             "conv2d_bias_relu.launches_bf16": 4}
+    for b in BUCKETS:
+        check(engine._ready[b].launches == want1, f"bf16 bucket {b}'s "
+              f"capture recorded {engine._ready[b].launches}")
+        for n in sorted({b, max(1, b - 3)}):
+            chunk = synthetic_images(rng, n)
+            labels, probs = engine.predict(chunk)
+            batch = np.zeros((b, 224, 224, 3), np.uint8)
+            batch[:n] = chunk
+            with torch.no_grad():
+                ep, el = engine._forward(torch.from_numpy(batch).to(dev))
+            check(same_arrays(labels, el[:n].cpu().numpy())
+                  and same_arrays(probs, ep[:n].cpu().numpy()),
+                  f"bf16 bucket {b}, {n} images: the replay differs from the "
+                  "eager forward")
+    sizes = (1, 5, 64, 100)
+    imgs = {n: synthetic_images(rng, n) for n in sizes}
+    calls = sum(-(-n // BUCKETS[-1]) for n in sizes)
+    reset_launches()
+    results = {n: engine.predict(imgs[n]) for n in sizes}
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in read_counters().items() if v}
+    want = {k: v * calls for k, v in want1.items()}
+    check(counts == want, f"bf16 predict launches {counts}, expected {want}")
+    ref = {n: f32.predict(imgs[n]) for n in sizes}
+    agree = sum(int((results[n][0] == ref[n][0]).sum()) for n in sizes)
+    pdev = max(float(np.abs(results[n][1] - ref[n][1]).max()) for n in sizes)
+    x = torch.from_numpy(imgs[64]).to(dev)
+    with torch.no_grad():
+        l16 = model(uint8_normalize(x), compute_dtype=BF16).float()
+        l32 = model(uint8_normalize(x))
+    d, scale = scaled_dev(l16, l32)
+    ldev = d / scale
+    check(ldev <= BF16_MODEL_TOL and pdev <= BF16_MODEL_TOL,
+          f"bf16 serving against float32: logits {ldev:.3g} x max(1,|ref|), "
+          f"probs {pdev:.3g}")
+    engine.predict(imgs[64])
+    f32.predict(imgs[64])
+    torch.cuda.synchronize()
+    e2e = {}
+    for name, eng in (("bf16", engine), ("float32", f32), ("bf16 ", engine),
+                      ("float32 ", f32)):
+        t = time.perf_counter()
+        for _ in range(20):
+            eng.predict(imgs[64])
+        e2e.setdefault(name.strip(), []).append(
+            20 * 64 / (time.perf_counter() - t))
+    graphed = in_turns(engine._ready[64].graph.replay,
+                       f32._ready[64].graph.replay)
+    with torch.no_grad():
+        split = layer_times(model, uint8_normalize(x), BF16)
+    phase(f"bf16 serving (buckets {BUCKETS}, one graph each): replays "
+          f"bit-equal to the eager bf16 forward at every bucket, full and "
+          f"padded; launches {counts} (exact, bf16 kernels only); labels agree "
+          f"with the float32 engine on {agree} of {sum(sizes)} images; probs "
+          f"max|dev| {pdev:.3g}, bucket-64 logits max|dev| {ldev:.3g} x "
+          f"max(1,|ref|) (bar {BF16_MODEL_TOL}); bucket 64 end to end "
+          + ", ".join(f"{k} {v[0]:.1f} / {v[1]:.1f} img/s" for k, v in
+                      e2e.items())
+          + f"; the bucket-64 graph {graphed[0]:.4f} ms (float32 "
+          f"{graphed[1]:.4f}); per layer, eager bf16 (ms): "
+          + ", ".join(f"{k} {v:.4f}" for k, v in split.items()))
+    del engine, f32
+    return counts
 
 
 def ptxas_report(log: str) -> dict:
@@ -1564,18 +2072,25 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     phase(f"environment: {smi}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}, {torch.cuda.get_device_name(0)} x "
-          f"{torch.cuda.device_count()}; TF32 off")
+          f"{torch.cuda.device_count()}; TF32 off; "
+          f"allow_bf16_reduced_precision_reduction "
+          f"{torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction}"
+          " (the port turns it off around its own bf16 products)")
 
     _build.load()
     report = ptxas_report(_build.build_log)
     if _build.build_seconds is not None:
         new = [f"conv2d_strip<{r}>" for r in STRIP_ROWS] + [
-            "maxpool2x2_bwd_window", "normalize_u8_wide<1>",
-            "normalize_u8_wide<0>"]
-        check(all(n in report for n in new), f"ptxas reported no {new}: "
-              f"{sorted(report)}")
+            "maxpool2x2_bwd_window<f32>", "maxpool2x2_bwd_window<bf16>",
+            "maxpool2x2_fwd<bf16>", "normalize_u8_wide<1>",
+            "normalize_u8_wide<0>"] + [
+            f"conv2d_bf16<{mt}x{nt}x{v}>" for mt, nt in BF16_TILES
+            for v in (0, 1)]
+        check(all(n in report for n in new), f"ptxas reported no "
+              f"{[n for n in new if n not in report]}: {sorted(report)}")
     for name, (regs, spills) in report.items():
         check(not (name.startswith(("conv2d_tiled", "conv2d_strip",
+                                     "conv2d_bf16", "maxpool2x2_fwd",
                                      "maxpool2x2_bwd_window", "rotate_shear",
                                      "normalize_u8_wide"))
                    and spills), f"{name} spills: {spills}")
@@ -1594,10 +2109,35 @@ def main() -> int:
     launches = serving_phase(model)
     measured.update(train_kernel_phase())
     grad_parity_phase()
-    trained = training_phase()
+    trained, f32_stats = training_phase()
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    conv16, conv16_ms = bf16_conv_phase(gen)
+    pool16 = bf16_pool_phase(gen)
+    bf16_function_phase(gen)
+    counts16 = bf16_training_phase(f32_stats)
+    served16 = bf16_serving_phase(model)
 
     kernels = [entry(name, launches.get(name, 0) + trained[name],
                      *measured[name]) for name in KERNELS]
+    # the bf16 rows, as the float32 ones: the conv's four layers and the
+    # pool forward at B = 64 (the serving shapes), the pool backward at the
+    # training batch; through the wrapper
+    c64 = conv16_ms[B]
+    rows16 = {
+        "conv2d_bias_relu_bf16": (conv16[0], c64["ms"], c64["plain"],
+                                  c64["lib"], (c64["bound"],
+                                               c64["bound_by"])),
+        "max_pool2d_fwd_bf16": (0.0, pool16[B]["fwd"][0], pool16[B]["fwd"][2],
+                                pool16[B]["fwd"][3], pool16[B]["fwd"][4]),
+        "max_pool2d_bwd_bf16": (0.0, pool16[TRAIN_B]["bwd"][0],
+                                pool16[TRAIN_B]["bwd"][2],
+                                pool16[TRAIN_B]["bwd"][3],
+                                pool16[TRAIN_B]["bwd"][4]),
+    }
+    kernels += [entry(name, counts16.get(counter, 0)
+                      + served16.get(counter, 0), *rows16[name])
+                for name, counter in BF16_KERNELS.items()]
     phase("all checks passed")
     print(smi)
     print(json.dumps({"kernels": kernels}))

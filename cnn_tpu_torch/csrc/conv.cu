@@ -1,5 +1,7 @@
-// VALID k x k convolution + bias (+ ReLU), NHWC / HWIO, float32, for Hopper:
-// three kernels, chosen by shape in ops/hopper/conv.py:conv_tile_plan.
+// VALID k x k convolution + bias (+ ReLU), NHWC / HWIO, for Hopper: three
+// float32 kernels, chosen by shape in ops/hopper/conv.py:conv_tile_plan, and
+// one bf16 tensor-core kernel (the last section of this file), planned by
+// ops/hopper/conv.py:conv_bf16_plan.
 //
 // Replaces: cnn_tpu/ops/pallas/conv.py, conv2d_bias_relu_pallas -> _forward
 // (kernel body _conv_kernel): k*k shifted [Ho*Wo, Cin] x [Cin, Cout]
@@ -101,6 +103,7 @@
 // each against the plain conv, and the strip and tiled kernels bit for bit
 // against the direct one.
 #include <cstdint>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -560,4 +563,299 @@ extern "C" int cnn_conv2d_bias_relu_strip(void* stream, const void* x,
     case 2: return (int)launch_strip<8>(st, xf, wf, bf, yf, B, H, W, Cin, Cout, k, stride, r);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+
+// ---------------------------------------------------------------------------
+// bf16: cnn_conv2d_bias_relu_bf16, an implicit GEMM on the tensor cores.
+//
+// Replaces: the bf16 path of cnn_tpu/ops/pallas/conv.py, _forward (kernel
+// body _conv_kernel): for bf16 x and w each tap's [Ho*Wo, Cin] x [Cin, Cout]
+// product is one single-pass MXU dot with float32 accumulation, the taps are
+// summed in float32, the bias is read into float32 and added, then the
+// optional ReLU, then one rounding to bf16.
+//
+// Bound on this card: bytes, on every AlexNet layer. At batch 256 conv1
+// reads 76 MB of x and writes 101 MB (0.053 ms at 3.35 TB/s) for 2.8 GFLOP
+// (3.2 with K padded to 32: 0.003 ms at 989 TFLOP/s dense bf16); conv2-4
+// together move 62 MB (0.019 ms) for 4.7 GFLOP. So the design keeps the
+// MMAs fed from shared memory and reads x and w once per block; it does
+// not yet overlap loads with MMAs beyond a double buffer (wgmma, TMA and
+// warp specialisation are later work). Measured on the H100 (chip_smoke.py,
+// PERF.md): conv2-4 at 0.24 of this bound alone; conv1, whose gather
+// stages two bytes a lane a row, at 0.18.
+//
+// Design:
+//  - M = B*Ho*Wo output pixels, N = Cout, K = k*k*Cin in (dy, dx, ci)
+//    order, in which HWIO w is a row-major [K, N] matrix. A block owns a
+//    BM x BN output tile (BM = 64*MT with 4 warps, each warp 16*MT rows and
+//    all BN = 8*NT columns) and walks K in slices of 32, two m16n8k16 MMA
+//    steps each (mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32).
+//  - The int64 base of each of the block's rows in x is computed once,
+//    into shared memory (-1 past M, whose rows are staged as zeros: the
+//    ragged M edge of B = 1 or 8).
+//  - Staging A, "vec" (Cin % 8 == 0, x 16-byte aligned): a K slice is 4
+//    chunks of 8 bf16 per row, each inside one tap, so each is one 16-byte
+//    cp.async from x; a thread keeps one chunk column and decodes its tap
+//    once a slice. "gather" (any other Cin, e.g. conv1's 3): lane l of every
+//    warp stages column l of the slice, decoding its k once, and loads one
+//    bf16 a row. K is padded to a multiple of 32 (conv1: 27 -> 32), and the
+//    padded columns, like every row past M, are written as zeros, never
+//    left unset: a NaN pattern left in shared memory times a zero weight
+//    would be NaN.
+//  - Staging B: the slice's 32 rows of w, 16-byte cp.async (Cout % 8 ==
+//    0), rows past K and columns past Cout zero-filled, into shared memory
+//    as [32][BN + 8]: row k stays row k. ldmatrix.x2.trans reads an MMA's
+//    B fragment (k 2t, 2t+1 of column g for lane 4g+t) out of it, so w is
+//    never transposed. The 8 bf16 of padding per row (16 bytes) put the 8
+//    rows of an ldmatrix on distinct banks; A's rows of 40 bf16 (80 bytes)
+//    do the same for the 32-bit fragment loads (a0..a3: rows g, g+8,
+//    columns 2t, 2t+1 and 2t+8, 2t+9).
+//  - Two stages (cp.async commit and wait groups): slice kt+1 lands while
+//    slice kt is multiplied.
+//  - Epilogue: the float32 accumulator (c0..c3: rows g, g+8, columns 2t,
+//    2t+1), plus the bias read into float32, the optional ReLU, one
+//    __floats2bfloat162_rn, and a 4-byte store masked at the M edge and at
+//    Cout.
+//  - Determinism: one warp owns each output fragment and walks K in one
+//    fixed order; no split-K, no atomics, so two launches are bit-identical.
+//  - The tile (MT, NT) and the staging of A are template arguments; the
+//    entry point's switch maps ids to them in the order of BF16_TILES and
+//    BF16_VARIANTS in ops/hopper/conv.py.
+//
+// Tests. On the CPU, the plan and a numpy emulation of this kernel's walk
+// (staged slices, fragment loads, the accumulator's lane map, the masked
+// stores), held against the plain bf16 conv and the Pallas kernel in
+// interpret mode:
+//   JAX_PLATFORMS=cpu python -m pytest -q tests/test_torch_bf16_conv_plan.py
+// On the card, python3 chip_smoke.py builds it and holds it against the
+// plain bf16 conv at every AlexNet layer and off those shapes.
+
+namespace {
+
+constexpr int kBfBK = 32;            // K slice: two k16 MMA steps
+constexpr int kBfAStride = kBfBK + 8;   // A row stride in shared memory (bf16)
+constexpr int kBfWarps = 4;
+constexpr int kBfThreads = kBfWarps * 32;
+
+__device__ __forceinline__ void mma_bf16_16816(float* d, const uint32_t* a,
+                                               const uint32_t* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t* r,
+                                                  const void* smem) {
+  const unsigned addr =
+      static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
+      : "=r"(r[0]), "=r"(r[1])
+      : "r"(addr));
+}
+
+// the offset in x of k = (dy*k + dx)*Cin + ci from a row's base
+__device__ __forceinline__ int64_t tap_offset(int kg, int Cin, int k, int W) {
+  const int tap = kg / Cin, ci = kg - tap * Cin;
+  const int dy = tap / k, dx = tap - dy * k;
+  return (int64_t)(dy * W + dx) * Cin + ci;
+}
+
+template <int MT, int NT, bool kVecA>
+__global__ void __launch_bounds__(kBfThreads)
+    conv2d_bf16_kernel(const __nv_bfloat16* __restrict__ x,
+                       const __nv_bfloat16* __restrict__ w,
+                       const __nv_bfloat16* __restrict__ bias,
+                       __nv_bfloat16* __restrict__ y, int H, int W, int Cin,
+                       int Cout, int k, int s, int Ho, int Wo, int M, int K,
+                       bool relu) {
+  constexpr int BM = kBfWarps * 16 * MT;
+  constexpr int BN = 8 * NT;
+  constexpr int kBStride = BN + 8;
+  static_assert(2 * (BM * kBfAStride + kBfBK * kBStride) * 2 + BM * 8 <=
+                    48 * 1024, "static shared memory");
+
+  __shared__ __align__(16) __nv_bfloat16 sa[2][BM * kBfAStride];
+  __shared__ __align__(16) __nv_bfloat16 sb[2][kBfBK * kBStride];
+  __shared__ int64_t rowbase[BM];
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
+  for (int r = tid; r < BM; r += kBfThreads) {
+    const int m = m0 + r;
+    int64_t base = -1;
+    if (m < M) {
+      const int ox = m % Wo, t = m / Wo;
+      const int oy = t % Ho;
+      const int64_t b = t / Ho;
+      base = ((b * H + (int64_t)oy * s) * W + (int64_t)ox * s) * Cin;
+    }
+    rowbase[r] = base;
+  }
+  __syncthreads();
+
+  // the gather path moves the bf16 bits as 16-bit integers
+  const unsigned short* xs = reinterpret_cast<const unsigned short*>(x);
+  auto load_slice = [&](int buf, int kt) {
+    const int k0 = kt * kBfBK;
+    if (kVecA) {
+      const int c = tid & 3;            // this thread's chunk column
+      const int kc = k0 + 8 * c;
+      const bool kok = kc < K;          // K % 8 == 0: a chunk is all in
+      const int64_t off = kok ? tap_offset(kc, Cin, k, W) : 0;
+      for (int r = tid >> 2; r < BM; r += kBfThreads / 4) {
+        const int64_t base = rowbase[r];
+        const bool ok = kok && base >= 0;
+        cp_async16(&sa[buf][r * kBfAStride + 8 * c], ok ? x + base + off : x,
+                   ok);
+      }
+    } else {
+      const int kg = k0 + lane;         // this lane's column
+      const bool kok = kg < K;
+      const int64_t off = kok ? tap_offset(kg, Cin, k, W) : 0;
+      unsigned short* dst = reinterpret_cast<unsigned short*>(sa[buf]);
+      for (int r = warp; r < BM; r += kBfWarps) {
+        const int64_t base = rowbase[r];
+        dst[r * kBfAStride + lane] =
+            kok && base >= 0 ? xs[base + off] : (unsigned short)0;
+      }
+    }
+    for (int c = tid; c < kBfBK * NT; c += kBfThreads) {
+      const int r = c / NT, j = c - r * NT;
+      const int kr = k0 + r, n = n0 + 8 * j;
+      const bool ok = kr < K && n < Cout;
+      cp_async16(&sb[buf][r * kBStride + 8 * j],
+                 ok ? w + (int64_t)kr * Cout + n : w, ok);
+    }
+  };
+
+  float acc[MT][NT][4];
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+
+  const int g = lane >> 2, t = lane & 3;
+  const int KT = (K + kBfBK - 1) / kBfBK;
+  load_slice(0, 0);
+  cp_async_commit();
+  for (int kt = 0; kt < KT; ++kt) {
+    if (kt + 1 < KT) load_slice((kt + 1) & 1, kt + 1);
+    cp_async_commit();
+    cp_async_wait<1>();   // slice kt has landed (this thread's copies)
+    __syncthreads();      // ... and every thread's
+    const __nv_bfloat16* As = sa[kt & 1];
+    const __nv_bfloat16* Bs = sb[kt & 1];
+#pragma unroll
+    for (int ks = 0; ks < kBfBK; ks += 16) {
+      uint32_t af[MT][4];
+#pragma unroll
+      for (int i = 0; i < MT; ++i) {
+        const int r = warp * 16 * MT + i * 16 + g;
+        const uint32_t* p0 = reinterpret_cast<const uint32_t*>(
+            As + r * kBfAStride + ks + 2 * t);
+        const uint32_t* p1 = reinterpret_cast<const uint32_t*>(
+            As + (r + 8) * kBfAStride + ks + 2 * t);
+        af[i][0] = p0[0];   // row g,   k 2t, 2t+1
+        af[i][1] = p1[0];   // row g+8, k 2t, 2t+1
+        af[i][2] = p0[4];   // row g,   k 2t+8, 2t+9
+        af[i][3] = p1[4];   // row g+8, k 2t+8, 2t+9
+      }
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        uint32_t bfr[2];
+        // lanes 0-7 give rows k 0-7 of the step, lanes 8-15 rows 8-15
+        ldmatrix_x2_trans(bfr, Bs + (ks + (lane & 15)) * kBStride + 8 * j);
+#pragma unroll
+        for (int i = 0; i < MT; ++i) mma_bf16_16816(acc[i][j], af[i], bfr);
+      }
+    }
+    __syncthreads();      // slice kt is read before its buffer is refilled
+  }
+  cp_async_wait<0>();     // only empty groups can be pending here
+
+#pragma unroll
+  for (int i = 0; i < MT; ++i) {
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int m = m0 + warp * 16 * MT + i * 16 + g + 8 * half;
+      if (m >= M) continue;
+      __nv_bfloat16* yrow = y + (int64_t)m * Cout;
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        const int n = n0 + 8 * j + 2 * t;
+        if (n >= Cout) continue;
+        float v0 = acc[i][j][2 * half] + __bfloat162float(bias[n]);
+        float v1 = acc[i][j][2 * half + 1] + __bfloat162float(bias[n + 1]);
+        if (relu) {
+          v0 = v0 > 0.f ? v0 : 0.f;
+          v1 = v1 > 0.f ? v1 : 0.f;
+        }
+        *reinterpret_cast<__nv_bfloat162*>(yrow + n) =
+            __floats2bfloat162_rn(v0, v1);
+      }
+    }
+  }
+}
+
+template <int MT, int NT, bool kVecA>
+cudaError_t launch_bf16(cudaStream_t stream, const __nv_bfloat16* x,
+                        const __nv_bfloat16* w, const __nv_bfloat16* b,
+                        __nv_bfloat16* y, int B, int H, int W, int Cin,
+                        int Cout, int k, int s, bool relu) {
+  const int Ho = (H - k) / s + 1, Wo = (W - k) / s + 1;
+  const int M = B * Ho * Wo;
+  constexpr int BM = kBfWarps * 16 * MT, BN = 8 * NT;
+  const dim3 grid((M + BM - 1) / BM, (Cout + BN - 1) / BN);
+  conv2d_bf16_kernel<MT, NT, kVecA><<<grid, kBfThreads, 0, stream>>>(
+      x, w, b, y, H, W, Cin, Cout, k, s, Ho, Wo, M, k * k * Cin, relu);
+  return cudaGetLastError();
+}
+
+template <bool kVecA>
+cudaError_t launch_bf16_tile(int tile, cudaStream_t st,
+                             const __nv_bfloat16* x, const __nv_bfloat16* w,
+                             const __nv_bfloat16* b, __nv_bfloat16* y, int B,
+                             int H, int W, int Cin, int Cout, int k, int s,
+                             bool r) {
+  switch (tile) {   // (MT, NT), in the order of BF16_TILES
+    case 0: return launch_bf16<1, 2, kVecA>(st, x, w, b, y, B, H, W, Cin, Cout, k, s, r);
+    case 1: return launch_bf16<1, 4, kVecA>(st, x, w, b, y, B, H, W, Cin, Cout, k, s, r);
+    case 2: return launch_bf16<1, 8, kVecA>(st, x, w, b, y, B, H, W, Cin, Cout, k, s, r);
+    case 3: return launch_bf16<1, 16, kVecA>(st, x, w, b, y, B, H, W, Cin, Cout, k, s, r);
+    case 4: return launch_bf16<2, 2, kVecA>(st, x, w, b, y, B, H, W, Cin, Cout, k, s, r);
+    case 5: return launch_bf16<2, 4, kVecA>(st, x, w, b, y, B, H, W, Cin, Cout, k, s, r);
+    case 6: return launch_bf16<2, 8, kVecA>(st, x, w, b, y, B, H, W, Cin, Cout, k, s, r);
+    case 7: return launch_bf16<2, 16, kVecA>(st, x, w, b, y, B, H, W, Cin, Cout, k, s, r);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace
+
+extern "C" int cnn_conv2d_bias_relu_bf16(void* stream, const void* x,
+                                         const void* w, const void* b,
+                                         void* y, int B, int H, int W,
+                                         int Cin, int Cout, int k,
+                                         int stride, int relu, int vec,
+                                         int tile) {
+  if (Cout % 8 != 0 || reinterpret_cast<uintptr_t>(w) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(y) % 4 != 0 ||
+      (vec && (Cin % 8 != 0 || reinterpret_cast<uintptr_t>(x) % 16 != 0)))
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  const __nv_bfloat16* xb = static_cast<const __nv_bfloat16*>(x);
+  const __nv_bfloat16* wb = static_cast<const __nv_bfloat16*>(w);
+  const __nv_bfloat16* bb = static_cast<const __nv_bfloat16*>(b);
+  __nv_bfloat16* yb = static_cast<__nv_bfloat16*>(y);
+  const bool r = relu != 0;
+  return (int)(vec ? launch_bf16_tile<true>(tile, st, xb, wb, bb, yb, B, H, W,
+                                            Cin, Cout, k, stride, r)
+                   : launch_bf16_tile<false>(tile, st, xb, wb, bb, yb, B, H,
+                                             W, Cin, Cout, k, stride, r));
 }

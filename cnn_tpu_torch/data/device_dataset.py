@@ -17,9 +17,8 @@ import numpy as np
 import torch
 
 from cnn_tpu_torch import default_device
-from cnn_tpu_torch.ops.hopper.normalize import uint8_normalize
 from cnn_tpu_torch.parallel.train_step import (TrainState, apply_gradients,
-                                               check_supported)
+                                               check_supported, to_compute)
 
 
 class DeviceDataset:
@@ -96,7 +95,11 @@ def make_device_train_step(model, optimizer, dataset: DeviceDataset,
     'global', the same without a mesh) samples uniformly with replacement
     from ``ts.rng``; 'epoch' walks a fresh permutation per epoch, keyed by
     ``ts.seed`` and ``ts.step``; 'epoch_fixed' the same permutation every
-    epoch. ``augment_fn(generator, images)`` draws from ``ts.rng``.
+    epoch. ``augment_fn(generator, images)`` draws from ``ts.rng``; its
+    output is cast to ``compute_dtype`` when that is given (pass it the same
+    ``dtype``, e.g. ``augment_batch(..., dtype=torch.bfloat16)``, as
+    ``cnn_tpu``'s train CLI does); without it the uint8 batch is normalized
+    to float32 and rounded to ``compute_dtype``.
     """
     check_supported(compute_dtype=compute_dtype, mesh=mesh,
                     steps_per_call=steps_per_call, grad_accum=grad_accum,
@@ -111,10 +114,9 @@ def make_device_train_step(model, optimizer, dataset: DeviceDataset,
                 ts.seed, ts.step, batch_size, sample_mode == "epoch_fixed")
         else:
             images, labels = dataset.sample(ts.rng, batch_size)
-        images = (augment_fn(ts.rng, images) if augment_fn is not None
-                  else uint8_normalize(images))
+        images = to_compute(images, ts.rng, augment_fn, compute_dtype)
         metrics = apply_gradients(ts, optimizer, images, labels,
-                                  label_smoothing)
+                                  label_smoothing, compute_dtype)
         metrics["batch"] = batch_size
         return ts, metrics
 

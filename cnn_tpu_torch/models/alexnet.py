@@ -73,9 +73,11 @@ class AlexNet(nn.Module):
         self.net = build_alexnet(num_classes, batch_norm, dropout, image_size,
                                  device=device, generator=generator)
 
-    def forward(self, x):
-        """[B, S, S, 3] float -> logits [B, num_classes]."""
-        return self.net(x)
+    def forward(self, x, compute_dtype=None):
+        """[B, S, S, 3] float -> logits [B, num_classes], in
+        ``compute_dtype`` (e.g. ``torch.bfloat16``) when given; the
+        parameters stay float32."""
+        return self.net(x, compute_dtype=compute_dtype)
 
 
 @register_model("alexnet")

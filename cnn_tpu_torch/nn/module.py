@@ -13,6 +13,14 @@ ATen gradients and the pool backward kernel; otherwise the bare wrappers.
 BatchNorm2D normalizes by batch statistics in training mode and updates its
 moving statistics in place. Dropout runs in eval mode only (AlexNet's
 default ``dropout=0.0`` builds none).
+
+Under a compute dtype (``forward(..., compute_dtype=torch.bfloat16)``, as
+``cnn_tpu``'s ``apply(compute_dtype=)``) the parameters stay float32 and
+Conv2D and Linear cast their input and weights to it at each call (the
+conv's bias too: its kernel reads the bf16 bias into float32, as
+``cnn_tpu/ops/conv.py`` casts it to the output's dtype). Autograd carries
+the gradients back through the casts into the float32 parameters. BN keeps
+float32 statistics and returns its input's dtype.
 """
 
 from __future__ import annotations
@@ -55,10 +63,14 @@ class Conv2D(Layer):
         self.w = _normal((k, k, in_channels, out_channels), generator, device)
         self.b = _normal((out_channels,), generator, device)
 
-    def forward(self, x, relu: bool = False):
-        if _wants_grad(x, self.w, self.b):
-            return conv2d_bias_relu_fn(x, self.w, self.b, self.stride, relu)
-        return conv2d_bias_relu(x, self.w, self.b, self.stride, relu)
+    def forward(self, x, relu: bool = False, compute_dtype=None):
+        w, b = self.w, self.b
+        if compute_dtype is not None:
+            x, w, b = (x.to(compute_dtype), w.to(compute_dtype),
+                       b.to(compute_dtype))
+        if _wants_grad(x, w, b):
+            return conv2d_bias_relu_fn(x, w, b, self.stride, relu)
+        return conv2d_bias_relu(x, w, b, self.stride, relu)
 
 
 class MaxPool2D(Layer):
@@ -90,8 +102,8 @@ class Linear(Layer):
         self.w = _normal((in_features, out_features), generator, device)
         self.b = _normal((out_features,), generator, device)
 
-    def forward(self, x):
-        return linear(x, self.w, self.b)
+    def forward(self, x, compute_dtype=None):
+        return linear(x, self.w, self.b, compute_dtype)
 
 
 class BatchNorm2D(Layer):

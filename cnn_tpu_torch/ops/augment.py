@@ -18,8 +18,9 @@ on the same parameters; threefry and Philox give different bits.
   banded matmuls, with the /255 folded into the row matrix; no rotation.
 
 The banded resamples are plain batched products (``torch.matmul``), as
-``cnn_tpu`` leaves them to XLA; they run in float32, with TF32 off unless
-the caller turned it on.
+``cnn_tpu`` leaves them to XLA; they run in the policy's ``dtype``: float32,
+with TF32 off unless the caller turned it on, or bf16, summed in float32
+(``ops/linear.py:full_precision_reduction``), as XLA's bf16 dot does.
 
 ``rotate_shear_plain`` is the plain version of the rotation kernel: the
 same three shears as ``_rotate_core``, each a direct gather of its two taps.
@@ -31,6 +32,8 @@ import math
 from typing import NamedTuple
 
 import torch
+
+from cnn_tpu_torch.ops.linear import full_precision_reduction
 
 
 # ---------------------------------------------------------------------------
@@ -177,8 +180,9 @@ def matmul_resample(x: torch.Tensor, wy: torch.Tensor, wx: torch.Tensor,
     b, s, _, c = x.shape
     x, wy, wx = x.to(dtype), wy.to(dtype), wx.to(dtype)
     oy, ox = wy.shape[1], wx.shape[1]
-    v = torch.matmul(wy, x.reshape(b, s, s * c)).reshape(b, oy, s, c)
-    h = torch.matmul(wx, v.transpose(1, 2).reshape(b, s, oy * c))
+    with full_precision_reduction():
+        v = torch.matmul(wy, x.reshape(b, s, s * c)).reshape(b, oy, s, c)
+        h = torch.matmul(wx, v.transpose(1, 2).reshape(b, s, oy * c))
     return h.reshape(b, ox, oy, c).transpose(1, 2).contiguous()
 
 

@@ -12,10 +12,12 @@ have counted, and the graph's owner adds it per replay (``add_counters``).
 from cnn_tpu_torch.ops.hopper.augment import (launch_rotate,  # noqa: F401
                                               rotate_shear,
                                               rotate_tile_plan)
-from cnn_tpu_torch.ops.hopper.conv import (STRIP_ROWS,  # noqa: F401
-                                           TILES, conv2d_bias_relu,
+from cnn_tpu_torch.ops.hopper.conv import (BF16_TILES,  # noqa: F401
+                                           STRIP_ROWS, TILES,
+                                           conv2d_bias_relu,
                                            conv2d_bias_relu_fn,
-                                           conv_tile_plan)
+                                           conv_bf16_plan, conv_tile_plan,
+                                           launch_conv_bf16)
 from cnn_tpu_torch.ops.hopper.normalize import (launch_normalize,  # noqa: F401
                                                 normalize_plan,
                                                 uint8_normalize)
@@ -26,10 +28,11 @@ from cnn_tpu_torch.ops.hopper.pool import (launch_pool_bwd,  # noqa: F401
 # every counter of each wrapper: all its launches, then each variant's
 COUNTERS = {
     uint8_normalize: ("launches", "launches_wide", "launches_bytes"),
-    max_pool2d_fwd: ("launches",),
-    max_pool2d_bwd: ("launches", "launches_window", "launches_element"),
+    max_pool2d_fwd: ("launches", "launches_bf16"),
+    max_pool2d_bwd: ("launches", "launches_window", "launches_element",
+                     "launches_bf16"),
     conv2d_bias_relu: ("launches", "launches_strip", "launches_tiled",
-                       "launches_direct"),
+                       "launches_direct", "launches_bf16"),
     rotate_shear: ("launches",),
 }
 _BY_NAME = {fn.__name__: fn for fn in COUNTERS}

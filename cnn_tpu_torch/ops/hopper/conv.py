@@ -1,18 +1,29 @@
-"""VALID conv + bias (+ ReLU), NHWC/HWIO float32: wrapper of ``csrc/conv.cu``.
+"""VALID conv + bias (+ ReLU), NHWC/HWIO, float32 and bf16: wrapper of
+``csrc/conv.cu``.
 
 Replaces ``cnn_tpu/ops/pallas/conv.py:conv2d_bias_relu_pallas``: the kernels
 are its forward (``_forward``); ``conv2d_bias_relu_fn`` is its ``custom_vjp``
 as a ``torch.autograd.Function``. ``cnn_tpu`` computes that backward with
 XLA convolutions outside any Pallas kernel (``_vjp_bwd``), so here ATen's
-convolution gradients compute it, in full float32.
+convolution gradients compute it, in full float32 for float32 inputs and in
+bf16 for bf16 ones.
 
-Three kernels compute the forward: a row-strip kernel over shared memory
-(``cnn_conv2d_bias_relu_strip``) for few input channels, conv1 of the
-AlexNet; a tiled implicit GEMM over shared memory
+Three kernels compute the float32 forward: a row-strip kernel over shared
+memory (``cnn_conv2d_bias_relu_strip``) for few input channels, conv1 of
+the AlexNet; a tiled implicit GEMM over shared memory
 (``cnn_conv2d_bias_relu_tiled``) for the shapes whose vector loads it can
 make, conv2-4; and the direct kernel (``cnn_conv2d_bias_relu``) for the
 rest. ``conv_tile_plan`` chooses by shape and alignment alone. All three
 sum in the same order and give the same bits.
+
+One kernel computes the bf16 forward, ``_forward``'s bf16 path: an implicit
+GEMM on the tensor cores (``cnn_conv2d_bias_relu_bf16``, ``mma.sync``
+m16n8k16, float32 accumulation, bias and ReLU in float32, one rounding to
+bf16), which stages A with 16-byte copies where Cin % 8 == 0 ("vec") and
+element by element otherwise ("gather", conv1), K padded with zeros to a
+multiple of 32. ``conv_bf16_plan`` chooses its tile and staging by shape
+and alignment alone; it takes every shape with Cout % 8 == 0 and 16-byte
+aligned weights, and the wrapper raises on any other bf16 shape.
 """
 
 from __future__ import annotations
@@ -135,9 +146,62 @@ def conv_tile_plan(b: int, h: int, w: int, cin: int, cout: int, k: int,
     return ConvPlan("tiled", best, grid(best))
 
 
+# bf16 kernel: tile id -> (MT, NT), in the order of csrc/conv.cu's switch;
+# a block of BF16_WARPS warps owns BM = 64 * MT rows and BN = 8 * NT columns
+BF16_TILES = tuple((mt, nt) for mt in (1, 2) for nt in (2, 4, 8, 16))
+BF16_VARIANTS = ("gather", "vec")   # the entry point's vec argument
+BF16_BK = 32                        # the K slice: two m16n8k16 steps
+BF16_WARPS = 4
+
+
+class Bf16Plan(NamedTuple):
+    """The bf16 kernel's staging of A ("vec" or "gather"), ``tile`` id into
+    ``BF16_TILES``, grid (M blocks, N blocks) and K padded to the slice."""
+    variant: str
+    tile: int
+    grid: tuple[int, int]
+    k_pad: int
+
+    @property
+    def bm(self) -> int:
+        return BF16_WARPS * 16 * BF16_TILES[self.tile][0]
+
+    @property
+    def bn(self) -> int:
+        return 8 * BF16_TILES[self.tile][1]
+
+
+@functools.lru_cache(maxsize=256)   # a pure function, called every launch
+def conv_bf16_plan(b: int, h: int, w: int, cin: int, cout: int, k: int,
+                   stride: int, x_aligned: bool) -> Bf16Plan:
+    """The bf16 kernel's launch for this shape.
+
+    BN is Cout rounded up to a power of two between 16 and 128 (wider Cout
+    takes more column blocks); BM is 128 (two m16 tiles a warp) when that
+    still gives two waves of 132 SMs, else 64. A is staged with 16-byte
+    copies ("vec") when Cin % 8 == 0 (a chunk of 8 never straddles a tap)
+    and x is 16-byte aligned (``x_aligned``), else element by element
+    ("gather"). Raises on Cout % 8 != 0: B is staged 8 columns at a time.
+    """
+    if cout % 8 or cout < 8:
+        raise ValueError(f"conv2d_bias_relu bf16: Cout {cout} is not a "
+                         "multiple of 8")
+    bn = 16
+    while bn < min(cout, 128):
+        bn *= 2
+    gy = -(-cout // bn)
+    m = b * conv_out_size(h, k, stride) * conv_out_size(w, k, stride)
+    mt = 2 if -(-m // 128) * gy >= 2 * H100_SMS else 1
+    variant = "vec" if cin % 8 == 0 and x_aligned else "gather"
+    kk = k * k * cin
+    return Bf16Plan(variant, BF16_TILES.index((mt, bn // 8)),
+                    (-(-m // (64 * mt)), gy), -(-kk // BF16_BK) * BF16_BK)
+
+
 def conv2d_bias_relu(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                      stride: int = 2, relu: bool = True) -> torch.Tensor:
-    """x [B,H,W,Cin], w [k,k,Cin,Cout], b [Cout] -> [B,Ho,Wo,Cout].
+    """x [B,H,W,Cin], w [k,k,Cin,Cout], b [Cout] -> [B,Ho,Wo,Cout], all
+    float32 or all bf16.
 
     A CPU tensor takes the plain version (``ops/conv.py:conv2d``).
     """
@@ -153,6 +217,11 @@ def conv2d_bias_relu(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
         raise ValueError(f"conv2d_bias_relu: extent {h}x{wid} is below k={k}")
     if x.device.type == "cpu":
         return conv2d(x, w, b, stride, relu)
+    if x.dtype == torch.bfloat16:
+        out, _ = launch_conv_bf16(x, w, b, stride, relu)
+        conv2d_bias_relu.launches_bf16 += 1
+        conv2d_bias_relu.launches += 1
+        return out
     stream = cuda_args("conv2d_bias_relu", x, w, b, dtypes=(torch.float32,) * 3)
     out = torch.empty((bsz, conv_out_size(h, k, stride),
                        conv_out_size(wid, k, stride), cout),
@@ -176,21 +245,50 @@ def conv2d_bias_relu(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     return out
 
 
+def launch_conv_bf16(x, w, b, stride: int, relu: bool,
+                     tile: int | None = None):
+    """Launches the bf16 kernel on CUDA bf16 tensors with its plan's tile,
+    or with ``tile`` (an id into ``BF16_TILES``); returns the output and the
+    plan. Counts nothing."""
+    stream = cuda_args("conv2d_bias_relu", x, w, b,
+                       dtypes=(torch.bfloat16,) * 3)
+    bsz, h, wid, cin = x.shape
+    k, cout = w.shape[0], w.shape[-1]
+    if w.data_ptr() % 16:
+        raise ValueError("conv2d_bias_relu bf16: weights must be 16-byte "
+                         "aligned")
+    plan = conv_bf16_plan(bsz, h, wid, cin, cout, k, stride,
+                          x.data_ptr() % 16 == 0)
+    if tile is not None:
+        plan = plan._replace(tile=tile)
+    out = torch.empty((bsz, conv_out_size(h, k, stride),
+                       conv_out_size(wid, k, stride), cout),
+                      dtype=torch.bfloat16, device=x.device)
+    launch("cnn_conv2d_bias_relu_bf16", x.device, stream, x.data_ptr(),
+           w.data_ptr(), b.data_ptr(), out.data_ptr(), bsz, h, wid, cin, cout,
+           k, stride, int(relu), BF16_VARIANTS.index(plan.variant), plan.tile)
+    return out, plan
+
+
 conv2d_bias_relu.launches = 0          # every launch, any kernel
-conv2d_bias_relu.launches_strip = 0
+conv2d_bias_relu.launches_strip = 0    # the float32 kernels
 conv2d_bias_relu.launches_tiled = 0
 conv2d_bias_relu.launches_direct = 0
+conv2d_bias_relu.launches_bf16 = 0     # the bf16 kernel
 
 
 class Conv2dBiasReluFn(torch.autograd.Function):
     """The conv kernel with ``_vjp_bwd``'s backward: the cotangent masked
     where ``out <= 0`` (ReLU on), ``dx`` the transposed conv at the exact
     input extent (rows and columns the VALID window never read get 0),
-    ``dw`` cropped to k x k, ``db`` the sum of the cotangent.
+    ``dw`` cropped to k x k, ``db`` the sum of the cotangent, each in its
+    input's dtype.
 
-    ``cnn_tpu`` runs those convolutions at ``Precision.HIGHEST``; cuDNN
-    would take TF32 by default (``torch.backends.cudnn.allow_tf32``), so the
-    backward turns TF32 off for its own calls whatever the global setting.
+    ``cnn_tpu`` runs those convolutions at ``Precision.HIGHEST`` in float32;
+    cuDNN would take TF32 by default (``torch.backends.cudnn.allow_tf32``),
+    so the backward turns TF32 off for its own calls whatever the global
+    setting. In bf16 (``_vjp_bwd`` at default precision) ATen's bf16
+    convolution gradients compute them.
     """
 
     @staticmethod

@@ -9,6 +9,11 @@ has its input byte and its output float both 16-byte aligned, else "bytes"
 shifted into place). The previous design,
 ``cnn_normalize_u8_direct``, is on no path: ``launch_normalize(...,
 direct=True)`` reaches it for comparisons.
+
+The Pallas kernel is uint8 -> float32 only; a bf16 compute dtype
+(``uint8_normalize(x, torch.bfloat16)``) runs this kernel and rounds its
+output to bf16, which is ``cnn_tpu``'s ``uint8_to_float(x, jnp.bfloat16)``
+bit for bit.
 """
 
 from __future__ import annotations
@@ -87,18 +92,19 @@ def launch_normalize(x: torch.Tensor, y: torch.Tensor | None = None,
     return y, plan.variant
 
 
-def uint8_normalize(x: torch.Tensor) -> torch.Tensor:
-    """[..] uint8 -> [..] float32 x / 255, bit-identical to ``uint8_to_float``.
+def uint8_normalize(x: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
+    """[..] uint8 -> [..] x / 255 in float32, then rounded to ``dtype``:
+    bit-identical to ``uint8_to_float(x, dtype)``.
 
     A CPU tensor takes the plain version; a CUDA tensor the kernel.
     """
     if x.device.type == "cpu":
-        return uint8_to_float(x)
+        return uint8_to_float(x, dtype)
     y, variant = launch_normalize(x)
     counter = f"launches_{variant}"
     setattr(uint8_normalize, counter, getattr(uint8_normalize, counter) + 1)
     uint8_normalize.launches += 1
-    return y
+    return y.to(dtype)
 
 
 uint8_normalize.launches = 0           # every launch, either variant

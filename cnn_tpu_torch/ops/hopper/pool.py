@@ -1,15 +1,23 @@
-"""2x2 stride-2 max pool, forward and backward: wrappers of ``csrc/pool.cu``.
+"""2x2 stride-2 max pool, forward and backward, float32 and bf16: wrappers
+of ``csrc/pool.cu``.
 
 Replaces ``cnn_tpu/ops/pallas/pool.py``: ``_fwd_call`` (``max_pool2d_fwd``)
 and ``_bwd_call`` (``max_pool2d_bwd``), and its ``custom_vjp``
 (``max_pool2d_fn``, a ``torch.autograd.Function``). The tap index is the
 forward's 2-bit window argmax, kept as uint8 (``cnn_tpu`` stores int32).
+Values keep their dtype, as ``_fwd_call`` and ``_bwd_call`` keep
+``x.dtype`` and ``g.dtype``.
 
-Two kernels compute the backward: one thread per pooled window and 4
-channels (``cnn_maxpool2x2_bwd_window``) where C % 4 == 0 and g and the
+Two kernels compute the float32 backward: one thread per pooled window and
+4 channels (``cnn_maxpool2x2_bwd_window``) where C % 4 == 0 and g and the
 tap allow its 16- and 4-byte loads, and one thread per dx element
 (``cnn_maxpool2x2_bwd``) for the rest; ``pool_bwd_variant`` chooses by
 shape and alignment alone. Both only route values and give the same bits.
+In bf16 the forward and the window backward run their bf16 instances
+(``cnn_maxpool2x2_fwd_bf16``, ``cnn_maxpool2x2_bwd_window_bf16``); a bf16
+backward the window kernel cannot take (C % 4 != 0, g not 8-byte aligned)
+raises. Each wrapper counts its bf16 launches in ``launches_bf16`` beside
+``launches``; the variant counters count the float32 kernels.
 """
 
 from __future__ import annotations
@@ -20,35 +28,45 @@ from cnn_tpu_torch.ops import pool as plain
 from cnn_tpu_torch.ops.hopper._build import cuda_args, launch
 
 
+BF16 = torch.bfloat16
+
+
 def max_pool2d_fwd(x: torch.Tensor, with_tap: bool = False):
-    """[B,H,W,C] float32 -> max [B,H//2,W//2,C], and the tap index (uint8)
-    when ``with_tap``. A CPU tensor takes the plain version."""
+    """[B,H,W,C] float32 or bf16 -> max [B,H//2,W//2,C] in x's dtype, and
+    the tap index (uint8) when ``with_tap``. A CPU tensor takes the plain
+    version."""
     if x.dim() != 4:
         raise ValueError(f"max_pool2d_fwd: expects [B,H,W,C], got {tuple(x.shape)}")
     if x.device.type == "cpu":
         out, tap = plain.max_pool2d_taps(x)
         return (out, tap) if with_tap else out
-    stream = cuda_args("max_pool2d_fwd", x, dtypes=(torch.float32,))
+    bf16 = x.dtype == BF16
+    stream = cuda_args("max_pool2d_fwd", x,
+                       dtypes=(BF16 if bf16 else torch.float32,))
     b, h, w, c = x.shape
     if h < 2 or w < 2:
         raise ValueError(f"max_pool2d_fwd: extent {h}x{w} is below the window")
     out = torch.empty((b, h // 2, w // 2, c), dtype=x.dtype, device=x.device)
     tap = (torch.empty(out.shape, dtype=torch.uint8, device=x.device)
            if with_tap else None)
-    launch("cnn_maxpool2x2_fwd", x.device, stream, x.data_ptr(),
-           out.data_ptr(), tap.data_ptr() if with_tap else None, b, h, w, c)
+    launch("cnn_maxpool2x2_fwd_bf16" if bf16 else "cnn_maxpool2x2_fwd",
+           x.device, stream, x.data_ptr(), out.data_ptr(),
+           tap.data_ptr() if with_tap else None, b, h, w, c)
+    if bf16:
+        max_pool2d_fwd.launches_bf16 += 1
     max_pool2d_fwd.launches += 1
     return (out, tap) if with_tap else out
 
 
-max_pool2d_fwd.launches = 0
+max_pool2d_fwd.launches = 0           # every launch, either dtype
+max_pool2d_fwd.launches_bf16 = 0
 
 
 def pool_bwd_variant(b: int, h2: int, w2: int, c: int,
                      aligned: bool) -> str:
-    """"window" when C % 4 == 0, g is 16-byte and the tap 4-byte aligned
-    (``aligned``) and there is a window to own the output; else
-    "element"."""
+    """"window" when C % 4 == 0, g's 4 channels (16 bytes in float32, 8 in
+    bf16) and the tap's 4 bytes are aligned (``aligned``) and there is a
+    window to own the output; else "element" (float32 only)."""
     return "window" if c % 4 == 0 and aligned and b * h2 * w2 > 0 \
         else "element"
 
@@ -65,14 +83,20 @@ def _check_bwd(tap, g, h, w):
 def launch_pool_bwd(tap: torch.Tensor, g: torch.Tensor, h: int, w: int,
                     variant: str) -> torch.Tensor:
     """Launches the ``variant`` backward kernel ("window" or "element") on
-    CUDA tensors; counts nothing."""
+    CUDA tensors, float32 or (window only) bf16; counts nothing."""
     _check_bwd(tap, g, h, w)
+    bf16 = g.dtype == BF16
     stream = cuda_args("max_pool2d_bwd", tap, g,
-                       dtypes=(torch.uint8, torch.float32))
+                       dtypes=(torch.uint8, BF16 if bf16 else torch.float32))
+    if bf16 and variant != "window":
+        raise ValueError("max_pool2d_bwd: bf16 runs the window kernel only, "
+                         "which needs C % 4 == 0, g 8-byte and the tap "
+                         "4-byte aligned")
     b, _, _, c = g.shape
     dx = torch.empty((b, h, w, c), dtype=g.dtype, device=g.device)
     name = {"window": "cnn_maxpool2x2_bwd_window",
-            "element": "cnn_maxpool2x2_bwd"}[variant]
+            "element": "cnn_maxpool2x2_bwd"}[variant] + ("_bf16" if bf16
+                                                         else "")
     launch(name, g.device, stream, tap.data_ptr(), g.data_ptr(),
            dx.data_ptr(), b, h, w, c)
     return dx
@@ -80,17 +104,20 @@ def launch_pool_bwd(tap: torch.Tensor, g: torch.Tensor, h: int, w: int,
 
 def max_pool2d_bwd(tap: torch.Tensor, g: torch.Tensor, h: int,
                    w: int) -> torch.Tensor:
-    """g [B,h//2,w//2,C] float32 through the uint8 taps -> dx [B,h,w,C],
-    bit-identical to ``ops/pool.py:max_pool2d_bwd``. A CPU tensor takes the
-    plain version."""
+    """g [B,h//2,w//2,C] float32 or bf16 through the uint8 taps -> dx
+    [B,h,w,C] in g's dtype, bit-identical to ``ops/pool.py:max_pool2d_bwd``.
+    A CPU tensor takes the plain version."""
     _check_bwd(tap, g, h, w)
     if g.device.type == "cpu":
         return plain.max_pool2d_bwd(tap, g, h, w)
     b, h2, w2, c = g.shape
-    variant = pool_bwd_variant(b, h2, w2, c, g.data_ptr() % 16 == 0
+    variant = pool_bwd_variant(b, h2, w2, c,
+                               g.data_ptr() % (4 * g.element_size()) == 0
                                and tap.data_ptr() % 4 == 0)
     dx = launch_pool_bwd(tap, g, h, w, variant)
-    if variant == "window":
+    if g.dtype == BF16:
+        max_pool2d_bwd.launches_bf16 += 1
+    elif variant == "window":
         max_pool2d_bwd.launches_window += 1
     else:
         max_pool2d_bwd.launches_element += 1
@@ -98,9 +125,10 @@ def max_pool2d_bwd(tap: torch.Tensor, g: torch.Tensor, h: int,
     return dx
 
 
-max_pool2d_bwd.launches = 0            # every launch, either kernel
-max_pool2d_bwd.launches_window = 0
+max_pool2d_bwd.launches = 0            # every launch, any kernel
+max_pool2d_bwd.launches_window = 0     # the float32 kernels
 max_pool2d_bwd.launches_element = 0
+max_pool2d_bwd.launches_bf16 = 0       # the bf16 window kernel
 
 
 class MaxPool2dFn(torch.autograd.Function):

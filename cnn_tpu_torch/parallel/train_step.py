@@ -8,8 +8,15 @@ statistics updated in place), the softmax cross-entropy, the backward
 update. PyTorch runs eagerly and in place, so the step changes the model,
 the optimizer state and the generator of ``TrainState`` and returns it.
 
-Not ported yet (each raises ``NotImplementedError``): bf16 compute, meshes,
-``grad_accum``, ``steps_per_call``, mixup/cutmix, distillation and TTA.
+``compute_dtype`` is None / float32, or bf16: ``cnn_tpu``'s bf16 policy.
+The master parameters, the optimizer state and BN's moving statistics stay
+float32; uint8 images are normalized to float32 and rounded to bf16 (an
+``augment_fn``'s output is cast to it); each conv and the linear layer cast
+their input and weights to bf16; the logits go to float32 before the loss.
+
+Not ported yet (each raises ``NotImplementedError``): other compute dtypes
+(float16), meshes, ``grad_accum``, ``steps_per_call``, mixup/cutmix,
+distillation and TTA.
 """
 
 from __future__ import annotations
@@ -50,7 +57,8 @@ def create_train_state(model, optimizer, seed: int = 0) -> TrainState:
 
 def check_supported(**flags) -> None:
     """Raises ``NotImplementedError`` naming each option not ported yet."""
-    off = {"compute_dtype": (None, torch.float32), "mesh": (None,),
+    off = {"compute_dtype": (None, torch.float32, torch.bfloat16),
+           "mesh": (None,),
            "grad_accum": (1,), "steps_per_call": (1,), "mixup": (0.0,),
            "cutmix": (0.0,), "distill": (None,), "tta": ("",)}
     for name, value in flags.items():
@@ -58,30 +66,44 @@ def check_supported(**flags) -> None:
             raise NotImplementedError(f"{name}={value!r} is not ported yet")
 
 
-def prep(images: torch.Tensor) -> torch.Tensor:
-    """uint8 -> float32 by the normalize kernel; float passes through."""
-    return uint8_normalize(images) if images.dtype == torch.uint8 else images
+def prep(images: torch.Tensor, compute_dtype=None) -> torch.Tensor:
+    """uint8 -> float32 by the normalize kernel, rounded to
+    ``compute_dtype`` when given (``_prep``); float passes through."""
+    if images.dtype != torch.uint8:
+        return images
+    return uint8_normalize(images, compute_dtype or torch.float32)
 
 
-def loss_fn(model, images, labels, label_smoothing: float = 0.0):
+def loss_fn(model, images, labels, label_smoothing: float = 0.0,
+            compute_dtype=None):
     """Forward and loss; returns ``(loss, correct)``."""
-    logits = model(images).float()
+    logits = model(images, compute_dtype=compute_dtype).float()
     loss = softmax_cross_entropy(logits, labels, label_smoothing)
     correct = (logits.argmax(dim=-1) == labels).sum()
     return loss, correct
 
 
 def apply_gradients(ts: TrainState, optimizer, images, labels,
-                    label_smoothing: float = 0.0) -> dict:
+                    label_smoothing: float = 0.0, compute_dtype=None) -> dict:
     """Forward in training mode, backward, optimizer update; advances
     ``ts.step``. Returns the metrics, as device tensors."""
     ts.model.train()
     params = named_params(ts.model)
-    loss, correct = loss_fn(ts.model, images, labels, label_smoothing)
+    loss, correct = loss_fn(ts.model, images, labels, label_smoothing,
+                            compute_dtype)
     grads = torch.autograd.grad(loss, list(params.values()))
     optimizer.update(dict(zip(params, grads)), ts.opt_state, params)
     ts.step += 1
     return {"loss": loss.detach(), "correct": correct}
+
+
+def to_compute(images, generator, augment_fn=None, compute_dtype=None):
+    """The step's images: ``augment_fn(generator, images)`` cast to
+    ``compute_dtype`` when both are given, else ``prep``."""
+    if augment_fn is None:
+        return prep(images, compute_dtype)
+    images = augment_fn(generator, images)
+    return images if compute_dtype is None else images.to(compute_dtype)
 
 
 def make_train_step(model, optimizer, *, compute_dtype=None, mesh=None,
@@ -92,17 +114,17 @@ def make_train_step(model, optimizer, *, compute_dtype=None, mesh=None,
 
     ``images``: [B,H,W,C] uint8 (normalized on the device) or float;
     ``labels``: [B] int. ``augment_fn(generator, images)`` runs first when
-    given (e.g. ``ops/augment.py:augment_batch``).
+    given (e.g. ``ops/augment.py:augment_batch``); its output is cast to
+    ``compute_dtype`` when that is given.
     """
     check_supported(compute_dtype=compute_dtype, mesh=mesh,
                     grad_accum=grad_accum, mixup=mixup, cutmix=cutmix,
                     distill=distill)
 
     def step(ts: TrainState, images, labels):
-        images = (augment_fn(ts.rng, images) if augment_fn is not None
-                  else prep(images))
+        images = to_compute(images, ts.rng, augment_fn, compute_dtype)
         metrics = apply_gradients(ts, optimizer, images, labels,
-                                  label_smoothing)
+                                  label_smoothing, compute_dtype)
         return ts, metrics
 
     return step
@@ -117,7 +139,9 @@ def make_eval_step(model, *, compute_dtype=None, mesh=None, tta: str = ""):
     def step(images, labels):
         model.eval()
         with torch.no_grad():
-            log_p = torch.log_softmax(model(prep(images)).float(), dim=-1)
+            logits = model(prep(images, compute_dtype),
+                           compute_dtype=compute_dtype)
+            log_p = torch.log_softmax(logits.float(), dim=-1)
         nll = -log_p.gather(1, labels.long()[:, None])[:, 0]
         pred = log_p.argmax(dim=-1)
         return {"loss": nll.mean(), "correct": (pred == labels).sum(),

@@ -4,8 +4,10 @@ Requests of any batch size are padded up to the nearest of a few static
 bucket sizes and run as one batch; a request larger than the top bucket
 streams in top-bucket chunks, with the remainder in the smallest bucket that
 holds it. Each bucket call runs, on the engine's device: the uint8 normalize
-kernel, the model (conv and max-pool kernels), then an f32 softmax and
-argmax. Weights stay on the device.
+kernel (to float32), the model (conv and max-pool kernels) in the engine's
+``compute_dtype`` (float32 by default; bf16 casts at each conv and the
+linear layer), then an f32 softmax and argmax. Weights stay on the device,
+in float32.
 
 ``warmup()`` makes every bucket ready, as ``cnn_tpu``'s compiles one
 executable per bucket. On a CUDA device it captures one CUDA graph per
@@ -50,9 +52,11 @@ class BucketGraph:
 
 
 class InferenceEngine:
-    def __init__(self, model, buckets=(1, 8, 64), device=None):
+    def __init__(self, model, buckets=(1, 8, 64), device=None,
+                 compute_dtype=None):
         self.device = default_device(device)
         self.model = model.to(self.device).eval()
+        self.compute_dtype = compute_dtype
         self.buckets = tuple(sorted(buckets))
         size = model.image_size
         self.image_shape = (size, size, 3)
@@ -82,7 +86,8 @@ class InferenceEngine:
 
     def _forward(self, images: torch.Tensor):
         """uint8 [B,H,W,3] on the device -> (probs [B,C] f32, labels [B])."""
-        logits = self.model(uint8_normalize(images))
+        logits = self.model(uint8_normalize(images),
+                            compute_dtype=self.compute_dtype)
         probs = torch.softmax(logits.float(), dim=-1)
         return probs, torch.argmax(probs, dim=-1)
 

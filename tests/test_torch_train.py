@@ -290,7 +290,7 @@ def test_device_train_step_without_augment_normalizes(rng):
 @pytest.mark.parametrize("flag", [
     dict(grad_accum=2), dict(steps_per_call=4), dict(mixup=0.2),
     dict(cutmix=1.0), dict(distill=("teacher",)), dict(mesh="mesh"),
-    dict(compute_dtype=torch.bfloat16)])
+    dict(compute_dtype=torch.float16)])
 def test_device_train_step_options_not_ported_raise(rng, flag):
     ds = _tiny_dataset(rng, n=4, size=64)
     model = get_model("alexnet", image_size=64, device="cpu")
