@@ -7,8 +7,9 @@
    TF32 off for every float32 product and convolution;
 2. build: one ``nvcc`` per ``cnn_tpu_torch/csrc/*.cu`` for sm_90a, side by
    side; each kernel's registers, shared memory and spills (the strip,
-   tiled and bf16 conv, the pool forward and window backward in both
-   dtypes, the rotation and the wide normalize kernels must not spill);
+   tiled and bf16 conv, every bf16 strip R and wgmma tile, the pool forward
+   and window backward in both dtypes, the rotation and the wide normalize
+   kernels must not spill); ptxas's advisories on wgmma, if any;
 3. kernels: each CUDA kernel against its plain PyTorch version on the card,
    at the serving path's shapes with batch 64 (normalize and max-pool
    bit-exact, conv within atol 1e-5 + rtol 1e-5), timed with CUDA events
@@ -72,16 +73,22 @@
    kernel),
    img/s, the device time per step split by stage, and the eval accuracy on
    held-out images;
-8. the bf16 conv kernel (tensor cores, ``cnn_conv2d_bias_relu_bf16``) at
-   each AlexNet layer at batch 256 and B = 64, ReLU off and on, against the
-   plain bf16 conv: each element within one bf16 ulp of the plain value
-   plus 1e-5 x S (S the same conv of |x| and |w|), the count of elements
-   that differ at all, two launches bit-identical; alone, through the
-   wrapper, plain and cuDNN bf16 beside the float32 kernels and cuDNN
-   float32 on the same values, every tile swept at batch 256; off those
-   shapes (B = 1 and 8, an odd extent, Cin 3 and 64 against Cout 16 and
-   128, Cout 8 and 48, k 5 at stride 1, x off alignment) through the plan
-   and every tile;
+8. the bf16 conv at each AlexNet layer at batch 256 and B = 64, ReLU off
+   and on: conv1 through the strip kernel (its input rows staged whole,
+   ``mma.sync`` fragments read from them) and conv2-4 through the wgmma
+   kernel (a ring of cp.async slices, ``wgmma.mma_async`` from shared
+   memory), each planned so, against the plain bf16 conv: each element
+   within one bf16 ulp of the plain value plus 1e-5 x S (S the same conv of
+   |x| and |w|), the count of elements that differ at all, two launches
+   bit-identical; alone (and HBM-cold at batch 256: inputs taken in turn
+   from copies 120 MB apart), through the wrapper, the mma.sync kernel
+   (the previous design) on the same values, plain, cuDNN bf16 beside the
+   float32 kernels and cuDNN float32, every strip R and every wgmma tile of
+   BN Cout and Cout / 2 swept at batch 256; off those shapes (B = 1 and 8,
+   odd extents, Cin 3 and 64 against Cout 16 and 128, Cout 8, 24, 48 and
+   200, the strip at k*Cin 5, 6 and 12 and stride 1, k 5 at stride 1, x
+   off alignment) through the plan and every variant that takes the shape,
+   with every strip R, wgmma tile and mma.sync tile;
 9. the bf16 pool forward with tap and window backward at [256,111,111,16]
    and B = 64 on forced ties and at 7 x 9 and 5 x 4 extents, bit-exact
    against the plain versions and autograd, timed beside the float32
@@ -92,12 +99,15 @@
 11. bf16 training: the configuration of phase 7 with
    ``compute_dtype=bf16`` and ``augment_batch(dtype=bf16)``, 40 steps:
    finite, falling loss, eval accuracy, img/s and the device split beside
-   phase 7's, the exact bf16 launch counts (no float32 conv or pool
+   phase 7's, the exact bf16 launch counts (conv1 on the strip kernel,
+   conv2-4 on the wgmma kernel; no mma.sync conv, no float32 conv or pool
    kernel), the cuBLAS reduced-precision flag;
 12. bf16 serving: ``InferenceEngine(compute_dtype=bf16)`` on the committed
    checkpoint, buckets 1, 8, 64: replays bit-equal to the eager bf16
-   forward, exact launch counts, labels, probabilities and logits against
-   the float32 engine (logits within 5e-2 x max(1, max|ref|), probs 5e-2),
+   forward, exact launch counts (conv1 on the strip kernel, conv2-4 on
+   the wgmma kernel at every bucket), labels, probabilities and logits
+   against the float32 engine (logits within 5e-2 x max(1, max|ref|),
+   probs 5e-2),
    bucket-64 img/s and graph ms beside float32, per-layer eager times.
 
 Every phase prints one flushed line with the seconds since start. Any failed
@@ -132,7 +142,8 @@ from cnn_tpu_torch.nn import Conv2D, Linear, ReLU
 from cnn_tpu_torch.ops import augment as aug
 from cnn_tpu_torch.ops.activations import relu as ops_relu
 from cnn_tpu_torch.ops.conv import conv2d, conv_out_size
-from cnn_tpu_torch.ops.hopper import (BF16_TILES, STRIP_ROWS, TILES,
+from cnn_tpu_torch.ops.hopper import (BF16_STRIP_ROWS, BF16_TILES,
+                                      STRIP_ROWS, TILES, WGMMA_TILES,
                                       _build, conv2d_bias_relu,
                                       conv2d_bias_relu_fn, conv_bf16_plan,
                                       conv_tile_plan, counted_capture,
@@ -145,6 +156,9 @@ from cnn_tpu_torch.ops.hopper import (BF16_TILES, STRIP_ROWS, TILES,
                                       rotate_shear, rotate_tile_plan,
                                       uint8_normalize)
 from cnn_tpu_torch.ops.hopper.augment import TILES as ROTATE_TILES
+from cnn_tpu_torch.ops.hopper.conv import (BF16_STRIP_SMEM_MAX,
+                                           BF16_VARIANTS,
+                                           strip_bf16_smem_bytes)
 from cnn_tpu_torch.ops.losses import softmax_cross_entropy
 from cnn_tpu_torch.ops.pool import max_pool2d, max_pool2d_taps
 from cnn_tpu_torch.ops.pool import max_pool2d_bwd as pool_bwd_plain
@@ -787,7 +801,11 @@ def serving_want(calls: int) -> dict:
             "conv2d_bias_relu.launches_strip": calls,
             "conv2d_bias_relu.launches_tiled": 3 * calls,
             "conv2d_bias_relu.launches_direct": 0,
-            "conv2d_bias_relu.launches_bf16": 0}
+            "conv2d_bias_relu.launches_bf16": 0,
+            "conv2d_bias_relu.launches_bf16_gather": 0,
+            "conv2d_bias_relu.launches_bf16_vec": 0,
+            "conv2d_bias_relu.launches_bf16_strip": 0,
+            "conv2d_bias_relu.launches_bf16_wgmma": 0}
 
 
 def same_arrays(a: np.ndarray, b: np.ndarray) -> bool:
@@ -1636,22 +1654,47 @@ def bf16_conv_inputs(gen, bsz, h, wid, cin, cout):
     return x.to(BF16), w.to(BF16), b.to(BF16)
 
 
+def cold_ms(fn, x, footprint: int) -> float:
+    """``graph_ms`` of ``fn(x_i)`` over copies of ``x`` taken in turn, as
+    many as put 120 MB (beyond the 50 MB L2) between two reads of one copy:
+    each call finds its input in device memory. ``footprint``: the bytes
+    one call reads and writes."""
+    copies = [x.clone() for _ in range(max(2, -(-120_000_000 // footprint)))]
+    turn = itertools.cycle(copies)
+    return graph_ms(lambda: fn(next(turn)))
+
+
+def bf16_variants_taking(bsz, h, wid, cin, cout, k, stride, aligned):
+    """The variants of the bf16 entry point whose plan takes this shape."""
+    out = []
+    for v in BF16_VARIANTS:
+        try:
+            conv_bf16_plan(bsz, h, wid, cin, cout, k, stride, aligned, v)
+        except ValueError:
+            continue
+        out.append(v)
+    return out
+
+
 def bf16_conv_phase(gen) -> tuple:
-    """The bf16 conv kernel at each AlexNet layer at batch 256 and B = 64,
-    then off those shapes, against the plain bf16 conv; times beside the
-    float32 kernels on the same values; the kernels line's row."""
+    """The bf16 conv at each AlexNet layer at batch 256 and B = 64 (conv1
+    through the strip kernel, conv2-4 through the wgmma kernel), then off
+    those shapes through every variant that takes them, against the plain
+    bf16 conv; times beside the mma.sync kernel (the previous design),
+    cuDNN and the float32 kernels on the same values; the kernels line's
+    row."""
     rows, layers = {}, [(3, 16, 224), (16, 32, 55), (32, 64, 27),
                         (64, 128, 13)]
     worst = [0.0, 0.0, 0, 0]
     for bsz in (TRAIN_B, B):
-        sums = dict.fromkeys(("ms", "graph", "plain", "lib", "bound",
-                              "f32_ms", "f32_graph", "lib32"), 0.0)
+        sums = dict.fromkeys(("ms", "graph", "cold", "old", "plain", "lib",
+                              "bound", "f32_ms", "f32_graph", "lib32"), 0.0)
         by = {"bytes": 0.0, "operations": 0.0}
         for i, (cin, cout, h) in enumerate(layers, start=1):
             x, w, b = bf16_conv_inputs(gen, bsz, h, h, cin, cout)
             plan = conv_bf16_plan(bsz, h, h, cin, cout, 3, 2,
                                   x.data_ptr() % 16 == 0)
-            check(plan.variant == ("gather" if i == 1 else "vec"),
+            check(plan.variant == ("strip" if i == 1 else "wgmma"),
                   f"bf16 conv_layer_{i}: planned {plan}")
             got = check_conv_bf16(x, w, b, 2, f"bf16 conv_layer_{i} B={bsz}")
             worst = [max(worst[0], got[0]), max(worst[1], got[1]),
@@ -1662,11 +1705,18 @@ def bf16_conv_phase(gen) -> tuple:
             ho = conv_out_size(h, 3, 2)
             m = bsz * ho * ho
             r = read_extent(h, 3, 2)
-            bnd = bound_ms(2 * bsz * r * r * cin + nbytes(w, b) + 2 * m * cout,
-                           2 * m * cout * 9 * cin + m * cout, BF16_FLOP_PER_S)
+            io = 2 * bsz * r * r * cin + nbytes(w, b) + 2 * m * cout
+            bnd = bound_ms(io, 2 * m * cout * 9 * cin + m * cout,
+                           BF16_FLOP_PER_S)
+            old = "gather" if i == 1 else "vec"
             t = {"ms": time_ms(lambda: conv2d_bias_relu(x, w, b, 2, False)),
                  "graph": graph_ms(lambda: conv2d_bias_relu(x, w, b, 2,
                                                             False)),
+                 "cold": (cold_ms(lambda xi: conv2d_bias_relu(xi, w, b, 2,
+                                                              False), x, io)
+                          if bsz == TRAIN_B else 0.0),
+                 "old": graph_ms(lambda: launch_conv_bf16(
+                     x, w, b, 2, False, variant=old)),
                  "plain": time_ms(lambda: conv2d(x, w, b, 2, False), iters=5),
                  "lib": graph_ms(lambda: F.conv2d(xn, wn, b, 2)),
                  "f32_ms": time_ms(lambda: conv2d_bias_relu(x32, w32, b32, 2,
@@ -1679,61 +1729,94 @@ def bf16_conv_phase(gen) -> tuple:
                 sums[k] += v
             by[bnd[1]] += bnd[0]
             sweep = ""
-            if bsz == TRAIN_B:
-                tiles = {f"{64 * mt}x{8 * nt}": graph_ms(
-                    lambda j=j: launch_conv_bf16(x, w, b, 2, False, tile=j))
-                    for j, (mt, nt) in enumerate(BF16_TILES)}
-                sweep = "; every tile alone (ms): " + ", ".join(
-                    f"{k} {v:.4f}" for k, v in tiles.items())
+            if bsz == TRAIN_B:   # each R, or each tile of BN Cout and Cout/2
+                if plan.variant == "strip":
+                    cands = {f"R {r}": j for j, r in enumerate(BF16_STRIP_ROWS)}
+                else:
+                    cands = {"x".join(map(str, tt)): j
+                             for j, tt in enumerate(WGMMA_TILES)
+                             if tt[0] in (cout, cout // 2)}
+                times = {name: graph_ms(lambda j=j: launch_conv_bf16(
+                    x, w, b, 2, False, tile=j, variant=plan.variant))
+                    for name, j in cands.items()}
+                sweep = (f"; {'R' if i == 1 else 'BN x MT x BK x stages x '
+                                                'split x A-via-L1'} "
+                         "sweep alone (ms): " + ", ".join(
+                             f"{k} {v:.4f}" for k, v in times.items()))
+            tile = (f"R {BF16_STRIP_ROWS[plan.tile]}" if i == 1 else
+                    "x".join(map(str, WGMMA_TILES[plan.tile])))
             phase(f"bf16 conv_layer_{i} [{bsz},{h},{h},{cin}]->[{bsz},{ho},"
-                  f"{ho},{cout}] {plan.variant} {plan.bm}x{plan.bn} (grid "
-                  f"{plan.grid}, K {9 * cin} -> {plan.k_pad}): max|dev| "
-                  f"{got[0]:.3g} ({got[1]:.3g} of the bar), {got[2]} of "
-                  f"{got[3]} elements differ from the plain version, two "
-                  f"launches bit-identical; ms alone {t['graph']:.4f} "
-                  f"(float32 kernel {t['f32_graph']:.4f}), through the "
-                  f"wrapper {t['ms']:.4f} (float32 {t['f32_ms']:.4f}), bound "
-                  f"{bnd[0]:.4f} ({bnd[1]}), plain {t['plain']:.4f}, cuDNN "
+                  f"{ho},{cout}] {plan.variant} {tile} (grid {plan.grid}, K "
+                  f"{9 * cin} -> {plan.k_pad}): max|dev| {got[0]:.3g} "
+                  f"({got[1]:.3g} of the bar), {got[2]} of {got[3]} elements "
+                  f"differ from the plain version, two launches "
+                  f"bit-identical; ms alone {t['graph']:.4f}"
+                  + (f" (HBM-cold {t['cold']:.4f})" if t["cold"] else "")
+                  + f", the mma.sync {old} kernel alone {t['old']:.4f}, "
+                  f"float32 kernel {t['f32_graph']:.4f}; through the wrapper "
+                  f"{t['ms']:.4f} (float32 {t['f32_ms']:.4f}); bound "
+                  f"{bnd[0]:.4f} ({bnd[1]}); plain {t['plain']:.4f}; cuDNN "
                   f"bf16 alone {t['lib']:.4f} (float32 {t['lib32']:.4f})"
                   f"{sweep}")
         sums["bound_by"] = max(by, key=by.get)
         rows[bsz] = sums
         phase(f"bf16 conv, 4 layers at B={bsz}: alone {sums['graph']:.4f} ms "
-              f"(float32 kernels {sums['f32_graph']:.4f}), through the "
+              + (f"(HBM-cold {sums['cold']:.4f}) " if sums["cold"] else "")
+              + f"against the mma.sync kernel's {sums['old']:.4f} and the "
+              f"float32 kernels' {sums['f32_graph']:.4f}; through the "
               f"wrapper {sums['ms']:.4f} (float32 {sums['f32_ms']:.4f}), "
               f"bound {sums['bound']:.4f}, plain {sums['plain']:.4f}, cuDNN "
               f"bf16 {sums['lib']:.4f} (float32 {sums['lib32']:.4f})")
 
-    # off the AlexNet shapes: the ragged M edge of the serving buckets, an
-    # odd extent, Cin 3 and 64 against Cout 16 and 128, Cout 8 and 48, k 5
-    # at stride 1, x off 16-byte alignment; through the plan and every tile
+    # off the AlexNet shapes: the ragged M edge of the serving buckets, odd
+    # extents, Cin 3 and 64 against Cout 16 and 128, Cout 8, 24, 48 and 200,
+    # the strip's k*Cin 5, 6 and 12 and stride 1, k 5, x off 16-byte
+    # alignment; through the plan and every variant that takes the shape,
+    # every strip R, wgmma tile and mma.sync tile
     cases = []
     for bsz in (1, 8):
         for cin, cout, h in layers:
             cases.append((f"B {bsz}, {h}x{h}x{cin}->{cout}", bsz, h, h, cin,
-                          cout))
-    cases += [("odd 27x31x16->32", 2, 27, 31, 16, 32),
-              ("Cin 3 -> Cout 128", 2, 33, 35, 3, 128),
-              ("Cin 64 -> Cout 16", 2, 15, 13, 64, 16),
-              ("Cout 8", 3, 17, 17, 16, 8), ("Cout 48, Cin 12", 2, 21, 19, 12,
-                                             48)]
+                          cout, 3, 2))
+    cases += [("odd 27x31x16->32", 2, 27, 31, 16, 32, 3, 2),
+              ("Cin 3 -> Cout 128", 2, 33, 35, 3, 128, 3, 2),
+              ("Cin 64 -> Cout 16", 2, 15, 13, 64, 16, 3, 2),
+              ("Cout 8", 3, 17, 17, 16, 8, 3, 2),
+              ("Cout 48, Cin 12", 2, 21, 19, 12, 48, 3, 2),
+              ("Cout 200", 2, 15, 15, 16, 200, 3, 2),
+              ("strip 19x40x3->24", 2, 19, 40, 3, 24, 3, 2),
+              ("strip Cin 1, k 5", 2, 21, 48, 1, 16, 5, 2),
+              ("strip Cin 2, stride 1", 2, 12, 20, 2, 8, 3, 1),
+              ("strip Cin 4, stride 1, Cout 32", 1, 11, 14, 4, 32, 3, 1),
+              ("k 5, stride 1", 2, 20, 24, 4, 16, 5, 1),
+              ("k 5, Cin 8, stride 1", 2, 14, 13, 8, 16, 5, 1)]
     off = [0.0, 0.0, 0, 0]
     seen = set()
-    for what, bsz, h, wid, cin, cout in cases:
+    for what, bsz, h, wid, cin, cout, k, stride in cases:
         x, w, b = bf16_conv_inputs(gen, bsz, h, wid, cin, cout)
-        plan = conv_bf16_plan(bsz, h, wid, cin, cout, 3, 2, True)
+        if k != 3:
+            w = (torch.randn((k, k, cin, cout), generator=gen, device="cuda")
+                 * 0.1).to(BF16)
+        plan = conv_bf16_plan(bsz, h, wid, cin, cout, k, stride, True)
         seen.add((plan.variant, plan.tile))
-        got = check_conv_bf16(x, w, b, 2, f"bf16 conv ({what})")
-        for tile in range(len(BF16_TILES)):
-            g2 = check_conv_bf16(
-                x, w, b, 2, f"bf16 conv ({what}) tile {tile}",
-                lambda *a, tile=tile: launch_conv_bf16(*a, tile=tile)[0])
-            got = tuple(max(a, c) for a, c in zip(got[:2], g2[:2])) + got[2:]
+        got = check_conv_bf16(x, w, b, stride, f"bf16 conv ({what})")
+        tables = {"gather": range(len(BF16_TILES)),
+                  "vec": range(len(BF16_TILES)),
+                  "strip": [j for j, r in enumerate(BF16_STRIP_ROWS)
+                            if strip_bf16_smem_bytes(
+                                min(r, conv_out_size(h, k, stride)), wid,
+                                cin, cout, k, stride) <= BF16_STRIP_SMEM_MAX],
+                  "wgmma": range(len(WGMMA_TILES))}
+        for v in bf16_variants_taking(bsz, h, wid, cin, cout, k, stride, True):
+            for tile in tables[v]:
+                g2 = check_conv_bf16(
+                    x, w, b, stride, f"bf16 conv ({what}) {v} tile {tile}",
+                    lambda *a, v=v, tile=tile: launch_conv_bf16(
+                        *a, tile=tile, variant=v)[0])
+                got = tuple(max(p, q) for p, q in zip(got[:2], g2[:2])) \
+                    + got[2:]
         off = [max(off[0], got[0]), max(off[1], got[1]), off[2] + got[2],
                off[3] + got[3]]
-    x, w, b = bf16_conv_inputs(gen, 2, 20, 24, 4, 16)
-    w5 = torch.randn((5, 5, 4, 16), generator=gen, device="cuda").to(BF16)
-    got = check_conv_bf16(x, w5, b, 1, "bf16 conv (k 5, stride 1)")
     buf = torch.rand((2 * 27 * 27 * 16 + 1,), generator=gen,
                      device="cuda").to(BF16)
     xm = buf[1:].view(2, 27, 27, 16)    # 2 bytes past 16-byte alignment
@@ -1743,12 +1826,12 @@ def bf16_conv_phase(gen) -> tuple:
     got2 = check_conv_bf16(xm, wm, bm_, 2, "bf16 conv (x off 16-byte "
                            "alignment)")
     phase(f"bf16 conv off the AlexNet shapes (" + "; ".join(c[0] for c in cases)
-          + f"; k 5 stride 1; x off alignment), through the plan (variant and "
-          f"tile {sorted(seen)}) and every tile of {len(BF16_TILES)}: max|dev| "
-          f"{max(off[0], got[0], got2[0]):.3g} "
-          f"({max(off[1], got[1], got2[1]):.3g} of the bar), "
-          f"{off[2] + got[2] + got2[2]} of {off[3] + got[3] + got2[3]} "
-          f"elements differ, two launches bit-identical")
+          + f"; x off alignment), through the plan (variant and tile "
+          f"{sorted(seen)}) and every variant that takes each shape, with "
+          f"every R, wgmma tile ({len(WGMMA_TILES)}) and mma.sync tile "
+          f"({len(BF16_TILES)}): max|dev| {max(off[0], got2[0]):.3g} "
+          f"({max(off[1], got2[1]):.3g} of the bar), {off[2] + got2[2]} of "
+          f"{off[3] + got2[3]} elements differ, two launches bit-identical")
     return worst, rows
 
 
@@ -1919,6 +2002,8 @@ def bf16_training_phase(f32: dict) -> dict:
             "max_pool2d_bwd.launches_bf16": TRAIN_STEPS,
             "conv2d_bias_relu.launches": 4 * fwd,
             "conv2d_bias_relu.launches_bf16": 4 * fwd,
+            "conv2d_bias_relu.launches_bf16_strip": fwd,
+            "conv2d_bias_relu.launches_bf16_wgmma": 3 * fwd,
             "rotate_shear.launches": TRAIN_STEPS}
     check(counts == want, f"bf16 training launches {counts}, expected {want}")
     losses = torch.stack(losses).cpu()
@@ -1940,7 +2025,8 @@ def bf16_training_phase(f32: dict) -> dict:
           f"{f32['img_s']:.1f}), {1e3 * wall / TRAIN_STEPS:.2f} ms per step; "
           f"eval accuracy {acc:.4f} (float32 {f32['acc']:.4f}) on "
           f"{held.shape[0]} held-out images; launches {counts} (exact: bf16 "
-          f"kernels only, no float32 conv or pool kernel)")
+          f"kernels only, conv1 on the strip kernel and conv2-4 on the wgmma "
+          f"kernel; no float32 conv or pool kernel, no mma.sync conv)")
     split = step_split(ts, ds, opt, dtype=BF16)
     phase("bf16 device ms per step (mean of 5): " + ", ".join(
         f"{k} {v:.4f} (float32 {f32['split'][k]:.4f})"
@@ -1965,7 +2051,9 @@ def bf16_serving_phase(model) -> dict:
     want1 = {"uint8_normalize.launches": 1, "uint8_normalize.launches_wide": 1,
              "max_pool2d_fwd.launches": 1, "max_pool2d_fwd.launches_bf16": 1,
              "conv2d_bias_relu.launches": 4,
-             "conv2d_bias_relu.launches_bf16": 4}
+             "conv2d_bias_relu.launches_bf16": 4,
+             "conv2d_bias_relu.launches_bf16_strip": 1,
+             "conv2d_bias_relu.launches_bf16_wgmma": 3}
     for b in BUCKETS:
         check(engine._ready[b].launches == want1, f"bf16 bucket {b}'s "
               f"capture recorded {engine._ready[b].launches}")
@@ -2018,7 +2106,8 @@ def bf16_serving_phase(model) -> dict:
         split = layer_times(model, uint8_normalize(x), BF16)
     phase(f"bf16 serving (buckets {BUCKETS}, one graph each): replays "
           f"bit-equal to the eager bf16 forward at every bucket, full and "
-          f"padded; launches {counts} (exact, bf16 kernels only); labels agree "
+          f"padded; launches {counts} (exact, bf16 kernels only, conv1 on the "
+          f"strip and conv2-4 on the wgmma kernel); labels agree "
           f"with the float32 engine on {agree} of {sum(sizes)} images; probs "
           f"max|dev| {pdev:.3g}, bucket-64 logits max|dev| {ldev:.3g} x "
           f"max(1,|ref|) (bar {BF16_MODEL_TOL}); bucket 64 end to end "
@@ -2085,7 +2174,10 @@ def main() -> int:
             "maxpool2x2_fwd<bf16>", "normalize_u8_wide<1>",
             "normalize_u8_wide<0>"] + [
             f"conv2d_bf16<{mt}x{nt}x{v}>" for mt, nt in BF16_TILES
-            for v in (0, 1)]
+            for v in (0, 1)] + [
+            f"conv2d_bf16_strip<{r}>" for r in BF16_STRIP_ROWS] + [
+            f"conv2d_bf16_wgmma<{'x'.join(map(str, t))}>"
+            for t in WGMMA_TILES]
         check(all(n in report for n in new), f"ptxas reported no "
               f"{[n for n in new if n not in report]}: {sorted(report)}")
     for name, (regs, spills) in report.items():
@@ -2094,6 +2186,11 @@ def main() -> int:
                                      "maxpool2x2_bwd_window", "rotate_shear",
                                      "normalize_u8_wide"))
                    and spills), f"{name} spills: {spills}")
+    # ptxas's advisories on wgmma (e.g. a pipeline it serializes)
+    advice = [ln.strip() for ln in _build.build_log.splitlines()
+              if "wgmma" in ln and "Compiling entry" not in ln
+              and "Function properties" not in ln]
+    phase(f"build: wgmma advisories from ptxas: {advice or 'none'}")
     phase(f"build: {_build.library_path()} "
           + (f"built in {_build.build_seconds:.1f}s; " + " | ".join(
               f"{name}: {regs}, {spills or 'no spills'}"

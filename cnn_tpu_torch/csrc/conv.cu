@@ -1,7 +1,8 @@
 // VALID k x k convolution + bias (+ ReLU), NHWC / HWIO, for Hopper: three
 // float32 kernels, chosen by shape in ops/hopper/conv.py:conv_tile_plan, and
-// one bf16 tensor-core kernel (the last section of this file), planned by
-// ops/hopper/conv.py:conv_bf16_plan.
+// three bf16 tensor-core kernels behind one entry point (the last sections
+// of this file: the mma.sync kernel, the strip and the wgmma kernel),
+// planned by ops/hopper/conv.py:conv_bf16_plan.
 //
 // Replaces: cnn_tpu/ops/pallas/conv.py, conv2d_bias_relu_pallas -> _forward
 // (kernel body _conv_kernel): k*k shifted [Ho*Wo, Cin] x [Cin, Cout]
@@ -567,7 +568,12 @@ extern "C" int cnn_conv2d_bias_relu_strip(void* stream, const void* x,
 
 
 // ---------------------------------------------------------------------------
-// bf16: cnn_conv2d_bias_relu_bf16, an implicit GEMM on the tensor cores.
+// bf16: cnn_conv2d_bias_relu_bf16, the mma.sync kernel, an implicit GEMM on
+// the tensor cores (the entry point's variants 0 "gather" and 1 "vec"). The
+// plan sends the AlexNet layers to the strip and wgmma kernels below; this
+// one takes every shape they do not (Cin 12, k 5, misaligned x, rows that
+// are no whole 16-byte chunks), and "vec" is reached only by name, for
+// comparisons.
 //
 // Replaces: the bf16 path of cnn_tpu/ops/pallas/conv.py, _forward (kernel
 // body _conv_kernel): for bf16 x and w each tap's [Ho*Wo, Cin] x [Cin, Cout]
@@ -838,15 +844,667 @@ cudaError_t launch_bf16_tile(int tile, cudaStream_t st,
 
 }  // namespace
 
+// ---------------------------------------------------------------------------
+// bf16 on Hopper: the "strip" and "wgmma" variants of the same entry point.
+//
+// Both replace the bf16 path of cnn_tpu/ops/pallas/conv.py, _forward (kernel
+// body _conv_kernel), and compute exactly its function: exact bf16
+// products summed in float32, the bias read into float32 and added, the
+// optional ReLU, one rounding to bf16. No split across blocks and no
+// atomics: two launches are bit-identical.
+//
+// "strip" (conv1: k*Cin <= 16, s*Cin even, rows of W*Cin bf16 a multiple
+// of 16 bytes, Cout % 8 == 0 and <= 32, x and y 16-byte aligned).
+//  - Bound on this card: bytes. At batch 256 conv1 reads 76 MB of x and
+//    writes 101 MB (0.053 ms at 3.35 TB/s) for 2.8 GFLOP. The mma.sync
+//    "gather" path above reaches 0.18 of that bound: each lane stages one
+//    2-byte element a row, for every row of a 128-row tile, and nothing
+//    overlaps the staging.
+//  - A block owns R output rows of one image (blockIdx.x the strip,
+//    blockIdx.y the image) and copies the (R-1)*s + k input rows they read,
+//    one contiguous run of x, into shared memory with 16-byte cp.async,
+//    coalesced across the block. 16 bytes of padding follow the rows.
+//  - The weights are re-laid out once per block into the m16n8k16 B
+//    fragments, one k16 step per kernel row dy (columns dx*Cin + ci, zero
+//    past k*Cin): [dy][n8 tile][lane] as two 32-bit words, one 8-byte
+//    shared load per MMA.
+//  - One warp per output row, 16 output pixels (the MMA's M) at a time.
+//    Output pixel ox of kernel row dy reads its k*Cin values contiguous in
+//    the staged row at element ox*s*Cin, an even element since s*Cin is
+//    even: the A fragment words (columns 2t, 2t+1 and 2t+8, 2t+9) are
+//    aligned 32-bit loads straight from the staged rows. Columns at or
+//    past k*Cin are masked to zero in the register (a word that holds
+//    column k*Cin - 1 and k*Cin keeps only its low half), so a NaN or an
+//    infinity in a neighbouring pixel never meets a zero weight; a word
+//    wholly past k*Cin is not loaded. The word of the last column may read
+//    one element past the last staged row: the padding. K is padded from
+//    k*Cin to 16 per kernel row (conv1: 27 -> 48): the MMAs are free, the
+//    bound is bytes. No gather and no per-element shared-memory stores.
+//  - Epilogue: bias, ReLU and the rounding per fragment into an output
+//    staging area in shared memory; the strip's output, R*Wo*Cout bf16, is
+//    one contiguous run of y, and leaves as 16-byte stores.
+//  - R is a template argument; the switch maps ids to R in the order of
+//    BF16_STRIP_ROWS in ops/hopper/conv.py.
+//
+// "wgmma" (conv2-4: Cin % 8 == 0, x and y 16-byte aligned).
+//  - Bound on this card: bytes (conv2-4 together 62 MB, 0.019 ms, for 4.7
+//    GFLOP). The mma.sync "vec" path above walks K in slices of 32 with
+//    two stages; conv4 (18 slices, 144 blocks on 132 SMs) is slower than
+//    cuDNN. What bounds this kernel in practice is the rate at which its
+//    SMs take in 16-byte cp.async copies (16-20 GB/s an SM on an H100 SXM
+//    at 700 W, tools/conv_bf16_probe.py; without its wgmmas it runs within
+//    8% of its time), against traffic that the im2col rows (each input
+//    pixel 2.25 times) and the weights (read whole by every block) make
+//    larger than the bytes of the bound.
+//  - A block of SPLIT warpgroups owns a BM x BN output tile (BM = 64*MT).
+//    Each warpgroup issues wgmma.mma_async m64nBNk16 (bf16 in, float32
+//    accumulators in registers) on A and B read from shared memory
+//    through matrix descriptors, and walks K in slices of BK through a
+//    ring of S stages filled by 16-byte cp.async: S - 2 slices are in
+//    flight while the wgmma groups of the two slices before them run
+//    (wgmma.fence, commit_group, wait_group 1). A stage is refilled only
+//    after a barrier that every warp of the warpgroup reaches past the
+//    wait for the group that last read it.
+//  - A, the im2col rows, is K-major: a chunk of 8 bf16 never straddles a
+//    tap since Cin % 8 == 0, so it is one 16-byte cp.async from x. It is
+//    stored in the descriptor's canonical no-swizzle layout: 8-row x
+//    16-byte core matrices of 128 contiguous bytes, K-adjacent core
+//    matrices kWgALbo bytes apart (the leading byte offset), 8-row groups
+//    BK/8 core matrices apart (the stride byte offset). Copy i of thread t
+//    is chunk t + 128i, stored at 16 bytes times its index, so each warp's
+//    32 copies land on 512 contiguous bytes.
+//  - B, HWIO w as [K, Cout], is N-contiguous: it is staged as an MN-major
+//    operand (core matrices of 8 k rows x 8 n columns, N-adjacent ones
+//    kWgBSbo bytes apart, K-adjacent ones BN*16) and read with wgmma's
+//    transpose-B for bf16, so w is never transposed in memory. Every block
+//    reads all of w: its copies allocate in L1 (cp.async.ca), which
+//    blocks on one SM share; through L2 alone every layer ran slower (the
+//    probe's build with CONV_WG_PROBE bit 8: conv2 1.4x as long).
+//  - Where Cin is 16 (the A-via-L1 template flag) A's copies allocate in
+//    L1 too: the taps of neighbouring output pixels overlap.
+//  - Rows past M, K past k*k*Cin and columns past Cout are zero-filled
+//    copies (cp.async with a source size of 0), never left unset.
+//  - SPLIT = 2: the two warpgroups each walk half of the K slices into
+//    their own ring, then the second writes its float32 accumulators to
+//    shared memory and the first adds them to its own, in that one order,
+//    before the bias. The plan takes it where few blocks leave SMs idle
+//    and K is long (conv4 at B <= 64: 18 slices), so the serial chain of
+//    slices halves; at batch 256 conv4 takes BM = 128 instead, which
+//    halves the re-reads of w.
+//  - BK = 32 (two k16 steps): 64-wide slices make rings of 48-96 KB a
+//    block, so fewer blocks stay resident; the sweep's BK 64 tile is
+//    slower than its BK 32 twin.
+//  - Accumulators: warp w of a warpgroup holds rows 16w + g and 16w + g +
+//    8, columns 8j + 2t and 8j + 2t + 1 (lane 4g + t). Epilogue: bias,
+//    ReLU and the rounding into an output tile in shared memory (rows of
+//    BN + 8 bf16: conflict-free 4-byte writes), then 16-byte stores masked
+//    at M and Cout.
+//  - (BN, MT, BK, S, SPLIT, A via L1) are template arguments; the switch
+//    maps ids to them in the order of WGMMA_TILES in ops/hopper/conv.py,
+//    whose plan (wgmma_tile_for) picks one by shape. A ring above 48 KB
+//    sets cudaFuncAttributeMaxDynamicSharedMemorySize in the launch.
+//
+// Tests. On the CPU, the plan and numpy emulations of both walks (the
+// strip's staged rows and fragment words; the wgmma ring, its descriptors
+// decoded as the hardware reads them, and the split's fixed-order sum),
+// held against the plain bf16 conv and the Pallas kernel in interpret
+// mode:
+//   JAX_PLATFORMS=cpu python -m pytest -q tests/test_torch_bf16_conv_hopper.py
+// On the card, python3 chip_smoke.py builds both and holds them against
+// the plain bf16 conv at every AlexNet layer and off those shapes.
+
+namespace {
+
+constexpr int kStripBfNtMax = 4;     // Cout <= 32: at most four n8 tiles
+constexpr int kStripBfKc = 16;       // k*Cin of a kernel row: one k16 step
+constexpr int kStripBfSmemMax = 96 * 1024;
+
+// bytes of shared memory of a bf16 strip of `rows` output rows: the B
+// fragments, the staged input rows and 16 bytes of padding, the output
+__host__ __device__ inline int strip_bf16_frag_bytes(int k, int Cout) {
+  return k * (Cout / 8) * 32 * 8;
+}
+__host__ __device__ inline int strip_bf16_x_bytes(int rows, int k, int s,
+                                                  int W, int Cin) {
+  return ((rows - 1) * s + k) * W * Cin * 2 + 16;
+}
+__host__ __device__ inline int strip_bf16_smem_bytes(int rows, int k, int s,
+                                                     int W, int Cin,
+                                                     int Cout, int Wo) {
+  return strip_bf16_frag_bytes(k, Cout) +
+         strip_bf16_x_bytes(rows, k, s, W, Cin) + rows * Wo * Cout * 2;
+}
+
+__device__ __forceinline__ uint32_t lds32(const unsigned short* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+template <int R>
+__global__ void __launch_bounds__(R * 32)
+    conv2d_bf16_strip_kernel(const __nv_bfloat16* __restrict__ x,
+                             const __nv_bfloat16* __restrict__ w,
+                             const __nv_bfloat16* __restrict__ bias,
+                             __nv_bfloat16* __restrict__ y, int H, int W,
+                             int Cin, int Cout, int k, int s, int Ho, int Wo,
+                             bool relu) {
+  extern __shared__ __align__(16) unsigned char smem_strip[];
+  const int kc = k * Cin, nt = Cout / 8, rowlen = W * Cin;
+  const int oy0 = blockIdx.x * R, rows = min(R, Ho - oy0);
+  const int b = blockIdx.y;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int frag = strip_bf16_frag_bytes(k, Cout);
+  uint2* sw = reinterpret_cast<uint2*>(smem_strip);
+  unsigned short* sx =
+      reinterpret_cast<unsigned short*>(smem_strip + frag);
+  // the output area sits past the staged rows of a full strip
+  __nv_bfloat16* sy = reinterpret_cast<__nv_bfloat16*>(
+      smem_strip + frag + strip_bf16_x_bytes(min(R, Ho), k, s, W, Cin));
+
+  // the strip's input rows: one contiguous run of x, 16-byte aligned
+  const int n16 = ((rows - 1) * s + k) * rowlen / 8;
+  const int4* src = reinterpret_cast<const int4*>(
+      x + ((int64_t)b * H + (int64_t)oy0 * s) * rowlen);
+  for (int i = tid; i < n16; i += R * 32) cp_async16(sx + 8 * i, src + i, true);
+  cp_async_commit();
+  // the B fragments: b0 holds k rows 2t, 2t+1 of column g, b1 rows 2t+8,
+  // 2t+9 (low half the lower row), zero past k*Cin
+  const unsigned short* wb = reinterpret_cast<const unsigned short*>(w);
+  for (int i = tid; i < k * nt * 32; i += R * 32) {
+    const int l = i & 31, dj = i >> 5, dy = dj / nt, j = dj - dy * nt;
+    const int n = 8 * j + (l >> 2), c0 = 2 * (l & 3);
+    uint32_t v[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int c = c0 + 8 * h;
+      const uint32_t lo =
+          c < kc ? wb[(int64_t)(dy * kc + c) * Cout + n] : 0u;
+      const uint32_t hi =
+          c + 1 < kc ? wb[(int64_t)(dy * kc + c + 1) * Cout + n] : 0u;
+      v[h] = lo | (hi << 16);
+    }
+    sw[i] = make_uint2(v[0], v[1]);
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+
+  if (warp < rows) {
+    const int g = lane >> 2, t = lane & 3;
+    // the A columns this lane holds that lie inside k*Cin
+    const uint32_t mlo = (2 * t < kc ? 0xFFFFu : 0u) |
+                         (2 * t + 1 < kc ? 0xFFFF0000u : 0u);
+    const uint32_t mhi = (2 * t + 8 < kc ? 0xFFFFu : 0u) |
+                         (2 * t + 9 < kc ? 0xFFFF0000u : 0u);
+    float bv[kStripBfNtMax][2];
+#pragma unroll
+    for (int j = 0; j < kStripBfNtMax; ++j) {
+      bv[j][0] = j < nt ? __bfloat162float(bias[8 * j + 2 * t]) : 0.f;
+      bv[j][1] = j < nt ? __bfloat162float(bias[8 * j + 2 * t + 1]) : 0.f;
+    }
+    const unsigned short* xr = sx + warp * s * rowlen;   // kernel row 0
+    __nv_bfloat16* yr = sy + warp * Wo * Cout;
+    const int ps = s * Cin;   // elements between neighbouring outputs
+    for (int ox0 = 0; ox0 < Wo; ox0 += 16) {
+      const int pa = ox0 + g, pb = pa + 8;
+      const bool va = pa < Wo, vb = pb < Wo;
+      float acc[kStripBfNtMax][4];
+#pragma unroll
+      for (int j = 0; j < kStripBfNtMax; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+      for (int dy = 0; dy < k; ++dy) {
+        const unsigned short* xa = xr + dy * rowlen + pa * ps + 2 * t;
+        const unsigned short* xb = xa + 8 * ps;
+        uint32_t a[4];
+        a[0] = va && mlo ? lds32(xa) & mlo : 0u;       // row g,   k 2t..
+        a[1] = vb && mlo ? lds32(xb) & mlo : 0u;       // row g+8, k 2t..
+        a[2] = va && mhi ? lds32(xa + 8) & mhi : 0u;   // row g,   k 2t+8..
+        a[3] = vb && mhi ? lds32(xb + 8) & mhi : 0u;   // row g+8, k 2t+8..
+        const uint2* wp = sw + dy * nt * 32 + lane;
+#pragma unroll
+        for (int j = 0; j < kStripBfNtMax; ++j) {
+          if (j < nt) {
+            const uint2 bw = wp[32 * j];
+            const uint32_t bb[2] = {bw.x, bw.y};
+            mma_bf16_16816(acc[j], a, bb);
+          }
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < kStripBfNtMax; ++j) {
+        if (j >= nt) continue;
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          if (!(half ? vb : va)) continue;
+          float v0 = acc[j][2 * half] + bv[j][0];
+          float v1 = acc[j][2 * half + 1] + bv[j][1];
+          if (relu) {
+            v0 = v0 > 0.f ? v0 : 0.f;
+            v1 = v1 > 0.f ? v1 : 0.f;
+          }
+          *reinterpret_cast<__nv_bfloat162*>(
+              yr + (half ? pb : pa) * Cout + 8 * j + 2 * t) =
+              __floats2bfloat162_rn(v0, v1);
+        }
+      }
+    }
+  }
+  __syncthreads();
+  // the strip's output rows are one contiguous run of y
+  const int n16o = rows * Wo * Cout / 8;
+  int4* dst = reinterpret_cast<int4*>(y + ((int64_t)b * Ho + oy0) * Wo * Cout);
+  const int4* so = reinterpret_cast<const int4*>(sy);
+  for (int i = tid; i < n16o; i += R * 32) dst[i] = so[i];
+}
+
+template <int R>
+cudaError_t launch_bf16_strip(cudaStream_t stream, const __nv_bfloat16* x,
+                              const __nv_bfloat16* w, const __nv_bfloat16* b,
+                              __nv_bfloat16* y, int B, int H, int W, int Cin,
+                              int Cout, int k, int s, bool relu) {
+  const int Ho = (H - k) / s + 1, Wo = (W - k) / s + 1;
+  const int smem = strip_bf16_smem_bytes(Ho < R ? Ho : R, k, s, W, Cin,
+                                         Cout, Wo);
+  if (smem > kStripBfSmemMax) return cudaErrorInvalidValue;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        conv2d_bf16_strip_kernel<R>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+  }
+  const dim3 grid((Ho + R - 1) / R, B);
+  conv2d_bf16_strip_kernel<R><<<grid, R * 32, smem, stream>>>(
+      x, w, b, y, H, W, Cin, Cout, k, s, Ho, Wo, relu);
+  return cudaGetLastError();
+}
+
+// ---- wgmma ----
+
+// a 16-byte copy that also allocates in L1 (cp.async.ca), for the weights:
+// every block reads all of them, and with the L2-only copy (.cg) the blocks
+// of the whole card meet on one hot set of L2 lines
+__device__ __forceinline__ void cp_async16_ca(void* smem, const void* gmem,
+                                              bool valid) {
+  const unsigned dst =
+      static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(gmem), "r"(valid ? 16 : 0));
+}
+
+// Compiled with -DCONV_WG_PROBE=m, the wgmma kernel skips its wgmmas (bit
+// 1), the copies of A (bit 2) or of B (bit 4), or copies B through L2 only
+// (bit 8): wrong results, for timing only (cnn_tpu_torch/tools/
+// conv_bf16_probe.py). The build the package loads has m = 0.
+#ifndef CONV_WG_PROBE
+#define CONV_WG_PROBE 0
+#endif
+constexpr int kWgProbe = CONV_WG_PROBE;
+
+constexpr int kWgThreads = 128;      // one warpgroup
+constexpr int kWgCore = 128;         // a core matrix: 8 rows of 16 bytes
+constexpr int kWgALbo = kWgCore;     // A: K-adjacent core matrices
+constexpr int kWgBSbo = kWgCore;     // B: N-adjacent core matrices
+// A's stride byte offset (8-row groups) is BK / 8 core matrices; B's
+// leading byte offset (K-adjacent cores) is BN * 16 bytes
+
+// a shared-memory matrix descriptor, no swizzle: start address, leading
+// and stride byte offsets, each in 16-byte units
+__device__ __forceinline__ uint64_t wgmma_desc(uint32_t saddr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return (uint64_t)((saddr >> 4) & 0x3FFF) |
+         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// cp.async writes through the generic proxy, wgmma reads through the async
+// one: each thread fences its landed copies before the barrier
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+// the barrier of one warpgroup's ring, by immediate id (an id in a
+// register would make ptxas reserve all 16 of the block's barriers)
+template <int SPLIT>
+__device__ __forceinline__ void ring_sync(int wg) {
+  if constexpr (SPLIT == 1)
+    __syncthreads();
+  else if (wg == 0)
+    asm volatile("bar.sync 1, 128;\n" ::: "memory");
+  else
+    asm volatile("bar.sync 2, 128;\n" ::: "memory");
+}
+// keeps the compiler from moving accesses of an accumulator across the
+// asynchronous wgmma that owns it
+__device__ __forceinline__ void reg_fence(float& r) {
+  asm volatile("" : "+f"(r)::"memory");
+}
+
+__device__ __forceinline__ void wgmma_m64n16(float* d, uint64_t da,
+                                            uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, %8, %9, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_m64n32(float* d, uint64_t da,
+                                            uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_m64n64(float* d, uint64_t da,
+                                            uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_m64n128(float* d, uint64_t da,
+                                            uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+template <int BN>
+__device__ __forceinline__ void wgmma_bn(float* d, uint64_t da, uint64_t db) {
+  if constexpr (BN == 16) wgmma_m64n16(d, da, db);
+  else if constexpr (BN == 32) wgmma_m64n32(d, da, db);
+  else if constexpr (BN == 64) wgmma_m64n64(d, da, db);
+  else wgmma_m64n128(d, da, db);
+}
+
+template <int BN, int MT, int BK>
+__host__ __device__ constexpr int wgmma_stage_bytes() {
+  return 64 * MT * BK * 2 + BK * BN * 2;
+}
+
+template <int BN, int MT, int BK, int S, int SPLIT, bool kAL1>
+__global__ void __launch_bounds__(kWgThreads * SPLIT)
+    conv2d_bf16_wgmma_kernel(const __nv_bfloat16* __restrict__ x,
+                             const __nv_bfloat16* __restrict__ w,
+                             const __nv_bfloat16* __restrict__ bias,
+                             __nv_bfloat16* __restrict__ y, int H, int W,
+                             int Cin, int Cout, int k, int s, int Ho, int Wo,
+                             int M, int K, bool relu) {
+  constexpr int BM = 64 * MT;
+  constexpr int kCpr = BK / 8;         // 16-byte chunks of an A row
+  constexpr int kASbo = kWgCore * kCpr;
+  constexpr int kABytes = BM * BK * 2;
+  constexpr int kStage = wgmma_stage_bytes<BN, MT, BK>();
+  constexpr int kNAcc = BN / 2;        // accumulators per m64 tile
+  constexpr int kARows = BM * kCpr / kWgThreads;   // A rows a thread stages
+  constexpr int kBChunks = BK * BN / 8;            // B chunks of a slice
+  constexpr int kP = S - 2;            // slices in flight
+  constexpr int kRed = SPLIT > 1 ? MT * kNAcc * kWgThreads * 4 : 0;
+  constexpr int kOutStride = BN + 8;   // bf16 per row of the output tile
+  static_assert((BK == 32 || BK == 64) && S >= 3 && S <= 8 &&
+                    (SPLIT == 1 || SPLIT == 2), "ring");
+  static_assert(kRed + BM * kOutStride * 2 <= SPLIT * S * kStage,
+                "the epilogue's buffers alias the rings");
+  extern __shared__ __align__(128) unsigned char smem_wg[];
+
+  const int tid = threadIdx.x, wg = tid / kWgThreads, t = tid % kWgThreads;
+  unsigned char* ring = smem_wg + wg * S * kStage;
+  const uint32_t ring_s =
+      static_cast<uint32_t>(__cvta_generic_to_shared(ring));
+  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
+  const int KT = (K + BK - 1) / BK;
+  const int per = (KT + SPLIT - 1) / SPLIT;
+  const int kt0 = wg * per, nk = max(0, min(KT, kt0 + per) - kt0);
+
+  // this thread's A rows (-1 past M) and chunk column: copy i of thread t
+  // is chunk idx = t + 128 i, row 8 * (idx / (8 * kCpr)) + idx % 8, column
+  // (idx / 8) % kCpr, at byte 16 * idx of the stage (the core matrices'
+  // order), so a warp's 32 copies land on 512 contiguous bytes
+  int64_t base[kARows];
+#pragma unroll
+  for (int i = 0; i < kARows; ++i) {
+    const int idx = t + kWgThreads * i;
+    const int m = m0 + 8 * (idx / (8 * kCpr)) + (idx & 7);
+    base[i] = -1;
+    if (m < M) {
+      const int ox = m % Wo, q = m / Wo;
+      const int oy = q % Ho;
+      const int64_t bb = q / Ho;
+      base[i] = ((bb * H + (int64_t)oy * s) * W + (int64_t)ox * s) * Cin;
+    }
+  }
+  const int ca = (t >> 3) % kCpr;
+
+  auto load_slice = [&](int kt, int st) {
+    unsigned char* sa = ring + st * kStage;
+    unsigned char* sb = sa + kABytes;
+    const int kc = kt * BK + 8 * ca;
+    const bool kok = kc < K;          // K % 8 == 0: a chunk is all in
+    const int64_t off = kok ? tap_offset(kc, Cin, k, W) : 0;
+#pragma unroll
+    for (int i = 0; i < kARows; ++i) {
+      const bool ok = kok && base[i] >= 0;
+      void* dst = sa + 16 * (t + kWgThreads * i);
+      const void* src = ok ? x + base[i] + off : x;
+      if (kWgProbe & 2)
+        continue;
+      if (kAL1)
+        cp_async16_ca(dst, src, ok);
+      else
+        cp_async16(dst, src, ok);
+    }
+    if (kWgProbe & 4) return;
+    // B chunk idx: k row 8 * (idx / BN) + idx % 8, columns 8 * ((idx / 8)
+    // % (BN / 8)), at byte 16 * idx
+#pragma unroll
+    for (int i = 0; i < (kBChunks + kWgThreads - 1) / kWgThreads; ++i) {
+      const int idx = t + kWgThreads * i;
+      if (kBChunks % kWgThreads == 0 || idx < kBChunks) {
+        const int kr = (idx / BN) * 8 + (idx & 7), j = (idx >> 3) % (BN / 8);
+        const int kg = kt * BK + kr, n = n0 + 8 * j;
+        const bool ok = kg < K && n < Cout;
+        if (kWgProbe & 8)
+          cp_async16(sb + 16 * idx, ok ? w + (int64_t)kg * Cout + n : w, ok);
+        else
+          cp_async16_ca(sb + 16 * idx, ok ? w + (int64_t)kg * Cout + n : w,
+                        ok);
+      }
+    }
+  };
+
+  float acc[MT][kNAcc];
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int e = 0; e < kNAcc; ++e) acc[i][e] = 0.f;
+
+#pragma unroll
+  for (int st = 0; st < kP; ++st) {
+    if (st < nk) load_slice(kt0 + st, st);
+    cp_async_commit();
+  }
+  for (int it = 0; it < nk; ++it) {
+    cp_async_wait<kP - 1>();   // slice it has landed (this thread's)
+    fence_proxy_async();
+    ring_sync<SPLIT>(wg);   // ... every thread's; and wgmma(it-2) is
+                            // done in every warp of the warpgroup
+    if (it + kP < nk) load_slice(kt0 + it + kP, (it + kP) % S);
+    cp_async_commit();
+    const uint32_t sa = ring_s + (it % S) * kStage, sb = sa + kABytes;
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < BK / 16; ++ks) {
+      const uint64_t db = wgmma_desc(sb + ks * 2 * BN * 16, BN * 16, kWgBSbo);
+#pragma unroll
+      for (int i = 0; i < MT && !(kWgProbe & 1); ++i)
+        wgmma_bn<BN>(acc[i],
+                     wgmma_desc(sa + i * 8 * kASbo + ks * 2 * kWgALbo,
+                                kWgALbo, kASbo),
+                     db);
+    }
+    wgmma_commit();
+    wgmma_wait<1>();   // the group of slice it-1 is done
+  }
+  wgmma_wait<0>();
+  cp_async_wait<0>();   // only empty groups can be pending here
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int e = 0; e < kNAcc; ++e) reg_fence(acc[i][e]);
+  __syncthreads();      // every ring is read: the epilogue reuses them
+
+  float* red = reinterpret_cast<float*>(smem_wg);
+  if (SPLIT > 1 && wg == 1) {
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+      for (int e = 0; e < kNAcc; ++e)
+        red[(i * kNAcc + e) * kWgThreads + t] = acc[i][e];
+  }
+  if (SPLIT > 1) __syncthreads();
+  __nv_bfloat16* so = reinterpret_cast<__nv_bfloat16*>(smem_wg + kRed);
+  if (wg == 0) {
+    const int warp = t >> 5, lane = t & 31, g = lane >> 2, tt = lane & 3;
+#pragma unroll
+    for (int i = 0; i < MT; ++i) {
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        const int n = 8 * j + 2 * tt;
+        const bool nok = n0 + n < Cout;
+        const float b0 = nok ? __bfloat162float(bias[n0 + n]) : 0.f;
+        const float b1 = nok ? __bfloat162float(bias[n0 + n + 1]) : 0.f;
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int e = 4 * j + 2 * half;
+          float v0 = acc[i][e], v1 = acc[i][e + 1];
+          if (SPLIT > 1) {   // the first half of K, then the second
+            v0 += red[(i * kNAcc + e) * kWgThreads + t];
+            v1 += red[(i * kNAcc + e + 1) * kWgThreads + t];
+          }
+          v0 += b0;
+          v1 += b1;
+          if (relu) {
+            v0 = v0 > 0.f ? v0 : 0.f;
+            v1 = v1 > 0.f ? v1 : 0.f;
+          }
+          const int r = 64 * i + 16 * warp + g + 8 * half;
+          *reinterpret_cast<__nv_bfloat162*>(so + r * kOutStride + n) =
+              __floats2bfloat162_rn(v0, v1);
+        }
+      }
+    }
+  }
+  __syncthreads();
+  for (int c = tid; c < BM * (BN / 8); c += kWgThreads * SPLIT) {
+    const int r = c / (BN / 8), j = c - r * (BN / 8);
+    const int m = m0 + r, n = n0 + 8 * j;
+    if (m < M && n < Cout)
+      *reinterpret_cast<int4*>(y + (int64_t)m * Cout + n) =
+          *reinterpret_cast<const int4*>(so + r * kOutStride + 8 * j);
+  }
+}
+
+template <int BN, int MT, int BK, int S, int SPLIT, bool kAL1>
+cudaError_t launch_bf16_wgmma(cudaStream_t stream, const __nv_bfloat16* x,
+                              const __nv_bfloat16* w, const __nv_bfloat16* b,
+                              __nv_bfloat16* y, int B, int H, int W, int Cin,
+                              int Cout, int k, int s, bool relu) {
+  const int Ho = (H - k) / s + 1, Wo = (W - k) / s + 1;
+  const int M = B * Ho * Wo;
+  constexpr int smem = SPLIT * S * wgmma_stage_bytes<BN, MT, BK>();
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        conv2d_bf16_wgmma_kernel<BN, MT, BK, S, SPLIT, kAL1>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+  }
+  const dim3 grid((M + 64 * MT - 1) / (64 * MT), (Cout + BN - 1) / BN);
+  conv2d_bf16_wgmma_kernel<BN, MT, BK, S, SPLIT, kAL1>
+      <<<grid, kWgThreads * SPLIT, smem, stream>>>(
+          x, w, b, y, H, W, Cin, Cout, k, s, Ho, Wo, M, k * k * Cin, relu);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// variant: the order of BF16_VARIANTS in ops/hopper/conv.py (0 gather, 1
+// vec, 2 strip, 3 wgmma); tile: an id into that variant's table
+// (BF16_TILES, BF16_STRIP_ROWS or WGMMA_TILES)
 extern "C" int cnn_conv2d_bias_relu_bf16(void* stream, const void* x,
                                          const void* w, const void* b,
                                          void* y, int B, int H, int W,
                                          int Cin, int Cout, int k,
-                                         int stride, int relu, int vec,
+                                         int stride, int relu, int variant,
                                          int tile) {
+  const uintptr_t xa = reinterpret_cast<uintptr_t>(x);
+  const uintptr_t ya = reinterpret_cast<uintptr_t>(y);
   if (Cout % 8 != 0 || reinterpret_cast<uintptr_t>(w) % 16 != 0 ||
-      reinterpret_cast<uintptr_t>(y) % 4 != 0 ||
-      (vec && (Cin % 8 != 0 || reinterpret_cast<uintptr_t>(x) % 16 != 0)))
+      ya % 4 != 0 ||
+      (variant == 1 && (Cin % 8 != 0 || xa % 16 != 0)) ||
+      (variant == 2 && (k * Cin > kStripBfKc || (stride * Cin) % 2 != 0 ||
+                        (W * Cin) % 8 != 0 || Cout > 8 * kStripBfNtMax ||
+                        B > 65535 || xa % 16 != 0 || ya % 16 != 0)) ||
+      (variant == 3 && (Cin % 8 != 0 || xa % 16 != 0 || ya % 16 != 0 ||
+                        (Cout + 15) / 16 > 65535)))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
   const __nv_bfloat16* xb = static_cast<const __nv_bfloat16*>(x);
@@ -854,8 +1512,35 @@ extern "C" int cnn_conv2d_bias_relu_bf16(void* stream, const void* x,
   const __nv_bfloat16* bb = static_cast<const __nv_bfloat16*>(b);
   __nv_bfloat16* yb = static_cast<__nv_bfloat16*>(y);
   const bool r = relu != 0;
-  return (int)(vec ? launch_bf16_tile<true>(tile, st, xb, wb, bb, yb, B, H, W,
-                                            Cin, Cout, k, stride, r)
-                   : launch_bf16_tile<false>(tile, st, xb, wb, bb, yb, B, H,
-                                             W, Cin, Cout, k, stride, r));
+  switch (variant) {
+    case 0: return (int)launch_bf16_tile<false>(tile, st, xb, wb, bb, yb, B, H, W, Cin, Cout, k, stride, r);
+    case 1: return (int)launch_bf16_tile<true>(tile, st, xb, wb, bb, yb, B, H, W, Cin, Cout, k, stride, r);
+    case 2:
+      switch (tile) {   // R, in the order of BF16_STRIP_ROWS
+        case 0: return (int)launch_bf16_strip<1>(st, xb, wb, bb, yb, B, H, W, Cin, Cout, k, stride, r);
+        case 1: return (int)launch_bf16_strip<2>(st, xb, wb, bb, yb, B, H, W, Cin, Cout, k, stride, r);
+        case 2: return (int)launch_bf16_strip<4>(st, xb, wb, bb, yb, B, H, W, Cin, Cout, k, stride, r);
+        case 3: return (int)launch_bf16_strip<8>(st, xb, wb, bb, yb, B, H, W, Cin, Cout, k, stride, r);
+        default: return (int)cudaErrorInvalidValue;
+      }
+    case 3:
+      switch (tile) {   // (BN, MT, BK, S, SPLIT, A via L1), in the order of WGMMA_TILES
+        case 0: return (int)launch_bf16_wgmma<16, 1, 32, 4, 1, true>(st, xb, wb, bb, yb, B, H, W, Cin, Cout, k, stride, r);
+        case 1: return (int)launch_bf16_wgmma<32, 1, 32, 4, 1, true>(st, xb, wb, bb, yb, B, H, W, Cin, Cout, k, stride, r);
+        case 2: return (int)launch_bf16_wgmma<32, 2, 32, 4, 1, true>(st, xb, wb, bb, yb, B, H, W, Cin, Cout, k, stride, r);
+        case 3: return (int)launch_bf16_wgmma<32, 2, 32, 6, 1, true>(st, xb, wb, bb, yb, B, H, W, Cin, Cout, k, stride, r);
+        case 4: return (int)launch_bf16_wgmma<64, 1, 32, 4, 1, false>(st, xb, wb, bb, yb, B, H, W, Cin, Cout, k, stride, r);
+        case 5: return (int)launch_bf16_wgmma<64, 1, 32, 8, 1, false>(st, xb, wb, bb, yb, B, H, W, Cin, Cout, k, stride, r);
+        case 6: return (int)launch_bf16_wgmma<64, 1, 32, 4, 2, false>(st, xb, wb, bb, yb, B, H, W, Cin, Cout, k, stride, r);
+        case 7: return (int)launch_bf16_wgmma<64, 2, 32, 4, 1, false>(st, xb, wb, bb, yb, B, H, W, Cin, Cout, k, stride, r);
+        case 8: return (int)launch_bf16_wgmma<64, 2, 32, 6, 1, false>(st, xb, wb, bb, yb, B, H, W, Cin, Cout, k, stride, r);
+        case 9: return (int)launch_bf16_wgmma<128, 1, 32, 8, 1, false>(st, xb, wb, bb, yb, B, H, W, Cin, Cout, k, stride, r);
+        case 10: return (int)launch_bf16_wgmma<128, 1, 32, 4, 2, false>(st, xb, wb, bb, yb, B, H, W, Cin, Cout, k, stride, r);
+        case 11: return (int)launch_bf16_wgmma<128, 2, 32, 4, 1, false>(st, xb, wb, bb, yb, B, H, W, Cin, Cout, k, stride, r);
+        case 12: return (int)launch_bf16_wgmma<128, 2, 32, 6, 2, false>(st, xb, wb, bb, yb, B, H, W, Cin, Cout, k, stride, r);
+        case 13: return (int)launch_bf16_wgmma<128, 2, 64, 4, 1, false>(st, xb, wb, bb, yb, B, H, W, Cin, Cout, k, stride, r);
+        default: return (int)cudaErrorInvalidValue;
+      }
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

@@ -12,8 +12,9 @@ have counted, and the graph's owner adds it per replay (``add_counters``).
 from cnn_tpu_torch.ops.hopper.augment import (launch_rotate,  # noqa: F401
                                               rotate_shear,
                                               rotate_tile_plan)
-from cnn_tpu_torch.ops.hopper.conv import (BF16_TILES,  # noqa: F401
-                                           STRIP_ROWS, TILES,
+from cnn_tpu_torch.ops.hopper.conv import (BF16_STRIP_ROWS,  # noqa: F401
+                                           BF16_TILES, STRIP_ROWS, TILES,
+                                           WGMMA_TILES,
                                            conv2d_bias_relu,
                                            conv2d_bias_relu_fn,
                                            conv_bf16_plan, conv_tile_plan,
@@ -32,7 +33,9 @@ COUNTERS = {
     max_pool2d_bwd: ("launches", "launches_window", "launches_element",
                      "launches_bf16"),
     conv2d_bias_relu: ("launches", "launches_strip", "launches_tiled",
-                       "launches_direct", "launches_bf16"),
+                       "launches_direct", "launches_bf16",
+                       "launches_bf16_gather", "launches_bf16_vec",
+                       "launches_bf16_strip", "launches_bf16_wgmma"),
     rotate_shear: ("launches",),
 }
 _BY_NAME = {fn.__name__: fn for fn in COUNTERS}

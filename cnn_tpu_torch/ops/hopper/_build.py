@@ -61,7 +61,8 @@ SIGNATURES = {
     # the same, then the strip id of ops/hopper/conv.py:STRIP_ROWS
     "cnn_conv2d_bias_relu_strip": [P, P, P, P, I, I, I, I, I, I, I, I, I],
     # x, w, b, y, B, H, W, Cin, Cout, k, stride, relu, then
-    # ops/hopper/conv.py:conv_bf16_plan's staging (1: vec) and tile id
+    # ops/hopper/conv.py:conv_bf16_plan's variant (an index into
+    # BF16_VARIANTS) and tile id in that variant's table
     "cnn_conv2d_bias_relu_bf16": [P, P, P, P, I, I, I, I, I, I, I, I, I, I],
     # img, s1, s2, s3, out, B, S, C, L, pad_l, bf16, then the tile plan of
     # ops/hopper/augment.py: rows, pixels, lanes_max, table_max, smem_bytes

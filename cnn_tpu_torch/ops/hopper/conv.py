@@ -16,14 +16,32 @@ make, conv2-4; and the direct kernel (``cnn_conv2d_bias_relu``) for the
 rest. ``conv_tile_plan`` chooses by shape and alignment alone. All three
 sum in the same order and give the same bits.
 
-One kernel computes the bf16 forward, ``_forward``'s bf16 path: an implicit
-GEMM on the tensor cores (``cnn_conv2d_bias_relu_bf16``, ``mma.sync``
-m16n8k16, float32 accumulation, bias and ReLU in float32, one rounding to
-bf16), which stages A with 16-byte copies where Cin % 8 == 0 ("vec") and
-element by element otherwise ("gather", conv1), K padded with zeros to a
-multiple of 32. ``conv_bf16_plan`` chooses its tile and staging by shape
-and alignment alone; it takes every shape with Cout % 8 == 0 and 16-byte
-aligned weights, and the wrapper raises on any other bf16 shape.
+Three tensor-core kernels compute the bf16 forward, ``_forward``'s bf16
+path (exact bf16 products summed in float32, the bias read into float32,
+the optional ReLU, one rounding to bf16), behind one entry point
+(``cnn_conv2d_bias_relu_bf16``) whose variant ``conv_bf16_plan`` chooses by
+shape and alignment:
+
+- "strip" (conv1: k*Cin <= 16, even s*Cin, input rows of whole 16-byte
+  chunks, Cout <= 32): a block stages the input rows of R output rows
+  whole and ``mma.sync`` m16n8k16 reads its A fragments straight from
+  them, one k16 step per kernel row (K 27 padded to 48); the output leaves
+  through shared memory as 16-byte stores. Bound by bytes.
+- "wgmma" (conv2-4: Cin % 8 == 0, x 16-byte aligned): ``wgmma.mma_async``
+  m64nBNk16 on A (the im2col rows, K-major) and B (w, MN-major, read with
+  transpose-B) in shared memory, filled by a ring of 16-byte ``cp.async``
+  slices; the tile (``WGMMA_TILES``, ``wgmma_tile_for``) takes BM 128
+  where blocks fill half the SMs, else BM 64 and, for a long K, two
+  warpgroups that each walk half of it and sum in one fixed order. Bound
+  by the rate its SMs take in copies.
+- "gather" / "vec": the first design, ``mma.sync`` over A staged element
+  by element or by 16-byte copies in slices of 32, two stages. The plan
+  gives "gather" every shape the other two do not take (Cin 12, k 5,
+  misaligned x); "vec" runs only when named, for comparisons.
+
+Every variant takes Cout % 8 == 0 and 16-byte aligned weights; the
+wrapper raises on any other bf16 shape. No variant splits K across
+blocks: two launches give the same bits.
 """
 
 from __future__ import annotations
@@ -146,17 +164,117 @@ def conv_tile_plan(b: int, h: int, w: int, cin: int, cout: int, k: int,
     return ConvPlan("tiled", best, grid(best))
 
 
-# bf16 kernel: tile id -> (MT, NT), in the order of csrc/conv.cu's switch;
-# a block of BF16_WARPS warps owns BM = 64 * MT rows and BN = 8 * NT columns
+# bf16, the mma.sync kernel: tile id -> (MT, NT), in the order of
+# csrc/conv.cu's switch; a block of BF16_WARPS warps owns BM = 64 * MT rows
+# and BN = 8 * NT columns
 BF16_TILES = tuple((mt, nt) for mt in (1, 2) for nt in (2, 4, 8, 16))
-BF16_VARIANTS = ("gather", "vec")   # the entry point's vec argument
-BF16_BK = 32                        # the K slice: two m16n8k16 steps
+# the entry point's variant argument: the mma.sync kernel's two stagings of
+# A, then the strip and the wgmma kernels
+BF16_VARIANTS = ("gather", "vec", "strip", "wgmma")
+BF16_BK = 32                        # the mma.sync K slice: two k16 steps
 BF16_WARPS = 4
+
+# the bf16 strip kernel: strip id -> output rows per block (one warp each),
+# in the order of csrc/conv.cu's switch
+BF16_STRIP_ROWS = (1, 2, 4, 8)
+BF16_STRIP_KC = 16           # k*Cin of a kernel row: one k16 MMA step
+BF16_STRIP_COUT_MAX = 32     # four n8 tiles
+BF16_STRIP_SMEM_MAX = 96 * 1024
+# the largest R the plan takes (R = 4 was the fastest at conv1's shape at
+# batch 256 and 64 on the H100: chip_smoke.py's sweep, PERF.md §6)
+BF16_STRIP_R = 4
+
+# the bf16 wgmma kernel: tile id -> (BN, MT, BK, stages, split, A via L1),
+# in the order of csrc/conv.cu's switch. A block of `split` warpgroups owns
+# BM = 64 * MT rows and BN columns and walks K in slices of BK through a
+# ring of `stages`; `split` 2 gives each warpgroup half of the slices.
+WGMMA_TILES = ((16, 1, 32, 4, 1, 1),
+               (32, 1, 32, 4, 1, 1), (32, 2, 32, 4, 1, 1),
+               (32, 2, 32, 6, 1, 1),
+               (64, 1, 32, 4, 1, 0), (64, 1, 32, 8, 1, 0),
+               (64, 1, 32, 4, 2, 0), (64, 2, 32, 4, 1, 0),
+               (64, 2, 32, 6, 1, 0),
+               (128, 1, 32, 8, 1, 0), (128, 1, 32, 4, 2, 0),
+               (128, 2, 32, 4, 1, 0), (128, 2, 32, 6, 2, 0),
+               (128, 2, 64, 4, 1, 0))
+# the plan's tiles: many blocks (BM 128), few blocks with a short K (a deep
+# ring) or a long K (split); few blocks never keep BN 128
+WGMMA_MANY = {16: (16, 1, 32, 4, 1, 1), 32: (32, 2, 32, 6, 1, 1),
+              64: (64, 2, 32, 4, 1, 0), 128: (128, 2, 32, 4, 1, 0)}
+WGMMA_FEW = {16: (16, 1, 32, 4, 1, 1), 32: (32, 1, 32, 4, 1, 1),
+             64: (64, 1, 32, 8, 1, 0)}
+WGMMA_FEW_LONG_K = {16: (16, 1, 32, 4, 1, 1), 32: (32, 1, 32, 4, 1, 1),
+                    64: (64, 1, 32, 4, 2, 0)}
+WGMMA_LONG_K = 16            # slices of 32 from which the split pays
+def strip_bf16_smem_bytes(rows: int, w: int, cin: int, cout: int, k: int,
+                          stride: int) -> int:
+    """Shared memory of a bf16 strip of ``rows`` output rows, as
+    ``csrc/conv.cu:strip_bf16_smem_bytes``: the B fragments (8 bytes a
+    lane per kernel row and n8 tile), the staged input rows and 16 bytes of
+    padding, the output rows."""
+    frag = k * (cout // 8) * 32 * 8
+    rows_in = 2 * strip_input_rows(rows, k, stride) * w * cin + 16
+    return frag + rows_in + 2 * rows * conv_out_size(w, k, stride) * cout
+
+
+def strip_bf16_rows(b: int, h: int, w: int, cin: int, cout: int, k: int,
+                    stride: int, x_aligned: bool) -> int | None:
+    """R for the bf16 strip kernel, or None where it cannot take the shape:
+    one k16 step per kernel row (k*Cin <= 16), 4-byte A words (s*Cin
+    even), input rows of whole 16-byte chunks (W*Cin % 8 == 0), Cout <= 32,
+    x aligned, B <= 65,535 (the grid's y). R is the largest of
+    ``BF16_STRIP_ROWS`` up to ``BF16_STRIP_R`` whose strip fits 96 KB."""
+    if not (k * cin <= BF16_STRIP_KC and (stride * cin) % 2 == 0
+            and (w * cin) % 8 == 0 and cout <= BF16_STRIP_COUT_MAX
+            and x_aligned and b <= MAX_GRID_Y):
+        return None
+    ho = conv_out_size(h, k, stride)
+    return next((r for r in sorted(BF16_STRIP_ROWS, reverse=True)
+                 if r <= BF16_STRIP_R and strip_bf16_smem_bytes(
+                     min(r, ho), w, cin, cout, k, stride)
+                 <= BF16_STRIP_SMEM_MAX), None)
+
+
+def bf16_bn(cout: int) -> int:
+    """Cout rounded up to a power of two between 16 and 128."""
+    bn = 16
+    while bn < min(cout, 128):
+        bn *= 2
+    return bn
+
+
+def wgmma_tile_for(cout: int, m: int, kk: int) -> int:
+    """The wgmma tile for Cout, M output pixels and K = ``kk``.
+
+    BN is ``bf16_bn(cout)``. Where BM = 128 still gives at least half of
+    the 132 SMs a block, BM is 128 (``WGMMA_MANY``): half the blocks, so
+    half the re-reads of w, which every block reads whole (conv2-4 at batch
+    256, conv2-3 at 64). Fewer
+    blocks than that leave SMs idle: BN 128 is halved into two column
+    blocks, BM is 64, and the serial chain of K slices sets the time. A
+    chain of 16 slices or more (conv4, K 576: 18) is split between the
+    block's two warpgroups, each walking half and summing in one fixed
+    order (``WGMMA_FEW_LONG_K``); a shorter one (conv3, K 288: 9) keeps
+    one warpgroup and a deeper ring (``WGMMA_FEW``). On the H100 each
+    choice was the fastest of the sweep or within 0.0007 ms of it
+    (``chip_smoke.py``, PERF.md §6).
+    """
+    bn = bf16_bn(cout)
+    if -(-m // 128) * -(-cout // bn) >= H100_SMS // 2:
+        return WGMMA_TILES.index(WGMMA_MANY[bn])
+    if bn == 128:
+        bn = 64
+    table = (WGMMA_FEW_LONG_K if -(-kk // 32) >= WGMMA_LONG_K
+             else WGMMA_FEW)
+    return WGMMA_TILES.index(table[bn])
 
 
 class Bf16Plan(NamedTuple):
-    """The bf16 kernel's staging of A ("vec" or "gather"), ``tile`` id into
-    ``BF16_TILES``, grid (M blocks, N blocks) and K padded to the slice."""
+    """The bf16 kernel's ``variant`` (one of ``BF16_VARIANTS``), ``tile``
+    id into that variant's table (``BF16_TILES``, ``BF16_STRIP_ROWS`` or
+    ``WGMMA_TILES``), grid (M blocks, N blocks; strips, images for the
+    strip) and K padded to what the kernel multiplies (its slices, or 16
+    per kernel row for the strip)."""
     variant: str
     tile: int
     grid: tuple[int, int]
@@ -164,36 +282,67 @@ class Bf16Plan(NamedTuple):
 
     @property
     def bm(self) -> int:
+        """Output rows (pixels) of a block; the strip's are R image rows."""
+        if self.variant == "wgmma":
+            return 64 * WGMMA_TILES[self.tile][1]
+        if self.variant == "strip":
+            return BF16_STRIP_ROWS[self.tile]
         return BF16_WARPS * 16 * BF16_TILES[self.tile][0]
 
     @property
-    def bn(self) -> int:
+    def bn(self) -> int | None:
+        """Output columns of a block; None for the strip, whose block
+        computes every column of Cout."""
+        if self.variant == "wgmma":
+            return WGMMA_TILES[self.tile][0]
+        if self.variant == "strip":
+            return None
         return 8 * BF16_TILES[self.tile][1]
 
 
 @functools.lru_cache(maxsize=256)   # a pure function, called every launch
 def conv_bf16_plan(b: int, h: int, w: int, cin: int, cout: int, k: int,
-                   stride: int, x_aligned: bool) -> Bf16Plan:
+                   stride: int, x_aligned: bool,
+                   variant: str | None = None) -> Bf16Plan:
     """The bf16 kernel's launch for this shape.
 
-    BN is Cout rounded up to a power of two between 16 and 128 (wider Cout
-    takes more column blocks); BM is 128 (two m16 tiles a warp) when that
-    still gives two waves of 132 SMs, else 64. A is staged with 16-byte
-    copies ("vec") when Cin % 8 == 0 (a chunk of 8 never straddles a tap)
-    and x is 16-byte aligned (``x_aligned``), else element by element
-    ("gather"). Raises on Cout % 8 != 0: B is staged 8 columns at a time.
+    "strip" (conv1) where ``strip_bf16_rows`` finds an R; else "wgmma"
+    (conv2-4) where Cin % 8 == 0 (a chunk of 8 never straddles a tap) and
+    x is 16-byte aligned (``x_aligned``), with ``wgmma_tile_for``'s tile;
+    else the mma.sync kernel with A staged element by element ("gather":
+    Cin 12, k 5, misaligned x, rows that are no whole 16-byte chunks). Its
+    "vec" staging takes the wgmma variant's shapes and is reached only by
+    naming ``variant``, for comparisons; a named variant that cannot take
+    the shape raises. The mma.sync kernel's BN is ``bf16_bn(cout)`` (wider
+    Cout takes more column blocks).
+    Raises on Cout % 8 != 0: B is staged 8 columns at a time.
     """
     if cout % 8 or cout < 8:
         raise ValueError(f"conv2d_bias_relu bf16: Cout {cout} is not a "
                          "multiple of 8")
-    bn = 16
-    while bn < min(cout, 128):
-        bn *= 2
+    vec_ok = cin % 8 == 0 and x_aligned
+    rows = strip_bf16_rows(b, h, w, cin, cout, k, stride, x_aligned)
+    if variant is None:
+        variant = ("strip" if rows else "wgmma" if vec_ok else "gather")
+    if variant not in BF16_VARIANTS or (
+            variant in ("vec", "wgmma") and not vec_ok) or (
+            variant == "strip" and not rows):
+        raise ValueError(f"conv2d_bias_relu bf16: variant {variant} cannot "
+                         f"take x [{b},{h},{w},{cin}], Cout {cout}, k {k}, "
+                         f"stride {stride}, x aligned {x_aligned}")
+    ho, wo = conv_out_size(h, k, stride), conv_out_size(w, k, stride)
+    m, kk = b * ho * wo, k * k * cin
+    if variant == "strip":
+        return Bf16Plan("strip", BF16_STRIP_ROWS.index(rows),
+                        (-(-ho // rows), b), 16 * k)
+    if variant == "wgmma":
+        tile = wgmma_tile_for(cout, m, kk)
+        bn, mt, bk = WGMMA_TILES[tile][:3]
+        return Bf16Plan("wgmma", tile, (-(-m // (64 * mt)), -(-cout // bn)),
+                        -(-kk // bk) * bk)
+    bn = bf16_bn(cout)
     gy = -(-cout // bn)
-    m = b * conv_out_size(h, k, stride) * conv_out_size(w, k, stride)
     mt = 2 if -(-m // 128) * gy >= 2 * H100_SMS else 1
-    variant = "vec" if cin % 8 == 0 and x_aligned else "gather"
-    kk = k * k * cin
     return Bf16Plan(variant, BF16_TILES.index((mt, bn // 8)),
                     (-(-m // (64 * mt)), gy), -(-kk // BF16_BK) * BF16_BK)
 
@@ -218,7 +367,10 @@ def conv2d_bias_relu(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     if x.device.type == "cpu":
         return conv2d(x, w, b, stride, relu)
     if x.dtype == torch.bfloat16:
-        out, _ = launch_conv_bf16(x, w, b, stride, relu)
+        out, plan = launch_conv_bf16(x, w, b, stride, relu)
+        counter = f"launches_bf16_{plan.variant}"
+        setattr(conv2d_bias_relu, counter,
+                getattr(conv2d_bias_relu, counter) + 1)
         conv2d_bias_relu.launches_bf16 += 1
         conv2d_bias_relu.launches += 1
         return out
@@ -246,10 +398,12 @@ def conv2d_bias_relu(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
 
 
 def launch_conv_bf16(x, w, b, stride: int, relu: bool,
-                     tile: int | None = None):
-    """Launches the bf16 kernel on CUDA bf16 tensors with its plan's tile,
-    or with ``tile`` (an id into ``BF16_TILES``); returns the output and the
-    plan. Counts nothing."""
+                     tile: int | None = None, variant: str | None = None):
+    """Launches the bf16 kernel on CUDA bf16 tensors with its plan's
+    variant and tile, or with ``variant`` (one of ``BF16_VARIANTS``, planned
+    for this shape; raises if it cannot take it) and ``tile`` (an id into
+    that variant's table); returns the output and the plan. Counts
+    nothing."""
     stream = cuda_args("conv2d_bias_relu", x, w, b,
                        dtypes=(torch.bfloat16,) * 3)
     bsz, h, wid, cin = x.shape
@@ -258,7 +412,7 @@ def launch_conv_bf16(x, w, b, stride: int, relu: bool,
         raise ValueError("conv2d_bias_relu bf16: weights must be 16-byte "
                          "aligned")
     plan = conv_bf16_plan(bsz, h, wid, cin, cout, k, stride,
-                          x.data_ptr() % 16 == 0)
+                          x.data_ptr() % 16 == 0, variant)
     if tile is not None:
         plan = plan._replace(tile=tile)
     out = torch.empty((bsz, conv_out_size(h, k, stride),
@@ -274,7 +428,11 @@ conv2d_bias_relu.launches = 0          # every launch, any kernel
 conv2d_bias_relu.launches_strip = 0    # the float32 kernels
 conv2d_bias_relu.launches_tiled = 0
 conv2d_bias_relu.launches_direct = 0
-conv2d_bias_relu.launches_bf16 = 0     # the bf16 kernel
+conv2d_bias_relu.launches_bf16 = 0     # the bf16 kernel, every variant
+conv2d_bias_relu.launches_bf16_gather = 0
+conv2d_bias_relu.launches_bf16_vec = 0
+conv2d_bias_relu.launches_bf16_strip = 0
+conv2d_bias_relu.launches_bf16_wgmma = 0
 
 
 class Conv2dBiasReluFn(torch.autograd.Function):

@@ -1,0 +1,139 @@
+"""Where the bf16 wgmma conv kernel's time goes, on the card.
+
+    python -m cnn_tpu_torch.tools.conv_bf16_probe
+
+Compiles ``csrc/conv.cu`` once as built and once for each mask of
+``CONV_WG_PROBE`` (bit 1 skips the wgmmas, 2 the copies of A, 4 the copies
+of B; bit 8 copies B through L2 only, ``cp.async.cg``, instead of through
+L1), side by side, and times each build on conv2-4 of the AlexNet at batch
+256 and 64 with the plan's tile: 20 launches captured into one CUDA graph,
+one replay timed with CUDA events. The builds that skip work compute wrong
+results and serve only for timing; the full build is held bit for bit to
+the package's kernel. Each line also gives the bytes the blocks copy into
+shared memory (A's im2col rows and B's weights, per block, padding
+included) and that rate per SM the grid occupies. Needs one CUDA device
+and nvcc.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import subprocess
+import sys
+import tempfile
+from pathlib import Path
+
+import torch
+
+from cnn_tpu_torch.ops.conv import conv_out_size
+from cnn_tpu_torch.ops.hopper import _build
+from cnn_tpu_torch.ops.hopper.conv import (BF16_VARIANTS, H100_SMS,
+                                           WGMMA_TILES, conv2d_bias_relu,
+                                           conv_bf16_plan)
+
+MASKS = {"full": 0, "no wgmma": 1, "no A copies": 2, "no B copies": 4,
+         "no copies": 6, "B through L2": 8}
+LAYERS = ((16, 32, 55), (32, 64, 27), (64, 128, 13))   # (Cin, Cout, H)
+ENTRY = "cnn_conv2d_bias_relu_bf16"
+
+
+def build(out_dir: Path) -> dict:
+    """mask -> the library built with that mask."""
+    src = _build.CSRC / "conv.cu"
+    masks = sorted(set(MASKS.values()))
+    _build._run_all([[_build._nvcc(), *_build.NVCC_FLAGS, "-shared",
+                      f"-DCONV_WG_PROBE={m}", "-o",
+                      str(out_dir / f"conv_{m}.so"), str(src)]
+                     for m in masks])
+    libs = {}
+    for m in masks:
+        lib = ctypes.CDLL(str(out_dir / f"conv_{m}.so"))
+        getattr(lib, ENTRY).argtypes = [_build.P, *_build.SIGNATURES[ENTRY]]
+        getattr(lib, ENTRY).restype = _build.I
+        libs[m] = lib
+    return libs
+
+
+def graph_ms(fn, iters: int = 20) -> float:
+    """Device time of one ``fn()``: ``iters`` calls in one CUDA graph."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("conv_bf16_probe: needs a CUDA device", file=sys.stderr)
+        return 1
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip()
+    print(smi, flush=True)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(5)
+    with tempfile.TemporaryDirectory() as tmp:
+        libs = build(Path(tmp))
+        for bsz in (256, 64):
+            for cin, cout, h in LAYERS:
+                x = torch.relu(torch.randn((bsz, h, h, cin), generator=gen,
+                                           device=dev)).bfloat16()
+                w = (torch.randn((3, 3, cin, cout), generator=gen,
+                                 device=dev) * 0.1).bfloat16()
+                b = (torch.randn((cout,), generator=gen, device=dev)
+                     * 0.1).bfloat16()
+                plan = conv_bf16_plan(bsz, h, h, cin, cout, 3, 2, True)
+                ho = conv_out_size(h, 3, 2)
+                y = torch.empty((bsz, ho, ho, cout), dtype=torch.bfloat16,
+                                device=dev)
+                args = [x.data_ptr(), w.data_ptr(), b.data_ptr(),
+                        y.data_ptr(), bsz, h, h, cin, cout, 3, 2, 0,
+                        BF16_VARIANTS.index("wgmma"), plan.tile]
+
+                def run(lib):
+                    def go():
+                        err = getattr(lib, ENTRY)(
+                            torch.cuda.current_stream().cuda_stream, *args)
+                        if err:
+                            raise RuntimeError(f"launch failed: {err}")
+                    return go
+
+                run(libs[0])()
+                with torch.no_grad():
+                    want = conv2d_bias_relu(x, w, b, 2, False)
+                if not torch.equal(y.view(torch.int16),
+                                   want.view(torch.int16)):
+                    raise AssertionError("the full build differs from the "
+                                         "package's kernel")
+                ms = {name: graph_ms(run(libs[m]))
+                      for name, m in MASKS.items()}
+                bn, mt = WGMMA_TILES[plan.tile][:2]
+                blocks = plan.grid[0] * plan.grid[1]
+                copied = blocks * 2 * plan.k_pad * (64 * mt + bn)
+                sms = min(blocks, H100_SMS)
+                print(f"B={bsz} conv {cin}->{cout}, tile "
+                      f"{'x'.join(map(str, WGMMA_TILES[plan.tile]))}, "
+                      f"{blocks} blocks: " + ", ".join(
+                          f"{k} {v:.4f}" for k, v in ms.items())
+                      + f" ms; {copied / 1e6:.1f} MB copied into shared "
+                      f"memory, {copied / ms['full'] / 1e6 / sms:.1f} GB/s "
+                      f"an SM over {sms} SMs", flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

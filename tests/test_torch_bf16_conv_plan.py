@@ -1,5 +1,7 @@
-"""The bf16 conv kernel's plan (``ops/hopper/conv.py:conv_bf16_plan``) and a
-numpy emulation of its walk, on the CPU, before any card runs it.
+"""The bf16 mma.sync conv kernel's plan (``ops/hopper/conv.py:conv_bf16_plan``
+with its "gather" or "vec" variant named) and a numpy emulation of its walk,
+on the CPU, before any card runs it. The Hopper variants the plan gives the
+AlexNet layers are tested in ``tests/test_torch_bf16_conv_hopper.py``.
 
 The emulation repeats ``csrc/conv.cu``'s ``conv2d_bf16_kernel`` block by
 block: the rows' bases in x, the two staging paths of each K slice of A
@@ -55,7 +57,13 @@ def _m(b, h, w, k, s):
 @pytest.mark.parametrize("layer", list(ALEXNET))
 def test_plan_on_the_alexnet_layers(layer, batch):
     h, cin, cout = ALEXNET[layer]
-    plan = conv_bf16_plan(batch, h, h, cin, cout, 3, 2, True)
+    # the plan sends the AlexNet layers to the Hopper variants
+    # (tests/test_torch_bf16_conv_hopper.py); this kernel's plan is the one
+    # it gives a named variant, as the smoke's comparisons ask for it
+    assert conv_bf16_plan(batch, h, h, cin, cout, 3, 2, True).variant == (
+        "strip" if layer == "conv1" else "wgmma")
+    plan = conv_bf16_plan(batch, h, h, cin, cout, 3, 2, True,
+                          "gather" if layer == "conv1" else "vec")
     assert plan.variant == ("gather" if layer == "conv1" else "vec")
     assert plan.bn == cout            # 16..128: one column block
     assert plan.k_pad == -(-9 * cin // BF16_BK) * BF16_BK
@@ -74,14 +82,18 @@ def test_plan_on_the_alexnet_layers(layer, batch):
 def test_plan_pads_k_and_picks_the_staging():
     p = conv_bf16_plan(2, 9, 9, 3, 16, 3, 2, True)
     assert (p.variant, p.k_pad) == ("gather", 32)       # 27 -> 32
-    assert conv_bf16_plan(2, 9, 9, 8, 16, 3, 2, True).variant == "vec"
+    # Cin % 8 == 0 with x aligned: the wgmma variant by default, this
+    # kernel's vec staging by name
+    assert conv_bf16_plan(2, 9, 9, 8, 16, 3, 2, True).variant == "wgmma"
+    assert conv_bf16_plan(2, 9, 9, 8, 16, 3, 2, True,
+                          "vec").variant == "vec"
     assert conv_bf16_plan(2, 9, 9, 8, 16, 3, 2, False).variant == "gather"
     assert conv_bf16_plan(2, 9, 9, 12, 16, 3, 2, True).variant == "gather"
     assert conv_bf16_plan(2, 9, 9, 4, 16, 5, 1, True).k_pad == 128   # 100
-    p = conv_bf16_plan(2, 9, 9, 16, 200, 3, 2, True)    # Cout over 128
+    p = conv_bf16_plan(2, 9, 9, 16, 200, 3, 2, True, "vec")   # Cout > 128
     assert (p.bn, p.grid[1]) == (128, 2)
-    assert conv_bf16_plan(2, 9, 9, 16, 8, 3, 2, True).bn == 16
-    assert conv_bf16_plan(2, 9, 9, 16, 48, 3, 2, True).bn == 64
+    assert conv_bf16_plan(2, 9, 9, 16, 8, 3, 2, True, "vec").bn == 16
+    assert conv_bf16_plan(2, 9, 9, 16, 48, 3, 2, True, "vec").bn == 64
     for cout in (7, 12, 4):
         with pytest.raises(ValueError):
             conv_bf16_plan(2, 9, 9, 16, cout, 3, 2, True)
@@ -266,7 +278,8 @@ def test_emulated_walk_matches_the_plain_conv(rng, case, relu_on):
         x = np.maximum(x, 0)
     w = _bf16_round(rng.standard_normal((k, k, cin, cout)) * 0.2)
     b = _bf16_round(rng.standard_normal(cout) * 0.1)
-    plan = conv_bf16_plan(bsz, h, wid, cin, cout, k, stride, True)
+    plan = conv_bf16_plan(bsz, h, wid, cin, cout, k, stride, True,
+                          "vec" if cin % 8 == 0 else "gather")
     y, writes = emulate(x, w, b, stride, relu_on, plan)
     assert (writes == 1).all()          # every output once, nothing else
     assert not np.isnan(y).any()        # and no unstaged element was read
@@ -295,7 +308,7 @@ def test_emulation_sees_an_unstaged_read(rng):
     x = _bf16_round(rng.random((1, 9, 9, 16)))
     w = _bf16_round(rng.standard_normal((3, 3, 16, 32)))
     b = np.zeros(32, np.float32)
-    plan = conv_bf16_plan(1, 9, 9, 16, 32, 3, 2, True)
+    plan = conv_bf16_plan(1, 9, 9, 16, 32, 3, 2, True, "vec")
     narrow = plan._replace(tile=BF16_TILES.index((1, 2)))   # BN 16, 1 block
     y, writes = emulate(x, w, b, 2, False, narrow)
     assert (writes == 0).any() and np.isnan(y).any()
@@ -325,6 +338,10 @@ def test_conv_wrapper_launches_and_counts_the_bf16_kernel(monkeypatch):
     counts = read_counters()
     assert counts["conv2d_bias_relu.launches"] == 4
     assert counts["conv2d_bias_relu.launches_bf16"] == 4
+    assert counts["conv2d_bias_relu.launches_bf16_strip"] == 1
+    assert counts["conv2d_bias_relu.launches_bf16_wgmma"] == 3
+    assert counts["conv2d_bias_relu.launches_bf16_gather"] == 0
+    assert counts["conv2d_bias_relu.launches_bf16_vec"] == 0
     assert counts["conv2d_bias_relu.launches_strip"] == 0
     assert counts["conv2d_bias_relu.launches_tiled"] == 0
     assert counts["conv2d_bias_relu.launches_direct"] == 0
