@@ -108,7 +108,26 @@
    the wgmma kernel at every bucket), labels, probabilities and logits
    against the float32 engine (logits within 5e-2 x max(1, max|ref|),
    probs 5e-2),
-   bucket-64 img/s and graph ms beside float32, per-layer eager times.
+   bucket-64 img/s and graph ms beside float32, per-layer eager times;
+13. the committed ``checkpoints/alexnet_bn_device/iter_12000_*.ckpt`` read
+   through ``utils/checkpoint.py:load_checkpoint``: step 12000, logits
+   bit-equal to those of the ``.model`` beside it;
+14. the train CLI (``cnn_tpu_torch.tools.train.main``, in-process) on 1,280
+   synthetic 304 x 280 PPM images in 3 classes, split 8:1:1 (whether PIL
+   imports is printed; PPM decodes without it): the flagship flags
+   (device dataset, full augmentation, bf16, BN, momentum on a cosine
+   schedule, batch 256) for 60 iterations, validating every 20; then
+   ``--resume auto`` to iteration 80; then the host loader with the fast
+   device augmentation in float32 at batch 64 for 20 iterations. Each run:
+   exit code 0, "training done!", its checkpoint names, the exact launch
+   counts with the counters at 0 just before it (per train step 4 conv,
+   1 pool forward, 1 pool backward and, under the full policy, 1 rotation;
+   per eval batch 1 normalize, 4 conv, 1 pool forward); the history's
+   steps and its logged mean loss falling; the best checkpoint reloaded
+   gives the logged valid accuracy, and its exported ``.model`` gives
+   bit-equal logits and predictions through ``InferenceEngine``; the wall
+   seconds of decode, upload, the training loop (synchronised, validation
+   taken out), validation and the final test.
 
 Every phase prints one flushed line with the seconds since start. Any failed
 check raises, so the exit code is not 0. Without a CUDA device it exits 1
@@ -119,14 +138,17 @@ JSON; the last line is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import copy
+import io
 import itertools
 import json
+import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
-from contextlib import ExitStack
+from contextlib import ExitStack, contextmanager, redirect_stdout
 from pathlib import Path
 from unittest import mock
 
@@ -136,7 +158,9 @@ import torch.nn.functional as F
 
 import cnn_tpu_torch.nn.module as nn_module
 import cnn_tpu_torch.serving as serving
-from cnn_tpu_torch.data import DeviceDataset, make_device_train_step
+import cnn_tpu_torch.tools.train as train_cli
+from cnn_tpu_torch.data import (DeviceDataset, discover_dataset,
+                                make_device_train_step, split_dataset)
 from cnn_tpu_torch.models import get_model
 from cnn_tpu_torch.nn import Conv2D, Linear, ReLU
 from cnn_tpu_torch.ops import augment as aug
@@ -167,9 +191,11 @@ from cnn_tpu_torch.optim import make_optimizer, sgd
 from cnn_tpu_torch.parallel import (create_train_state, make_eval_step,
                                     make_train_step)
 from cnn_tpu_torch.parallel.train_step import named_params
-from cnn_tpu_torch.utils.checkpoint import (import_reference_array,
-                                            load_jax_params,
+from cnn_tpu_torch.utils.checkpoint import (export_reference_model,
+                                            import_reference_array,
+                                            load_checkpoint, load_jax_params,
                                             load_reference_model)
+from cnn_tpu_torch.utils.history import read_history
 
 ROOT = Path(__file__).resolve().parent
 MODEL = (ROOT / "checkpoints" / "alexnet_bn_device"
@@ -1337,14 +1363,17 @@ def grad_parity_phase() -> None:
           + "; moving statistics within 1e-4")
 
 
-def synthetic_canvases(rng, n: int, size: int):
-    """[n,size,size,3] uint8 in 8x8 blocks of colour whose label's channel
-    is raised by 90, plus 25% pixel noise; labels [n] in 0..2."""
+def synthetic_canvases(rng, n: int, size: int, width: int | None = None,
+                       lift: float = 90):
+    """[n,size,width,3] uint8 (width: size unless given) in 8x8 blocks of
+    colour whose label's channel is raised by ``lift``, plus 25% pixel
+    noise; labels [n] in 0..2."""
+    width = width or size
     labels = rng.integers(0, 3, n)
     lo = rng.integers(0, 160, (n, 8, 8, 3)).astype(np.float32)
-    lo += 90 * np.eye(3, dtype=np.float32)[labels][:, None, None, :]
-    img = np.kron(lo, np.ones((1, size // 8, size // 8, 1), np.float32))
-    img = 0.75 * img + 0.25 * rng.integers(0, 256, (n, size, size, 3))
+    lo += lift * np.eye(3, dtype=np.float32)[labels][:, None, None, :]
+    img = np.kron(lo, np.ones((1, size // 8, width // 8, 1), np.float32))
+    img = 0.75 * img + 0.25 * rng.integers(0, 256, (n, size, width, 3))
     return img.astype(np.uint8), labels
 
 
@@ -2120,6 +2149,302 @@ def bf16_serving_phase(model) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# the train CLI, end to end
+# ---------------------------------------------------------------------------
+
+CLI_N = 1280                 # images written, 3 classes, split 8:1:1
+CLI_HW = (304, 280)          # their height and width: above the canvas
+CLI_LIFT = 12                # the class signal: the other phases' 90 is
+                             # learnt before the first validation, 12
+                             # leaves the loss falling through 80 steps
+CLI_SIZES = {"--image-size": 224, "--canvas-size": CANVAS,
+             "--train-batch-size": TRAIN_B, "--valid-batch-size": B}
+CLI_HOST_B = B               # the host-loader run's batch
+CLI_FLAGSHIP = ["--device-dataset", "true", "--augment-mode", "full",
+                "--compute-dtype", "bfloat16", "--batch-norm", "true",
+                "--optimizer", "momentum", "--learning-rate", "1.5e-2",
+                "--lr-schedule", "cosine"]
+
+
+def write_ppm_dataset(root: Path, rng) -> None:
+    """``root/<category>/<i>.ppm``: ``synthetic_canvases``'s colour blocks
+    at ``CLI_HW``, a class raised in its own channel."""
+    h, w = CLI_HW
+    for start in range(0, CLI_N, 128):
+        imgs, labels = synthetic_canvases(rng, min(128, CLI_N - start), h, w,
+                                          CLI_LIFT)
+        for i, (img, lbl) in enumerate(zip(imgs, labels)):
+            d = root / ("dog", "panda", "bird")[lbl]
+            d.mkdir(exist_ok=True)
+            (d / f"{start + i:05d}.ppm").write_bytes(
+                f"P6\n{w} {h}\n255\n".encode()
+                + np.ascontiguousarray(img[:, :, ::-1]).tobytes())
+
+
+class CliTimes:
+    """Wall seconds of the CLI's parts, the device synchronised around each:
+    decode and upload of its ``DeviceDataset``s, the training loop (the
+    ``trace`` scope, validation taken out), validation, the final test."""
+
+    def __init__(self):
+        self.s = dict.fromkeys(("decode", "upload", "loop", "valid", "test"),
+                               0.0)
+
+    def _timed(self, key, fn):
+        def run(*args, **kwargs):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            self.s[key] += time.perf_counter() - t
+            return out
+        return run
+
+    def patch(self):
+        times, cli = self, train_cli
+
+        class Timed(DeviceDataset):
+            def __init__(self, *args, **kwargs):
+                t = time.perf_counter()
+                super().__init__(*args, **kwargs)
+                times.s["decode"] += time.perf_counter() - t - self.upload
+
+            def _place(self, *args):
+                t = time.perf_counter()
+                super()._place(*args)
+                torch.cuda.synchronize()
+                self.upload = time.perf_counter() - t
+                times.s["upload"] += self.upload
+
+        real_trace = cli.trace
+
+        @contextmanager
+        def timed_trace(*args):
+            with real_trace(*args):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                valid0 = times.s["valid"]
+                yield
+                torch.cuda.synchronize()
+                times.s["loop"] += (time.perf_counter() - t
+                                    - (times.s["valid"] - valid0))
+
+        real_evaluate = cli.evaluate
+
+        def host_eval(eval_step, loader, device, confusion=None):
+            # the host loader's validation, or the final test
+            key = "valid" if confusion is None else "test"
+            return times._timed(key, real_evaluate)(eval_step, loader, device,
+                                                    confusion)
+
+        stack = ExitStack()
+        stack.enter_context(mock.patch.object(cli, "DeviceDataset", Timed))
+        stack.enter_context(mock.patch.object(cli, "trace", timed_trace))
+        stack.enter_context(mock.patch.object(cli, "evaluate", host_eval))
+        stack.enter_context(mock.patch.object(
+            cli, "evaluate_device", self._timed("valid", cli.evaluate_device)))
+        return stack
+
+
+def run_cli(argv, what: str, want: dict, times: CliTimes) -> tuple:
+    """One in-process ``main(argv)`` with the counters at 0 just before;
+    exit code 0, "training done!" and the exact launch counts ``want``;
+    returns its output and the counts."""
+    torch.cuda.synchronize()
+    reset_launches()
+    out = io.StringIO()
+    try:
+        with times.patch(), redirect_stdout(out):
+            rc = train_cli.main(argv)
+    except BaseException:
+        print(f"{what}: the CLI raised; its output ends "
+              f"{out.getvalue()[-2000:]!r}", file=sys.stderr)
+        raise
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in read_counters().items() if v}
+    text = out.getvalue()
+    check(rc == 0 and "training done!" in text,
+          f"{what}: exit code {rc}; output ends {text[-2000:]!r}")
+    check(counts == want, f"{what}: launches {counts}, expected {want}")
+    return text, counts
+
+
+def cli_want(steps: int, evals: int, bf16: bool, rotate: bool) -> dict:
+    """The exact counters of ``steps`` train steps and ``evals`` eval
+    batches (conv1 on a strip kernel, conv2-4 on the tiled or wgmma one)."""
+    fwd = steps + evals
+    conv = ({"launches_bf16": 4 * fwd, "launches_bf16_strip": fwd,
+             "launches_bf16_wgmma": 3 * fwd} if bf16 else
+            {"launches_strip": fwd, "launches_tiled": 3 * fwd})
+    want = {"uint8_normalize.launches": evals,
+            "uint8_normalize.launches_wide": evals,
+            "max_pool2d_fwd.launches": fwd,
+            "max_pool2d_bwd.launches": steps,
+            "conv2d_bias_relu.launches": 4 * fwd}
+    want.update({f"conv2d_bias_relu.{k}": v for k, v in conv.items()})
+    if bf16:
+        want.update({"max_pool2d_fwd.launches_bf16": fwd,
+                     "max_pool2d_bwd.launches_bf16": steps})
+    else:
+        want["max_pool2d_bwd.launches_window"] = steps
+    if rotate:
+        want["rotate_shear.launches"] = steps
+    return want
+
+
+def cli_phase() -> dict:
+    """The flagship command through the port's CLI on a PPM dataset:
+    60 iterations, then ``--resume auto`` to 80, then a host-loader run;
+    returns the launches of the three runs, added up."""
+    try:
+        import PIL
+        pil = f"PIL {PIL.__version__} imports"
+    except ImportError:
+        pil = "PIL is not installed (PPM decodes without it)"
+    phase(f"train CLI: {pil}")
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        data, ck, host_ck = tmp / "animals", tmp / "ck", tmp / "host"
+        data.mkdir()
+        t = time.perf_counter()
+        write_ppm_dataset(data, np.random.default_rng(21))
+        write_s = time.perf_counter() - t
+        sizes = [str(v) for kv in CLI_SIZES.items() for v in kv]
+        common = ["--dataset-path", str(data), "--checkpoint-dir", str(ck),
+                  *sizes]
+        splits = split_dataset(discover_dataset(str(data), ("dog", "panda",
+                                                            "bird")))
+        n_valid, n_test = len(splits["valid"]), len(splits["test"])
+        check((len(splits["train"]), n_test, n_valid)
+              == (CLI_N * 8 // 10, CLI_N // 10, CLI_N // 10),
+              f"split {[len(v) for v in splits.values()]}")
+        vb = CLI_SIZES["--valid-batch-size"]
+        evals, tests = -(-n_valid // vb), -(-n_test // vb)
+
+        runs = []
+        times = CliTimes()
+        out, counts = run_cli(CLI_FLAGSHIP + common + [
+            "--total-iters", "60", "--valid-iters", "20",
+            "--save-iters", "60"], "flagship, iterations 1-60",
+            cli_want(60, 3 * evals + tests, True, True), times)
+        runs.append(("flagship 1-60", dict(times.s), counts))
+        names1 = sorted(p.name for p in ck.glob("*.ckpt"))
+        check(len(names1) == 1 and names1[0].startswith("iter_60_train_"),
+              f"checkpoints after 60 iterations: {names1}")
+        times = CliTimes()
+        out2, counts = run_cli(CLI_FLAGSHIP + common + [
+            "--total-iters", "80", "--valid-iters", "20",
+            "--save-iters", "20", "--resume", "auto"],
+            "flagship, --resume auto to 80",
+            cli_want(20, evals + tests, True, True), times)
+        runs.append(("resume 61-80", dict(times.s), counts))
+        check(f"resumed from {ck / names1[0]} at step 60" in out2,
+              "the resumed run did not start from iteration 60's checkpoint")
+        names = sorted(p.name for p in ck.glob("*.ckpt"))
+        check(len(names) == 2 and names[1].startswith("iter_80_train_"),
+              f"checkpoints after 80 iterations: {names}")
+        hist = read_history(str(ck / "history.jsonl"))
+        check([h["step"] for h in hist] == [20, 40, 60, 80],
+              f"history steps {[h['step'] for h in hist]}")
+        check(all(np.isfinite(h["loss"]) for h in hist)
+              and hist[-1]["loss"] < hist[0]["loss"],
+              f"logged mean loss did not fall: {[h['loss'] for h in hist]}")
+        for line in (out + out2).splitlines():
+            if line.startswith(("Valid===>", "Test===>")):
+                phase(f"train CLI: {line.strip()}")
+        test_lines = out2[out2.index("confusion matrix"):].splitlines()[:5]
+        phase("train CLI, resumed run's final test: "
+              + " | ".join(l.rstrip() for l in test_lines))
+
+        # the best checkpoint, reloaded, reproduces its logged accuracy;
+        # its .model gives the same logits through the serving engine
+        best = out2.split("best checkpoint: ")[1].split(" ")[0]
+        logged = next(h for h in hist if h["step"] == 80)
+        size = CLI_SIZES["--image-size"]
+        model = get_model("alexnet", num_classes=3, batch_norm=True,
+                          image_size=size, device="cuda")
+        opt = make_optimizer("momentum", 1.5e-2, schedule="cosine",
+                             total_steps=80)
+        ts = load_checkpoint(best, create_train_state(model, opt, seed=1))
+        check(ts.step == 80, f"best checkpoint at step {ts.step}")
+        valid_ds = DeviceDataset(splits["valid"], size, 2, device="cuda")
+        loss, acc = train_cli.evaluate_device(
+            make_eval_step(model, compute_dtype=BF16), valid_ds, vb)
+        check((loss, acc) == (logged["valid_loss"], logged["valid_accuracy"]),
+              f"the best checkpoint gives valid loss and accuracy "
+              f"{(loss, acc)}, the run logged {logged}")
+        exported = tmp / "best.model"
+        export_reference_model(str(exported), model)
+        twin = get_model("alexnet", num_classes=3, batch_norm=True,
+                         image_size=size, device="cuda")
+        load_reference_model(twin, exported)
+        x = valid_ds.images[:vb]
+        got = []
+        for m in (model, twin):
+            eng = serving.InferenceEngine(m, buckets=(vb,), device="cuda",
+                                          compute_dtype=BF16)
+            eng.warmup()
+            with torch.no_grad():
+                logits = eng.model(uint8_normalize(x),
+                                   compute_dtype=BF16).float()
+            got.append((logits, *eng.predict(x.cpu().numpy())))
+        check(bits_equal(got[0][0], got[1][0])
+              and all(same_arrays(a, b) for a, b in zip(got[0][1:],
+                                                        got[1][1:])),
+              "the exported .model's logits differ from its checkpoint's")
+
+        # the host loader on the card: float32, the fast device augment
+        times = CliTimes()
+        _, counts = run_cli(common + [
+            "--checkpoint-dir", str(host_ck), "--device-augment", "true",
+            "--augment-mode", "fast", "--batch-norm", "true",
+            "--optimizer", "momentum", "--learning-rate", "1.5e-2",
+            "--lr-schedule", "cosine", "--train-batch-size", str(CLI_HOST_B),
+            "--total-iters", "20", "--valid-iters", "20",
+            "--save-iters", "20"], "host loader, 20 iterations",
+            cli_want(20, evals + tests, False, False), times)
+        runs.append(("host loader 1-20", dict(times.s), counts))
+        check(len(list(host_ck.glob("iter_20_train_*.ckpt"))) == 1,
+              "the host-loader run wrote no iter_20 checkpoint")
+    total = {}
+    for name, s, counts in runs:
+        phase(f"train CLI {name}: " + ", ".join(
+            f"{k} {v:.3f} s" for k, v in s.items()) + f"; launches {counts}")
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+    phase(f"train CLI: wrote {CLI_N} {CLI_HW[0]}x{CLI_HW[1]} PPM images in "
+          f"{write_s:.2f} s; logged mean loss at steps 20-80 "
+          f"{[round(h['loss'], 6) for h in hist]}; valid loss {loss:.6f} and "
+          f"accuracy {acc} reproduced from the "
+          f"best checkpoint ({os.path.basename(best)}); its exported .model "
+          f"bit-equal through InferenceEngine; launches exact in every run")
+    return total
+
+
+def committed_ckpt_phase() -> None:
+    """The committed ``.ckpt`` of the serving model: its logits bit-equal
+    to those of the ``.model`` beside it."""
+    path = MODEL.with_suffix(".ckpt")
+    model = get_model("alexnet", num_classes=3, batch_norm=True,
+                      image_size=224, device="cuda")
+    opt = make_optimizer("momentum", 1.5e-2, schedule="cosine",
+                         total_steps=12000)
+    ts = load_checkpoint(str(path), create_train_state(model, opt, seed=1))
+    ref = get_model("alexnet", num_classes=3, batch_norm=True,
+                    image_size=224, device="cuda")
+    load_reference_model(ref, MODEL)
+    x = uint8_normalize(torch.from_numpy(synthetic_images(
+        np.random.default_rng(4), B)).cuda())
+    with torch.no_grad():
+        a, b = model.eval()(x), ref.eval()(x)
+    check(ts.step == 12000 and bits_equal(a, b),
+          f"{path.name}: step {ts.step}, logits against the .model max|dev| "
+          f"{(a - b).abs().max().item():.3g}")
+    phase(f"committed checkpoint {path.name}: step {ts.step}, logits "
+          "bit-equal to the .model beside it")
+
+
 def ptxas_report(log: str) -> dict:
     """kernel -> (its ``Used ... registers ... smem`` line, its spills) from
     ``-Xptxas -v``; a template's arguments are kept, shortened, in the name."""
@@ -2214,9 +2539,15 @@ def main() -> int:
     bf16_function_phase(gen)
     counts16 = bf16_training_phase(f32_stats)
     served16 = bf16_serving_phase(model)
+    committed_ckpt_phase()
+    cli = cli_phase()
 
-    kernels = [entry(name, launches.get(name, 0) + trained[name],
-                     *measured[name]) for name in KERNELS]
+    # the CLI's launches: float32 ones on the float32 rows, the rotation
+    # in either dtype on its one row
+    cli_f32 = {name: cli.get(f"{name}.launches", 0)
+               - cli.get(f"{name}.launches_bf16", 0) for name in KERNELS}
+    kernels = [entry(name, launches.get(name, 0) + trained[name]
+                     + cli_f32[name], *measured[name]) for name in KERNELS]
     # the bf16 rows, as the float32 ones: the conv's four layers and the
     # pool forward at B = 64 (the serving shapes), the pool backward at the
     # training batch; through the wrapper
@@ -2233,7 +2564,8 @@ def main() -> int:
                                 pool16[TRAIN_B]["bwd"][4]),
     }
     kernels += [entry(name, counts16.get(counter, 0)
-                      + served16.get(counter, 0), *rows16[name])
+                      + served16.get(counter, 0) + cli.get(counter, 0),
+                      *rows16[name])
                 for name, counter in BF16_KERNELS.items()]
     phase("all checks passed")
     print(smi)

@@ -6,9 +6,11 @@ samples its batch there (uniform with replacement, or by walking per-epoch
 permutations), augments it, and trains on it, with no host traffic but the
 launches.
 
-Built from in-memory arrays only (``DeviceDataset.from_arrays``):
-``cnn_tpu`` decodes a dataset directory with cv2, which the port does not
-use yet.
+``DeviceDataset(samples, image_size, num_workers)`` decodes a list of
+``(path, label)`` samples through the host ``DataLoader`` (``data/image.py``
+in place of cv2), as ``cnn_tpu`` does, and uploads the result;
+``DeviceDataset.from_arrays`` takes in-memory arrays. ``epoch_batches``
+walks the rows in order for eval.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ import numpy as np
 import torch
 
 from cnn_tpu_torch import default_device
+from cnn_tpu_torch.data.loader import DataLoader
 from cnn_tpu_torch.parallel.train_step import (TrainState, apply_gradients,
                                                check_supported, to_compute)
 
@@ -24,12 +27,27 @@ from cnn_tpu_torch.parallel.train_step import (TrainState, apply_gradients,
 class DeviceDataset:
     """[N,S,S,C] uint8 canvases and [N] int64 labels held on one device."""
 
-    def __init__(self, images: torch.Tensor, labels: torch.Tensor):
-        if images.shape[:1] != labels.shape:
-            raise ValueError(f"{images.shape[0]} images, {labels.shape} labels")
-        self.images, self.labels = images, labels.long()
-        self.n = self.n_real = images.shape[0]
-        self.image_size = images.shape[1]
+    def __init__(self, samples, image_size: int = 256, num_workers: int = 4,
+                 sharding=None, mesh=None, device=None):
+        """Decodes ``samples`` at ``image_size`` (``num_workers`` threads)
+        and uploads them to ``device`` (default: the GPU)."""
+        check_supported(mesh=mesh)
+        if sharding is not None:
+            raise NotImplementedError("sharding is not ported yet")
+        dev = default_device(device)
+        # batch_size bounds the loader's in-flight decode futures: at 1 the
+        # worker pool degenerates to serial decode (one future per yield)
+        bs = max(1, min(8 * num_workers, len(samples)))
+        loader = DataLoader(samples, batch_size=bs, shuffle=False,
+                            image_size=image_size, num_workers=num_workers)
+        imgs = np.empty((len(samples), image_size, image_size, 3), np.uint8)
+        lbls = np.empty((len(samples),), np.int64)
+        pos = 0
+        for img, lbl in loader:
+            imgs[pos:pos + len(lbl)] = img
+            lbls[pos:pos + len(lbl)] = lbl
+            pos += len(lbl)
+        self._place(imgs, lbls, dev)
 
     @classmethod
     def from_arrays(cls, images: np.ndarray, labels: np.ndarray,
@@ -38,9 +56,18 @@ class DeviceDataset:
         check_supported(mesh=mesh)
         if sharding is not None:
             raise NotImplementedError("sharding is not ported yet")
-        dev = default_device(device)
-        return cls(torch.from_numpy(np.ascontiguousarray(images)).to(dev),
-                   torch.from_numpy(np.asarray(labels, np.int64)).to(dev))
+        self = cls.__new__(cls)
+        self._place(images, labels, default_device(device))
+        return self
+
+    def _place(self, images: np.ndarray, labels: np.ndarray, device) -> None:
+        if images.shape[:1] != np.shape(labels):
+            raise ValueError(f"{images.shape[0]} images, {np.shape(labels)} "
+                             "labels")
+        self.images = torch.from_numpy(np.ascontiguousarray(images)).to(device)
+        self.labels = torch.from_numpy(np.asarray(labels, np.int64)).to(device)
+        self.n = self.n_real = images.shape[0]
+        self.image_size = images.shape[1]
 
     def sample(self, generator: torch.Generator, batch_size: int):
         """Uniform sampling with replacement, on the device."""
@@ -54,6 +81,18 @@ class DeviceDataset:
         idx = epoch_indices(seed, step, batch_size, self.n, fixed,
                             self.images.device)
         return self.images.index_select(0, idx), self.labels.index_select(0, idx)
+
+    def epoch_batches(self, batch_size: int):
+        """Sequential full-epoch iteration (for eval): the rows in order,
+        ``batch_size`` at a time, then the remainder; views of the device
+        tensors."""
+        n = self.n_real
+        for start in range(0, n - batch_size + 1, batch_size):
+            yield (self.images[start:start + batch_size],
+                   self.labels[start:start + batch_size])
+        rem = n % batch_size
+        if rem:
+            yield self.images[n - rem:n], self.labels[n - rem:n]
 
 
 def _epoch_perm(seed: int, epoch: int, n: int, device) -> torch.Tensor:

@@ -7,7 +7,10 @@ before this one (optax's ``ScaleByScheduleState.count``). The schedules are
 plain functions equal to optax's.
 
 An ``Optimizer`` is ``(init, update)`` as in ``cnn_tpu``: ``init(params)``
-makes the state (``{"trace": {name: tensor} or None, "count": int}``) and
+makes the state (``{"trace": {name: tensor} or None, "count": int,
+"scheduled": bool}``, the last saying whether the rate is a schedule, as
+optax's state then holds the count; ``utils/checkpoint.py`` writes the
+state in optax's layout from it) and
 ``update(grads, opt_state, params)`` changes the parameters and the state
 in place. ``params`` and ``grads`` are dicts keyed by parameter name.
 
@@ -104,7 +107,7 @@ def _update(lr, momentum: float) -> Optimizer:
     def init(params: dict) -> dict:
         trace = ({k: torch.zeros_like(p) for k, p in params.items()}
                  if momentum else None)
-        return {"trace": trace, "count": 0}
+        return {"trace": trace, "count": 0, "scheduled": callable(lr)}
 
     @torch.no_grad()
     def update(grads: dict, opt_state: dict, params: dict) -> None:

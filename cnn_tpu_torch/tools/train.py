@@ -1,0 +1,327 @@
+"""Training CLI, counterpart of ``cnn_tpu/tools/train.py``, with its flags.
+
+The loop is ``cnn_tpu``'s: train on host-loader batches, or on batches
+sampled from a ``DeviceDataset`` held on the card (``--device-dataset``);
+every ``--valid-iters`` validate and append to the history; every
+``--save-iters`` write ``iter_<n>_train_<a>_valid_<b>.ckpt`` (``cnn_tpu``'s
+format, ``utils/checkpoint.py``) and track the best by valid accuracy; at
+the end reload the best checkpoint and test it, with its confusion matrix.
+SIGTERM or SIGUSR1 asks for a clean stop: the loop writes
+``preempt_iter_<n>.ckpt`` and exits 0, and ``--resume auto`` continues
+from the newest checkpoint.
+
+It runs on the GPU; ``main(argv, device="cpu")`` runs the plain versions
+on the CPU (tests). ``--donate`` is accepted and changes nothing: PyTorch
+updates the train state in place either way. Options not ported yet raise
+``NotImplementedError`` naming their flag (``check_flags``), as do the host
+augmentation (``--augment true`` without ``--device-augment`` or
+``--device-dataset``), ``--backend native``, ``--optimizer adam``,
+``--weight-decay`` and ``--grad-clip``.
+
+Usage: python -m cnn_tpu_torch.tools.train [--total-iters N] [--batch-norm true] ...
+"""
+
+from __future__ import annotations
+
+import glob
+import os
+import signal
+import sys
+
+import numpy as np
+import torch
+
+from cnn_tpu_torch import default_device, optim
+from cnn_tpu_torch.core.config import parse_configs
+from cnn_tpu_torch.data import (DataLoader, DeviceDataset, discover_dataset,
+                                make_device_train_step, split_dataset)
+from cnn_tpu_torch.models import get_model
+from cnn_tpu_torch.ops.augment import augment_batch, augment_batch_fast
+from cnn_tpu_torch.parallel import (create_train_state, make_eval_step,
+                                    make_train_step)
+from cnn_tpu_torch.utils.checkpoint import (checkpoint_name, load_checkpoint,
+                                            save_checkpoint)
+from cnn_tpu_torch.utils.history import HistoryWriter
+from cnn_tpu_torch.utils.metrics import (ClassificationEvaluator,
+                                         ConfusionMatrix, MeanLoss)
+from cnn_tpu_torch.utils.profiling import StepTimer, trace
+
+
+def check_flags(model_cfg, data_cfg, train_cfg) -> None:
+    """Raises ``NotImplementedError`` for the first flag set to an option
+    the port does not run yet."""
+    t, d, m = train_cfg, data_cfg, model_cfg
+    unported = (
+        ("--multihost", t.multihost),
+        ("--pipeline-stages", t.pipeline_stages > 1),
+        ("--model-parallel", t.model_parallel > 1),
+        ("--spatial-parallel", t.spatial_parallel > 1),
+        ("--expert-parallel", t.expert_parallel > 1),
+        ("--data-parallel", t.data_parallel > 1),
+        ("--compile-cache", bool(t.compile_cache)),
+        ("--init-from", bool(t.init_from)),
+        ("--freeze", bool(t.freeze)),
+        ("--ema", t.ema > 0.0),
+        ("--distill-from", bool(t.distill_from)),
+        ("--mixup", t.mixup > 0.0),
+        ("--cutmix", t.cutmix > 0.0),
+        ("--grad-accum", t.grad_accum > 1),
+        ("--steps-per-call", t.steps_per_call > 1),
+        ("--tta", bool(t.tta)),
+        ("--color-jitter", d.color_jitter > 0.0),
+        ("--space-to-depth", m.space_to_depth),
+        ("--dropout", m.dropout > 0.0),
+        ("--moe-balance", m.moe_balance > 0.0),
+        ("--width", m.width > 0.0),
+        ("--n-blocks", m.n_blocks > 0),
+        ("--name", m.name != "alexnet"),
+    )
+    for flag, asked in unported:
+        if asked:
+            raise NotImplementedError(
+                f"{flag} is not ported yet (cnn_tpu_torch runs the alexnet "
+                "family on one GPU)")
+
+
+def _to(device, images: np.ndarray, labels: np.ndarray):
+    return (torch.from_numpy(images).to(device),
+            torch.from_numpy(labels.astype(np.int64)).to(device))
+
+
+def evaluate(eval_step, loader, device,
+             confusion: ConfusionMatrix | None = None) -> tuple[float, float]:
+    """Mean loss and accuracy over one epoch of the host ``loader``."""
+    ev = ClassificationEvaluator()
+    ml = MeanLoss()
+    for images, labels in loader:
+        m = eval_step(*_to(device, images, labels))
+        ev.add_counts(int(m["correct"]), len(labels))
+        ml.add(float(m["loss"]))
+        if confusion is not None:
+            confusion.compute(m["pred"].cpu().numpy(), labels)
+    return ml.get(), ev.get()
+
+
+def evaluate_device(eval_step, device_ds, batch_size: int) -> tuple[float, float]:
+    """Eval over a ``DeviceDataset`` (data already on the device)."""
+    ev = ClassificationEvaluator()
+    ml = MeanLoss()
+    for images, labels in device_ds.epoch_batches(batch_size):
+        m = eval_step(images, labels)
+        ev.add_counts(int(m["correct"]), int(labels.shape[0]))
+        ml.add(float(m["loss"]))
+    return ml.get(), ev.get()
+
+
+def main(argv=None, *, device=None):
+    """Runs the CLI on ``device`` (default: the GPU); returns the exit code.
+
+    SIGTERM and SIGUSR1 become a request for a clean stop (a checkpoint,
+    then exit 0) while it runs; the previous handlers are restored on
+    exit, so an in-process caller keeps its own."""
+    preempted = []
+    prev_handlers = {}
+    for sig in (signal.SIGTERM, signal.SIGUSR1):
+        try:
+            prev_handlers[sig] = signal.signal(
+                sig, lambda *_: preempted.append(True))
+        except (ValueError, OSError):  # not the main thread
+            pass
+    try:
+        return _main(argv, preempted, device)
+    finally:
+        for sig, handler in prev_handlers.items():
+            if handler is None:
+                # installed from C, not Python: nothing to restore, and
+                # signal.signal(sig, None) raises
+                continue
+            try:
+                signal.signal(sig, handler)
+            except (ValueError, OSError):
+                pass
+
+
+def _main(argv, preempted, device):
+    model_cfg, data_cfg, train_cfg, _ = parse_configs(argv,
+                                                      "cnn_tpu_torch train")
+    check_flags(model_cfg, data_cfg, train_cfg)
+    dev = default_device(device)
+
+    samples = discover_dataset(data_cfg.dataset_path, data_cfg.categories)
+    splits = split_dataset(samples, data_cfg.train_ratio, data_cfg.test_ratio,
+                           data_cfg.split_seed)
+    print(f"train  :  {len(splits['train'])}\n"
+          f"test   :  {len(splits['test'])}\n"
+          f"valid  :  {len(splits['valid'])}")
+
+    device_augment = data_cfg.device_augment and data_cfg.augment
+    train_loader = valid_loader = None
+    if not data_cfg.device_dataset:
+        train_loader = DataLoader(splits["train"], train_cfg.train_batch_size,
+                                  augment=data_cfg.augment and not device_augment,
+                                  shuffle=True,
+                                  image_size=(data_cfg.canvas_size if device_augment
+                                              else data_cfg.image_size),
+                                  seed=data_cfg.loader_seed,
+                                  num_workers=data_cfg.num_workers,
+                                  prefetch=data_cfg.prefetch,
+                                  backend=data_cfg.backend, cache=data_cfg.cache)
+        valid_loader = DataLoader(splits["valid"], train_cfg.valid_batch_size,
+                                  augment=False, shuffle=False,
+                                  image_size=data_cfg.image_size,
+                                  backend=data_cfg.backend, cache=data_cfg.cache)
+
+    model = get_model(model_cfg.name, num_classes=model_cfg.num_classes,
+                      batch_norm=model_cfg.batch_norm,
+                      image_size=model_cfg.image_size, device=dev,
+                      generator=torch.Generator().manual_seed(train_cfg.seed))
+    opt = optim.make_optimizer(train_cfg.optimizer, train_cfg.learning_rate,
+                               train_cfg.momentum,
+                               schedule=train_cfg.lr_schedule,
+                               total_steps=train_cfg.total_iters,
+                               warmup_steps=train_cfg.warmup_steps,
+                               weight_decay=train_cfg.weight_decay,
+                               grad_clip=train_cfg.grad_clip)
+    compute_dtype = (torch.bfloat16 if model_cfg.compute_dtype == "bfloat16"
+                     else None)
+    ts = create_train_state(model, opt, seed=train_cfg.seed)
+
+    resume = train_cfg.resume
+    if resume == "auto":
+        # resume from the newest checkpoint in checkpoint_dir, if any
+        cks = sorted(glob.glob(os.path.join(train_cfg.checkpoint_dir, "*.ckpt")),
+                     key=os.path.getmtime)
+        resume = cks[-1] if cks else ""
+    start_iters = train_cfg.start_iters
+    if resume and os.path.exists(resume):
+        ts = load_checkpoint(resume, ts)
+        start_iters = max(start_iters, ts.step + 1)
+        print(f"resumed from {resume} at step {ts.step}")
+
+    augment_fn = None
+    if (device_augment or data_cfg.device_dataset) and data_cfg.augment:
+        aug = augment_batch_fast if data_cfg.augment_mode == "fast" else augment_batch
+        aug_dtype = compute_dtype or torch.float32
+
+        def augment_fn(generator, images):
+            # augment in the compute dtype, as cnn_tpu does
+            return aug(generator, images, out_size=data_cfg.image_size,
+                       dtype=aug_dtype)
+        print(f"augmentation: on-device '{data_cfg.augment_mode}' "
+              "(in the train step)")
+
+    device_train_ds = device_valid_ds = None
+    if data_cfg.device_dataset:
+        canvas = data_cfg.canvas_size if data_cfg.augment else data_cfg.image_size
+        print(f"uploading dataset to device (canvas {canvas}px)...")
+        device_train_ds = DeviceDataset(splits["train"], canvas,
+                                        data_cfg.num_workers, device=dev)
+        device_valid_ds = DeviceDataset(splits["valid"], data_cfg.image_size,
+                                        data_cfg.num_workers, device=dev)
+        step_fn = make_device_train_step(
+            model, opt, device_train_ds, train_cfg.train_batch_size,
+            compute_dtype=compute_dtype, augment_fn=augment_fn,
+            label_smoothing=train_cfg.label_smoothing,
+            sample_mode=data_cfg.sample_mode)
+    else:
+        step_fn = make_train_step(model, opt, compute_dtype=compute_dtype,
+                                  augment_fn=augment_fn,
+                                  label_smoothing=train_cfg.label_smoothing)
+    eval_fn = make_eval_step(model, compute_dtype=compute_dtype)
+
+    os.makedirs(train_cfg.checkpoint_dir, exist_ok=True)
+    history = HistoryWriter(train_cfg.history_path
+                            or os.path.join(train_cfg.checkpoint_dir,
+                                            "history.jsonl"))
+    train_eval = ClassificationEvaluator()
+    mean_loss = MeanLoss()
+    best_acc, best_path = -1.0, None
+    timer = StepTimer()
+
+    device_mode = device_train_ds is not None
+    bs = train_cfg.train_batch_size
+    # saves happen at validation boundaries (the checkpoint name embeds the
+    # valid accuracy, cnn.cpp:121-124), so an unaligned cadence would
+    # silently save every lcm(valid, save) iters — or never
+    assert train_cfg.save_iters % train_cfg.valid_iters == 0, \
+        f"--save-iters {train_cfg.save_iters} must be a multiple of " \
+        f"--valid-iters {train_cfg.valid_iters}"
+    with trace(train_cfg.profile_dir or None, dev):
+        for it in range(start_iters, train_cfg.total_iters + 1):
+            if device_mode:
+                # on-device step: no host data; the metrics are fetched (a
+                # synchronisation) only at the logging cadence
+                ts, metrics = step_fn(ts)
+                timer.tick(bs)
+                if (it % 100 == 0 or it == train_cfg.total_iters
+                        or it % train_cfg.valid_iters == 0):
+                    mean_loss.add(float(metrics["loss"]))
+                    train_eval.add_counts(int(metrics["correct"]), bs)
+            else:
+                images, labels = train_loader.generate_batch()
+                ts, metrics = step_fn(ts, *_to(dev, images, labels))
+                mean_loss.add(float(metrics["loss"]))
+                train_eval.add_counts(int(metrics["correct"]), len(labels))
+                timer.tick(len(labels))
+
+            if it % 100 == 0 or it == train_cfg.total_iters:
+                print(f"\rTrain===> [batch {it}/{train_cfg.total_iters}] "
+                      f"[loss {mean_loss.get():.3f}] [Accuracy {train_eval.get():.3f}] "
+                      f"[{timer.images_per_sec:.1f} img/s]", end="", flush=True)
+
+            if preempted:
+                path = os.path.join(train_cfg.checkpoint_dir,
+                                    f"preempt_iter_{it}.ckpt")
+                save_checkpoint(path, ts)
+                print(f"\npreemption signal: checkpointed step {it} to "
+                      f"{path}; relaunch with --resume auto to continue")
+                best_acc = -1.0   # exit fast: no final test under a deadline
+                break
+
+            if it % train_cfg.valid_iters == 0:
+                print("\nvalidating...")
+                if device_mode:
+                    v_loss, v_acc = evaluate_device(eval_fn, device_valid_ds,
+                                                    train_cfg.valid_batch_size)
+                else:
+                    v_loss, v_acc = evaluate(eval_fn, valid_loader, dev)
+                print(f"Valid===> [loss {v_loss:.3f}] [Accuracy {v_acc:.3f}]")
+                history.log(step=it, loss=mean_loss.get(),
+                            accuracy=train_eval.get(), valid_loss=v_loss,
+                            valid_accuracy=v_acc,
+                            images_per_sec=timer.images_per_sec)
+                if it % train_cfg.save_iters == 0:
+                    name = checkpoint_name(it, train_eval.get(), v_acc)
+                    path = os.path.join(train_cfg.checkpoint_dir, name)
+                    save_checkpoint(path, ts)
+                    print(f"weights have been saved to {path}")
+                    if v_acc > best_acc:
+                        best_acc, best_path = v_acc, path
+                mean_loss.clear()
+                train_eval.clear()
+                timer.reset()
+
+    if train_loader is not None:
+        train_loader.close()
+    history.close()
+    print("\ntraining done!")
+
+    if best_acc >= 0.0:
+        print(f"best checkpoint: {best_path} (valid acc {best_acc:.3f})")
+        ts = load_checkpoint(best_path, ts)
+        test_loader = DataLoader(splits["test"], train_cfg.valid_batch_size,
+                                 augment=False, shuffle=False,
+                                 image_size=data_cfg.image_size,
+                                 num_workers=data_cfg.num_workers,
+                                 backend=data_cfg.backend,
+                                 cache=data_cfg.cache)
+        confusion = ConfusionMatrix(model_cfg.num_classes)
+        t_loss, t_acc = evaluate(eval_fn, test_loader, dev, confusion)
+        print(f"Test===> [loss {t_loss:.3f}] [Accuracy {t_acc:.3f}]")
+        print("confusion matrix (rows = truth):")
+        print(confusion.pretty(list(data_cfg.categories)))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,22 +1,48 @@
-"""Weights: the reference ``.model`` format and ``cnn_tpu`` param trees.
-
-Counterpart of ``cnn_tpu/utils/checkpoint.py``, numpy only.
+"""Checkpoints: the native ``.ckpt`` pickle and the reference ``.model``
+format, in ``cnn_tpu``'s layouts. Counterpart of
+``cnn_tpu/utils/checkpoint.py``, numpy only.
 
 A reference ``.model`` file is the flat little-endian float32 concatenation,
 in layer order, of: conv ``w`` as OIHW then ``b``; dense ``w`` as [in][out]
 with ``in`` in CHW flatten order, then ``b``; BN ``gamma``, ``beta``,
 ``mean``, ``var`` (or only ``gamma``, ``beta`` in the older 2-vector format).
 ``import_reference_model`` returns it as ``cnn_tpu`` lays it out (HWIO conv
-weights, an NHWC-ordered dense in-dim), and ``load_jax_params`` copies such
-param/state trees into a port model. ``load_jax_train_state`` carries a
-whole ``cnn_tpu`` ``TrainState`` across: params, BN state, optax's momentum
-trace (a tree shaped like the params) and its update count, and the step.
+weights, an NHWC-ordered dense in-dim), ``load_jax_params`` copies such
+param/state trees into a port model and ``export_reference_model`` writes
+them back. ``load_jax_train_state`` carries a whole ``cnn_tpu``
+``TrainState`` across: params, BN state, optax's momentum trace (a tree
+shaped like the params) and its update count, and the step.
 
-The native ``.ckpt`` pickle is not read here: it names optax classes, which
-the port does not import.
+A native ``.ckpt`` is ``cnn_tpu``'s pickle of a dict: ``params``, ``state``
+and ``opt_state`` as numpy trees, ``step``, ``rng`` (uint32[2], the
+threefry key data that JAX's ``wrap_key_data`` takes) and ``format_version``
+1. ``opt_state`` is optax's own tuple, whose classes the pickle names by
+optax's module paths: ``()`` for plain SGD at a constant rate, else
+``(TraceState(trace) or EmptyState(), ScaleByScheduleState(count) or
+EmptyState())``, the first for momentum, the second for a schedule. The
+port writes the same (``save_checkpoint``), naming optax's classes without
+importing optax, plus one key ``cnn_tpu`` ignores, ``torch_rng``: the
+device type and state of the train state's ``torch.Generator``. Its reader
+(``read_checkpoint``) maps those optax names onto the NamedTuple stubs below
+and refuses every other global but numpy's array and dtype ones, so a
+checkpoint can carry no code.
+
+The generator on a load (``load_checkpoint``): a ``torch_rng`` state saved
+on the same device type is restored as it was. Otherwise (a ``cnn_tpu``
+checkpoint, or one saved on another device type) the key data's words,
+read big-endian as one integer ``k`` (``k0 << 32 | k1`` for threefry),
+become the train state's ``seed`` and the generator is seeded with
+``(k + step) mod 2**64``. The port writes ``rng`` as the key data of
+``jax.random.key(seed)``, ``[seed >> 32, seed & 0xffffffff]``, so a seed
+survives a round trip either way.
 """
 
 from __future__ import annotations
+
+import os
+import pickle
+import re
+from typing import Any, NamedTuple
 
 import numpy as np
 import torch
@@ -158,3 +184,231 @@ def load_jax_train_state(ts, params: dict, state: dict, trace=None,
                 dst.copy_(src)
     ts.opt_state["count"] = int(count)
     ts.step = int(step)
+
+
+def _np(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+def model_trees(model) -> tuple[dict, dict]:
+    """``model``'s ``(params, state)`` as ``cnn_tpu``'s numpy trees:
+    ``{layer: {key: array}}``, keys sorted as JAX's tree functions sort
+    them; the state holds the BN layers' ``mean`` and ``var``."""
+    params: dict = {}
+    state: dict = {}
+    for layer in sorted(_param_layers(model), key=lambda l: l.name):
+        params[layer.name] = {k: _np(p).copy() for k, p in
+                              sorted(layer.named_parameters(recurse=False))}
+        if isinstance(layer, BatchNorm2D):
+            state[layer.name] = {"mean": _np(layer.mean).copy(),
+                                 "var": _np(layer.var).copy()}
+    return params, state
+
+
+def export_reference_model(path, net, params: dict | None = None,
+                           state: dict | None = None) -> None:
+    """Writes ``(params, state)`` (``cnn_tpu``'s trees, numpy or tensors;
+    default: ``net``'s own) as a reference-format ``.model`` file for
+    ``net``'s layer stack, as ``cnn_tpu``'s ``export_reference_model``."""
+    if params is None:
+        params, state = model_trees(net)
+    chunks: list[np.ndarray] = []
+    last_conv_channels = None
+    for layer in _param_layers(net):
+        p = {k: _np(v) for k, v in params[layer.name].items()}
+        if isinstance(layer, Conv2D):
+            chunks.append(np.ascontiguousarray(
+                p["w"].transpose(3, 2, 0, 1)).ravel())  # HWIO -> OIHW
+            chunks.append(p["b"].ravel())
+            last_conv_channels = layer.out_channels
+        elif isinstance(layer, Linear):
+            w = p["w"]
+            fin, fout = w.shape
+            c = last_conv_channels
+            if c is not None and fin % c == 0:
+                hw = int(round((fin // c) ** 0.5))
+                w = w.reshape(hw, hw, c, fout).transpose(2, 0, 1, 3)
+                w = w.reshape(fin, fout)
+            chunks.append(np.ascontiguousarray(w).ravel())
+            chunks.append(p["b"].ravel())
+        else:
+            st = {k: _np(v) for k, v in state[layer.name].items()}
+            chunks.extend([p["gamma"].ravel(), p["beta"].ravel(),
+                           st["mean"].ravel(), st["var"].ravel()])
+    flat = np.concatenate(chunks).astype("<f4")
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    flat.tofile(path)
+
+
+# ---------------------------------------------------------------- native ----
+
+
+class TraceState(NamedTuple):
+    """optax's momentum state: ``trace``, a tree shaped like the params."""
+    trace: Any
+
+
+class ScaleByScheduleState(NamedTuple):
+    """optax's schedule state: ``count``, the updates made so far."""
+    count: Any
+
+
+class EmptyState(NamedTuple):
+    """optax's state of a transform that keeps none."""
+
+
+# the optax module each stub is written under (optax 0.2's paths); on a
+# read, the class name under any optax module maps onto its stub
+_OPTAX_MODULES = {TraceState: "optax.transforms._accumulation",
+                  ScaleByScheduleState: "optax._src.transform",
+                  EmptyState: "optax._src.base"}
+_STUBS = {cls.__name__: cls for cls in _OPTAX_MODULES}
+_NUMPY_GLOBALS = {("numpy", "ndarray"), ("numpy", "dtype"),
+                  ("numpy.core.multiarray", "_reconstruct"),
+                  ("numpy._core.multiarray", "_reconstruct"),
+                  ("numpy.core.multiarray", "scalar"),
+                  ("numpy._core.multiarray", "scalar")}
+
+
+class _OptaxPickler(pickle._Pickler):
+    """The pure-Python pickler, which writes the stubs as references to
+    optax's classes: the C pickler's ``save_global`` imports the module it
+    names, and the port does not import optax."""
+
+    def save_global(self, obj, name=None):
+        module = _OPTAX_MODULES.get(obj)
+        if module is None:
+            return super().save_global(obj, name)
+        self.save(module)
+        self.save(obj.__name__)
+        self.write(pickle.STACK_GLOBAL)
+        self.memoize(obj)
+
+
+class _RestrictedUnpickler(pickle.Unpickler):
+    """Data-only unpickler: numpy arrays and dtypes, and optax's three
+    state classes as the stubs; any other global is refused."""
+
+    def find_class(self, module, name):
+        if (module, name) in _NUMPY_GLOBALS:
+            return super().find_class(module, name)
+        root = module.split(".")[0]
+        if root == "optax" and name in _STUBS:
+            return _STUBS[name]
+        if root == "numpy":
+            cls = super().find_class(module, name)
+            if isinstance(cls, type) and issubclass(cls, np.dtype):
+                return cls
+        raise pickle.UnpicklingError(
+            f"checkpoint contains blocked global {module}.{name}")
+
+
+def _nest(flat: dict) -> dict:
+    """``{"layer.key": tensor}`` -> ``{layer: {key: array}}``, sorted."""
+    out: dict = {}
+    for name in sorted(flat):
+        layer, key = name.split(".")
+        out.setdefault(layer, {})[key] = _np(flat[name]).copy()
+    return out
+
+
+def _optax_state(opt_state: dict):
+    trace = opt_state["trace"]
+    if trace is None and not opt_state["scheduled"]:
+        return ()       # cnn_tpu's own plain SGD keeps no state
+    first = EmptyState() if trace is None else TraceState(_nest(trace))
+    second = (ScaleByScheduleState(np.asarray(opt_state["count"], np.int32))
+              if opt_state["scheduled"] else EmptyState())
+    return (first, second)
+
+
+def _find(opt_state, cls):
+    """The ``cls`` state in optax's tuple, or None."""
+    return next((st for st in opt_state if isinstance(st, cls)), None)
+
+
+def _key_data(seed: int) -> np.ndarray:
+    return np.array([(seed >> 32) & 0xFFFFFFFF, seed & 0xFFFFFFFF], np.uint32)
+
+
+def _key_seed(key) -> int:
+    k = 0
+    for word in np.asarray(key, np.uint32).ravel():
+        k = ((k << 32) | int(word)) % 2**64
+    return k
+
+
+def save_checkpoint(path: str, train_state) -> None:
+    """Writes the port's ``TrainState`` as a ``cnn_tpu`` ``.ckpt``
+    (module docstring), atomically."""
+    ts = train_state
+    params, state = model_trees(ts.model)
+    payload = {
+        "params": params,
+        "state": state,
+        "opt_state": _optax_state(ts.opt_state),
+        "step": int(ts.step),
+        "rng": _key_data(ts.seed),
+        "format_version": 1,
+        "torch_rng": {"device": ts.rng.device.type,
+                      "state": ts.rng.get_state().numpy().copy()},
+    }
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    tmp = path + ".tmp"
+    with open(tmp, "wb") as f:
+        _OptaxPickler(f, protocol=4).dump(payload)
+    os.replace(tmp, path)
+
+
+def read_checkpoint(path: str) -> dict:
+    """A ``.ckpt``'s payload as it was pickled: numpy trees, the optax
+    states as the stubs."""
+    with open(path, "rb") as f:
+        return _RestrictedUnpickler(f).load()
+
+
+def load_checkpoint(path: str, train_state):
+    """Loads a ``.ckpt`` (``cnn_tpu``'s or the port's) into the port's
+    ``train_state`` in place and returns it: params, BN state, the momentum
+    trace and the count, the step, and the generator (module docstring)."""
+    ts = train_state
+    payload = read_checkpoint(path)
+    step = int(payload["step"])
+    trace = _find(payload["opt_state"], TraceState)
+    sched = _find(payload["opt_state"], ScaleByScheduleState)
+    load_jax_train_state(ts, payload["params"], payload["state"],
+                         None if trace is None else trace.trace,
+                         step if sched is None else int(sched.count), step)
+    ts.seed = _key_seed(payload["rng"])
+    saved = payload.get("torch_rng")
+    if saved is not None and saved["device"] == ts.rng.device.type:
+        ts.rng.set_state(torch.from_numpy(np.asarray(saved["state"],
+                                                     np.uint8).copy()))
+    else:
+        ts.rng.manual_seed((ts.seed + step) % 2**64)
+    return ts
+
+
+def tree_has_bn(tree) -> bool:
+    """True if the param tree contains a BatchNorm-shaped subtree (a dict
+    with both 'gamma' and 'beta' leaves)."""
+    if isinstance(tree, dict):
+        if "gamma" in tree and "beta" in tree:
+            return True
+        return any(tree_has_bn(v) for v in tree.values())
+    return False
+
+
+def checkpoint_name(iteration: int, train_acc: float, valid_acc: float,
+                    suffix: str = ".ckpt") -> str:
+    """Reference filename convention (cnn.cpp:121-124)."""
+    return f"iter_{iteration}_train_{train_acc:.3f}_valid_{valid_acc:.3f}{suffix}"
+
+
+def parse_checkpoint_name(name: str):
+    m = re.match(r"iter_(\d+)_train_([\d.]+)_valid_([\d.]+)\.", name)
+    if not m:
+        return None
+    return int(m.group(1)), float(m.group(2)), float(m.group(3))

@@ -16,6 +16,7 @@ from cnn_tpu_torch.models import get_model
 from cnn_tpu_torch.optim import make_optimizer
 from cnn_tpu_torch.parallel import create_train_state
 from cnn_tpu_torch.serving import InferenceEngine
+from cnn_tpu_torch.tools import train
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -41,6 +42,10 @@ import cnn_tpu_torch.utils.checkpoint, cnn_tpu_torch.ops.hopper
 import cnn_tpu_torch.data, cnn_tpu_torch.parallel, cnn_tpu_torch.optim
 import cnn_tpu_torch.ops.augment, cnn_tpu_torch.ops.losses
 import cnn_tpu_torch.ops.hopper.augment, cnn_tpu_torch.tools.rotate_phases
+import cnn_tpu_torch.tools.train, cnn_tpu_torch.core.config
+import cnn_tpu_torch.data.image, cnn_tpu_torch.data.loader
+import cnn_tpu_torch.utils.metrics, cnn_tpu_torch.utils.history
+import cnn_tpu_torch.utils.profiling
 import chip_smoke
 leaked = sorted(n for n in sys.modules if n.split(".")[0] in BLOCKED)
 assert not leaked, leaked
@@ -90,6 +95,9 @@ def test_entry_points_need_cuda_or_an_explicit_cpu(monkeypatch):
     labels, probs = InferenceEngine(model, buckets=(1,), device="cpu").predict(
         np.zeros((2, 64, 64, 3), np.uint8))
     assert labels.shape == (2,) and probs.shape == (2, 3)
+    # the train CLI asks for the card before it reads the dataset
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train.main(["--dataset-path", "/nonexistent", "--total-iters", "1"])
 
 
 def test_training_entry_points_need_cuda_or_an_explicit_cpu(monkeypatch):

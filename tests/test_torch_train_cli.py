@@ -1,0 +1,215 @@
+"""The port's train CLI against cnn_tpu's, on the CPU: both resume the same
+cnn_tpu checkpoint on the same host-loader stream and must land on the same
+weights; the device-dataset modes, preemption and ``--resume auto``, the
+flags not ported yet, and ``--profile-dir``."""
+
+import glob
+import os
+import signal
+
+import numpy as np
+import pytest
+
+from cnn_tpu.tools import train as j_train
+from cnn_tpu.utils.checkpoint import load_checkpoint as j_load_checkpoint
+from cnn_tpu_torch.tools import train
+from cnn_tpu_torch.utils.checkpoint import (parse_checkpoint_name,
+                                            read_checkpoint)
+from cnn_tpu_torch.utils.history import read_history
+from cnn_tpu_torch.utils.profiling import StepTimer, device_memory_stats
+from test_torch_data import write_dataset
+
+BASE = ["--image-size", "64", "--train-batch-size", "8",
+        "--valid-batch-size", "8", "--valid-iters", "2", "--save-iters", "2",
+        "--augment", "false", "--batch-norm", "true",
+        "--optimizer", "momentum", "--lr-schedule", "cosine",
+        "--learning-rate", "1.5e-2", "--backend", "python",
+        "--num-workers", "2"]
+
+
+@pytest.fixture(scope="module")
+def dataset(tmp_path_factory):
+    return write_dataset(tmp_path_factory.mktemp("animals"))
+
+
+def _args(dataset, ckdir, *more):
+    return ["--dataset-path", dataset, "--checkpoint-dir", str(ckdir),
+            *BASE, *more]
+
+
+def _one(pattern):
+    found = glob.glob(pattern)
+    assert len(found) == 1, (pattern, found)
+    return found[0]
+
+
+def test_resumed_run_matches_cnn_tpu_cli(dataset, tmp_path, capsys):
+    """cnn_tpu trains iterations 1-2 and saves; then each CLI resumes that
+    checkpoint to iteration 4 on the same loader stream. The two iter_4
+    checkpoints: every param and BN statistic within 1e-4 x max(1, max|ref|),
+    and the same accuracies in the name."""
+    assert j_train.main(_args(dataset, tmp_path / "j0",
+                              "--total-iters", "2")) == 0
+    start = _one(str(tmp_path / "j0" / "iter_2_*.ckpt"))
+    more = ("--total-iters", "4", "--resume", start)
+    assert j_train.main(_args(dataset, tmp_path / "j", *more)) == 0
+    capsys.readouterr()
+    assert train.main(_args(dataset, tmp_path / "t", *more),
+                      device="cpu") == 0
+    out = capsys.readouterr().out
+    assert f"resumed from {start} at step 2" in out
+    assert "training done!" in out and "confusion matrix" in out
+
+    want_path = _one(str(tmp_path / "j" / "iter_4_*.ckpt"))
+    got_path = _one(str(tmp_path / "t" / "iter_4_*.ckpt"))
+    assert parse_checkpoint_name(os.path.basename(got_path)) == \
+        parse_checkpoint_name(os.path.basename(want_path))
+    want = j_load_checkpoint(want_path)
+    got = read_checkpoint(got_path)
+    assert got["step"] == int(want.step) == 4
+    for tree, ref in (("params", want.params), ("state", want.state)):
+        for layer, leaves in ref.items():
+            for key, w in leaves.items():
+                w = np.asarray(w, np.float64)
+                d = np.abs(got[tree][layer][key] - w).max()
+                assert d <= 1e-4 * max(1.0, np.abs(w).max()), \
+                    (tree, layer, key, d)
+    trace = got["opt_state"][0].trace
+    for layer, leaves in want.opt_state[0].trace.items():
+        for key, w in leaves.items():
+            w = np.asarray(w, np.float64)
+            assert np.abs(trace[layer][key] - w).max() <= \
+                1e-4 * max(1.0, np.abs(w).max()), (layer, key)
+    assert int(got["opt_state"][1].count) == int(want.opt_state[1].count) == 4
+    hist = read_history(str(tmp_path / "t" / "history.jsonl"))
+    assert [h["step"] for h in hist] == [4]
+
+
+@pytest.mark.parametrize("mode,dtype", [("fast", "float32"),
+                                        ("full", "bfloat16")])
+def test_device_dataset_modes_run(dataset, tmp_path, capsys, mode, dtype):
+    rc = train.main(_args(dataset, tmp_path, "--total-iters", "4",
+                          "--device-dataset", "true", "--augment", "true",
+                          "--augment-mode", mode, "--canvas-size", "72",
+                          "--compute-dtype", dtype),
+                    device="cpu")
+    out = capsys.readouterr().out
+    assert rc == 0
+    assert "training done!" in out and "confusion matrix" in out
+    names = sorted(os.path.basename(p) for p in
+                   glob.glob(str(tmp_path / "*.ckpt")))
+    assert [parse_checkpoint_name(n)[0] for n in names] == [2, 4]
+    assert len(read_history(str(tmp_path / "history.jsonl"))) == 2
+
+
+def test_host_loader_with_device_augment_runs(dataset, tmp_path, capsys):
+    rc = train.main(_args(dataset, tmp_path, "--total-iters", "2",
+                          "--augment", "true", "--device-augment", "true",
+                          "--augment-mode", "fast", "--canvas-size", "72"),
+                    device="cpu")
+    assert rc == 0 and "training done!" in capsys.readouterr().out
+
+
+def test_preemption_checkpoints_and_resume_auto_continues(dataset, tmp_path,
+                                                          capsys,
+                                                          monkeypatch):
+    real = train.make_train_step
+
+    def preempting(*args, **kwargs):
+        step = real(*args, **kwargs)
+        calls = []
+
+        def wrapped(ts, images, labels):
+            calls.append(1)
+            if len(calls) == 3:
+                os.kill(os.getpid(), signal.SIGUSR1)
+            return step(ts, images, labels)
+        return wrapped
+
+    monkeypatch.setattr(train, "make_train_step", preempting)
+    before = signal.getsignal(signal.SIGUSR1)
+    assert train.main(_args(dataset, tmp_path, "--total-iters", "6"),
+                      device="cpu") == 0
+    assert signal.getsignal(signal.SIGUSR1) is before
+    out = capsys.readouterr().out
+    assert "preemption signal: checkpointed step 3" in out
+    assert "Test===>" not in out
+    path = str(tmp_path / "preempt_iter_3.ckpt")
+    assert read_checkpoint(path)["step"] == 3
+    monkeypatch.setattr(train, "make_train_step", real)
+    assert train.main(_args(dataset, tmp_path, "--total-iters", "6",
+                            "--resume", "auto"), device="cpu") == 0
+    out = capsys.readouterr().out
+    assert f"resumed from {path} at step 3" in out
+    assert "Test===>" in out
+    assert [h["step"] for h in read_history(
+        str(tmp_path / "history.jsonl"))] == [2, 4, 6]
+
+
+UNPORTED = [
+    ("--multihost", "true"), ("--pipeline-stages", "2"),
+    ("--model-parallel", "2"), ("--spatial-parallel", "2"),
+    ("--expert-parallel", "2"), ("--data-parallel", "2"),
+    ("--compile-cache", "cc"), ("--init-from", "x.ckpt"),
+    ("--freeze", "conv_layer_1"), ("--ema", "0.99"),
+    ("--distill-from", "t.ckpt"), ("--mixup", "0.2"), ("--cutmix", "0.2"),
+    ("--grad-accum", "2"), ("--steps-per-call", "2"), ("--tta", "hflip"),
+    ("--color-jitter", "0.1"), ("--space-to-depth", "true"),
+    ("--dropout", "0.5"), ("--moe-balance", "0.01"), ("--width", "2"),
+    ("--n-blocks", "2"), ("--name", "resnet10"),
+]
+
+
+@pytest.mark.parametrize("flag,value", UNPORTED)
+def test_unported_flag_raises_naming_it(tmp_path, flag, value):
+    with pytest.raises(NotImplementedError, match=flag):
+        train.main(["--checkpoint-dir", str(tmp_path), flag, value],
+                   device="cpu")
+
+
+@pytest.mark.parametrize("argv,name", [
+    (["--augment", "true"], "augment"),
+    (["--backend", "native"], "native"),
+    (["--optimizer", "adam"], "adam"),
+    (["--weight-decay", "1e-4"], "weight_decay"),
+    (["--grad-clip", "1.0"], "grad_clip")])
+def test_unported_options_raise(dataset, tmp_path, argv, name):
+    with pytest.raises(NotImplementedError, match=name):
+        train.main(_args(dataset, tmp_path, "--total-iters", "2", *argv),
+                   device="cpu")
+
+
+def test_profile_dir_writes_a_trace(dataset, tmp_path, capsys):
+    prof = tmp_path / "prof"
+    assert train.main(_args(dataset, tmp_path / "ck", "--total-iters", "2",
+                            "--profile-dir", str(prof)), device="cpu") == 0
+    assert os.path.getsize(prof / "trace.json") > 0
+
+
+def test_profiling_helpers():
+    timer = StepTimer()
+    timer.tick(8)
+    timer.tick(8)
+    assert timer.images == 16 and timer.steps == 2
+    assert timer.images_per_sec > 0 and timer.ms_per_step > 0
+    assert device_memory_stats("cpu") == {}
+
+
+def test_cadence_must_align(dataset, tmp_path):
+    with pytest.raises(AssertionError, match="--save-iters 3"):
+        train.main(_args(dataset, tmp_path, "--total-iters", "2",
+                         "--save-iters", "3"), device="cpu")
+
+
+def test_best_checkpoint_is_reloaded_for_the_test(dataset, tmp_path, capsys):
+    """The best checkpoint the run reloads for its test is the one saved."""
+    assert train.main(_args(dataset, tmp_path, "--total-iters", "2"),
+                      device="cpu") == 0
+    out = capsys.readouterr().out
+    best = out.split("best checkpoint: ")[1].split(" ")[0]
+    payload = read_checkpoint(best)
+    assert payload["step"] == 2 and payload["format_version"] == 1
+    assert set(payload["params"]) == {
+        "bn_layer_1", "bn_layer_2", "bn_layer_3", "bn_layer_4",
+        "conv_layer_1", "conv_layer_2", "conv_layer_3", "conv_layer_4",
+        "linear_1"}
