@@ -127,7 +127,29 @@
    gives the logged valid accuracy, and its exported ``.model`` gives
    bit-equal logits and predictions through ``InferenceEngine``; the wall
    seconds of decode, upload, the training loop (synchronised, validation
-   taken out), validation and the final test.
+   taken out), validation and the final test;
+15. inference and Grad-CAM (``tools/infer.py``, ``tools/gradcam.py``,
+   in-process) on the six photos of ``tests/fixtures/reference_parity.npz``
+   written as PPM: infer from the committed ``.model`` and its ``.ckpt``
+   prints dog, panda, bird twice, each probability within 1e-6 of
+   ``InferenceEngine`` (bucket 1), 1 normalize, 4 conv (1 strip, 3 tiled)
+   and 1 pool per image; ``--bench``'s p50 and p90; Grad-CAM at
+   ``conv_layer_3`` in both modes and at ``relu_layer_1``: the PNGs read
+   back equal to the heatmaps, the classes, each CAM within 1e-4 of the
+   plain versions on the card, the exact launches (the tail's conv and
+   pool Functions; the pool backward window kernel once per image at
+   ``relu_layer_1``); a seeded AlexNet without BN at ``conv_layer_3``
+   (a conv fused with its ReLU, captured) against the plain versions;
+16. evaluation (``tools/evaluate.py``) on phase 14's best checkpoint and
+   images: ``--split both`` in bf16 reprints the train CLI's own test line
+   and confusion matrix, ``--split both`` in float32, ``--tta flips``
+   (four views a batch), an ``--ensemble`` with the iteration-60
+   checkpoint, each with exact launch counts; then the flagship train CLI
+   with ``--dropout 0.25`` for 20 iterations: a forward hook on the
+   Dropout layer holds each training step to 32 of conv4's 128 channels
+   zeroed and the rest scaled by 1/0.75, eval to the identity; a finite
+   logged loss. Each run's wall seconds beside the card's name and power
+   limit.
 
 Every phase prints one flushed line with the seconds since start. Any failed
 check raises, so the exit code is not 0. Without a CUDA device it exits 1
@@ -158,9 +180,13 @@ import torch.nn.functional as F
 
 import cnn_tpu_torch.nn.module as nn_module
 import cnn_tpu_torch.serving as serving
+import cnn_tpu_torch.tools.evaluate as evaluate_cli
+import cnn_tpu_torch.tools.gradcam as gradcam_cli
+import cnn_tpu_torch.tools.infer as infer_cli
 import cnn_tpu_torch.tools.train as train_cli
 from cnn_tpu_torch.data import (DeviceDataset, discover_dataset,
                                 make_device_train_step, split_dataset)
+from cnn_tpu_torch.data.image import imread
 from cnn_tpu_torch.models import get_model
 from cnn_tpu_torch.nn import Conv2D, Linear, ReLU
 from cnn_tpu_torch.ops import augment as aug
@@ -2290,123 +2316,124 @@ def cli_want(steps: int, evals: int, bf16: bool, rotate: bool) -> dict:
         want["max_pool2d_bwd.launches_window"] = steps
     if rotate:
         want["rotate_shear.launches"] = steps
-    return want
+    return {k: v for k, v in want.items() if v}
 
 
-def cli_phase() -> dict:
-    """The flagship command through the port's CLI on a PPM dataset:
-    60 iterations, then ``--resume auto`` to 80, then a host-loader run;
-    returns the launches of the three runs, added up."""
+def cli_phase(tmp: Path) -> tuple[dict, dict]:
+    """The flagship command through the port's CLI on a PPM dataset written
+    under ``tmp``: 60 iterations, then ``--resume auto`` to 80, then a
+    host-loader run. Returns the launches of the three runs, added up, and
+    what phase 16 evaluates: the dataset, the flags that size it, the best
+    and the last checkpoint, the resumed run's final test lines and the
+    number of valid and test batches."""
     try:
         import PIL
         pil = f"PIL {PIL.__version__} imports"
     except ImportError:
         pil = "PIL is not installed (PPM decodes without it)"
     phase(f"train CLI: {pil}")
-    with tempfile.TemporaryDirectory() as tmp:
-        tmp = Path(tmp)
-        data, ck, host_ck = tmp / "animals", tmp / "ck", tmp / "host"
-        data.mkdir()
-        t = time.perf_counter()
-        write_ppm_dataset(data, np.random.default_rng(21))
-        write_s = time.perf_counter() - t
-        sizes = [str(v) for kv in CLI_SIZES.items() for v in kv]
-        common = ["--dataset-path", str(data), "--checkpoint-dir", str(ck),
-                  *sizes]
-        splits = split_dataset(discover_dataset(str(data), ("dog", "panda",
-                                                            "bird")))
-        n_valid, n_test = len(splits["valid"]), len(splits["test"])
-        check((len(splits["train"]), n_test, n_valid)
-              == (CLI_N * 8 // 10, CLI_N // 10, CLI_N // 10),
-              f"split {[len(v) for v in splits.values()]}")
-        vb = CLI_SIZES["--valid-batch-size"]
-        evals, tests = -(-n_valid // vb), -(-n_test // vb)
+    data, ck, host_ck = tmp / "animals", tmp / "ck", tmp / "host"
+    data.mkdir()
+    t = time.perf_counter()
+    write_ppm_dataset(data, np.random.default_rng(21))
+    write_s = time.perf_counter() - t
+    sizes = [str(v) for kv in CLI_SIZES.items() for v in kv]
+    common = ["--dataset-path", str(data), "--checkpoint-dir", str(ck),
+              *sizes]
+    splits = split_dataset(discover_dataset(str(data), ("dog", "panda",
+                                                        "bird")))
+    n_valid, n_test = len(splits["valid"]), len(splits["test"])
+    check((len(splits["train"]), n_test, n_valid)
+          == (CLI_N * 8 // 10, CLI_N // 10, CLI_N // 10),
+          f"split {[len(v) for v in splits.values()]}")
+    vb = CLI_SIZES["--valid-batch-size"]
+    evals, tests = -(-n_valid // vb), -(-n_test // vb)
 
-        runs = []
-        times = CliTimes()
-        out, counts = run_cli(CLI_FLAGSHIP + common + [
-            "--total-iters", "60", "--valid-iters", "20",
-            "--save-iters", "60"], "flagship, iterations 1-60",
-            cli_want(60, 3 * evals + tests, True, True), times)
-        runs.append(("flagship 1-60", dict(times.s), counts))
-        names1 = sorted(p.name for p in ck.glob("*.ckpt"))
-        check(len(names1) == 1 and names1[0].startswith("iter_60_train_"),
-              f"checkpoints after 60 iterations: {names1}")
-        times = CliTimes()
-        out2, counts = run_cli(CLI_FLAGSHIP + common + [
-            "--total-iters", "80", "--valid-iters", "20",
-            "--save-iters", "20", "--resume", "auto"],
-            "flagship, --resume auto to 80",
-            cli_want(20, evals + tests, True, True), times)
-        runs.append(("resume 61-80", dict(times.s), counts))
-        check(f"resumed from {ck / names1[0]} at step 60" in out2,
-              "the resumed run did not start from iteration 60's checkpoint")
-        names = sorted(p.name for p in ck.glob("*.ckpt"))
-        check(len(names) == 2 and names[1].startswith("iter_80_train_"),
-              f"checkpoints after 80 iterations: {names}")
-        hist = read_history(str(ck / "history.jsonl"))
-        check([h["step"] for h in hist] == [20, 40, 60, 80],
-              f"history steps {[h['step'] for h in hist]}")
-        check(all(np.isfinite(h["loss"]) for h in hist)
-              and hist[-1]["loss"] < hist[0]["loss"],
-              f"logged mean loss did not fall: {[h['loss'] for h in hist]}")
-        for line in (out + out2).splitlines():
-            if line.startswith(("Valid===>", "Test===>")):
-                phase(f"train CLI: {line.strip()}")
-        test_lines = out2[out2.index("confusion matrix"):].splitlines()[:5]
-        phase("train CLI, resumed run's final test: "
-              + " | ".join(l.rstrip() for l in test_lines))
+    runs = []
+    times = CliTimes()
+    out, counts = run_cli(CLI_FLAGSHIP + common + [
+        "--total-iters", "60", "--valid-iters", "20",
+        "--save-iters", "60"], "flagship, iterations 1-60",
+        cli_want(60, 3 * evals + tests, True, True), times)
+    runs.append(("flagship 1-60", dict(times.s), counts))
+    names1 = sorted(p.name for p in ck.glob("*.ckpt"))
+    check(len(names1) == 1 and names1[0].startswith("iter_60_train_"),
+          f"checkpoints after 60 iterations: {names1}")
+    times = CliTimes()
+    out2, counts = run_cli(CLI_FLAGSHIP + common + [
+        "--total-iters", "80", "--valid-iters", "20",
+        "--save-iters", "20", "--resume", "auto"],
+        "flagship, --resume auto to 80",
+        cli_want(20, evals + tests, True, True), times)
+    runs.append(("resume 61-80", dict(times.s), counts))
+    check(f"resumed from {ck / names1[0]} at step 60" in out2,
+          "the resumed run did not start from iteration 60's checkpoint")
+    names = sorted(p.name for p in ck.glob("*.ckpt"))
+    check(len(names) == 2 and names[1].startswith("iter_80_train_"),
+          f"checkpoints after 80 iterations: {names}")
+    hist = read_history(str(ck / "history.jsonl"))
+    check([h["step"] for h in hist] == [20, 40, 60, 80],
+          f"history steps {[h['step'] for h in hist]}")
+    check(all(np.isfinite(h["loss"]) for h in hist)
+          and hist[-1]["loss"] < hist[0]["loss"],
+          f"logged mean loss did not fall: {[h['loss'] for h in hist]}")
+    for line in (out + out2).splitlines():
+        if line.startswith(("Valid===>", "Test===>")):
+            phase(f"train CLI: {line.strip()}")
+    test_lines = out2[out2.index("confusion matrix"):].splitlines()[:5]
+    phase("train CLI, resumed run's final test: "
+          + " | ".join(l.rstrip() for l in test_lines))
 
-        # the best checkpoint, reloaded, reproduces its logged accuracy;
-        # its .model gives the same logits through the serving engine
-        best = out2.split("best checkpoint: ")[1].split(" ")[0]
-        logged = next(h for h in hist if h["step"] == 80)
-        size = CLI_SIZES["--image-size"]
-        model = get_model("alexnet", num_classes=3, batch_norm=True,
-                          image_size=size, device="cuda")
-        opt = make_optimizer("momentum", 1.5e-2, schedule="cosine",
-                             total_steps=80)
-        ts = load_checkpoint(best, create_train_state(model, opt, seed=1))
-        check(ts.step == 80, f"best checkpoint at step {ts.step}")
-        valid_ds = DeviceDataset(splits["valid"], size, 2, device="cuda")
-        loss, acc = train_cli.evaluate_device(
-            make_eval_step(model, compute_dtype=BF16), valid_ds, vb)
-        check((loss, acc) == (logged["valid_loss"], logged["valid_accuracy"]),
-              f"the best checkpoint gives valid loss and accuracy "
-              f"{(loss, acc)}, the run logged {logged}")
-        exported = tmp / "best.model"
-        export_reference_model(str(exported), model)
-        twin = get_model("alexnet", num_classes=3, batch_norm=True,
-                         image_size=size, device="cuda")
-        load_reference_model(twin, exported)
-        x = valid_ds.images[:vb]
-        got = []
-        for m in (model, twin):
-            eng = serving.InferenceEngine(m, buckets=(vb,), device="cuda",
-                                          compute_dtype=BF16)
-            eng.warmup()
-            with torch.no_grad():
-                logits = eng.model(uint8_normalize(x),
-                                   compute_dtype=BF16).float()
-            got.append((logits, *eng.predict(x.cpu().numpy())))
-        check(bits_equal(got[0][0], got[1][0])
-              and all(same_arrays(a, b) for a, b in zip(got[0][1:],
-                                                        got[1][1:])),
-              "the exported .model's logits differ from its checkpoint's")
+    # the best checkpoint, reloaded, reproduces its logged accuracy;
+    # its .model gives the same logits through the serving engine
+    best = out2.split("best checkpoint: ")[1].split(" ")[0]
+    logged = next(h for h in hist if h["step"] == 80)
+    size = CLI_SIZES["--image-size"]
+    model = get_model("alexnet", num_classes=3, batch_norm=True,
+                      image_size=size, device="cuda")
+    opt = make_optimizer("momentum", 1.5e-2, schedule="cosine",
+                         total_steps=80)
+    ts = load_checkpoint(best, create_train_state(model, opt, seed=1))
+    check(ts.step == 80, f"best checkpoint at step {ts.step}")
+    valid_ds = DeviceDataset(splits["valid"], size, 2, device="cuda")
+    loss, acc = train_cli.evaluate_device(
+        make_eval_step(model, compute_dtype=BF16), valid_ds, vb)
+    check((loss, acc) == (logged["valid_loss"], logged["valid_accuracy"]),
+          f"the best checkpoint gives valid loss and accuracy "
+          f"{(loss, acc)}, the run logged {logged}")
+    exported = tmp / "best.model"
+    export_reference_model(str(exported), model)
+    twin = get_model("alexnet", num_classes=3, batch_norm=True,
+                     image_size=size, device="cuda")
+    load_reference_model(twin, exported)
+    x = valid_ds.images[:vb]
+    got = []
+    for m in (model, twin):
+        eng = serving.InferenceEngine(m, buckets=(vb,), device="cuda",
+                                      compute_dtype=BF16)
+        eng.warmup()
+        with torch.no_grad():
+            logits = eng.model(uint8_normalize(x),
+                               compute_dtype=BF16).float()
+        got.append((logits, *eng.predict(x.cpu().numpy())))
+    check(bits_equal(got[0][0], got[1][0])
+          and all(same_arrays(a, b) for a, b in zip(got[0][1:],
+                                                    got[1][1:])),
+          "the exported .model's logits differ from its checkpoint's")
 
-        # the host loader on the card: float32, the fast device augment
-        times = CliTimes()
-        _, counts = run_cli(common + [
-            "--checkpoint-dir", str(host_ck), "--device-augment", "true",
-            "--augment-mode", "fast", "--batch-norm", "true",
-            "--optimizer", "momentum", "--learning-rate", "1.5e-2",
-            "--lr-schedule", "cosine", "--train-batch-size", str(CLI_HOST_B),
-            "--total-iters", "20", "--valid-iters", "20",
-            "--save-iters", "20"], "host loader, 20 iterations",
-            cli_want(20, evals + tests, False, False), times)
-        runs.append(("host loader 1-20", dict(times.s), counts))
-        check(len(list(host_ck.glob("iter_20_train_*.ckpt"))) == 1,
-              "the host-loader run wrote no iter_20 checkpoint")
+    # the host loader on the card: float32, the fast device augment
+    times = CliTimes()
+    _, counts = run_cli(common + [
+        "--checkpoint-dir", str(host_ck), "--device-augment", "true",
+        "--augment-mode", "fast", "--batch-norm", "true",
+        "--optimizer", "momentum", "--learning-rate", "1.5e-2",
+        "--lr-schedule", "cosine", "--train-batch-size", str(CLI_HOST_B),
+        "--total-iters", "20", "--valid-iters", "20",
+        "--save-iters", "20"], "host loader, 20 iterations",
+        cli_want(20, evals + tests, False, False), times)
+    runs.append(("host loader 1-20", dict(times.s), counts))
+    check(len(list(host_ck.glob("iter_20_train_*.ckpt"))) == 1,
+          "the host-loader run wrote no iter_20 checkpoint")
     total = {}
     for name, s, counts in runs:
         phase(f"train CLI {name}: " + ", ".join(
@@ -2419,7 +2446,11 @@ def cli_phase() -> dict:
           f"accuracy {acc} reproduced from the "
           f"best checkpoint ({os.path.basename(best)}); its exported .model "
           f"bit-equal through InferenceEngine; launches exact in every run")
-    return total
+    return total, {"data": data, "sizes": sizes, "best": best,
+                   "first": str(ck / names[0]), "test_lines": test_lines,
+                   "test": [l for l in out2.splitlines()
+                            if l.startswith("Test===>")][-1],
+                   "valid_batches": evals, "test_batches": tests}
 
 
 def committed_ckpt_phase() -> None:
@@ -2443,6 +2474,306 @@ def committed_ckpt_phase() -> None:
           f"{(a - b).abs().max().item():.3g}")
     phase(f"committed checkpoint {path.name}: step {ts.step}, logits "
           "bit-equal to the .model beside it")
+
+
+# ---------------------------------------------------------------------------
+# inference, Grad-CAM and evaluation through the port's CLIs
+# ---------------------------------------------------------------------------
+
+PHOTOS = ROOT / "tests" / "fixtures" / "reference_parity.npz"
+PHOTO_CLASSES = ["dog", "panda", "bird"] * 2
+INFER_PROB_ATOL = 1e-6  # printed to 6 places: 5e-7 of it is the rounding
+CAM_ATOL = 1e-4         # the kernel path's CAM against the plain path's
+DROPOUT_P = 0.25
+PRED_LINE = re.compile(r"^(.*)===> \[classification: (\w+)\] "
+                       r"\[prob: ([\d.]+)\]$")
+
+
+def counted_run(what: str, main, argv, want: dict) -> tuple:
+    """One in-process ``main(argv)`` with the counters at 0 just before:
+    exit code 0 and exactly the launch counts ``want``; returns its output,
+    the counts and its wall seconds (the device synchronised)."""
+    torch.cuda.synchronize()
+    reset_launches()
+    out = io.StringIO()
+    t = time.perf_counter()
+    try:
+        with redirect_stdout(out):
+            rc = main(argv)
+    except BaseException:
+        print(f"{what}: raised; its output ends {out.getvalue()[-2000:]!r}",
+              file=sys.stderr)
+        raise
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t
+    counts = {k: v for k, v in read_counters().items() if v}
+    text = out.getvalue()
+    check(rc == 0, f"{what}: exit code {rc}; output ends {text[-2000:]!r}")
+    check(counts == want, f"{what}: launches {counts}, expected {want}")
+    return text, counts, seconds
+
+
+def f32_want(norm=0, strip=0, tiled=0, pool=0, pool_bwd=0) -> dict:
+    """The float32 counters of that many launches of each kernel (the
+    normalize through its wide variant, the pool backward through the
+    window kernel)."""
+    want = {"uint8_normalize.launches": norm,
+            "uint8_normalize.launches_wide": norm,
+            "conv2d_bias_relu.launches": strip + tiled,
+            "conv2d_bias_relu.launches_strip": strip,
+            "conv2d_bias_relu.launches_tiled": tiled,
+            "max_pool2d_fwd.launches": pool,
+            "max_pool2d_bwd.launches": pool_bwd,
+            "max_pool2d_bwd.launches_window": pool_bwd}
+    return {k: v for k, v in want.items() if v}
+
+
+def eval_want(batches: int, forwards: int, bf16: bool = False) -> dict:
+    """``batches`` normalized batches and ``forwards`` eval forwards."""
+    if bf16:
+        want = cli_want(0, forwards, True, False)
+        want["uint8_normalize.launches"] = batches
+        want["uint8_normalize.launches_wide"] = batches
+        return want
+    return f32_want(batches, forwards, 3 * forwards, forwards)
+
+
+def add_up(total: dict, counts: dict) -> None:
+    for k, v in counts.items():
+        total[k] = total.get(k, 0) + v
+
+
+def write_photos(root: Path) -> tuple[list, list]:
+    """The six fixture photos (224 px, BGR) as binary PPM under ``root``;
+    returns the arrays and the paths."""
+    fx = np.load(PHOTOS)
+    imgs = [fx[f"image_u8_{i}"] for i in range(6)]
+    paths = []
+    for i, img in enumerate(imgs):
+        paths.append(str(root / f"{i}.ppm"))
+        Path(paths[-1]).write_bytes(b"P6\n224 224\n255\n"
+                                    + img[:, :, ::-1].tobytes())
+    return imgs, paths
+
+
+def predictions(text: str) -> list:
+    """(path, class, printed probability) of each classified image."""
+    return [(m.group(1), m.group(2), float(m.group(3)))
+            for m in map(PRED_LINE.match, text.splitlines()) if m]
+
+
+def plain_cam(model, x, layer, mode):
+    """``compute_cam`` on the plain versions, on the card."""
+    with plain_versions(), plain_training():
+        return gradcam_cli.compute_cam(model, x, layer, mode)
+
+
+def inference_phase(smi: str, tmp: Path) -> dict:
+    """Phase 15: the infer and Grad-CAM CLIs on the committed BN checkpoint
+    and the six fixture photos; returns their launches, added up."""
+    imgs, paths = write_photos(tmp)
+    total = {}
+    model = get_model("alexnet", num_classes=3, batch_norm=True,
+                      image_size=224, device="cuda")
+    load_reference_model(model, MODEL)
+    engine = serving.InferenceEngine(model, buckets=(1,), device="cuda")
+    engine.warmup()
+    served = [engine.predict(img[None]) for img in imgs]
+    per_image = f32_want(1, 1, 3, 1)
+    infer_s = {}
+    for ckpt in (MODEL, MODEL.with_suffix(".ckpt")):
+        text, counts, infer_s[ckpt.suffix] = counted_run(
+            f"infer {ckpt.name}", infer_cli.main,
+            ["--checkpoint", str(ckpt), "--batch-norm", *paths],
+            {k: 6 * v for k, v in per_image.items()})
+        add_up(total, counts)
+        rows = predictions(text)
+        check([r[0] for r in rows] == paths
+              and [r[1] for r in rows] == PHOTO_CLASSES,
+              f"infer {ckpt.name}: printed {rows}")
+        for i, ((_, _, p), (label, probs)) in enumerate(zip(rows, served)):
+            check(int(label[0]) == i % 3
+                  and abs(p - float(probs[0, label[0]])) <= INFER_PROB_ATOL,
+                  f"infer {ckpt.name}: probability {p} against the engine's "
+                  f"{float(probs[0, label[0]])}")
+    phase(f"infer CLI ({MODEL.name} and its .ckpt): {PHOTO_CLASSES}, "
+          f"probabilities within {INFER_PROB_ATOL} of InferenceEngine "
+          f"{[round(r[2], 6) for r in rows]}; per image 1 normalize, 4 conv "
+          f"(1 strip, 3 tiled), 1 pool; wall s .model "
+          f"{infer_s['.model']:.3f}, .ckpt {infer_s['.ckpt']:.3f} ({smi})")
+
+    text, counts, bench_s = counted_run(
+        "infer --bench", infer_cli.main,
+        ["--checkpoint", str(MODEL), "--batch-norm", "--bench", paths[0]],
+        {k: 51 * v for k, v in per_image.items()})
+    add_up(total, counts)
+    lat = re.search(r"p50 latency: ([\d.]+) ms \(p90 ([\d.]+) ms\)", text)
+    check(lat is not None, f"infer --bench printed {text!r}")
+    phase(f"infer --bench, one image at batch 1, 50 forwards synchronised: "
+          f"p50 {lat.group(1)} ms, p90 {lat.group(2)} ms ({smi})")
+
+    # Grad-CAM: per image the captured forward, and in gradcam mode the
+    # tail's replay (its conv and pool Functions) and their backward
+    cams = []
+    cases = {("conv_layer_3", "gradcam"): f32_want(0, 1, 4, 1),
+             ("conv_layer_3", "reference"): f32_want(0, 1, 3, 1),
+             ("relu_layer_1", "gradcam"): f32_want(0, 1, 6, 2, 1)}
+    real_cam, real_render = gradcam_cli.compute_cam, gradcam_cli.render_heatmap
+    for (layer, mode), want in cases.items():
+        got, rendered = [], []
+
+        def cam(*args, **kwargs):
+            got.append(real_cam(*args, **kwargs))
+            return got[-1]
+
+        def render(*args):
+            rendered.append(real_render(*args))
+            return rendered[-1]
+        out_dir = tmp / f"cam_{layer}_{mode}"
+        with mock.patch.object(gradcam_cli, "compute_cam", cam), \
+                mock.patch.object(gradcam_cli, "render_heatmap", render):
+            text, counts, cam_s = counted_run(
+                f"gradcam {layer} {mode}", gradcam_cli.main,
+                ["--checkpoint", str(MODEL), "--batch-norm", "--layer",
+                 layer, "--mode", mode, "--output-dir", str(out_dir),
+                 *paths], {k: 6 * v for k, v in want.items()})
+        add_up(total, counts)
+        check([r[1] for r in predictions(text)] == PHOTO_CLASSES,
+              f"gradcam {layer} {mode}: printed {predictions(text)}")
+        worst = 0.0
+        for i, img in enumerate(imgs):
+            check(np.array_equal(imread(str(out_dir / f"{i}.png")),
+                                 rendered[i]),
+                  f"gradcam {layer} {mode}: {i}.png does not decode to the "
+                  "heatmap")
+            x = uint8_to_float(torch.from_numpy(img[None]).cuda())
+            ref, probs = plain_cam(model, x, layer, mode)
+            worst = max(worst, float(np.abs(got[i][0] - ref).max()))
+            check(int(got[i][1].argmax()) == int(probs.argmax()) == i % 3,
+                  f"gradcam {layer} {mode}: image {i}'s class")
+        check(worst <= CAM_ATOL, f"gradcam {layer} {mode}: CAM against the "
+              f"plain versions max|dev| {worst:.3g}")
+        cams.append(f"{layer} {mode}: {got[0][0].shape}, max|dev| "
+                    f"{worst:.3g}, {cam_s:.3f} s")
+    phase("gradcam CLI, six photos each, CAMs against the plain versions "
+          "on the card, PNGs read back equal, exact launches (the pool "
+          "backward window kernel once an image at relu_layer_1): "
+          + "; ".join(cams) + f" ({smi})")
+
+    # a conv fused with its ReLU, captured: run relu=False, ReLU after
+    net = get_model("alexnet", num_classes=3, batch_norm=False,
+                    image_size=224, device="cuda",
+                    generator=torch.Generator().manual_seed(15))
+    x = uint8_to_float(torch.from_numpy(imgs[0][None]).cuda())
+    torch.cuda.synchronize()
+    reset_launches()
+    got = gradcam_cli.compute_cam(net, x, "conv_layer_3", "gradcam")
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in read_counters().items() if v}
+    check(counts == f32_want(0, 1, 4, 1),
+          f"fused-pair capture: launches {counts}")
+    add_up(total, counts)
+    with torch.no_grad():
+        _, captured = net(x, capture=("conv_layer_3",))
+    ref = plain_cam(net, x, "conv_layer_3", "gradcam")
+    dev = float(np.abs(got[0] - ref[0]).max())
+    check(bool((captured["conv_layer_3"] < 0).any()) and dev <= CAM_ATOL,
+          f"fused-pair capture: CAM max|dev| {dev:.3g}")
+    phase(f"Grad-CAM at a fused conv (no BN, seeded): conv_layer_3 captured "
+          f"before its ReLU, CAM against the plain versions max|dev| "
+          f"{dev:.3g}")
+    return total
+
+
+def dropout_hook(seen: dict):
+    """A forward hook on the Dropout layer: in training exactly
+    ``int(p*C)`` channels zeroed and the rest scaled by ``1/(1-p)`` in the
+    activation's dtype; in eval the identity."""
+    def hook(module, args, out):
+        x = args[0]
+        if not module.training:
+            check(torch.equal(out, x), "eval-mode dropout is not the identity")
+            seen["eval"] += 1
+            return
+        c = x.shape[-1]
+        zero = (out == 0).flatten(0, 2).all(dim=0)
+        n_drop = int(DROPOUT_P * c)
+        scale = (torch.ones((), dtype=x.dtype, device=x.device)
+                 / torch.tensor(1.0 - n_drop / c, dtype=x.dtype,
+                                device=x.device))
+        check(int(zero.sum()) == n_drop
+              and torch.equal(out[..., ~zero], x[..., ~zero] * scale),
+              f"training-mode dropout zeroed {int(zero.sum())} of {c} "
+              f"channels, not {n_drop}, or scaled the rest by another "
+              "factor")
+        seen["train"] += 1
+    return hook
+
+
+def evaluation_phase(smi: str, tmp: Path, cli: dict) -> dict:
+    """Phase 16: the evaluate CLI on phase 14's checkpoints and images, and
+    a train CLI run with dropout; returns their launches, added up."""
+    total = {}
+    nv, nt = cli["valid_batches"], cli["test_batches"]
+    base = ["--dataset-path", str(cli["data"]), *cli["sizes"]]
+    runs = [
+        ("--split both, bf16", ["--resume", cli["best"], "--split", "both",
+                                "--compute-dtype", "bfloat16"],
+         eval_want(nv + nt, nv + nt, bf16=True)),
+        ("--split both", ["--resume", cli["best"], "--split", "both"],
+         eval_want(nv + nt, nv + nt)),
+        ("--tta flips", ["--resume", cli["best"], "--split", "test",
+                         "--tta", "flips"], eval_want(nt, 4 * nt)),
+        ("--ensemble", ["--ensemble", f"alexnet:{cli['best']},alexnet:"
+                        f"{cli['first']}", "--split", "test"],
+         eval_want(nt, 2 * nt)),
+    ]
+    lines = []
+    for name, argv, want in runs:
+        text, counts, secs = counted_run(f"evaluate {name}",
+                                         evaluate_cli.main, base + argv, want)
+        add_up(total, counts)
+        tests = [l for l in text.splitlines() if l.startswith("Test===>")]
+        check(len(tests) == 1, f"evaluate {name}: {text[-2000:]!r}")
+        if name == "--split both, bf16":
+            # the train CLI's own final test of this checkpoint, in bf16
+            got = text[text.index("Test===>"):].splitlines()[:6]
+            check(got == [cli["test"]] + cli["test_lines"],
+                  f"evaluate {name}: {got}, the train CLI printed "
+                  f"{[cli['test']] + cli['test_lines']}")
+        lines.append(f"{name}: {tests[0]}, {secs:.3f} s")
+    phase("evaluate CLI on the flagship run's best checkpoint ("
+          f"{os.path.basename(cli['best'])}), exact launches; the bf16 "
+          "test line and confusion matrix equal to the train CLI's: "
+          + "; ".join(lines) + f" ({smi})")
+
+    seen = {"train": 0, "eval": 0}
+    real_get_model = train_cli.get_model
+
+    def get_model_hooked(*args, **kwargs):
+        model = real_get_model(*args, **kwargs)
+        model.net["dropout_layer_1"].register_forward_hook(dropout_hook(seen))
+        return model
+    drop_ck = tmp / "dropout"
+    times = CliTimes()
+    t = time.perf_counter()
+    with mock.patch.object(train_cli, "get_model", get_model_hooked):
+        _, counts = run_cli(CLI_FLAGSHIP + base + [
+            "--checkpoint-dir", str(drop_ck), "--dropout", str(DROPOUT_P),
+            "--total-iters", "20", "--valid-iters", "20",
+            "--save-iters", "20"], f"train CLI --dropout {DROPOUT_P}",
+            cli_want(20, nv + nt, True, True), times)
+    secs = time.perf_counter() - t
+    add_up(total, counts)
+    hist = read_history(str(drop_ck / "history.jsonl"))
+    check(seen["train"] == 20 and seen["eval"] == nv + nt
+          and all(np.isfinite(h["loss"]) for h in hist),
+          f"dropout run: hooks {seen}, history {hist}")
+    phase(f"train CLI --dropout {DROPOUT_P}, flagship flags, 20 iterations: "
+          f"loss {hist[-1]['loss']:.6f}, each step {int(DROPOUT_P * 128)} of "
+          f"conv4's 128 channels zeroed and the rest scaled by 1/"
+          f"{1 - DROPOUT_P}, eval the identity; {secs:.3f} s ({smi})")
+    return total
 
 
 def ptxas_report(log: str) -> dict:
@@ -2540,10 +2871,13 @@ def main() -> int:
     counts16 = bf16_training_phase(f32_stats)
     served16 = bf16_serving_phase(model)
     committed_ckpt_phase()
-    cli = cli_phase()
+    with tempfile.TemporaryDirectory() as tmp:
+        cli, flagship = cli_phase(Path(tmp))
+        add_up(cli, inference_phase(smi, Path(tmp)))
+        add_up(cli, evaluation_phase(smi, Path(tmp), flagship))
 
-    # the CLI's launches: float32 ones on the float32 rows, the rotation
-    # in either dtype on its one row
+    # the CLIs' launches (phases 14-16): float32 ones on the float32 rows,
+    # the rotation in either dtype on its one row
     cli_f32 = {name: cli.get(f"{name}.launches", 0)
                - cli.get(f"{name}.launches_bf16", 0) for name in KERNELS}
     kernels = [entry(name, launches.get(name, 0) + trained[name]

@@ -25,9 +25,16 @@ an upscale, the two floors of the sum can lose one grey level against the
 row itself, and so does cv2. An exact 2x downscale (which cv2 runs as
 INTER_AREA) gives the same values. The tests hold it bit-equal to
 ``cv2.resize`` on downscales and upscales alike.
+
+``apply_colormap_jet(u8)`` is ``cv2.applyColorMap(u8, cv2.COLORMAP_JET)``
+and ``imwrite(path, img)`` writes a PNG that ``cv2.imread`` reads back as
+``img``, as ``cv2.imwrite`` does; the two serve Grad-CAM's heatmaps.
 """
 
 from __future__ import annotations
+
+import struct
+import zlib
 
 import numpy as np
 
@@ -152,3 +159,55 @@ def resize(img: np.ndarray, size: tuple[int, int]) -> np.ndarray:
     v = ((h0 * b0) >> 16) + ((h1 * b1) >> 16)
     # C order, as cv2 returns it (the gathers above leave another)
     return np.ascontiguousarray(((v + 2) >> 2).astype(np.uint8))
+
+
+def _jet_table() -> np.ndarray:
+    """cv2's COLORMAP_JET as a [256, 3] BGR uint8 table.
+
+    Channel k (1 blue, 2 green, 3 red) is the trapezoid
+    ``255 * clip(1.5 - |4x - k|, 0, 1)`` at ``x = i / 255``: it rises from
+    0 at ``x = (k - 1.5) / 4`` to 255 at ``(k - 0.5) / 4``, holds, and
+    falls to 0 at ``(k + 1.5) / 4`` (blue starts at half, red ends at
+    half). cv2 samples it in float32 and rounds half to even; its float32
+    lands just below the half at blue's entry 159, which it rounds down.
+    """
+    i4 = 4 * np.arange(256)
+    # 255 * (1.5 - |4x - k|) = 382.5 - |4i - 255k|, exact in float64
+    table = np.stack([np.clip(np.rint(382.5 - np.abs(i4 - 255 * k)), 0, 255)
+                      for k in (1, 2, 3)], axis=1)
+    table[159, 0] = 1
+    return table.astype(np.uint8)
+
+
+_JET = _jet_table()
+
+
+def apply_colormap_jet(img: np.ndarray) -> np.ndarray:
+    """``cv2.applyColorMap(img, cv2.COLORMAP_JET)`` for a uint8 [H,W]
+    image: BGR uint8 [H,W,3]."""
+    if img.dtype != np.uint8 or img.ndim != 2:
+        raise TypeError(f"apply_colormap_jet takes a uint8 [H,W] image, "
+                        f"not {img.dtype} {img.shape}")
+    return _JET[img]
+
+
+def _png_chunk(kind: bytes, data: bytes) -> bytes:
+    return (struct.pack(">I", len(data)) + kind + data
+            + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
+
+
+def imwrite(path: str, img: np.ndarray) -> None:
+    """Writes a BGR uint8 [H,W,3] image (cv2's layout) as an 8-bit RGB PNG,
+    rows unfiltered, zlib level 6: the same bytes for the same array."""
+    if img.dtype != np.uint8 or img.ndim != 3 or img.shape[2] != 3:
+        raise TypeError(f"imwrite takes a uint8 [H,W,3] image, not "
+                        f"{img.dtype} {img.shape}")
+    h, w = img.shape[:2]
+    rows = np.zeros((h, 1 + 3 * w), np.uint8)     # each row: filter 0
+    rows[:, 1:] = img[:, :, ::-1].reshape(h, -1)
+    header = struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)
+    png = (b"\x89PNG\r\n\x1a\n" + _png_chunk(b"IHDR", header)
+           + _png_chunk(b"IDAT", zlib.compress(rows.tobytes(), 6))
+           + _png_chunk(b"IEND", b""))
+    with open(path, "wb") as f:
+        f.write(png)

@@ -24,12 +24,20 @@ from cnn_tpu_torch.nn import (BatchNorm2D, Conv2D, Dropout, Linear, MaxPool2D,
 
 
 def build_alexnet(num_classes: int = 3, batch_norm: bool = False,
-                  dropout: float = 0.0, image_size: int = 224, *,
+                  dropout: float = 0.0, image_size: int = 224,
+                  compat_bn: bool = False, dropout_compat: str = "inverted",
+                  space_to_depth: bool = False, *,
                   device=None, generator=None) -> Sequential:
     """The layer stack on ``device``. Conv and dense weights and biases are
     N(0, 1) / 10, ``cnn_tpu``'s init, drawn in layer order from
     ``generator`` (a CPU ``torch.Generator``; default: seed 0). BN starts at
-    gamma 1, beta 0, moving mean 0 and variance 1."""
+    gamma 1, beta 0, moving mean 0 and variance 1 (0 with ``compat_bn``).
+    ``dropout`` > 0 puts a channel Dropout in ``dropout_compat`` mode
+    between conv4 (or its BN) and its ReLU."""
+    if space_to_depth:
+        raise NotImplementedError(
+            "space_to_depth is not ported yet: it needs ops/conv.py:"
+            "conv2d_s2d")
     device = default_device(device)
     gen = generator if generator is not None else torch.Generator().manual_seed(0)
     layers = []
@@ -46,9 +54,12 @@ def build_alexnet(num_classes: int = 3, batch_norm: bool = False,
                 f"conv_layer_{i} (the stack needs >= 61 px)")
         channels = cout
         if batch_norm:
-            layers.append(BatchNorm2D(f"bn_layer_{i}", cout, device=device))
+            layers.append(BatchNorm2D(f"bn_layer_{i}", cout,
+                                      compat_zero_var_init=compat_bn,
+                                      device=device))
         if i == 4 and dropout > 0.0:
-            layers.append(Dropout("dropout_layer_1", p=dropout))
+            layers.append(Dropout("dropout_layer_1", p=dropout,
+                                  compat=dropout_compat))
         layers.append(ReLU(f"relu_layer_{i}"))
         if i == 1:
             layers.append(MaxPool2D("max_pool_1"))
@@ -60,24 +71,31 @@ def build_alexnet(num_classes: int = 3, batch_norm: bool = False,
 
 class AlexNet(nn.Module):
     """``train()`` (the default of an ``nn.Module``) normalizes BN by batch
-    statistics and updates the moving ones; ``eval()`` uses the moving
-    statistics and, with no gradient asked for, runs the bare kernels."""
+    statistics and updates the moving ones, and drops channels in a
+    Dropout; ``eval()`` uses the moving statistics and, with no gradient
+    asked for, runs the bare kernels."""
 
     def __init__(self, num_classes: int = 3, batch_norm: bool = False,
-                 dropout: float = 0.0, image_size: int = 224, *,
-                 device=None, generator=None):
+                 dropout: float = 0.0, image_size: int = 224,
+                 compat_bn: bool = False, dropout_compat: str = "inverted",
+                 space_to_depth: bool = False, *, device=None,
+                 generator=None):
         super().__init__()
         self.num_classes = num_classes
         self.batch_norm = batch_norm
         self.image_size = image_size
         self.net = build_alexnet(num_classes, batch_norm, dropout, image_size,
+                                 compat_bn, dropout_compat, space_to_depth,
                                  device=device, generator=generator)
 
-    def forward(self, x, compute_dtype=None):
+    def forward(self, x, compute_dtype=None, generator=None, capture=None):
         """[B, S, S, 3] float -> logits [B, num_classes], in
         ``compute_dtype`` (e.g. ``torch.bfloat16``) when given; the
-        parameters stay float32."""
-        return self.net(x, compute_dtype=compute_dtype)
+        parameters stay float32. ``generator`` feeds a training-mode
+        Dropout; with ``capture`` (layer names) it returns ``(logits,
+        {name: activation})`` (``Sequential.forward``)."""
+        return self.net(x, compute_dtype=compute_dtype, generator=generator,
+                        capture=capture)
 
 
 @register_model("alexnet")

@@ -11,8 +11,9 @@ gradient is asked for, they call the kernels' autograd Functions
 (``conv2d_bias_relu_fn``, ``max_pool2d_fn``), whose backward is the conv's
 ATen gradients and the pool backward kernel; otherwise the bare wrappers.
 BatchNorm2D normalizes by batch statistics in training mode and updates its
-moving statistics in place. Dropout runs in eval mode only (AlexNet's
-default ``dropout=0.0`` builds none).
+moving statistics in place. Dropout (``ops/dropout.py``) draws its channels
+in training mode from the generator its ``forward`` is given, as
+``cnn_tpu``'s layer draws from the key folded in for it.
 
 Under a compute dtype (``forward(..., compute_dtype=torch.bfloat16)``, as
 ``cnn_tpu``'s ``apply(compute_dtype=)``) the parameters stay float32 and
@@ -29,6 +30,7 @@ import torch
 from torch import nn
 
 from cnn_tpu_torch.ops.activations import relu
+from cnn_tpu_torch.ops import dropout as dropout_ops
 from cnn_tpu_torch.ops.batchnorm import batch_norm2d_eval, batch_norm2d_train
 from cnn_tpu_torch.ops.hopper.conv import conv2d_bias_relu, conv2d_bias_relu_fn
 from cnn_tpu_torch.ops.hopper.pool import max_pool2d_fn, max_pool2d_fwd
@@ -108,16 +110,20 @@ class Linear(Layer):
 
 class BatchNorm2D(Layer):
     """Per-channel BN over NHWC: batch statistics in training mode (which
-    also update ``mean``/``var`` in place), moving statistics in eval."""
+    also update ``mean``/``var`` in place), moving statistics in eval.
+    The moving variance starts at 1, or at 0 with ``compat_zero_var_init``
+    (the reference's own init)."""
 
     def __init__(self, name, num_channels=16, eps=1e-5, momentum=0.1, *,
-                 device=None):
+                 compat_zero_var_init=False, device=None):
         super().__init__(name)
         self.num_channels, self.eps, self.momentum = num_channels, eps, momentum
         self.gamma = nn.Parameter(torch.ones(num_channels, device=device))
         self.beta = nn.Parameter(torch.zeros(num_channels, device=device))
         self.register_buffer("mean", torch.zeros(num_channels, device=device))
-        self.register_buffer("var", torch.ones(num_channels, device=device))
+        self.register_buffer("var", torch.full(
+            (num_channels,), 0.0 if compat_zero_var_init else 1.0,
+            device=device))
 
     def forward(self, x):
         if not self.training:
@@ -131,15 +137,20 @@ class BatchNorm2D(Layer):
 
 
 class Dropout(Layer):
-    """Channel dropout: the identity in eval mode."""
+    """Channel dropout (``ops/dropout.py``) in one of its ``compat`` modes.
+    In training the two random modes draw a permutation of the channels
+    from ``generator``."""
 
-    def __init__(self, name, p=0.5):
+    def __init__(self, name, p=0.5, compat="inverted"):
         super().__init__(name)
-        self.p = p
+        self.p, self.compat = p, compat
 
-    def forward(self, x):
-        if self.training and self.p > 0:
-            raise NotImplementedError(
-                f"{self.name}: training-mode dropout is not ported yet; "
-                "call .eval()")
-        return x
+    def forward(self, x, generator=None):
+        perm = None
+        if self.training and self.p > 0 and self.compat != "reference":
+            if generator is None:
+                raise ValueError(f"{self.name}: {self.compat} dropout needs "
+                                 "a generator in training")
+            perm = dropout_ops.draw_permutation(x.shape[-1], generator)
+        return dropout_ops.channel_dropout(x, self.p, train=self.training,
+                                           perm=perm, compat=self.compat)

@@ -5,20 +5,57 @@ its param and state trees). A Conv2D directly followed by a ReLU runs as one
 fused ``relu=True`` conv launch, the fusion the conv kernel exists for; in
 training its autograd Function keeps the output for the ReLU mask, as
 ``_vjp_bwd`` does. With BN in between, the conv runs ``relu=False`` and BN
-and ReLU follow as plain tensor ops.
+and ReLU follow as plain tensor ops. ``fuses`` states that rule and
+``run_layers`` applies it, for ``forward`` and for any caller that replays
+a slice of the stack (Grad-CAM's tail), so both launch the same kernels.
 
-``forward(x, compute_dtype=)`` threads the compute dtype to the layers that
-cast (Conv2D, Linear), as ``cnn_tpu``'s ``apply(compute_dtype=)`` threads it
-to every layer.
+``forward(x, compute_dtype=, generator=, capture=)`` threads the compute
+dtype to the layers that cast (Conv2D, Linear), as ``cnn_tpu``'s
+``apply(compute_dtype=)`` threads it to every layer, and the generator to
+the layers that draw (Dropout). ``capture`` names layers whose outputs are
+returned beside the result, as ``apply(capture=)``: a captured conv runs
+``relu=False`` so that its own output exists, and the plain ReLU follows.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Iterable, Sequence
 
 from torch import nn
 
-from cnn_tpu_torch.nn.module import Conv2D, Layer, Linear, ReLU
+from cnn_tpu_torch.nn.module import Conv2D, Dropout, Layer, Linear, ReLU
+
+
+def fuses(layers: Sequence[Layer], i: int, capture=()) -> bool:
+    """Whether ``layers[i]`` runs as one launch with the ReLU after it: a
+    Conv2D directly followed by a ReLU whose own output is not captured."""
+    return (isinstance(layers[i], Conv2D) and i + 1 < len(layers)
+            and isinstance(layers[i + 1], ReLU)
+            and layers[i].name not in capture)
+
+
+def run_layers(layers: Sequence[Layer], x, *, compute_dtype=None,
+               generator=None, capture: Iterable[str] = (),
+               captured: dict | None = None):
+    """``layers`` applied in order to ``x``, fused by ``fuses``; the outputs
+    of the layers named in ``capture`` go into ``captured``."""
+    capture = frozenset(capture)
+    i = 0
+    while i < len(layers):
+        layer = layers[i]
+        fuse = fuses(layers, i, capture)
+        kw = {"relu": True} if fuse else {}
+        if compute_dtype is not None and isinstance(layer, (Conv2D, Linear)):
+            kw["compute_dtype"] = compute_dtype
+        if isinstance(layer, Dropout):
+            kw["generator"] = generator
+        x = layer(x, **kw)
+        ran = layers[i:i + 2] if fuse else (layer,)
+        for done in ran:      # a fused conv is never among the captured
+            if done.name in capture:
+                captured[done.name] = x
+        i += len(ran)
+    return x
 
 
 class Sequential(nn.Module):
@@ -35,17 +72,11 @@ class Sequential(nn.Module):
     def __getitem__(self, name: str) -> Layer:
         return self.layers[name]
 
-    def forward(self, x, compute_dtype=None):
-        layers = list(self.layers.values())
-        i = 0
-        while i < len(layers):
-            layer = layers[i]
-            fuse = (isinstance(layer, Conv2D) and i + 1 < len(layers)
-                    and isinstance(layers[i + 1], ReLU))
-            kw = {"relu": True} if fuse else {}
-            if compute_dtype is not None and isinstance(layer, (Conv2D,
-                                                                Linear)):
-                kw["compute_dtype"] = compute_dtype
-            x = layer(x, **kw)
-            i += 2 if fuse else 1
-        return x
+    def forward(self, x, compute_dtype=None, generator=None, capture=None):
+        """The output; with ``capture`` (layer names), ``(output,
+        {name: activation})``."""
+        captured = {}
+        out = run_layers(list(self.layers.values()), x,
+                         compute_dtype=compute_dtype, generator=generator,
+                         capture=capture or (), captured=captured)
+        return out if capture is None else (out, captured)

@@ -465,20 +465,25 @@ class Conv2dBiasReluFn(torch.autograd.Function):
         # NHWC / HWIO viewed as NCHW / OIHW: no copies
         g_nchw, x_nchw = g.permute(0, 3, 1, 2), x.permute(0, 3, 1, 2)
         w_oihw = w.permute(3, 2, 0, 1)
-        dx = None
+        dx = dw = db = None
         tf32 = torch.backends.cudnn.allow_tf32
         torch.backends.cudnn.allow_tf32 = False
         try:
-            if ctx.needs_input_grad[0]:   # not for the first layer's images
+            # only what is asked for: not dx for the first layer's images,
+            # not dw and db for frozen parameters (Grad-CAM)
+            if ctx.needs_input_grad[0]:
                 dx = nn_grad.conv2d_input(x_nchw.shape, w_oihw, g_nchw,
                                           stride=ctx.stride)
                 dx = dx.permute(0, 2, 3, 1).contiguous()
-            dw = nn_grad.conv2d_weight(x_nchw, w_oihw.shape, g_nchw,
-                                       stride=ctx.stride)
+            if ctx.needs_input_grad[1]:
+                dw = nn_grad.conv2d_weight(x_nchw, w_oihw.shape, g_nchw,
+                                           stride=ctx.stride)
+                dw = dw.permute(2, 3, 1, 0).contiguous()
         finally:
             torch.backends.cudnn.allow_tf32 = tf32
-        return (dx, dw.permute(2, 3, 1, 0).contiguous(), g.sum(dim=(0, 1, 2)),
-                None, None)
+        if ctx.needs_input_grad[2]:
+            db = g.sum(dim=(0, 1, 2))
+        return dx, dw, db, None, None
 
 
 def conv2d_bias_relu_fn(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,

@@ -14,13 +14,20 @@ float32; uint8 images are normalized to float32 and rounded to bf16 (an
 ``augment_fn``'s output is cast to it); each conv and the linear layer cast
 their input and weights to bf16; the logits go to float32 before the loss.
 
+A Dropout in the model draws its channels from ``ts.rng`` in training.
+
+Eval runs in eval mode without gradients: ``make_eval_step`` (with
+test-time augmentation, ``tta``), ``make_ensemble_eval_step`` and
+``make_forward`` (probabilities, for inference).
+
 Not ported yet (each raises ``NotImplementedError``): other compute dtypes
-(float16), meshes, ``grad_accum``, ``steps_per_call``, mixup/cutmix,
-distillation and TTA.
+(float16), meshes, ``grad_accum``, ``steps_per_call``, mixup/cutmix and
+distillation.
 """
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 
 import torch
@@ -60,7 +67,7 @@ def check_supported(**flags) -> None:
     off = {"compute_dtype": (None, torch.float32, torch.bfloat16),
            "mesh": (None,),
            "grad_accum": (1,), "steps_per_call": (1,), "mixup": (0.0,),
-           "cutmix": (0.0,), "distill": (None,), "tta": ("",)}
+           "cutmix": (0.0,), "distill": (None,), "tta": tuple(TTA_VIEWS)}
     for name, value in flags.items():
         if value not in off[name]:
             raise NotImplementedError(f"{name}={value!r} is not ported yet")
@@ -75,9 +82,11 @@ def prep(images: torch.Tensor, compute_dtype=None) -> torch.Tensor:
 
 
 def loss_fn(model, images, labels, label_smoothing: float = 0.0,
-            compute_dtype=None):
-    """Forward and loss; returns ``(loss, correct)``."""
-    logits = model(images, compute_dtype=compute_dtype).float()
+            compute_dtype=None, generator=None):
+    """Forward and loss; returns ``(loss, correct)``. ``generator`` feeds
+    a Dropout in training mode."""
+    logits = model(images, compute_dtype=compute_dtype,
+                   generator=generator).float()
     loss = softmax_cross_entropy(logits, labels, label_smoothing)
     correct = (logits.argmax(dim=-1) == labels).sum()
     return loss, correct
@@ -86,11 +95,12 @@ def loss_fn(model, images, labels, label_smoothing: float = 0.0,
 def apply_gradients(ts: TrainState, optimizer, images, labels,
                     label_smoothing: float = 0.0, compute_dtype=None) -> dict:
     """Forward in training mode, backward, optimizer update; advances
-    ``ts.step``. Returns the metrics, as device tensors."""
+    ``ts.step``; a Dropout draws from ``ts.rng``. Returns the metrics, as
+    device tensors."""
     ts.model.train()
     params = named_params(ts.model)
     loss, correct = loss_fn(ts.model, images, labels, label_smoothing,
-                            compute_dtype)
+                            compute_dtype, ts.rng)
     grads = torch.autograd.grad(loss, list(params.values()))
     optimizer.update(dict(zip(params, grads)), ts.opt_state, params)
     ts.step += 1
@@ -130,21 +140,69 @@ def make_train_step(model, optimizer, *, compute_dtype=None, mesh=None,
     return step
 
 
+# test-time augmentation: the views of a batch (NHWC), flipped after prep
+TTA_VIEWS = {
+    "": lambda x: (x,),
+    "hflip": lambda x: (x, torch.flip(x, dims=(2,))),
+    "flips": lambda x: (x, torch.flip(x, dims=(2,)), torch.flip(x, dims=(1,)),
+                        torch.flip(x, dims=(1, 2))),
+}
+
+
+def metrics_from_log_ps(log_ps, labels) -> dict:
+    """Eval metrics from per-view and per-model log-probabilities: the
+    class probabilities averaged, in log space (``logsumexp - log n``),
+    as ``cnn_tpu``'s ``_metrics_from_log_ps``; the mean NLL, the count of
+    right argmaxes and the predictions."""
+    log_p = torch.logsumexp(torch.stack(log_ps), dim=0) - math.log(len(log_ps))
+    nll = -log_p.gather(1, labels.long()[:, None])[:, 0]
+    pred = log_p.argmax(dim=-1)
+    return {"loss": nll.mean(), "correct": (pred == labels).sum(),
+            "pred": pred}
+
+
 def make_eval_step(model, *, compute_dtype=None, mesh=None, tta: str = ""):
     """Returns ``(images, labels) -> {"loss", "correct", "pred"}`` in eval
-    mode: the mean NLL of the log-softmax, the count of right argmaxes and
-    the predictions."""
-    check_supported(compute_dtype=compute_dtype, mesh=mesh, tta=tta)
+    mode (``metrics_from_log_ps``). ``tta``: '' (off), 'hflip' (the image
+    and its horizontal flip) or 'flips' (all four flips); the class
+    probabilities are averaged over the views."""
+    check_supported(mesh=mesh)
+    return make_ensemble_eval_step((model,), compute_dtype=compute_dtype,
+                                   tta=tta)
+
+
+def make_ensemble_eval_step(models, *, compute_dtype=None, tta: str = ""):
+    """``make_eval_step`` over a model ensemble: the class probabilities
+    are averaged over every (model, view) pair. Returns ``(images,
+    labels) -> metrics``."""
+    check_supported(compute_dtype=compute_dtype, tta=tta)
+    models = tuple(models)
 
     def step(images, labels):
+        images = prep(images, compute_dtype)
+        log_ps = []
+        with torch.no_grad():
+            for model in models:
+                model.eval()
+                for view in TTA_VIEWS[tta](images):
+                    logits = model(view, compute_dtype=compute_dtype)
+                    log_ps.append(torch.log_softmax(logits.float(), dim=-1))
+        return metrics_from_log_ps(log_ps, labels)
+
+    return step
+
+
+def make_forward(model, *, compute_dtype=None):
+    """Returns ``images -> probs``: uint8 [B,H,W,3] through the normalize
+    kernel (float passes through), the model in eval mode without
+    gradients, a float32 softmax."""
+    check_supported(compute_dtype=compute_dtype)
+
+    def fwd(images):
         model.eval()
         with torch.no_grad():
             logits = model(prep(images, compute_dtype),
                            compute_dtype=compute_dtype)
-            log_p = torch.log_softmax(logits.float(), dim=-1)
-        nll = -log_p.gather(1, labels.long()[:, None])[:, 0]
-        pred = log_p.argmax(dim=-1)
-        return {"loss": nll.mean(), "correct": (pred == labels).sum(),
-                "pred": pred}
+            return torch.softmax(logits.float(), dim=-1)
 
-    return step
+    return fwd

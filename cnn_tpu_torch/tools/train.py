@@ -67,10 +67,8 @@ def check_flags(model_cfg, data_cfg, train_cfg) -> None:
         ("--cutmix", t.cutmix > 0.0),
         ("--grad-accum", t.grad_accum > 1),
         ("--steps-per-call", t.steps_per_call > 1),
-        ("--tta", bool(t.tta)),
         ("--color-jitter", d.color_jitter > 0.0),
         ("--space-to-depth", m.space_to_depth),
-        ("--dropout", m.dropout > 0.0),
         ("--moe-balance", m.moe_balance > 0.0),
         ("--width", m.width > 0.0),
         ("--n-blocks", m.n_blocks > 0),
@@ -173,6 +171,7 @@ def _main(argv, preempted, device):
 
     model = get_model(model_cfg.name, num_classes=model_cfg.num_classes,
                       batch_norm=model_cfg.batch_norm,
+                      dropout=model_cfg.dropout,
                       image_size=model_cfg.image_size, device=dev,
                       generator=torch.Generator().manual_seed(train_cfg.seed))
     opt = optim.make_optimizer(train_cfg.optimizer, train_cfg.learning_rate,
@@ -227,7 +226,8 @@ def _main(argv, preempted, device):
         step_fn = make_train_step(model, opt, compute_dtype=compute_dtype,
                                   augment_fn=augment_fn,
                                   label_smoothing=train_cfg.label_smoothing)
-    eval_fn = make_eval_step(model, compute_dtype=compute_dtype)
+    eval_fn = make_eval_step(model, compute_dtype=compute_dtype,
+                             tta=train_cfg.tta)
 
     os.makedirs(train_cfg.checkpoint_dir, exist_ok=True)
     history = HistoryWriter(train_cfg.history_path

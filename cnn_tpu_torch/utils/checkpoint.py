@@ -259,6 +259,17 @@ class EmptyState(NamedTuple):
     """optax's state of a transform that keeps none."""
 
 
+class EmaState(NamedTuple):
+    """``cnn_tpu.optim.EmaState``, the optimizer state of an ``--ema`` run:
+    the inner state and the EMA weights. Read so that it can be refused:
+    EMA weights are not ported yet (``ema_state``)."""
+    inner: Any
+    ema: Any
+    count: Any
+    decay: Any = None
+    mstate: Any = None
+
+
 # the optax module each stub is written under (optax 0.2's paths); on a
 # read, the class name under any optax module maps onto its stub
 _OPTAX_MODULES = {TraceState: "optax.transforms._accumulation",
@@ -289,11 +300,14 @@ class _OptaxPickler(pickle._Pickler):
 
 class _RestrictedUnpickler(pickle.Unpickler):
     """Data-only unpickler: numpy arrays and dtypes, and optax's three
-    state classes as the stubs; any other global is refused."""
+    state classes and ``cnn_tpu``'s ``EmaState`` as the stubs; any other
+    global is refused."""
 
     def find_class(self, module, name):
         if (module, name) in _NUMPY_GLOBALS:
             return super().find_class(module, name)
+        if (module, name) == ("cnn_tpu.optim", "EmaState"):
+            return EmaState
         root = module.split(".")[0]
         if root == "optax" and name in _STUBS:
             return _STUBS[name]
@@ -369,12 +383,23 @@ def read_checkpoint(path: str) -> dict:
         return _RestrictedUnpickler(f).load()
 
 
+def refuse_ema(payload: dict, path: str) -> None:
+    """Raises ``NotImplementedError`` for a checkpoint whose optimizer
+    state tracks EMA weights (``cnn_tpu``'s ``--ema``), which the port
+    does not run yet (ROADMAP.md Queue 1 item 5, ``optim.with_ema``)."""
+    if isinstance(payload["opt_state"], EmaState):
+        raise NotImplementedError(
+            f"{path}: its optimizer state holds EMA weights; EMA "
+            "(optim.with_ema, ROADMAP.md Queue 1 item 5) is not ported yet")
+
+
 def load_checkpoint(path: str, train_state):
     """Loads a ``.ckpt`` (``cnn_tpu``'s or the port's) into the port's
     ``train_state`` in place and returns it: params, BN state, the momentum
     trace and the count, the step, and the generator (module docstring)."""
     ts = train_state
     payload = read_checkpoint(path)
+    refuse_ema(payload, path)
     step = int(payload["step"])
     trace = _find(payload["opt_state"], TraceState)
     sched = _find(payload["opt_state"], ScaleByScheduleState)

@@ -16,7 +16,7 @@ from cnn_tpu_torch.models import get_model
 from cnn_tpu_torch.optim import make_optimizer
 from cnn_tpu_torch.parallel import create_train_state
 from cnn_tpu_torch.serving import InferenceEngine
-from cnn_tpu_torch.tools import train
+from cnn_tpu_torch.tools import evaluate, gradcam, infer, train
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -46,6 +46,9 @@ import cnn_tpu_torch.tools.train, cnn_tpu_torch.core.config
 import cnn_tpu_torch.data.image, cnn_tpu_torch.data.loader
 import cnn_tpu_torch.utils.metrics, cnn_tpu_torch.utils.history
 import cnn_tpu_torch.utils.profiling
+import cnn_tpu_torch.tools.infer, cnn_tpu_torch.tools.gradcam
+import cnn_tpu_torch.tools.evaluate, cnn_tpu_torch.ops.dropout
+import cnn_tpu_torch.ops.tensor
 import chip_smoke
 leaked = sorted(n for n in sys.modules if n.split(".")[0] in BLOCKED)
 assert not leaked, leaked
@@ -117,3 +120,27 @@ def test_training_entry_points_need_cuda_or_an_explicit_cpu(monkeypatch):
     assert ts.rng.device.type == "cpu"
     ts, m = make_device_train_step(model, opt, ds, 2)(ts)
     assert torch.isfinite(m["loss"])
+
+
+def test_inference_tools_need_cuda_or_an_explicit_cpu(monkeypatch, tmp_path):
+    """infer, gradcam and evaluate take the card by default: without one
+    they raise before reading a checkpoint or an image, and run when asked
+    for the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    ckpt = os.path.join(REPO, "checkpoints", "alexnet_bn_device",
+                        "iter_12000_train_0.997_valid_0.937.ckpt")
+    img = tmp_path / "grey.ppm"
+    img.write_bytes(b"P6\n32 32\n255\n" + bytes(32 * 32 * 3))
+    tools = {
+        infer: ["--checkpoint", ckpt, "--batch-norm", str(img)],
+        gradcam: ["--checkpoint", ckpt, "--batch-norm",
+                  "--layer", "conv_layer_2", "--output-dir",
+                  str(tmp_path / "cam"), str(img)],
+        evaluate: ["--resume", ckpt, "--dataset-path", "/nonexistent"],
+    }
+    for tool, argv in tools.items():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            tool.main(argv)
+    assert infer.main(tools[infer], device="cpu") == 0
+    assert gradcam.main(tools[gradcam], device="cpu") == 0
+    assert (tmp_path / "cam" / "0.png").exists()

@@ -70,15 +70,17 @@ def test_eval_fuses_conv_and_relu_only_when_adjacent(monkeypatch, batch_norm,
 
 @pytest.mark.parametrize("batch_norm,dropout", [(True, 0.0), (False, 0.5)])
 def test_training_mode_bn_and_dropout_are_refused(batch_norm, dropout):
-    """Training-mode dropout is not ported and is refused. Training-mode BN
-    is ported: it normalizes by the batch statistics and moves the moving
-    ones, so a BN model without dropout trains."""
+    """Training-mode dropout without a generator to draw its channels from
+    is refused; given one, it drops them. Training-mode BN normalizes by the
+    batch statistics and moves the moving ones, so a BN model trains."""
     model = get_model("alexnet", batch_norm=batch_norm, dropout=dropout,
                       image_size=64, device="cpu")
     x = torch.rand(2, 64, 64, 3, generator=torch.Generator().manual_seed(0))
     if dropout > 0:
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(ValueError, match="generator"):
             model.train()(x)
+        y = model.train()(x, generator=torch.Generator().manual_seed(1))
+        assert torch.isfinite(y).all()
         return
     bn = model.net["bn_layer_1"]
     mean, var = bn.mean.clone(), bn.var.clone()

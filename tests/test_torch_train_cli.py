@@ -146,6 +146,43 @@ def test_preemption_checkpoints_and_resume_auto_continues(dataset, tmp_path,
         str(tmp_path / "history.jsonl"))] == [2, 4, 6]
 
 
+def _metric_lines(out: str) -> list:
+    return [l.strip() for l in out.splitlines()
+            if l.startswith(("Valid===>", "Test===>"))]
+
+
+def test_resumed_run_with_tta_matches_cnn_tpu_cli(dataset, tmp_path, capsys):
+    """``--tta hflip`` on the train CLI's validation and final test: both
+    CLIs resume one cnn_tpu checkpoint to iteration 4 and report the same
+    valid and test lines; the logged valid loss within 1e-4."""
+    assert j_train.main(_args(dataset, tmp_path / "j0",
+                              "--total-iters", "2")) == 0
+    start = _one(str(tmp_path / "j0" / "iter_2_*.ckpt"))
+    more = ("--total-iters", "4", "--resume", start, "--tta", "hflip")
+    capsys.readouterr()
+    assert j_train.main(_args(dataset, tmp_path / "j", *more)) == 0
+    want = capsys.readouterr().out
+    assert train.main(_args(dataset, tmp_path / "t", *more),
+                      device="cpu") == 0
+    got = capsys.readouterr().out
+    assert _metric_lines(got) == _metric_lines(want)
+    assert len(_metric_lines(got)) == 2
+    (w,) = read_history(str(tmp_path / "j" / "history.jsonl"))
+    (g,) = read_history(str(tmp_path / "t" / "history.jsonl"))
+    assert abs(g["valid_loss"] - w["valid_loss"]) <= 1e-4
+    assert g["valid_accuracy"] == w["valid_accuracy"]
+
+
+@pytest.mark.parametrize("more", [("--dropout", "0.25"),
+                                  ("--dropout", "0.5", "--tta", "flips",
+                                   "--device-dataset", "true")])
+def test_dropout_and_tta_flags_run(dataset, tmp_path, capsys, more):
+    rc = train.main(_args(dataset, tmp_path, "--total-iters", "2", *more),
+                    device="cpu")
+    out = capsys.readouterr().out
+    assert rc == 0 and "training done!" in out and "Test===>" in out
+
+
 UNPORTED = [
     ("--multihost", "true"), ("--pipeline-stages", "2"),
     ("--model-parallel", "2"), ("--spatial-parallel", "2"),
@@ -153,9 +190,9 @@ UNPORTED = [
     ("--compile-cache", "cc"), ("--init-from", "x.ckpt"),
     ("--freeze", "conv_layer_1"), ("--ema", "0.99"),
     ("--distill-from", "t.ckpt"), ("--mixup", "0.2"), ("--cutmix", "0.2"),
-    ("--grad-accum", "2"), ("--steps-per-call", "2"), ("--tta", "hflip"),
+    ("--grad-accum", "2"), ("--steps-per-call", "2"),
     ("--color-jitter", "0.1"), ("--space-to-depth", "true"),
-    ("--dropout", "0.5"), ("--moe-balance", "0.01"), ("--width", "2"),
+    ("--moe-balance", "0.01"), ("--width", "2"),
     ("--n-blocks", "2"), ("--name", "resnet10"),
 ]
 
