@@ -149,7 +149,37 @@
    Dropout layer holds each training step to 32 of conv4's 128 channels
    zeroed and the rest scaled by 1/0.75, eval to the identity; a finite
    logged loss. Each run's wall seconds beside the card's name and power
-   limit.
+   limit;
+17. the families served: resnet10, mobilenet and pipecnn from their
+   committed ``.ckpt``, resnet18, vgg8 and vgg11 seeded (BN statistics
+   from 20 training-mode forwards), each at 224 px behind
+   ``InferenceEngine`` (buckets 1, 8, 64, one CUDA graph each) in float32
+   and bf16: one forward launches one conv per Conv2D layer (the padded
+   Cin-3 stem on the direct / gather kernel) and one pool per MaxPool2D;
+   every conv launch of a forward on the six fixture photos (and two
+   mirrored) against the plain conv on the same activations (float32
+   within atol 1e-5 + 1e-5 x S and bit-equal to the direct kernel, bf16
+   within 1 bf16 ulp + 1e-5 x S, two launches bit-identical); each
+   bucket's replay bit-equal to its eager forward; exact launches over a
+   counted predict of the photos and of 64 images; float32 logits within
+   1e-4 x max(1, max|ref|) of ``tests/fixtures/family_logits.npz`` (the
+   checkpointed ones) or of the plain versions on the card (the seeded
+   ones), the photos classified alike; bf16 within 5e-2 x max(1,
+   max|f32|) of float32; bucket-64 img/s end to end, graph and eager ms;
+18. the families trained: the conv Function at a padded stem, a padded
+   stride-1 3x3 and a 1x1 (batch 8) against autograd through the plain
+   conv (float32 against it in float64, 1e-4 x max(1, max|ref|); bf16 2
+   ulps); PipeCNN's peak memory for one float32 step at batch 256 under
+   remat False, 'full' and 'conv' ('conv' between the two); then
+   ``tools.train --name`` at the flagship's flags on phase 14's images:
+   resnet10 fresh in bf16 and float32 for 40 iterations and resumed from
+   a copy of its committed checkpoint for 20, mobilenet, pipecnn (remat
+   'conv') and vgg8 for 20 in bf16; each run's launches exact (one conv
+   launch per Conv2D layer a step, none recomputed), its losses finite,
+   the fresh resnet10 runs' last 5 below their first 5, its checkpoint
+   read back equal through a fresh train state; img/s over the loop and
+   device ms a step. The kernels line gains the conv rows of the padded
+   stem, the padded 3x3 and the 1x1, float32 and bf16, timed at B=64.
 
 Every phase prints one flushed line with the seconds since start. Any failed
 check raises, so the exit code is not 0. Without a CUDA device it exits 1
@@ -165,6 +195,7 @@ import itertools
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -188,7 +219,7 @@ from cnn_tpu_torch.data import (DeviceDataset, discover_dataset,
                                 make_device_train_step, split_dataset)
 from cnn_tpu_torch.data.image import imread
 from cnn_tpu_torch.models import get_model
-from cnn_tpu_torch.nn import Conv2D, Linear, ReLU
+from cnn_tpu_torch.nn import Conv2D, Linear, ReLU, StackedBlocks
 from cnn_tpu_torch.ops import augment as aug
 from cnn_tpu_torch.ops.activations import relu as ops_relu
 from cnn_tpu_torch.ops.conv import conv2d, conv_out_size
@@ -220,7 +251,8 @@ from cnn_tpu_torch.parallel.train_step import named_params
 from cnn_tpu_torch.utils.checkpoint import (export_reference_model,
                                             import_reference_array,
                                             load_checkpoint, load_jax_params,
-                                            load_reference_model)
+                                            load_reference_model,
+                                            read_checkpoint, save_checkpoint)
 from cnn_tpu_torch.utils.history import read_history
 
 ROOT = Path(__file__).resolve().parent
@@ -271,6 +303,12 @@ SOURCES = {
     "max_pool2d_fwd_bf16": "cnn_tpu_torch/csrc/pool.cu",
     "max_pool2d_bwd_bf16": "cnn_tpu_torch/csrc/pool.cu",
 }
+for _key in ("stem", "padded_3x3", "1x1"):
+    REPLACES[f"conv2d_bias_relu_{_key}"] = REPLACES["conv2d_bias_relu"]
+    REPLACES[f"conv2d_bias_relu_{_key}_bf16"] = REPLACES[
+        "conv2d_bias_relu_bf16"]
+    SOURCES[f"conv2d_bias_relu_{_key}"] = SOURCES[
+        f"conv2d_bias_relu_{_key}_bf16"] = "cnn_tpu_torch/csrc/conv.cu"
 KERNELS = ("uint8_normalize", "max_pool2d_fwd", "max_pool2d_bwd",
            "conv2d_bias_relu", "rotate_shear")
 # the bf16 rows of the kernels line: row -> (wrapper, its bf16 counter)
@@ -388,17 +426,19 @@ def plain_versions():
     return stack
 
 
-def conv_entry(x, w, b, stride, relu, tile=None, strip=None) -> torch.Tensor:
+def conv_entry(x, w, b, stride, relu, tile=None, strip=None,
+               padding=0) -> torch.Tensor:
     """The direct conv kernel (``tile`` and ``strip`` None), the tiled one
     with tile id ``tile`` or the strip one with strip id ``strip``, called
     through its C entry point: no plan and no count, for comparisons beside
     the wrapper."""
     bsz, h, wid, cin = x.shape
     k, cout = w.shape[0], w.shape[-1]
-    out = torch.empty((bsz, conv_out_size(h, k, stride),
-                       conv_out_size(wid, k, stride), cout), device=x.device)
+    out = torch.empty((bsz, conv_out_size(h, k, stride, padding),
+                       conv_out_size(wid, k, stride, padding), cout),
+                      device=x.device)
     args = (x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(), bsz, h,
-            wid, cin, cout, k, stride, int(relu))
+            wid, cin, cout, k, stride, padding, int(relu))
     stream = torch.cuda.current_stream(x.device).cuda_stream
     if strip is not None:
         _build.launch("cnn_conv2d_bias_relu_strip", x.device, stream, *args,
@@ -857,7 +897,11 @@ def serving_want(calls: int) -> dict:
             "conv2d_bias_relu.launches_bf16_gather": 0,
             "conv2d_bias_relu.launches_bf16_vec": 0,
             "conv2d_bias_relu.launches_bf16_strip": 0,
-            "conv2d_bias_relu.launches_bf16_wgmma": 0}
+            "conv2d_bias_relu.launches_bf16_wgmma": 0,
+            "conv2d_bias_relu.launches_padded": 0,
+            "conv2d_bias_relu.launches_1x1": 0,
+            "conv2d_bias_relu.launches_bf16_padded": 0,
+            "conv2d_bias_relu.launches_bf16_1x1": 0}
 
 
 def same_arrays(a: np.ndarray, b: np.ndarray) -> bool:
@@ -2776,6 +2820,538 @@ def evaluation_phase(smi: str, tmp: Path, cli: dict) -> dict:
     return total
 
 
+# ---------------------------------------------------------------------------
+# the ResNet, VGG, MobileNet and PipeCNN families: served (phase 17) and
+# trained through the train CLI (phase 18)
+# ---------------------------------------------------------------------------
+
+FAMILY_FIXTURE = ROOT / "tests" / "fixtures" / "family_logits.npz"
+# family -> whether it loads its committed checkpoint (resnet18's 65 MB one
+# stays off the copy sent to the card: it is seeded here, as the VGGs are)
+FAMILIES = {"resnet10": True, "resnet18": False, "mobilenet": True,
+            "pipecnn": True, "vgg8": False, "vgg11": False}
+FAMILY_SEED = 3
+# the families' float32 conv shapes against the plain conv: atol 1e-5 plus
+# 1e-5 x S (S the same conv of |x| and |w|, plus |b|), the float32
+# reassociation bound that grows with K (4,608 products in VGG11's
+# 512-channel layers, where two float32 orders of unit-scale values differ
+# by up to 5e-5); every float32 kernel is also held bit for bit to the
+# direct kernel, which sums in the same order
+FAMILY_CONV_SREL = 1e-5
+# (B, H, Cin, Cout, k, stride, padding) of each family kernel row, at the
+# serving batch: resnet10's stem_conv (a padded Cin-3 stem), PipeCNN's
+# trunk conv (a padded stride-1 3x3), MobileNet's pw_2 (a 1x1)
+FAMILY_ROWS = {"stem": (B, 224, 3, 16, 3, 2, 1),
+               "padded_3x3": (B, 56, 64, 64, 3, 1, 1),
+               "1x1": (B, 56, 64, 128, 1, 1, 0)}
+FAMILY_TRAIN_STEPS = 40     # the fresh resnet10 runs; the others take 20
+FAMILY_GRAD_TOL = 1e-4      # the families' conv Function, the model's bar
+
+
+def family_model(name: str, fixture) -> torch.nn.Module:
+    """``name`` at 224 px on the card in eval mode: its committed checkpoint
+    where ``FAMILIES`` says so, else seeded."""
+    model = get_model(name, num_classes=3, image_size=224, batch_norm=True,
+                      device="cuda",
+                      generator=torch.Generator().manual_seed(FAMILY_SEED))
+    if FAMILIES[name]:
+        payload = read_checkpoint(str(ROOT / str(
+            fixture[f"{name}_checkpoint"])))
+        load_jax_params(model, payload["params"], payload["state"])
+    else:
+        # BN's moving statistics from 20 training-mode forwards on
+        # synthetic images (88% of the way from their init), so that the
+        # seeded net's eval sees normalised activations and O(1) logits
+        rng = np.random.default_rng(FAMILY_SEED)
+        model.train()
+        with torch.no_grad():
+            for _ in range(20):
+                model(uint8_normalize(torch.from_numpy(
+                    synthetic_images(rng, 8)).cuda()))
+    return model.eval()
+
+
+def n_convs(model) -> int:
+    """The model's Conv2D layers, a StackedBlocks' n_blocks times over."""
+    n = 0
+    for layer in model.modules():
+        if isinstance(layer, StackedBlocks):
+            n += layer.n_blocks * sum(isinstance(m, Conv2D)
+                                      for m in layer.block.modules())
+        elif isinstance(layer, Conv2D):
+            n += 1
+    return n
+
+
+def forward_counts(model, dtype=None) -> dict:
+    """The non-zero counters of one eager eval forward (no normalize), and
+    under ``"F.conv2d"`` its calls of ATen's convolution."""
+    x = torch.zeros((2, 224, 224, 3), device="cuda")
+    aten = []
+    real = F.conv2d
+
+    def counting(*args, **kwargs):
+        aten.append(1)
+        return real(*args, **kwargs)
+    torch.cuda.synchronize()
+    reset_launches()
+    with mock.patch.object(F, "conv2d", counting), torch.no_grad():
+        model(x, compute_dtype=dtype)
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in read_counters().items() if v}
+    return counts, len(aten)
+
+
+def conv_bar_f32(x, w, b, stride, padding, y, ref, what) -> float:
+    """A float32 family conv against its plain version: within atol 1e-5 +
+    FAMILY_CONV_SREL x S; returns max |dev| / bar."""
+    s_abs = conv2d(x.abs(), w.abs(), b.abs(), stride, False, padding)
+    dev_ = (y - ref).abs()
+    bar = CONV_ATOL + FAMILY_CONV_SREL * s_abs
+    check(bool((dev_ <= bar).all()), f"{what}: max deviation "
+          f"{dev_.max().item():.3g}, {(dev_ / bar).max().item():.3g} x the "
+          "bar (1e-5 + 1e-5 S)")
+    return (dev_ / bar).max().item()
+
+
+def check_family_convs(model, dtype, x) -> tuple[int, float]:
+    """Every conv launch of one eval forward on ``x``, on the activations
+    the forward gives it, against the plain conv on the card: float32
+    within 1e-5 + 1e-5 x S and bit-equal to the direct kernel; bf16
+    within 1 bf16 ulp + 1e-5 x S; each bit-identical from launch to
+    launch. Returns the distinct shapes checked and the worst dev / bar."""
+    seen, worst = {}, 0.0
+    real = nn_module.conv2d_bias_relu
+
+    def rec(x, w, b, stride, relu, padding=0):
+        y = real(x, w, b, stride, relu, padding)
+        key = (tuple(x.shape), tuple(w.shape), stride, padding, relu)
+        if key not in seen:
+            seen[key] = (x, w, b, y)
+        return y
+
+    with mock.patch.object(nn_module, "conv2d_bias_relu", rec), \
+            torch.no_grad():
+        model(x, compute_dtype=dtype)
+    with torch.no_grad():    # the weights need no gradient here
+        for (xs, ws, stride, padding, relu), (xx, w, b, y) in seen.items():
+            what = (f"{type(model).__name__} conv {xs}x{ws} s{stride} "
+                    f"p{padding} relu={relu} {y.dtype}")
+            ref = conv2d(xx, w, b, stride, relu, padding)
+            again = conv2d_bias_relu(xx, w, b, stride, relu, padding)
+            check(torch.equal(y, again), f"{what}: two launches differ")
+            if y.dtype == BF16:
+                s_abs = conv2d(xx.float().abs(), w.float().abs(),
+                               b.float().abs(), stride, False, padding)
+                dev_ = (y.float() - ref.float()).abs()
+                bar = bf16_ulp(ref) + BF16_CONV_SREL * s_abs
+                check(bool((dev_ <= bar).all()), f"{what}: max deviation "
+                      f"{dev_.max().item():.3g}, "
+                      f"{(dev_ / bar).max().item():.3g} x the bar "
+                      "(1 bf16 ulp + 1e-5 S)")
+                worst = max(worst, (dev_ / bar).max().item())
+            else:
+                worst = max(worst, conv_bar_f32(xx, w, b, stride, padding,
+                                                y, ref, what))
+                check(bits_equal(y, conv_entry(xx, w, b, stride, relu,
+                                               padding=padding)),
+                      f"{what}: differs from the direct kernel")
+    return len(seen), worst
+
+
+def family_photos() -> np.ndarray:
+    fx = np.load(ROOT / "tests" / "fixtures" / "reference_parity.npz")
+    return np.stack([fx[f"image_u8_{i}"] for i in range(6)])
+
+
+def families_serving_phase(smi: str) -> dict:
+    """Phase 17: each family behind ``InferenceEngine`` (buckets 1, 8, 64,
+    one CUDA graph each), float32 and bf16; returns the launches of its
+    counted runs, added up."""
+    fixture = np.load(FAMILY_FIXTURE)
+    rng = np.random.default_rng(17)
+    photos = family_photos()
+    x6 = torch.from_numpy(photos).cuda()
+    x8 = uint8_normalize(torch.cat([x6, torch.flip(x6[:2], dims=(2,))]))
+    imgs64 = synthetic_images(rng, 64)
+    total, lines = {}, []
+    for name in FAMILIES:
+        model = family_model(name, fixture)
+        f32_logits = None
+        for dtype in (None, BF16):
+            tag = f"{name} {'bf16' if dtype else 'float32'}"
+            per_fwd, aten = forward_counts(model, dtype)
+            convs = n_convs(model)
+            pools = sum(isinstance(m, nn_module.MaxPool2D)
+                        for m in model.modules())
+            check(per_fwd.get("conv2d_bias_relu.launches") == convs
+                  and per_fwd.get("max_pool2d_fwd.launches", 0) == pools
+                  and per_fwd.get("conv2d_bias_relu.launches_direct", 0)
+                  + per_fwd.get("conv2d_bias_relu.launches_bf16_gather", 0)
+                  == 1, f"{tag}: one forward launched {per_fwd}; it has "
+                  f"{convs} convs (one a Cin-3 stem) and {pools} pools")
+            depthwise = sum(type(m).__name__ == "DepthwiseConv2D"
+                            for m in model.modules())
+            check(aten == depthwise, f"{tag}: one forward called ATen's "
+                  f"conv {aten} times; only its {depthwise} depthwise convs "
+                  "may")
+            shapes, worst = check_family_convs(model, dtype, x8)
+            want1 = dict(per_fwd, **{"uint8_normalize.launches": 1,
+                                     "uint8_normalize.launches_wide": 1})
+            engine = serving.InferenceEngine(model, buckets=BUCKETS,
+                                             device="cuda",
+                                             compute_dtype=dtype)
+            t = time.perf_counter()
+            engine.warmup()
+            torch.cuda.synchronize()
+            warm_s = time.perf_counter() - t
+            for b in BUCKETS:
+                check(engine._ready[b].launches == want1, f"{tag} bucket "
+                      f"{b}'s capture recorded {engine._ready[b].launches}, "
+                      f"expected {want1}")
+                chunk = synthetic_images(rng, b)
+                labels, probs = engine.predict(chunk)
+                with torch.no_grad():
+                    ep, el = engine._forward(torch.from_numpy(chunk).cuda())
+                check(same_arrays(labels, el.cpu().numpy())
+                      and same_arrays(probs, ep.cpu().numpy()),
+                      f"{tag} bucket {b}: the replay differs from the eager "
+                      "forward")
+            torch.cuda.synchronize()
+            reset_launches()
+            labels, probs = engine.predict(photos)
+            engine.predict(imgs64)
+            torch.cuda.synchronize()
+            counts = {k: v for k, v in read_counters().items() if v}
+            want = {k: 2 * v for k, v in want1.items()}
+            check(counts == want, f"{tag}: predict launches {counts}, "
+                  f"expected {want}")
+            add_up(total, counts)
+            with torch.no_grad():
+                logits = engine.model(uint8_normalize(x6),
+                                      compute_dtype=dtype).float()
+            check(np.array_equal(labels, logits.argmax(-1).cpu().numpy()),
+                  f"{tag}: the engine's labels are not its logits' argmax")
+            if dtype is None:
+                f32_logits = logits
+                if FAMILIES[name]:
+                    ref = torch.from_numpy(fixture[f"{name}_logits"]).cuda()
+                    what = "the fixture"
+                else:
+                    with plain_versions(), torch.no_grad():
+                        ref = model(uint8_to_float(x6))
+                    what = "the plain versions on the card"
+                dev_, scale = scaled_dev(logits, ref)
+                check(dev_ <= LOGIT_ATOL * scale
+                      and np.array_equal(labels,
+                                         ref.argmax(-1).cpu().numpy()),
+                      f"{tag}: logits {dev_:.3g} from {what} (bar "
+                      f"{LOGIT_ATOL * scale:.3g}), labels {labels}, its "
+                      f"{ref.argmax(-1).cpu().numpy()}")
+            else:
+                dev_, scale = scaled_dev(logits, f32_logits)
+                what = "float32"
+                check(dev_ <= BF16_MODEL_TOL * scale, f"{tag}: logits "
+                      f"{dev_:.3g} from float32's (bar "
+                      f"{BF16_MODEL_TOL * scale:.3g})")
+            engine.predict(imgs64)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            reps = 10
+            for _ in range(reps):
+                engine.predict(imgs64)
+            e2e = reps * 64 / (time.perf_counter() - t)
+            xb = torch.from_numpy(imgs64).cuda()
+            with torch.no_grad():
+                graphed, eager = in_turns(engine._ready[64].graph.replay,
+                                          lambda: engine._forward(xb), 10)
+            lines.append(f"{tag}: {e2e:.1f} img/s at bucket 64, graph "
+                         f"{graphed:.4f} ms, eager {eager:.4f} ms; warmup "
+                         f"{warm_s:.2f} s; logits max|dev| {dev_:.3g} from "
+                         f"{what}; labels {labels.tolist()}; {shapes} conv "
+                         f"shapes at {worst:.3f} of their bar")
+            del engine
+            torch.cuda.empty_cache()
+    for line in lines:
+        phase(f"family serving, {line}")
+    phase(f"family serving ({smi}): six families, float32 and bf16, "
+          "replays bit-equal to the eager forward, launches exact, the "
+          "checkpointed logits within 1e-4 x max(1, max|ref|) of "
+          "family_logits.npz")
+    return total
+
+
+def family_row(key: str, dtype, gen) -> tuple:
+    """A kernel row at a family shape: (max |dev| vs plain, ms through the
+    wrapper, plain ms, cuDNN ms, (bound ms, by))."""
+    bsz, h, cin, cout, k, s, p = FAMILY_ROWS[key]
+    dev = torch.device("cuda")
+    x = torch.relu(torch.randn((bsz, h, h, cin), generator=gen, device=dev)) \
+        if cin > 3 else torch.rand((bsz, h, h, cin), generator=gen,
+                                   device=dev)
+    w = torch.randn((k, k, cin, cout), generator=gen, device=dev) * 0.1
+    b = torch.randn((cout,), generator=gen, device=dev) * 0.1
+    if dtype is not None:
+        x, w, b = x.to(dtype), w.to(dtype), b.to(dtype)
+    y = conv2d_bias_relu(x, w, b, s, True, p)
+    ref = conv2d(x, w, b, s, True, p)
+    err = (y.float() - ref.float()).abs().max().item()
+    if dtype is None:
+        conv_bar_f32(x, w, b, s, p, y, ref, f"row {key}")
+    ms = time_ms(lambda: conv2d_bias_relu(x, w, b, s, True, p))
+    plain = time_ms(lambda: conv2d(x, w, b, s, True, p), iters=5)
+    xn, wn = x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1)
+    lib = time_ms(lambda: torch.relu(F.conv2d(xn, wn, b, s, p)))
+    ho = conv_out_size(h, k, s, p)
+    flops = 2.0 * bsz * ho * ho * cout * k * k * cin
+    bound = bound_ms(nbytes(x, w, b, y), flops,
+                     FP32_FLOP_PER_S if dtype is None else BF16_FLOP_PER_S)
+    return err, ms, plain, lib, bound
+
+
+def family_rows(gen, counts: dict) -> list:
+    """The kernels line's rows of the families' conv shapes, each with its
+    launches in phases 17-18 (``counts``)."""
+    c = {k.split(".")[1]: v for k, v in counts.items()
+         if k.startswith("conv2d_bias_relu.")}
+    launches = {
+        "stem": c.get("launches_direct", 0),
+        "stem_bf16": c.get("launches_bf16_gather", 0),
+        "padded_3x3": c.get("launches_padded", 0)
+        - c.get("launches_bf16_padded", 0) - c.get("launches_direct", 0),
+        "padded_3x3_bf16": c.get("launches_bf16_padded", 0)
+        - c.get("launches_bf16_gather", 0),
+        "1x1": c.get("launches_1x1", 0) - c.get("launches_bf16_1x1", 0),
+        "1x1_bf16": c.get("launches_bf16_1x1", 0),
+    }
+    rows, lines = [], []
+    for key in FAMILY_ROWS:
+        for dtype, suffix in ((None, ""), (BF16, "_bf16")):
+            err, ms, plain, lib, bound = family_row(key, dtype, gen)
+            name = f"conv2d_bias_relu_{key}{suffix}"
+            rows.append(entry(name, launches[key + suffix], err, ms, plain,
+                              lib, bound))
+            lines.append(f"{name} {FAMILY_ROWS[key]}: {ms:.4f} ms (plain "
+                         f"{plain:.4f}, cuDNN {lib:.4f}, bound "
+                         f"{bound[0]:.4f} by {bound[1]}), max|dev| "
+                         f"{err:.3g}, {launches[key + suffix]} launches")
+    phase("family conv rows: " + "; ".join(lines))
+    return rows
+
+
+def family_function_phase(gen) -> None:
+    """The conv Function (forward and backward) at one padded stem, one
+    padded stride-1 3x3 and one 1x1 of the families, batch 8, ReLU on,
+    against autograd through the plain conv on the card with the
+    Function's own ReLU mask: float32 dx/dw/db within FAMILY_GRAD_TOL x
+    max(1, max|ref|) of the plain conv taken in float64 (cuDNN's float32
+    dw sums 25,000 products a weight at these shapes and lands up to
+    2.1e-5 x max|ref| from the exact sum, over the AlexNet shapes' 1e-5),
+    bf16 within 2 bf16 ulps of max|ref| of the plain bf16 conv. Prints
+    each dev / max(1, max|ref|)."""
+    worst = {}
+    for key, (_, h, cin, cout, k, s, p) in FAMILY_ROWS.items():
+        bsz = 8
+        x = torch.randn((bsz, h, h, cin), generator=gen, device="cuda")
+        w = torch.randn((k, k, cin, cout), generator=gen, device="cuda") * 0.1
+        b = torch.randn((cout,), generator=gen, device="cuda") * 0.1
+        ho = conv_out_size(h, k, s, p)
+        g = torch.randn((bsz, ho, ho, cout), generator=gen, device="cuda")
+        for dtype in (torch.float32, BF16):
+            xs, ws, bs, gs = (t.to(dtype) for t in (x, w, b, g))
+            leaves = [t.clone().requires_grad_(True) for t in (xs, ws, bs)]
+            got = torch.autograd.grad(
+                conv2d_bias_relu_fn(*leaves, s, True, p), leaves, gs)
+            with torch.no_grad():
+                pre = conv2d_bias_relu(xs, ws, bs, s, False, p)
+            gm = torch.where(pre > 0, gs, torch.zeros_like(gs))
+            ref_dt = torch.float64 if dtype == torch.float32 else BF16
+            leaves = [t.to(ref_dt).requires_grad_(True)
+                      for t in (xs, ws, bs)]
+            ref = torch.autograd.grad(conv2d(*leaves, s, False, p), leaves,
+                                      gm.to(ref_dt))
+            tag = f"{key} {'bf16' if dtype == BF16 else 'f32'}"
+            for what, a, r in zip(("dx", "dw", "db"), got, ref):
+                top = r.abs().max().float()
+                d = (a.double() - r.double()).abs().max().item()
+                if dtype == BF16:
+                    unit = bf16_ulp(top.reshape(1))[0].item()
+                    bar = 2 * unit
+                else:
+                    unit = max(1.0, top.item())
+                    bar = FAMILY_GRAD_TOL * unit
+                check(d <= bar, f"family conv Function {tag} {what}: max "
+                      f"|dev| {d:.3g} over {bar:.3g}")
+                worst[tag] = max(worst.get(tag, 0.0), d / unit)
+    phase("family conv Function, forward and backward against autograd "
+          "through the plain conv on the card, batch 8 (float32: max "
+          "dev / max(1, max|ref|) against float64, bar 1e-4; bf16: in "
+          "bf16 ulps of max|ref|, bar 2): " + ", ".join(
+              f"{k} {v:.3g}" for k, v in worst.items()))
+
+
+def pipecnn_memory_phase(smi: str) -> dict:
+    """PipeCNN (width 64, 8 blocks) at batch 256, 224 px, float32: one
+    training step's peak device memory under remat False, 'full' and
+    'conv'; 'conv' must lie between the other two."""
+    peak = {}
+    x = torch.rand((TRAIN_B, 224, 224, 3), device="cuda",
+                   generator=torch.Generator(device="cuda").manual_seed(5))
+    y = torch.arange(TRAIN_B, device="cuda") % 3
+    for remat in (False, "full", "conv"):
+        model = get_model("pipecnn", num_classes=3, remat=remat,
+                          device="cuda").train()
+        params = list(named_params(model).values())
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        loss = softmax_cross_entropy(model(x).float(), y)
+        grads = torch.autograd.grad(loss, params)
+        torch.cuda.synchronize()
+        peak[remat] = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+        check(bool(torch.isfinite(loss)) and len(grads) == len(params),
+              f"pipecnn remat={remat}: loss {loss.item()}")
+        del model, params, loss, grads
+    check(peak["full"] < peak["conv"] < peak[False],
+          f"pipecnn peak MiB by remat: {peak}")
+    phase(f"PipeCNN (64 wide, 8 blocks) one float32 training step at batch "
+          f"{TRAIN_B}, peak device memory above the weights (MiB): remat "
+          f"False {peak[False]:.1f}, 'full' {peak['full']:.1f}, 'conv' "
+          f"{peak['conv']:.1f} ({smi})")
+    return peak
+
+
+def family_train_want(per_fwd: dict, steps: int, evals: int) -> dict:
+    """The counters of ``steps`` train steps (full augmentation: one
+    rotation each) and ``evals`` eval batches of a family whose eval
+    forward launches ``per_fwd``."""
+    want = {k: v * (steps + evals) for k, v in per_fwd.items()}
+    pools = per_fwd.get("max_pool2d_fwd.launches", 0)
+    if pools:
+        want["max_pool2d_bwd.launches"] = pools * steps
+        bf16 = "max_pool2d_fwd.launches_bf16" in per_fwd
+        want["max_pool2d_bwd.launches_bf16" if bf16
+             else "max_pool2d_bwd.launches_window"] = pools * steps
+    want.update({"uint8_normalize.launches": evals,
+                 "uint8_normalize.launches_wide": evals,
+                 "rotate_shear.launches": steps})
+    return want
+
+
+def families_training_phase(smi: str, tmp: Path, cli: dict) -> dict:
+    """Phase 18: ``tools.train --name <family>`` at the flagship's flags on
+    phase 14's images: resnet10 fresh in bf16 and float32 for 40
+    iterations, then resumed from a copy of its committed checkpoint for
+    20; mobilenet, pipecnn (remat 'conv') and vgg8 for 20 in bf16. Each
+    run's launches exact, its losses finite (falling over the fresh
+    runs), its checkpoint read back equal. Returns the launches, added
+    up."""
+    fixture = np.load(FAMILY_FIXTURE)
+    nv, nt = cli["valid_batches"], cli["test_batches"]
+    base = ["--dataset-path", str(cli["data"]), *cli["sizes"]]
+    f32_flags = [f for f in CLI_FLAGSHIP if f not in ("--compute-dtype",
+                                                      "bfloat16")]
+    resume = tmp / "resnet10_start.ckpt"
+    shutil.copy(ROOT / str(fixture["resnet10_checkpoint"]), resume)
+    start = int(read_checkpoint(str(resume))["step"])
+    runs = [("resnet10", "bf16", CLI_FLAGSHIP, 0, FAMILY_TRAIN_STEPS),
+            ("resnet10", "float32", f32_flags, 0, FAMILY_TRAIN_STEPS),
+            ("resnet10", "bf16, resumed", CLI_FLAGSHIP, start, 20),
+            ("mobilenet", "bf16", CLI_FLAGSHIP, 0, 20),
+            ("pipecnn", "bf16", CLI_FLAGSHIP, 0, 20),
+            ("vgg8", "bf16", CLI_FLAGSHIP, 0, 20)]
+    total, lines = {}, []
+    for name, what, flags, first, steps in runs:
+        dtype = BF16 if "--compute-dtype" in flags else None
+        probe = get_model(name, num_classes=3, image_size=224,
+                          batch_norm=True, device="cuda").eval()
+        per_fwd = forward_counts(probe, dtype)[0]
+        del probe
+        end = first + steps
+        ck = tmp / f"{name}_{what.replace(', ', '_')}"
+        argv = flags + base + ["--name", name, "--checkpoint-dir", str(ck),
+                               "--total-iters", str(end), "--valid-iters",
+                               "20", "--save-iters", "20"]
+        if first:
+            argv += ["--resume", str(resume)]
+        evals = (steps // 20) * nv + nt
+        losses, step_ms = [], []
+        real_make = train_cli.make_device_train_step
+
+        def recording(*args, **kwargs):
+            step = real_make(*args, **kwargs)
+
+            def wrapped(ts):
+                a = torch.cuda.Event(enable_timing=True)
+                e = torch.cuda.Event(enable_timing=True)
+                a.record()
+                ts, m = step(ts)
+                e.record()
+                losses.append(m["loss"].detach().float())
+                step_ms.append((a, e))
+                return ts, m
+            return wrapped
+        times = CliTimes()
+        t = time.perf_counter()
+        with mock.patch.object(train_cli, "make_device_train_step",
+                               recording):
+            text, counts = run_cli(argv, f"train CLI --name {name} {what}",
+                                   family_train_want(per_fwd, steps, evals),
+                                   times)
+        secs = time.perf_counter() - t
+        add_up(total, counts)
+        if first:
+            check(f"resumed from {resume} at step {start}" in text,
+                  f"{name} {what}: did not resume from step {start}")
+        loss = torch.stack(losses).cpu()
+        check(len(loss) == steps and bool(torch.isfinite(loss).all()),
+              f"{name} {what}: {len(loss)} losses, {loss}")
+        first5, last5 = loss[:5].mean().item(), loss[-5:].mean().item()
+        if not first and name == "resnet10":
+            check(last5 < first5, f"{name} {what}: the mean loss of the last "
+                  f"5 steps {last5:.4f} is not below the first 5's "
+                  f"{first5:.4f}")
+        dev_ms = [a.elapsed_time(e) for a, e in step_ms[-10:]]
+        # the checkpoint it wrote, through a fresh train state and back
+        path = sorted(ck.glob(f"iter_{end}_*.ckpt"))
+        check(len(path) == 1, f"{name} {what}: checkpoints "
+              f"{sorted(p.name for p in ck.glob('*.ckpt'))}")
+        model = get_model(name, num_classes=3, image_size=224,
+                          batch_norm=True, device="cuda")
+        opt = make_optimizer("momentum", 1.5e-2, schedule="cosine",
+                             total_steps=end)
+        ts = load_checkpoint(str(path[0]), create_train_state(model, opt))
+        again = tmp / "again.ckpt"
+        save_checkpoint(str(again), ts)
+        a, b = read_checkpoint(str(path[0])), read_checkpoint(str(again))
+        check(ts.step == end and same_trees(a["params"], b["params"])
+              and same_trees(a["state"], b["state"])
+              and same_trees(a["opt_state"][0].trace,
+                             b["opt_state"][0].trace),
+              f"{name} {what}: the checkpoint does not read back equal")
+        test = [l for l in text.splitlines() if l.startswith("Test===>")]
+        lines.append(f"{name} {what}, iterations {first + 1}-{end}: "
+                     f"{TRAIN_B * steps / times.s['loop']:.1f} img/s over the "
+                     f"loop ({times.s['loop']:.3f} s), device "
+                     f"{float(np.mean(dev_ms)):.3f} ms a step (CUDA events, "
+                     f"last 10); loss first 5 {first5:.4f}, last 5 "
+                     f"{last5:.4f}; {test[-1] if test else ''}; {secs:.1f} s")
+    for line in lines:
+        phase(f"family training, {line}")
+    phase(f"family training ({smi}): launches exact in every run (per step "
+          "one conv launch per Conv2D layer, PipeCNN's remat='conv' "
+          "recomputing none), checkpoints read back equal")
+    return total
+
+
+def same_trees(a, b) -> bool:
+    if isinstance(a, dict):
+        return (isinstance(b, dict) and sorted(a) == sorted(b)
+                and all(same_trees(a[k], b[k]) for k in a))
+    return np.array_equal(np.asarray(a), np.asarray(b))
+
+
 def ptxas_report(log: str) -> dict:
     """kernel -> (its ``Used ... registers ... smem`` line, its spills) from
     ``-Xptxas -v``; a template's arguments are kept, shortened, in the name."""
@@ -2875,13 +3451,25 @@ def main() -> int:
         cli, flagship = cli_phase(Path(tmp))
         add_up(cli, inference_phase(smi, Path(tmp)))
         add_up(cli, evaluation_phase(smi, Path(tmp), flagship))
+        # the families (phases 17-18), each counted run with the counters
+        # at 0 just before it
+        fam = families_serving_phase(smi)
+        family_function_phase(gen)
+        pipecnn_memory_phase(smi)
+        add_up(fam, families_training_phase(smi, Path(tmp), flagship))
 
     # the CLIs' launches (phases 14-16): float32 ones on the float32 rows,
     # the rotation in either dtype on its one row
     cli_f32 = {name: cli.get(f"{name}.launches", 0)
                - cli.get(f"{name}.launches_bf16", 0) for name in KERNELS}
+    # the families' float32 launches of the kernels they share with AlexNet
+    # (normalize, pool, rotation); their convs have rows of their own
+    fam_f32 = {name: 0 if name == "conv2d_bias_relu" else
+               fam.get(f"{name}.launches", 0)
+               - fam.get(f"{name}.launches_bf16", 0) for name in KERNELS}
     kernels = [entry(name, launches.get(name, 0) + trained[name]
-                     + cli_f32[name], *measured[name]) for name in KERNELS]
+                     + cli_f32[name] + fam_f32[name], *measured[name])
+               for name in KERNELS]
     # the bf16 rows, as the float32 ones: the conv's four layers and the
     # pool forward at B = 64 (the serving shapes), the pool backward at the
     # training batch; through the wrapper
@@ -2898,9 +3486,11 @@ def main() -> int:
                                 pool16[TRAIN_B]["bwd"][4]),
     }
     kernels += [entry(name, counts16.get(counter, 0)
-                      + served16.get(counter, 0) + cli.get(counter, 0),
-                      *rows16[name])
+                      + served16.get(counter, 0) + cli.get(counter, 0)
+                      + (0 if name == "conv2d_bias_relu_bf16"
+                         else fam.get(counter, 0)), *rows16[name])
                 for name, counter in BF16_KERNELS.items()]
+    kernels += family_rows(gen, fam)
     phase("all checks passed")
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -1,4 +1,4 @@
-// VALID k x k convolution + bias (+ ReLU), NHWC / HWIO, for Hopper: three
+// k x k convolution + bias (+ ReLU), NHWC / HWIO, for Hopper: three
 // float32 kernels, chosen by shape in ops/hopper/conv.py:conv_tile_plan, and
 // three bf16 tensor-core kernels behind one entry point (the last sections
 // of this file: the mma.sync kernel, the strip and the wgmma kernel),
@@ -7,7 +7,13 @@
 // Replaces: cnn_tpu/ops/pallas/conv.py, conv2d_bias_relu_pallas -> _forward
 // (kernel body _conv_kernel): k*k shifted [Ho*Wo, Cin] x [Cin, Cout]
 // products summed in f32, then + bias, then an optional ReLU, any stride,
-// output extent (H - k) / stride + 1.
+// output extent (H + 2*pad - k) / stride + 1. The Pallas kernel is VALID
+// only; cnn_tpu's padded convs (the ResNet, VGG, MobileNet and PipeCNN
+// families: pad 1 at k 3) run through XLA, and here through these kernels:
+// every entry point takes the zero padding `pad`, and a tap that falls in
+// it reads zero (the direct kernel skips it, the others zero-fill its
+// copy: the same sum, since a zero product leaves a float32 sum as it is).
+// The strip kernels stage whole input rows and take pad 0 only.
 //
 // All three are implicit GEMMs: M = B*Ho*Wo output pixels, N = Cout,
 // K = k*k*Cin in (dy, dx, ci) order, in which the HWIO weights are already a
@@ -111,13 +117,40 @@ namespace {
 
 constexpr int kCoPerThread = 4;
 
+// Zero padding: output pixel (oy, ox) reads input rows oy*s - pad + dy and
+// columns ox*s - pad + dx, and a tap outside the image reads zero. Every
+// kernel but the strips takes pad in [0, kPadMax] on images of at most
+// kExtentMax rows and columns, so that the shared-memory kernels can pack
+// a row's first input row and column into one int (pack_yx).
+constexpr int kPadMax = 16;
+constexpr int kExtentMax = 16384;
+
+__host__ __device__ inline bool pad_ok(int H, int W, int k, int pad) {
+  return pad >= 0 && pad <= kPadMax && H <= kExtentMax && W <= kExtentMax &&
+         H + 2 * pad >= k && W + 2 * pad >= k;
+}
+
+// (iy0 + kPadMax) << 16 | (ix0 + kPadMax) for the input row iy0 = oy*s -
+// pad and column ix0 = ox*s - pad of an output pixel; kRowPastM for a row
+// past M, whose every tap lies outside (tap_inside)
+constexpr int kRowPastM = 0x7FFF0000;
+__device__ __forceinline__ int pack_yx(int oy, int ox, int s, int pad) {
+  return (oy * s - pad + kPadMax) << 16 | (ox * s - pad + kPadMax);
+}
+__device__ __forceinline__ bool tap_inside(int yx, int dy, int dx, int H,
+                                           int W) {
+  const int iy = (yx >> 16) - kPadMax + dy;
+  const int ix = (yx & 0xFFFF) - kPadMax + dx;
+  return (unsigned)iy < (unsigned)H && (unsigned)ix < (unsigned)W;
+}
+
 template <bool kVec>
 __global__ void conv2d_bias_relu_kernel(const float* __restrict__ x,
                                         const float* __restrict__ w,
                                         const float* __restrict__ bias,
                                         float* __restrict__ y, int B, int H,
                                         int W, int Cin, int Cout, int k, int s,
-                                        int Ho, int Wo, bool relu) {
+                                        int p, int Ho, int Wo, bool relu) {
   const int G = (Cout + kCoPerThread - 1) / kCoPerThread;
   const int64_t total = (int64_t)B * Ho * Wo * G;
   const int64_t step = (int64_t)gridDim.x * blockDim.x;
@@ -131,10 +164,12 @@ __global__ void conv2d_bias_relu_kernel(const float* __restrict__ x,
     const int64_t b = t / Ho;
     float acc[kCoPerThread] = {0.f, 0.f, 0.f, 0.f};
     for (int dy = 0; dy < k; ++dy) {
-      const float* xrow = x + ((b * H + (int64_t)oy * s + dy) * W +
-                               (int64_t)ox * s) * Cin;
+      const int iy = oy * s + dy - p;   // a tap in the padding adds nothing
+      if (iy < 0 || iy >= H) continue;
       for (int dx = 0; dx < k; ++dx) {
-        const float* xp = xrow + (int64_t)dx * Cin;
+        const int ix = ox * s + dx - p;
+        if (ix < 0 || ix >= W) continue;
+        const float* xp = x + ((b * H + iy) * W + ix) * (int64_t)Cin;
         const float* wp = w + (int64_t)(dy * k + dx) * Cin * Cout + co0;
         for (int ci = 0; ci < Cin; ++ci) {
           const float xv = __ldg(xp + ci);
@@ -176,8 +211,10 @@ __global__ void conv2d_bias_relu_kernel(const float* __restrict__ x,
 extern "C" int cnn_conv2d_bias_relu(void* stream, const void* x, const void* w,
                                     const void* b, void* y, int B, int H, int W,
                                     int Cin, int Cout, int k, int stride,
-                                    int relu) {
-  const int Ho = (H - k) / stride + 1, Wo = (W - k) / stride + 1;
+                                    int pad, int relu) {
+  if (!pad_ok(H, W, k, pad)) return (int)cudaErrorInvalidValue;
+  const int Ho = (H + 2 * pad - k) / stride + 1;
+  const int Wo = (W + 2 * pad - k) / stride + 1;
   const int G = (Cout + kCoPerThread - 1) / kCoPerThread;
   const int64_t total = (int64_t)B * Ho * Wo * G;
   const int threads = 256;
@@ -194,11 +231,11 @@ extern "C" int cnn_conv2d_bias_relu(void* stream, const void* x, const void* w,
   if (vec)
     conv2d_bias_relu_kernel<true><<<(unsigned)blocks, threads, 0,
                                     (cudaStream_t)stream>>>(
-        xf, wf, bf, yf, B, H, W, Cin, Cout, k, stride, Ho, Wo, relu != 0);
+        xf, wf, bf, yf, B, H, W, Cin, Cout, k, stride, pad, Ho, Wo, relu != 0);
   else
     conv2d_bias_relu_kernel<false><<<(unsigned)blocks, threads, 0,
                                      (cudaStream_t)stream>>>(
-        xf, wf, bf, yf, B, H, W, Cin, Cout, k, stride, Ho, Wo, relu != 0);
+        xf, wf, bf, yf, B, H, W, Cin, Cout, k, stride, pad, Ho, Wo, relu != 0);
   return (int)cudaGetLastError();
 }
 
@@ -232,7 +269,7 @@ __global__ void __launch_bounds__((BM / TM) * (BN / TN))
                         const float* __restrict__ w,
                         const float* __restrict__ bias,
                         float* __restrict__ y, int H, int W, int Cin,
-                        int Cout, int k, int s, int Ho, int Wo, int M,
+                        int Cout, int k, int s, int p, int Ho, int Wo, int M,
                         bool relu) {
   constexpr int kThreads = (BM / TM) * (BN / TN);
   constexpr int kAChunks = BM * kBK / 4;   // 16-byte chunks per A slice
@@ -255,37 +292,42 @@ __global__ void __launch_bounds__((BM / TM) * (BN / TN))
   const int m0 = blockIdx.x * BM;
   const int n0 = blockIdx.y * BN;
 
-  // the rows this thread copies, and their int64 bases in x
+  // the rows this thread copies: their int64 bases in x (the pixel at
+  // their first tap, which may lie in the padding) and that pixel's row
+  // and column (pack_yx; kRowPastM past M)
   int64_t a_base[kAIters];
-  bool a_valid[kAIters];
+  int a_yx[kAIters];
 #pragma unroll
   for (int i = 0; i < kAIters; ++i) {
     const int c = tid + i * kThreads;
     const int m = m0 + c / 2;
-    a_valid[i] = c < kAChunks && m < M;
-    const int mm = a_valid[i] ? m : 0;
+    const bool valid = c < kAChunks && m < M;
+    const int mm = valid ? m : 0;
     const int ox = mm % Wo;
     const int t = mm / Wo;
     const int oy = t % Ho;
     const int64_t b = t / Ho;
-    a_base[i] = ((b * H + (int64_t)oy * s) * W + (int64_t)ox * s) * Cin +
-                (c % 2) * 4;
+    a_base[i] = ((b * H + (int64_t)oy * s - p) * W + (int64_t)ox * s - p) *
+                    Cin + (c % 2) * 4;
+    a_yx[i] = valid ? pack_yx(oy, ox, s, p) : kRowPastM;
   }
 
   // slices are loaded in k order: the offset of slice kt in x,
   // (dy*W + dx)*Cin + ci0, grows by 8 within a row of taps (the next dx
   // starts where the last one's channels end) and jumps by (W - k)*Cin to
-  // the next dy
+  // the next dy; a row's slice whose tap lies in the padding is zero-filled
   int64_t koff = 0;
-  int row_left = k * Cin / kBK;   // slices left in this row of taps
+  int tdy = 0, tdx = 0, tci = 0;   // the slice's tap and first channel
   auto load_slice = [&](int buf, int kt) {
     const int k0 = kt * kBK;
 #pragma unroll
     for (int i = 0; i < kAIters; ++i) {
       const int c = tid + i * kThreads;
-      if (c < kAChunks)
+      if (c < kAChunks) {
+        const bool ok = tap_inside(a_yx[i], tdy, tdx, H, W);
         cp_async16(&sa[buf][(c / 2) * kBKPad + (c % 2) * 4],
-                   a_valid[i] ? x + a_base[i] + koff : x, a_valid[i]);
+                   ok ? x + a_base[i] + koff : x, ok);
+      }
     }
 #pragma unroll
     for (int i = 0; i < kBIters; ++i) {
@@ -298,9 +340,13 @@ __global__ void __launch_bounds__((BM / TM) * (BN / TN))
                  ok ? w + (int64_t)(k0 + r) * Cout + n : w, ok);
     }
     koff += kBK;
-    if (--row_left == 0) {
-      row_left = k * Cin / kBK;
-      koff += (int64_t)(W - k) * Cin;
+    if ((tci += kBK) == Cin) {
+      tci = 0;
+      if (++tdx == k) {
+        tdx = 0;
+        ++tdy;
+        koff += (int64_t)(W - k) * Cin;
+      }
     }
   };
 
@@ -382,13 +428,13 @@ __global__ void __launch_bounds__((BM / TM) * (BN / TN))
 template <int BM, int BN, int TM, int TN>
 cudaError_t launch_tiled(cudaStream_t stream, const float* x, const float* w,
                          const float* b, float* y, int B, int H, int W,
-                         int Cin, int Cout, int k, int s, bool relu) {
-  const int Ho = (H - k) / s + 1, Wo = (W - k) / s + 1;
+                         int Cin, int Cout, int k, int s, int p, bool relu) {
+  const int Ho = (H + 2 * p - k) / s + 1, Wo = (W + 2 * p - k) / s + 1;
   const int M = B * Ho * Wo;
   const dim3 grid((M + BM - 1) / BM, (Cout + BN - 1) / BN);
   conv2d_tiled_kernel<BM, BN, TM, TN>
       <<<grid, (BM / TM) * (BN / TN), 0, stream>>>(x, w, b, y, H, W, Cin,
-                                                   Cout, k, s, Ho, Wo, M,
+                                                   Cout, k, s, p, Ho, Wo, M,
                                                    relu);
   return cudaGetLastError();
 }
@@ -399,8 +445,9 @@ extern "C" int cnn_conv2d_bias_relu_tiled(void* stream, const void* x,
                                           const void* w, const void* b,
                                           void* y, int B, int H, int W,
                                           int Cin, int Cout, int k,
-                                          int stride, int relu, int tile) {
-  if (Cin % kBK != 0 || Cout % 4 != 0 ||
+                                          int stride, int pad, int relu,
+                                          int tile) {
+  if (Cin % kBK != 0 || Cout % 4 != 0 || !pad_ok(H, W, k, pad) ||
       reinterpret_cast<uintptr_t>(x) % 16 != 0 ||
       reinterpret_cast<uintptr_t>(w) % 16 != 0 ||
       reinterpret_cast<uintptr_t>(y) % 16 != 0)
@@ -412,12 +459,12 @@ extern "C" int cnn_conv2d_bias_relu_tiled(void* stream, const void* x,
   float* yf = static_cast<float*>(y);
   const bool r = relu != 0;
   switch (tile) {
-    case 0: return (int)launch_tiled<128, 128, 8, 8>(st, xf, wf, bf, yf, B, H, W, Cin, Cout, k, stride, r);
-    case 1: return (int)launch_tiled<64, 128, 8, 8>(st, xf, wf, bf, yf, B, H, W, Cin, Cout, k, stride, r);
-    case 2: return (int)launch_tiled<128, 64, 8, 8>(st, xf, wf, bf, yf, B, H, W, Cin, Cout, k, stride, r);
-    case 3: return (int)launch_tiled<64, 64, 8, 4>(st, xf, wf, bf, yf, B, H, W, Cin, Cout, k, stride, r);
-    case 4: return (int)launch_tiled<128, 32, 8, 4>(st, xf, wf, bf, yf, B, H, W, Cin, Cout, k, stride, r);
-    case 5: return (int)launch_tiled<64, 32, 4, 4>(st, xf, wf, bf, yf, B, H, W, Cin, Cout, k, stride, r);
+    case 0: return (int)launch_tiled<128, 128, 8, 8>(st, xf, wf, bf, yf, B, H, W, Cin, Cout, k, stride, pad, r);
+    case 1: return (int)launch_tiled<64, 128, 8, 8>(st, xf, wf, bf, yf, B, H, W, Cin, Cout, k, stride, pad, r);
+    case 2: return (int)launch_tiled<128, 64, 8, 8>(st, xf, wf, bf, yf, B, H, W, Cin, Cout, k, stride, pad, r);
+    case 3: return (int)launch_tiled<64, 64, 8, 4>(st, xf, wf, bf, yf, B, H, W, Cin, Cout, k, stride, pad, r);
+    case 4: return (int)launch_tiled<128, 32, 8, 4>(st, xf, wf, bf, yf, B, H, W, Cin, Cout, k, stride, pad, r);
+    case 5: return (int)launch_tiled<64, 32, 4, 4>(st, xf, wf, bf, yf, B, H, W, Cin, Cout, k, stride, pad, r);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -547,8 +594,11 @@ extern "C" int cnn_conv2d_bias_relu_strip(void* stream, const void* x,
                                           const void* w, const void* b,
                                           void* y, int B, int H, int W,
                                           int Cin, int Cout, int k,
-                                          int stride, int relu, int rows) {
-  if (Cin < 1 || Cin > 4 || Cout % 4 != 0 || (W * Cin) % 4 != 0 ||
+                                          int stride, int pad, int relu,
+                                          int rows) {
+  // the strip stages whole input rows: no padding (the plan sends a
+  // padded conv to the tiled or the direct kernel)
+  if (pad != 0 || Cin < 1 || Cin > 4 || Cout % 4 != 0 || (W * Cin) % 4 != 0 ||
       B > 65535 || reinterpret_cast<uintptr_t>(x) % 16 != 0 ||
       reinterpret_cast<uintptr_t>(y) % 16 != 0)
     return (int)cudaErrorInvalidValue;
@@ -663,11 +713,16 @@ __device__ __forceinline__ void ldmatrix_x2_trans(uint32_t* r,
       : "r"(addr));
 }
 
-// the offset in x of k = (dy*k + dx)*Cin + ci from a row's base
-__device__ __forceinline__ int64_t tap_offset(int kg, int Cin, int k, int W) {
+// column kg = (dy*k + dx)*Cin + ci of K: its tap, and its offset in x from
+// a row's base (the pixel at the row's first tap)
+struct Tap {
+  int dy, dx;
+  int64_t off;
+};
+__device__ __forceinline__ Tap tap_of(int kg, int Cin, int k, int W) {
   const int tap = kg / Cin, ci = kg - tap * Cin;
   const int dy = tap / k, dx = tap - dy * k;
-  return (int64_t)(dy * W + dx) * Cin + ci;
+  return {dy, dx, (int64_t)(dy * W + dx) * Cin + ci};
 }
 
 template <int MT, int NT, bool kVecA>
@@ -676,30 +731,34 @@ __global__ void __launch_bounds__(kBfThreads)
                        const __nv_bfloat16* __restrict__ w,
                        const __nv_bfloat16* __restrict__ bias,
                        __nv_bfloat16* __restrict__ y, int H, int W, int Cin,
-                       int Cout, int k, int s, int Ho, int Wo, int M, int K,
-                       bool relu) {
+                       int Cout, int k, int s, int p, int Ho, int Wo, int M,
+                       int K, bool relu) {
   constexpr int BM = kBfWarps * 16 * MT;
   constexpr int BN = 8 * NT;
   constexpr int kBStride = BN + 8;
-  static_assert(2 * (BM * kBfAStride + kBfBK * kBStride) * 2 + BM * 8 <=
+  static_assert(2 * (BM * kBfAStride + kBfBK * kBStride) * 2 + BM * 12 <=
                     48 * 1024, "static shared memory");
 
   __shared__ __align__(16) __nv_bfloat16 sa[2][BM * kBfAStride];
   __shared__ __align__(16) __nv_bfloat16 sb[2][kBfBK * kBStride];
-  __shared__ int64_t rowbase[BM];
+  __shared__ int64_t rowbase[BM];   // the pixel at the row's first tap
+  __shared__ int rowyx[BM];         // its row and column (pack_yx)
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
   for (int r = tid; r < BM; r += kBfThreads) {
     const int m = m0 + r;
-    int64_t base = -1;
+    int64_t base = 0;
+    int yx = kRowPastM;
     if (m < M) {
       const int ox = m % Wo, t = m / Wo;
       const int oy = t % Ho;
       const int64_t b = t / Ho;
-      base = ((b * H + (int64_t)oy * s) * W + (int64_t)ox * s) * Cin;
+      base = ((b * H + (int64_t)oy * s - p) * W + (int64_t)ox * s - p) * Cin;
+      yx = pack_yx(oy, ox, s, p);
     }
     rowbase[r] = base;
+    rowyx[r] = yx;
   }
   __syncthreads();
 
@@ -711,22 +770,23 @@ __global__ void __launch_bounds__(kBfThreads)
       const int c = tid & 3;            // this thread's chunk column
       const int kc = k0 + 8 * c;
       const bool kok = kc < K;          // K % 8 == 0: a chunk is all in
-      const int64_t off = kok ? tap_offset(kc, Cin, k, W) : 0;
+      Tap tp = {0, 0, 0};   // decoded only inside K (no spill)
+      if (kok) tp = tap_of(kc, Cin, k, W);
       for (int r = tid >> 2; r < BM; r += kBfThreads / 4) {
-        const int64_t base = rowbase[r];
-        const bool ok = kok && base >= 0;
-        cp_async16(&sa[buf][r * kBfAStride + 8 * c], ok ? x + base + off : x,
-                   ok);
+        const bool ok = kok && tap_inside(rowyx[r], tp.dy, tp.dx, H, W);
+        cp_async16(&sa[buf][r * kBfAStride + 8 * c],
+                   ok ? x + rowbase[r] + tp.off : x, ok);
       }
     } else {
       const int kg = k0 + lane;         // this lane's column
       const bool kok = kg < K;
-      const int64_t off = kok ? tap_offset(kg, Cin, k, W) : 0;
+      Tap tp = {0, 0, 0};
+      if (kok) tp = tap_of(kg, Cin, k, W);
       unsigned short* dst = reinterpret_cast<unsigned short*>(sa[buf]);
       for (int r = warp; r < BM; r += kBfWarps) {
-        const int64_t base = rowbase[r];
+        const bool ok = kok && tap_inside(rowyx[r], tp.dy, tp.dx, H, W);
         dst[r * kBfAStride + lane] =
-            kok && base >= 0 ? xs[base + off] : (unsigned short)0;
+            ok ? xs[rowbase[r] + tp.off] : (unsigned short)0;
       }
     }
     for (int c = tid; c < kBfBK * NT; c += kBfThreads) {
@@ -813,13 +873,13 @@ template <int MT, int NT, bool kVecA>
 cudaError_t launch_bf16(cudaStream_t stream, const __nv_bfloat16* x,
                         const __nv_bfloat16* w, const __nv_bfloat16* b,
                         __nv_bfloat16* y, int B, int H, int W, int Cin,
-                        int Cout, int k, int s, bool relu) {
-  const int Ho = (H - k) / s + 1, Wo = (W - k) / s + 1;
+                        int Cout, int k, int s, int p, bool relu) {
+  const int Ho = (H + 2 * p - k) / s + 1, Wo = (W + 2 * p - k) / s + 1;
   const int M = B * Ho * Wo;
   constexpr int BM = kBfWarps * 16 * MT, BN = 8 * NT;
   const dim3 grid((M + BM - 1) / BM, (Cout + BN - 1) / BN);
   conv2d_bf16_kernel<MT, NT, kVecA><<<grid, kBfThreads, 0, stream>>>(
-      x, w, b, y, H, W, Cin, Cout, k, s, Ho, Wo, M, k * k * Cin, relu);
+      x, w, b, y, H, W, Cin, Cout, k, s, p, Ho, Wo, M, k * k * Cin, relu);
   return cudaGetLastError();
 }
 
@@ -828,16 +888,16 @@ cudaError_t launch_bf16_tile(int tile, cudaStream_t st,
                              const __nv_bfloat16* x, const __nv_bfloat16* w,
                              const __nv_bfloat16* b, __nv_bfloat16* y, int B,
                              int H, int W, int Cin, int Cout, int k, int s,
-                             bool r) {
+                             int p, bool r) {
   switch (tile) {   // (MT, NT), in the order of BF16_TILES
-    case 0: return launch_bf16<1, 2, kVecA>(st, x, w, b, y, B, H, W, Cin, Cout, k, s, r);
-    case 1: return launch_bf16<1, 4, kVecA>(st, x, w, b, y, B, H, W, Cin, Cout, k, s, r);
-    case 2: return launch_bf16<1, 8, kVecA>(st, x, w, b, y, B, H, W, Cin, Cout, k, s, r);
-    case 3: return launch_bf16<1, 16, kVecA>(st, x, w, b, y, B, H, W, Cin, Cout, k, s, r);
-    case 4: return launch_bf16<2, 2, kVecA>(st, x, w, b, y, B, H, W, Cin, Cout, k, s, r);
-    case 5: return launch_bf16<2, 4, kVecA>(st, x, w, b, y, B, H, W, Cin, Cout, k, s, r);
-    case 6: return launch_bf16<2, 8, kVecA>(st, x, w, b, y, B, H, W, Cin, Cout, k, s, r);
-    case 7: return launch_bf16<2, 16, kVecA>(st, x, w, b, y, B, H, W, Cin, Cout, k, s, r);
+    case 0: return launch_bf16<1, 2, kVecA>(st, x, w, b, y, B, H, W, Cin, Cout, k, s, p, r);
+    case 1: return launch_bf16<1, 4, kVecA>(st, x, w, b, y, B, H, W, Cin, Cout, k, s, p, r);
+    case 2: return launch_bf16<1, 8, kVecA>(st, x, w, b, y, B, H, W, Cin, Cout, k, s, p, r);
+    case 3: return launch_bf16<1, 16, kVecA>(st, x, w, b, y, B, H, W, Cin, Cout, k, s, p, r);
+    case 4: return launch_bf16<2, 2, kVecA>(st, x, w, b, y, B, H, W, Cin, Cout, k, s, p, r);
+    case 5: return launch_bf16<2, 4, kVecA>(st, x, w, b, y, B, H, W, Cin, Cout, k, s, p, r);
+    case 6: return launch_bf16<2, 8, kVecA>(st, x, w, b, y, B, H, W, Cin, Cout, k, s, p, r);
+    case 7: return launch_bf16<2, 16, kVecA>(st, x, w, b, y, B, H, W, Cin, Cout, k, s, p, r);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -1287,8 +1347,8 @@ __global__ void __launch_bounds__(kWgThreads * SPLIT)
                              const __nv_bfloat16* __restrict__ w,
                              const __nv_bfloat16* __restrict__ bias,
                              __nv_bfloat16* __restrict__ y, int H, int W,
-                             int Cin, int Cout, int k, int s, int Ho, int Wo,
-                             int M, int K, bool relu) {
+                             int Cin, int Cout, int k, int s, int p, int Ho,
+                             int Wo, int M, int K, bool relu) {
   constexpr int BM = 64 * MT;
   constexpr int kCpr = BK / 8;         // 16-byte chunks of an A row
   constexpr int kASbo = kWgCore * kCpr;
@@ -1315,21 +1375,27 @@ __global__ void __launch_bounds__(kWgThreads * SPLIT)
   const int per = (KT + SPLIT - 1) / SPLIT;
   const int kt0 = wg * per, nk = max(0, min(KT, kt0 + per) - kt0);
 
-  // this thread's A rows (-1 past M) and chunk column: copy i of thread t
-  // is chunk idx = t + 128 i, row 8 * (idx / (8 * kCpr)) + idx % 8, column
-  // (idx / 8) % kCpr, at byte 16 * idx of the stage (the core matrices'
-  // order), so a warp's 32 copies land on 512 contiguous bytes
+  // this thread's A rows (the pixel at the row's first tap, and its row
+  // and column packed by pack_yx: kRowPastM past M) and chunk column: copy
+  // i of thread t is chunk idx = t + 128 i, row 8 * (idx / (8 * kCpr)) +
+  // idx % 8, column (idx / 8) % kCpr, at byte 16 * idx of the stage (the
+  // core matrices' order), so a warp's 32 copies land on 512 contiguous
+  // bytes. A chunk whose tap lies in the padding is zero-filled, as past M
   int64_t base[kARows];
+  int yx[kARows];
 #pragma unroll
   for (int i = 0; i < kARows; ++i) {
     const int idx = t + kWgThreads * i;
     const int m = m0 + 8 * (idx / (8 * kCpr)) + (idx & 7);
-    base[i] = -1;
+    base[i] = 0;
+    yx[i] = kRowPastM;
     if (m < M) {
       const int ox = m % Wo, q = m / Wo;
       const int oy = q % Ho;
       const int64_t bb = q / Ho;
-      base[i] = ((bb * H + (int64_t)oy * s) * W + (int64_t)ox * s) * Cin;
+      base[i] = ((bb * H + (int64_t)oy * s - p) * W + (int64_t)ox * s - p) *
+                Cin;
+      yx[i] = pack_yx(oy, ox, s, p);
     }
   }
   const int ca = (t >> 3) % kCpr;
@@ -1339,12 +1405,12 @@ __global__ void __launch_bounds__(kWgThreads * SPLIT)
     unsigned char* sb = sa + kABytes;
     const int kc = kt * BK + 8 * ca;
     const bool kok = kc < K;          // K % 8 == 0: a chunk is all in
-    const int64_t off = kok ? tap_offset(kc, Cin, k, W) : 0;
+    const Tap tp = tap_of(kok ? kc : 0, Cin, k, W);
 #pragma unroll
     for (int i = 0; i < kARows; ++i) {
-      const bool ok = kok && base[i] >= 0;
+      const bool ok = kok && tap_inside(yx[i], tp.dy, tp.dx, H, W);
       void* dst = sa + 16 * (t + kWgThreads * i);
-      const void* src = ok ? x + base[i] + off : x;
+      const void* src = ok ? x + base[i] + tp.off : x;
       if (kWgProbe & 2)
         continue;
       if (kAL1)
@@ -1467,8 +1533,8 @@ template <int BN, int MT, int BK, int S, int SPLIT, bool kAL1>
 cudaError_t launch_bf16_wgmma(cudaStream_t stream, const __nv_bfloat16* x,
                               const __nv_bfloat16* w, const __nv_bfloat16* b,
                               __nv_bfloat16* y, int B, int H, int W, int Cin,
-                              int Cout, int k, int s, bool relu) {
-  const int Ho = (H - k) / s + 1, Wo = (W - k) / s + 1;
+                              int Cout, int k, int s, int p, bool relu) {
+  const int Ho = (H + 2 * p - k) / s + 1, Wo = (W + 2 * p - k) / s + 1;
   const int M = B * Ho * Wo;
   constexpr int smem = SPLIT * S * wgmma_stage_bytes<BN, MT, BK>();
   if (smem > 48 * 1024) {
@@ -1480,7 +1546,7 @@ cudaError_t launch_bf16_wgmma(cudaStream_t stream, const __nv_bfloat16* x,
   const dim3 grid((M + 64 * MT - 1) / (64 * MT), (Cout + BN - 1) / BN);
   conv2d_bf16_wgmma_kernel<BN, MT, BK, S, SPLIT, kAL1>
       <<<grid, kWgThreads * SPLIT, smem, stream>>>(
-          x, w, b, y, H, W, Cin, Cout, k, s, Ho, Wo, M, k * k * Cin, relu);
+          x, w, b, y, H, W, Cin, Cout, k, s, p, Ho, Wo, M, k * k * Cin, relu);
   return cudaGetLastError();
 }
 
@@ -1493,12 +1559,12 @@ extern "C" int cnn_conv2d_bias_relu_bf16(void* stream, const void* x,
                                          const void* w, const void* b,
                                          void* y, int B, int H, int W,
                                          int Cin, int Cout, int k,
-                                         int stride, int relu, int variant,
-                                         int tile) {
+                                         int stride, int pad, int relu,
+                                         int variant, int tile) {
   const uintptr_t xa = reinterpret_cast<uintptr_t>(x);
   const uintptr_t ya = reinterpret_cast<uintptr_t>(y);
   if (Cout % 8 != 0 || reinterpret_cast<uintptr_t>(w) % 16 != 0 ||
-      ya % 4 != 0 ||
+      ya % 4 != 0 || !pad_ok(H, W, k, pad) || (variant == 2 && pad != 0) ||
       (variant == 1 && (Cin % 8 != 0 || xa % 16 != 0)) ||
       (variant == 2 && (k * Cin > kStripBfKc || (stride * Cin) % 2 != 0 ||
                         (W * Cin) % 8 != 0 || Cout > 8 * kStripBfNtMax ||
@@ -1513,8 +1579,8 @@ extern "C" int cnn_conv2d_bias_relu_bf16(void* stream, const void* x,
   __nv_bfloat16* yb = static_cast<__nv_bfloat16*>(y);
   const bool r = relu != 0;
   switch (variant) {
-    case 0: return (int)launch_bf16_tile<false>(tile, st, xb, wb, bb, yb, B, H, W, Cin, Cout, k, stride, r);
-    case 1: return (int)launch_bf16_tile<true>(tile, st, xb, wb, bb, yb, B, H, W, Cin, Cout, k, stride, r);
+    case 0: return (int)launch_bf16_tile<false>(tile, st, xb, wb, bb, yb, B, H, W, Cin, Cout, k, stride, pad, r);
+    case 1: return (int)launch_bf16_tile<true>(tile, st, xb, wb, bb, yb, B, H, W, Cin, Cout, k, stride, pad, r);
     case 2:
       switch (tile) {   // R, in the order of BF16_STRIP_ROWS
         case 0: return (int)launch_bf16_strip<1>(st, xb, wb, bb, yb, B, H, W, Cin, Cout, k, stride, r);
@@ -1525,20 +1591,20 @@ extern "C" int cnn_conv2d_bias_relu_bf16(void* stream, const void* x,
       }
     case 3:
       switch (tile) {   // (BN, MT, BK, S, SPLIT, A via L1), in the order of WGMMA_TILES
-        case 0: return (int)launch_bf16_wgmma<16, 1, 32, 4, 1, true>(st, xb, wb, bb, yb, B, H, W, Cin, Cout, k, stride, r);
-        case 1: return (int)launch_bf16_wgmma<32, 1, 32, 4, 1, true>(st, xb, wb, bb, yb, B, H, W, Cin, Cout, k, stride, r);
-        case 2: return (int)launch_bf16_wgmma<32, 2, 32, 4, 1, true>(st, xb, wb, bb, yb, B, H, W, Cin, Cout, k, stride, r);
-        case 3: return (int)launch_bf16_wgmma<32, 2, 32, 6, 1, true>(st, xb, wb, bb, yb, B, H, W, Cin, Cout, k, stride, r);
-        case 4: return (int)launch_bf16_wgmma<64, 1, 32, 4, 1, false>(st, xb, wb, bb, yb, B, H, W, Cin, Cout, k, stride, r);
-        case 5: return (int)launch_bf16_wgmma<64, 1, 32, 8, 1, false>(st, xb, wb, bb, yb, B, H, W, Cin, Cout, k, stride, r);
-        case 6: return (int)launch_bf16_wgmma<64, 1, 32, 4, 2, false>(st, xb, wb, bb, yb, B, H, W, Cin, Cout, k, stride, r);
-        case 7: return (int)launch_bf16_wgmma<64, 2, 32, 4, 1, false>(st, xb, wb, bb, yb, B, H, W, Cin, Cout, k, stride, r);
-        case 8: return (int)launch_bf16_wgmma<64, 2, 32, 6, 1, false>(st, xb, wb, bb, yb, B, H, W, Cin, Cout, k, stride, r);
-        case 9: return (int)launch_bf16_wgmma<128, 1, 32, 8, 1, false>(st, xb, wb, bb, yb, B, H, W, Cin, Cout, k, stride, r);
-        case 10: return (int)launch_bf16_wgmma<128, 1, 32, 4, 2, false>(st, xb, wb, bb, yb, B, H, W, Cin, Cout, k, stride, r);
-        case 11: return (int)launch_bf16_wgmma<128, 2, 32, 4, 1, false>(st, xb, wb, bb, yb, B, H, W, Cin, Cout, k, stride, r);
-        case 12: return (int)launch_bf16_wgmma<128, 2, 32, 6, 2, false>(st, xb, wb, bb, yb, B, H, W, Cin, Cout, k, stride, r);
-        case 13: return (int)launch_bf16_wgmma<128, 2, 64, 4, 1, false>(st, xb, wb, bb, yb, B, H, W, Cin, Cout, k, stride, r);
+        case 0: return (int)launch_bf16_wgmma<16, 1, 32, 4, 1, true>(st, xb, wb, bb, yb, B, H, W, Cin, Cout, k, stride, pad, r);
+        case 1: return (int)launch_bf16_wgmma<32, 1, 32, 4, 1, true>(st, xb, wb, bb, yb, B, H, W, Cin, Cout, k, stride, pad, r);
+        case 2: return (int)launch_bf16_wgmma<32, 2, 32, 4, 1, true>(st, xb, wb, bb, yb, B, H, W, Cin, Cout, k, stride, pad, r);
+        case 3: return (int)launch_bf16_wgmma<32, 2, 32, 6, 1, true>(st, xb, wb, bb, yb, B, H, W, Cin, Cout, k, stride, pad, r);
+        case 4: return (int)launch_bf16_wgmma<64, 1, 32, 4, 1, false>(st, xb, wb, bb, yb, B, H, W, Cin, Cout, k, stride, pad, r);
+        case 5: return (int)launch_bf16_wgmma<64, 1, 32, 8, 1, false>(st, xb, wb, bb, yb, B, H, W, Cin, Cout, k, stride, pad, r);
+        case 6: return (int)launch_bf16_wgmma<64, 1, 32, 4, 2, false>(st, xb, wb, bb, yb, B, H, W, Cin, Cout, k, stride, pad, r);
+        case 7: return (int)launch_bf16_wgmma<64, 2, 32, 4, 1, false>(st, xb, wb, bb, yb, B, H, W, Cin, Cout, k, stride, pad, r);
+        case 8: return (int)launch_bf16_wgmma<64, 2, 32, 6, 1, false>(st, xb, wb, bb, yb, B, H, W, Cin, Cout, k, stride, pad, r);
+        case 9: return (int)launch_bf16_wgmma<128, 1, 32, 8, 1, false>(st, xb, wb, bb, yb, B, H, W, Cin, Cout, k, stride, pad, r);
+        case 10: return (int)launch_bf16_wgmma<128, 1, 32, 4, 2, false>(st, xb, wb, bb, yb, B, H, W, Cin, Cout, k, stride, pad, r);
+        case 11: return (int)launch_bf16_wgmma<128, 2, 32, 4, 1, false>(st, xb, wb, bb, yb, B, H, W, Cin, Cout, k, stride, pad, r);
+        case 12: return (int)launch_bf16_wgmma<128, 2, 32, 6, 2, false>(st, xb, wb, bb, yb, B, H, W, Cin, Cout, k, stride, pad, r);
+        case 13: return (int)launch_bf16_wgmma<128, 2, 64, 4, 1, false>(st, xb, wb, bb, yb, B, H, W, Cin, Cout, k, stride, pad, r);
         default: return (int)cudaErrorInvalidValue;
       }
     default: return (int)cudaErrorInvalidValue;

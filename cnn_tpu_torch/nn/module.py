@@ -17,71 +17,186 @@ in training mode from the generator its ``forward`` is given, as
 
 Under a compute dtype (``forward(..., compute_dtype=torch.bfloat16)``, as
 ``cnn_tpu``'s ``apply(compute_dtype=)``) the parameters stay float32 and
-Conv2D and Linear cast their input and weights to it at each call (the
-conv's bias too: its kernel reads the bf16 bias into float32, as
-``cnn_tpu/ops/conv.py`` casts it to the output's dtype). Autograd carries
-the gradients back through the casts into the float32 parameters. BN keeps
-float32 statistics and returns its input's dtype.
+Conv2D, DepthwiseConv2D and Linear cast their input and weights to it at
+each call (the conv's bias too: its kernel reads the bf16 bias into
+float32, as ``cnn_tpu/ops/conv.py`` casts it to the output's dtype).
+Autograd carries the gradients back through the casts into the float32
+parameters. BN keeps float32 statistics and returns its input's dtype.
+
+The composite layers of the other families nest as ``cnn_tpu``'s do:
+``ResidualBlock`` (``relu(body(x) + shortcut(x))``, its params under
+``body`` and ``proj``) and ``StackedBlocks`` (``n_blocks`` copies of one
+block whose params and BN state are stacked with a leading [L] axis, block
+i reading slice i, with ``cnn_tpu``'s ``remat`` modes). ``tree_leaves``
+walks any layer in ``cnn_tpu``'s tree paths, which name the parameters
+(``parallel/train_step.py:named_params``) and the checkpoint trees
+(``utils/checkpoint.py``).
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
 from torch import nn
+from torch.utils import checkpoint as torch_checkpoint
 
 from cnn_tpu_torch.ops.activations import relu
 from cnn_tpu_torch.ops import dropout as dropout_ops
 from cnn_tpu_torch.ops.batchnorm import batch_norm2d_eval, batch_norm2d_train
-from cnn_tpu_torch.ops.hopper.conv import conv2d_bias_relu, conv2d_bias_relu_fn
+from cnn_tpu_torch.ops.conv import depthwise_conv2d
+from cnn_tpu_torch.ops.hopper.conv import (conv2d_bias_relu,
+                                           conv2d_bias_relu_fn,
+                                           conv2d_bias_relu_op)
 from cnn_tpu_torch.ops.hopper.pool import max_pool2d_fn, max_pool2d_fwd
 from cnn_tpu_torch.ops.linear import linear
+from cnn_tpu_torch.ops.pool import avg_pool2d, global_avg_pool
+
+
+def leaf_name(path) -> str:
+    """A tree path as a parameter name: the layer path joined by "/", then
+    "." and the tensor's key (``conv_layer_1.w``,
+    ``block_2/body/block_2_conv1.w``, ``trunk/body/b_conv1.w``)."""
+    return "/".join(path[:-1]) + "." + path[-1]
+
+
+def leaf_path(name: str) -> tuple[str, ...]:
+    """``leaf_name``'s inverse."""
+    layers, key = name.rsplit(".", 1)
+    return (*layers.split("/"), key)
 
 
 def _wants_grad(*tensors) -> bool:
     return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
-def _normal(shape, generator, device) -> nn.Parameter:
-    """N(0, 1) / 10, ``cnn_tpu``'s init for conv and dense weights."""
+def _normal(shape, generator, device, scale: float = 0.1) -> nn.Parameter:
+    """N(0, 1) * ``scale`` (0.1 by default, ``cnn_tpu``'s init for conv and
+    dense weights)."""
     return nn.Parameter(
-        (torch.randn(shape, generator=generator) * 0.1).to(device))
+        (torch.randn(shape, generator=generator) * scale).to(device))
 
 
 class Layer(nn.Module):
+    """A named layer. ``casts``: its ``forward`` takes ``compute_dtype``;
+    ``draws``: it takes ``generator`` (and ``perms``, permutations drawn
+    ahead for its Dropouts)."""
+    casts = False
+    draws = False
+
     def __init__(self, name: str):
         super().__init__()
         self.name = name
 
+    def tree_leaves(self):
+        """``(path, tensor, is_state)`` of this layer's ``cnn_tpu`` param
+        and state trees, paths relative to the layer: its own parameters,
+        and BN's moving statistics as state."""
+        for key, p in self.named_parameters(recurse=False):
+            yield (key,), p, False
+
 
 class Conv2D(Layer):
-    """VALID NHWC/HWIO conv + bias; ``forward(x, relu=True)`` fuses the ReLU."""
+    """NHWC/HWIO conv + bias with ``padding`` zero rows and columns on each
+    side; ``forward(x, relu=True)`` fuses the ReLU. Weights and bias start
+    at N(0, 1) * ``init_scale``.
+
+    ``named_op``: with a gradient asked for, launch through the custom op
+    (``conv2d_bias_relu_op``) rather than the autograd Function, so that a
+    selective checkpoint policy sees the conv (``StackedBlocks``,
+    ``remat='conv'``)."""
+    casts = True
 
     def __init__(self, name, in_channels=3, out_channels=16, kernel_size=3,
-                 stride=2, *, device=None, generator=None):
+                 stride=2, padding=0, init_scale=0.1, *, device=None,
+                 generator=None):
         super().__init__(name)
         self.in_channels, self.out_channels = in_channels, out_channels
         self.kernel_size, self.stride = kernel_size, stride
+        self.padding = padding
+        self.named_op = False
         k = kernel_size
-        self.w = _normal((k, k, in_channels, out_channels), generator, device)
-        self.b = _normal((out_channels,), generator, device)
+        self.w = _normal((k, k, in_channels, out_channels), generator, device,
+                         init_scale)
+        self.b = _normal((out_channels,), generator, device, init_scale)
 
     def forward(self, x, relu: bool = False, compute_dtype=None):
         w, b = self.w, self.b
         if compute_dtype is not None:
             x, w, b = (x.to(compute_dtype), w.to(compute_dtype),
                        b.to(compute_dtype))
+        if _wants_grad(x, w, b) and self.named_op:
+            return conv2d_bias_relu_op(x, w, b, self.stride, relu,
+                                       self.padding)
+        # the padding goes as a sixth argument only where there is one
+        pad = (self.padding,) if self.padding else ()
         if _wants_grad(x, w, b):
-            return conv2d_bias_relu_fn(x, w, b, self.stride, relu)
-        return conv2d_bias_relu(x, w, b, self.stride, relu)
+            return conv2d_bias_relu_fn(x, w, b, self.stride, relu, *pad)
+        return conv2d_bias_relu(x, w, b, self.stride, relu, *pad)
+
+
+class DepthwiseConv2D(Layer):
+    """Per-channel conv (``ops/conv.py:depthwise_conv2d``): w [k,k,1,C*mult],
+    b [C*mult], N(0, 1) * ``init_scale``."""
+    casts = True
+
+    def __init__(self, name, channels=32, channel_multiplier=1,
+                 kernel_size=3, stride=1, padding=1, init_scale=0.1, *,
+                 device=None, generator=None):
+        super().__init__(name)
+        self.channels, self.channel_multiplier = channels, channel_multiplier
+        self.kernel_size, self.stride = kernel_size, stride
+        self.padding = padding
+        k, c = kernel_size, channels * channel_multiplier
+        self.w = _normal((k, k, 1, c), generator, device, init_scale)
+        self.b = _normal((c,), generator, device, init_scale)
+
+    @property
+    def out_channels(self) -> int:
+        return self.channels * self.channel_multiplier
+
+    def forward(self, x, compute_dtype=None):
+        w, b = self.w, self.b
+        if compute_dtype is not None:
+            x, w, b = (x.to(compute_dtype), w.to(compute_dtype),
+                       b.to(compute_dtype))
+        return depthwise_conv2d(x, w, b, self.stride, self.padding,
+                                self.channel_multiplier)
 
 
 class MaxPool2D(Layer):
-    """2x2 stride-2 max pool, the window AlexNet uses and the kernel takes."""
+    """2x2 stride-2 max pool, the window every family uses and the kernel
+    takes."""
+
+    def __init__(self, name, kernel_size=2, stride=2):
+        super().__init__(name)
+        if (kernel_size, stride) != (2, 2):
+            raise NotImplementedError(
+                f"{name}: the pool kernel takes 2x2 windows at stride 2, not "
+                f"{kernel_size}x{kernel_size} at stride {stride}")
 
     def forward(self, x):
         if _wants_grad(x):
             return max_pool2d_fn(x)
         return max_pool2d_fwd(x)
+
+
+class AvgPool2D(Layer):
+    """Average pool (``ops/pool.py:avg_pool2d``)."""
+
+    def __init__(self, name, kernel_size=2, stride=2):
+        super().__init__(name)
+        self.kernel_size, self.stride = kernel_size, stride
+
+    def forward(self, x):
+        return avg_pool2d(x, self.kernel_size, self.stride)
+
+
+class GlobalAvgPool(Layer):
+    """[B,H,W,C] -> [B,C], the float32 spatial mean in x's dtype."""
+
+    def forward(self, x):
+        return global_avg_pool(x)
 
 
 class ReLU(Layer):
@@ -97,6 +212,8 @@ class Flatten(Layer):
 
 
 class Linear(Layer):
+    casts = True
+
     def __init__(self, name, in_features=4608, out_features=3, *,
                  device=None, generator=None):
         super().__init__(name)
@@ -112,7 +229,11 @@ class BatchNorm2D(Layer):
     """Per-channel BN over NHWC: batch statistics in training mode (which
     also update ``mean``/``var`` in place), moving statistics in eval.
     The moving variance starts at 1, or at 0 with ``compat_zero_var_init``
-    (the reference's own init)."""
+    (the reference's own init).
+
+    ``defer_update``: training leaves ``mean``/``var`` as they are and
+    keeps the new statistics in ``pending`` for the caller
+    (``StackedBlocks``, which writes them once, outside any recompute)."""
 
     def __init__(self, name, num_channels=16, eps=1e-5, momentum=0.1, *,
                  compat_zero_var_init=False, device=None):
@@ -124,6 +245,13 @@ class BatchNorm2D(Layer):
         self.register_buffer("var", torch.full(
             (num_channels,), 0.0 if compat_zero_var_init else 1.0,
             device=device))
+        self.defer_update = False
+        self.pending = None
+
+    def tree_leaves(self):
+        yield from super().tree_leaves()
+        yield ("mean",), self.mean, True
+        yield ("var",), self.var, True
 
     def forward(self, x):
         if not self.training:
@@ -131,26 +259,207 @@ class BatchNorm2D(Layer):
                                      self.var, self.eps)
         y, mean, var = batch_norm2d_train(x, self.gamma, self.beta, self.mean,
                                           self.var, self.eps, self.momentum)
-        self.mean.copy_(mean)
-        self.var.copy_(var)
+        if self.defer_update:
+            self.pending = (mean, var)
+        else:
+            self.mean.copy_(mean)
+            self.var.copy_(var)
         return y
 
 
 class Dropout(Layer):
     """Channel dropout (``ops/dropout.py``) in one of its ``compat`` modes.
     In training the two random modes draw a permutation of the channels
-    from ``generator``."""
+    from ``generator``, or take ``perm``, one drawn ahead."""
+    draws = True
 
     def __init__(self, name, p=0.5, compat="inverted"):
         super().__init__(name)
         self.p, self.compat = p, compat
 
-    def forward(self, x, generator=None):
-        perm = None
-        if self.training and self.p > 0 and self.compat != "reference":
+    @property
+    def random(self) -> bool:
+        return self.p > 0 and self.compat != "reference"
+
+    def forward(self, x, generator=None, perm=None):
+        if self.training and self.random and perm is None:
             if generator is None:
                 raise ValueError(f"{self.name}: {self.compat} dropout needs "
                                  "a generator in training")
             perm = dropout_ops.draw_permutation(x.shape[-1], generator)
         return dropout_ops.channel_dropout(x, self.p, train=self.training,
                                            perm=perm, compat=self.compat)
+
+
+class ResidualBlock(Layer):
+    """``relu(body(x) + shortcut(x))``: ``body`` a Sequential, the shortcut
+    the identity or ``proj``, a 1x1 strided Conv2D where the shape changes
+    (``cnn_tpu/nn/module.py:ResidualBlock``). Params nest as ``{"body":
+    ..., "proj": ...}``, BN state as ``{"body": ...}``."""
+    casts = True
+    draws = True
+
+    def __init__(self, name, body, proj=None):
+        super().__init__(name)
+        self.body = body
+        self.proj = proj
+
+    def tree_leaves(self):
+        for path, t, is_state in self.body.tree_leaves():
+            yield ("body", *path), t, is_state
+        if self.proj is not None:
+            for path, t, is_state in self.proj.tree_leaves():
+                yield ("proj", *path), t, is_state
+
+    def forward(self, x, compute_dtype=None, generator=None, perms=None):
+        y = self.body(x, compute_dtype=compute_dtype, generator=generator,
+                      perms=perms)
+        sc = x if self.proj is None else self.proj(
+            x, compute_dtype=compute_dtype)
+        return relu(y + sc)
+
+
+REMAT_MODES = (False, True, "full", "conv")
+
+
+def _save_convs(ctx, op, *args, **kwargs):
+    """The ``remat='conv'`` policy, ``cnn_tpu``'s
+    ``save_only_these_names("conv_out", "bn_stats")``: keep each conv's
+    output and BN's batch means, recompute the rest."""
+    if op in (torch.ops.cnn_tpu_torch.conv2d_bias_relu.default,
+              torch.ops.aten.mean.dim):
+        return torch_checkpoint.CheckpointPolicy.MUST_SAVE
+    return torch_checkpoint.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+class StackedBlocks(Layer):
+    """``n_blocks`` structurally identical blocks applied in turn
+    (``cnn_tpu``'s scan over layers). Every block's params and BN state are
+    stacked with a leading [L] axis, registered here under their tree paths
+    (``body/b_conv1/w`` of shape [L,3,3,C,C]), and block i runs ``block``'s
+    layers on slice i through ``torch.func.functional_call``. ``block``
+    itself is a template kept on the meta device: it holds no values.
+
+    In training BN's new moving statistics come back from each block call
+    and are written into slice i once, after it; random Dropouts draw their
+    permutations for every block before the first, in block order, and
+    take them as arguments. A recomputed block therefore updates nothing
+    twice and draws nothing again.
+
+    ``remat`` (training with a gradient asked for): False keeps every
+    activation; True or 'full' wraps each block in
+    ``torch.utils.checkpoint`` (the backward recomputes it); 'conv' is the
+    selective policy of ``cnn_tpu``'s ``remat='conv'``: the block's convs
+    launch through the custom op ``cnn_tpu_torch::conv2d_bias_relu``, whose
+    outputs (and BN's batch means) the checkpoint keeps, so the backward
+    recomputes only the elementwise tail and never a conv. The three give
+    the same gradients and statistics, bit for bit."""
+    casts = True
+    draws = True
+
+    def __init__(self, name, blocks, remat=False):
+        """``blocks``: the L initialised blocks (e.g. ``ResidualBlock``s),
+        whose tensors are stacked."""
+        super().__init__(name)
+        if remat not in REMAT_MODES:
+            raise ValueError(f"{name}: remat {remat!r} is not one of "
+                             f"{REMAT_MODES}")
+        self.n_blocks, self.remat = len(blocks), remat
+        leaves = [list(b.tree_leaves()) for b in blocks]
+        template = blocks[0]
+        torch_name = {id(t): n for n, t in (*template.named_parameters(),
+                                            *template.named_buffers())}
+        # (registered key, name in the template, is_state)
+        self._leaves = []
+        for j, (path, t, is_state) in enumerate(leaves[0]):
+            key = "/".join(path)
+            stack = torch.stack([lv[j][1].detach() for lv in leaves])
+            if is_state:
+                self.register_buffer(key, stack)
+            else:
+                self.register_parameter(key, nn.Parameter(stack))
+            self._leaves.append((key, torch_name[id(t)], is_state))
+        layers = list(template.modules())
+        bns = [m for m in layers if isinstance(m, BatchNorm2D)]
+        # the BN layer and statistic (0 mean, 1 var) behind each state leaf
+        owner = {}
+        for m in bns:
+            owner[id(m.mean)], owner[id(m.var)] = (m, 0), (m, 1)
+        self._state_of = [owner[id(t)] for _, t, st in leaves[0] if st]
+        self._drops = [m for m in layers if isinstance(m, Dropout)]
+        for m in bns:
+            m.defer_update = True
+        if remat == "conv":
+            for m in layers:
+                if isinstance(m, Conv2D):
+                    m.named_op = True
+        # kept out of the module tree: only its structure is used
+        object.__setattr__(self, "block", template.to("meta"))
+
+    def tree_leaves(self):
+        for key, _, is_state in self._leaves:
+            yield tuple(key.split("/")), getattr(self, key), is_state
+
+    def _run(self, perms, compute_dtype, x, *tensors):
+        """One block on ``tensors`` (its slices, in ``_leaves`` order);
+        returns its output and, in training, BN's new statistics in the
+        order of the state leaves."""
+        bound = {name: t for (_, name, _), t in zip(self._leaves, tensors)}
+        y = torch.func.functional_call(
+            self.block, bound, (x,),
+            {"compute_dtype": compute_dtype, "perms": perms}, strict=True)
+        if not self.training:
+            return (y,)
+        return (y, *[bn.pending[i] for bn, i in self._state_of])
+
+    def forward(self, x, compute_dtype=None, generator=None, perms=None):
+        self.block.train(self.training)
+        drawn = [{} for _ in range(self.n_blocks)]
+        if self.training:
+            for i in range(self.n_blocks):
+                for d in self._drops:
+                    if d.random:
+                        if generator is None:
+                            raise ValueError(f"{self.name}: {d.name} needs a "
+                                             "generator in training")
+                        drawn[i][d.name] = dropout_ops.draw_permutation(
+                            self._channels(d), generator)
+        states = [getattr(self, key) for key, _, st in self._leaves if st]
+        remat = (self.training and self.remat is not False
+                 and torch.is_grad_enabled())
+        for i in range(self.n_blocks):
+            # a checkpoint keeps its inputs for the recompute: the state
+            # slices go in as copies, so that writing slice i below leaves
+            # them as they were
+            tensors = [getattr(self, key)[i].clone() if st and remat
+                       else getattr(self, key)[i]
+                       for key, _, st in self._leaves]
+            run = functools.partial(self._run, drawn[i], compute_dtype)
+            if not remat:
+                out = run(x, *tensors)
+            elif self.remat == "conv":
+                out = torch_checkpoint.checkpoint(
+                    run, x, *tensors, use_reentrant=False,
+                    context_fn=functools.partial(
+                        torch_checkpoint.create_selective_checkpoint_contexts,
+                        _save_convs))
+            else:
+                out = torch_checkpoint.checkpoint(run, x, *tensors,
+                                                  use_reentrant=False)
+            x = out[0]
+            if self.training:
+                with torch.no_grad():
+                    for stack, new in zip(states, out[1:]):
+                        stack[i].copy_(new)
+        return x
+
+    def _channels(self, dropout) -> int:
+        """The channels a Dropout of the block sees: the output channels
+        of the conv before it."""
+        prev = None
+        for m in self.block.modules():
+            if m is dropout:
+                return prev.out_channels
+            if isinstance(m, Conv2D):
+                prev = m
+        raise ValueError(f"{dropout.name}: no conv before it in the block")

@@ -10,11 +10,17 @@ and ReLU follow as plain tensor ops. ``fuses`` states that rule and
 a slice of the stack (Grad-CAM's tail), so both launch the same kernels.
 
 ``forward(x, compute_dtype=, generator=, capture=)`` threads the compute
-dtype to the layers that cast (Conv2D, Linear), as ``cnn_tpu``'s
-``apply(compute_dtype=)`` threads it to every layer, and the generator to
-the layers that draw (Dropout). ``capture`` names layers whose outputs are
+dtype to the layers that cast (``Layer.casts``: the convs, Linear and the
+composite blocks), as ``cnn_tpu``'s ``apply(compute_dtype=)`` threads it to
+every layer, and the generator to the layers that draw (``Layer.draws``:
+Dropout and the blocks), with ``perms``, Dropout permutations drawn ahead
+by name (``StackedBlocks``). ``capture`` names layers whose outputs are
 returned beside the result, as ``apply(capture=)``: a captured conv runs
 ``relu=False`` so that its own output exists, and the plain ReLU follows.
+
+A Sequential nests inside a ``ResidualBlock`` as its body, with the same
+fusion rule; ``tree_leaves`` gives ``cnn_tpu``'s tree paths, keyed by
+layer name.
 """
 
 from __future__ import annotations
@@ -23,7 +29,7 @@ from typing import Iterable, Sequence
 
 from torch import nn
 
-from cnn_tpu_torch.nn.module import Conv2D, Dropout, Layer, Linear, ReLU
+from cnn_tpu_torch.nn.module import Conv2D, Dropout, Layer, ReLU
 
 
 def fuses(layers: Sequence[Layer], i: int, capture=()) -> bool:
@@ -36,19 +42,24 @@ def fuses(layers: Sequence[Layer], i: int, capture=()) -> bool:
 
 def run_layers(layers: Sequence[Layer], x, *, compute_dtype=None,
                generator=None, capture: Iterable[str] = (),
-               captured: dict | None = None):
+               captured: dict | None = None, perms: dict | None = None):
     """``layers`` applied in order to ``x``, fused by ``fuses``; the outputs
-    of the layers named in ``capture`` go into ``captured``."""
+    of the layers named in ``capture`` go into ``captured``; a Dropout
+    named in ``perms`` takes that permutation."""
     capture = frozenset(capture)
     i = 0
     while i < len(layers):
         layer = layers[i]
         fuse = fuses(layers, i, capture)
         kw = {"relu": True} if fuse else {}
-        if compute_dtype is not None and isinstance(layer, (Conv2D, Linear)):
+        if compute_dtype is not None and layer.casts:
             kw["compute_dtype"] = compute_dtype
-        if isinstance(layer, Dropout):
+        if layer.draws:
             kw["generator"] = generator
+            if isinstance(layer, Dropout):
+                kw["perm"] = (perms or {}).get(layer.name)
+            elif perms:
+                kw["perms"] = perms
         x = layer(x, **kw)
         ran = layers[i:i + 2] if fuse else (layer,)
         for done in ran:      # a fused conv is never among the captured
@@ -72,11 +83,20 @@ class Sequential(nn.Module):
     def __getitem__(self, name: str) -> Layer:
         return self.layers[name]
 
-    def forward(self, x, compute_dtype=None, generator=None, capture=None):
+    def tree_leaves(self):
+        """``(path, tensor, is_state)`` of every layer's tree, each path
+        under its layer's name (``Layer.tree_leaves``)."""
+        for layer in self:
+            for path, t, is_state in layer.tree_leaves():
+                yield (layer.name, *path), t, is_state
+
+    def forward(self, x, compute_dtype=None, generator=None, capture=None,
+                perms=None):
         """The output; with ``capture`` (layer names), ``(output,
         {name: activation})``."""
         captured = {}
         out = run_layers(list(self.layers.values()), x,
                          compute_dtype=compute_dtype, generator=generator,
-                         capture=capture or (), captured=captured)
+                         capture=capture or (), captured=captured,
+                         perms=perms)
         return out if capture is None else (out, captured)

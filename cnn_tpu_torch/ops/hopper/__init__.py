@@ -17,6 +17,7 @@ from cnn_tpu_torch.ops.hopper.conv import (BF16_STRIP_ROWS,  # noqa: F401
                                            WGMMA_TILES,
                                            conv2d_bias_relu,
                                            conv2d_bias_relu_fn,
+                                           conv2d_bias_relu_op,
                                            conv_bf16_plan, conv_tile_plan,
                                            launch_conv_bf16)
 from cnn_tpu_torch.ops.hopper.normalize import (launch_normalize,  # noqa: F401
@@ -35,7 +36,9 @@ COUNTERS = {
     conv2d_bias_relu: ("launches", "launches_strip", "launches_tiled",
                        "launches_direct", "launches_bf16",
                        "launches_bf16_gather", "launches_bf16_vec",
-                       "launches_bf16_strip", "launches_bf16_wgmma"),
+                       "launches_bf16_strip", "launches_bf16_wgmma",
+                       "launches_padded", "launches_1x1",
+                       "launches_bf16_padded", "launches_bf16_1x1"),
     rotate_shear: ("launches",),
 }
 _BY_NAME = {fn.__name__: fn for fn in COUNTERS}

@@ -54,16 +54,17 @@ SIGNATURES = {
     # the forward and the window backward on bf16 values
     "cnn_maxpool2x2_fwd_bf16": [P, P, P, I, I, I, I],
     "cnn_maxpool2x2_bwd_window_bf16": [P, P, P, I, I, I, I],
-    # x, w, b, y, B, H, W, Cin, Cout, k, stride, relu
-    "cnn_conv2d_bias_relu": [P, P, P, P, I, I, I, I, I, I, I, I],
+    # x, w, b, y, B, H, W, Cin, Cout, k, stride, pad (zero padding), relu
+    "cnn_conv2d_bias_relu": [P, P, P, P, I, I, I, I, I, I, I, I, I],
     # the same, then the tile id of ops/hopper/conv.py:TILES
-    "cnn_conv2d_bias_relu_tiled": [P, P, P, P, I, I, I, I, I, I, I, I, I],
-    # the same, then the strip id of ops/hopper/conv.py:STRIP_ROWS
-    "cnn_conv2d_bias_relu_strip": [P, P, P, P, I, I, I, I, I, I, I, I, I],
-    # x, w, b, y, B, H, W, Cin, Cout, k, stride, relu, then
+    "cnn_conv2d_bias_relu_tiled": [P, P, P, P, I, I, I, I, I, I, I, I, I, I],
+    # the same (pad 0 only), then the strip id of
+    # ops/hopper/conv.py:STRIP_ROWS
+    "cnn_conv2d_bias_relu_strip": [P, P, P, P, I, I, I, I, I, I, I, I, I, I],
+    # x, w, b, y, B, H, W, Cin, Cout, k, stride, pad, relu, then
     # ops/hopper/conv.py:conv_bf16_plan's variant (an index into
     # BF16_VARIANTS) and tile id in that variant's table
-    "cnn_conv2d_bias_relu_bf16": [P, P, P, P, I, I, I, I, I, I, I, I, I, I],
+    "cnn_conv2d_bias_relu_bf16": [P, P, P, P, I, I, I, I, I, I, I, I, I, I, I],
     # img, s1, s2, s3, out, B, S, C, L, pad_l, bf16, then the tile plan of
     # ops/hopper/augment.py: rows, pixels, lanes_max, table_max, smem_bytes
     "cnn_rotate_shear": [P, P, P, P, P, I, I, I, I, I, I, I, I, I, I, I],

@@ -1,5 +1,5 @@
-"""VALID conv + bias (+ ReLU), NHWC/HWIO, float32 and bf16: wrapper of
-``csrc/conv.cu``.
+"""Conv + bias (+ ReLU), NHWC/HWIO, float32 and bf16, with zero padding:
+wrapper of ``csrc/conv.cu``.
 
 Replaces ``cnn_tpu/ops/pallas/conv.py:conv2d_bias_relu_pallas``: the kernels
 are its forward (``_forward``); ``conv2d_bias_relu_fn`` is its ``custom_vjp``
@@ -42,6 +42,16 @@ shape and alignment:
 Every variant takes Cout % 8 == 0 and 16-byte aligned weights; the
 wrapper raises on any other bf16 shape. No variant splits K across
 blocks: two launches give the same bits.
+
+Padding (``padding=p``, the families' padded convs, which ``cnn_tpu`` runs
+through XLA): every kernel but the two strips reads a tap in the padding
+as zero, so no padded copy of x is made; the plans send a padded conv to
+the tiled or direct kernel (float32) and to the wgmma or gather kernel
+(bf16). The kernels take p <= 16 on extents up to 16,384.
+
+``conv2d_bias_relu_op`` is the same Function registered as the custom op
+``cnn_tpu_torch::conv2d_bias_relu``, so that a selective checkpoint policy
+can name it (``nn/module.py:StackedBlocks``, ``remat='conv'``).
 """
 
 from __future__ import annotations
@@ -54,6 +64,8 @@ from torch.nn import grad as nn_grad
 
 from cnn_tpu_torch.ops.conv import conv2d, conv_out_size
 from cnn_tpu_torch.ops.hopper._build import cuda_args, launch
+
+PAD_MAX, EXTENT_MAX = 16, 16384      # csrc/conv.cu kPadMax, kExtentMax
 
 
 class Tile(NamedTuple):
@@ -112,13 +124,13 @@ class ConvPlan(NamedTuple):
 
 @functools.lru_cache(maxsize=256)   # a pure function, called every launch
 def conv_tile_plan(b: int, h: int, w: int, cin: int, cout: int, k: int,
-                   stride: int, aligned: bool) -> ConvPlan:
-    """The kernel for this shape.
+                   stride: int, aligned: bool, padding: int = 0) -> ConvPlan:
+    """The kernel for this shape (``padding``: the zero padding).
 
     The strip kernel needs 1 <= Cin <= 4, Cout % 4 == 0 and <= 32, input
     rows of W*Cin floats that are a multiple of 4 (16-byte copies), x and w
-    16-byte aligned (``aligned``), B <= 65,535 (the grid's y) and a strip
-    whose staged rows and weights fit in 48 KB. Of the R in ``STRIP_ROWS``
+    16-byte aligned (``aligned``), B <= 65,535 (the grid's y), no padding
+    and a strip whose staged rows and weights fit in 48 KB. Of the R in ``STRIP_ROWS``
     that fit, it takes the one with the most blocks (the fewest idle warps
     on a tie): a block stages all its rows before any warp sums, so more,
     shorter blocks resident on an SM overlap one block's staging with
@@ -135,7 +147,7 @@ def conv_tile_plan(b: int, h: int, w: int, cin: int, cout: int, k: int,
     """
     if (1 <= cin <= STRIP_CIN_MAX and cout % 4 == 0
             and cout <= STRIP_COUT_MAX and (w * cin) % 4 == 0 and aligned
-            and b <= MAX_GRID_Y):
+            and b <= MAX_GRID_Y and padding == 0):
         ho = conv_out_size(h, k, stride)
         fits = [r for r in STRIP_ROWS if strip_smem_bytes(
             min(r, ho), w, cin, cout, k, stride) <= STATIC_SMEM_LIMIT]
@@ -144,7 +156,8 @@ def conv_tile_plan(b: int, h: int, w: int, cin: int, cout: int, k: int,
             return ConvPlan("strip", grid=(-(-ho // r), b), rows=r)
     if cin % TILED_BK or cout % 4 or not aligned:
         return ConvPlan("direct")
-    m = b * conv_out_size(h, k, stride) * conv_out_size(w, k, stride)
+    m = (b * conv_out_size(h, k, stride, padding)
+         * conv_out_size(w, k, stride, padding))
     full = next((n for n in (32, 64, 128) if n >= cout), 128)
     cands = [i for i, t in enumerate(TILES) if t.bn in (full, full // 2)]
 
@@ -218,15 +231,16 @@ def strip_bf16_smem_bytes(rows: int, w: int, cin: int, cout: int, k: int,
 
 
 def strip_bf16_rows(b: int, h: int, w: int, cin: int, cout: int, k: int,
-                    stride: int, x_aligned: bool) -> int | None:
+                    stride: int, x_aligned: bool,
+                    padding: int = 0) -> int | None:
     """R for the bf16 strip kernel, or None where it cannot take the shape:
     one k16 step per kernel row (k*Cin <= 16), 4-byte A words (s*Cin
     even), input rows of whole 16-byte chunks (W*Cin % 8 == 0), Cout <= 32,
-    x aligned, B <= 65,535 (the grid's y). R is the largest of
+    x aligned, B <= 65,535 (the grid's y), no padding. R is the largest of
     ``BF16_STRIP_ROWS`` up to ``BF16_STRIP_R`` whose strip fits 96 KB."""
     if not (k * cin <= BF16_STRIP_KC and (stride * cin) % 2 == 0
             and (w * cin) % 8 == 0 and cout <= BF16_STRIP_COUT_MAX
-            and x_aligned and b <= MAX_GRID_Y):
+            and x_aligned and b <= MAX_GRID_Y and padding == 0):
         return None
     ho = conv_out_size(h, k, stride)
     return next((r for r in sorted(BF16_STRIP_ROWS, reverse=True)
@@ -303,8 +317,10 @@ class Bf16Plan(NamedTuple):
 @functools.lru_cache(maxsize=256)   # a pure function, called every launch
 def conv_bf16_plan(b: int, h: int, w: int, cin: int, cout: int, k: int,
                    stride: int, x_aligned: bool,
-                   variant: str | None = None) -> Bf16Plan:
-    """The bf16 kernel's launch for this shape.
+                   variant: str | None = None,
+                   padding: int = 0) -> Bf16Plan:
+    """The bf16 kernel's launch for this shape (``padding``: the zero
+    padding, which the strip does not take).
 
     "strip" (conv1) where ``strip_bf16_rows`` finds an R; else "wgmma"
     (conv2-4) where Cin % 8 == 0 (a chunk of 8 never straddles a tap) and
@@ -321,7 +337,8 @@ def conv_bf16_plan(b: int, h: int, w: int, cin: int, cout: int, k: int,
         raise ValueError(f"conv2d_bias_relu bf16: Cout {cout} is not a "
                          "multiple of 8")
     vec_ok = cin % 8 == 0 and x_aligned
-    rows = strip_bf16_rows(b, h, w, cin, cout, k, stride, x_aligned)
+    rows = strip_bf16_rows(b, h, w, cin, cout, k, stride, x_aligned,
+                           padding)
     if variant is None:
         variant = ("strip" if rows else "wgmma" if vec_ok else "gather")
     if variant not in BF16_VARIANTS or (
@@ -330,7 +347,8 @@ def conv_bf16_plan(b: int, h: int, w: int, cin: int, cout: int, k: int,
         raise ValueError(f"conv2d_bias_relu bf16: variant {variant} cannot "
                          f"take x [{b},{h},{w},{cin}], Cout {cout}, k {k}, "
                          f"stride {stride}, x aligned {x_aligned}")
-    ho, wo = conv_out_size(h, k, stride), conv_out_size(w, k, stride)
+    ho = conv_out_size(h, k, stride, padding)
+    wo = conv_out_size(w, k, stride, padding)
     m, kk = b * ho * wo, k * k * cin
     if variant == "strip":
         return Bf16Plan("strip", BF16_STRIP_ROWS.index(rows),
@@ -348,9 +366,10 @@ def conv_bf16_plan(b: int, h: int, w: int, cin: int, cout: int, k: int,
 
 
 def conv2d_bias_relu(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
-                     stride: int = 2, relu: bool = True) -> torch.Tensor:
+                     stride: int = 2, relu: bool = True,
+                     padding: int = 0) -> torch.Tensor:
     """x [B,H,W,Cin], w [k,k,Cin,Cout], b [Cout] -> [B,Ho,Wo,Cout], all
-    float32 or all bf16.
+    float32 or all bf16; ``padding`` zero rows and columns on each side.
 
     A CPU tensor takes the plain version (``ops/conv.py:conv2d``).
     """
@@ -362,26 +381,35 @@ def conv2d_bias_relu(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     if k != k2 or wcin != cin or b.shape[0] != cout or stride < 1:
         raise ValueError(f"conv2d_bias_relu: x {tuple(x.shape)}, w "
                          f"{tuple(w.shape)}, b {tuple(b.shape)}, stride {stride}")
-    if h < k or wid < k:
-        raise ValueError(f"conv2d_bias_relu: extent {h}x{wid} is below k={k}")
+    if h + 2 * padding < k or wid + 2 * padding < k:
+        raise ValueError(f"conv2d_bias_relu: extent {h}x{wid} padded by "
+                         f"{padding} is below k={k}")
     if x.device.type == "cpu":
-        return conv2d(x, w, b, stride, relu)
+        return conv2d(x, w, b, stride, relu, padding)
+    if not 0 <= padding <= PAD_MAX or max(h, wid) > EXTENT_MAX:
+        raise ValueError(f"conv2d_bias_relu: padding {padding} on a "
+                         f"{h}x{wid} image: the kernels take padding <= "
+                         f"{PAD_MAX} and extents <= {EXTENT_MAX}")
+    # the families' shapes, beside the variants: padded convs and 1x1s
+    shape_counters = (("padded",) if padding else ()) + (
+        ("1x1",) if k == 1 else ())
     if x.dtype == torch.bfloat16:
-        out, plan = launch_conv_bf16(x, w, b, stride, relu)
-        counter = f"launches_bf16_{plan.variant}"
-        setattr(conv2d_bias_relu, counter,
-                getattr(conv2d_bias_relu, counter) + 1)
-        conv2d_bias_relu.launches_bf16 += 1
+        out, plan = launch_conv_bf16(x, w, b, stride, relu, padding=padding)
+        for counter in (f"bf16_{plan.variant}", "bf16",
+                        *(f"bf16_{c}" for c in shape_counters),
+                        *shape_counters):
+            _count(counter)
         conv2d_bias_relu.launches += 1
         return out
     stream = cuda_args("conv2d_bias_relu", x, w, b, dtypes=(torch.float32,) * 3)
-    out = torch.empty((bsz, conv_out_size(h, k, stride),
-                       conv_out_size(wid, k, stride), cout),
+    out = torch.empty((bsz, conv_out_size(h, k, stride, padding),
+                       conv_out_size(wid, k, stride, padding), cout),
                       dtype=torch.float32, device=x.device)
     args = (x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(), bsz, h,
-            wid, cin, cout, k, stride, int(relu))
+            wid, cin, cout, k, stride, padding, int(relu))
     plan = conv_tile_plan(bsz, h, wid, cin, cout, k, stride,
-                          x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0)
+                          x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0,
+                          padding)
     if plan.variant == "strip":
         launch("cnn_conv2d_bias_relu_strip", x.device, stream, *args,
                STRIP_ROWS.index(plan.rows))
@@ -393,12 +421,20 @@ def conv2d_bias_relu(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     else:
         launch("cnn_conv2d_bias_relu", x.device, stream, *args)
         conv2d_bias_relu.launches_direct += 1
+    for counter in shape_counters:
+        _count(counter)
     conv2d_bias_relu.launches += 1
     return out
 
 
+def _count(counter: str) -> None:
+    name = f"launches_{counter}"
+    setattr(conv2d_bias_relu, name, getattr(conv2d_bias_relu, name) + 1)
+
+
 def launch_conv_bf16(x, w, b, stride: int, relu: bool,
-                     tile: int | None = None, variant: str | None = None):
+                     tile: int | None = None, variant: str | None = None,
+                     padding: int = 0):
     """Launches the bf16 kernel on CUDA bf16 tensors with its plan's
     variant and tile, or with ``variant`` (one of ``BF16_VARIANTS``, planned
     for this shape; raises if it cannot take it) and ``tile`` (an id into
@@ -412,15 +448,16 @@ def launch_conv_bf16(x, w, b, stride: int, relu: bool,
         raise ValueError("conv2d_bias_relu bf16: weights must be 16-byte "
                          "aligned")
     plan = conv_bf16_plan(bsz, h, wid, cin, cout, k, stride,
-                          x.data_ptr() % 16 == 0, variant)
+                          x.data_ptr() % 16 == 0, variant, padding)
     if tile is not None:
         plan = plan._replace(tile=tile)
-    out = torch.empty((bsz, conv_out_size(h, k, stride),
-                       conv_out_size(wid, k, stride), cout),
+    out = torch.empty((bsz, conv_out_size(h, k, stride, padding),
+                       conv_out_size(wid, k, stride, padding), cout),
                       dtype=torch.bfloat16, device=x.device)
     launch("cnn_conv2d_bias_relu_bf16", x.device, stream, x.data_ptr(),
            w.data_ptr(), b.data_ptr(), out.data_ptr(), bsz, h, wid, cin, cout,
-           k, stride, int(relu), BF16_VARIANTS.index(plan.variant), plan.tile)
+           k, stride, padding, int(relu), BF16_VARIANTS.index(plan.variant),
+           plan.tile)
     return out, plan
 
 
@@ -433,14 +470,53 @@ conv2d_bias_relu.launches_bf16_gather = 0
 conv2d_bias_relu.launches_bf16_vec = 0
 conv2d_bias_relu.launches_bf16_strip = 0
 conv2d_bias_relu.launches_bf16_wgmma = 0
+conv2d_bias_relu.launches_padded = 0       # by shape, any dtype: padded
+conv2d_bias_relu.launches_1x1 = 0          # and 1x1 convs
+conv2d_bias_relu.launches_bf16_padded = 0  # the same, bf16 only
+conv2d_bias_relu.launches_bf16_1x1 = 0
+
+
+def _save(ctx, x, w, out, stride, relu, padding) -> None:
+    ctx.save_for_backward(x, w, out if relu else None)
+    ctx.stride, ctx.relu, ctx.padding = stride, relu, padding
+
+
+def _backward(ctx, g):
+    """dx, dw, db of the conv (``Conv2dBiasReluFn``), each only where
+    ``ctx.needs_input_grad`` asks for it."""
+    x, w, out = ctx.saved_tensors
+    if ctx.relu:
+        g = torch.where(out > 0, g, torch.zeros((), dtype=g.dtype,
+                                                device=g.device))
+    # NHWC / HWIO viewed as NCHW / OIHW: no copies
+    g_nchw, x_nchw = g.permute(0, 3, 1, 2), x.permute(0, 3, 1, 2)
+    w_oihw = w.permute(3, 2, 0, 1)
+    dx = dw = db = None
+    kw = {"stride": ctx.stride, "padding": ctx.padding}
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        # only what is asked for: not dx for the first layer's images,
+        # not dw and db for frozen parameters (Grad-CAM)
+        if ctx.needs_input_grad[0]:
+            dx = nn_grad.conv2d_input(x_nchw.shape, w_oihw, g_nchw, **kw)
+            dx = dx.permute(0, 2, 3, 1).contiguous()
+        if ctx.needs_input_grad[1]:
+            dw = nn_grad.conv2d_weight(x_nchw, w_oihw.shape, g_nchw, **kw)
+            dw = dw.permute(2, 3, 1, 0).contiguous()
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    if ctx.needs_input_grad[2]:
+        db = g.sum(dim=(0, 1, 2))
+    return dx, dw, db
 
 
 class Conv2dBiasReluFn(torch.autograd.Function):
     """The conv kernel with ``_vjp_bwd``'s backward: the cotangent masked
     where ``out <= 0`` (ReLU on), ``dx`` the transposed conv at the exact
-    input extent (rows and columns the VALID window never read get 0),
-    ``dw`` cropped to k x k, ``db`` the sum of the cotangent, each in its
-    input's dtype.
+    input extent (rows and columns the window never read get 0; with
+    padding, the transposed conv cropped by it), ``dw`` cropped to k x k,
+    ``db`` the sum of the cotangent, each in its input's dtype.
 
     ``cnn_tpu`` runs those convolutions at ``Precision.HIGHEST`` in float32;
     cuDNN would take TF32 by default (``torch.backends.cudnn.allow_tf32``),
@@ -450,43 +526,49 @@ class Conv2dBiasReluFn(torch.autograd.Function):
     """
 
     @staticmethod
-    def forward(ctx, x, w, b, stride, relu):
-        out = conv2d_bias_relu(x, w, b, stride, relu)
-        ctx.save_for_backward(x, w, out if relu else None)
-        ctx.stride, ctx.relu = stride, relu
+    def forward(ctx, x, w, b, stride, relu, padding=0):
+        out = conv2d_bias_relu(x, w, b, stride, relu, padding)
+        _save(ctx, x, w, out, stride, relu, padding)
         return out
 
     @staticmethod
     def backward(ctx, g):
-        x, w, out = ctx.saved_tensors
-        if ctx.relu:
-            g = torch.where(out > 0, g, torch.zeros((), dtype=g.dtype,
-                                                    device=g.device))
-        # NHWC / HWIO viewed as NCHW / OIHW: no copies
-        g_nchw, x_nchw = g.permute(0, 3, 1, 2), x.permute(0, 3, 1, 2)
-        w_oihw = w.permute(3, 2, 0, 1)
-        dx = dw = db = None
-        tf32 = torch.backends.cudnn.allow_tf32
-        torch.backends.cudnn.allow_tf32 = False
-        try:
-            # only what is asked for: not dx for the first layer's images,
-            # not dw and db for frozen parameters (Grad-CAM)
-            if ctx.needs_input_grad[0]:
-                dx = nn_grad.conv2d_input(x_nchw.shape, w_oihw, g_nchw,
-                                          stride=ctx.stride)
-                dx = dx.permute(0, 2, 3, 1).contiguous()
-            if ctx.needs_input_grad[1]:
-                dw = nn_grad.conv2d_weight(x_nchw, w_oihw.shape, g_nchw,
-                                           stride=ctx.stride)
-                dw = dw.permute(2, 3, 1, 0).contiguous()
-        finally:
-            torch.backends.cudnn.allow_tf32 = tf32
-        if ctx.needs_input_grad[2]:
-            db = g.sum(dim=(0, 1, 2))
-        return dx, dw, db, None, None
+        return (*_backward(ctx, g), None, None, None)
 
 
 def conv2d_bias_relu_fn(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
-                        stride: int = 2, relu: bool = True) -> torch.Tensor:
+                        stride: int = 2, relu: bool = True,
+                        padding: int = 0) -> torch.Tensor:
     """Differentiable ``conv2d_bias_relu``."""
-    return Conv2dBiasReluFn.apply(x, w, b, stride, relu)
+    return Conv2dBiasReluFn.apply(x, w, b, stride, relu, padding)
+
+
+@torch.library.custom_op("cnn_tpu_torch::conv2d_bias_relu", mutates_args=())
+def conv2d_bias_relu_op(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                        stride: int, relu: bool,
+                        padding: int) -> torch.Tensor:
+    """``conv2d_bias_relu_fn`` as an operator that dispatch sees by name
+    (``torch.ops.cnn_tpu_torch.conv2d_bias_relu``): the same launch and
+    the same backward."""
+    return conv2d_bias_relu(x, w, b, stride, relu, padding)
+
+
+@conv2d_bias_relu_op.register_fake
+def _(x, w, b, stride, relu, padding):
+    k = w.shape[0]
+    return x.new_empty((x.shape[0], conv_out_size(x.shape[1], k, stride,
+                                                  padding),
+                        conv_out_size(x.shape[2], k, stride, padding),
+                        w.shape[-1]))
+
+
+def _op_setup(ctx, inputs, output):
+    x, w, _, stride, relu, padding = inputs
+    _save(ctx, x, w, output, stride, relu, padding)
+
+
+def _op_backward(ctx, g):
+    return (*_backward(ctx, g), None, None, None)
+
+
+conv2d_bias_relu_op.register_autograd(_op_backward, setup_context=_op_setup)

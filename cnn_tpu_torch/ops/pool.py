@@ -6,6 +6,9 @@ crop the last row/col. Ties go to the earliest tap in row-major window order
 (00, 01, 10, 11), which matters after ReLU, where exact zeros tie; the
 backward routes each window's cotangent to that tap. The CUDA kernels are
 ``ops/hopper/pool.py``.
+
+``avg_pool2d`` and ``global_avg_pool`` (no kernel in ``cnn_tpu``) sum in
+float32 and return the input's dtype.
 """
 
 from __future__ import annotations
@@ -46,3 +49,16 @@ def max_pool2d_bwd(tap: torch.Tensor, g: torch.Tensor, h: int,
     bot = torch.stack(taps[2:], dim=3)
     dx = torch.stack([top, bot], dim=2).reshape(b, 2 * h2, 2 * w2, c)
     return F.pad(dx, (0, 0, 0, w - 2 * w2, 0, h - 2 * h2))
+
+
+def avg_pool2d(x: torch.Tensor, kernel_size: int = 2,
+               stride: int = 2) -> torch.Tensor:
+    """NHWC average pooling, VALID: each window summed in float32, divided
+    by its size, cast back to x's dtype (``cnn_tpu/ops/pool.py``)."""
+    y = F.avg_pool2d(x.float().permute(0, 3, 1, 2), kernel_size, stride)
+    return y.permute(0, 2, 3, 1).to(x.dtype)
+
+
+def global_avg_pool(x: torch.Tensor) -> torch.Tensor:
+    """[B,H,W,C] -> [B,C], the spatial mean in float32, in x's dtype."""
+    return x.float().mean(dim=(1, 2)).to(x.dtype)

@@ -33,6 +33,7 @@ from dataclasses import dataclass
 import torch
 from torch import nn
 
+from cnn_tpu_torch.nn.module import leaf_name
 from cnn_tpu_torch.ops.hopper.normalize import uint8_normalize
 from cnn_tpu_torch.ops.losses import softmax_cross_entropy
 
@@ -50,10 +51,13 @@ class TrainState:
 
 
 def named_params(model) -> dict:
-    """``{"<layer>.<key>": parameter}`` in layer order, ``cnn_tpu``'s names."""
+    """``{name: parameter}`` in layer order, each named by its path in
+    ``cnn_tpu``'s param tree (``nn/module.py:leaf_name``: ``conv_layer_1.w``,
+    ``block_2/body/block_2_conv1.w``; a ``StackedBlocks``' stacked tensor
+    ``trunk/body/b_conv1.w``)."""
     net = getattr(model, "net", model)
-    return {f"{layer.name}.{k}": p for layer in net
-            for k, p in layer.named_parameters(recurse=False)}
+    return {leaf_name(path): t for path, t, is_state in net.tree_leaves()
+            if not is_state}
 
 
 def create_train_state(model, optimizer, seed: int = 0) -> TrainState:

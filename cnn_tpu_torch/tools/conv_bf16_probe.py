@@ -101,7 +101,7 @@ def main() -> int:
                 y = torch.empty((bsz, ho, ho, cout), dtype=torch.bfloat16,
                                 device=dev)
                 args = [x.data_ptr(), w.data_ptr(), b.data_ptr(),
-                        y.data_ptr(), bsz, h, h, cin, cout, 3, 2, 0,
+                        y.data_ptr(), bsz, h, h, cin, cout, 3, 2, 0, 0,
                         BF16_VARIANTS.index("wgmma"), plan.tile]
 
                 def run(lib):

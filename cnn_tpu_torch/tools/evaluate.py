@@ -11,10 +11,12 @@ averages the class probabilities of several checkpoints
 layers follow its checkpoint.
 
 It runs on the GPU; ``main(argv, device="cpu")`` runs the plain versions
-on the CPU. Not ported yet, each raising ``NotImplementedError``: a
-checkpoint that tracks EMA weights (``cnn_tpu`` evaluates those; ROADMAP.md
-Queue 1 item 5), model families other than alexnet, in ``--name`` or in an
-ensemble (item 8), and ``--compile-cache``.
+on the CPU. ``--name`` and the ensemble members take every family the
+port builds (alexnet, resnet10/18, vgg8/11, mobilenet, pipecnn; a member's
+options as ``pipecnn@width=64@n_blocks=8:ckpt``). Not ported yet, each
+raising ``NotImplementedError``: a checkpoint that tracks EMA weights
+(``cnn_tpu`` evaluates those; ROADMAP.md Queue 1 item 5), the moecnn
+family (item 8) and ``--compile-cache``.
 """
 
 from __future__ import annotations
@@ -36,17 +38,9 @@ from cnn_tpu_torch.utils.checkpoint import (load_jax_params, read_checkpoint,
 from cnn_tpu_torch.utils.metrics import ConfusionMatrix
 
 
-def _family(name: str) -> None:
-    if name != "alexnet":
-        raise NotImplementedError(
-            f"model family '{name}' is not ported yet (ROADMAP.md Queue 1 "
-            "item 8); cnn_tpu_torch evaluates alexnet checkpoints")
-
-
 def load_model(path: str, name: str, device, **kwargs):
     """The ``name`` model with the raw weights of the ``.ckpt`` at
     ``path``, BN layers where its param tree has them."""
-    _family(name)
     payload = read_checkpoint(path)
     refuse_ema(payload, path)
     model = get_model(name, batch_norm=tree_has_bn(payload["params"]),

@@ -150,6 +150,10 @@ def main(argv=None, *, device=None):
     ap.add_argument("--n-blocks", type=int, default=0,
                     help="trunk depth (pipecnn checkpoints; 0 = family default)")
     args = ap.parse_args(argv)
+    if args.model != "alexnet":
+        raise NotImplementedError(
+            f"gradcam --model {args.model} is not ported yet (ROADMAP.md "
+            "Queue 1 item 8): Grad-CAM runs the alexnet family")
     categories = args.categories.split(",")
     dev = default_device(device)
 

@@ -77,7 +77,7 @@ def main(argv=None, *, device=None):
     ap.add_argument("--checkpoint", default=DEFAULT_CKPT)
     ap.add_argument("--categories", default="dog,panda,bird")
     ap.add_argument("--model", default="alexnet",
-                    help="model family (alexnet)")
+                    help="model family (alexnet | vgg8 | resnet10 | ...)")
     ap.add_argument("--image-size", type=int, default=224)
     ap.add_argument("--batch-norm", action="store_true",
                     help="checkpoint was trained with BatchNorm layers")

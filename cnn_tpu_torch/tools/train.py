@@ -13,7 +13,8 @@ from the newest checkpoint.
 It runs on the GPU; ``main(argv, device="cpu")`` runs the plain versions
 on the CPU (tests). ``--donate`` is accepted and changes nothing: PyTorch
 updates the train state in place either way. Options not ported yet raise
-``NotImplementedError`` naming their flag (``check_flags``), as do the host
+``NotImplementedError`` naming their flag (``check_flags``: among them
+``--name moecnn``, ``--moe-balance`` and ``--space-to-depth``), as do the host
 augmentation (``--augment true`` without ``--device-augment`` or
 ``--device-dataset``), ``--backend native``, ``--optimizer adam``,
 ``--weight-decay`` and ``--grad-clip``.
@@ -36,6 +37,7 @@ from cnn_tpu_torch.core.config import parse_configs
 from cnn_tpu_torch.data import (DataLoader, DeviceDataset, discover_dataset,
                                 make_device_train_step, split_dataset)
 from cnn_tpu_torch.models import get_model
+from cnn_tpu_torch.models.registry import UNPORTED
 from cnn_tpu_torch.ops.augment import augment_batch, augment_batch_fast
 from cnn_tpu_torch.parallel import (create_train_state, make_eval_step,
                                     make_train_step)
@@ -70,15 +72,25 @@ def check_flags(model_cfg, data_cfg, train_cfg) -> None:
         ("--color-jitter", d.color_jitter > 0.0),
         ("--space-to-depth", m.space_to_depth),
         ("--moe-balance", m.moe_balance > 0.0),
-        ("--width", m.width > 0.0),
-        ("--n-blocks", m.n_blocks > 0),
-        ("--name", m.name != "alexnet"),
+        ("--name", m.name in UNPORTED),
     )
     for flag, asked in unported:
         if asked:
             raise NotImplementedError(
-                f"{flag} is not ported yet (cnn_tpu_torch runs the alexnet "
-                "family on one GPU)")
+                f"{flag} is not ported yet (cnn_tpu_torch runs the alexnet, "
+                "resnet, vgg, mobilenet and pipecnn families on one GPU)")
+
+
+def model_kwargs(model_cfg) -> dict:
+    """The family options ``cnn_tpu``'s train CLI passes to ``get_model``:
+    ``--width`` (an int where it is whole) and ``--n-blocks`` where set."""
+    kwargs = {}
+    if model_cfg.width > 0:
+        w = model_cfg.width
+        kwargs["width"] = int(w) if float(w).is_integer() else w
+    if model_cfg.n_blocks > 0:
+        kwargs["n_blocks"] = model_cfg.n_blocks
+    return kwargs
 
 
 def _to(device, images: np.ndarray, labels: np.ndarray):
@@ -173,7 +185,8 @@ def _main(argv, preempted, device):
                       batch_norm=model_cfg.batch_norm,
                       dropout=model_cfg.dropout,
                       image_size=model_cfg.image_size, device=dev,
-                      generator=torch.Generator().manual_seed(train_cfg.seed))
+                      generator=torch.Generator().manual_seed(train_cfg.seed),
+                      **model_kwargs(model_cfg))
     opt = optim.make_optimizer(train_cfg.optimizer, train_cfg.learning_rate,
                                train_cfg.momentum,
                                schedule=train_cfg.lr_schedule,

@@ -9,9 +9,16 @@ with ``in`` in CHW flatten order, then ``b``; BN ``gamma``, ``beta``,
 ``import_reference_model`` returns it as ``cnn_tpu`` lays it out (HWIO conv
 weights, an NHWC-ordered dense in-dim), ``load_jax_params`` copies such
 param/state trees into a port model and ``export_reference_model`` writes
-them back. ``load_jax_train_state`` carries a whole ``cnn_tpu``
+them back; the ``.model`` format is the flat AlexNet stack's only, as in
+``cnn_tpu``. ``load_jax_train_state`` carries a whole ``cnn_tpu``
 ``TrainState`` across: params, BN state, optax's momentum trace (a tree
 shaped like the params) and its update count, and the step.
+
+Trees follow the model's layers (``Layer.tree_leaves``): ``{layer: {key:
+array}}`` for a flat stack, nested for the blocks (``{"block_2": {"body":
+{"block_2_conv1": {"w": ...}}, "proj": {...}}}``) and stacked with a
+leading [L] axis under a ``StackedBlocks`` (``{"trunk": {"body":
+{"b_conv1": {"w": [L,3,3,C,C]}}}}``), as ``cnn_tpu``'s are.
 
 A native ``.ckpt`` is ``cnn_tpu``'s pickle of a dict: ``params``, ``state``
 and ``opt_state`` as numpy trees, ``step``, ``rng`` (uint32[2], the
@@ -47,7 +54,8 @@ from typing import Any, NamedTuple
 import numpy as np
 import torch
 
-from cnn_tpu_torch.nn.module import BatchNorm2D, Conv2D, Linear
+from cnn_tpu_torch.nn.module import (BatchNorm2D, Conv2D, Linear, leaf_name,
+                                     leaf_path)
 
 
 def _net(model):
@@ -140,21 +148,32 @@ def import_reference_array(raw: np.ndarray, net,
     return params, state
 
 
+def _at(tree: dict, path, what: str):
+    """The leaf of ``tree`` at ``path``."""
+    node = tree
+    for i, key in enumerate(path):
+        if not isinstance(node, dict) or key not in node:
+            raise KeyError(f"{what} tree has no {'/'.join(path[:i + 1])}")
+        node = node[key]
+    return node
+
+
+def _copy_into(dst: torch.Tensor, value, name: str) -> None:
+    src = torch.tensor(np.asarray(value, dtype=np.float32))
+    if tuple(src.shape) != tuple(dst.shape):
+        raise ValueError(f"{name}: shape {tuple(src.shape)} != "
+                         f"{tuple(dst.shape)}")
+    dst.copy_(src)
+
+
 def load_jax_params(model, params: dict, state: dict) -> None:
-    """Copies ``cnn_tpu`` param/state trees (arrays, e.g. numpy) into
-    ``model`` in place; every shape must match."""
+    """Copies ``cnn_tpu`` param/state trees (arrays, e.g. numpy; nested and
+    [L]-stacked as the model's layers are) into ``model`` in place; every
+    shape must match."""
     with torch.no_grad():
-        for layer in _param_layers(model):
-            tensors = dict(params[layer.name])
-            if isinstance(layer, BatchNorm2D):
-                tensors.update(state[layer.name])
-            for key, value in tensors.items():
-                dst = getattr(layer, key)
-                src = torch.tensor(np.asarray(value, dtype=np.float32))
-                if tuple(src.shape) != tuple(dst.shape):
-                    raise ValueError(f"{layer.name}.{key}: shape "
-                                     f"{tuple(src.shape)} != {tuple(dst.shape)}")
-                dst.copy_(src)
+        for path, dst, is_state in _net(model).tree_leaves():
+            tree, what = (state, "state") if is_state else (params, "param")
+            _copy_into(dst, _at(tree, path, what), leaf_name(path))
 
 
 def load_reference_model(model, path) -> None:
@@ -176,12 +195,8 @@ def load_jax_train_state(ts, params: dict, state: dict, trace=None,
     if trace is not None:
         with torch.no_grad():
             for name, dst in ts.opt_state["trace"].items():
-                layer, key = name.split(".")
-                src = torch.tensor(np.asarray(trace[layer][key], np.float32))
-                if tuple(src.shape) != tuple(dst.shape):
-                    raise ValueError(f"trace {name}: shape {tuple(src.shape)} "
-                                     f"!= {tuple(dst.shape)}")
-                dst.copy_(src)
+                _copy_into(dst, _at(trace, leaf_path(name), "trace"),
+                           f"trace {name}")
     ts.opt_state["count"] = int(count)
     ts.step = int(step)
 
@@ -192,19 +207,25 @@ def _np(x) -> np.ndarray:
     return np.asarray(x)
 
 
+def _tree(leaves) -> dict:
+    """``(path, tensor)`` pairs as a nested dict of numpy copies, keys
+    sorted at every level as JAX's tree functions sort them."""
+    out: dict = {}
+    for path, t in sorted(leaves, key=lambda pt: pt[0]):
+        node = out
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = _np(t).copy()
+    return out
+
+
 def model_trees(model) -> tuple[dict, dict]:
-    """``model``'s ``(params, state)`` as ``cnn_tpu``'s numpy trees:
-    ``{layer: {key: array}}``, keys sorted as JAX's tree functions sort
-    them; the state holds the BN layers' ``mean`` and ``var``."""
-    params: dict = {}
-    state: dict = {}
-    for layer in sorted(_param_layers(model), key=lambda l: l.name):
-        params[layer.name] = {k: _np(p).copy() for k, p in
-                              sorted(layer.named_parameters(recurse=False))}
-        if isinstance(layer, BatchNorm2D):
-            state[layer.name] = {"mean": _np(layer.mean).copy(),
-                                 "var": _np(layer.var).copy()}
-    return params, state
+    """``model``'s ``(params, state)`` as ``cnn_tpu``'s numpy trees
+    (module docstring); the state holds the BN layers' ``mean`` and
+    ``var``."""
+    leaves = list(_net(model).tree_leaves())
+    return (_tree((p, t) for p, t, st in leaves if not st),
+            _tree((p, t) for p, t, st in leaves if st))
 
 
 def export_reference_model(path, net, params: dict | None = None,
@@ -320,12 +341,8 @@ class _RestrictedUnpickler(pickle.Unpickler):
 
 
 def _nest(flat: dict) -> dict:
-    """``{"layer.key": tensor}`` -> ``{layer: {key: array}}``, sorted."""
-    out: dict = {}
-    for name in sorted(flat):
-        layer, key = name.split(".")
-        out.setdefault(layer, {})[key] = _np(flat[name]).copy()
-    return out
+    """``{leaf_name: tensor}`` -> the nested tree of arrays, sorted."""
+    return _tree((leaf_path(name), t) for name, t in flat.items())
 
 
 def _optax_state(opt_state: dict):

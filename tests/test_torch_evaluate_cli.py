@@ -166,8 +166,8 @@ def test_evaluate_cli_refusals(ppm_dataset, capsys):
     assert evaluate.main(["--resume", "/nonexistent.ckpt"], device="cpu") == 2
     with pytest.raises(NotImplementedError, match="EMA"):
         evaluate.main(base + ["--resume", EMA], device="cpu")
-    with pytest.raises(NotImplementedError, match="resnet10"):
-        evaluate.main(base + ["--ensemble", f"resnet10:{BEST}"], device="cpu")
-    with pytest.raises(NotImplementedError, match="resnet10"):
-        evaluate.main(base + ["--resume", BEST, "--name", "resnet10"],
+    with pytest.raises(NotImplementedError, match="moecnn"):
+        evaluate.main(base + ["--ensemble", f"moecnn:{BEST}"], device="cpu")
+    with pytest.raises(NotImplementedError, match="moecnn"):
+        evaluate.main(base + ["--resume", BEST, "--name", "moecnn"],
                       device="cpu")

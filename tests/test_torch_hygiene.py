@@ -49,6 +49,10 @@ import cnn_tpu_torch.utils.profiling
 import cnn_tpu_torch.tools.infer, cnn_tpu_torch.tools.gradcam
 import cnn_tpu_torch.tools.evaluate, cnn_tpu_torch.ops.dropout
 import cnn_tpu_torch.ops.tensor
+import cnn_tpu_torch.models.resnet, cnn_tpu_torch.models.vgg
+import cnn_tpu_torch.models.mobilenet, cnn_tpu_torch.models.pipecnn
+import cnn_tpu_torch.models.base, cnn_tpu_torch.ops.pool, cnn_tpu_torch.ops.conv
+import cnn_tpu_torch.nn.module, cnn_tpu_torch.nn.sequential
 import chip_smoke
 leaked = sorted(n for n in sys.modules if n.split(".")[0] in BLOCKED)
 assert not leaked, leaked
@@ -144,3 +148,21 @@ def test_inference_tools_need_cuda_or_an_explicit_cpu(monkeypatch, tmp_path):
     assert infer.main(tools[infer], device="cpu") == 0
     assert gradcam.main(tools[gradcam], device="cpu") == 0
     assert (tmp_path / "cam" / "0.png").exists()
+
+
+@pytest.mark.parametrize("name", ["resnet10", "vgg8", "mobilenet", "pipecnn"])
+def test_family_entry_points_need_cuda_or_an_explicit_cpu(monkeypatch, name):
+    """The families build on the card by default, and on the CPU when asked
+    for it, where the serving engine runs them eagerly."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    small = {"width": 8, "n_blocks": 2} if name == "pipecnn" else {}
+    with pytest.raises(RuntimeError):
+        get_model(name, image_size=32, **small)
+    model = get_model(name, image_size=32, device="cpu", **small)
+    with pytest.raises(RuntimeError):
+        InferenceEngine(model, buckets=(1,))
+    engine = InferenceEngine(model, buckets=(1, 4), device="cpu")
+    engine.warmup()
+    labels, probs = engine.predict(np.zeros((5, 32, 32, 3), np.uint8))
+    assert labels.shape == (5,) and probs.shape == (5, 3)
+    assert np.allclose(probs.sum(axis=1), 1.0, atol=1e-5)

@@ -192,8 +192,7 @@ UNPORTED = [
     ("--distill-from", "t.ckpt"), ("--mixup", "0.2"), ("--cutmix", "0.2"),
     ("--grad-accum", "2"), ("--steps-per-call", "2"),
     ("--color-jitter", "0.1"), ("--space-to-depth", "true"),
-    ("--moe-balance", "0.01"), ("--width", "2"),
-    ("--n-blocks", "2"), ("--name", "resnet10"),
+    ("--moe-balance", "0.01"), ("--name", "moecnn"),
 ]
 
 
