@@ -7,9 +7,9 @@
    TF32 off for every float32 product and convolution;
 2. build: one ``nvcc`` per ``cnn_tpu_torch/csrc/*.cu`` for sm_90a, side by
    side; each kernel's registers, shared memory and spills (the strip,
-   tiled and bf16 conv, every bf16 strip R and wgmma tile, the pool forward
-   and window backward in both dtypes, the rotation and the wide normalize
-   kernels must not spill); ptxas's advisories on wgmma, if any;
+   tiled and bf16 conv, every bf16 strip R, wgmma and tma tile, the pool
+   forward and window backward in both dtypes, the rotation and the wide
+   normalize kernels must not spill); ptxas's advisories on wgmma, if any;
 3. kernels: each CUDA kernel against its plain PyTorch version on the card,
    at the serving path's shapes with batch 64 (normalize and max-pool
    bit-exact, conv within atol 1e-5 + rtol 1e-5), timed with CUDA events
@@ -75,20 +75,27 @@
    held-out images;
 8. the bf16 conv at each AlexNet layer at batch 256 and B = 64, ReLU off
    and on: conv1 through the strip kernel (its input rows staged whole,
-   ``mma.sync`` fragments read from them) and conv2-4 through the wgmma
-   kernel (a ring of cp.async slices, ``wgmma.mma_async`` from shared
-   memory), each planned so, against the plain bf16 conv: each element
-   within one bf16 ulp of the plain value plus 1e-5 x S (S the same conv of
-   |x| and |w|), the count of elements that differ at all, two launches
-   bit-identical; alone (and HBM-cold at batch 256: inputs taken in turn
-   from copies 120 MB apart), through the wrapper, the mma.sync kernel
-   (the previous design) on the same values, plain, cuDNN bf16 beside the
-   float32 kernels and cuDNN float32, every strip R and every wgmma tile of
-   BN Cout and Cout / 2 swept at batch 256; off those shapes (B = 1 and 8,
-   odd extents, Cin 3 and 64 against Cout 16 and 128, Cout 8, 24, 48 and
-   200, the strip at k*Cin 5, 6 and 12 and stride 1, k 5 at stride 1, x
-   off alignment) through the plan and every variant that takes the shape,
-   with every strip R, wgmma tile and mma.sync tile;
+   ``mma.sync`` fragments read from them), conv2-3 through the wgmma kernel
+   (a ring of cp.async slices, ``wgmma.mma_async`` from shared memory) and
+   conv4 through the tma kernel (im2col and tiled TMA copies into
+   128-byte-swizzled stages behind an mbarrier ring), each planned so,
+   against the plain bf16 conv: each element within one bf16 ulp of the
+   plain value plus 1e-5 x S (S the same conv of |x| and |w|), the count of
+   elements that differ at all, two launches bit-identical; alone (and
+   HBM-cold at batch 256: inputs taken in turn from copies 120 MB apart),
+   through the wrapper, the previous design (the mma.sync kernel; for conv4
+   the wgmma kernel) on the same values, plain, cuDNN bf16 beside the
+   float32 kernels and cuDNN float32, every strip R, every wgmma tile of BN
+   Cout and Cout / 2 and every tma tile swept at batch 256; off those
+   shapes (B = 1 and 8, odd extents, Cin 3 and 64 against Cout 16 and 128,
+   Cout 8, 24, 48 and 200, the strip at k*Cin 5, 6 and 12 and stride 1, k 5
+   at stride 1, x off alignment) through the plan and every variant that
+   takes the shape, with every strip R, wgmma, tma and mma.sync tile; then
+   the tma kernel with every tile at conv4 (B = 64, 256), the padded 3x3
+   and 1x1 family rows and a Cin-128 padded 3x3, and through its plan at
+   every family conv with Cin % 64 == 0 (B = 64), PipeCNN's trunk conv and
+   conv4 at B = 1, 8 and 256: graph-timed in turns beside the wgmma kernel
+   (the tma plan must be the faster), every tile alone, cuDNN + ReLU alone;
 9. the bf16 pool forward with tap and window backward at [256,111,111,16]
    and B = 64 on forced ties and at 7 x 9 and 5 x 4 extents, bit-exact
    against the plain versions and autograd, timed beside the float32
@@ -100,15 +107,15 @@
    ``compute_dtype=bf16`` and ``augment_batch(dtype=bf16)``, 40 steps:
    finite, falling loss, eval accuracy, img/s and the device split beside
    phase 7's, the exact bf16 launch counts (conv1 on the strip kernel,
-   conv2-4 on the wgmma kernel; no mma.sync conv, no float32 conv or pool
-   kernel), the cuBLAS reduced-precision flag;
+   conv2-3 on the wgmma kernel, conv4 on the tma kernel; no mma.sync conv,
+   no float32 conv or pool kernel), the cuBLAS reduced-precision flag;
 12. bf16 serving: ``InferenceEngine(compute_dtype=bf16)`` on the committed
    checkpoint, buckets 1, 8, 64: replays bit-equal to the eager bf16
-   forward, exact launch counts (conv1 on the strip kernel, conv2-4 on
-   the wgmma kernel at every bucket), labels, probabilities and logits
-   against the float32 engine (logits within 5e-2 x max(1, max|ref|),
-   probs 5e-2),
-   bucket-64 img/s and graph ms beside float32, per-layer eager times;
+   forward, exact launch counts (conv1 on the strip kernel, conv2-3 on the
+   wgmma and conv4 on the tma kernel at every bucket), labels,
+   probabilities and logits against the float32 engine (logits within 5e-2
+   x max(1, max|ref|), probs 5e-2), bucket-64 img/s and graph ms beside
+   float32, per-layer eager times;
 13. the committed ``checkpoints/alexnet_bn_device/iter_12000_*.ckpt`` read
    through ``utils/checkpoint.py:load_checkpoint``: step 12000, logits
    bit-equal to those of the ``.model`` beside it;
@@ -179,7 +186,10 @@
    the fresh resnet10 runs' last 5 below their first 5, its checkpoint
    read back equal through a fresh train state; img/s over the loop and
    device ms a step. The kernels line gains the conv rows of the padded
-   stem, the padded 3x3 and the 1x1, float32 and bf16, timed at B=64.
+   stem, the padded 3x3 and the 1x1, float32 and bf16, timed at B=64
+   through the wrapper and alone beside cuDNN + ReLU alone, and the tma
+   kernel's row (its launches over every counted run, timed at conv4, B =
+   64).
 
 Every phase prints one flushed line with the seconds since start. Any failed
 check raises, so the exit code is not 0. Without a CUDA device it exits 1
@@ -224,7 +234,8 @@ from cnn_tpu_torch.ops import augment as aug
 from cnn_tpu_torch.ops.activations import relu as ops_relu
 from cnn_tpu_torch.ops.conv import conv2d, conv_out_size
 from cnn_tpu_torch.ops.hopper import (BF16_STRIP_ROWS, BF16_TILES,
-                                      STRIP_ROWS, TILES, WGMMA_TILES,
+                                      STRIP_ROWS, TILES, TMA_TILES,
+                                      WGMMA_TILES,
                                       _build, conv2d_bias_relu,
                                       conv2d_bias_relu_fn, conv_bf16_plan,
                                       conv_tile_plan, counted_capture,
@@ -290,6 +301,7 @@ REPLACES = {
     "conv2d_bias_relu": "cnn_tpu/ops/pallas/conv.py:103",
     "rotate_shear": "cnn_tpu/ops/pallas/augment.py:173",
     "conv2d_bias_relu_bf16": "cnn_tpu/ops/pallas/conv.py:77",
+    "conv2d_bias_relu_bf16_tma": "cnn_tpu/ops/pallas/conv.py:77",
     "max_pool2d_fwd_bf16": "cnn_tpu/ops/pallas/pool.py:61",
     "max_pool2d_bwd_bf16": "cnn_tpu/ops/pallas/pool.py:82",
 }
@@ -300,6 +312,7 @@ SOURCES = {
     "conv2d_bias_relu": "cnn_tpu_torch/csrc/conv.cu",
     "rotate_shear": "cnn_tpu_torch/csrc/rotate.cu",
     "conv2d_bias_relu_bf16": "cnn_tpu_torch/csrc/conv.cu",
+    "conv2d_bias_relu_bf16_tma": "cnn_tpu_torch/csrc/conv.cu",
     "max_pool2d_fwd_bf16": "cnn_tpu_torch/csrc/pool.cu",
     "max_pool2d_bwd_bf16": "cnn_tpu_torch/csrc/pool.cu",
 }
@@ -898,6 +911,7 @@ def serving_want(calls: int) -> dict:
             "conv2d_bias_relu.launches_bf16_vec": 0,
             "conv2d_bias_relu.launches_bf16_strip": 0,
             "conv2d_bias_relu.launches_bf16_wgmma": 0,
+            "conv2d_bias_relu.launches_bf16_tma": 0,
             "conv2d_bias_relu.launches_padded": 0,
             "conv2d_bias_relu.launches_1x1": 0,
             "conv2d_bias_relu.launches_bf16_padded": 0,
@@ -1716,16 +1730,19 @@ def same16(a: torch.Tensor, b: torch.Tensor) -> bool:
         torch.equal(a.view(torch.int16), b.view(torch.int16)))
 
 
-def check_conv_bf16(x, w, b, stride, what, conv=conv2d_bias_relu):
+def check_conv_bf16(x, w, b, stride, what, conv=conv2d_bias_relu,
+                    padding=0):
     """``conv`` on bf16 against the plain bf16 conv, ReLU off and on: every
     element within one bf16 ulp of the plain value plus BF16_CONV_SREL x S,
     two launches bit-identical. Returns (max |dev|, max |dev| / bar,
     elements that differ at all, elements)."""
     s_abs = conv2d(x.float().abs(), w.float().abs(),
-                   torch.zeros_like(b, dtype=torch.float32), stride, False)
+                   torch.zeros_like(b, dtype=torch.float32), stride, False,
+                   padding)
     worst = [0.0, 0.0, 0, 0]
     for relu in (False, True):
-        y, ref = conv(x, w, b, stride, relu), conv2d(x, w, b, stride, relu)
+        y = conv(x, w, b, stride, relu, padding=padding)
+        ref = conv2d(x, w, b, stride, relu, padding)
         check(y.dtype == BF16 and y.shape == ref.shape,
               f"{what} relu={relu}: {y.dtype} {tuple(y.shape)}")
         dev_ = (y.float() - ref.float()).abs()
@@ -1733,7 +1750,7 @@ def check_conv_bf16(x, w, b, stride, what, conv=conv2d_bias_relu):
         check(bool((dev_ <= bar).all()), f"{what} relu={relu}: max deviation "
               f"{dev_.max().item():.3g}, {(dev_ / bar).max().item():.3g} x "
               "the bar (1 bf16 ulp + 1e-5 S)")
-        check(same16(y, conv(x, w, b, stride, relu)),
+        check(same16(y, conv(x, w, b, stride, relu, padding=padding)),
               f"{what} relu={relu}: two launches differ")
         worst[0] = max(worst[0], dev_.max().item())
         worst[1] = max(worst[1], (dev_ / bar).max().item())
@@ -1777,11 +1794,11 @@ def bf16_variants_taking(bsz, h, wid, cin, cout, k, stride, aligned):
 
 def bf16_conv_phase(gen) -> tuple:
     """The bf16 conv at each AlexNet layer at batch 256 and B = 64 (conv1
-    through the strip kernel, conv2-4 through the wgmma kernel), then off
-    those shapes through every variant that takes them, against the plain
-    bf16 conv; times beside the mma.sync kernel (the previous design),
-    cuDNN and the float32 kernels on the same values; the kernels line's
-    row."""
+    through the strip kernel, conv2-3 through the wgmma kernel, conv4
+    through the tma kernel), then off those shapes through every variant
+    that takes them, against the plain bf16 conv; times beside the previous
+    design (the mma.sync kernel, for conv4 the wgmma kernel), cuDNN and the
+    float32 kernels on the same values; the kernels line's row."""
     rows, layers = {}, [(3, 16, 224), (16, 32, 55), (32, 64, 27),
                         (64, 128, 13)]
     worst = [0.0, 0.0, 0, 0]
@@ -1793,7 +1810,7 @@ def bf16_conv_phase(gen) -> tuple:
             x, w, b = bf16_conv_inputs(gen, bsz, h, h, cin, cout)
             plan = conv_bf16_plan(bsz, h, h, cin, cout, 3, 2,
                                   x.data_ptr() % 16 == 0)
-            check(plan.variant == ("strip" if i == 1 else "wgmma"),
+            check(plan.variant == {1: "strip", 4: "tma"}.get(i, "wgmma"),
                   f"bf16 conv_layer_{i}: planned {plan}")
             got = check_conv_bf16(x, w, b, 2, f"bf16 conv_layer_{i} B={bsz}")
             worst = [max(worst[0], got[0]), max(worst[1], got[1]),
@@ -1807,7 +1824,9 @@ def bf16_conv_phase(gen) -> tuple:
             io = 2 * bsz * r * r * cin + nbytes(w, b) + 2 * m * cout
             bnd = bound_ms(io, 2 * m * cout * 9 * cin + m * cout,
                            BF16_FLOP_PER_S)
-            old = "gather" if i == 1 else "vec"
+            # the previous design: the mma.sync kernel, for conv4 the
+            # wgmma kernel
+            old = {1: "gather", 4: "wgmma"}.get(i, "vec")
             t = {"ms": time_ms(lambda: conv2d_bias_relu(x, w, b, 2, False)),
                  "graph": graph_ms(lambda: conv2d_bias_relu(x, w, b, 2,
                                                             False)),
@@ -1831,6 +1850,9 @@ def bf16_conv_phase(gen) -> tuple:
             if bsz == TRAIN_B:   # each R, or each tile of BN Cout and Cout/2
                 if plan.variant == "strip":
                     cands = {f"R {r}": j for j, r in enumerate(BF16_STRIP_ROWS)}
+                elif plan.variant == "tma":
+                    cands = {"x".join(map(str, tt)): j
+                             for j, tt in enumerate(TMA_TILES)}
                 else:
                     cands = {"x".join(map(str, tt)): j
                              for j, tt in enumerate(WGMMA_TILES)
@@ -1838,12 +1860,13 @@ def bf16_conv_phase(gen) -> tuple:
                 times = {name: graph_ms(lambda j=j: launch_conv_bf16(
                     x, w, b, 2, False, tile=j, variant=plan.variant))
                     for name, j in cands.items()}
-                sweep = (f"; {'R' if i == 1 else 'BN x MT x BK x stages x '
-                                                'split x A-via-L1'} "
-                         "sweep alone (ms): " + ", ".join(
+                label = {1: "R", 4: "BN x BM x stages x consumers"}.get(
+                    i, "BN x MT x BK x stages x split x A-via-L1")
+                sweep = (f"; {label} sweep alone (ms): " + ", ".join(
                              f"{k} {v:.4f}" for k, v in times.items()))
             tile = (f"R {BF16_STRIP_ROWS[plan.tile]}" if i == 1 else
-                    "x".join(map(str, WGMMA_TILES[plan.tile])))
+                    "x".join(map(str, (TMA_TILES if i == 4 else WGMMA_TILES)
+                                 [plan.tile])))
             phase(f"bf16 conv_layer_{i} [{bsz},{h},{h},{cin}]->[{bsz},{ho},"
                   f"{ho},{cout}] {plan.variant} {tile} (grid {plan.grid}, K "
                   f"{9 * cin} -> {plan.k_pad}): max|dev| {got[0]:.3g} "
@@ -1851,7 +1874,7 @@ def bf16_conv_phase(gen) -> tuple:
                   f"differ from the plain version, two launches "
                   f"bit-identical; ms alone {t['graph']:.4f}"
                   + (f" (HBM-cold {t['cold']:.4f})" if t["cold"] else "")
-                  + f", the mma.sync {old} kernel alone {t['old']:.4f}, "
+                  + f", the previous design ({old}) alone {t['old']:.4f}, "
                   f"float32 kernel {t['f32_graph']:.4f}; through the wrapper "
                   f"{t['ms']:.4f} (float32 {t['f32_ms']:.4f}); bound "
                   f"{bnd[0]:.4f} ({bnd[1]}); plain {t['plain']:.4f}; cuDNN "
@@ -1861,7 +1884,7 @@ def bf16_conv_phase(gen) -> tuple:
         rows[bsz] = sums
         phase(f"bf16 conv, 4 layers at B={bsz}: alone {sums['graph']:.4f} ms "
               + (f"(HBM-cold {sums['cold']:.4f}) " if sums["cold"] else "")
-              + f"against the mma.sync kernel's {sums['old']:.4f} and the "
+              + f"against the previous designs' {sums['old']:.4f} and the "
               f"float32 kernels' {sums['f32_graph']:.4f}; through the "
               f"wrapper {sums['ms']:.4f} (float32 {sums['f32_ms']:.4f}), "
               f"bound {sums['bound']:.4f}, plain {sums['plain']:.4f}, cuDNN "
@@ -1905,13 +1928,14 @@ def bf16_conv_phase(gen) -> tuple:
                             if strip_bf16_smem_bytes(
                                 min(r, conv_out_size(h, k, stride)), wid,
                                 cin, cout, k, stride) <= BF16_STRIP_SMEM_MAX],
-                  "wgmma": range(len(WGMMA_TILES))}
+                  "wgmma": range(len(WGMMA_TILES)),
+                  "tma": range(len(TMA_TILES))}
         for v in bf16_variants_taking(bsz, h, wid, cin, cout, k, stride, True):
             for tile in tables[v]:
                 g2 = check_conv_bf16(
                     x, w, b, stride, f"bf16 conv ({what}) {v} tile {tile}",
-                    lambda *a, v=v, tile=tile: launch_conv_bf16(
-                        *a, tile=tile, variant=v)[0])
+                    lambda *a, v=v, tile=tile, **kw: launch_conv_bf16(
+                        *a, tile=tile, variant=v, **kw)[0])
                 got = tuple(max(p, q) for p, q in zip(got[:2], g2[:2])) \
                     + got[2:]
         off = [max(off[0], got[0]), max(off[1], got[1]), off[2] + got[2],
@@ -1927,7 +1951,8 @@ def bf16_conv_phase(gen) -> tuple:
     phase(f"bf16 conv off the AlexNet shapes (" + "; ".join(c[0] for c in cases)
           + f"; x off alignment), through the plan (variant and tile "
           f"{sorted(seen)}) and every variant that takes each shape, with "
-          f"every R, wgmma tile ({len(WGMMA_TILES)}) and mma.sync tile "
+          f"every R, wgmma tile ({len(WGMMA_TILES)}), tma tile "
+          f"({len(TMA_TILES)}) and mma.sync tile "
           f"({len(BF16_TILES)}): max|dev| {max(off[0], got2[0]):.3g} "
           f"({max(off[1], got2[1]):.3g} of the bar), {off[2] + got2[2]} of "
           f"{off[3] + got2[3]} elements differ, two launches bit-identical")
@@ -2102,7 +2127,8 @@ def bf16_training_phase(f32: dict) -> dict:
             "conv2d_bias_relu.launches": 4 * fwd,
             "conv2d_bias_relu.launches_bf16": 4 * fwd,
             "conv2d_bias_relu.launches_bf16_strip": fwd,
-            "conv2d_bias_relu.launches_bf16_wgmma": 3 * fwd,
+            "conv2d_bias_relu.launches_bf16_wgmma": 2 * fwd,
+            "conv2d_bias_relu.launches_bf16_tma": fwd,
             "rotate_shear.launches": TRAIN_STEPS}
     check(counts == want, f"bf16 training launches {counts}, expected {want}")
     losses = torch.stack(losses).cpu()
@@ -2124,8 +2150,9 @@ def bf16_training_phase(f32: dict) -> dict:
           f"{f32['img_s']:.1f}), {1e3 * wall / TRAIN_STEPS:.2f} ms per step; "
           f"eval accuracy {acc:.4f} (float32 {f32['acc']:.4f}) on "
           f"{held.shape[0]} held-out images; launches {counts} (exact: bf16 "
-          f"kernels only, conv1 on the strip kernel and conv2-4 on the wgmma "
-          f"kernel; no float32 conv or pool kernel, no mma.sync conv)")
+          f"kernels only, conv1 on the strip kernel, conv2-3 on the wgmma "
+          f"kernel and conv4 on the tma kernel; no float32 conv or pool "
+          f"kernel, no mma.sync conv)")
     split = step_split(ts, ds, opt, dtype=BF16)
     phase("bf16 device ms per step (mean of 5): " + ", ".join(
         f"{k} {v:.4f} (float32 {f32['split'][k]:.4f})"
@@ -2152,7 +2179,8 @@ def bf16_serving_phase(model) -> dict:
              "conv2d_bias_relu.launches": 4,
              "conv2d_bias_relu.launches_bf16": 4,
              "conv2d_bias_relu.launches_bf16_strip": 1,
-             "conv2d_bias_relu.launches_bf16_wgmma": 3}
+             "conv2d_bias_relu.launches_bf16_wgmma": 2,
+             "conv2d_bias_relu.launches_bf16_tma": 1}
     for b in BUCKETS:
         check(engine._ready[b].launches == want1, f"bf16 bucket {b}'s "
               f"capture recorded {engine._ready[b].launches}")
@@ -2206,7 +2234,8 @@ def bf16_serving_phase(model) -> dict:
     phase(f"bf16 serving (buckets {BUCKETS}, one graph each): replays "
           f"bit-equal to the eager bf16 forward at every bucket, full and "
           f"padded; launches {counts} (exact, bf16 kernels only, conv1 on the "
-          f"strip and conv2-4 on the wgmma kernel); labels agree "
+          f"strip, conv2-3 on the wgmma and conv4 on the tma kernel); "
+          f"labels agree "
           f"with the float32 engine on {agree} of {sum(sizes)} images; probs "
           f"max|dev| {pdev:.3g}, bucket-64 logits max|dev| {ldev:.3g} x "
           f"max(1,|ref|) (bar {BF16_MODEL_TOL}); bucket 64 end to end "
@@ -2342,10 +2371,12 @@ def run_cli(argv, what: str, want: dict, times: CliTimes) -> tuple:
 
 def cli_want(steps: int, evals: int, bf16: bool, rotate: bool) -> dict:
     """The exact counters of ``steps`` train steps and ``evals`` eval
-    batches (conv1 on a strip kernel, conv2-4 on the tiled or wgmma one)."""
+    batches (conv1 on a strip kernel, conv2-4 on the tiled kernel; in bf16
+    conv2-3 on the wgmma kernel and conv4 on the tma one)."""
     fwd = steps + evals
     conv = ({"launches_bf16": 4 * fwd, "launches_bf16_strip": fwd,
-             "launches_bf16_wgmma": 3 * fwd} if bf16 else
+             "launches_bf16_wgmma": 2 * fwd, "launches_bf16_tma": fwd}
+            if bf16 else
             {"launches_strip": fwd, "launches_tiled": 3 * fwd})
     want = {"uint8_normalize.launches": evals,
             "uint8_normalize.launches_wide": evals,
@@ -3083,7 +3114,8 @@ def families_serving_phase(smi: str) -> dict:
 
 def family_row(key: str, dtype, gen) -> tuple:
     """A kernel row at a family shape: (max |dev| vs plain, ms through the
-    wrapper, plain ms, cuDNN ms, (bound ms, by))."""
+    wrapper, plain ms, cuDNN ms, (bound ms, by), ms alone, cuDNN + ReLU
+    alone)."""
     bsz, h, cin, cout, k, s, p = FAMILY_ROWS[key]
     dev = torch.device("cuda")
     x = torch.relu(torch.randn((bsz, h, h, cin), generator=gen, device=dev)) \
@@ -3102,11 +3134,13 @@ def family_row(key: str, dtype, gen) -> tuple:
     plain = time_ms(lambda: conv2d(x, w, b, s, True, p), iters=5)
     xn, wn = x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1)
     lib = time_ms(lambda: torch.relu(F.conv2d(xn, wn, b, s, p)))
+    alone = graph_ms(lambda: conv2d_bias_relu(x, w, b, s, True, p))
+    lib_alone = graph_ms(lambda: torch.relu(F.conv2d(xn, wn, b, s, p)))
     ho = conv_out_size(h, k, s, p)
     flops = 2.0 * bsz * ho * ho * cout * k * k * cin
     bound = bound_ms(nbytes(x, w, b, y), flops,
                      FP32_FLOP_PER_S if dtype is None else BF16_FLOP_PER_S)
-    return err, ms, plain, lib, bound
+    return err, ms, plain, lib, bound, alone, lib_alone
 
 
 def family_rows(gen, counts: dict) -> list:
@@ -3127,16 +3161,141 @@ def family_rows(gen, counts: dict) -> list:
     rows, lines = [], []
     for key in FAMILY_ROWS:
         for dtype, suffix in ((None, ""), (BF16, "_bf16")):
-            err, ms, plain, lib, bound = family_row(key, dtype, gen)
+            err, ms, plain, lib, bound, alone, lib_alone = family_row(
+                key, dtype, gen)
             name = f"conv2d_bias_relu_{key}{suffix}"
             rows.append(entry(name, launches[key + suffix], err, ms, plain,
                               lib, bound))
             lines.append(f"{name} {FAMILY_ROWS[key]}: {ms:.4f} ms (plain "
                          f"{plain:.4f}, cuDNN {lib:.4f}, bound "
-                         f"{bound[0]:.4f} by {bound[1]}), max|dev| "
+                         f"{bound[0]:.4f} by {bound[1]}), alone {alone:.4f} "
+                         f"(cuDNN + ReLU alone {lib_alone:.4f}), max|dev| "
                          f"{err:.3g}, {launches[key + suffix]} launches")
     phase("family conv rows: " + "; ".join(lines))
     return rows
+
+
+def graph_turns(fa, fb) -> tuple[float, float]:
+    """Mean ``graph_ms`` of ``fa`` and ``fb`` timed a, b, b, a."""
+    a1, b1 = graph_ms(fa), graph_ms(fb)
+    b2, a2 = graph_ms(fb), graph_ms(fa)
+    return (a1 + a2) / 2, (b1 + b2) / 2
+
+
+def family_tma_shapes() -> list:
+    """(H, Cin, Cout, k, stride, padding) of every conv of the six families
+    at 224 px with Cin % 64 == 0 (the shapes the plan sends to the tma
+    kernel), in the order a bf16 forward of each first meets them."""
+    seen = []
+
+    def rec(x, w, b, stride, relu, padding=0):
+        key = (x.shape[1], x.shape[3], w.shape[-1], w.shape[0], stride,
+               padding)
+        if x.shape[3] % 64 == 0 and key not in seen:
+            seen.append(key)
+        return conv2d_bias_relu(x, w, b, stride, relu, padding)
+
+    for name in FAMILIES:
+        model = get_model(name, num_classes=3, image_size=224,
+                          batch_norm=True, device="cuda").eval()
+        with mock.patch.object(nn_module, "conv2d_bias_relu", rec), \
+                torch.no_grad():
+            model(torch.zeros((1, 224, 224, 3), device="cuda"),
+                  compute_dtype=BF16)
+    return seen
+
+
+def tma_inputs(gen, bsz, h, cin, cout, k):
+    dev = torch.device("cuda")
+    x = torch.relu(torch.randn((bsz, h, h, cin), generator=gen, device=dev))
+    w = torch.randn((k, k, cin, cout), generator=gen, device=dev) * 0.1
+    b = torch.randn((cout,), generator=gen, device=dev) * 0.1
+    return x.to(BF16), w.to(BF16), b.to(BF16)
+
+
+def tma_phase(gen) -> dict:
+    """The bf16 tma kernel. Held against the plain bf16 conv (each element
+    within 1 bf16 ulp + 1e-5 x S, two launches bit-identical) with every
+    tile of ``TMA_TILES`` at AlexNet's conv4 (B = 64 and 256), the padded
+    3x3 and 1x1 family rows and a Cin-128 padded 3x3 (resnet18's, VGG's);
+    then through the plan at every family conv shape it takes (B = 64),
+    PipeCNN's trunk conv and conv4 at B = 1, 8 and 256: graph-timed in
+    turns beside the wgmma kernel's plan (the tma plan must be the faster),
+    every tile alone, cuDNN + ReLU alone, and the tma plan through the
+    wrapper. This sweep sets ``tma_tile_for``'s rule. Returns the kernels
+    line's tma row: conv4 at B = 64."""
+    held = {"conv4 B=64": (B, 13, 64, 128, 3, 2, 0),
+            "conv4 B=256": (TRAIN_B, 13, 64, 128, 3, 2, 0),
+            "padded 3x3": FAMILY_ROWS["padded_3x3"],
+            "1x1": FAMILY_ROWS["1x1"],
+            "Cin 128 padded 3x3": (B, 28, 128, 128, 3, 1, 1)}
+    worst = [0.0, 0.0, 0, 0]
+    for what, (bsz, h, cin, cout, k, s, p) in held.items():
+        x, w, b = tma_inputs(gen, bsz, h, cin, cout, k)
+        for tile in range(len(TMA_TILES)):
+            got = check_conv_bf16(
+                x, w, b, s, f"tma {what} tile {TMA_TILES[tile]}",
+                lambda *a, tile=tile, **kw: launch_conv_bf16(
+                    *a, tile=tile, variant="tma", **kw)[0], padding=p)
+            worst = [max(worst[0], got[0]), max(worst[1], got[1]),
+                     worst[2] + got[2], worst[3] + got[3]]
+    phase(f"tma conv held at {', '.join(held)} with each of the "
+          f"{len(TMA_TILES)} tiles: max|dev| {worst[0]:.3g} ({worst[1]:.3g} "
+          f"of the bar), {worst[2]} of {worst[3]} elements differ from the "
+          "plain version, two launches bit-identical")
+
+    sweep = [(B, *shape) for shape in family_tma_shapes()]
+    sweep += [(n, 56, 64, 64, 3, 1, 1) for n in (1, 8, TRAIN_B)]
+    sweep += [(n, 13, 64, 128, 3, 2, 0) for n in (1, 8, B, TRAIN_B)]
+    lines, row, gains = [], None, []
+    for bsz, h, cin, cout, k, s, p in sweep:
+        x, w, b = tma_inputs(gen, bsz, h, cin, cout, k)
+        plan = conv_bf16_plan(bsz, h, h, cin, cout, k, s, True, None, p)
+        check(plan.variant == "tma", f"tma sweep {bsz}x{h}x{h}x{cin}: "
+              f"planned {plan}")
+        got = check_conv_bf16(x, w, b, s, f"tma plan {bsz}x{h}x{h}x{cin}->"
+                              f"{cout} k{k} s{s} p{p}", padding=p)
+        worst = [max(worst[0], got[0]), max(worst[1], got[1]),
+                 worst[2] + got[2], worst[3] + got[3]]
+        new, old = graph_turns(
+            lambda: conv2d_bias_relu(x, w, b, s, True, p),
+            lambda: launch_conv_bf16(x, w, b, s, True, variant="wgmma",
+                                     padding=p))
+        check(new < old, f"tma {bsz}x{h}x{h}x{cin}->{cout} k{k} s{s} p{p}: "
+              f"the plan's tile {TMA_TILES[plan.tile]} {new:.4f} ms is not "
+              f"faster than the wgmma kernel's {old:.4f}")
+        gains.append(old / new)
+        tiles = [graph_ms(lambda j=j: launch_conv_bf16(
+            x, w, b, s, True, tile=j, variant="tma", padding=p)[0])
+            for j in range(len(TMA_TILES))]
+        xn, wn = x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1)
+        lib = graph_ms(lambda: torch.relu(F.conv2d(xn, wn, b, s, p)))
+        wrapped = time_ms(lambda: conv2d_bias_relu(x, w, b, s, True, p))
+        ho = conv_out_size(h, k, s, p)
+        bound = bound_ms(2 * (x.numel() + w.numel() + bsz * ho * ho * cout)
+                         + nbytes(b), 2.0 * bsz * ho * ho * cout * k * k * cin,
+                         BF16_FLOP_PER_S)
+        best = min(range(len(tiles)), key=tiles.__getitem__)
+        lines.append(
+            f"B={bsz} {h}x{h}x{cin}->{cout} k{k} s{s} p{p}: tma "
+            f"{'x'.join(map(str, TMA_TILES[plan.tile]))} {new:.4f} ms alone "
+            f"(wrapper {wrapped:.4f}), wgmma {old:.4f}, cuDNN + ReLU "
+            f"{lib:.4f}, bound {bound[0]:.4f} ({bound[1]}); tiles "
+            + " ".join(f"{v:.4f}" for v in tiles)
+            + f" (fastest {'x'.join(map(str, TMA_TILES[best]))})")
+        if (bsz, h, cin, cout) == (B, 13, 64, 128):
+            plain = time_ms(lambda: conv2d(x, w, b, s, True, p), iters=5)
+            row = {"err": got[0], "ms": wrapped, "plain": plain,
+                   "lib": time_ms(lambda: torch.relu(F.conv2d(
+                       xn, wn, b, s, p))), "bound": bound, "alone": new,
+                   "old": old, "lib_alone": lib}
+    for line in lines:
+        phase(f"tma sweep, {line}")
+    phase(f"tma plan at {len(sweep)} shapes: within the bar everywhere "
+          f"(max|dev| {worst[0]:.3g}, {worst[1]:.3g} of it), faster than the "
+          f"wgmma kernel at each ({min(gains):.2f}-{max(gains):.2f}x); tiles "
+          f"in the order {['x'.join(map(str, t)) for t in TMA_TILES]}")
+    return row
 
 
 def family_function_phase(gen) -> None:
@@ -3409,7 +3568,8 @@ def main() -> int:
             for v in (0, 1)] + [
             f"conv2d_bf16_strip<{r}>" for r in BF16_STRIP_ROWS] + [
             f"conv2d_bf16_wgmma<{'x'.join(map(str, t))}>"
-            for t in WGMMA_TILES]
+            for t in WGMMA_TILES] + [
+            f"conv2d_bf16_tma<{'x'.join(map(str, t))}>" for t in TMA_TILES]
         check(all(n in report for n in new), f"ptxas reported no "
               f"{[n for n in new if n not in report]}: {sorted(report)}")
     for name, (regs, spills) in report.items():
@@ -3442,6 +3602,7 @@ def main() -> int:
 
     gen = torch.Generator(device="cuda").manual_seed(11)
     conv16, conv16_ms = bf16_conv_phase(gen)
+    tma = tma_phase(gen)
     pool16 = bf16_pool_phase(gen)
     bf16_function_phase(gen)
     counts16 = bf16_training_phase(f32_stats)
@@ -3490,6 +3651,12 @@ def main() -> int:
                       + (0 if name == "conv2d_bias_relu_bf16"
                          else fam.get(counter, 0)), *rows16[name])
                 for name, counter in BF16_KERNELS.items()]
+    # the tma kernel's row: its launches over every counted run, timed at
+    # AlexNet's conv4 at B = 64
+    tma_key = "conv2d_bias_relu.launches_bf16_tma"
+    kernels.append(entry("conv2d_bias_relu_bf16_tma", sum(
+        c.get(tma_key, 0) for c in (counts16, served16, cli, fam)),
+        tma["err"], tma["ms"], tma["plain"], tma["lib"], tma["bound"]))
     kernels += family_rows(gen, fam)
     phase("all checks passed")
     print(smi)

@@ -1,8 +1,8 @@
 // k x k convolution + bias (+ ReLU), NHWC / HWIO, for Hopper: three
 // float32 kernels, chosen by shape in ops/hopper/conv.py:conv_tile_plan, and
-// three bf16 tensor-core kernels behind one entry point (the last sections
-// of this file: the mma.sync kernel, the strip and the wgmma kernel),
-// planned by ops/hopper/conv.py:conv_bf16_plan.
+// four bf16 tensor-core kernels behind one entry point (the last sections
+// of this file: the mma.sync kernel, the strip, the wgmma and the tma
+// kernel), planned by ops/hopper/conv.py:conv_bf16_plan.
 //
 // Replaces: cnn_tpu/ops/pallas/conv.py, conv2d_bias_relu_pallas -> _forward
 // (kernel body _conv_kernel): k*k shifted [Ho*Wo, Cin] x [Cin, Cout]
@@ -110,6 +110,8 @@
 // each against the plain conv, and the strip and tiled kernels bit for bit
 // against the direct one.
 #include <cstdint>
+#include <cuda.h>   // CUtensorMap and its enums: the encoders are looked
+                    // up at run time (tma_maps), no link to libcuda
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -905,7 +907,8 @@ cudaError_t launch_bf16_tile(int tile, cudaStream_t st,
 }  // namespace
 
 // ---------------------------------------------------------------------------
-// bf16 on Hopper: the "strip" and "wgmma" variants of the same entry point.
+// bf16 on Hopper: the "strip" and "wgmma" variants of the same entry point
+// ("tma", the third, has its own section below).
 //
 // Both replace the bf16 path of cnn_tpu/ops/pallas/conv.py, _forward (kernel
 // body _conv_kernel), and compute exactly its function: exact bf16
@@ -946,7 +949,8 @@ cudaError_t launch_bf16_tile(int tile, cudaStream_t st,
 //  - R is a template argument; the switch maps ids to R in the order of
 //    BF16_STRIP_ROWS in ops/hopper/conv.py.
 //
-// "wgmma" (conv2-4: Cin % 8 == 0, x and y 16-byte aligned).
+// "wgmma" (conv2-3: Cin % 8 == 0, x and y 16-byte aligned; conv4 and every
+// Cin % 64 shape now take "tma" below).
 //  - Bound on this card: bytes (conv2-4 together 62 MB, 0.019 ms, for 4.7
 //    GFLOP). The mma.sync "vec" path above walks K in slices of 32 with
 //    two stages; conv4 (18 slices, 144 blocks on 132 SMs) is slower than
@@ -1550,11 +1554,400 @@ cudaError_t launch_bf16_wgmma(cudaStream_t stream, const __nv_bfloat16* x,
   return cudaGetLastError();
 }
 
+// ---- tma ----
+//
+// "tma" (Cin % 64 == 0, x and y 16-byte aligned: the families' padded 3x3s
+// and 1x1s, AlexNet's conv4). The "wgmma" kernel above spends its time
+// taking in 16-byte cp.async copies, one per thread per 16 bytes of A's
+// im2col rows and of w; this one issues no per-thread copy at all.
+//  - Bound on this card: bytes at every shape it takes (PipeCNN's trunk
+//    conv [64,56,56,64] -> 64, s1 p1: 25.7 MB in and out, 0.0154 ms, for
+//    14.8 GFLOP). What it moves in practice is A's im2col rows (each input
+//    pixel k*k/s^2 times) and w (read whole by every block) from L2 into
+//    shared memory, now at the Tensor Memory Accelerator's rate.
+//  - A: x is described once per call by an im2col tensor map over the 4-D
+//    NHWC tensor (dims C, W, H, N, innermost first): a pixel box whose
+//    lower corner is -pad and upper corner pad - (k-1) in W and H (the
+//    positions of tap (0,0) of every output pixel), traversal strides
+//    {1, s, s, 1}, 64 channels (128 bytes) per pixel, up to 128 pixels per
+//    copy, the 128-byte swizzle. One copy per (tap, 64-channel slice)
+//    starts at the tile's first output pixel (tap (0,0) at ox*s - pad,
+//    oy*s - pad, image n) with the tap's (dx, dy) as im2col offsets: the
+//    unit walks the pixels across rows and images, zero-fills a tap in the
+//    padding and every pixel past the last image (rows past M). K slices
+//    go in (dy, dx, 64-channel) order.
+//  - B: w (HWIO as [K, Cout], N-contiguous) through a tiled tensor map,
+//    boxes of 64 k rows x 64 columns with the 128-byte swizzle: an MN-major
+//    operand read with wgmma's transpose-B, never transposed in memory.
+//  - Each stage holds rows of 128 bytes written in the 128-byte swizzle
+//    (16-byte chunk j of row r at chunk j ^ (r % 8)), 1024-byte aligned:
+//    wgmma reads A through K-major B128 descriptors (8-row groups 1024
+//    bytes apart, a k16 step 32 bytes further along the row) and B through
+//    MN-major B128 ones (8 k-row groups 1024 bytes apart, 64-column boxes
+//    8192 apart).
+//  - A ring of S stages with mbarrier full / empty pairs: one producer
+//    warp (one lane) waits for a stage to be empty, sets the bytes the
+//    stage expects and issues its copies; NC consumer warpgroups wait for
+//    it to be full, issue wgmma.mma_async m64nBNk16 on it (MT m64 tiles
+//    each), and once wgmma_wait<1> shows the group of the slice before it
+//    done, one thread of each arrives on that slice's empty barrier
+//    (count NC). BM = 256 (two consumer warpgroups of m64 x 2) halves the
+//    blocks that each read all of w.
+//  - Epilogue, as "wgmma": bias, ReLU and one rounding into an output tile
+//    in shared memory (over the ring, once every warpgroup's wgmmas are
+//    done), then 16-byte stores masked at M and Cout.
+//  - A K of fewer slices than stages (a 1x1 over 64 or 128 channels) asks
+//    for only the stages it fills (tma_smem_bytes), so more blocks share
+//    an SM and one's epilogue hides behind another's copies.
+//  - What bounds it now (tools/conv_bf16_probe.py on an H100 SXM at 700 W,
+//    PipeCNN's trunk conv): A's copies first, then the block's skeleton
+//    (barriers, epilogue, stores: 0.38 of its time with no copies and no
+//    wgmmas), the wgmmas last.
+//  - No split of K and no atomics: two launches are bit-identical.
+//  - (BN, BM, S, NC) are template arguments; the switch maps ids to them in
+//    the order of TMA_TILES in ops/hopper/conv.py, whose plan
+//    (tma_tile_for) picks one by shape. The tensor maps are encoded on the
+//    host for each call (cuTensorMapEncodeIm2col / Tiled, looked up by the
+//    runtime's entry-point query: no link to libcuda) and passed by
+//    value as __grid_constant__ parameters, so a CUDA graph captures them
+//    with the launch.
+//  - CONV_WG_PROBE bits 1, 2 and 4 skip the wgmmas, A's copies and B's
+//    copies here too (tools/conv_bf16_probe.py).
+//
+// Tests. On the CPU, a numpy emulation of this walk (the im2col box as the
+// unit walks it, the swizzle, the descriptors decoded as the hardware reads
+// them, the epilogue) against the plain bf16 conv and the Pallas kernel in
+// interpret mode, and the ring's barrier protocol under random
+// interleavings:
+//   JAX_PLATFORMS=cpu python -m pytest -q tests/test_torch_bf16_conv_tma.py
+// On the card, python3 chip_smoke.py holds every tile against the plain
+// bf16 conv and times the plan against "wgmma" at every family shape.
+
+constexpr int kTmaCh = 64;       // channels of a K slice: one 128-byte row
+constexpr int kTmaPix = 128;     // pixels of one im2col copy (BM 64: 64)
+constexpr int kTmaRow = 128;     // bytes of a stage's row
+constexpr int kTmaSw = 1024;     // the 128-byte swizzle's period: 8 rows
+constexpr int kTmaBox = kTmaCh * kTmaRow;   // a 64 x 64 box of w: 8192 B
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+// spins until the phase of parity `parity` has completed; a wait that
+// outlasts kTmaWaitCycles (about 2 s: a fault in the ring's protocol)
+// traps, so the launch fails instead of hanging the card
+constexpr long long kTmaWaitCycles = 4000000000LL;
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  const long long t0 = clock64();
+  while (!done) {
+    if (clock64() - t0 > kTmaWaitCycles) __trap();
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  }
+}
+// pixels of A: channels [c, c+64) of the pixels the im2col map walks from
+// tap (0,0) at (w, h) of image n, each shifted by the tap (dx, dy)
+__device__ __forceinline__ void tma_im2col(uint32_t dst, const CUtensorMap* map,
+                                           uint32_t bar, int c, int w, int h,
+                                           int n, uint16_t dx, uint16_t dy) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.im2col.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%3, %4, %5, %6}], [%2], {%7, %8};\n" ::
+          "r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c), "r"(w), "r"(h),
+      "r"(n), "h"(dx), "h"(dy)
+      : "memory");
+}
+// a 64 x 64 box of w: columns [c0, c0+64) of k rows [c1, c1+64)
+__device__ __forceinline__ void tma_tile(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+// a shared-memory matrix descriptor of a 128-byte-swizzled operand: layout
+// type B128 (bits 62-63 = 1), base offset 0 (the stages are 1024-aligned)
+__device__ __forceinline__ uint64_t wgmma_desc_sw128(uint32_t saddr,
+                                                     uint32_t lbo,
+                                                     uint32_t sbo) {
+  return wgmma_desc(saddr, lbo, sbo) | (1ull << 62);
+}
+
+template <int BN, int BM>
+__host__ __device__ constexpr int tma_stage_bytes() {
+  return BM * kTmaRow + (BN / kTmaCh) * kTmaBox;
+}
+// the ring's stages that a K of `kt` slices uses (a 1x1 over 64 channels
+// fills one), at least the output tile that aliases them, and the slack
+// that aligns them to 1024 bytes: fewer stages let more blocks share an SM
+template <int BN, int BM, int S>
+__host__ __device__ constexpr int tma_smem_bytes(int kt) {
+  return (kt < S ? (kt * tma_stage_bytes<BN, BM>() > BM * (BN + 8) * 2
+                        ? kt * tma_stage_bytes<BN, BM>()
+                        : BM * (BN + 8) * 2)
+                 : S * tma_stage_bytes<BN, BM>()) +
+         kTmaSw;
+}
+
+template <int BN, int BM, int S, int NC>
+__global__ void __launch_bounds__(kWgThreads * NC + 32)
+    conv2d_bf16_tma_kernel(const __grid_constant__ CUtensorMap tmx,
+                           const __grid_constant__ CUtensorMap tmw,
+                           const __nv_bfloat16* __restrict__ bias,
+                           __nv_bfloat16* __restrict__ y, int Ho, int Wo,
+                           int M, int Cout, int k, int s, int p, int cc,
+                           bool relu) {
+  constexpr int MT = BM / 64 / NC;     // m64 tiles of a consumer warpgroup
+  constexpr int kPix = BM < kTmaPix ? BM : kTmaPix;
+  constexpr int kA = BM * kTmaRow;
+  constexpr int kStage = tma_stage_bytes<BN, BM>();
+  constexpr int kNAcc = BN / 2;
+  constexpr int kOutStride = BN + 8;   // bf16 per row of the output tile
+  constexpr uint32_t kTx = ((kWgProbe & 2) ? 0 : kA) +
+                           ((kWgProbe & 4) ? 0 : kStage - kA);
+  static_assert((BN == 64 || BN == 128) && MT >= 1 && MT * 64 * NC == BM &&
+                    (NC == 1 || NC == 2) && S >= 3 && S <= 8,
+                "tile");
+  static_assert(BM * kOutStride * 2 <= S * kStage,
+                "the output tile aliases the ring");
+  static_assert(kTmaSw + S * kStage <= 227 * 1024, "shared memory");
+  extern __shared__ unsigned char smem_tma[];
+  __shared__ __align__(8) uint64_t full[S], empty[S];
+  unsigned char* smem =
+      smem_tma + (kTmaSw - smem_u32(smem_tma) % kTmaSw) % kTmaSw;
+  const uint32_t ring = smem_u32(smem);
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
+  const int KT = k * k * cc;
+
+  if (tid == 0) {
+    for (int i = 0; i < S; ++i) {
+      mbar_init(smem_u32(&full[i]), 1);
+      mbar_init(smem_u32(&empty[i]), NC);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == 4 * NC) {   // the producer warp: one lane issues every copy
+    if ((tid & 31) == 0) {
+      // tap (0,0) of each copy's first pixel; a copy wholly past M starts
+      // in an image past the last, all zero-filled
+      int cw[BM / kPix], ch[BM / kPix], cn[BM / kPix];
+#pragma unroll
+      for (int j = 0; j < BM / kPix; ++j) {
+        const int m = m0 + j * kPix, ox = m % Wo, q = m / Wo;
+        cw[j] = ox * s - p;
+        ch[j] = (q % Ho) * s - p;
+        cn[j] = q / Ho;
+      }
+      for (int kt = 0; kt < KT; ++kt) {
+        const int st = kt % S;
+        mbar_wait(smem_u32(&empty[st]), ((kt / S) & 1) ^ 1);
+        const int tap = kt / cc, c = (kt - tap * cc) * kTmaCh;
+        const int dy = tap / k, dx = tap - dy * k;
+        const uint32_t sa = ring + st * kStage, sb = sa + kA;
+        const uint32_t bar = smem_u32(&full[st]);
+        mbar_expect_tx(bar, kTx);
+        if (!(kWgProbe & 2)) {
+#pragma unroll
+          for (int j = 0; j < BM / kPix; ++j)
+            tma_im2col(sa + j * kPix * kTmaRow, &tmx, bar, c, cw[j], ch[j],
+                       cn[j], (uint16_t)dx, (uint16_t)dy);
+        }
+        if (!(kWgProbe & 4)) {
+#pragma unroll
+          for (int j = 0; j < BN / kTmaCh; ++j)
+            tma_tile(sb + j * kTmaBox, &tmw, bar, n0 + j * kTmaCh,
+                     kt * kTmaCh);
+        }
+      }
+    }
+  } else {   // NC consumer warpgroups, MT m64 tiles each
+    const int wg = warp >> 2, t = tid & (kWgThreads - 1);
+    float acc[MT][kNAcc];
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+      for (int e = 0; e < kNAcc; ++e) acc[i][e] = 0.f;
+    for (int kt = 0; kt < KT; ++kt) {
+      const int st = kt % S;
+      mbar_wait(smem_u32(&full[st]), (kt / S) & 1);
+      const uint32_t sa = ring + st * kStage + wg * MT * 64 * kTmaRow;
+      const uint32_t sb = ring + st * kStage + kA;
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < kTmaCh / 16; ++ks) {
+        const uint64_t db =
+            wgmma_desc_sw128(sb + ks * 16 * kTmaRow, kTmaBox, kTmaSw);
+#pragma unroll
+        for (int i = 0; i < MT && !(kWgProbe & 1); ++i)
+          wgmma_bn<BN>(acc[i],
+                       wgmma_desc_sw128(sa + i * 64 * kTmaRow + ks * 32, 16,
+                                        kTmaSw),
+                       db);
+      }
+      wgmma_commit();
+      wgmma_wait<1>();   // the group of slice kt-1 is done: free its stage
+      if (kt > 0 && t == 0) mbar_arrive(smem_u32(&empty[(kt - 1) % S]));
+    }
+    wgmma_wait<0>();
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+      for (int e = 0; e < kNAcc; ++e) reg_fence(acc[i][e]);
+    // every consumer's wgmmas are done (and every copy landed: each stage
+    // was waited for): the output tile may overwrite the ring
+    asm volatile("bar.sync 1, %0;\n" ::"n"(kWgThreads * NC) : "memory");
+    __nv_bfloat16* so = reinterpret_cast<__nv_bfloat16*>(smem);
+    const int wp = (t >> 5), lane = t & 31, g = lane >> 2, tt = lane & 3;
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      const int n = 8 * j + 2 * tt;
+      const bool nok = n0 + n < Cout;
+      const float b0 = nok ? __bfloat162float(bias[n0 + n]) : 0.f;
+      const float b1 = nok ? __bfloat162float(bias[n0 + n + 1]) : 0.f;
+#pragma unroll
+      for (int i = 0; i < MT; ++i) {
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int e = 4 * j + 2 * half;
+          float v0 = acc[i][e] + b0, v1 = acc[i][e + 1] + b1;
+          if (relu) {
+            v0 = v0 > 0.f ? v0 : 0.f;
+            v1 = v1 > 0.f ? v1 : 0.f;
+          }
+          const int r = (wg * MT + i) * 64 + 16 * wp + g + 8 * half;
+          *reinterpret_cast<__nv_bfloat162*>(so + r * kOutStride + n) =
+              __floats2bfloat162_rn(v0, v1);
+        }
+      }
+    }
+    asm volatile("bar.sync 1, %0;\n" ::"n"(kWgThreads * NC) : "memory");
+    for (int c = tid; c < BM * (BN / 8); c += kWgThreads * NC) {
+      const int r = c / (BN / 8), j = c - r * (BN / 8);
+      const int m = m0 + r, n = n0 + 8 * j;
+      if (m < M && n < Cout)
+        *reinterpret_cast<int4*>(y + (int64_t)m * Cout + n) =
+            *reinterpret_cast<const int4*>(so + r * kOutStride + 8 * j);
+    }
+  }
+}
+
+// libcuda's tensor-map encoders (CUDA 12's signatures), looked up once
+using EncodeIm2col = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                  cuuint32_t, void*, const cuuint64_t*,
+                                  const cuuint64_t*, const int*, const int*,
+                                  cuuint32_t, cuuint32_t, const cuuint32_t*,
+                                  CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+void* cuda_entry_point(const char* name) {
+  void* fn = nullptr;
+  cudaDriverEntryPointQueryResult found;
+  if (cudaGetDriverEntryPointByVersion(name, &fn, 12000, cudaEnableDefault,
+                                       &found) != cudaSuccess ||
+      found != cudaDriverEntryPointSuccess)
+    return nullptr;
+  return fn;
+}
+
+// x's im2col map (BM-row copies of `pix` pixels) and w's tiled map
+cudaError_t tma_maps(CUtensorMap* mx, CUtensorMap* mw,
+                     const __nv_bfloat16* x, const __nv_bfloat16* w, int B,
+                     int H, int W, int Cin, int Cout, int k, int s, int p,
+                     int pix) {
+  static EncodeIm2col im2col = reinterpret_cast<EncodeIm2col>(
+      cuda_entry_point("cuTensorMapEncodeIm2col"));
+  static EncodeTiled tiled = reinterpret_cast<EncodeTiled>(
+      cuda_entry_point("cuTensorMapEncodeTiled"));
+  if (!im2col || !tiled) return cudaErrorSymbolNotFound;
+  const cuuint64_t xdim[4] = {(cuuint64_t)Cin, (cuuint64_t)W, (cuuint64_t)H,
+                              (cuuint64_t)B};
+  const cuuint64_t xstride[3] = {(cuuint64_t)Cin * 2, (cuuint64_t)W * Cin * 2,
+                                 (cuuint64_t)H * W * Cin * 2};
+  const int lower[2] = {-p, -p}, upper[2] = {p - (k - 1), p - (k - 1)};
+  const cuuint32_t xes[4] = {1, (cuuint32_t)s, (cuuint32_t)s, 1};
+  if (im2col(mx, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+             const_cast<__nv_bfloat16*>(x), xdim, xstride, lower, upper,
+             kTmaCh, pix, xes, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return cudaErrorInvalidValue;
+  const cuuint64_t wdim[2] = {(cuuint64_t)Cout, (cuuint64_t)k * k * Cin};
+  const cuuint64_t wstride[1] = {(cuuint64_t)Cout * 2};
+  const cuuint32_t box[2] = {kTmaCh, kTmaCh}, wes[2] = {1, 1};
+  if (tiled(mw, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+            const_cast<__nv_bfloat16*>(w), wdim, wstride, box, wes,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return cudaErrorInvalidValue;
+  return cudaSuccess;
+}
+
+template <int BN, int BM, int S, int NC>
+cudaError_t launch_bf16_tma(cudaStream_t stream, const __nv_bfloat16* x,
+                            const __nv_bfloat16* w, const __nv_bfloat16* b,
+                            __nv_bfloat16* y, int B, int H, int W, int Cin,
+                            int Cout, int k, int s, int p, bool relu) {
+  const int Ho = (H + 2 * p - k) / s + 1, Wo = (W + 2 * p - k) / s + 1;
+  const int M = B * Ho * Wo;
+  CUtensorMap mx, mw;
+  const cudaError_t e = tma_maps(&mx, &mw, x, w, B, H, W, Cin, Cout, k, s, p,
+                                 BM < kTmaPix ? BM : kTmaPix);
+  if (e != cudaSuccess) return e;
+  // the attribute allows the whole ring (a graph may hold launches of
+  // either size); the launch asks for what this K uses
+  const int smem = tma_smem_bytes<BN, BM, S>(k * k * (Cin / kTmaCh));
+  constexpr int kMax = tma_smem_bytes<BN, BM, S>(S);
+  if (kMax > 48 * 1024) {
+    const cudaError_t a = cudaFuncSetAttribute(
+        conv2d_bf16_tma_kernel<BN, BM, S, NC>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, kMax);
+    if (a != cudaSuccess) return a;
+  }
+  const dim3 grid((M + BM - 1) / BM, (Cout + BN - 1) / BN);
+  conv2d_bf16_tma_kernel<BN, BM, S, NC>
+      <<<grid, kWgThreads * NC + 32, smem, stream>>>(
+          mx, mw, b, y, Ho, Wo, M, Cout, k, s, p, Cin / kTmaCh, relu);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // variant: the order of BF16_VARIANTS in ops/hopper/conv.py (0 gather, 1
-// vec, 2 strip, 3 wgmma); tile: an id into that variant's table
-// (BF16_TILES, BF16_STRIP_ROWS or WGMMA_TILES)
+// vec, 2 strip, 3 wgmma, 4 tma); tile: an id into that variant's table
+// (BF16_TILES, BF16_STRIP_ROWS, WGMMA_TILES or TMA_TILES)
 extern "C" int cnn_conv2d_bias_relu_bf16(void* stream, const void* x,
                                          const void* w, const void* b,
                                          void* y, int B, int H, int W,
@@ -1570,7 +1963,9 @@ extern "C" int cnn_conv2d_bias_relu_bf16(void* stream, const void* x,
                         (W * Cin) % 8 != 0 || Cout > 8 * kStripBfNtMax ||
                         B > 65535 || xa % 16 != 0 || ya % 16 != 0)) ||
       (variant == 3 && (Cin % 8 != 0 || xa % 16 != 0 || ya % 16 != 0 ||
-                        (Cout + 15) / 16 > 65535)))
+                        (Cout + 15) / 16 > 65535)) ||
+      (variant == 4 && (Cin % kTmaCh != 0 || xa % 16 != 0 || ya % 16 != 0 ||
+                        stride > 8 || (Cout + 63) / 64 > 65535)))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
   const __nv_bfloat16* xb = static_cast<const __nv_bfloat16*>(x);
@@ -1605,6 +2000,19 @@ extern "C" int cnn_conv2d_bias_relu_bf16(void* stream, const void* x,
         case 11: return (int)launch_bf16_wgmma<128, 2, 32, 4, 1, false>(st, xb, wb, bb, yb, B, H, W, Cin, Cout, k, stride, pad, r);
         case 12: return (int)launch_bf16_wgmma<128, 2, 32, 6, 2, false>(st, xb, wb, bb, yb, B, H, W, Cin, Cout, k, stride, pad, r);
         case 13: return (int)launch_bf16_wgmma<128, 2, 64, 4, 1, false>(st, xb, wb, bb, yb, B, H, W, Cin, Cout, k, stride, pad, r);
+        default: return (int)cudaErrorInvalidValue;
+      }
+    case 4:
+      switch (tile) {   // (BN, BM, S, NC), in the order of TMA_TILES
+        case 0: return (int)launch_bf16_tma<64, 64, 6, 1>(st, xb, wb, bb, yb, B, H, W, Cin, Cout, k, stride, pad, r);
+        case 1: return (int)launch_bf16_tma<64, 128, 4, 1>(st, xb, wb, bb, yb, B, H, W, Cin, Cout, k, stride, pad, r);
+        case 2: return (int)launch_bf16_tma<64, 128, 4, 2>(st, xb, wb, bb, yb, B, H, W, Cin, Cout, k, stride, pad, r);
+        case 3: return (int)launch_bf16_tma<64, 128, 6, 1>(st, xb, wb, bb, yb, B, H, W, Cin, Cout, k, stride, pad, r);
+        case 4: return (int)launch_bf16_tma<64, 256, 4, 2>(st, xb, wb, bb, yb, B, H, W, Cin, Cout, k, stride, pad, r);
+        case 5: return (int)launch_bf16_tma<128, 64, 6, 1>(st, xb, wb, bb, yb, B, H, W, Cin, Cout, k, stride, pad, r);
+        case 6: return (int)launch_bf16_tma<128, 128, 4, 1>(st, xb, wb, bb, yb, B, H, W, Cin, Cout, k, stride, pad, r);
+        case 7: return (int)launch_bf16_tma<128, 128, 4, 2>(st, xb, wb, bb, yb, B, H, W, Cin, Cout, k, stride, pad, r);
+        case 8: return (int)launch_bf16_tma<128, 256, 3, 2>(st, xb, wb, bb, yb, B, H, W, Cin, Cout, k, stride, pad, r);
         default: return (int)cudaErrorInvalidValue;
       }
     default: return (int)cudaErrorInvalidValue;

@@ -14,7 +14,7 @@ from cnn_tpu_torch.ops.hopper.augment import (launch_rotate,  # noqa: F401
                                               rotate_tile_plan)
 from cnn_tpu_torch.ops.hopper.conv import (BF16_STRIP_ROWS,  # noqa: F401
                                            BF16_TILES, STRIP_ROWS, TILES,
-                                           WGMMA_TILES,
+                                           TMA_TILES, WGMMA_TILES,
                                            conv2d_bias_relu,
                                            conv2d_bias_relu_fn,
                                            conv2d_bias_relu_op,
@@ -37,6 +37,7 @@ COUNTERS = {
                        "launches_direct", "launches_bf16",
                        "launches_bf16_gather", "launches_bf16_vec",
                        "launches_bf16_strip", "launches_bf16_wgmma",
+                       "launches_bf16_tma",
                        "launches_padded", "launches_1x1",
                        "launches_bf16_padded", "launches_bf16_1x1"),
     rotate_shear: ("launches",),

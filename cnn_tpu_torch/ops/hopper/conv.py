@@ -16,7 +16,7 @@ make, conv2-4; and the direct kernel (``cnn_conv2d_bias_relu``) for the
 rest. ``conv_tile_plan`` chooses by shape and alignment alone. All three
 sum in the same order and give the same bits.
 
-Three tensor-core kernels compute the bf16 forward, ``_forward``'s bf16
+Four tensor-core kernels compute the bf16 forward, ``_forward``'s bf16
 path (exact bf16 products summed in float32, the bias read into float32,
 the optional ReLU, one rounding to bf16), behind one entry point
 (``cnn_conv2d_bias_relu_bf16``) whose variant ``conv_bf16_plan`` chooses by
@@ -27,16 +27,23 @@ shape and alignment:
   whole and ``mma.sync`` m16n8k16 reads its A fragments straight from
   them, one k16 step per kernel row (K 27 padded to 48); the output leaves
   through shared memory as 16-byte stores. Bound by bytes.
-- "wgmma" (conv2-4: Cin % 8 == 0, x 16-byte aligned): ``wgmma.mma_async``
-  m64nBNk16 on A (the im2col rows, K-major) and B (w, MN-major, read with
-  transpose-B) in shared memory, filled by a ring of 16-byte ``cp.async``
-  slices; the tile (``WGMMA_TILES``, ``wgmma_tile_for``) takes BM 128
-  where blocks fill half the SMs, else BM 64 and, for a long K, two
-  warpgroups that each walk half of it and sum in one fixed order. Bound
-  by the rate its SMs take in copies.
+- "wgmma" (conv2-3: Cin % 8 == 0, x 16-byte aligned, where "tma" does not
+  take the shape): ``wgmma.mma_async`` m64nBNk16 on A (the im2col rows,
+  K-major) and B (w, MN-major, read with transpose-B) in shared memory,
+  filled by a ring of 16-byte ``cp.async`` slices; the tile
+  (``WGMMA_TILES``, ``wgmma_tile_for``) takes BM 128 where blocks fill half
+  the SMs, else BM 64 and, for a long K, two warpgroups that each walk half
+  of it and sum in one fixed order. Bound by the rate its SMs take in
+  copies.
+- "tma" (Cin % 64 == 0, x 16-byte aligned, where the card measured it
+  faster than "wgmma": the families' padded 3x3s and 1x1s, AlexNet's
+  conv4): the same wgmmas on 128-byte-swizzled stages that the Tensor
+  Memory Accelerator fills, one im2col copy of x per (tap, 64 channels)
+  and one tiled copy of w per 64 columns, behind a producer warp and an
+  ``mbarrier`` ring; the tile from ``TMA_TILES`` / ``tma_tile_for``.
 - "gather" / "vec": the first design, ``mma.sync`` over A staged element
   by element or by 16-byte copies in slices of 32, two stages. The plan
-  gives "gather" every shape the other two do not take (Cin 12, k 5,
+  gives "gather" every shape the other three do not take (Cin 12, k 5,
   misaligned x); "vec" runs only when named, for comparisons.
 
 Every variant takes Cout % 8 == 0 and 16-byte aligned weights; the
@@ -46,8 +53,8 @@ blocks: two launches give the same bits.
 Padding (``padding=p``, the families' padded convs, which ``cnn_tpu`` runs
 through XLA): every kernel but the two strips reads a tap in the padding
 as zero, so no padded copy of x is made; the plans send a padded conv to
-the tiled or direct kernel (float32) and to the wgmma or gather kernel
-(bf16). The kernels take p <= 16 on extents up to 16,384.
+the tiled or direct kernel (float32) and to the tma, wgmma or gather
+kernel (bf16). The kernels take p <= 16 on extents up to 16,384.
 
 ``conv2d_bias_relu_op`` is the same Function registered as the custom op
 ``cnn_tpu_torch::conv2d_bias_relu``, so that a selective checkpoint policy
@@ -182,8 +189,8 @@ def conv_tile_plan(b: int, h: int, w: int, cin: int, cout: int, k: int,
 # and BN = 8 * NT columns
 BF16_TILES = tuple((mt, nt) for mt in (1, 2) for nt in (2, 4, 8, 16))
 # the entry point's variant argument: the mma.sync kernel's two stagings of
-# A, then the strip and the wgmma kernels
-BF16_VARIANTS = ("gather", "vec", "strip", "wgmma")
+# A, then the strip, the wgmma and the tma kernels
+BF16_VARIANTS = ("gather", "vec", "strip", "wgmma", "tma")
 BF16_BK = 32                        # the mma.sync K slice: two k16 steps
 BF16_WARPS = 4
 
@@ -219,6 +226,24 @@ WGMMA_FEW = {16: (16, 1, 32, 4, 1, 1), 32: (32, 1, 32, 4, 1, 1),
 WGMMA_FEW_LONG_K = {16: (16, 1, 32, 4, 1, 1), 32: (32, 1, 32, 4, 1, 1),
                     64: (64, 1, 32, 4, 2, 0)}
 WGMMA_LONG_K = 16            # slices of 32 from which the split pays
+
+# the bf16 tma kernel: tile id -> (BN, BM, stages, consumer warpgroups), in
+# the order of csrc/conv.cu's switch. A block of `consumers` warpgroups and
+# one producer warp owns BM rows and BN columns; each K slice is one tap x
+# TMA_CIN channels. The plan takes five of them; the other four stay for
+# the smoke's sweep, which sets the plan's rule.
+TMA_TILES = ((64, 64, 6, 1), (64, 128, 4, 1), (64, 128, 4, 2),
+             (64, 128, 6, 1), (64, 256, 4, 2),
+             (128, 64, 6, 1), (128, 128, 4, 1), (128, 128, 4, 2),
+             (128, 256, 3, 2))
+# the plan's tiles (tma_tile_for)
+TMA_FEW, TMA_MANY = (64, 64, 6, 1), (64, 128, 4, 2)
+TMA_NARROW, TMA_WIDE = (128, 128, 4, 1), (128, 256, 3, 2)
+TMA_SHORT, TMA_SHORT_K = (128, 64, 6, 1), 2
+TMA_CIN = 64                 # channels of a K slice: one 128-byte row
+TMA_STRIDE_MAX = 8           # the im2col map's traversal stride
+
+
 def strip_bf16_smem_bytes(rows: int, w: int, cin: int, cout: int, k: int,
                           stride: int) -> int:
     """Shared memory of a bf16 strip of ``rows`` output rows, as
@@ -283,12 +308,49 @@ def wgmma_tile_for(cout: int, m: int, kk: int) -> int:
     return WGMMA_TILES.index(table[bn])
 
 
+def tma_tile_for(cout: int, m: int, kk: int) -> int:
+    """The tma tile for Cout, M output pixels and K = ``kk``.
+
+    A K of at most ``TMA_SHORT_K`` slices (1x1s over 64 or 128 channels)
+    takes BM 64 (``TMA_FEW`` for Cout <= 64, else ``TMA_SHORT``): such a
+    block fills one or two stages, and its ring shrinks to them, so many
+    blocks share an SM and one's epilogue hides behind another's copies
+    (MobileNet's pw_2 at B=64: 0.0328 ms, against 0.0399 with BM 256).
+    Otherwise Cout <= 64, or too few BN 128 x BM 128 blocks to give half of
+    the 132 SMs one (AlexNet's conv4 at B <= 64), takes BN 64 (Cout 128 in
+    two column blocks): BM 128 with two consumer warpgroups (``TMA_MANY``)
+    where that gives every SM a block, else BM 64 (``TMA_FEW``). A wider
+    Cout takes BN 128 and BM 256 (``TMA_WIDE``: half the blocks that each
+    read all of w) where the BM 256 blocks fill two or more waves of 132
+    SMs, or fit in one wave that BM 128 would overflow; else BM 128
+    (``TMA_NARROW``): at 1.5 waves the quantisation costs more than the
+    re-reads save. On the H100 each pick was the fastest of the nine tiles
+    or within 10% of it at every family conv shape and conv4 (PERF.md §6,
+    ``chip_smoke.py``'s tma sweep).
+    """
+    if -(-kk // TMA_CIN) <= TMA_SHORT_K:
+        return TMA_TILES.index(TMA_FEW if cout <= 64 else TMA_SHORT)
+    b128 = -(-m // 128) * -(-cout // 128)
+    if cout <= 64 or b128 < H100_SMS // 2:
+        many = -(-m // 128) * -(-cout // 64) >= H100_SMS
+        return TMA_TILES.index(TMA_MANY if many else TMA_FEW)
+    b256 = -(-m // 256) * -(-cout // 128)
+    wide = b256 >= 2 * H100_SMS or (b256 <= H100_SMS < b128)
+    return TMA_TILES.index(TMA_WIDE if wide else TMA_NARROW)
+
+
+def tma_takes(cin: int, stride: int, x_aligned: bool) -> bool:
+    """Whether the tma kernel can take the shape: whole 64-channel slices,
+    an aligned x (the tensor map's base), a traversal stride it allows."""
+    return cin % TMA_CIN == 0 and x_aligned and stride <= TMA_STRIDE_MAX
+
+
 class Bf16Plan(NamedTuple):
     """The bf16 kernel's ``variant`` (one of ``BF16_VARIANTS``), ``tile``
-    id into that variant's table (``BF16_TILES``, ``BF16_STRIP_ROWS`` or
-    ``WGMMA_TILES``), grid (M blocks, N blocks; strips, images for the
-    strip) and K padded to what the kernel multiplies (its slices, or 16
-    per kernel row for the strip)."""
+    id into that variant's table (``BF16_TILES``, ``BF16_STRIP_ROWS``,
+    ``WGMMA_TILES`` or ``TMA_TILES``), grid (M blocks, N blocks; strips,
+    images for the strip) and K padded to what the kernel multiplies (its
+    slices, or 16 per kernel row for the strip)."""
     variant: str
     tile: int
     grid: tuple[int, int]
@@ -299,6 +361,8 @@ class Bf16Plan(NamedTuple):
         """Output rows (pixels) of a block; the strip's are R image rows."""
         if self.variant == "wgmma":
             return 64 * WGMMA_TILES[self.tile][1]
+        if self.variant == "tma":
+            return TMA_TILES[self.tile][1]
         if self.variant == "strip":
             return BF16_STRIP_ROWS[self.tile]
         return BF16_WARPS * 16 * BF16_TILES[self.tile][0]
@@ -307,8 +371,9 @@ class Bf16Plan(NamedTuple):
     def bn(self) -> int | None:
         """Output columns of a block; None for the strip, whose block
         computes every column of Cout."""
-        if self.variant == "wgmma":
-            return WGMMA_TILES[self.tile][0]
+        if self.variant in ("wgmma", "tma"):
+            return (WGMMA_TILES if self.variant == "wgmma"
+                    else TMA_TILES)[self.tile][0]
         if self.variant == "strip":
             return None
         return 8 * BF16_TILES[self.tile][1]
@@ -322,10 +387,14 @@ def conv_bf16_plan(b: int, h: int, w: int, cin: int, cout: int, k: int,
     """The bf16 kernel's launch for this shape (``padding``: the zero
     padding, which the strip does not take).
 
-    "strip" (conv1) where ``strip_bf16_rows`` finds an R; else "wgmma"
-    (conv2-4) where Cin % 8 == 0 (a chunk of 8 never straddles a tap) and
-    x is 16-byte aligned (``x_aligned``), with ``wgmma_tile_for``'s tile;
-    else the mma.sync kernel with A staged element by element ("gather":
+    "strip" (conv1) where ``strip_bf16_rows`` finds an R; else "tma"
+    where ``tma_takes`` (Cin % 64 == 0, x 16-byte aligned, stride <= 8:
+    the families' convs past their first stages, AlexNet's conv4; on the
+    H100 it beat "wgmma" at each such shape the smoke sweeps, by 1.29-3.12x)
+    with ``tma_tile_for``'s tile; else "wgmma" (conv2-3) where Cin % 8 == 0
+    (a chunk of 8 never straddles a tap) and x is 16-byte aligned
+    (``x_aligned``), with ``wgmma_tile_for``'s tile; else the mma.sync
+    kernel with A staged element by element ("gather":
     Cin 12, k 5, misaligned x, rows that are no whole 16-byte chunks). Its
     "vec" staging takes the wgmma variant's shapes and is reached only by
     naming ``variant``, for comparisons; a named variant that cannot take
@@ -337,12 +406,15 @@ def conv_bf16_plan(b: int, h: int, w: int, cin: int, cout: int, k: int,
         raise ValueError(f"conv2d_bias_relu bf16: Cout {cout} is not a "
                          "multiple of 8")
     vec_ok = cin % 8 == 0 and x_aligned
+    tma_ok = tma_takes(cin, stride, x_aligned)
     rows = strip_bf16_rows(b, h, w, cin, cout, k, stride, x_aligned,
                            padding)
     if variant is None:
-        variant = ("strip" if rows else "wgmma" if vec_ok else "gather")
+        variant = ("strip" if rows else "tma" if tma_ok
+                   else "wgmma" if vec_ok else "gather")
     if variant not in BF16_VARIANTS or (
             variant in ("vec", "wgmma") and not vec_ok) or (
+            variant == "tma" and not tma_ok) or (
             variant == "strip" and not rows):
         raise ValueError(f"conv2d_bias_relu bf16: variant {variant} cannot "
                          f"take x [{b},{h},{w},{cin}], Cout {cout}, k {k}, "
@@ -358,6 +430,10 @@ def conv_bf16_plan(b: int, h: int, w: int, cin: int, cout: int, k: int,
         bn, mt, bk = WGMMA_TILES[tile][:3]
         return Bf16Plan("wgmma", tile, (-(-m // (64 * mt)), -(-cout // bn)),
                         -(-kk // bk) * bk)
+    if variant == "tma":
+        tile = tma_tile_for(cout, m, kk)
+        bn, bm = TMA_TILES[tile][:2]
+        return Bf16Plan("tma", tile, (-(-m // bm), -(-cout // bn)), kk)
     bn = bf16_bn(cout)
     gy = -(-cout // bn)
     mt = 2 if -(-m // 128) * gy >= 2 * H100_SMS else 1
@@ -470,6 +546,7 @@ conv2d_bias_relu.launches_bf16_gather = 0
 conv2d_bias_relu.launches_bf16_vec = 0
 conv2d_bias_relu.launches_bf16_strip = 0
 conv2d_bias_relu.launches_bf16_wgmma = 0
+conv2d_bias_relu.launches_bf16_tma = 0
 conv2d_bias_relu.launches_padded = 0       # by shape, any dtype: padded
 conv2d_bias_relu.launches_1x1 = 0          # and 1x1 convs
 conv2d_bias_relu.launches_bf16_padded = 0  # the same, bf16 only

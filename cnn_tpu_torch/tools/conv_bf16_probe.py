@@ -1,18 +1,21 @@
-"""Where the bf16 wgmma conv kernel's time goes, on the card.
+"""Where the bf16 wgmma and tma conv kernels' time goes, on the card.
 
     python -m cnn_tpu_torch.tools.conv_bf16_probe
 
 Compiles ``csrc/conv.cu`` once as built and once for each mask of
 ``CONV_WG_PROBE`` (bit 1 skips the wgmmas, 2 the copies of A, 4 the copies
-of B; bit 8 copies B through L2 only, ``cp.async.cg``, instead of through
-L1), side by side, and times each build on conv2-4 of the AlexNet at batch
-256 and 64 with the plan's tile: 20 launches captured into one CUDA graph,
-one replay timed with CUDA events. The builds that skip work compute wrong
-results and serve only for timing; the full build is held bit for bit to
-the package's kernel. Each line also gives the bytes the blocks copy into
-shared memory (A's im2col rows and B's weights, per block, padding
-included) and that rate per SM the grid occupies. Needs one CUDA device
-and nvcc.
+of B, 7 all three: what is left is the block's skeleton; bit 8 copies the
+wgmma kernel's B through L2 only, ``cp.async.cg``, instead of through L1),
+side by side, and times each build with the plan's tile: the wgmma
+kernel on conv2-4 of the AlexNet at batch 256 and 64, the tma kernel on
+PipeCNN's padded 3x3 trunk conv and MobileNet's 1x1 pw_2 at B = 64 and on
+AlexNet's conv4 at batch 256 and 64. Each time: 20 launches captured into
+one CUDA graph, one replay timed with CUDA events. The builds
+that skip work compute wrong results and serve only for timing; the full
+build is held bit for bit to the package's kernel. Each line also gives
+the bytes the blocks copy into shared memory (A's im2col rows and B's
+weights, per block, padding included) and that rate per SM the grid
+occupies. Needs one CUDA device and nvcc.
 """
 
 from __future__ import annotations
@@ -28,12 +31,17 @@ import torch
 from cnn_tpu_torch.ops.conv import conv_out_size
 from cnn_tpu_torch.ops.hopper import _build
 from cnn_tpu_torch.ops.hopper.conv import (BF16_VARIANTS, H100_SMS,
-                                           WGMMA_TILES, conv2d_bias_relu,
-                                           conv_bf16_plan)
+                                           TMA_TILES, WGMMA_TILES,
+                                           conv_bf16_plan, launch_conv_bf16)
 
 MASKS = {"full": 0, "no wgmma": 1, "no A copies": 2, "no B copies": 4,
-         "no copies": 6, "B through L2": 8}
-LAYERS = ((16, 32, 55), (32, 64, 27), (64, 128, 13))   # (Cin, Cout, H)
+         "no copies": 6, "no copies, no wgmma": 7, "B through L2": 8}
+# (variant, B, H, Cin, Cout, k, stride, pad)
+SHAPES = tuple(("wgmma", b, h, cin, cout, 3, 2, 0) for b in (256, 64)
+               for cin, cout, h in ((16, 32, 55), (32, 64, 27),
+                                    (64, 128, 13))) + (
+    ("tma", 64, 56, 64, 64, 3, 1, 1), ("tma", 64, 56, 64, 128, 1, 1, 0),
+    ("tma", 256, 13, 64, 128, 3, 2, 0), ("tma", 64, 13, 64, 128, 3, 2, 0))
 ENTRY = "cnn_conv2d_bias_relu_bf16"
 
 
@@ -88,50 +96,51 @@ def main() -> int:
     gen = torch.Generator(device=dev).manual_seed(5)
     with tempfile.TemporaryDirectory() as tmp:
         libs = build(Path(tmp))
-        for bsz in (256, 64):
-            for cin, cout, h in LAYERS:
-                x = torch.relu(torch.randn((bsz, h, h, cin), generator=gen,
-                                           device=dev)).bfloat16()
-                w = (torch.randn((3, 3, cin, cout), generator=gen,
-                                 device=dev) * 0.1).bfloat16()
-                b = (torch.randn((cout,), generator=gen, device=dev)
-                     * 0.1).bfloat16()
-                plan = conv_bf16_plan(bsz, h, h, cin, cout, 3, 2, True)
-                ho = conv_out_size(h, 3, 2)
-                y = torch.empty((bsz, ho, ho, cout), dtype=torch.bfloat16,
-                                device=dev)
-                args = [x.data_ptr(), w.data_ptr(), b.data_ptr(),
-                        y.data_ptr(), bsz, h, h, cin, cout, 3, 2, 0, 0,
-                        BF16_VARIANTS.index("wgmma"), plan.tile]
+        for variant, bsz, h, cin, cout, k, s, p in SHAPES:
+            x = torch.relu(torch.randn((bsz, h, h, cin), generator=gen,
+                                       device=dev)).bfloat16()
+            w = (torch.randn((k, k, cin, cout), generator=gen,
+                             device=dev) * 0.1).bfloat16()
+            b = (torch.randn((cout,), generator=gen, device=dev)
+                 * 0.1).bfloat16()
+            plan = conv_bf16_plan(bsz, h, h, cin, cout, k, s, True, variant,
+                                  p)
+            ho = conv_out_size(h, k, s, p)
+            y = torch.empty((bsz, ho, ho, cout), dtype=torch.bfloat16,
+                            device=dev)
+            args = [x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(),
+                    bsz, h, h, cin, cout, k, s, p, 0,
+                    BF16_VARIANTS.index(variant), plan.tile]
 
-                def run(lib):
-                    def go():
-                        err = getattr(lib, ENTRY)(
-                            torch.cuda.current_stream().cuda_stream, *args)
-                        if err:
-                            raise RuntimeError(f"launch failed: {err}")
-                    return go
+            def run(lib):
+                def go():
+                    err = getattr(lib, ENTRY)(
+                        torch.cuda.current_stream().cuda_stream, *args)
+                    if err:
+                        raise RuntimeError(f"launch failed: {err}")
+                return go
 
-                run(libs[0])()
-                with torch.no_grad():
-                    want = conv2d_bias_relu(x, w, b, 2, False)
-                if not torch.equal(y.view(torch.int16),
-                                   want.view(torch.int16)):
-                    raise AssertionError("the full build differs from the "
-                                         "package's kernel")
-                ms = {name: graph_ms(run(libs[m]))
-                      for name, m in MASKS.items()}
-                bn, mt = WGMMA_TILES[plan.tile][:2]
-                blocks = plan.grid[0] * plan.grid[1]
-                copied = blocks * 2 * plan.k_pad * (64 * mt + bn)
-                sms = min(blocks, H100_SMS)
-                print(f"B={bsz} conv {cin}->{cout}, tile "
-                      f"{'x'.join(map(str, WGMMA_TILES[plan.tile]))}, "
-                      f"{blocks} blocks: " + ", ".join(
-                          f"{k} {v:.4f}" for k, v in ms.items())
-                      + f" ms; {copied / 1e6:.1f} MB copied into shared "
-                      f"memory, {copied / ms['full'] / 1e6 / sms:.1f} GB/s "
-                      f"an SM over {sms} SMs", flush=True)
+            run(libs[0])()
+            with torch.no_grad():
+                want = launch_conv_bf16(x, w, b, s, False, variant=variant,
+                                        padding=p)[0]
+            if not torch.equal(y.view(torch.int16), want.view(torch.int16)):
+                raise AssertionError("the full build differs from the "
+                                     "package's kernel")
+            masks = {k_: m for k_, m in MASKS.items()
+                     if variant == "wgmma" or m != 8}
+            ms = {name: graph_ms(run(libs[m])) for name, m in masks.items()}
+            table = WGMMA_TILES if variant == "wgmma" else TMA_TILES
+            blocks = plan.grid[0] * plan.grid[1]
+            copied = blocks * 2 * plan.k_pad * (plan.bm + plan.bn)
+            sms = min(blocks, H100_SMS)
+            print(f"B={bsz} {h}x{h}x{cin}->{cout} k{k} s{s} p{p} {variant}, "
+                  f"tile {'x'.join(map(str, table[plan.tile]))}, "
+                  f"{blocks} blocks: " + ", ".join(
+                      f"{k_} {v:.4f}" for k_, v in ms.items())
+                  + f" ms; {copied / 1e6:.1f} MB copied into shared "
+                  f"memory, {copied / ms['full'] / 1e6 / sms:.1f} GB/s "
+                  f"an SM over {sms} SMs", flush=True)
     return 0
 
 

@@ -118,9 +118,17 @@ def test_plan_sends_the_alexnet_layers_to_the_hopper_variants(layer, batch):
         assert plan.grid == (-(-ho // rows), batch)
         assert plan.k_pad == 48                 # 3 kernel rows x 16
         return
+    m = _m(batch, h, h, 3, 2)
+    if layer == "conv4":
+        # Cin 64: the tma kernel, BN 64 in two column blocks where BN 128
+        # would leave most SMs idle; its wgmma plan stays reachable by name
+        assert plan.variant == "tma" and plan.k_pad == 576
+        want = hconv.TMA_NARROW if batch == 256 else hconv.TMA_FEW
+        assert hconv.TMA_TILES[plan.tile] == want
+        assert plan.grid == (-(-m // want[1]), -(-cout // want[0]))
+        plan = conv_bf16_plan(batch, h, h, cin, cout, 3, 2, True, "wgmma")
     assert plan.variant == "wgmma"
     bn, mt, bk, stages, split, a_l1 = WGMMA_TILES[plan.tile]
-    m = _m(batch, h, h, 3, 2)
     assert plan.grid == (-(-m // (64 * mt)), -(-cout // bn))
     assert plan.k_pad == -(-9 * cin // bk) * bk
     assert wgmma_smem_bytes(plan.tile) <= SMEM_MAX
@@ -182,8 +190,8 @@ def test_tables_match_the_source():
     src = CONV_CU.read_text()
     # the entry point's variant order
     body = src[src.index('extern "C" int cnn_conv2d_bias_relu_bf16('):]
-    assert BF16_VARIANTS == ("gather", "vec", "strip", "wgmma")
-    assert "(0 gather, 1\n// vec, 2 strip, 3 wgmma)" in src
+    assert BF16_VARIANTS == ("gather", "vec", "strip", "wgmma", "tma")
+    assert "(0 gather, 1\n// vec, 2 strip, 3 wgmma, 4 tma)" in src
     assert re.findall(r"case (\d): return \(int\)launch_bf16_tile<(\w+)>",
                       body) == [("0", "false"), ("1", "true")]
     strips = re.findall(r"case (\d+): return \(int\)launch_bf16_strip<(\d+)>",
@@ -743,13 +751,14 @@ def test_wrapper_counts_each_bf16_variant(monkeypatch):
             assert len(args) == len(SIGNATURES[name])
             plan = conv_bf16_plan(bsz, h, h, cin, cout, 3, 2, True)
             assert args[-2:] == (BF16_VARIANTS.index(plan.variant), plan.tile)
-            assert args[-2] == (2 if layer == "conv1" else 3)
+            assert args[-2] == {"conv1": 2, "conv4": 4}.get(layer, 3)
     run(2, 9, 9, 12, 16)                 # Cin 12: the gather
     counts = read_counters()
     assert counts["conv2d_bias_relu.launches"] == 13
     assert counts["conv2d_bias_relu.launches_bf16"] == 13
     assert counts["conv2d_bias_relu.launches_bf16_strip"] == 3
-    assert counts["conv2d_bias_relu.launches_bf16_wgmma"] == 9
+    assert counts["conv2d_bias_relu.launches_bf16_wgmma"] == 6
+    assert counts["conv2d_bias_relu.launches_bf16_tma"] == 3
     assert counts["conv2d_bias_relu.launches_bf16_gather"] == 1
     assert counts["conv2d_bias_relu.launches_bf16_vec"] == 0
     assert counts["conv2d_bias_relu.launches_tiled"] == 0

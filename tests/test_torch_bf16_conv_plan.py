@@ -60,8 +60,8 @@ def test_plan_on_the_alexnet_layers(layer, batch):
     # the plan sends the AlexNet layers to the Hopper variants
     # (tests/test_torch_bf16_conv_hopper.py); this kernel's plan is the one
     # it gives a named variant, as the smoke's comparisons ask for it
-    assert conv_bf16_plan(batch, h, h, cin, cout, 3, 2, True).variant == (
-        "strip" if layer == "conv1" else "wgmma")
+    assert conv_bf16_plan(batch, h, h, cin, cout, 3, 2, True).variant == {
+        "conv1": "strip", "conv4": "tma"}.get(layer, "wgmma")
     plan = conv_bf16_plan(batch, h, h, cin, cout, 3, 2, True,
                           "gather" if layer == "conv1" else "vec")
     assert plan.variant == ("gather" if layer == "conv1" else "vec")
@@ -339,7 +339,8 @@ def test_conv_wrapper_launches_and_counts_the_bf16_kernel(monkeypatch):
     assert counts["conv2d_bias_relu.launches"] == 4
     assert counts["conv2d_bias_relu.launches_bf16"] == 4
     assert counts["conv2d_bias_relu.launches_bf16_strip"] == 1
-    assert counts["conv2d_bias_relu.launches_bf16_wgmma"] == 3
+    assert counts["conv2d_bias_relu.launches_bf16_wgmma"] == 2
+    assert counts["conv2d_bias_relu.launches_bf16_tma"] == 1
     assert counts["conv2d_bias_relu.launches_bf16_gather"] == 0
     assert counts["conv2d_bias_relu.launches_bf16_vec"] == 0
     assert counts["conv2d_bias_relu.launches_strip"] == 0

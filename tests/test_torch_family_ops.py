@@ -173,8 +173,9 @@ def family_convs(name: str, size: int = 224):
 
 # the variants every family conv takes, float32 / bf16: a padded Cin-3 stem
 # neither strip takes (rows of 3 channels, padded) goes direct / gather;
-# every other conv is tiled, and in bf16 wgmma but for the 1x1 stride-2
-# projections with k*Cin = 16 (ResNet's block_2), which the bf16 strip takes
+# every other conv is tiled, and in bf16 tma where Cin % 64 == 0, wgmma
+# but for the 1x1 stride-2 projections with k*Cin = 16 (ResNet's block_2),
+# which the bf16 strip takes
 @pytest.mark.parametrize("name", FAMILIES)
 @pytest.mark.parametrize("batch", [1, 8, 64, 256])
 def test_plans_take_every_family_conv(name, batch):
@@ -183,13 +184,18 @@ def test_plans_take_every_family_conv(name, batch):
         bf = conv_bf16_plan(batch, h, h, cin, cout, k, s, True, None, p)
         strip = k * cin == 16 and p == 0 and cout <= 32
         want = (("direct", "gather") if cin == 3
-                else ("tiled", "strip" if strip else "wgmma"))
+                else ("tiled", "strip" if strip else
+                      "tma" if cin % 64 == 0 else "wgmma"))
         assert (f32.variant, bf.variant) == want, (h, cin, cout, k, s, p)
         ho = tconv.conv_out_size(h, k, s, p)
         if bf.variant == "wgmma":
             assert bf.grid[0] * 64 * hconv.WGMMA_TILES[bf.tile][1] >= \
                 batch * ho * ho
             assert bf.k_pad >= k * k * cin and bf.k_pad % 32 == 0
+        if bf.variant == "tma":
+            bn, bm = hconv.TMA_TILES[bf.tile][:2]
+            assert (bf.grid[0] - 1) * bm < batch * ho * ho <= bf.grid[0] * bm
+            assert bf.grid[1] == -(-cout // bn) and bf.k_pad == k * k * cin
         if f32.variant == "tiled":
             t = hconv.TILES[f32.tile]
             assert (f32.grid[0] - 1) * t.bm < batch * ho * ho <= \
@@ -235,10 +241,15 @@ def test_wrapper_passes_the_padding_to_the_planned_entry(monkeypatch, dtype):
     n = len(family_convs("resnet10", 64)[0])
     assert counts["conv2d_bias_relu.launches"] == n
     if dtype == torch.bfloat16:
-        # the stem gathers, block_2's 1x1 projection (k*Cin 16) is a strip
+        # the stem gathers, block_2's 1x1 projection (k*Cin 16) is a strip,
+        # the four shapes of Cin 64 and 128 take tma
+        tma = sum(cin % 64 == 0
+                  for _, cin, *_ in family_convs("resnet10", 64)[0])
+        assert tma == 4
         assert counts["conv2d_bias_relu.launches_bf16_gather"] == 1
         assert counts["conv2d_bias_relu.launches_bf16_strip"] == 1
-        assert counts["conv2d_bias_relu.launches_bf16_wgmma"] == n - 2
+        assert counts["conv2d_bias_relu.launches_bf16_tma"] == tma
+        assert counts["conv2d_bias_relu.launches_bf16_wgmma"] == n - 2 - tma
     else:
         assert counts["conv2d_bias_relu.launches_direct"] == 1
         assert counts["conv2d_bias_relu.launches_tiled"] == n - 1
