@@ -96,6 +96,17 @@
    every family conv with Cin % 64 == 0 (B = 64), PipeCNN's trunk conv and
    conv4 at B = 1, 8 and 256: graph-timed in turns beside the wgmma kernel
    (the tma plan must be the faster), every tile alone, cuDNN + ReLU alone;
+   then the padded strips at the six families' Cin-3 stems (3 -> 16, 32,
+   64 at stride 2, 3 -> 32, 64 at stride 1, k3 p1, 224 px), float32 and
+   bf16 (the widened layout): planned so at B = 1, 8, 64, 256, held to the
+   plain conv at B = 1, 8, 64 (float32 bit-equal to the direct kernel,
+   bf16 1 ulp + 1e-5 x S) through the wrapper and every strip id that
+   takes the shape, two launches bit-identical; at B = 64 graph-timed in
+   turns with the kernel each replaces (the direct kernel, the gather),
+   every R swept, cuDNN + ReLU alone, the bound; off those shapes (ragged
+   strips, Cin 1, 2, 4, padding 2 and 3, k 2, 4, 5, rows past a chunk);
+   AlexNet's bf16 conv1 on its natural layout in turns with the widened
+   one;
 9. the bf16 pool forward with tap and window backward at [256,111,111,16]
    and B = 64 on forced ties and at 7 x 9 and 5 x 4 extents, bit-exact
    against the plain versions and autograd, timed beside the float32
@@ -162,7 +173,9 @@
    from 20 training-mode forwards), each at 224 px behind
    ``InferenceEngine`` (buckets 1, 8, 64, one CUDA graph each) in float32
    and bf16: one forward launches one conv per Conv2D layer (the padded
-   Cin-3 stem on the direct / gather kernel) and one pool per MaxPool2D;
+   Cin-3 stem on a padded strip, counted by ``launches_strip_padded`` /
+   ``launches_bf16_strip_padded``; none on the direct kernel or the
+   gather) and one pool per MaxPool2D;
    every conv launch of a forward on the six fixture photos (and two
    mirrored) against the plain conv on the same activations (float32
    within atol 1e-5 + 1e-5 x S and bit-equal to the direct kernel, bf16
@@ -185,11 +198,12 @@
    launch per Conv2D layer a step, none recomputed), its losses finite,
    the fresh resnet10 runs' last 5 below their first 5, its checkpoint
    read back equal through a fresh train state; img/s over the loop and
-   device ms a step. The kernels line gains the conv rows of the padded
-   stem, the padded 3x3 and the 1x1, float32 and bf16, timed at B=64
-   through the wrapper and alone beside cuDNN + ReLU alone, and the tma
-   kernel's row (its launches over every counted run, timed at conv4, B =
-   64).
+   device ms a step. The kernels line gains the conv rows of the five
+   padded stem shapes (their launches: the padded strips' counters in
+   their families' counted runs), the padded 3x3 and the 1x1, float32 and
+   bf16, timed at B=64 through the wrapper and alone beside cuDNN + ReLU
+   alone, and the tma kernel's row (its launches over every counted run,
+   timed at conv4, B = 64).
 
 Every phase prints one flushed line with the seconds since start. Any failed
 check raises, so the exit code is not 0. Without a CUDA device it exits 1
@@ -233,7 +247,7 @@ from cnn_tpu_torch.nn import Conv2D, Linear, ReLU, StackedBlocks
 from cnn_tpu_torch.ops import augment as aug
 from cnn_tpu_torch.ops.activations import relu as ops_relu
 from cnn_tpu_torch.ops.conv import conv2d, conv_out_size
-from cnn_tpu_torch.ops.hopper import (BF16_STRIP_ROWS, BF16_TILES,
+from cnn_tpu_torch.ops.hopper import (BF16_TILES,
                                       STRIP_ROWS, TILES, TMA_TILES,
                                       WGMMA_TILES,
                                       _build, conv2d_bias_relu,
@@ -249,8 +263,11 @@ from cnn_tpu_torch.ops.hopper import (BF16_STRIP_ROWS, BF16_TILES,
                                       uint8_normalize)
 from cnn_tpu_torch.ops.hopper.augment import TILES as ROTATE_TILES
 from cnn_tpu_torch.ops.hopper.conv import (BF16_STRIP_SMEM_MAX,
-                                           BF16_VARIANTS,
-                                           strip_bf16_smem_bytes)
+                                           BF16_STRIP_TILES, BF16_VARIANTS,
+                                           STRIP_SMEM_MAX,
+                                           strip_bf16_smem_bytes,
+                                           strip_bf16_takes,
+                                           strip_smem_bytes)
 from cnn_tpu_torch.ops.losses import softmax_cross_entropy
 from cnn_tpu_torch.ops.pool import max_pool2d, max_pool2d_taps
 from cnn_tpu_torch.ops.pool import max_pool2d_bwd as pool_bwd_plain
@@ -316,7 +333,8 @@ SOURCES = {
     "max_pool2d_fwd_bf16": "cnn_tpu_torch/csrc/pool.cu",
     "max_pool2d_bwd_bf16": "cnn_tpu_torch/csrc/pool.cu",
 }
-for _key in ("stem", "padded_3x3", "1x1"):
+for _key in ("stem", "stem_32", "stem_64", "stem_s1_32", "stem_s1_64",
+             "padded_3x3", "1x1"):
     REPLACES[f"conv2d_bias_relu_{_key}"] = REPLACES["conv2d_bias_relu"]
     REPLACES[f"conv2d_bias_relu_{_key}_bf16"] = REPLACES[
         "conv2d_bias_relu_bf16"]
@@ -488,11 +506,14 @@ def tile_sweep(x, w, b, stride) -> str:
                      for i, t in enumerate(TILES))
 
 
-def strip_sweep(x, w, b, stride) -> str:
-    """ms of every strip R, ReLU off, through the entry point."""
-    ms = [time_ms(lambda i=i: conv_entry(x, w, b, stride, False, strip=i))
-          for i in range(len(STRIP_ROWS))]
-    return ", ".join(f"R={r} {t:.4f}" for r, t in zip(STRIP_ROWS, ms))
+def strip_sweep(x, w, b, stride, padding=0, relu=False, tiles=None,
+                timer=None) -> str:
+    """ms of every strip R (or the ids in ``tiles``), through the entry
+    point; ``timer`` ``time_ms`` unless given (the stems: ``graph_ms``)."""
+    tiles = range(len(STRIP_ROWS)) if tiles is None else tiles
+    ms = [(timer or time_ms)(lambda i=i: conv_entry(
+        x, w, b, stride, relu, strip=i, padding=padding)) for i in tiles]
+    return ", ".join(f"R={STRIP_ROWS[i]} {t:.4f}" for i, t in zip(tiles, ms))
 
 
 def in_turns(fa, fb, iters: int = 20) -> tuple[float, float]:
@@ -915,7 +936,9 @@ def serving_want(calls: int) -> dict:
             "conv2d_bias_relu.launches_padded": 0,
             "conv2d_bias_relu.launches_1x1": 0,
             "conv2d_bias_relu.launches_bf16_padded": 0,
-            "conv2d_bias_relu.launches_bf16_1x1": 0}
+            "conv2d_bias_relu.launches_bf16_1x1": 0,
+            "conv2d_bias_relu.launches_strip_padded": 0,
+            "conv2d_bias_relu.launches_bf16_strip_padded": 0}
 
 
 def same_arrays(a: np.ndarray, b: np.ndarray) -> bool:
@@ -1849,7 +1872,9 @@ def bf16_conv_phase(gen) -> tuple:
             sweep = ""
             if bsz == TRAIN_B:   # each R, or each tile of BN Cout and Cout/2
                 if plan.variant == "strip":
-                    cands = {f"R {r}": j for j, r in enumerate(BF16_STRIP_ROWS)}
+                    cands = {strip_tile_name(j, BF16): j for j in
+                             strip_tiles(bsz, h, h, cin, cout, 3, 2, 0,
+                                         BF16)}
                 elif plan.variant == "tma":
                     cands = {"x".join(map(str, tt)): j
                              for j, tt in enumerate(TMA_TILES)}
@@ -1864,7 +1889,7 @@ def bf16_conv_phase(gen) -> tuple:
                     i, "BN x MT x BK x stages x split x A-via-L1")
                 sweep = (f"; {label} sweep alone (ms): " + ", ".join(
                              f"{k} {v:.4f}" for k, v in times.items()))
-            tile = (f"R {BF16_STRIP_ROWS[plan.tile]}" if i == 1 else
+            tile = (strip_tile_name(plan.tile, BF16) if i == 1 else
                     "x".join(map(str, (TMA_TILES if i == 4 else WGMMA_TILES)
                                  [plan.tile])))
             phase(f"bf16 conv_layer_{i} [{bsz},{h},{h},{cin}]->[{bsz},{ho},"
@@ -1924,10 +1949,8 @@ def bf16_conv_phase(gen) -> tuple:
         got = check_conv_bf16(x, w, b, stride, f"bf16 conv ({what})")
         tables = {"gather": range(len(BF16_TILES)),
                   "vec": range(len(BF16_TILES)),
-                  "strip": [j for j, r in enumerate(BF16_STRIP_ROWS)
-                            if strip_bf16_smem_bytes(
-                                min(r, conv_out_size(h, k, stride)), wid,
-                                cin, cout, k, stride) <= BF16_STRIP_SMEM_MAX],
+                  "strip": strip_tiles(bsz, h, wid, cin, cout, k, stride, 0,
+                                       BF16),
                   "wgmma": range(len(WGMMA_TILES)),
                   "tma": range(len(TMA_TILES))}
         for v in bf16_variants_taking(bsz, h, wid, cin, cout, k, stride, True):
@@ -2869,12 +2892,21 @@ FAMILY_SEED = 3
 # by up to 5e-5); every float32 kernel is also held bit for bit to the
 # direct kernel, which sums in the same order
 FAMILY_CONV_SREL = 1e-5
+# the six families' padded Cin-3 stems: row key -> (H, Cin, Cout, k,
+# stride, padding) and the families whose first conv it is
+STEMS = {"stem": ((224, 3, 16, 3, 2, 1), ("resnet10",)),
+         "stem_32": ((224, 3, 32, 3, 2, 1), ("resnet18", "mobilenet")),
+         "stem_64": ((224, 3, 64, 3, 2, 1), ("pipecnn",)),
+         "stem_s1_32": ((224, 3, 32, 3, 1, 1), ("vgg8",)),
+         "stem_s1_64": ((224, 3, 64, 3, 1, 1), ("vgg11",))}
 # (B, H, Cin, Cout, k, stride, padding) of each family kernel row, at the
-# serving batch: resnet10's stem_conv (a padded Cin-3 stem), PipeCNN's
-# trunk conv (a padded stride-1 3x3), MobileNet's pw_2 (a 1x1)
-FAMILY_ROWS = {"stem": (B, 224, 3, 16, 3, 2, 1),
+# serving batch: the stems, PipeCNN's trunk conv (a padded stride-1 3x3),
+# MobileNet's pw_2 (a 1x1)
+FAMILY_ROWS = {**{key: (B, *shape) for key, (shape, _) in STEMS.items()},
                "padded_3x3": (B, 56, 64, 64, 3, 1, 1),
                "1x1": (B, 56, 64, 128, 1, 1, 0)}
+# the padded strips' counters, kept per family in the phases' totals
+STRIP_PADDED = ("launches_strip_padded", "launches_bf16_strip_padded")
 FAMILY_TRAIN_STEPS = 40     # the fresh resnet10 runs; the others take 20
 FAMILY_GRAD_TOL = 1e-4      # the families' conv Function, the model's bar
 
@@ -3017,10 +3049,13 @@ def families_serving_phase(smi: str) -> dict:
                         for m in model.modules())
             check(per_fwd.get("conv2d_bias_relu.launches") == convs
                   and per_fwd.get("max_pool2d_fwd.launches", 0) == pools
+                  and sum(per_fwd.get(f"conv2d_bias_relu.{c}", 0)
+                          for c in STRIP_PADDED) == 1
                   and per_fwd.get("conv2d_bias_relu.launches_direct", 0)
                   + per_fwd.get("conv2d_bias_relu.launches_bf16_gather", 0)
-                  == 1, f"{tag}: one forward launched {per_fwd}; it has "
-                  f"{convs} convs (one a Cin-3 stem) and {pools} pools")
+                  == 0, f"{tag}: one forward launched {per_fwd}; it has "
+                  f"{convs} convs (one a padded Cin-3 stem, on a strip) and "
+                  f"{pools} pools")
             depthwise = sum(type(m).__name__ == "DepthwiseConv2D"
                             for m in model.modules())
             check(aten == depthwise, f"{tag}: one forward called ATen's "
@@ -3058,6 +3093,7 @@ def families_serving_phase(smi: str) -> dict:
             check(counts == want, f"{tag}: predict launches {counts}, "
                   f"expected {want}")
             add_up(total, counts)
+            add_up(total, stem_counts(name, counts))
             with torch.no_grad():
                 logits = engine.model(uint8_normalize(x6),
                                       compute_dtype=dtype).float()
@@ -3112,6 +3148,196 @@ def families_serving_phase(smi: str) -> dict:
     return total
 
 
+def stem_counts(name: str, counts: dict) -> dict:
+    """The padded strips' launches of a counted run of family ``name``,
+    keyed ``"<name>.<counter>"`` (the stem rows' launches)."""
+    return {f"{name}.{c}": counts.get(f"conv2d_bias_relu.{c}", 0)
+            for c in STRIP_PADDED}
+
+
+def strip_tiles(bsz, h, wid, cin, cout, k, stride, padding, dtype):
+    """The strip ids whose kernel takes the shape: float32, the R of
+    ``STRIP_ROWS`` that fit 96 KB; bf16, the (R, layout) of
+    ``BF16_STRIP_TILES`` whose layout takes it and that fit 96 KB."""
+    ho = conv_out_size(h, k, stride, padding)
+    if dtype is None:
+        return [i for i, r in enumerate(STRIP_ROWS) if strip_smem_bytes(
+            min(r, ho), wid, cin, cout, k, stride, padding)
+            <= STRIP_SMEM_MAX]
+    return [j for j, (r, wide) in enumerate(BF16_STRIP_TILES)
+            if strip_bf16_takes(wid, cin, cout, k, stride, padding, wide)
+            and strip_bf16_smem_bytes(min(r, ho), wid, cin, cout, k, stride,
+                                      padding, wide) <= BF16_STRIP_SMEM_MAX]
+
+
+def strip_tile_name(j: int, dtype) -> str:
+    if dtype is None:
+        return f"R {STRIP_ROWS[j]}"
+    r, wide = BF16_STRIP_TILES[j]
+    return f"R {r} {'widened' if wide else 'natural'}"
+
+
+def stem_inputs(gen, bsz, h, wid, cin, cout, k, dtype=None):
+    dev = torch.device("cuda")
+    x = torch.rand((bsz, h, wid, cin), generator=gen, device=dev)
+    w = torch.randn((k, k, cin, cout), generator=gen, device=dev) * 0.1
+    b = torch.randn((cout,), generator=gen, device=dev) * 0.1
+    if dtype is not None:
+        x, w, b = x.to(dtype), w.to(dtype), b.to(dtype)
+    return x, w, b
+
+
+def check_strip(x, w, b, stride, padding, what, tiles=None) -> float:
+    """A padded strip conv, float32 or bf16, ReLU off and on, through the
+    wrapper and every strip id in ``tiles``: against the plain conv
+    (float32 within 1e-5 + 1e-5 x S and bit-equal to the direct kernel;
+    bf16 within 1 bf16 ulp + 1e-5 x S), two launches bit-identical.
+    Returns the worst max |dev| / bar."""
+    worst = 0.0
+    if x.dtype == BF16:
+        worst = check_conv_bf16(x, w, b, stride, what, padding=padding)[1]
+        for j in tiles or ():
+            worst = max(worst, check_conv_bf16(
+                x, w, b, stride, f"{what} {strip_tile_name(j, BF16)}",
+                lambda *a, j=j, **kw: launch_conv_bf16(
+                    *a, tile=j, variant="strip", **kw)[0],
+                padding=padding)[1])
+        return worst
+    convs = [(what, lambda relu: conv2d_bias_relu(x, w, b, stride, relu,
+                                                  padding))]
+    convs += [(f"{what} {strip_tile_name(i, None)}",
+               lambda relu, i=i: conv_entry(x, w, b, stride, relu, strip=i,
+                                            padding=padding))
+              for i in tiles or ()]
+    for relu in (False, True):
+        ref = conv2d(x, w, b, stride, relu, padding)
+        direct = conv_entry(x, w, b, stride, relu, padding=padding)
+        for name, conv in convs:
+            y = conv(relu)
+            worst = max(worst, conv_bar_f32(x, w, b, stride, padding, y, ref,
+                                            f"{name} relu={relu}"))
+            check(bits_equal(y, direct), f"{name} relu={relu}: differs from "
+                  "the direct kernel")
+            check(bits_equal(y, conv(relu)), f"{name} relu={relu}: two "
+                  "launches differ")
+    return worst
+
+
+# off the stems' shapes: (what, B, H, W, Cin, Cout, k, stride, padding) for
+# the float32 padded strip and the bf16 widened one
+STRIP_OFF_F32 = [("ragged: 25 x 28, Ho 13", 2, 25, 28, 3, 16, 3, 2, 1),
+                 ("Cin 1, k 5, pad 2", 2, 30, 32, 1, 8, 5, 1, 2),
+                 ("Cin 2, Cout 24", 1, 17, 18, 2, 24, 3, 1, 1),
+                 ("Cin 4, pad 2, Cout 12", 2, 21, 22, 4, 12, 3, 2, 2),
+                 ("a row past 128 pixels", 1, 9, 300, 3, 64, 3, 1, 1)]
+STRIP_OFF_BF16 = [("ragged: 27 x 24, Ho 14", 2, 27, 24, 3, 16, 3, 2, 1),
+                  ("pad 2, stride 1, Cout 8", 2, 19, 16, 3, 8, 3, 1, 2),
+                  ("pad 3, stride 3, Cout 24", 1, 28, 32, 3, 24, 3, 3, 3),
+                  ("k 2, Cout 56", 2, 17, 24, 3, 56, 2, 1, 1),
+                  ("k 4, Cout 40", 1, 20, 48, 3, 40, 4, 2, 1),
+                  ("a row past 16 chunks", 1, 9, 296, 3, 64, 3, 1, 1)]
+
+
+def stem_phase(gen) -> None:
+    """The padded strips at the six families' Cin-3 stems (k3 p1 at 224 px;
+    3 -> 16, 32, 64 at stride 2, 3 -> 32, 64 at stride 1), float32 and
+    bf16: planned onto the strip (bf16: the widened layout) at B = 1, 8,
+    64 and 256; held against the plain conv (float32 bit-equal to the
+    direct kernel) through the wrapper at B = 1, 8 and 64, and through
+    every strip id that takes the shape at B = 64; at B = 64 each graph-timed
+    in turns with the kernel it replaces (the direct kernel; the gather),
+    every R swept, cuDNN + ReLU alone and the bound; then off those shapes
+    (ragged strips, Cin 1, 2, 4, padding 2 and 3, k 2, 4 and 5, rows past a
+    chunk); then AlexNet's conv1 (bf16, B = 64 and 256) on its natural
+    layout in turns with the widened one."""
+    lines = []
+    for key, ((h, cin, cout, k, s, p), fams) in STEMS.items():
+        for dtype in (None, BF16):
+            tag = f"{key}{'_bf16' if dtype else ''} {fams}"
+            for bsz in (1, 8, B, TRAIN_B):
+                f32 = conv_tile_plan(bsz, h, h, cin, cout, k, s, True, p)
+                bf = conv_bf16_plan(bsz, h, h, cin, cout, k, s, True, None, p)
+                check(f32.variant == "strip" and bf.variant == "strip"
+                      and BF16_STRIP_TILES[bf.tile][1],
+                      f"{tag} B={bsz}: planned {f32} / {bf}")
+            worst = 0.0
+            for bsz in (1, 8, B):
+                x, w, b = stem_inputs(gen, bsz, h, h, cin, cout, k, dtype)
+                tiles = (strip_tiles(bsz, h, h, cin, cout, k, s, p, dtype)
+                         if bsz == B else None)
+                worst = max(worst, check_strip(x, w, b, s, p,
+                                               f"{tag} B={bsz}", tiles))
+            if dtype is None:
+                sweep = strip_sweep(x, w, b, s, p, True, tiles, graph_ms)
+            else:
+                sweep = ", ".join(f"{strip_tile_name(j, dtype)} {t:.4f}"
+                                  for j, t in ((j, graph_ms(
+                                      lambda j=j: launch_conv_bf16(
+                                          x, w, b, s, True, tile=j,
+                                          variant="strip", padding=p)))
+                                      for j in tiles))
+            old = ((lambda: conv_entry(x, w, b, s, True, padding=p))
+                   if dtype is None else
+                   (lambda: launch_conv_bf16(x, w, b, s, True,
+                                             variant="gather", padding=p)))
+            new_ms, old_ms = graph_turns(
+                lambda: conv2d_bias_relu(x, w, b, s, True, p), old)
+            xn, wn = x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1)
+            lib = graph_ms(lambda: torch.relu(F.conv2d(xn, wn, b, s, p)))
+            ho = conv_out_size(h, k, s, p)
+            y = conv2d_bias_relu(x, w, b, s, True, p)
+            bound = bound_ms(nbytes(x, w, b, y),
+                             2.0 * B * ho * ho * cout * k * k * cin,
+                             FP32_FLOP_PER_S if dtype is None
+                             else BF16_FLOP_PER_S)
+            lines.append(
+                f"{tag} [{B},{h},{h},{cin}]->{cout} s{s} p{p}: alone "
+                f"{new_ms:.4f} ms in turns with the "
+                f"{'direct kernel' if dtype is None else 'gather'} "
+                f"{old_ms:.4f} ({old_ms / new_ms:.2f}x), cuDNN + ReLU "
+                f"{lib:.4f}, bound {bound[0]:.4f} ({bound[1]}, "
+                f"{bound[0] / new_ms:.2f} of it); sweep: {sweep}; worst "
+                f"{worst:.3f} of the bar")
+    off = 0.0
+    for what, bsz, h, wid, cin, cout, k, s, p in STRIP_OFF_F32:
+        x, w, b = stem_inputs(gen, bsz, h, wid, cin, cout, k)
+        check(conv_tile_plan(bsz, h, wid, cin, cout, k, s, True,
+                             p).variant == "strip", f"{what}: not a strip")
+        off = max(off, check_strip(x, w, b, s, p, f"float32 strip ({what})",
+                                   strip_tiles(bsz, h, wid, cin, cout, k, s,
+                                               p, None)))
+    for what, bsz, h, wid, cin, cout, k, s, p in STRIP_OFF_BF16:
+        x, w, b = stem_inputs(gen, bsz, h, wid, cin, cout, k, BF16)
+        plan = conv_bf16_plan(bsz, h, wid, cin, cout, k, s, True, None, p)
+        check(plan.variant == "strip" and BF16_STRIP_TILES[plan.tile][1],
+              f"{what}: planned {plan}")
+        off = max(off, check_strip(x, w, b, s, p, f"bf16 strip ({what})",
+                                   strip_tiles(bsz, h, wid, cin, cout, k, s,
+                                               p, BF16)))
+    conv1 = []
+    for bsz in (B, TRAIN_B):
+        x, w, b = stem_inputs(gen, bsz, 224, 224, 3, 16, 3, BF16)
+        plan = conv_bf16_plan(bsz, 224, 224, 3, 16, 3, 2, True)
+        check(plan.variant == "strip" and not BF16_STRIP_TILES[plan.tile][1],
+              f"bf16 conv1 B={bsz}: planned {plan}")
+        wide = BF16_STRIP_TILES.index((BF16_STRIP_TILES[plan.tile][0], True))
+        off = max(off, check_strip(x, w, b, 2, 0, f"bf16 conv1 B={bsz}",
+                                   [wide]))
+        nat, wid_ms = graph_turns(
+            lambda: conv2d_bias_relu(x, w, b, 2, False),
+            lambda: launch_conv_bf16(x, w, b, 2, False, tile=wide,
+                                     variant="strip"))
+        conv1.append(f"B={bsz} natural {nat:.4f}, widened {wid_ms:.4f} ms")
+    for line in lines:
+        phase(f"padded strip, {line}")
+    phase("padded strips off the stems' shapes (float32: "
+          + "; ".join(c[0] for c in STRIP_OFF_F32) + "; bf16: "
+          + "; ".join(c[0] for c in STRIP_OFF_BF16) + f") through every "
+          f"strip id that takes each: worst {off:.3f} of the bar, float32 "
+          f"bit-equal to the direct kernel; bf16 conv1 in turns, alone: "
+          + "; ".join(conv1))
+
+
 def family_row(key: str, dtype, gen) -> tuple:
     """A kernel row at a family shape: (max |dev| vs plain, ms through the
     wrapper, plain ms, cuDNN ms, (bound ms, by), ms alone, cuDNN + ReLU
@@ -3148,16 +3374,20 @@ def family_rows(gen, counts: dict) -> list:
     launches in phases 17-18 (``counts``)."""
     c = {k.split(".")[1]: v for k, v in counts.items()
          if k.startswith("conv2d_bias_relu.")}
-    launches = {
-        "stem": c.get("launches_direct", 0),
-        "stem_bf16": c.get("launches_bf16_gather", 0),
+    # each stem row: the padded strips' launches in its families' runs
+    launches = {key + suffix: sum(counts.get(f"{name}.{counter}", 0)
+                                  for name in fams)
+                for key, (_, fams) in STEMS.items()
+                for suffix, counter in zip(("", "_bf16"), STRIP_PADDED)}
+    launches.update({
         "padded_3x3": c.get("launches_padded", 0)
-        - c.get("launches_bf16_padded", 0) - c.get("launches_direct", 0),
+        - c.get("launches_bf16_padded", 0)
+        - c.get("launches_strip_padded", 0),
         "padded_3x3_bf16": c.get("launches_bf16_padded", 0)
-        - c.get("launches_bf16_gather", 0),
+        - c.get("launches_bf16_strip_padded", 0),
         "1x1": c.get("launches_1x1", 0) - c.get("launches_bf16_1x1", 0),
         "1x1_bf16": c.get("launches_bf16_1x1", 0),
-    }
+    })
     rows, lines = [], []
     for key in FAMILY_ROWS:
         for dtype, suffix in ((None, ""), (BF16, "_bf16")):
@@ -3309,7 +3539,8 @@ def family_function_phase(gen) -> None:
     bf16 within 2 bf16 ulps of max|ref| of the plain bf16 conv. Prints
     each dev / max(1, max|ref|)."""
     worst = {}
-    for key, (_, h, cin, cout, k, s, p) in FAMILY_ROWS.items():
+    for key in ("stem", "padded_3x3", "1x1"):
+        _, h, cin, cout, k, s, p = FAMILY_ROWS[key]
         bsz = 8
         x = torch.randn((bsz, h, h, cin), generator=gen, device="cuda")
         w = torch.randn((k, k, cin, cout), generator=gen, device="cuda") * 0.1
@@ -3460,6 +3691,7 @@ def families_training_phase(smi: str, tmp: Path, cli: dict) -> dict:
                                    times)
         secs = time.perf_counter() - t
         add_up(total, counts)
+        add_up(total, stem_counts(name, counts))
         if first:
             check(f"resumed from {resume} at step {start}" in text,
                   f"{name} {what}: did not resume from step {start}")
@@ -3560,13 +3792,15 @@ def main() -> int:
     _build.load()
     report = ptxas_report(_build.build_log)
     if _build.build_seconds is not None:
-        new = [f"conv2d_strip<{r}>" for r in STRIP_ROWS] + [
+        new = [f"conv2d_strip<{r}x{pad}x{k3}>" for r in STRIP_ROWS
+               for pad in (0, 1) for k3 in (0, 1)] + [
             "maxpool2x2_bwd_window<f32>", "maxpool2x2_bwd_window<bf16>",
             "maxpool2x2_fwd<bf16>", "normalize_u8_wide<1>",
             "normalize_u8_wide<0>"] + [
             f"conv2d_bf16<{mt}x{nt}x{v}>" for mt, nt in BF16_TILES
             for v in (0, 1)] + [
-            f"conv2d_bf16_strip<{r}>" for r in BF16_STRIP_ROWS] + [
+            f"conv2d_bf16_strip<{r}x{int(wide)}x{nt}>"
+            for r, wide in BF16_STRIP_TILES for nt in (2, 4, 8)] + [
             f"conv2d_bf16_wgmma<{'x'.join(map(str, t))}>"
             for t in WGMMA_TILES] + [
             f"conv2d_bf16_tma<{'x'.join(map(str, t))}>" for t in TMA_TILES]
@@ -3603,6 +3837,7 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(11)
     conv16, conv16_ms = bf16_conv_phase(gen)
     tma = tma_phase(gen)
+    stem_phase(gen)
     pool16 = bf16_pool_phase(gen)
     bf16_function_phase(gen)
     counts16 = bf16_training_phase(f32_stats)

@@ -13,7 +13,8 @@
 // every entry point takes the zero padding `pad`, and a tap that falls in
 // it reads zero (the direct kernel skips it, the others zero-fill its
 // copy: the same sum, since a zero product leaves a float32 sum as it is).
-// The strip kernels stage whole input rows and take pad 0 only.
+// The strip kernels stage whole input rows, with zero margins and zero rows
+// for the padding.
 //
 // All three are implicit GEMMs: M = B*Ho*Wo output pixels, N = Cout,
 // K = k*k*Cin in (dy, dx, ci) order, in which the HWIO weights are already a
@@ -27,8 +28,9 @@
 // K = 27 multiply-adds per output) and float32 operations for conv2-4
 // (K = 144..576, 67 TFLOP/s).
 //
-// The strip kernel (conv1: Cin <= 4, Cout % 4 == 0 and <= 32, W*Cin % 4 ==
-// 0, x 16-byte aligned). The direct kernel below holds conv1 to 5x its byte
+// The strip kernel (conv1 and the families' padded Cin-3 stems: Cin <= 4,
+// Cout % 4 == 0 and, in the plan, <= 64, W*Cin % 4 == 0, x 16-byte
+// aligned). The direct kernel below holds conv1 to 5x its byte
 // bound: it is bound by instruction issue, not bytes. Each of its threads
 // decodes its position with 64-bit divisions (emulated in software), issues
 // 27 unaligned 4-byte input loads (repeated by the three other threads of
@@ -41,7 +43,15 @@
 //    contiguous in NHWC and W*Cin % 4 == 0 keeps every row 16-byte aligned.
 //    At stride 2 a strip shares one row with the next, so x is read
 //    (2R+1)/2R times. The weights and bias (1,792 B for conv1) are staged
-//    beside them once per block.
+//    beside them once per block. Padded (kPad, a template argument, so
+//    that AlexNet's conv1 keeps the contiguous copy): the rows start at
+//    oy0*s - p; each staged row gets a zero margin of p*Cin floats on each
+//    side, rounded up to 16 bytes so that the image's floats stay 16-byte
+//    aligned for the copies (the read index carries the shift); margins
+//    and rows outside the image are zero-filled copies (cp.async with a
+//    source size of 0). A tap in the padding then adds fmaf(0, w, acc) =
+//    acc, where the direct kernel skips it: the same bits for finite
+//    weights, in the same (dy, dx, ci) order.
 //  - one warp per output row. Lane l owns pixels l, l+32, l+64 and l+96 of
 //    a 128-pixel chunk of the row and 16 output channels of each (64
 //    accumulators; wider Cout takes more passes over the chunk). Lanes sit
@@ -51,14 +61,20 @@
 //    weight read is a warp-wide broadcast of 16 bytes that feeds 4 pixels
 //    x 4 FMAs; each input value read feeds 16 FMAs. Index math is 32-bit
 //    except for the base pointers.
-//  - epilogue: bias, the optional ReLU, 16-byte stores; for one pixel slot
-//    the warp's stores cover 32 consecutive pixels, one contiguous run.
+//  - epilogue: bias, the optional ReLU, then one slot's 32 pixels through
+//    a per-warp staging area (20 floats a pixel), stored as 16-byte chunks
+//    in pixel order: four lanes on one pixel's 64 contiguous bytes, so that
+//    each store fills whole 32-byte sectors. A lane's own 16-byte stores,
+//    Cout*4 bytes apart, filled half-sectors, and held the strip to about
+//    0.75 TB/s of output at every Cout (on the H100, at the families'
+//    padded stems).
 //  - R is a template argument; the entry point's switch maps ids to R in
 //    the order of STRIP_ROWS in ops/hopper/conv.py, whose plan takes the R
 //    with the most blocks (a block stages all its rows before it sums, so
 //    more, shorter blocks on an SM overlap staging with sums better) and
-//    checks that the staged rows and the weights fit in 48 KB of (dynamic)
-//    shared memory.
+//    checks that the staged rows, the weights and the output staging fit
+//    in 96 KB of dynamic shared memory (the launch sets the attribute past
+//    48 KB).
 //
 // The tiled kernel (conv2-4: Cin % 8 == 0, Cout % 4 == 0, x and w 16-byte
 // aligned). The direct kernel feeds 4 FMAs from each 4-byte input load
@@ -121,9 +137,10 @@ constexpr int kCoPerThread = 4;
 
 // Zero padding: output pixel (oy, ox) reads input rows oy*s - pad + dy and
 // columns ox*s - pad + dx, and a tap outside the image reads zero. Every
-// kernel but the strips takes pad in [0, kPadMax] on images of at most
-// kExtentMax rows and columns, so that the shared-memory kernels can pack
-// a row's first input row and column into one int (pack_yx).
+// kernel takes pad in [0, kPadMax] on images of at most kExtentMax rows and
+// columns, so that the shared-memory kernels can pack a row's first input
+// row and column into one int (pack_yx) and the strips' margins stay
+// small.
 constexpr int kPadMax = 16;
 constexpr int kExtentMax = 16384;
 
@@ -476,54 +493,122 @@ namespace {
 
 constexpr int kStripSlots = 4;   // pixels a lane holds: l, l+32, l+64, l+96
 constexpr int kStripCo = 16;     // output channels a lane holds at once
+// a pixel of a warp's output staging: 16 channels and 4 floats of padding,
+// so that a quarter-warp's 16-byte writes (lanes 20 words apart) miss each
+// other's banks
+constexpr int kStripYs = kStripCo + 4;
+constexpr int kStripSmemMax = 96 * 1024;
 
-// floats of shared memory before the staged rows: weights and bias,
+// floats of shared memory before the staged rows: the weights as blocks of
+// 16 output channels, [ceil(Cout/16)][K][16] (zero past Cout), so that a
+// pass's weight reads sit at fixed offsets from one base; then the bias;
 // rounded up to keep the rows 16-byte aligned
 __host__ __device__ inline int strip_weight_floats(int k, int Cin, int Cout) {
-  return (k * k * Cin * Cout + Cout + 3) / 4 * 4;
+  return ((Cout + kStripCo - 1) / kStripCo * kStripCo * k * k * Cin + Cout +
+          3) / 4 * 4;
 }
 
-template <int R>
+// a staged input row of a padded strip: a zero margin of p*Cin floats on
+// each side of the image row, each rounded up to 16 bytes, so that the
+// image's floats start 16-byte aligned (the copies stay 16-byte cp.async)
+// and the read index carries the shift; p = 0 leaves the row as it is
+__host__ __device__ inline int strip_margin_floats(int p, int Cin) {
+  return (p * Cin + 3) / 4 * 4;
+}
+__host__ __device__ inline int strip_row_floats(int W, int Cin, int p) {
+  return W * Cin + 2 * strip_margin_floats(p, Cin);
+}
+__host__ __device__ inline int strip_smem_floats(int rows, int k, int s,
+                                                 int W, int Cin, int Cout,
+                                                 int p) {
+  return strip_weight_floats(k, Cin, Cout) +
+         ((rows - 1) * s + k) * strip_row_floats(W, Cin, p) +
+         (Cout > kStripCo ? rows * 32 * kStripYs : 0);   // output staging
+}
+
+// kPad: rows staged with zero margins and zero rows (the families' stems);
+// k3: k = 3 and Cin = 3 known at compile time (AlexNet's conv1 and the
+// stems), so that the 27 taps unroll with fixed shared-memory offsets
+template <int R, bool kPad, bool k3>
 __global__ void __launch_bounds__(R * 32)
     conv2d_strip_kernel(const float* __restrict__ x,
                         const float* __restrict__ w,
                         const float* __restrict__ bias,
                         float* __restrict__ y, int H, int W, int Cin,
-                        int Cout, int k, int s, int Ho, int Wo, bool relu) {
+                        int Cout, int k, int s, int p, int Ho, int Wo,
+                        bool relu) {
   extern __shared__ __align__(16) float smem[];
-  const int nw = k * k * Cin * Cout;
-  float* sw = smem;                                   // [K, Cout], then bias
-  float* sx = smem + strip_weight_floats(k, Cin, Cout);
+  const int kk = k3 ? 3 : k, cin = k3 ? 3 : Cin;
+  const int K = kk * kk * cin;
+  const int nwb = (Cout + kStripCo - 1) / kStripCo * kStripCo * K;
+  float* sw = smem;                          // [Cout/16][K][16], then bias
+  float* sx = smem + strip_weight_floats(kk, cin, Cout);
   const int oy0 = blockIdx.x * R;
   const int rows = min(R, Ho - oy0);
   const int b = blockIdx.y;
-  const int rowlen = W * Cin;   // floats of one input row, a multiple of 4
+  const int rowlen = W * cin;   // floats of one input row, a multiple of 4
+  const int nin = (rows - 1) * s + kk;   // input rows the strip reads
+  // staged row stride; the offset of a row's padded column 0 from its start
+  const int rs = kPad ? strip_row_floats(W, cin, p) : rowlen;
+  const int shift = kPad ? strip_margin_floats(p, cin) - p * cin : 0;
+  // the warps' output staging, past the staged rows of a full strip
+  float* sy = sx + ((min(R, Ho) - 1) * s + kk) * rs;
 
-  // stage the strip's input rows (one contiguous run of x) and the weights
-  const int n4 = ((rows - 1) * s + k) * rowlen / 4;
-  const float4* src = reinterpret_cast<const float4*>(
-      x + ((int64_t)b * H + (int64_t)oy0 * s) * rowlen);
-  for (int i = threadIdx.x; i < n4; i += R * 32)
-    cp_async16(sx + 4 * i, src + i, true);
+  if (kPad) {
+    // the rows oy0*s - p ... : a row outside the image, and each row's
+    // margins, are zero-filled copies (cp.async with a source size of 0),
+    // never rows of a neighbouring image; x is never padded in memory
+    const int margin = strip_margin_floats(p, cin);
+    const int n4 = rowlen / 4, m4 = margin / 4;   // 16-byte chunks
+    const int iy0 = oy0 * s - p;
+    const float* xb = x + (int64_t)b * H * rowlen;
+    for (int i = threadIdx.x; i < nin * (n4 + 2 * m4); i += R * 32) {
+      const int r = i / (n4 + 2 * m4), c = i - r * (n4 + 2 * m4);
+      const int iy = iy0 + r;
+      const bool inside = c >= m4 && c < m4 + n4 && (unsigned)iy < (unsigned)H;
+      cp_async16(sx + r * rs + 4 * c,
+                 inside ? xb + (int64_t)iy * rowlen + 4 * (c - m4) : x,
+                 inside);
+    }
+  } else {
+    // the strip's input rows: one contiguous run of x
+    const int n4 = nin * rowlen / 4;
+    const float4* src = reinterpret_cast<const float4*>(
+        x + ((int64_t)b * H + (int64_t)oy0 * s) * rowlen);
+    for (int i = threadIdx.x; i < n4; i += R * 32)
+      cp_async16(sx + 4 * i, src + i, true);
+  }
   cp_async_commit();
-  for (int i = threadIdx.x; i < nw + Cout; i += R * 32)
-    sw[i] = i < nw ? __ldg(w + i) : __ldg(bias + (i - nw));
+#pragma unroll 4
+  for (int i = threadIdx.x; i < nwb + Cout; i += R * 32) {
+    float v;
+    if (i < nwb) {
+      const int cb = i / (K * kStripCo), r = i - cb * K * kStripCo;
+      const int co = cb * kStripCo + (r & (kStripCo - 1));
+      v = co < Cout ? __ldg(w + (r / kStripCo) * Cout + co) : 0.f;
+    } else {
+      v = __ldg(bias + (i - nwb));
+    }
+    sw[i] = v;
+  }
   cp_async_wait<0>();
   __syncthreads();
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   if (warp >= rows) return;   // the last strip of an image may be short
-  const float* xrow = sx + warp * s * rowlen;   // tap row dy = 0
+  // tap row dy = 0 at padded column 0: a tap in the padding reads a zero
+  // of the margin, which adds an exact 0 to the sum (the direct kernel
+  // skips it: the same bits for finite weights)
+  const float* xrow = sx + warp * s * rs + shift;
   float* yrow = y + ((int64_t)b * Ho + oy0 + warp) * Wo * Cout;
-  const float* sb = sw + nw;
+  const float* sb = sw + nwb;
+  float* sv = sy + warp * 32 * kStripYs;   // this warp's 32 pixels
   for (int c0 = 0; c0 < Wo; c0 += 32 * kStripSlots) {
     int base[kStripSlots];
-    bool valid[kStripSlots];
 #pragma unroll
     for (int j = 0; j < kStripSlots; ++j) {
       const int ox = c0 + 32 * j + lane;
-      valid[j] = ox < Wo;
-      base[j] = (valid[j] ? ox : 0) * s * Cin;   // a masked slot reads pixel 0
+      base[j] = (ox < Wo ? ox : 0) * s * cin;   // a masked slot reads pixel 0
     }
     for (int co0 = 0; co0 < Cout; co0 += kStripCo) {
       float acc[kStripSlots][kStripCo];
@@ -531,17 +616,22 @@ __global__ void __launch_bounds__(R * 32)
       for (int j = 0; j < kStripSlots; ++j)
 #pragma unroll
         for (int c = 0; c < kStripCo; ++c) acc[j][c] = 0.f;
-      const float* wp = sw + co0;   // row (dy*k + dx)*Cin + ci of [K, Cout]
-      for (int dy = 0; dy < k; ++dy) {
-        for (int dx = 0; dx < k; ++dx) {
-          const float* xp = xrow + dy * rowlen + dx * Cin;
-          for (int ci = 0; ci < Cin; ++ci, wp += Cout) {
+      // tap (dy*k + dx)*Cin + ci of this pass's block of 16 channels (the
+      // block's columns past Cout are zero weights: sums never stored)
+      const float* wp = sw + co0 * K;
+#pragma unroll(k3 ? 3 : 1)
+      for (int dy = 0; dy < kk; ++dy) {
+        const float* xd = xrow + dy * rs;
+#pragma unroll(k3 ? 3 : 1)
+        for (int dx = 0; dx < kk; ++dx) {
+#pragma unroll(k3 ? 3 : 1)
+          for (int ci = 0; ci < cin; ++ci, wp += kStripCo) {
             float xv[kStripSlots];
 #pragma unroll
-            for (int j = 0; j < kStripSlots; ++j) xv[j] = xp[base[j] + ci];
+            for (int j = 0; j < kStripSlots; ++j)
+              xv[j] = xd[base[j] + dx * cin + ci];
 #pragma unroll
             for (int g = 0; g < kStripCo / 4; ++g) {
-              if (co0 + 4 * g >= Cout) break;
               const float4 wv = *reinterpret_cast<const float4*>(wp + 4 * g);
 #pragma unroll
               for (int j = 0; j < kStripSlots; ++j) {
@@ -556,38 +646,94 @@ __global__ void __launch_bounds__(R * 32)
       }
 #pragma unroll
       for (int j = 0; j < kStripSlots; ++j) {
-        if (!valid[j]) continue;
-        float* yp = yrow + (int64_t)(c0 + 32 * j + lane) * Cout + co0;
+        const int px0 = c0 + 32 * j;
+        if (px0 >= Wo) break;
+        float v[kStripCo];
 #pragma unroll
-        for (int g = 0; g < kStripCo / 4; ++g) {
-          if (co0 + 4 * g >= Cout) break;
-          float v[4];
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const float t = acc[j][4 * g + e] + sb[co0 + 4 * g + e];
-            v[e] = relu ? (t > 0.f ? t : 0.f) : t;
-          }
-          *reinterpret_cast<float4*>(yp + 4 * g) =
-              make_float4(v[0], v[1], v[2], v[3]);
+        for (int c = 0; c < kStripCo; ++c) {
+          const float t = acc[j][c] + (co0 + c < Cout ? sb[co0 + c] : 0.f);
+          v[c] = relu ? (t > 0.f ? t : 0.f) : t;
         }
+        if (Cout <= kStripCo) {
+          // one pass: a lane's pixel is 16 contiguous floats of y, and the
+          // warp's 4 stores of a slot cover 32 pixels, one contiguous run
+          if (px0 + lane < Wo) {
+            float* yp = yrow + (int64_t)(px0 + lane) * Cout;
+#pragma unroll
+            for (int g = 0; g < kStripCo / 4; ++g)
+              if (4 * g < Cout)
+                *reinterpret_cast<float4*>(yp + 4 * g) = make_float4(
+                    v[4 * g], v[4 * g + 1], v[4 * g + 2], v[4 * g + 3]);
+          }
+          continue;
+        }
+        // wider Cout: through the warp's staging, then 16-byte chunks in
+        // pixel order, lanes 4q..4q+3 on pixel q's 64 contiguous bytes, so
+        // that every store fills whole 32-byte sectors (a lane's own
+        // stores, Cout*4 bytes apart, filled half-sectors)
+#pragma unroll
+        for (int g = 0; g < kStripCo / 4; ++g)
+          *reinterpret_cast<float4*>(sv + lane * kStripYs + 4 * g) =
+              make_float4(v[4 * g], v[4 * g + 1], v[4 * g + 2], v[4 * g + 3]);
+        __syncwarp();
+        const int npx = min(32, Wo - px0);
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int i = lane + 32 * q, px = i >> 2, part = i & 3;
+          if (px < npx && co0 + 4 * part < Cout)
+            *reinterpret_cast<float4*>(
+                yrow + (int64_t)(px0 + px) * Cout + co0 + 4 * part) =
+                *reinterpret_cast<const float4*>(sv + px * kStripYs +
+                                                 4 * part);
+        }
+        __syncwarp();
       }
     }
   }
 }
 
-template <int R>
+template <int R, bool kPad, bool k3>
 cudaError_t launch_strip(cudaStream_t stream, const float* x, const float* w,
                          const float* b, float* y, int B, int H, int W,
-                         int Cin, int Cout, int k, int s, bool relu) {
-  const int Ho = (H - k) / s + 1, Wo = (W - k) / s + 1;
+                         int Cin, int Cout, int k, int s, int p, bool relu) {
+  const int Ho = (H + 2 * p - k) / s + 1, Wo = (W + 2 * p - k) / s + 1;
   const int rows = Ho < R ? Ho : R;
-  const size_t smem = 4 * ((size_t)strip_weight_floats(k, Cin, Cout) +
-                           (size_t)((rows - 1) * s + k) * W * Cin);
-  if (smem > 48 * 1024) return cudaErrorInvalidValue;
+  const size_t smem =
+      4 * (size_t)strip_smem_floats(rows, k, s, W, Cin, Cout, p);
+  if (smem > kStripSmemMax) return cudaErrorInvalidValue;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        conv2d_strip_kernel<R, kPad, k3>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+  }
   const dim3 grid((Ho + R - 1) / R, B);
-  conv2d_strip_kernel<R><<<grid, R * 32, smem, stream>>>(
-      x, w, b, y, H, W, Cin, Cout, k, s, Ho, Wo, relu);
+  conv2d_strip_kernel<R, kPad, k3><<<grid, R * 32, smem, stream>>>(
+      x, w, b, y, H, W, Cin, Cout, k, s, p, Ho, Wo, relu);
   return cudaGetLastError();
+}
+
+template <int R, bool kPad>
+cudaError_t launch_strip_k(cudaStream_t st, const float* x, const float* w,
+                           const float* b, float* y, int B, int H, int W,
+                           int Cin, int Cout, int k, int s, int p,
+                           bool relu) {
+  return k == 3 && Cin == 3
+             ? launch_strip<R, kPad, true>(st, x, w, b, y, B, H, W, Cin,
+                                           Cout, k, s, p, relu)
+             : launch_strip<R, kPad, false>(st, x, w, b, y, B, H, W, Cin,
+                                            Cout, k, s, p, relu);
+}
+
+template <int R>
+cudaError_t launch_strip_pad(cudaStream_t st, const float* x, const float* w,
+                             const float* b, float* y, int B, int H, int W,
+                             int Cin, int Cout, int k, int s, int p,
+                             bool relu) {
+  return p ? launch_strip_k<R, true>(st, x, w, b, y, B, H, W, Cin, Cout, k,
+                                     s, p, relu)
+           : launch_strip_k<R, false>(st, x, w, b, y, B, H, W, Cin, Cout, k,
+                                      s, 0, relu);
 }
 
 }  // namespace
@@ -598,10 +744,11 @@ extern "C" int cnn_conv2d_bias_relu_strip(void* stream, const void* x,
                                           int Cin, int Cout, int k,
                                           int stride, int pad, int relu,
                                           int rows) {
-  // the strip stages whole input rows: no padding (the plan sends a
-  // padded conv to the tiled or the direct kernel)
-  if (pad != 0 || Cin < 1 || Cin > 4 || Cout % 4 != 0 || (W * Cin) % 4 != 0 ||
-      B > 65535 || reinterpret_cast<uintptr_t>(x) % 16 != 0 ||
+  // a padded strip stages its rows with zero margins and zero rows
+  // (pad <= kPadMax); an unpadded one copies one contiguous run of x
+  if (Cin < 1 || Cin > 4 || Cout % 4 != 0 || (W * Cin) % 4 != 0 ||
+      !pad_ok(H, W, k, pad) || B > 65535 ||
+      reinterpret_cast<uintptr_t>(x) % 16 != 0 ||
       reinterpret_cast<uintptr_t>(y) % 16 != 0)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
@@ -611,9 +758,9 @@ extern "C" int cnn_conv2d_bias_relu_strip(void* stream, const void* x,
   float* yf = static_cast<float*>(y);
   const bool r = relu != 0;
   switch (rows) {
-    case 0: return (int)launch_strip<2>(st, xf, wf, bf, yf, B, H, W, Cin, Cout, k, stride, r);
-    case 1: return (int)launch_strip<4>(st, xf, wf, bf, yf, B, H, W, Cin, Cout, k, stride, r);
-    case 2: return (int)launch_strip<8>(st, xf, wf, bf, yf, B, H, W, Cin, Cout, k, stride, r);
+    case 0: return (int)launch_strip_pad<2>(st, xf, wf, bf, yf, B, H, W, Cin, Cout, k, stride, pad, r);
+    case 1: return (int)launch_strip_pad<4>(st, xf, wf, bf, yf, B, H, W, Cin, Cout, k, stride, pad, r);
+    case 2: return (int)launch_strip_pad<8>(st, xf, wf, bf, yf, B, H, W, Cin, Cout, k, stride, pad, r);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -916,38 +1063,57 @@ cudaError_t launch_bf16_tile(int tile, cudaStream_t st,
 // optional ReLU, one rounding to bf16. No split across blocks and no
 // atomics: two launches are bit-identical.
 //
-// "strip" (conv1: k*Cin <= 16, s*Cin even, rows of W*Cin bf16 a multiple
-// of 16 bytes, Cout % 8 == 0 and <= 32, x and y 16-byte aligned).
+// "strip", two layouts of the staged rows, both Cout % 8 == 0 and <= 64, x
+// and y 16-byte aligned. Natural (AlexNet's conv1: k*Cin <= 16, s*Cin
+// even, rows of W*Cin bf16 a multiple of 16 bytes, no padding): the input
+// rows as they lie in x. Widened (the families' padded Cin-3 stems, any
+// stride and padding, k <= 4, W % 8 == 0): each pixel staged as 4 elements,
+// the 4th zero, so that every A word is aligned whatever p and s.
 //  - Bound on this card: bytes. At batch 256 conv1 reads 76 MB of x and
 //    writes 101 MB (0.053 ms at 3.35 TB/s) for 2.8 GFLOP. The mma.sync
 //    "gather" path above reaches 0.18 of that bound: each lane stages one
 //    2-byte element a row, for every row of a 128-row tile, and nothing
-//    overlaps the staging.
+//    overlaps the staging (the padded stems ran on it until the widened
+//    layout: 0.15 of their bound).
 //  - A block owns R output rows of one image (blockIdx.x the strip,
-//    blockIdx.y the image) and copies the (R-1)*s + k input rows they read,
-//    one contiguous run of x, into shared memory with 16-byte cp.async,
-//    coalesced across the block. 16 bytes of padding follow the rows.
+//    blockIdx.y the image) and stages the (R-1)*s + k input rows they read,
+//    from row oy0*s - p. Natural: one contiguous run of x, copied with
+//    16-byte cp.async, coalesced across the block, 16 bytes of padding
+//    after the rows. Widened: a thread loads a group of 8 pixels of a row
+//    (three 16-byte loads: 24 bf16) and stores them as 8-byte pixels (four
+//    16-byte stores); a row outside the image is stored as zeros, and each
+//    row has a zero margin of p pixels on each side, its left one rounded
+//    up to 16 bytes (the read index carries the shift). x is never padded
+//    in memory.
 //  - The weights are re-laid out once per block into the m16n8k16 B
-//    fragments, one k16 step per kernel row dy (columns dx*Cin + ci, zero
-//    past k*Cin): [dy][n8 tile][lane] as two 32-bit words, one 8-byte
-//    shared load per MMA.
+//    fragments, one k16 step per kernel row dy (natural: columns dx*Cin +
+//    ci, zero past k*Cin; widened: columns dx*4 + ci, zero for ci = 3 and
+//    past k*4): [dy][n8 tile][lane] as two 32-bit words, one 8-byte shared
+//    load per MMA.
 //  - One warp per output row, 16 output pixels (the MMA's M) at a time.
-//    Output pixel ox of kernel row dy reads its k*Cin values contiguous in
-//    the staged row at element ox*s*Cin, an even element since s*Cin is
-//    even: the A fragment words (columns 2t, 2t+1 and 2t+8, 2t+9) are
-//    aligned 32-bit loads straight from the staged rows. Columns at or
-//    past k*Cin are masked to zero in the register (a word that holds
-//    column k*Cin - 1 and k*Cin keeps only its low half), so a NaN or an
-//    infinity in a neighbouring pixel never meets a zero weight; a word
-//    wholly past k*Cin is not loaded. The word of the last column may read
-//    one element past the last staged row: the padding. K is padded from
-//    k*Cin to 16 per kernel row (conv1: 27 -> 48): the MMAs are free, the
-//    bound is bytes. No gather and no per-element shared-memory stores.
+//    Output pixel ox of kernel row dy reads its k*Cin (k*4) values
+//    contiguous in the staged row at element ox*s*Cin (ox*s*4 from padded
+//    column 0), an even element since s*Cin (s*4) is even: the A fragment
+//    words (columns 2t, 2t+1 and 2t+8, 2t+9) are aligned 32-bit loads
+//    straight from the staged rows. Columns at or past k*Cin (k*4) are
+//    masked to zero in the register (a word that holds column k*Cin - 1
+//    and k*Cin keeps only its low half), so a NaN or an infinity in a
+//    neighbouring pixel never meets a zero weight; a word wholly past them
+//    is not loaded. The word of the last column may read one element past
+//    the last natural row: the padding. K is padded to 16 per kernel row
+//    (conv1: 27 -> 48; widened 36 -> 48): the MMAs are free, the bound is
+//    bytes. No gather and no per-element shared-memory stores of x.
 //  - Epilogue: bias, ReLU and the rounding per fragment into an output
-//    staging area in shared memory; the strip's output, R*Wo*Cout bf16, is
-//    one contiguous run of y, and leaves as 16-byte stores.
-//  - R is a template argument; the switch maps ids to R in the order of
-//    BF16_STRIP_ROWS in ops/hopper/conv.py.
+//    staging area in shared memory. Natural: the strip's output, R*Wo*Cout
+//    bf16, one contiguous run of y, leaves as 16-byte stores at the end.
+//    Widened: each warp stages its 16 pixels (rows of Cout + 8 bf16: the
+//    fragment writes miss each other's banks) and copies them out as one
+//    contiguous run at once: R*Wo*Cout*2 bytes of a whole strip (115 KB
+//    for VGG11's 3 -> 64 stem at R = 4) would leave few blocks an SM.
+//  - R and the layout are template arguments; the switch maps ids to them
+//    in the order of BF16_STRIP_TILES in ops/hopper/conv.py. So is the
+//    number of n8 tiles a lane holds, 2, 4 or 8, the fewest that cover
+//    Cout: the launch picks it.
 //
 // "wgmma" (conv2-3: Cin % 8 == 0, x and y 16-byte aligned; conv4 and every
 // Cin % 64 shape now take "tma" below).
@@ -1019,41 +1185,76 @@ cudaError_t launch_bf16_tile(int tile, cudaStream_t st,
 
 namespace {
 
-constexpr int kStripBfNtMax = 4;     // Cout <= 32: at most four n8 tiles
+constexpr int kStripBfNtMax = 8;     // Cout <= 64: at most eight n8 tiles
 constexpr int kStripBfKc = 16;       // k*Cin of a kernel row: one k16 step
 constexpr int kStripBfSmemMax = 96 * 1024;
+constexpr int kStripBfWide = 4;      // elements of a widened pixel
+
+// the widened layout's staged row, in pixels: a zero margin of p pixels
+// before the image row, rounded up to an even count (a 16-byte boundary),
+// the W image pixels, p pixels of zeros, rounded up to an even row
+__host__ __device__ inline int strip_bf16_lead(int p) { return (p + 1) / 2 * 2; }
+__host__ __device__ inline int strip_bf16_wide_row(int W, int p) {
+  return (strip_bf16_lead(p) + W + p + 1) / 2 * 2;
+}
 
 // bytes of shared memory of a bf16 strip of `rows` output rows: the B
-// fragments, the staged input rows and 16 bytes of padding, the output
+// fragments, the staged input rows (natural: whole rows and 16 bytes of
+// padding; widened: rows of 8-byte pixels with their margins), the output
+// (natural: the strip's rows; widened: 16 pixels a warp, rows of Cout + 8)
 __host__ __device__ inline int strip_bf16_frag_bytes(int k, int Cout) {
   return k * (Cout / 8) * 32 * 8;
 }
 __host__ __device__ inline int strip_bf16_x_bytes(int rows, int k, int s,
-                                                  int W, int Cin) {
-  return ((rows - 1) * s + k) * W * Cin * 2 + 16;
+                                                  int W, int Cin, int p,
+                                                  bool wide) {
+  const int nin = (rows - 1) * s + k;
+  return wide ? nin * strip_bf16_wide_row(W, p) * kStripBfWide * 2
+              : nin * W * Cin * 2 + 16;
 }
 __host__ __device__ inline int strip_bf16_smem_bytes(int rows, int k, int s,
                                                      int W, int Cin,
-                                                     int Cout, int Wo) {
+                                                     int Cout, int Wo, int p,
+                                                     bool wide) {
   return strip_bf16_frag_bytes(k, Cout) +
-         strip_bf16_x_bytes(rows, k, s, W, Cin) + rows * Wo * Cout * 2;
+         strip_bf16_x_bytes(rows, k, s, W, Cin, p, wide) +
+         (wide ? rows * 16 * (Cout + 8) * 2 : rows * Wo * Cout * 2);
+}
+
+// the shapes a layout takes (the entry point refuses the rest): natural,
+// unpadded rows whose A words fall on even elements (s*Cin even) and whose
+// runs are whole 16-byte chunks; widened, Cin 3 with rows of whole groups
+// of 8 pixels (three 16-byte loads), any stride and padding
+__host__ __device__ inline bool strip_bf16_takes(int W, int Cin, int Cout,
+                                                 int k, int s, int p,
+                                                 bool wide) {
+  if (Cout > 8 * kStripBfNtMax) return false;
+  return wide ? Cin == 3 && k * kStripBfWide <= kStripBfKc && W % 8 == 0
+              : p == 0 && k * Cin <= kStripBfKc && (s * Cin) % 2 == 0 &&
+                    (W * Cin) % 8 == 0;
 }
 
 __device__ __forceinline__ uint32_t lds32(const unsigned short* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 
-template <int R>
+template <int R, bool kWide, int kNt>
 __global__ void __launch_bounds__(R * 32)
     conv2d_bf16_strip_kernel(const __nv_bfloat16* __restrict__ x,
                              const __nv_bfloat16* __restrict__ w,
                              const __nv_bfloat16* __restrict__ bias,
                              __nv_bfloat16* __restrict__ y, int H, int W,
-                             int Cin, int Cout, int k, int s, int Ho, int Wo,
-                             bool relu) {
+                             int Cin, int Cout, int k, int s, int p, int Ho,
+                             int Wo, bool relu) {
   extern __shared__ __align__(16) unsigned char smem_strip[];
-  const int kc = k * Cin, nt = Cout / 8, rowlen = W * Cin;
+  // elements of a staged pixel, of a kernel row's A columns, of a staged
+  // row; the offset of a row's padded column 0 from its start
+  const int cs = kWide ? kStripBfWide : Cin, kc = k * cs, nt = Cout / 8;
+  const int rowlen = kWide ? strip_bf16_wide_row(W, p) * kStripBfWide
+                           : W * Cin;
+  const int shift = kWide ? (strip_bf16_lead(p) - p) * kStripBfWide : 0;
   const int oy0 = blockIdx.x * R, rows = min(R, Ho - oy0);
+  const int nin = (rows - 1) * s + k;   // input rows the strip reads
   const int b = blockIdx.y;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int frag = strip_bf16_frag_bytes(k, Cout);
@@ -1062,16 +1263,76 @@ __global__ void __launch_bounds__(R * 32)
       reinterpret_cast<unsigned short*>(smem_strip + frag);
   // the output area sits past the staged rows of a full strip
   __nv_bfloat16* sy = reinterpret_cast<__nv_bfloat16*>(
-      smem_strip + frag + strip_bf16_x_bytes(min(R, Ho), k, s, W, Cin));
+      smem_strip + frag +
+      strip_bf16_x_bytes(min(R, Ho), k, s, W, Cin, p, kWide));
 
-  // the strip's input rows: one contiguous run of x, 16-byte aligned
-  const int n16 = ((rows - 1) * s + k) * rowlen / 8;
-  const int4* src = reinterpret_cast<const int4*>(
-      x + ((int64_t)b * H + (int64_t)oy0 * s) * rowlen);
-  for (int i = tid; i < n16; i += R * 32) cp_async16(sx + 8 * i, src + i, true);
-  cp_async_commit();
+  if (kWide) {
+    // rows oy0*s - p ...: each group of 8 pixels of an image row is three
+    // 16-byte loads of x and four 16-byte stores of 8-byte pixels, the 4th
+    // element zero; a row outside the image is stored as zeros, never as a
+    // row of a neighbouring image, and x is never padded in memory
+    const int ng = W / 8, lead = strip_bf16_lead(p);
+    const int iy0 = oy0 * s - p;
+    const uint4* xg = reinterpret_cast<const uint4*>(x) + (int64_t)b * H * ng * 3;
+    for (int i = tid; i < nin * ng; i += R * 32) {
+      const int r = i / ng, q = i - r * ng;
+      const int iy = iy0 + r;
+      uint32_t v[12];
+      if ((unsigned)iy < (unsigned)H) {
+        const uint4* src = xg + ((int64_t)iy * ng + q) * 3;
+#pragma unroll
+        for (int c = 0; c < 3; ++c) {
+          const uint4 u = __ldg(src + c);
+          v[4 * c] = u.x, v[4 * c + 1] = u.y, v[4 * c + 2] = u.z,
+          v[4 * c + 3] = u.w;
+        }
+      } else {
+#pragma unroll
+        for (int c = 0; c < 12; ++c) v[c] = 0u;
+      }
+      // pixel j holds elements 3j..3j+2: an even j starts a word, an odd
+      // j its high half
+      uint32_t o[16];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int e = 3 * j;
+        if (j % 2 == 0) {
+          o[2 * j] = v[e / 2];
+          o[2 * j + 1] = v[e / 2 + 1] & 0xFFFFu;
+        } else {
+          o[2 * j] = (v[e / 2] >> 16) | (v[e / 2 + 1] << 16);
+          o[2 * j + 1] = v[e / 2 + 1] >> 16;
+        }
+      }
+      uint4* dst = reinterpret_cast<uint4*>(
+          sx + (r * (rowlen / kStripBfWide) + lead + 8 * q) * kStripBfWide);
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        dst[c] = make_uint4(o[4 * c], o[4 * c + 1], o[4 * c + 2],
+                            o[4 * c + 3]);
+    }
+    // the margins, pairs of zero pixels: lead before the image row, the
+    // rest of the staged row after it
+    const int mp = (rowlen / kStripBfWide - W) / 2;
+    for (int i = tid; i < nin * mp; i += R * 32) {
+      const int r = i / mp, c = 2 * (i - r * mp);
+      const int px = c < lead ? c : W + c;
+      *reinterpret_cast<uint4*>(
+          sx + (r * (rowlen / kStripBfWide) + px) * kStripBfWide) =
+          make_uint4(0u, 0u, 0u, 0u);
+    }
+  } else {
+    // the strip's input rows: one contiguous run of x, 16-byte aligned
+    const int n16 = nin * rowlen / 8;
+    const int4* src = reinterpret_cast<const int4*>(
+        x + ((int64_t)b * H + (int64_t)oy0 * s) * rowlen);
+    for (int i = tid; i < n16; i += R * 32)
+      cp_async16(sx + 8 * i, src + i, true);
+    cp_async_commit();
+  }
   // the B fragments: b0 holds k rows 2t, 2t+1 of column g, b1 rows 2t+8,
-  // 2t+9 (low half the lower row), zero past k*Cin
+  // 2t+9 (low half the lower row), zero past k*Cin; widened, column c of
+  // a kernel row is tap dx = c / 4, channel c % 4, zero for channel 3
   const unsigned short* wb = reinterpret_cast<const unsigned short*>(w);
   for (int i = tid; i < k * nt * 32; i += R * 32) {
     const int l = i & 31, dj = i >> 5, dy = dj / nt, j = dj - dy * nt;
@@ -1079,40 +1340,50 @@ __global__ void __launch_bounds__(R * 32)
     uint32_t v[2];
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      const int c = c0 + 8 * h;
-      const uint32_t lo =
-          c < kc ? wb[(int64_t)(dy * kc + c) * Cout + n] : 0u;
-      const uint32_t hi =
-          c + 1 < kc ? wb[(int64_t)(dy * kc + c + 1) * Cout + n] : 0u;
-      v[h] = lo | (hi << 16);
+      uint32_t half[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int c = c0 + 8 * h + e;
+        const int dx = kWide ? c / kStripBfWide : 0;
+        const int ci = kWide ? c % kStripBfWide : c;
+        const bool in = kWide ? dx < k && ci < Cin : c < kc;
+        const int row = kWide ? (dy * k + dx) * Cin + ci : dy * kc + c;
+        half[e] = in ? wb[(int64_t)row * Cout + n] : 0u;
+      }
+      v[h] = half[0] | (half[1] << 16);
     }
     sw[i] = make_uint2(v[0], v[1]);
   }
-  cp_async_wait<0>();
+  if (!kWide) cp_async_wait<0>();
   __syncthreads();
 
   if (warp < rows) {
     const int g = lane >> 2, t = lane & 3;
-    // the A columns this lane holds that lie inside k*Cin
+    // the A columns this lane holds that lie inside k*Cin (widened: k*4)
     const uint32_t mlo = (2 * t < kc ? 0xFFFFu : 0u) |
                          (2 * t + 1 < kc ? 0xFFFF0000u : 0u);
     const uint32_t mhi = (2 * t + 8 < kc ? 0xFFFFu : 0u) |
                          (2 * t + 9 < kc ? 0xFFFF0000u : 0u);
-    float bv[kStripBfNtMax][2];
+    float bv[kNt][2];
 #pragma unroll
-    for (int j = 0; j < kStripBfNtMax; ++j) {
+    for (int j = 0; j < kNt; ++j) {
       bv[j][0] = j < nt ? __bfloat162float(bias[8 * j + 2 * t]) : 0.f;
       bv[j][1] = j < nt ? __bfloat162float(bias[8 * j + 2 * t + 1]) : 0.f;
     }
-    const unsigned short* xr = sx + warp * s * rowlen;   // kernel row 0
-    __nv_bfloat16* yr = sy + warp * Wo * Cout;
-    const int ps = s * Cin;   // elements between neighbouring outputs
+    // kernel row 0 at padded column 0: a tap in the padding reads a zero
+    // of the margin or of a zero row
+    const unsigned short* xr = sx + warp * s * rowlen + shift;
+    // natural: the strip's output rows; widened: this warp's 16 pixels
+    __nv_bfloat16* yr = kWide ? sy + warp * 16 * (Cout + 8)
+                              : sy + warp * Wo * Cout;
+    const int ys = kWide ? Cout + 8 : Cout;   // a staged pixel's stride
+    const int ps = s * cs;   // elements between neighbouring outputs
     for (int ox0 = 0; ox0 < Wo; ox0 += 16) {
       const int pa = ox0 + g, pb = pa + 8;
       const bool va = pa < Wo, vb = pb < Wo;
-      float acc[kStripBfNtMax][4];
+      float acc[kNt][4];
 #pragma unroll
-      for (int j = 0; j < kStripBfNtMax; ++j)
+      for (int j = 0; j < kNt; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
       for (int dy = 0; dy < k; ++dy) {
@@ -1125,7 +1396,7 @@ __global__ void __launch_bounds__(R * 32)
         a[3] = vb && mhi ? lds32(xb + 8) & mhi : 0u;   // row g+8, k 2t+8..
         const uint2* wp = sw + dy * nt * 32 + lane;
 #pragma unroll
-        for (int j = 0; j < kStripBfNtMax; ++j) {
+        for (int j = 0; j < kNt; ++j) {
           if (j < nt) {
             const uint2 bw = wp[32 * j];
             const uint32_t bb[2] = {bw.x, bw.y};
@@ -1133,8 +1404,10 @@ __global__ void __launch_bounds__(R * 32)
           }
         }
       }
+      // widened: the first pixel of this chunk is row 0 of the staging
+      const int p0 = kWide ? ox0 : 0;
 #pragma unroll
-      for (int j = 0; j < kStripBfNtMax; ++j) {
+      for (int j = 0; j < kNt; ++j) {
         if (j >= nt) continue;
 #pragma unroll
         for (int half = 0; half < 2; ++half) {
@@ -1146,39 +1419,76 @@ __global__ void __launch_bounds__(R * 32)
             v1 = v1 > 0.f ? v1 : 0.f;
           }
           *reinterpret_cast<__nv_bfloat162*>(
-              yr + (half ? pb : pa) * Cout + 8 * j + 2 * t) =
+              yr + ((half ? pb : pa) - p0) * ys + 8 * j + 2 * t) =
               __floats2bfloat162_rn(v0, v1);
         }
       }
+      if (kWide) {
+        // this warp's 16 pixels are one contiguous run of y: 16-byte stores
+        __syncwarp();
+        const int cpp = Cout / 8, nv = min(16, Wo - ox0);
+        int4* dst = reinterpret_cast<int4*>(
+            y + (((int64_t)b * Ho + oy0 + warp) * Wo + ox0) * Cout);
+        for (int i = lane; i < nv * cpp; i += 32) {
+          const int px = i / cpp, c = i - px * cpp;
+          dst[i] = *reinterpret_cast<const int4*>(yr + px * ys + 8 * c);
+        }
+        __syncwarp();
+      }
     }
   }
-  __syncthreads();
-  // the strip's output rows are one contiguous run of y
-  const int n16o = rows * Wo * Cout / 8;
-  int4* dst = reinterpret_cast<int4*>(y + ((int64_t)b * Ho + oy0) * Wo * Cout);
-  const int4* so = reinterpret_cast<const int4*>(sy);
-  for (int i = tid; i < n16o; i += R * 32) dst[i] = so[i];
+  if (!kWide) {
+    __syncthreads();
+    // the strip's output rows are one contiguous run of y
+    const int n16o = rows * Wo * Cout / 8;
+    int4* dst =
+        reinterpret_cast<int4*>(y + ((int64_t)b * Ho + oy0) * Wo * Cout);
+    const int4* so = reinterpret_cast<const int4*>(sy);
+    for (int i = tid; i < n16o; i += R * 32) dst[i] = so[i];
+  }
 }
 
-template <int R>
-cudaError_t launch_bf16_strip(cudaStream_t stream, const __nv_bfloat16* x,
-                              const __nv_bfloat16* w, const __nv_bfloat16* b,
-                              __nv_bfloat16* y, int B, int H, int W, int Cin,
-                              int Cout, int k, int s, bool relu) {
-  const int Ho = (H - k) / s + 1, Wo = (W - k) / s + 1;
-  const int smem = strip_bf16_smem_bytes(Ho < R ? Ho : R, k, s, W, Cin,
-                                         Cout, Wo);
-  if (smem > kStripBfSmemMax) return cudaErrorInvalidValue;
+// kNt: the n8 tiles a lane's registers hold (2, 4 or 8, the fewest that
+// cover Cout): a kernel sized for Cout 64 keeps 32 accumulators live even
+// at conv1's Cout 16, and ran conv1 at 0.7x the speed of one sized for it
+template <int R, bool kWide, int kNt>
+cudaError_t launch_bf16_strip_nt(cudaStream_t stream, const __nv_bfloat16* x,
+                                 const __nv_bfloat16* w,
+                                 const __nv_bfloat16* b, __nv_bfloat16* y,
+                                 int B, int H, int W, int Cin, int Cout,
+                                 int k, int s, int p, int smem, bool relu) {
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        conv2d_bf16_strip_kernel<R>,
+        conv2d_bf16_strip_kernel<R, kWide, kNt>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return e;
   }
+  const int Ho = (H + 2 * p - k) / s + 1, Wo = (W + 2 * p - k) / s + 1;
   const dim3 grid((Ho + R - 1) / R, B);
-  conv2d_bf16_strip_kernel<R><<<grid, R * 32, smem, stream>>>(
-      x, w, b, y, H, W, Cin, Cout, k, s, Ho, Wo, relu);
+  conv2d_bf16_strip_kernel<R, kWide, kNt><<<grid, R * 32, smem, stream>>>(
+      x, w, b, y, H, W, Cin, Cout, k, s, p, Ho, Wo, relu);
   return cudaGetLastError();
+}
+
+template <int R, bool kWide>
+cudaError_t launch_bf16_strip(cudaStream_t stream, const __nv_bfloat16* x,
+                              const __nv_bfloat16* w, const __nv_bfloat16* b,
+                              __nv_bfloat16* y, int B, int H, int W, int Cin,
+                              int Cout, int k, int s, int p, bool relu) {
+  if (!strip_bf16_takes(W, Cin, Cout, k, s, p, kWide))
+    return cudaErrorInvalidValue;
+  const int Ho = (H + 2 * p - k) / s + 1, Wo = (W + 2 * p - k) / s + 1;
+  const int smem = strip_bf16_smem_bytes(Ho < R ? Ho : R, k, s, W, Cin,
+                                         Cout, Wo, p, kWide);
+  if (smem > kStripBfSmemMax) return cudaErrorInvalidValue;
+  if (Cout <= 16)
+    return launch_bf16_strip_nt<R, kWide, 2>(stream, x, w, b, y, B, H, W,
+                                             Cin, Cout, k, s, p, smem, relu);
+  if (Cout <= 32)
+    return launch_bf16_strip_nt<R, kWide, 4>(stream, x, w, b, y, B, H, W,
+                                             Cin, Cout, k, s, p, smem, relu);
+  return launch_bf16_strip_nt<R, kWide, kStripBfNtMax>(
+      stream, x, w, b, y, B, H, W, Cin, Cout, k, s, p, smem, relu);
 }
 
 // ---- wgmma ----
@@ -1947,7 +2257,7 @@ cudaError_t launch_bf16_tma(cudaStream_t stream, const __nv_bfloat16* x,
 
 // variant: the order of BF16_VARIANTS in ops/hopper/conv.py (0 gather, 1
 // vec, 2 strip, 3 wgmma, 4 tma); tile: an id into that variant's table
-// (BF16_TILES, BF16_STRIP_ROWS, WGMMA_TILES or TMA_TILES)
+// (BF16_TILES, BF16_STRIP_TILES, WGMMA_TILES or TMA_TILES)
 extern "C" int cnn_conv2d_bias_relu_bf16(void* stream, const void* x,
                                          const void* w, const void* b,
                                          void* y, int B, int H, int W,
@@ -1957,11 +2267,9 @@ extern "C" int cnn_conv2d_bias_relu_bf16(void* stream, const void* x,
   const uintptr_t xa = reinterpret_cast<uintptr_t>(x);
   const uintptr_t ya = reinterpret_cast<uintptr_t>(y);
   if (Cout % 8 != 0 || reinterpret_cast<uintptr_t>(w) % 16 != 0 ||
-      ya % 4 != 0 || !pad_ok(H, W, k, pad) || (variant == 2 && pad != 0) ||
+      ya % 4 != 0 || !pad_ok(H, W, k, pad) ||
       (variant == 1 && (Cin % 8 != 0 || xa % 16 != 0)) ||
-      (variant == 2 && (k * Cin > kStripBfKc || (stride * Cin) % 2 != 0 ||
-                        (W * Cin) % 8 != 0 || Cout > 8 * kStripBfNtMax ||
-                        B > 65535 || xa % 16 != 0 || ya % 16 != 0)) ||
+      (variant == 2 && (B > 65535 || xa % 16 != 0 || ya % 16 != 0)) ||
       (variant == 3 && (Cin % 8 != 0 || xa % 16 != 0 || ya % 16 != 0 ||
                         (Cout + 15) / 16 > 65535)) ||
       (variant == 4 && (Cin % kTmaCh != 0 || xa % 16 != 0 || ya % 16 != 0 ||
@@ -1977,11 +2285,15 @@ extern "C" int cnn_conv2d_bias_relu_bf16(void* stream, const void* x,
     case 0: return (int)launch_bf16_tile<false>(tile, st, xb, wb, bb, yb, B, H, W, Cin, Cout, k, stride, pad, r);
     case 1: return (int)launch_bf16_tile<true>(tile, st, xb, wb, bb, yb, B, H, W, Cin, Cout, k, stride, pad, r);
     case 2:
-      switch (tile) {   // R, in the order of BF16_STRIP_ROWS
-        case 0: return (int)launch_bf16_strip<1>(st, xb, wb, bb, yb, B, H, W, Cin, Cout, k, stride, r);
-        case 1: return (int)launch_bf16_strip<2>(st, xb, wb, bb, yb, B, H, W, Cin, Cout, k, stride, r);
-        case 2: return (int)launch_bf16_strip<4>(st, xb, wb, bb, yb, B, H, W, Cin, Cout, k, stride, r);
-        case 3: return (int)launch_bf16_strip<8>(st, xb, wb, bb, yb, B, H, W, Cin, Cout, k, stride, r);
+      switch (tile) {   // (R, widened), in the order of BF16_STRIP_TILES
+        case 0: return (int)launch_bf16_strip<1, false>(st, xb, wb, bb, yb, B, H, W, Cin, Cout, k, stride, pad, r);
+        case 1: return (int)launch_bf16_strip<2, false>(st, xb, wb, bb, yb, B, H, W, Cin, Cout, k, stride, pad, r);
+        case 2: return (int)launch_bf16_strip<4, false>(st, xb, wb, bb, yb, B, H, W, Cin, Cout, k, stride, pad, r);
+        case 3: return (int)launch_bf16_strip<8, false>(st, xb, wb, bb, yb, B, H, W, Cin, Cout, k, stride, pad, r);
+        case 4: return (int)launch_bf16_strip<1, true>(st, xb, wb, bb, yb, B, H, W, Cin, Cout, k, stride, pad, r);
+        case 5: return (int)launch_bf16_strip<2, true>(st, xb, wb, bb, yb, B, H, W, Cin, Cout, k, stride, pad, r);
+        case 6: return (int)launch_bf16_strip<4, true>(st, xb, wb, bb, yb, B, H, W, Cin, Cout, k, stride, pad, r);
+        case 7: return (int)launch_bf16_strip<8, true>(st, xb, wb, bb, yb, B, H, W, Cin, Cout, k, stride, pad, r);
         default: return (int)cudaErrorInvalidValue;
       }
     case 3:

@@ -13,7 +13,8 @@ from cnn_tpu_torch.ops.hopper.augment import (launch_rotate,  # noqa: F401
                                               rotate_shear,
                                               rotate_tile_plan)
 from cnn_tpu_torch.ops.hopper.conv import (BF16_STRIP_ROWS,  # noqa: F401
-                                           BF16_TILES, STRIP_ROWS, TILES,
+                                           BF16_STRIP_TILES, BF16_TILES,
+                                           STRIP_ROWS, TILES,
                                            TMA_TILES, WGMMA_TILES,
                                            conv2d_bias_relu,
                                            conv2d_bias_relu_fn,
@@ -39,7 +40,9 @@ COUNTERS = {
                        "launches_bf16_strip", "launches_bf16_wgmma",
                        "launches_bf16_tma",
                        "launches_padded", "launches_1x1",
-                       "launches_bf16_padded", "launches_bf16_1x1"),
+                       "launches_bf16_padded", "launches_bf16_1x1",
+                       "launches_strip_padded",
+                       "launches_bf16_strip_padded"),
     rotate_shear: ("launches",),
 }
 _BY_NAME = {fn.__name__: fn for fn in COUNTERS}

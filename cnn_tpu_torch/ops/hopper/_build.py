@@ -58,8 +58,7 @@ SIGNATURES = {
     "cnn_conv2d_bias_relu": [P, P, P, P, I, I, I, I, I, I, I, I, I],
     # the same, then the tile id of ops/hopper/conv.py:TILES
     "cnn_conv2d_bias_relu_tiled": [P, P, P, P, I, I, I, I, I, I, I, I, I, I],
-    # the same (pad 0 only), then the strip id of
-    # ops/hopper/conv.py:STRIP_ROWS
+    # the same, then the strip id of ops/hopper/conv.py:STRIP_ROWS
     "cnn_conv2d_bias_relu_strip": [P, P, P, P, I, I, I, I, I, I, I, I, I, I],
     # x, w, b, y, B, H, W, Cin, Cout, k, stride, pad, relu, then
     # ops/hopper/conv.py:conv_bf16_plan's variant (an index into

@@ -10,7 +10,8 @@ bf16 for bf16 ones.
 
 Three kernels compute the float32 forward: a row-strip kernel over shared
 memory (``cnn_conv2d_bias_relu_strip``) for few input channels, conv1 of
-the AlexNet; a tiled implicit GEMM over shared memory
+the AlexNet and the families' padded Cin-3 stems; a tiled implicit GEMM
+over shared memory
 (``cnn_conv2d_bias_relu_tiled``) for the shapes whose vector loads it can
 make, conv2-4; and the direct kernel (``cnn_conv2d_bias_relu``) for the
 rest. ``conv_tile_plan`` chooses by shape and alignment alone. All three
@@ -22,11 +23,15 @@ the optional ReLU, one rounding to bf16), behind one entry point
 (``cnn_conv2d_bias_relu_bf16``) whose variant ``conv_bf16_plan`` chooses by
 shape and alignment:
 
-- "strip" (conv1: k*Cin <= 16, even s*Cin, input rows of whole 16-byte
-  chunks, Cout <= 32): a block stages the input rows of R output rows
+- "strip" (Cout <= 64): a block stages the input rows of R output rows
   whole and ``mma.sync`` m16n8k16 reads its A fragments straight from
   them, one k16 step per kernel row (K 27 padded to 48); the output leaves
-  through shared memory as 16-byte stores. Bound by bytes.
+  through shared memory as 16-byte stores. Bound by bytes. Two layouts of
+  the staged rows (``BF16_STRIP_TILES``): natural for AlexNet's conv1
+  (k*Cin <= 16, even s*Cin, input rows of whole 16-byte chunks, no
+  padding), and widened for the families' padded Cin-3 stems (any stride
+  and padding, k <= 4, W % 8 == 0): each pixel staged as 4 elements, the
+  4th zero, zero margins and zero rows for the padding.
 - "wgmma" (conv2-3: Cin % 8 == 0, x 16-byte aligned, where "tma" does not
   take the shape): ``wgmma.mma_async`` m64nBNk16 on A (the im2col rows,
   K-major) and B (w, MN-major, read with transpose-B) in shared memory,
@@ -51,9 +56,10 @@ wrapper raises on any other bf16 shape. No variant splits K across
 blocks: two launches give the same bits.
 
 Padding (``padding=p``, the families' padded convs, which ``cnn_tpu`` runs
-through XLA): every kernel but the two strips reads a tap in the padding
-as zero, so no padded copy of x is made; the plans send a padded conv to
-the tiled or direct kernel (float32) and to the tma, wgmma or gather
+through XLA): every kernel reads a tap in the padding as zero, so no padded
+copy of x is made (the strips stage zero margins and zero rows beside the
+image's rows); the plans send a padded Cin-3 stem to the strips and the
+other padded convs to the tiled kernel (float32) and to the tma or wgmma
 kernel (bf16). The kernels take p <= 16 on extents up to 16,384.
 
 ``conv2d_bias_relu_op`` is the same Function registered as the custom op
@@ -103,7 +109,11 @@ MAX_GRID_Y = 65535
 # strip id -> output rows per block (one warp each), in the order of
 # csrc/conv.cu's switch on the strip id
 STRIP_ROWS = (2, 4, 8)
-STRIP_CIN_MAX, STRIP_COUT_MAX = 4, 32
+STRIP_CIN_MAX, STRIP_COUT_MAX = 4, 64
+STRIP_WIDE_ROW = 4096        # Wo * Cout past which the plan takes R = 8
+STRIP_CO = 16                # output channels of one pass (a weight block)
+STRIP_YS = 20                # floats of a pixel in a warp's output staging
+STRIP_SMEM_MAX = 96 * 1024   # dynamic: the launch sets the attribute
 
 
 def strip_input_rows(rows: int, k: int, stride: int) -> int:
@@ -111,13 +121,26 @@ def strip_input_rows(rows: int, k: int, stride: int) -> int:
     return (rows - 1) * stride + k
 
 
+def strip_margin_floats(padding: int, cin: int) -> int:
+    """The zero margin on each side of a padded strip's staged row:
+    padding*Cin floats rounded up to 16 bytes, so that the image's floats
+    start 16-byte aligned (``csrc/conv.cu:strip_margin_floats``)."""
+    return -(-(padding * cin) // 4) * 4
+
+
 def strip_smem_bytes(rows: int, w: int, cin: int, cout: int, k: int,
-                     stride: int) -> int:
-    """Shared memory of a strip of ``rows`` output rows: the weights and
-    bias (rounded up to 16 bytes), then the (rows-1)*stride + k whole input
-    rows the strip reads, as ``csrc/conv.cu:launch_strip`` computes it."""
-    weights = -(-(k * k * cin * cout + cout) // 4) * 4
-    return 4 * (weights + strip_input_rows(rows, k, stride) * w * cin)
+                     stride: int, padding: int = 0) -> int:
+    """Shared memory of a strip of ``rows`` output rows: the weights in
+    blocks of 16 output channels (zero past Cout) and the bias, rounded up
+    to 16 bytes; the (rows-1)*stride + k whole input rows the strip reads,
+    each with its zero margins; for Cout > 16, each warp's output staging
+    (32 pixels of ``STRIP_YS`` floats); as
+    ``csrc/conv.cu:strip_smem_floats`` computes it."""
+    blocks = -(-cout // STRIP_CO) * STRIP_CO
+    weights = -(-(blocks * k * k * cin + cout) // 4) * 4
+    row = w * cin + 2 * strip_margin_floats(padding, cin)
+    staging = rows * 32 * STRIP_YS if cout > STRIP_CO else 0
+    return 4 * (weights + strip_input_rows(rows, k, stride) * row + staging)
 
 
 class ConvPlan(NamedTuple):
@@ -134,16 +157,22 @@ def conv_tile_plan(b: int, h: int, w: int, cin: int, cout: int, k: int,
                    stride: int, aligned: bool, padding: int = 0) -> ConvPlan:
     """The kernel for this shape (``padding``: the zero padding).
 
-    The strip kernel needs 1 <= Cin <= 4, Cout % 4 == 0 and <= 32, input
+    The strip kernel needs 1 <= Cin <= 4, Cout % 4 == 0 and <= 64, input
     rows of W*Cin floats that are a multiple of 4 (16-byte copies), x and w
-    16-byte aligned (``aligned``), B <= 65,535 (the grid's y), no padding
-    and a strip whose staged rows and weights fit in 48 KB. Of the R in ``STRIP_ROWS``
-    that fit, it takes the one with the most blocks (the fewest idle warps
-    on a tie): a block stages all its rows before any warp sums, so more,
-    shorter blocks resident on an SM overlap one block's staging with
-    another's sums, which gains more than larger strips save in rows read
-    twice (on the H100 at conv1's shape, R = 2 takes 11% less time than
-    R = 8: ``chip_smoke.py``'s sweep, ``PERF.md`` §5).
+    16-byte aligned (``aligned``), B <= 65,535 (the grid's y), padding up to
+    ``PAD_MAX`` (the families' Cin-3 stems: staged with zero margins and
+    zero rows) and a strip whose staged rows, weights and output staging
+    fit in 96 KB. R is 4, or 8 where an output row holds more than
+    ``STRIP_WIDE_ROW`` floats (Wo * Cout): a block stages its weights and
+    its rows once, and the 128-register lanes leave 16 warps an SM at any
+    R, so larger strips save staging; halved while the grid gives fewer
+    than two blocks per SM (few images), as a block stages all its rows
+    before any warp sums. On the H100 (``chip_smoke.py``'s stem sweep,
+    alone at B=64, ms for R 2 / 4 / 8): conv1 0.0552 / 0.0536 / 0.0604,
+    resnet10's stem 0.0600 / 0.0585 / 0.0592, 3 -> 32 s2 0.0952 / 0.0894 /
+    0.0915, 3 -> 64 s2 0.1841 / 0.1748 / 0.1685, vgg8's 3 -> 32 s1 0.2736
+    / 0.2590 / 0.2526, vgg11's 3 -> 64 s1 0.5387 / 0.5165 / 0.5006; every
+    stem 2.5-4.2x faster than the direct kernel it replaced.
 
     The tiled kernel needs Cin % 8 == 0 (a K slice of 8 stays inside one
     tap and loads as 16-byte vectors), Cout % 4 == 0 and x and w 16-byte
@@ -154,12 +183,16 @@ def conv_tile_plan(b: int, h: int, w: int, cin: int, cout: int, k: int,
     """
     if (1 <= cin <= STRIP_CIN_MAX and cout % 4 == 0
             and cout <= STRIP_COUT_MAX and (w * cin) % 4 == 0 and aligned
-            and b <= MAX_GRID_Y and padding == 0):
-        ho = conv_out_size(h, k, stride)
-        fits = [r for r in STRIP_ROWS if strip_smem_bytes(
-            min(r, ho), w, cin, cout, k, stride) <= STATIC_SMEM_LIMIT]
+            and b <= MAX_GRID_Y and 0 <= padding <= PAD_MAX):
+        ho = conv_out_size(h, k, stride, padding)
+        want = 8 if conv_out_size(w, k, stride, padding) * cout > \
+            STRIP_WIDE_ROW else 4
+        fits = [r for r in STRIP_ROWS if r <= want and strip_smem_bytes(
+            min(r, ho), w, cin, cout, k, stride, padding)
+            <= STRIP_SMEM_MAX]
         if fits:
-            r = max(fits, key=lambda r: (-(-ho // r), -r))
+            many = [r for r in fits if -(-ho // r) * b >= 2 * H100_SMS]
+            r = max(many) if many else min(fits)
             return ConvPlan("strip", grid=(-(-ho // r), b), rows=r)
     if cin % TILED_BK or cout % 4 or not aligned:
         return ConvPlan("direct")
@@ -194,11 +227,15 @@ BF16_VARIANTS = ("gather", "vec", "strip", "wgmma", "tma")
 BF16_BK = 32                        # the mma.sync K slice: two k16 steps
 BF16_WARPS = 4
 
-# the bf16 strip kernel: strip id -> output rows per block (one warp each),
-# in the order of csrc/conv.cu's switch
+# the bf16 strip kernel: output rows per block (one warp each), and strip
+# id -> (R, widened), in the order of csrc/conv.cu's switch: the natural
+# layout of the staged rows, then the widened one (4 elements a pixel)
 BF16_STRIP_ROWS = (1, 2, 4, 8)
+BF16_STRIP_TILES = tuple((r, wide) for wide in (False, True)
+                         for r in BF16_STRIP_ROWS)
 BF16_STRIP_KC = 16           # k*Cin of a kernel row: one k16 MMA step
-BF16_STRIP_COUT_MAX = 32     # four n8 tiles
+BF16_STRIP_WIDE = 4          # elements of a widened pixel
+BF16_STRIP_COUT_MAX = 64     # eight n8 tiles
 BF16_STRIP_SMEM_MAX = 96 * 1024
 # the largest R the plan takes (R = 4 was the fastest at conv1's shape at
 # batch 256 and 64 on the H100: chip_smoke.py's sweep, PERF.md §6)
@@ -244,33 +281,75 @@ TMA_CIN = 64                 # channels of a K slice: one 128-byte row
 TMA_STRIDE_MAX = 8           # the im2col map's traversal stride
 
 
+def strip_bf16_wide_row(w: int, padding: int) -> int:
+    """Pixels of a widened staged row: a zero margin of ``padding`` pixels
+    rounded up to an even count (16 bytes), the image row, ``padding``
+    pixels, rounded up to an even row (``csrc/conv.cu``)."""
+    lead = -(-padding // 2) * 2
+    return -(-(lead + w + padding) // 2) * 2
+
+
 def strip_bf16_smem_bytes(rows: int, w: int, cin: int, cout: int, k: int,
-                          stride: int) -> int:
+                          stride: int, padding: int = 0,
+                          wide: bool = False) -> int:
     """Shared memory of a bf16 strip of ``rows`` output rows, as
     ``csrc/conv.cu:strip_bf16_smem_bytes``: the B fragments (8 bytes a
-    lane per kernel row and n8 tile), the staged input rows and 16 bytes of
-    padding, the output rows."""
+    lane per kernel row and n8 tile), the staged input rows (natural: 16
+    bytes of padding after them; widened: 8-byte pixels, margins
+    included), the output rows (widened: 16 pixels a warp, rows of Cout + 8
+    bf16)."""
     frag = k * (cout // 8) * 32 * 8
-    rows_in = 2 * strip_input_rows(rows, k, stride) * w * cin + 16
-    return frag + rows_in + 2 * rows * conv_out_size(w, k, stride) * cout
+    nin = strip_input_rows(rows, k, stride)
+    if wide:
+        rows_in = nin * strip_bf16_wide_row(w, padding) * BF16_STRIP_WIDE * 2
+        out = rows * 16 * (cout + 8) * 2
+    else:
+        rows_in = 2 * nin * w * cin + 16
+        out = 2 * rows * conv_out_size(w, k, stride, padding) * cout
+    return frag + rows_in + out
 
 
-def strip_bf16_rows(b: int, h: int, w: int, cin: int, cout: int, k: int,
+def strip_bf16_takes(w: int, cin: int, cout: int, k: int, stride: int,
+                     padding: int, wide: bool) -> bool:
+    """Whether a strip layout takes the shape (``csrc/conv.cu:
+    strip_bf16_takes``): Cout <= 64; natural, no padding, one k16 step per
+    kernel row (k*Cin <= 16), 4-byte A words (s*Cin even) and input rows of
+    whole 16-byte chunks (W*Cin % 8 == 0); widened, Cin 3, k*4 <= 16 and
+    rows of whole groups of 8 pixels (W % 8 == 0), any stride and
+    padding."""
+    if cout > BF16_STRIP_COUT_MAX:
+        return False
+    if wide:
+        return cin == 3 and k * BF16_STRIP_WIDE <= BF16_STRIP_KC and w % 8 == 0
+    return (padding == 0 and k * cin <= BF16_STRIP_KC
+            and (stride * cin) % 2 == 0 and (w * cin) % 8 == 0)
+
+
+def strip_bf16_tile(b: int, h: int, w: int, cin: int, cout: int, k: int,
                     stride: int, x_aligned: bool,
                     padding: int = 0) -> int | None:
-    """R for the bf16 strip kernel, or None where it cannot take the shape:
-    one k16 step per kernel row (k*Cin <= 16), 4-byte A words (s*Cin
-    even), input rows of whole 16-byte chunks (W*Cin % 8 == 0), Cout <= 32,
-    x aligned, B <= 65,535 (the grid's y), no padding. R is the largest of
-    ``BF16_STRIP_ROWS`` up to ``BF16_STRIP_R`` whose strip fits 96 KB."""
-    if not (k * cin <= BF16_STRIP_KC and (stride * cin) % 2 == 0
-            and (w * cin) % 8 == 0 and cout <= BF16_STRIP_COUT_MAX
-            and x_aligned and b <= MAX_GRID_Y and padding == 0):
+    """The bf16 strip's id in ``BF16_STRIP_TILES``, or None where it cannot
+    take the shape: x aligned, B <= 65,535 (the grid's y), and the natural
+    layout where it takes the shape (AlexNet's conv1), else the widened one
+    (the padded Cin-3 stems, ``strip_bf16_takes``). R is the largest of
+    ``BF16_STRIP_ROWS`` up to ``BF16_STRIP_R`` whose strip fits 96 KB.
+
+    On the H100 (``chip_smoke.py``'s stem phase, alone, B=64): conv1 on
+    the natural layout 0.0228 ms, widened 0.0269 (batch 256: 0.0690 /
+    0.0852), so the natural layout stays where it can; the widened stems at
+    R 4 ran 2.6-3.4x faster than the gather they replaced (resnet10's
+    0.0283 against 0.0959), and R 8 was within 4% of R 4 at each."""
+    if not (x_aligned and b <= MAX_GRID_Y and 0 <= padding <= PAD_MAX):
         return None
-    ho = conv_out_size(h, k, stride)
-    return next((r for r in sorted(BF16_STRIP_ROWS, reverse=True)
+    wide = next((v for v in (False, True) if strip_bf16_takes(
+        w, cin, cout, k, stride, padding, v)), None)
+    if wide is None:
+        return None
+    ho = conv_out_size(h, k, stride, padding)
+    return next((BF16_STRIP_TILES.index((r, wide))
+                 for r in sorted(BF16_STRIP_ROWS, reverse=True)
                  if r <= BF16_STRIP_R and strip_bf16_smem_bytes(
-                     min(r, ho), w, cin, cout, k, stride)
+                     min(r, ho), w, cin, cout, k, stride, padding, wide)
                  <= BF16_STRIP_SMEM_MAX), None)
 
 
@@ -347,7 +426,7 @@ def tma_takes(cin: int, stride: int, x_aligned: bool) -> bool:
 
 class Bf16Plan(NamedTuple):
     """The bf16 kernel's ``variant`` (one of ``BF16_VARIANTS``), ``tile``
-    id into that variant's table (``BF16_TILES``, ``BF16_STRIP_ROWS``,
+    id into that variant's table (``BF16_TILES``, ``BF16_STRIP_TILES``,
     ``WGMMA_TILES`` or ``TMA_TILES``), grid (M blocks, N blocks; strips,
     images for the strip) and K padded to what the kernel multiplies (its
     slices, or 16 per kernel row for the strip)."""
@@ -364,7 +443,7 @@ class Bf16Plan(NamedTuple):
         if self.variant == "tma":
             return TMA_TILES[self.tile][1]
         if self.variant == "strip":
-            return BF16_STRIP_ROWS[self.tile]
+            return BF16_STRIP_TILES[self.tile][0]
         return BF16_WARPS * 16 * BF16_TILES[self.tile][0]
 
     @property
@@ -385,9 +464,10 @@ def conv_bf16_plan(b: int, h: int, w: int, cin: int, cout: int, k: int,
                    variant: str | None = None,
                    padding: int = 0) -> Bf16Plan:
     """The bf16 kernel's launch for this shape (``padding``: the zero
-    padding, which the strip does not take).
+    padding).
 
-    "strip" (conv1) where ``strip_bf16_rows`` finds an R; else "tma"
+    "strip" (conv1, the padded Cin-3 stems) where ``strip_bf16_tile`` finds
+    a layout and an R; else "tma"
     where ``tma_takes`` (Cin % 64 == 0, x 16-byte aligned, stride <= 8:
     the families' convs past their first stages, AlexNet's conv4; on the
     H100 it beat "wgmma" at each such shape the smoke sweeps, by 1.29-3.12x)
@@ -407,15 +487,15 @@ def conv_bf16_plan(b: int, h: int, w: int, cin: int, cout: int, k: int,
                          "multiple of 8")
     vec_ok = cin % 8 == 0 and x_aligned
     tma_ok = tma_takes(cin, stride, x_aligned)
-    rows = strip_bf16_rows(b, h, w, cin, cout, k, stride, x_aligned,
-                           padding)
+    strip = strip_bf16_tile(b, h, w, cin, cout, k, stride, x_aligned,
+                            padding)
     if variant is None:
-        variant = ("strip" if rows else "tma" if tma_ok
+        variant = ("strip" if strip is not None else "tma" if tma_ok
                    else "wgmma" if vec_ok else "gather")
     if variant not in BF16_VARIANTS or (
             variant in ("vec", "wgmma") and not vec_ok) or (
             variant == "tma" and not tma_ok) or (
-            variant == "strip" and not rows):
+            variant == "strip" and strip is None):
         raise ValueError(f"conv2d_bias_relu bf16: variant {variant} cannot "
                          f"take x [{b},{h},{w},{cin}], Cout {cout}, k {k}, "
                          f"stride {stride}, x aligned {x_aligned}")
@@ -423,8 +503,8 @@ def conv_bf16_plan(b: int, h: int, w: int, cin: int, cout: int, k: int,
     wo = conv_out_size(w, k, stride, padding)
     m, kk = b * ho * wo, k * k * cin
     if variant == "strip":
-        return Bf16Plan("strip", BF16_STRIP_ROWS.index(rows),
-                        (-(-ho // rows), b), 16 * k)
+        rows = BF16_STRIP_TILES[strip][0]
+        return Bf16Plan("strip", strip, (-(-ho // rows), b), 16 * k)
     if variant == "wgmma":
         tile = wgmma_tile_for(cout, m, kk)
         bn, mt, bk = WGMMA_TILES[tile][:3]
@@ -471,9 +551,12 @@ def conv2d_bias_relu(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
         ("1x1",) if k == 1 else ())
     if x.dtype == torch.bfloat16:
         out, plan = launch_conv_bf16(x, w, b, stride, relu, padding=padding)
+        # the padded strips (the families' stems) by name as well
+        strip_padded = (("bf16_strip_padded",)
+                        if plan.variant == "strip" and padding else ())
         for counter in (f"bf16_{plan.variant}", "bf16",
                         *(f"bf16_{c}" for c in shape_counters),
-                        *shape_counters):
+                        *shape_counters, *strip_padded):
             _count(counter)
         conv2d_bias_relu.launches += 1
         return out
@@ -490,6 +573,8 @@ def conv2d_bias_relu(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
         launch("cnn_conv2d_bias_relu_strip", x.device, stream, *args,
                STRIP_ROWS.index(plan.rows))
         conv2d_bias_relu.launches_strip += 1
+        if padding:
+            conv2d_bias_relu.launches_strip_padded += 1
     elif plan.variant == "tiled":
         launch("cnn_conv2d_bias_relu_tiled", x.device, stream, *args,
                plan.tile)
@@ -551,6 +636,8 @@ conv2d_bias_relu.launches_padded = 0       # by shape, any dtype: padded
 conv2d_bias_relu.launches_1x1 = 0          # and 1x1 convs
 conv2d_bias_relu.launches_bf16_padded = 0  # the same, bf16 only
 conv2d_bias_relu.launches_bf16_1x1 = 0
+conv2d_bias_relu.launches_strip_padded = 0       # the strips with padding:
+conv2d_bias_relu.launches_bf16_strip_padded = 0  # the families' stems
 
 
 def _save(ctx, x, w, out, stride, relu, padding) -> None:

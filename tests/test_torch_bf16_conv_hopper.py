@@ -32,6 +32,7 @@ import numpy as np
 import pytest
 import torch
 
+from cnn_tpu import ops as jops
 from cnn_tpu.ops.pallas.conv import _forward as pallas_conv_forward
 from cnn_tpu_torch.ops.conv import conv2d, conv_out_size
 from cnn_tpu_torch.ops.hopper import conv as hconv
@@ -42,16 +43,22 @@ from cnn_tpu_torch.ops.hopper.conv import (BF16_STRIP_COUT_MAX,
                                            BF16_STRIP_KC, BF16_STRIP_R,
                                            BF16_STRIP_ROWS,
                                            BF16_STRIP_SMEM_MAX,
+                                           BF16_STRIP_TILES, BF16_STRIP_WIDE,
                                            BF16_VARIANTS, H100_SMS,
                                            WGMMA_FEW, WGMMA_FEW_LONG_K,
                                            WGMMA_LONG_K, WGMMA_MANY,
                                            WGMMA_TILES, conv_bf16_plan,
-                                           strip_bf16_smem_bytes)
+                                           strip_bf16_smem_bytes,
+                                           strip_bf16_takes,
+                                           strip_bf16_wide_row)
 
 BF16 = torch.bfloat16
 CONV_CU = (Path(__file__).resolve().parents[1] / "cnn_tpu_torch" / "csrc"
            / "conv.cu")
 NAN16 = np.uint16(0x7FC0)   # a bf16 quiet NaN
+# the bf16 conv's bar against the plain conv where a sum may cancel: 1 bf16
+# ulp + 1e-5 x S (PERF.md section 2, the card's bar)
+BF16_SREL = 1e-5
 
 # (H, Cin, Cout) of the BN AlexNet's convs at 224 px, all 3x3 stride 2
 ALEXNET = {"conv1": (224, 3, 16), "conv2": (55, 16, 32),
@@ -113,8 +120,8 @@ def test_plan_sends_the_alexnet_layers_to_the_hopper_variants(layer, batch):
     ho = conv_out_size(h, 3, 2)
     if layer == "conv1":
         assert plan.variant == "strip"
-        rows = BF16_STRIP_ROWS[plan.tile]
-        assert rows == BF16_STRIP_R == 4
+        rows, wide = BF16_STRIP_TILES[plan.tile]
+        assert rows == BF16_STRIP_R == 4 and not wide   # the natural rows
         assert plan.grid == (-(-ho // rows), batch)
         assert plan.k_pad == 48                 # 3 kernel rows x 16
         return
@@ -156,8 +163,9 @@ def test_plan_off_the_alexnet_shapes():
                  (2, 9, 9, 12, 16, 3, 2, True),    # Cin 12: k*Cin 36, Cin % 8
                  (2, 8, 8, 4, 16, 5, 1, True),     # k 5 x Cin 4 = 20 > 16
                  (2, 27, 27, 16, 32, 3, 2, False),   # x off alignment
-                 (2, 16, 16, 3, 48, 3, 2, True),   # Cout 48 > 32, Cin 3
-                 (2, 16, 16, 3, 16, 3, 1, True)):  # s*Cin 3 is odd
+                 (2, 16, 16, 3, 72, 3, 2, True),   # Cout 72 > 64, Cin 3
+                 # s*Cin 3 is odd, W 12 no whole groups of 8 pixels
+                 (2, 16, 12, 3, 16, 3, 1, True)):
         assert conv_bf16_plan(*args).variant == "gather", args
     # the strip's edges: Cin 1-4 with k*Cin <= 16 and even s*Cin
     assert conv_bf16_plan(1, 11, 24, 1, 16, 5, 2, True).variant == "strip"
@@ -165,7 +173,7 @@ def test_plan_off_the_alexnet_shapes():
     assert conv_bf16_plan(1, 7, 10, 4, 32, 3, 1, True).variant == "strip"
     # R falls to what fits: rows of 1,024 px overflow 96 KB at R 4
     p = conv_bf16_plan(1, 40, 1024, 2, 16, 3, 2, True)
-    rows = BF16_STRIP_ROWS[p.tile]
+    rows = BF16_STRIP_TILES[p.tile][0]
     assert rows < BF16_STRIP_R and strip_bf16_smem_bytes(
         rows, 1024, 2, 16, 3, 2) <= BF16_STRIP_SMEM_MAX
     # wgmma: Cout 8 in a BN 16 block, Cout 200 in four BN 64 blocks
@@ -194,10 +202,34 @@ def test_tables_match_the_source():
     assert "(0 gather, 1\n// vec, 2 strip, 3 wgmma, 4 tma)" in src
     assert re.findall(r"case (\d): return \(int\)launch_bf16_tile<(\w+)>",
                       body) == [("0", "false"), ("1", "true")]
-    strips = re.findall(r"case (\d+): return \(int\)launch_bf16_strip<(\d+)>",
-                        body)
-    assert [(int(i), int(r)) for i, r in strips] == list(
-        enumerate(BF16_STRIP_ROWS))
+    strips = re.findall(r"case (\d+): return \(int\)launch_bf16_strip<"
+                        r"(\d+), (true|false)>", body)
+    assert [(int(i), int(r), v == "true") for i, r, v in strips] == [
+        (i, *t) for i, t in enumerate(BF16_STRIP_TILES)]
+    assert BF16_STRIP_TILES == tuple(
+        (r, v) for v in (False, True) for r in BF16_STRIP_ROWS)
+    # the widened layout's rows and the strip's shared memory, as the
+    # plan's strip_bf16_wide_row / strip_bf16_smem_bytes compute them
+    for line in ("constexpr int kStripBfWide = 4;",
+                 "return (p + 1) / 2 * 2; }",
+                 "return (strip_bf16_lead(p) + W + p + 1) / 2 * 2;",
+                 "return wide ? nin * strip_bf16_wide_row(W, p) * "
+                 "kStripBfWide * 2\n              : nin * W * Cin * 2 + 16;",
+                 "(wide ? rows * 16 * (Cout + 8) * 2 : "
+                 "rows * Wo * Cout * 2);",
+                 "return wide ? Cin == 3 && k * kStripBfWide <= kStripBfKc "
+                 "&& W % 8 == 0",
+                 # the n8 tiles a lane holds: the fewest of 2, 4, 8
+                 "if (Cout <= 16)\n    return launch_bf16_strip_nt<R, kWide, "
+                 "2>",
+                 "if (Cout <= 32)\n    return launch_bf16_strip_nt<R, kWide, "
+                 "4>",
+                 "return launch_bf16_strip_nt<R, kWide, kStripBfNtMax>("):
+        assert line in src, line
+    assert BF16_STRIP_WIDE == 4 and BF16_STRIP_COUT_MAX == 64
+    for w, p, want in ((224, 1, 228), (224, 0, 224), (16, 2, 20),
+                       (8, 3, 16)):
+        assert strip_bf16_wide_row(w, p) == want
     tiles = re.findall(r"case (\d+): return \(int\)launch_bf16_wgmma<"
                        r"(\d+), (\d+), (\d+), (\d+), (\d+), (true|false)>",
                        body)
@@ -310,39 +342,122 @@ def _inputs(rng, bsz, h, wid, cin, cout, k):
     return x, w, b
 
 
-def _check(y, writes, x, w, b, stride, relu):
-    """Every output written once, no NaN read, within 1 bf16 ulp of the
-    plain bf16 conv and (k 3) of the Pallas kernel in interpret mode."""
+def _bf16_ulp(a: np.ndarray) -> np.ndarray:
+    """One bf16 ulp of each bf16 value (as float32); 0 at 0."""
+    m, e = np.frexp(np.abs(a).astype(np.float64))
+    return np.where(a == 0, 0.0, np.ldexp(1.0, e - 8))
+
+
+def _within(y, ref, x, w, b, stride, padding, srel):
+    """y within 1 bf16 ulp of ref, or (``srel``) within 1 bf16 ulp + srel x
+    S, S the same conv of |x|, |w| and |b|: the float32 reassociation bound
+    where a sum cancels towards 0 and an ulp shrinks with it."""
+    if not srel:
+        ulps = np.abs(_ordered(y) - _ordered(ref))
+        assert ulps.max() <= 1, f"{(ulps > 0).sum()} differ, max {ulps.max()}"
+        return
+    s_abs = conv2d(*(torch.from_numpy(np.abs(a)) for a in (x, w, b)),
+                   stride, False, padding).numpy()
+    bar = _bf16_ulp(ref) + srel * s_abs
+    dev = np.abs(y.astype(np.float64) - ref)
+    assert (dev <= bar).all(), f"max {(dev / bar).max():.3g} x the bar"
+
+
+def _check(y, writes, x, w, b, stride, relu, padding=0, pallas=True,
+           srel=0.0):
+    """Every output written once, no NaN read, within 1 bf16 ulp (``srel``:
+    + srel x S) of the plain bf16 conv and (k 3, ``pallas``) of the Pallas
+    kernel in interpret mode on the zero-padded x."""
     assert (writes == 1).all()
     assert not np.isnan(y).any()
     ref = conv2d(*(torch.from_numpy(a).to(BF16) for a in (x, w, b)), stride,
-                 relu).float().numpy()
-    ulps = np.abs(_ordered(y) - _ordered(ref))
-    assert ulps.max() <= 1, f"{(ulps > 0).sum()} differ, max {ulps.max()}"
-    if w.shape[0] == 3:
+                 relu, padding).float().numpy()
+    _within(y, ref, x, w, b, stride, padding, srel)
+    if w.shape[0] == 3 and pallas:
+        xp = np.pad(x, ((0, 0), (padding, padding), (padding, padding),
+                        (0, 0)))
         want = pallas_conv_forward(
-            *(jnp.asarray(a).astype(jnp.bfloat16) for a in (x, w, b)),
+            *(jnp.asarray(a).astype(jnp.bfloat16) for a in (xp, w, b)),
             stride, relu, interpret=True)
-        assert np.abs(_ordered(y) - _ordered(
-            np.asarray(want, np.float32))).max() <= 1
+        _within(y, np.asarray(want, np.float32), x, w, b, stride, padding,
+                srel)
 
 
 # --- the strip kernel --------------------------------------------------------------
 
-def emulate_strip(x, w, b, stride, relu, rows_per_block):
-    """``conv2d_bf16_strip_kernel<R>`` on bf16 values held as float32."""
+def _stage_wide(smem, xb, bi, h, wid, oy0, nin, stride, padding, sx0,
+                rowlen, lead):
+    """The widened staging as the kernel does it: per (row, group of 8
+    pixels) three 16-byte loads of x (24 bf16, as twelve 32-bit words) and
+    four 16-byte stores of 8-byte pixels built by the kernel's shifts; a
+    row outside the image stored as zeros; then the margins, pairs of zero
+    pixels. Every address 16-byte aligned, every staged element written
+    once."""
+    ng, rp = wid // 8, rowlen // BF16_STRIP_WIDE
+    written = np.zeros(smem.size, np.int32)
+    for i in range(nin * ng):
+        r, q = divmod(i, ng)
+        iy = oy0 * stride - padding + r
+        v = np.zeros(12, np.uint32)
+        if 0 <= iy < h:
+            src = ((bi * h + iy) * wid + 8 * q) * 3
+            assert src % 8 == 0                       # 16-byte loads
+            e = xb[src:src + 24].astype(np.uint32)
+            v = e[0::2] | (e[1::2] << 16)
+        o = np.zeros(16, np.uint32)
+        for j in range(8):
+            e3 = 3 * j
+            if j % 2 == 0:
+                o[2 * j] = v[e3 // 2]
+                o[2 * j + 1] = v[e3 // 2 + 1] & 0xFFFF
+            else:
+                o[2 * j] = (v[e3 // 2] >> 16) | ((v[e3 // 2 + 1] << 16)
+                                                 & 0xFFFFFFFF)
+                o[2 * j + 1] = v[e3 // 2 + 1] >> 16
+        dst = sx0 + (r * rp + lead + 8 * q) * BF16_STRIP_WIDE
+        assert dst % 8 == 0                           # 16-byte stores
+        halves = np.stack([o & 0xFFFF, o >> 16], -1).reshape(-1)
+        smem[dst:dst + 32] = halves.astype(np.uint16)
+        written[dst:dst + 32] += 1
+    mp = (rp - wid) // 2
+    for i in range(nin * mp):
+        r, c = divmod(i, mp)
+        c *= 2
+        px = c if c < lead else wid + c
+        dst = sx0 + (r * rp + px) * BF16_STRIP_WIDE
+        assert dst % 8 == 0
+        smem[dst:dst + 8] = 0
+        written[dst:dst + 8] += 1
+    staged = written[sx0:sx0 + nin * rowlen]
+    assert (staged == 1).all() and written.sum() == staged.sum()
+
+
+def emulate_strip(x, w, b, stride, relu, rows_per_block, padding=0,
+                  wide=False):
+    """``conv2d_bf16_strip_kernel<R, wide>`` on bf16 values held as
+    float32."""
     bsz, h, wid, cin = x.shape
     k, cout = w.shape[0], w.shape[-1]
-    ho, wo = conv_out_size(h, k, stride), conv_out_size(wid, k, stride)
-    kc, nt, rowlen, R = k * cin, cout // 8, wid * cin, rows_per_block
+    ho = conv_out_size(h, k, stride, padding)
+    wo = conv_out_size(wid, k, stride, padding)
+    assert strip_bf16_takes(wid, cin, cout, k, stride, padding, wide)
+    cs = BF16_STRIP_WIDE if wide else cin      # elements of a staged pixel
+    kc, nt, R = k * cs, cout // 8, rows_per_block
+    lead = -(-padding // 2) * 2
+    rowlen = (strip_bf16_wide_row(wid, padding) * BF16_STRIP_WIDE if wide
+              else wid * cin)
+    shift = (lead - padding) * BF16_STRIP_WIDE if wide else 0
     xb, wb = _bits(x).reshape(-1), _bits(w).reshape(-1)
     y = np.full(bsz * ho * wo * cout, NAN16, np.uint16)
     writes = np.zeros(y.size, np.int32)
     ra = min(R, ho)
     frag = k * nt * 32 * 8                                 # bytes
-    xbytes = ((ra - 1) * stride + k) * rowlen * 2 + 16
-    smem_bytes = frag + xbytes + ra * wo * cout * 2
-    assert smem_bytes == strip_bf16_smem_bytes(ra, wid, cin, cout, k, stride)
+    xbytes = ((ra - 1) * stride + k) * rowlen * 2 + (0 if wide else 16)
+    ys = cout + 8 if wide else cout          # a staged output pixel
+    smem_bytes = frag + xbytes + (ra * 16 * ys * 2 if wide
+                                  else ra * wo * cout * 2)
+    assert smem_bytes == strip_bf16_smem_bytes(ra, wid, cin, cout, k, stride,
+                                               padding, wide)
     sx0, sy0 = frag // 2, (frag + xbytes) // 2              # in bf16
     lanes = np.arange(32)
     g, t = lanes >> 2, lanes & 3
@@ -353,13 +468,21 @@ def emulate_strip(x, w, b, stride, relu, rows_per_block):
             smem = np.full(smem_bytes // 2, NAN16, np.uint16)
             oy0 = strip * R
             rows = min(R, ho - oy0)
-            # the staged rows: one contiguous run of x
-            n = ((rows - 1) * stride + k) * rowlen
-            assert n % 8 == 0
-            src = (bi * h + oy0 * stride) * rowlen
-            smem[sx0:sx0 + n] = xb[src:src + n]
+            nin = (rows - 1) * stride + k
+            if wide:
+                _stage_wide(smem, xb, bi, h, wid, oy0, nin, stride, padding,
+                            sx0, rowlen, lead)
+                x_end = sx0 + nin * rowlen       # reads stay in the rows
+            else:
+                # the staged rows: one contiguous run of x
+                n = nin * rowlen
+                assert n % 8 == 0
+                src = (bi * h + oy0 * stride) * rowlen
+                smem[sx0:sx0 + n] = xb[src:src + n]
+                x_end = sy0                      # and the 16-byte padding
             # the B fragments: [dy][j][lane] as (b0, b1), each a 32-bit
-            # word whose low half holds the lower k row
+            # word whose low half holds the lower k row; widened, column c
+            # is tap c // 4, channel c % 4 (zero for channel 3)
             for i in range(k * nt * 32):
                 l_, dj = i & 31, i >> 5
                 dy, j = dj // nt, dj % nt
@@ -367,30 +490,37 @@ def emulate_strip(x, w, b, stride, relu, rows_per_block):
                 for hh in range(2):
                     for e in range(2):
                         c = c0 + 8 * hh + e
+                        if wide:
+                            dx, ci = divmod(c, BF16_STRIP_WIDE)
+                            ok, row = dx < k and ci < cin, (dy * k + dx) * cin + ci
+                        else:
+                            ok, row = c < kc, dy * kc + c
                         smem[4 * i + 2 * hh + e] = (
-                            wb[(dy * kc + c) * cout + col] if c < kc else 0)
+                            wb[row * cout + col] if ok else 0)
             for warp in range(rows):
-                ps = stride * cin
+                ps = stride * cs
+                yr = sy0 + (warp * 16 * ys if wide else warp * wo * cout)
                 for ox0 in range(0, wo, 16):
                     pa, pb = ox0 + g, ox0 + g + 8
                     va, vb = pa < wo, pb < wo
                     acc = np.zeros((nt, 32, 4), np.float32)
+                    if wide:     # a chunk's staging holds nothing stale
+                        smem[yr:yr + 16 * ys] = NAN16
                     for dy in range(k):
-                        row = sx0 + (warp * stride + dy) * rowlen
+                        row = sx0 + (warp * stride + dy) * rowlen + shift
 
                         def word(p, valid, mask, off):
-                            """A 32-bit load of bf16 elements e, e+1 where
-                            the kernel loads, masked per half."""
+                            """The 32-bit loads of bf16 elements e, e+1
+                            where the kernel loads, masked per half."""
                             out = np.zeros((32, 2), np.float32)
-                            for ln in range(32):
-                                if not (valid[ln] and (mask[0][ln]
-                                                       or mask[1][ln])):
-                                    continue
-                                e = row + p[ln] * ps + 2 * t[ln] + off
-                                assert e % 2 == 0 and e + 1 < sy0
-                                for hf in range(2):
-                                    if mask[hf][ln]:
-                                        out[ln, hf] = _vals(smem[e + hf])
+                            load = valid & (mask[0] | mask[1])
+                            e = row + p * ps + 2 * t + off
+                            assert (e[load] % 2 == 0).all()
+                            assert (e[load] >= sx0).all()
+                            assert (e[load] + 1 < x_end).all()
+                            for hf in range(2):
+                                sel = load & mask[hf]
+                                out[sel, hf] = _vals(smem[e[sel] + hf])
                             return out
 
                         a = [word(pa, va, mlo, 0), word(pb, vb, mlo, 0),
@@ -401,6 +531,7 @@ def emulate_strip(x, w, b, stride, relu, rows_per_block):
                                             _vals(smem[4 * i0 + 2 * hh + 1])],
                                            -1) for hh in range(2)]
                             acc[j] = _mma16816(acc[j], a, bw)
+                    p0 = ox0 if wide else 0
                     for j in range(nt):
                         for half, (p, valid) in enumerate(((pa, va),
                                                            (pb, vb))):
@@ -411,14 +542,27 @@ def emulate_strip(x, w, b, stride, relu, rows_per_block):
                                 v = np.where(v > 0, v, np.float32(0))
                             vb16 = _round_bits(v)
                             for ln in np.nonzero(valid)[0]:
-                                e = sy0 + (warp * wo + p[ln]) * cout + col[ln]
+                                e = yr + (p[ln] - p0) * ys + col[ln]
                                 smem[e:e + 2] = vb16[ln]
-            # the copy out: 16-byte chunks of one contiguous run of y
-            n_out = rows * wo * cout
-            assert n_out % 8 == 0
-            dst = (bi * ho + oy0) * wo * cout
-            y[dst:dst + n_out] = smem[sy0:sy0 + n_out]
-            writes[dst:dst + n_out] += 1
+                    if wide:
+                        # this warp's pixels: one contiguous run of y in
+                        # 16-byte chunks
+                        cpp, nv = cout // 8, min(16, wo - ox0)
+                        dst = ((bi * ho + oy0 + warp) * wo + ox0) * cout
+                        assert dst % 8 == 0
+                        for i in range(nv * cpp):
+                            px, c = divmod(i, cpp)
+                            src = yr + px * ys + 8 * c
+                            assert src % 8 == 0
+                            y[dst + 8 * i:dst + 8 * i + 8] = smem[src:src + 8]
+                            writes[dst + 8 * i:dst + 8 * i + 8] += 1
+            if not wide:
+                # the copy out: 16-byte chunks of one contiguous run of y
+                n_out = rows * wo * cout
+                assert n_out % 8 == 0
+                dst = (bi * ho + oy0) * wo * cout
+                y[dst:dst + n_out] = smem[sy0:sy0 + n_out]
+                writes[dst:dst + n_out] += 1
     return _vals(y).reshape(bsz, ho, wo, cout), writes
 
 
@@ -443,8 +587,9 @@ def test_strip_walk_matches_the_plain_conv(rng, case, relu_on):
     x, w, b = _inputs(rng, bsz, h, wid, cin, cout, k)
     plan = conv_bf16_plan(bsz, h, wid, cin, cout, k, stride, True)
     assert plan.variant == "strip"
-    y, writes = emulate_strip(x, w, b, stride, relu_on,
-                              BF16_STRIP_ROWS[plan.tile])
+    rows, wide = BF16_STRIP_TILES[plan.tile]
+    assert not wide
+    y, writes = emulate_strip(x, w, b, stride, relu_on, rows)
     _check(y, writes, x, w, b, stride, relu_on)
 
 
@@ -472,6 +617,112 @@ def test_strip_masks_the_columns_past_k_cin(rng):
     assert np.array_equal(np.isfinite(y), np.isfinite(ref))
     assert not np.isfinite(ref).all()
     assert np.array_equal(y[~np.isfinite(y)], ref[~np.isfinite(ref)])
+
+
+# the families' padded Cin-3 stems (k 3, p 1) on the widened layout, scaled
+# down to 32 px: resnet10 3 -> 16 s2, resnet18 / mobilenet 3 -> 32 s2,
+# pipecnn 3 -> 64 s2, vgg8 3 -> 32 s1, vgg11 3 -> 64 s1; then a ragged last
+# strip and a chunk of fewer than 16 pixels (Wo 13), padding 2 and 3 (odd:
+# a lead margin rounded up), k 2 and 4, AlexNet's unpadded conv1 geometry
+# (the sweep's widened tile there), Cout 8 and 40
+# (B, H, W, Cin, Cout, stride, k, padding)
+WIDE_STEMS = {
+    "resnet10": (1, 32, 32, 3, 16, 2, 3, 1),
+    "resnet18_mobilenet": (1, 32, 32, 3, 32, 2, 3, 1),
+    "pipecnn": (1, 32, 32, 3, 64, 2, 3, 1),
+    "vgg8": (1, 32, 32, 3, 32, 1, 3, 1),
+    "vgg11": (1, 32, 32, 3, 64, 1, 3, 1),
+}
+WIDE_WALKS = {
+    "ragged": (2, 27, 24, 3, 16, 2, 3, 1),
+    "pad2_s1": (1, 9, 16, 3, 8, 1, 3, 2),
+    "pad3_s3": (1, 14, 16, 3, 24, 3, 3, 3),
+    "k2": (1, 9, 8, 3, 16, 1, 2, 1),
+    "k4_pad1": (1, 10, 16, 3, 40, 2, 4, 1),
+    "conv1_unpadded": (1, 15, 16, 3, 16, 2, 3, 0),
+}
+
+
+@pytest.mark.parametrize("batch", [1, 8, 64, 256])
+@pytest.mark.parametrize("stem", list(WIDE_STEMS))
+def test_plan_sends_the_padded_stems_to_the_widened_strip(stem, batch):
+    """At 224 px every family's padded Cin-3 stem takes the strip variant,
+    widened, at R 4 (its shared memory within 96 KB), K padded to 16 a
+    kernel row; unpadded, the same shape at stride 2 keeps the natural
+    layout."""
+    _, _, _, cin, cout, s, k, p = WIDE_STEMS[stem]
+    plan = conv_bf16_plan(batch, 224, 224, cin, cout, k, s, True, None, p)
+    ho = conv_out_size(224, k, s, p)
+    assert plan.variant == "strip" and plan.k_pad == 48
+    assert BF16_STRIP_TILES[plan.tile] == (BF16_STRIP_R, True)
+    assert plan.grid == (-(-ho // BF16_STRIP_R), batch)
+    assert strip_bf16_smem_bytes(4, 224, cin, cout, k, s, p, True) <= \
+        BF16_STRIP_SMEM_MAX
+    natural = conv_bf16_plan(batch, 224, 224, cin, cout, k, 2, True)
+    assert BF16_STRIP_TILES[natural.tile] == (BF16_STRIP_R, False)
+
+
+def test_widened_strip_declines_what_it_cannot_take():
+    # padded Cin 2 or 4 (no widened layout), W % 8 != 0, k 5 (k*4 > 16),
+    # Cout 72, x off alignment: the gather; a named strip raises
+    for args in ((2, 16, 16, 2, 16, 3, 2, True), (2, 16, 16, 4, 16, 3, 1, True),
+                 (2, 16, 12, 3, 16, 3, 2, True), (2, 16, 16, 3, 16, 5, 1, True),
+                 (2, 16, 16, 3, 72, 3, 1, True), (2, 16, 16, 3, 16, 3, 1, False)):
+        assert conv_bf16_plan(*args, None, 1).variant == "gather", args
+        with pytest.raises(ValueError):
+            conv_bf16_plan(*args, "strip", 1)
+
+
+@pytest.mark.parametrize("rows", BF16_STRIP_ROWS)
+@pytest.mark.parametrize("case", [*WIDE_STEMS, *WIDE_WALKS])
+def test_widened_strip_walk_matches_the_plain_conv(rng, case, rows):
+    """The widened walk at every R: 16-byte loads and stores of the
+    staging, the zero margins and rows, even A words inside the staged
+    rows, each output written once, within 1 bf16 ulp of the plain bf16
+    conv (ReLU on and off)."""
+    bsz, h, wid, cin, cout, stride, k, p = {**WIDE_STEMS, **WIDE_WALKS}[case]
+    x, w, b = _inputs(rng, bsz, h, wid, cin, cout, k)
+    for relu_on in (False, True):
+        y, writes = emulate_strip(x, w, b, stride, relu_on, rows, p, True)
+        _check(y, writes, x, w, b, stride, relu_on, p, pallas=False,
+               srel=BF16_SREL)
+
+
+def test_widened_strip_walk_vs_cnn_tpu(rng):
+    """resnet10's stem geometry (3 -> 16, k3 s2 p1) at 32 px with the plan's
+    tile, against cnn_tpu's Pallas ``_forward`` on the zero-padded x
+    (interpret mode, bf16) and ``cnn_tpu.ops.conv.conv2d(padding=1)`` on the
+    same values in float32: 1 bf16 ulp + 1e-5 x S."""
+    bsz, h, wid, cin, cout, stride, k, p = WIDE_STEMS["resnet10"]
+    plan = conv_bf16_plan(bsz, h, wid, cin, cout, k, stride, True, None, p)
+    rows, wide = BF16_STRIP_TILES[plan.tile]
+    assert plan.variant == "strip" and wide
+    x, w, b = _inputs(rng, bsz, h, wid, cin, cout, k)
+    y, writes = emulate_strip(x, w, b, stride, True, rows, p, True)
+    _check(y, writes, x, w, b, stride, True, p, srel=BF16_SREL)
+    xla = np.asarray(jops.relu(jops.conv2d(
+        {"w": jnp.asarray(w), "b": jnp.asarray(b)}, jnp.asarray(x), stride,
+        padding=p)))
+    _within(y, xla, x, w, b, stride, p, BF16_SREL)
+
+
+def test_widened_strip_infinity_reaches_exactly_its_windows(rng):
+    """An infinity in x beside the margins (the first and last columns, the
+    first and last rows) and inside reaches exactly the outputs whose window
+    holds it, as in the plain conv: the zero 4th element and the margins
+    meet finite weights, and the masks drop the next pixel's values."""
+    x, w, b = _inputs(rng, 1, 12, 16, 3, 16, 3)
+    x[0, 0, 0, 0] = np.inf
+    x[0, 11, 15, 2] = -np.inf
+    x[0, 5, 8, 1] = np.inf
+    for stride in (1, 2):
+        y, writes = emulate_strip(x, w, b, stride, False, 4, 1, True)
+        ref = conv2d(*(torch.from_numpy(a).to(BF16) for a in (x, w, b)),
+                     stride, False, 1).float().numpy()
+        assert (writes == 1).all()
+        assert np.array_equal(np.isfinite(y), np.isfinite(ref))
+        assert not np.isfinite(ref).all()
+        assert np.array_equal(y[~np.isfinite(y)], ref[~np.isfinite(ref)])
 
 
 # --- the wgmma kernel --------------------------------------------------------------
@@ -753,10 +1004,20 @@ def test_wrapper_counts_each_bf16_variant(monkeypatch):
             assert args[-2:] == (BF16_VARIANTS.index(plan.variant), plan.tile)
             assert args[-2] == {"conv1": 2, "conv4": 4}.get(layer, 3)
     run(2, 9, 9, 12, 16)                 # Cin 12: the gather
+    # a padded Cin-3 stem: the widened strip, counted by name too
+    x = torch.empty((2, 32, 32, 3), dtype=BF16, device="meta")
+    w = torch.empty((3, 3, 3, 64), dtype=BF16, device="meta")
+    conv2d_bias_relu(x, w, torch.empty((64,), dtype=BF16, device="meta"), 1,
+                     True, 1)
+    assert calls[-1][1][-2:] == (2, BF16_STRIP_TILES.index((4, True)))
+    assert calls[-1][1][10:12] == (1, 1)
     counts = read_counters()
-    assert counts["conv2d_bias_relu.launches"] == 13
-    assert counts["conv2d_bias_relu.launches_bf16"] == 13
-    assert counts["conv2d_bias_relu.launches_bf16_strip"] == 3
+    assert counts["conv2d_bias_relu.launches"] == 14
+    assert counts["conv2d_bias_relu.launches_bf16"] == 14
+    assert counts["conv2d_bias_relu.launches_bf16_strip"] == 4
+    assert counts["conv2d_bias_relu.launches_bf16_strip_padded"] == 1
+    assert counts["conv2d_bias_relu.launches_bf16_padded"] == 1
+    assert counts["conv2d_bias_relu.launches_strip_padded"] == 0
     assert counts["conv2d_bias_relu.launches_bf16_wgmma"] == 6
     assert counts["conv2d_bias_relu.launches_bf16_tma"] == 3
     assert counts["conv2d_bias_relu.launches_bf16_gather"] == 1

@@ -18,12 +18,16 @@ from cnn_tpu import ops as jops
 from cnn_tpu.ops.pallas.conv import _forward as pallas_conv_forward
 from cnn_tpu_torch.ops.conv import conv2d, conv_out_size
 from cnn_tpu_torch.ops.hopper import conv as hconv
-from cnn_tpu_torch.ops.hopper import reset_launches
+from cnn_tpu_torch.ops.hopper import read_counters, reset_launches
 from cnn_tpu_torch.ops.hopper._build import SIGNATURES
 from cnn_tpu_torch.ops.hopper.conv import (H100_SMS, STATIC_SMEM_LIMIT,
-                                           STRIP_ROWS, TILES,
+                                           STRIP_SMEM_MAX, STRIP_WIDE_ROW,
+                                           STRIP_YS,
+                                           STRIP_COUT_MAX, STRIP_ROWS, TILES,
                                            conv2d_bias_relu, conv_tile_plan,
-                                           strip_input_rows, strip_smem_bytes)
+                                           strip_input_rows,
+                                           strip_margin_floats,
+                                           strip_smem_bytes)
 
 # float32 sums in another order than XLA's: 1e-5 absolute and relative, the
 # bar of tests/test_torch_ops.py's CONV_CASES
@@ -78,25 +82,27 @@ def test_plan_sends_conv1_to_the_strip_kernel(case, batch):
     def blocks(r):
         return -(-ho // r) * batch
 
+    # R 4, or 8 past STRIP_WIDE_ROW output floats a row, among those that
+    # fit; the largest of them with two blocks an SM, else the most blocks
+    want = 8 if conv_out_size(w, k, s) * cout > STRIP_WIDE_ROW else 4
     fits = [r for r in STRIP_ROWS
-            if strip_smem_bytes(min(r, ho), w, cin, cout, k, s)
-            <= STATIC_SMEM_LIMIT]
+            if r <= want and strip_smem_bytes(min(r, ho), w, cin, cout, k, s)
+            <= STRIP_SMEM_MAX]
     assert plan.rows in fits and plan.grid == (-(-ho // plan.rows), batch)
-    # the most blocks; of R that tie, the smallest (fewest idle warps)
-    assert all(blocks(r) < blocks(plan.rows) or
-               (blocks(r) == blocks(plan.rows) and r >= plan.rows)
-               for r in fits)
+    many = [r for r in fits if blocks(r) >= 2 * H100_SMS]
+    assert plan.rows == (max(many) if many else min(fits))
     if case[0] == "conv1 (Cin 3)":
-        assert plan.rows == 2 and plan.grid == (56, batch)
+        rows = 2 if batch == 1 else 4
+        assert plan.rows == rows and plan.grid == (-(-111 // rows), batch)
 
 
 @pytest.mark.parametrize("case", [
     # (B, H, W, Cin, Cout, k, stride, aligned)
     ("Cout 7", (4, 33, 20, 5, 7, 3, 1, True)),
     ("Cout 7, Cin 8", (4, 33, 20, 8, 7, 3, 1, True)),
-    # Cin 4 is no multiple of 8 for the tiled kernel; Cout 48 is wider than
-    # the strip kernel takes
-    ("Cin 4", (2, 27, 27, 4, 48, 3, 2, True)),
+    # Cin 4 is no multiple of 8 for the tiled kernel; Cout 68 is wider than
+    # the strip kernel takes (64)
+    ("Cin 4", (2, 27, 27, 4, 68, 3, 2, True)),
     ("misaligned weights", (4, 27, 27, 32, 64, 3, 2, False)),
     ("conv1, x or w misaligned", (64, 224, 224, 3, 16, 3, 2, False)),
     ("conv1, a row of 669 floats", (64, 223, 223, 3, 16, 3, 2, True)),
@@ -137,17 +143,19 @@ def test_strip_grid_covers_ho_exactly(shape):
 @pytest.mark.parametrize("rows", STRIP_ROWS)
 def test_every_strip_fits_shared_memory_at_conv1(rows):
     """conv1's staged rows plus its 1,792 bytes of weights and bias stay
-    within 48 KB for every R of the switch."""
+    within 48 KB for every R of the switch (Cout 16: one pass, no output
+    staging)."""
     smem = strip_smem_bytes(rows, 224, 3, 16, 3, 2)
     assert smem == 4 * (3 * 3 * 3 * 16 + 16) + ((rows - 1) * 2 + 3) * 2688
-    assert smem <= STATIC_SMEM_LIMIT
+    assert smem <= STATIC_SMEM_LIMIT <= STRIP_SMEM_MAX
     assert {4: 25_984, 8: 47_488}.get(rows, smem) == smem
 
 
 def test_strip_rows_match_the_cuda_source():
     """The plan's strip ids index the kernel's switch in ``csrc/conv.cu``."""
     src = CONV_CU.read_text()
-    cases = re.findall(r"case (\d+): return \(int\)launch_strip<(\d+)>", src)
+    cases = re.findall(r"case (\d+): return \(int\)launch_strip_pad<(\d+)>",
+                       src)
     assert [(int(c), int(r)) for c, r in cases] == list(enumerate(STRIP_ROWS))
     assert re.search(r"constexpr int kStripSlots = (\d+);", src).group(1) == \
         str(STRIP_SLOTS)
@@ -155,6 +163,36 @@ def test_strip_rows_match_the_cuda_source():
         str(STRIP_CO)
     assert len(SIGNATURES["cnn_conv2d_bias_relu_strip"]) == len(
         SIGNATURES["cnn_conv2d_bias_relu"]) + 1
+    # the padded layout: margins of p*Cin floats rounded up to 16 bytes on
+    # each side of a row, and the launch's shared memory, as the plan's
+    # strip_margin_floats / strip_smem_bytes compute them
+    for line in ("return (p * Cin + 3) / 4 * 4;",
+                 "return W * Cin + 2 * strip_margin_floats(p, Cin);",
+                 "((rows - 1) * s + k) * strip_row_floats(W, Cin, p) +",
+                 "4 * (size_t)strip_smem_floats(rows, k, s, W, Cin, Cout, p);",
+                 "(Cout > kStripCo ? rows * 32 * kStripYs : 0);   // output "
+                 "staging",
+                 "return ((Cout + kStripCo - 1) / kStripCo * kStripCo * k * k "
+                 "* Cin + Cout +\n          3) / 4 * 4;",
+                 "constexpr int kStripYs = kStripCo + 4;",
+                 f"constexpr int kStripSmemMax = {STRIP_SMEM_MAX // 1024} "
+                 "* 1024;",
+                 "if (smem > kStripSmemMax) return cudaErrorInvalidValue;",
+                 "if (smem > 48 * 1024) {",
+                 "const int Ho = (H + 2 * p - k) / s + 1, "
+                 "Wo = (W + 2 * p - k) / s + 1;"):
+        assert line in src, line
+    for p, cin, want in ((0, 3, 0), (1, 3, 4), (1, 4, 4), (2, 3, 8),
+                         (2, 1, 4), (3, 4, 12)):
+        assert strip_margin_floats(p, cin) == want
+    assert STRIP_YS == STRIP_CO + 4 and hconv.STRIP_CO == STRIP_CO
+    assert strip_smem_bytes(2, 224, 3, 64, 3, 1, 1) == 4 * (
+        (27 * 64 + 64) + 4 * (672 + 2 * 4) + 2 * 32 * STRIP_YS)
+    # Cout 12: one block of 16 weight columns, no staging; Cout 24: two
+    assert strip_smem_bytes(2, 16, 2, 12, 3, 1, 1) == 4 * (
+        (18 * 16 + 12) + 4 * (32 + 2 * 4))
+    assert strip_smem_bytes(2, 16, 2, 24, 3, 1, 0) == 4 * (
+        (18 * 32 + 24) + 4 * 32 + 2 * 32 * STRIP_YS)
 
 
 @pytest.mark.parametrize("shape", [
@@ -256,6 +294,37 @@ def test_wrapper_counts_the_direct_kernel(monkeypatch):
     reset_launches()
 
 
+def test_wrapper_counts_the_padded_strip(monkeypatch):
+    """A padded Cin-3 stem goes to the strip's entry point with its padding
+    after the stride, and counts as a strip, a padded conv and a padded
+    strip; AlexNet's unpadded conv1 counts no padded strip."""
+    calls = []
+    monkeypatch.setattr(hconv, "cuda_args", lambda *a, **k: 0)
+    monkeypatch.setattr(hconv, "launch", lambda name, dev, stream, *args:
+                        calls.append((name, args)))
+    reset_launches()
+    for cout, s in ((16, 2), (64, 1)):
+        x = torch.empty((2, 224, 224, 3), device="meta")
+        w = torch.empty((3, 3, 3, cout), device="meta")
+        y = conv2d_bias_relu(x, w, torch.empty((cout,), device="meta"), s,
+                             True, 1)
+        assert y.shape == (2, 224 // s, 224 // s, cout)
+        (name, args), = calls[-1:]
+        plan = conv_tile_plan(2, 224, 224, 3, cout, 3, s, True, 1)
+        assert name == "cnn_conv2d_bias_relu_strip"
+        assert args[10:12] == (s, 1) and args[-1] == STRIP_ROWS.index(
+            plan.rows)
+    x = torch.empty((2, 224, 224, 3), device="meta")
+    conv2d_bias_relu(x, torch.empty((3, 3, 3, 16), device="meta"),
+                     torch.empty((16,), device="meta"), 2, True)
+    c = {k.split(".")[1]: v for k, v in read_counters().items()
+         if k.startswith("conv2d_bias_relu.")}
+    assert (c["launches"], c["launches_strip"], c["launches_strip_padded"],
+            c["launches_padded"], c["launches_direct"],
+            c["launches_bf16_strip_padded"]) == (3, 3, 2, 2, 0, 0)
+    reset_launches()
+
+
 @pytest.mark.parametrize("relu_on", [False, True])
 @pytest.mark.parametrize("geometry", [
     # (B, H, Cin, Cout): conv2-4 of the AlexNet at small B, and conv3's
@@ -283,18 +352,58 @@ def test_plain_conv_vs_pallas_interpret_and_xla_on_tiled_shapes(
     np.testing.assert_allclose(got, np.asarray(xla), **CONV_TOL)
 
 
-def _emulate_strip(x, w, bias, stride, relu, rows):
+def _stage_padded(x, b, oy0, n, stride, padding, k):
+    """A padded strip's staging as the kernel does it: one 16-byte
+    cp.async per chunk of each staged row (the margins and rows outside the
+    image zero-filled by a source size of 0), into a buffer of NaN, each
+    destination and source 16-byte aligned. Returns the staged floats, the
+    row stride and the shift of padded column 0."""
+    _, h, wid, cin = x.shape
+    rowlen = wid * cin
+    margin = strip_margin_floats(padding, cin)
+    assert margin % 4 == 0 and margin >= padding * cin
+    rs = rowlen + 2 * margin
+    nin = strip_input_rows(n, k, stride)
+    n4, m4 = rowlen // 4, margin // 4
+    staged = torch.full((nin * rs,), float("nan"))
+    flat = x[b].reshape(-1)
+    written = torch.zeros(nin * rs, dtype=torch.int32)
+    for i in range(nin * (n4 + 2 * m4)):
+        r, c = divmod(i, n4 + 2 * m4)
+        iy = oy0 * stride - padding + r
+        dst = r * rs + 4 * c
+        assert dst % 4 == 0
+        if m4 <= c < m4 + n4 and 0 <= iy < h:
+            src = iy * rowlen + 4 * (c - m4)
+            assert src % 4 == 0 and src + 4 <= flat.numel()
+            staged[dst:dst + 4] = flat[src:src + 4]
+        else:
+            staged[dst:dst + 4] = 0.0
+        written[dst:dst + 4] += 1
+    assert bool((written == 1).all())
+    return staged, rs, margin - padding * cin
+
+
+def _emulate_strip(x, w, bias, stride, relu, rows, padding=0):
     """The strip kernel's walk in torch: for each block (strip, image), the
-    input rows it stages, flattened as in shared memory; for each warp (an
-    output row), 128-pixel chunk, lane and slot, the sum over (dy, dx, ci)
-    in that order read from the staged rows alone, then bias and ReLU.
-    Returns the output and how many times each (b, oy, ox, co) was
-    written."""
+    input rows it stages, flattened as in shared memory (with ``padding``,
+    each row with its zero margins and the rows outside the image zero,
+    ``_stage_padded``); for each warp (an output row), 128-pixel chunk,
+    lane and slot, the sum over (dy, dx, ci) in that order read from the
+    staged rows alone, then bias and ReLU. Returns the output and how many
+    times each (b, oy, ox, co) was written."""
     bsz, h, wid, cin = x.shape
     k, cout = w.shape[0], w.shape[-1]
-    ho, wo = conv_out_size(h, k, stride), conv_out_size(wid, k, stride)
+    ho = conv_out_size(h, k, stride, padding)
+    wo = conv_out_size(wid, k, stride, padding)
     rowlen = wid * cin
-    wk = w.reshape(k * k * cin, cout)
+    kk = k * k * cin
+    # the weights as staged: blocks of 16 output channels, [Cout/16][K][16],
+    # zero past Cout
+    nblk = -(-cout // STRIP_CO)
+    wpad = torch.zeros((kk, nblk * STRIP_CO))
+    wpad[:, :cout] = w.reshape(kk, cout)
+    sw = wpad.reshape(kk, nblk, STRIP_CO).permute(1, 0, 2).reshape(-1)
     y = torch.full((bsz, ho, wo, cout), float("nan"))
     writes = torch.zeros((bsz, ho, wo, cout), dtype=torch.int32)
     lane = torch.arange(32)[:, None]
@@ -303,9 +412,14 @@ def _emulate_strip(x, w, bias, stride, relu, rows):
         for st in range(-(-ho // rows)):
             oy0 = st * rows
             n = min(rows, ho - oy0)
-            first, count = oy0 * stride, strip_input_rows(n, k, stride)
-            assert first + count <= h
-            staged = x[b, first:first + count].reshape(-1)
+            if padding:
+                staged, rs, shift = _stage_padded(x, b, oy0, n, stride,
+                                                  padding, k)
+            else:
+                first, count = oy0 * stride, strip_input_rows(n, k, stride)
+                assert first + count <= h
+                staged, rs, shift = x[b, first:first + count].reshape(-1), \
+                    rowlen, 0
             for warp in range(n):
                 for c0 in range(0, wo, 32 * STRIP_SLOTS):
                     ox = c0 + 32 * slot + lane               # [32, 4]
@@ -314,22 +428,57 @@ def _emulate_strip(x, w, bias, stride, relu, rows):
                     for co0 in range(0, cout, STRIP_CO):
                         co = torch.arange(co0, min(co0 + STRIP_CO, cout))
                         acc = torch.zeros((32, STRIP_SLOTS, co.numel()))
-                        t = 0
+                        wp = co0 * kk        # this pass's weight block
                         for dy in range(k):
                             for dx in range(k):
                                 for ci in range(cin):
-                                    idx = ((warp * stride + dy) * rowlen
+                                    idx = ((warp * stride + dy) * rs + shift
                                            + dx * cin + base + ci)
+                                    assert int(idx.min()) >= 0
                                     assert int(idx.max()) < staged.numel()
-                                    acc = acc + staged[idx][..., None] * wk[t, co]
-                                    t += 1
+                                    wv = sw[wp:wp + co.numel()]
+                                    acc = acc + staged[idx][..., None] * wv
+                                    wp += STRIP_CO
                         out = acc + bias[co]
                         if relu:
                             out = torch.clamp_min(out, 0.0)
-                        oxv = ox[valid]
-                        y[b, oy0 + warp, oxv[:, None], co] = out[valid]
-                        writes[b, oy0 + warp, oxv[:, None], co] += 1
+                        _store_slots(y, writes, out, b, oy0 + warp, c0,
+                                     co0, wo)
     return y, writes
+
+
+def _store_slots(y, writes, out, b, oy, c0, co0, wo):
+    """The strip's epilogue for one pass of channels. Cout <= 16: lane l
+    stores its pixel's channels itself. Wider: each slot's 32 pixels
+    through the warp's staging (lane l writes its pixel's channels at
+    l * STRIP_YS, 16-byte aligned), then 16-byte chunks in pixel order,
+    lane l on chunk l + 32q: pixel (l + 32q) // 4, part (l + 32q) % 4."""
+    cout = y.shape[-1]
+    nco = out.shape[-1]
+    for j in range(STRIP_SLOTS):
+        px0 = c0 + 32 * j
+        if px0 >= wo:
+            break
+        if cout <= STRIP_CO:
+            for lane in range(min(32, wo - px0)):
+                y[b, oy, px0 + lane] = out[lane, j]
+                writes[b, oy, px0 + lane] += 1
+            continue
+        staging = torch.full((32 * STRIP_YS,), float("nan"))
+        for lane in range(32):
+            assert (lane * STRIP_YS) % 4 == 0
+            staging[lane * STRIP_YS:lane * STRIP_YS + nco] = out[lane, j]
+        npx = min(32, wo - px0)
+        for q in range(4):
+            for lane in range(32):
+                i = lane + 32 * q
+                px, part = i >> 2, i & 3
+                if px < npx and co0 + 4 * part < cout:
+                    src = px * STRIP_YS + 4 * part
+                    assert src % 4 == 0 and (co0 + 4 * part) % 4 == 0
+                    c = slice(co0 + 4 * part, co0 + 4 * part + 4)
+                    y[b, oy, px0 + px, c] = staging[src:src + 4]
+                    writes[b, oy, px0 + px, c] += 1
 
 
 STRIP_WALKS = [
@@ -381,3 +530,113 @@ def test_strip_walk_vs_pallas_interpret_on_conv1_geometry(rng, relu_on):
                                  plan.rows)
     assert bool((writes == 1).all())
     np.testing.assert_allclose(got.numpy(), want, **CONV_TOL)
+
+
+# the families' padded Cin-3 stems (k 3, p 1), scaled down to 32 px and
+# batch 2: resnet10 3 -> 16 s2, resnet18 / mobilenet 3 -> 32 s2, pipecnn
+# 3 -> 64 s2, vgg8 3 -> 32 s1, vgg11 3 -> 64 s1 (Ho 16 or 32); then a
+# ragged last strip at every R (Ho 13), a row past one 128-pixel chunk,
+# padding 2 and Cin 4 / Cin 1 (margins of 8 and 2 floats, rounded to 8 and
+# 4)
+PADDED_STEMS = {
+    "resnet10": (2, 32, 32, 3, 16, 3, 2, 1),
+    "resnet18_mobilenet": (2, 32, 32, 3, 32, 3, 2, 1),
+    "pipecnn": (2, 32, 32, 3, 64, 3, 2, 1),
+    "vgg8": (1, 32, 32, 3, 32, 3, 1, 1),
+    "vgg11": (1, 32, 32, 3, 64, 3, 1, 1),
+}
+PADDED_WALKS = {
+    "ragged_13_rows": (1, 25, 28, 3, 16, 3, 2, 1),
+    "row_past_128": (1, 5, 136, 3, 8, 3, 1, 1),
+    "cin4_pad2": (1, 11, 12, 4, 12, 3, 2, 2),
+    "cin1_k5": (1, 14, 16, 1, 8, 5, 1, 2),
+}
+
+
+def _f32_inputs(rng, b, h, wid, cin, cout, k):
+    x = torch.from_numpy(rng.random((b, h, wid, cin), dtype=np.float32))
+    w = torch.from_numpy((rng.standard_normal((k, k, cin, cout)) * 0.3)
+                         .astype(np.float32))
+    bias = torch.from_numpy((rng.standard_normal((cout,)) * 0.1)
+                            .astype(np.float32))
+    return x, w, bias
+
+
+@pytest.mark.parametrize("batch", [1, 8, 64, 256])
+@pytest.mark.parametrize("stem", list(PADDED_STEMS))
+def test_plan_sends_the_padded_stems_to_the_strip(stem, batch):
+    """At full size (224 px) every family's padded Cin-3 stem takes the
+    strip: R 8 where a row holds more than 4,096 output floats (3 -> 64,
+    and stride 1), else 4; 2 at batch 1 (and 8 at stride 2), 4 for the
+    stride-1 stems at 8, where larger R would leave fewer than two blocks
+    an SM."""
+    _, _, _, cin, cout, k, s, p = PADDED_STEMS[stem]
+    plan = conv_tile_plan(batch, 224, 224, cin, cout, k, s, True, p)
+    ho = conv_out_size(224, k, s, p)
+    want = {1: 2, 8: 4 if s == 1 else 2}.get(
+        batch, 8 if ho * cout > STRIP_WIDE_ROW else 4)
+    assert plan.variant == "strip" and plan.rows == want
+    assert plan.grid == (-(-ho // want), batch)
+    assert cout <= STRIP_COUT_MAX
+    assert strip_smem_bytes(want, 224, cin, cout, k, s, p) <= STRIP_SMEM_MAX
+
+
+@pytest.mark.parametrize("rows", STRIP_ROWS)
+@pytest.mark.parametrize("shape", [*PADDED_STEMS.values(),
+                                   *PADDED_WALKS.values()],
+                         ids=[*PADDED_STEMS, *PADDED_WALKS])
+def test_padded_strip_walk_writes_each_output_once_and_equals_the_plain_conv(
+        rng, shape, rows):
+    """The padded walk: staged rows with zero margins and zero rows,
+    16-byte-aligned copies, reads inside the staged rows, each output
+    written once, equal to the plain conv at the conv tolerance."""
+    b, h, wid, cin, cout, k, s, p = shape
+    x, w, bias = _f32_inputs(rng, b, h, wid, cin, cout, k)
+    for relu_on in (False, True):
+        got, writes = _emulate_strip(x, w, bias, s, relu_on, rows, p)
+        assert bool((writes == 1).all())
+        assert not bool(got.isnan().any())
+        torch.testing.assert_close(got, conv2d(x, w, bias, s, relu_on, p),
+                                   **CONV_TOL)
+
+
+def test_padded_strip_walk_vs_cnn_tpu(rng):
+    """resnet10's stem geometry (3 -> 16, k3 s2 p1) at 32 px through the
+    padded walk with the plan's R, against cnn_tpu's Pallas ``_forward`` on
+    the zero-padded x (interpret mode) and ``cnn_tpu.ops.conv.conv2d``
+    with ``padding=1``."""
+    b, h, wid, cin, cout, k, s, p = PADDED_STEMS["resnet10"]
+    plan = conv_tile_plan(b, h, wid, cin, cout, k, s, True, p)
+    assert plan.variant == "strip"
+    x, w, bias = _f32_inputs(rng, b, h, wid, cin, cout, k)
+    got, writes = _emulate_strip(x, w, bias, s, True, plan.rows, p)
+    assert bool((writes == 1).all())
+    xj = jnp.asarray(x.numpy())
+    pallas = np.asarray(pallas_conv_forward(
+        jnp.pad(xj, ((0, 0), (p, p), (p, p), (0, 0))),
+        jnp.asarray(w.numpy()), jnp.asarray(bias.numpy()), s, True,
+        interpret=True))
+    xla = jops.relu(jops.conv2d({"w": jnp.asarray(w.numpy()),
+                                 "b": jnp.asarray(bias.numpy())}, xj, s,
+                                padding=p))
+    np.testing.assert_allclose(got.numpy(), pallas, **CONV_TOL)
+    np.testing.assert_allclose(got.numpy(), np.asarray(xla), **CONV_TOL)
+
+
+def test_padded_strip_infinity_reaches_exactly_its_windows(rng):
+    """An infinity at the image's edges (beside the margins) and inside
+    reaches exactly the outputs whose window holds it, as in the plain
+    conv: the margins and zero rows add finite zeros, and no read leaves
+    the staged rows."""
+    b, h, wid, cin, cout, k, s, p = 1, 12, 16, 3, 8, 3, 1, 1
+    x, w, bias = _f32_inputs(rng, b, h, wid, cin, cout, k)
+    x[0, 0, 0, 0] = float("inf")             # top-left, by both margins
+    x[0, h - 1, wid - 1, 2] = float("-inf")  # bottom-right
+    x[0, 5, 7, 1] = float("inf")
+    for rows in STRIP_ROWS:
+        got, writes = _emulate_strip(x, w, bias, s, False, rows, p)
+        ref = conv2d(x, w, bias, s, False, p)
+        assert bool((writes == 1).all())
+        assert torch.equal(got.isfinite(), ref.isfinite())
+        assert not bool(ref.isfinite().all())
+        assert torch.equal(got[~got.isfinite()], ref[~ref.isfinite()])

@@ -172,18 +172,18 @@ def family_convs(name: str, size: int = 224):
 
 
 # the variants every family conv takes, float32 / bf16: a padded Cin-3 stem
-# neither strip takes (rows of 3 channels, padded) goes direct / gather;
-# every other conv is tiled, and in bf16 tma where Cin % 64 == 0, wgmma
-# but for the 1x1 stride-2 projections with k*Cin = 16 (ResNet's block_2),
-# which the bf16 strip takes
+# takes both strips (bf16: the widened layout); every other conv is tiled,
+# and in bf16 tma where Cin % 64 == 0, wgmma but for the 1x1 stride-2
+# projections with k*Cin = 16 (ResNet's block_2), which the bf16 strip
+# takes (natural layout)
 @pytest.mark.parametrize("name", FAMILIES)
 @pytest.mark.parametrize("batch", [1, 8, 64, 256])
 def test_plans_take_every_family_conv(name, batch):
     for h, cin, cout, k, s, p in family_convs(name)[0]:
         f32 = conv_tile_plan(batch, h, h, cin, cout, k, s, True, p)
         bf = conv_bf16_plan(batch, h, h, cin, cout, k, s, True, None, p)
-        strip = k * cin == 16 and p == 0 and cout <= 32
-        want = (("direct", "gather") if cin == 3
+        strip = k * cin == 16 and p == 0 and cout <= 64
+        want = (("strip", "strip") if cin == 3
                 else ("tiled", "strip" if strip else
                       "tma" if cin % 64 == 0 else "wgmma"))
         assert (f32.variant, bf.variant) == want, (h, cin, cout, k, s, p)
@@ -196,6 +196,14 @@ def test_plans_take_every_family_conv(name, batch):
             bn, bm = hconv.TMA_TILES[bf.tile][:2]
             assert (bf.grid[0] - 1) * bm < batch * ho * ho <= bf.grid[0] * bm
             assert bf.grid[1] == -(-cout // bn) and bf.k_pad == k * k * cin
+        if cin == 3:    # the stems: padded, R from the plans' rules
+            assert p == 1 and k == 3
+            assert f32.grid == (-(-ho // f32.rows), batch)
+            assert f32.rows == (2 if batch == 1 else 8 if batch >= 64 and (
+                ho * cout > hconv.STRIP_WIDE_ROW) else 4 if batch >= 64
+                or s == 1 else 2)
+            assert hconv.BF16_STRIP_TILES[bf.tile] == (4, True)
+            assert bf.grid == (-(-ho // 4), batch) and bf.k_pad == 48
         if f32.variant == "tiled":
             t = hconv.TILES[f32.tile]
             assert (f32.grid[0] - 1) * t.bm < batch * ho * ho <= \
@@ -203,11 +211,20 @@ def test_plans_take_every_family_conv(name, batch):
 
 
 def test_a_padded_conv_never_takes_a_strip():
-    """The strips stage whole input rows: with padding their plans decline
-    (the same shapes unpadded take them)."""
-    assert conv_tile_plan(8, 224, 224, 4, 16, 3, 2, True).variant == "strip"
-    assert conv_tile_plan(8, 224, 224, 4, 16, 3, 2, True, 1).variant == \
+    """A padded conv never takes a strip that cannot take it: the float32
+    strip stages padded rows for Cin <= 4 (zero margins and zero rows),
+    the bf16 strip only for Cin 3 (the widened layout); other padded shapes
+    decline to the direct kernel and the gather, as before."""
+    for p in (0, 1, 2):
+        assert conv_tile_plan(8, 224, 224, 4, 16, 3, 2, True,
+                              p).variant == "strip"
+    # Cout 68 and misaligned x decline with or without padding
+    assert conv_tile_plan(8, 224, 224, 4, 68, 3, 2, True, 1).variant == \
         "direct"
+    assert conv_tile_plan(8, 224, 224, 3, 16, 3, 2, False, 1).variant == \
+        "direct"
+    assert conv_bf16_plan(8, 224, 224, 3, 16, 3, 2, True, None,
+                          1).variant == "strip"
     assert conv_bf16_plan(8, 224, 224, 2, 16, 3, 2, True).variant == "strip"
     assert conv_bf16_plan(8, 224, 224, 2, 16, 3, 2, True, None,
                           1).variant == "gather"
@@ -241,17 +258,22 @@ def test_wrapper_passes_the_padding_to_the_planned_entry(monkeypatch, dtype):
     n = len(family_convs("resnet10", 64)[0])
     assert counts["conv2d_bias_relu.launches"] == n
     if dtype == torch.bfloat16:
-        # the stem gathers, block_2's 1x1 projection (k*Cin 16) is a strip,
-        # the four shapes of Cin 64 and 128 take tma
+        # the stem is a padded strip, block_2's 1x1 projection (k*Cin 16)
+        # an unpadded one, the four shapes of Cin 64 and 128 take tma
         tma = sum(cin % 64 == 0
                   for _, cin, *_ in family_convs("resnet10", 64)[0])
         assert tma == 4
-        assert counts["conv2d_bias_relu.launches_bf16_gather"] == 1
-        assert counts["conv2d_bias_relu.launches_bf16_strip"] == 1
+        assert counts["conv2d_bias_relu.launches_bf16_gather"] == 0
+        assert counts["conv2d_bias_relu.launches_bf16_strip"] == 2
+        assert counts["conv2d_bias_relu.launches_bf16_strip_padded"] == 1
+        assert counts["conv2d_bias_relu.launches_strip_padded"] == 0
         assert counts["conv2d_bias_relu.launches_bf16_tma"] == tma
         assert counts["conv2d_bias_relu.launches_bf16_wgmma"] == n - 2 - tma
     else:
-        assert counts["conv2d_bias_relu.launches_direct"] == 1
+        assert counts["conv2d_bias_relu.launches_direct"] == 0
+        assert counts["conv2d_bias_relu.launches_strip"] == 1
+        assert counts["conv2d_bias_relu.launches_strip_padded"] == 1
+        assert counts["conv2d_bias_relu.launches_bf16_strip_padded"] == 0
         assert counts["conv2d_bias_relu.launches_tiled"] == n - 1
     reset_launches()
 
