@@ -203,7 +203,26 @@
    their families' counted runs), the padded 3x3 and the 1x1, float32 and
    bf16, timed at B=64 through the wrapper and alone beside cuDNN + ReLU
    alone, and the tma kernel's row (its launches over every counted run,
-   timed at conv4, B = 64).
+   timed at conv4, B = 64);
+19. the training toolbox through ``tools.train`` at the flagship's flags on
+   phase 14's images (its device datasets made once and shared), 20
+   iterations each in float32 and bf16: plain AlexNet; AlexNet with
+   ``--optimizer adam --weight-decay 1e-4 --grad-clip 1.0 --ema 0.999
+   --mixup 0.2 --cutmix 1.0 --color-jitter 0.2``; with ``--grad-accum 4
+   --steps-per-call 4``; distilled from the committed resnet10 (the
+   teacher's eval forward, padded stem strips included, inside the step);
+   resnet10 warm-started from the committed ``resnet10_cat4_transfer`` EMA
+   checkpoint with ``--num-classes 3 --freeze stem`` (the head kept fresh,
+   the stem's params bit-unchanged, every other block moved). Each run:
+   exit code 0, finite losses, the exact launch counts (a step: a forward
+   of each model per microbatch, the student's backward, one rotation;
+   none on the direct or gather conv), the device ms a step (CUDA events)
+   beside the plain run's. Then the
+   evaluate CLI on ``alexnet_distill`` and ``resnet10_cat4_transfer``
+   (a 4th class made of the birds) and ``infer --use-ema`` on the six
+   photos: "evaluating the EMA-averaged weights", the EMA models' logits
+   through the kernels within 1e-4 x max(1, max|ref|) of the plain
+   versions on the card, the printed probabilities within 1e-5.
 
 Every phase prints one flushed line with the seconds since start. Any failed
 check raises, so the exit code is not 0. Without a CUDA device it exits 1
@@ -1485,18 +1504,22 @@ def synthetic_canvases(rng, n: int, size: int, width: int | None = None,
 
 
 def snapshot(ts) -> dict:
-    trace = ts.opt_state["trace"]
+    """The train state of a momentum run on a schedule: its optimizer
+    state is optax's (TraceState, ScaleByScheduleState)."""
+    trace, sched = ts.opt_state
     return {"model": copy.deepcopy(ts.model.state_dict()),
-            "trace": {k: v.clone() for k, v in trace.items()},
-            "count": ts.opt_state["count"], "step": ts.step,
+            "trace": {k: v.clone() for k, v in trace.trace.items()},
+            "count": int(sched.count), "step": ts.step,
             "rng": ts.rng.get_state()}
 
 
 def restore(ts, snap: dict) -> None:
     ts.model.load_state_dict(snap["model"])
-    for k, v in ts.opt_state["trace"].items():
+    trace, sched = ts.opt_state
+    for k, v in trace.trace.items():
         v.copy_(snap["trace"][k])
-    ts.opt_state["count"], ts.step = snap["count"], snap["step"]
+    sched.count.fill_(snap["count"])
+    ts.step = snap["step"]
     ts.rng.set_state(snap["rng"])
 
 
@@ -1574,7 +1597,7 @@ def state_tensors(ts) -> dict:
     out = {f"param {k}": v.detach().clone()
            for k, v in named_params(ts.model).items()}
     out.update({f"grad {k}": v.clone()
-                for k, v in ts.opt_state["trace"].items()})
+                for k, v in ts.opt_state[0].trace.items()})
     return out
 
 
@@ -2160,7 +2183,7 @@ def bf16_training_phase(f32: dict) -> dict:
     check(last < first, f"bf16 loss did not fall: first 5 {first}, last 5 "
           f"{last}")
     check(all(p.dtype == torch.float32 for p in model.parameters())
-          and all(v.dtype == torch.float32 for v in ts.opt_state["trace"]
+          and all(v.dtype == torch.float32 for v in ts.opt_state[0].trace
                   .values()), "bf16 training: a master tensor left float32")
     acc = correct / held.shape[0]
     img_s = TRAIN_STEPS * TRAIN_B / wall
@@ -3736,6 +3759,285 @@ def families_training_phase(smi: str, tmp: Path, cli: dict) -> dict:
     return total
 
 
+# ---------------------------------------------------------------------------
+# the training toolbox through the train, evaluate and infer CLIs (phase 19)
+# ---------------------------------------------------------------------------
+
+TOOLBOX_STEPS = 20
+TEACHER = ROOT / "checkpoints" / "resnet10" / (
+    "iter_15000_train_0.997_valid_0.970.ckpt")
+TRANSFER = ROOT / "checkpoints" / "resnet10_cat4_transfer" / (
+    "iter_12000_train_0.976_valid_0.873.ckpt")
+DISTILLED = ROOT / "checkpoints" / "alexnet_distill" / (
+    "iter_17000_train_0.992_valid_0.930.ckpt")
+# run -> (its model, the flags beside the flagship's)
+TOOLBOX_RUNS = {
+    "plain": ("alexnet", []),
+    "adamw+clip+ema+mixup+cutmix+jitter": ("alexnet", [
+        "--optimizer", "adam", "--learning-rate", "1e-3",
+        "--weight-decay", "1e-4", "--grad-clip", "1.0", "--ema", "0.999",
+        "--mixup", "0.2", "--cutmix", "1.0", "--color-jitter", "0.2"]),
+    "grad-accum 4, steps-per-call 4": ("alexnet", [
+        "--grad-accum", "4", "--steps-per-call", "4"]),
+    "distilled from resnet10": ("alexnet", [
+        "--distill-from", str(TEACHER), "--distill-model", "resnet10"]),
+    "resnet10 warm-started, stem frozen": ("resnet10", [
+        "--init-from", str(TRANSFER), "--num-classes", "3",
+        "--freeze", "stem"]),
+}
+def toolbox_want(models, dtype, steps: int, accum: int, evals: int) -> dict:
+    """The exact counters of a run of ``models`` (the student, then any
+    teachers): ``steps`` train steps of ``accum`` microbatches, each a
+    forward of every model and the student's backward (its pool backward
+    once per pool), one rotation a step; ``evals`` normalized eval
+    batches, each a forward of the student. A model's forward launches
+    what ``forward_counts`` finds; no fallback conv is among them (phases
+    17-18 hold that)."""
+    fwd = [forward_counts(m, dtype)[0] for m in models]
+    passes = steps * accum
+    want = {k: v * (passes + evals) for k, v in fwd[0].items()}
+    for f in fwd[1:]:
+        for k, v in f.items():
+            want[k] = want.get(k, 0) + v * passes
+    pools = fwd[0].get("max_pool2d_fwd.launches", 0) * passes
+    want["max_pool2d_bwd.launches"] = pools
+    want["max_pool2d_bwd.launches_bf16" if dtype is not None
+         else "max_pool2d_bwd.launches_window"] = pools
+    want["rotate_shear.launches"] = steps
+    want["uint8_normalize.launches"] = evals
+    want["uint8_normalize.launches_wide"] = evals
+    return {k: v for k, v in want.items() if v}
+
+
+@contextmanager
+def shared_device_datasets():
+    """The train CLI's ``DeviceDataset``s made once per (samples, size) and
+    reused by every later run of the phase (the data is only read)."""
+    made = {}
+    real = train_cli.DeviceDataset
+
+    def cached(samples, size, *args, **kwargs):
+        key = (tuple(samples), size)
+        if key not in made:
+            made[key] = real(samples, size, *args, **kwargs)
+        return made[key]
+    with mock.patch.object(train_cli, "DeviceDataset", cached):
+        yield
+
+
+def ema_logits_check(model, photos, what: str) -> float:
+    """The EMA model's float32 logits on the photos through the kernels
+    against the plain versions on the card: within LOGIT_ATOL x max(1,
+    max|ref|); returns the scaled deviation."""
+    x = uint8_to_float(torch.from_numpy(photos).cuda())
+    model.eval()
+    with torch.no_grad():
+        got = model(x).float()
+        with plain_versions():
+            ref = model(x).float()
+    dev = float((got - ref).abs().max()) / max(1.0, float(ref.abs().max()))
+    check(dev <= LOGIT_ATOL and bool(torch.equal(got.argmax(-1),
+                                                 ref.argmax(-1))),
+          f"{what}: EMA logits against the plain versions, scaled max|dev| "
+          f"{dev:.3g}")
+    return dev
+
+
+def toolbox_phase(smi: str, tmp: Path, cli: dict) -> tuple[dict, dict]:
+    """Phase 19: the training toolbox through the train CLI at the
+    flagship's flags on phase 14's images, 20 iterations each in float32
+    and bf16 (``TOOLBOX_RUNS``), the evaluate CLI on two committed EMA
+    checkpoints and ``infer --use-ema`` on the six photos. Returns the
+    launches of the AlexNet-only runs and of the runs with a resnet10,
+    each added up."""
+    nv, nt = cli["valid_batches"], cli["test_batches"]
+    base = ["--dataset-path", str(cli["data"]), *cli["sizes"]]
+    f32_flags = [f for f in CLI_FLAGSHIP if f not in ("--compute-dtype",
+                                                      "bfloat16")]
+    alex, fam, lines, step_ms = {}, {}, [], {}
+    with shared_device_datasets():
+        for dtype in (None, BF16):
+            tag = "bf16" if dtype is not None else "float32"
+            flags = CLI_FLAGSHIP if dtype is not None else f32_flags
+            for run, (name, more) in TOOLBOX_RUNS.items():
+                models = [get_model(name, num_classes=3, image_size=224,
+                                    batch_norm=True, device="cuda")]
+                if "--distill-from" in more:
+                    models.append(get_model("resnet10", num_classes=3,
+                                            image_size=224, batch_norm=True,
+                                            device="cuda"))
+                accum = (int(more[more.index("--grad-accum") + 1])
+                         if "--grad-accum" in more else 1)
+                want = toolbox_want(models, dtype, TOOLBOX_STEPS, accum,
+                                    nv + nt)
+                del models
+                ck = tmp / f"toolbox_{tag}_{len(lines)}"
+                argv = flags + base + [
+                    "--name", name, "--checkpoint-dir", str(ck),
+                    "--total-iters", str(TOOLBOX_STEPS), "--valid-iters",
+                    "20", "--save-iters", "20", *more]
+                spc = (int(more[more.index("--steps-per-call") + 1])
+                       if "--steps-per-call" in more else 1)
+                losses, events = [], []
+                real_make = train_cli.make_device_train_step
+
+                def recording(*args, **kwargs):
+                    step = real_make(*args, **kwargs)
+
+                    def wrapped(ts):
+                        a = torch.cuda.Event(enable_timing=True)
+                        e = torch.cuda.Event(enable_timing=True)
+                        a.record()
+                        ts, m = step(ts)
+                        e.record()
+                        losses.append(m["loss"].detach().float())
+                        events.append((a, e))
+                        return ts, m
+                    return wrapped
+                with mock.patch.object(train_cli, "make_device_train_step",
+                                       recording):
+                    text, counts, secs = counted_run(
+                        f"toolbox {run} ({tag})", train_cli.main, argv, want)
+                loss = torch.stack(losses).cpu()
+                check(len(loss) * spc == TOOLBOX_STEPS
+                      and bool(torch.isfinite(loss).all())
+                      and "training done!" in text and "Test===>" in text,
+                      f"toolbox {run} ({tag}): losses {loss}; output ends "
+                      f"{text[-1500:]!r}")
+                ms = float(np.mean([a.elapsed_time(e) for a, e in
+                                    events[len(events) // 2:]])) / spc
+                step_ms[(run, tag)] = ms
+                (path,) = ck.glob(f"iter_{TOOLBOX_STEPS}_*.ckpt")
+                saved = read_checkpoint(str(path))
+                extra = toolbox_checks(run, text, saved)
+                add_up(fam if name == "resnet10" or "--distill-from" in more
+                       else alex, counts)
+                if name == "resnet10" or "--distill-from" in more:
+                    add_up(fam, stem_counts("resnet10", counts))
+                test = [l for l in text.splitlines()
+                        if l.startswith("Test===>")][-1]
+                lines.append(f"{run} ({tag}): device {ms:.3f} ms a step "
+                             f"(CUDA events, second half), loss first "
+                             f"{loss[0].item():.4f} last {loss[-1].item():.4f}"
+                             f"; {test}; {extra}; {secs:.1f} s")
+    for line in lines:
+        phase(f"toolbox, {line}")
+
+    # evaluate on two committed EMA checkpoints (legacy: no EMA'd BN
+    # state), the second a 4-class resnet10 on the images with a 4th class
+    # made of the birds
+    cat4 = tmp / "animals4"
+    cat4.mkdir()
+    for c in ("dog", "panda", "bird"):
+        (cat4 / c).symlink_to(Path(cli["data"]) / c)
+    (cat4 / "cat").symlink_to(Path(cli["data"]) / "bird")
+    photos = family_photos()
+    evals = [("alexnet_distill", DISTILLED, "alexnet", 3, cli["data"],
+              "dog,panda,bird"),
+             ("resnet10_cat4_transfer", TRANSFER, "resnet10", 4, cat4,
+              "dog,panda,bird,cat")]
+    ev_lines = []
+    for what, path, name, nc, data, cats in evals:
+        probe = get_model(name, num_classes=nc, image_size=224,
+                          batch_norm=True, device="cuda")
+        n_test = len(split_dataset(discover_dataset(
+            str(data), tuple(cats.split(","))))["test"])
+        want = toolbox_want([probe], None, 0, 1, -(-n_test // B))
+        del probe
+        argv = ["--dataset-path", str(data), "--categories", cats,
+                "--image-size", "224", "--valid-batch-size", str(B),
+                "--resume", str(path), "--name", name, "--num-classes",
+                str(nc), "--split", "test"]
+        text, counts, secs = counted_run(f"evaluate {what}",
+                                         evaluate_cli.main, argv, want)
+        add_up(alex if name == "alexnet" else fam, counts)
+        if name == "resnet10":
+            add_up(fam, stem_counts("resnet10", counts))
+        check(f"{path}: evaluating the EMA-averaged weights" in text,
+              f"evaluate {what}: {text[-1500:]!r}")
+        test = [l for l in text.splitlines() if l.startswith("Test===>")]
+        model = evaluate_cli.load_model(str(path), name, "cuda",
+                                        announce=False, num_classes=nc,
+                                        image_size=224)
+        dev = ema_logits_check(model, photos, f"evaluate {what}")
+        ev_lines.append(f"{what}: {test[0]}, EMA logits against the plain "
+                        f"versions scaled max|dev| {dev:.3g}, {secs:.3f} s")
+
+    paths = write_photos(tmp)[1]
+    want = toolbox_want([get_model("alexnet", num_classes=3,
+                                   image_size=224, batch_norm=True,
+                                   device="cuda")], None, 0, 1, len(paths))
+    text, counts, secs = counted_run(
+        "infer --use-ema", infer_cli.main,
+        ["--checkpoint", str(DISTILLED), "--batch-norm", "--use-ema",
+         *paths], want)
+    add_up(alex, counts)
+    rows = predictions(text)
+    model = get_model("alexnet", num_classes=3, image_size=224,
+                      batch_norm=True, device="cuda")
+    infer_cli.load_params(str(DISTILLED), model, use_ema=True)
+    dev = ema_logits_check(model, photos, "infer --use-ema")
+    x = uint8_to_float(torch.from_numpy(photos).cuda())
+    with torch.no_grad(), plain_versions():
+        probs = torch.softmax(model(x).float(), dim=-1).cpu()
+    check(len(rows) == 6 and all(
+        abs(p - float(probs[i].max())) <= PROB_ATOL
+        and r == ("dog", "panda", "bird")[int(probs[i].argmax())]
+        for i, (_, r, p) in enumerate(rows)),
+        f"infer --use-ema printed {rows}, the plain versions give "
+        f"{probs.max(-1)}")
+    ev_lines.append(f"infer --use-ema ({DISTILLED.parent.name}): "
+                    f"{[r[1] for r in rows]}, probabilities within "
+                    f"{PROB_ATOL} of the plain versions', logits scaled "
+                    f"max|dev| {dev:.3g}, {secs:.3f} s")
+    for line in ev_lines:
+        phase(f"toolbox, {line}")
+    phase(f"training toolbox ({smi}): launches exact in every run (per "
+          "step and microbatch a forward of each model and the student's "
+          "backward, one rotation a step; none on a fallback conv); device "
+          "ms a step, plain AlexNet against each run: " + "; ".join(
+              f"{run} {tag} {ms:.3f}" for (run, tag), ms in step_ms.items()))
+    return alex, fam
+
+
+def toolbox_checks(run: str, text: str, saved: dict) -> str:
+    """What each run must show beyond its launches and losses; returns a
+    note for its line."""
+    opt = saved["opt_state"]
+    if "--ema" in TOOLBOX_RUNS[run][1]:
+        check("weight EMA: decay 0.999" in text
+              and type(opt).__name__ == "EmaState"
+              and int(opt.count) == TOOLBOX_STEPS
+              and opt.mstate is not None,
+              f"{run}: the EMA state {type(opt).__name__}")
+        return (f"EMA count {int(opt.count)}, inner "
+                f"{[type(s).__name__ for s in opt.inner]}")
+    if "--grad-accum" in TOOLBOX_RUNS[run][1]:
+        check(saved["step"] == TOOLBOX_STEPS,
+              f"{run}: step {saved['step']}")
+        return f"{TOOLBOX_STEPS // 4} calls of 4 steps, 4 microbatches each"
+    if "--distill-from" in TOOLBOX_RUNS[run][1]:
+        check("distilling from 1 teacher(s)" in text, f"{run}: {text[:600]!r}")
+        return "teacher resnet10 in eval mode"
+    if "--init-from" in TOOLBOX_RUNS[run][1]:
+        line = next(l for l in text.splitlines()
+                    if l.startswith("warm start from"))
+        check(line.endswith("kept fresh: /linear_1/w (shape (128, 4) vs "
+                            "(128, 3)), /linear_1/b (shape (4,) vs (3,))"),
+              f"{run}: {line}")
+        src = read_checkpoint(str(TRANSFER))["params"]
+        got = saved["params"]
+        frozen = {k: same_trees(got[k], src[k]) for k in got
+                  if k.startswith("stem")}
+        moved = {k: not same_trees(got[k], src[k]) for k in got
+                 if not k.startswith(("stem", "linear_1"))}
+        check(frozen and all(frozen.values()) and all(moved.values()),
+              f"{run}: stem unchanged {frozen}, others moved {moved}")
+        return (f"{line.split(': ')[1]}; stem bit-unchanged, "
+                f"{len(moved)} other subtrees moved")
+    return "momentum, no toolbox flag"
+
+
 def same_trees(a, b) -> bool:
     if isinstance(a, dict):
         return (isinstance(b, dict) and sorted(a) == sorted(b)
@@ -3853,6 +4155,11 @@ def main() -> int:
         family_function_phase(gen)
         pipecnn_memory_phase(smi)
         add_up(fam, families_training_phase(smi, Path(tmp), flagship))
+        # the training toolbox (phase 19): the AlexNet-only runs count on
+        # the CLIs' rows, those with a resnet10 on the families'
+        tool_alex, tool_fam = toolbox_phase(smi, Path(tmp), flagship)
+        add_up(cli, tool_alex)
+        add_up(fam, tool_fam)
 
     # the CLIs' launches (phases 14-16): float32 ones on the float32 rows,
     # the rotation in either dtype on its one row

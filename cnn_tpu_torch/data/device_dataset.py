@@ -4,7 +4,7 @@ of ``cnn_tpu/data/device_dataset.py``.
 The uint8 canvases and their labels are uploaded to the GPU once; each step
 samples its batch there (uniform with replacement, or by walking per-epoch
 permutations), augments it, and trains on it, with no host traffic but the
-launches.
+launches; ``steps_per_call`` such steps a call.
 
 ``DeviceDataset(samples, image_size, num_workers)`` decodes a list of
 ``(path, label)`` samples through the host ``DataLoader`` (``data/image.py``
@@ -21,7 +21,8 @@ import torch
 from cnn_tpu_torch import default_device
 from cnn_tpu_torch.data.loader import DataLoader
 from cnn_tpu_torch.parallel.train_step import (TrainState, apply_gradients,
-                                               check_supported, to_compute)
+                                               check_supported,
+                                               normalize_distill, to_compute)
 
 
 class DeviceDataset:
@@ -139,24 +140,38 @@ def make_device_train_step(model, optimizer, dataset: DeviceDataset,
     ``dtype``, e.g. ``augment_batch(..., dtype=torch.bfloat16)``, as
     ``cnn_tpu``'s train CLI does); without it the uint8 batch is normalized
     to float32 and rounded to ``compute_dtype``.
+
+    ``steps_per_call``: that many steps a call, each on its own sampled
+    batch; the metrics are their mean loss, their summed ``correct`` and
+    ``batch = batch_size * steps_per_call``. ``grad_accum``, ``mixup``,
+    ``cutmix`` and ``distill`` are ``make_train_step``'s.
     """
-    check_supported(compute_dtype=compute_dtype, mesh=mesh,
-                    steps_per_call=steps_per_call, grad_accum=grad_accum,
-                    mixup=mixup, cutmix=cutmix, distill=distill)
+    check_supported(compute_dtype=compute_dtype, mesh=mesh)
     if sample_mode not in ("local", "global", "epoch", "epoch_fixed"):
         raise ValueError(f"unknown sample_mode '{sample_mode}'")
     epoch_mode = sample_mode.startswith("epoch")
+    dst = normalize_distill(distill)
 
-    def step(ts: TrainState):
+    def one(ts: TrainState):
         if epoch_mode:
             images, labels = dataset.epoch_sample(
                 ts.seed, ts.step, batch_size, sample_mode == "epoch_fixed")
         else:
             images, labels = dataset.sample(ts.rng, batch_size)
         images = to_compute(images, ts.rng, augment_fn, compute_dtype)
-        metrics = apply_gradients(ts, optimizer, images, labels,
-                                  label_smoothing, compute_dtype)
-        metrics["batch"] = batch_size
+        return apply_gradients(ts, optimizer, images, labels,
+                               label_smoothing, compute_dtype,
+                               grad_accum=grad_accum, mixup=mixup,
+                               cutmix=cutmix, distill=dst)
+
+    def step(ts: TrainState):
+        if steps_per_call == 1:
+            metrics = one(ts)
+        else:
+            runs = [one(ts) for _ in range(steps_per_call)]
+            metrics = {"loss": torch.stack([m["loss"] for m in runs]).mean(),
+                       "correct": sum(m["correct"] for m in runs)}
+        metrics["batch"] = batch_size * steps_per_call
         return ts, metrics
 
     return step

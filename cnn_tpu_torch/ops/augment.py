@@ -24,6 +24,10 @@ with TF32 off unless the caller turned it on, or bf16, summed in float32
 
 ``rotate_shear_plain`` is the plain version of the rotation kernel: the
 same three shears as ``_rotate_core``, each a direct gather of its two taps.
+
+``batch_mix`` (MixUp / CutMix) and ``color_jitter`` are split the same way
+(``draw_mix`` / ``apply_mix``, ``draw_jitter`` / ``apply_jitter``); they
+are elementwise PyTorch, as ``cnn_tpu`` leaves them to XLA.
 """
 
 from __future__ import annotations
@@ -313,3 +317,135 @@ def augment_batch_fast(generator: torch.Generator, images: torch.Tensor,
     """Flips and random-resized-crop only (no rotation): draw, then apply."""
     p = draw_fast(generator, images.shape[0], hflip_p, vflip_p, crop_p)
     return apply_fast(images, p, out_size, dtype)
+
+
+# ---------------------------------------------------------------------------
+# batch mixing (MixUp / CutMix) and colour jitter: draw and apply
+# ---------------------------------------------------------------------------
+
+class MixDraw(NamedTuple):
+    """``batch_mix``'s random values: the partner permutation [B] and, as
+    0-d tensors, MixUp's lambda, CutMix's lambda before the box is clipped
+    and the box centre, and, with both alphas, whether this batch cuts."""
+    perm: torch.Tensor
+    lam_mixup: torch.Tensor | None = None
+    lam_cutmix: torch.Tensor | None = None
+    cy: torch.Tensor | None = None
+    cx: torch.Tensor | None = None
+    use_cut: torch.Tensor | None = None
+
+
+def draw_beta(generator: torch.Generator, alpha: float) -> torch.Tensor:
+    """Beta(alpha, alpha) as float32 0-d, on the generator's device: the
+    ratio of two float64 Gamma(alpha) draws."""
+    g = torch._standard_gamma(
+        torch.full((2,), float(alpha), dtype=torch.float64,
+                   device=generator.device), generator=generator)
+    return (g[0] / (g[0] + g[1])).float()
+
+
+def draw_mix(generator: torch.Generator, batch: int, height: int, width: int,
+             mixup_alpha: float = 0.0, cutmix_alpha: float = 0.0) -> MixDraw:
+    """``batch_mix``'s draws, from ``generator`` on its device."""
+    if not (mixup_alpha > 0.0 or cutmix_alpha > 0.0):
+        raise ValueError("batch_mix needs mixup_alpha or cutmix_alpha")
+    dev = generator.device
+    perm = torch.randperm(batch, generator=generator, device=dev)
+    lam_mixup = (draw_beta(generator, mixup_alpha) if mixup_alpha > 0.0
+                 else None)
+    lam_cutmix = cy = cx = None
+    if cutmix_alpha > 0.0:
+        lam_cutmix = draw_beta(generator, cutmix_alpha)
+        cy = torch.randint(0, height, (), generator=generator, device=dev)
+        cx = torch.randint(0, width, (), generator=generator, device=dev)
+    use_cut = (torch.rand((), generator=generator, device=dev) < 0.5
+               if mixup_alpha > 0.0 and cutmix_alpha > 0.0 else None)
+    return MixDraw(perm, lam_mixup, lam_cutmix, cy, cx, use_cut)
+
+
+def apply_mix(images: torch.Tensor, d: MixDraw):
+    """MixUp / CutMix of float NHWC ``images`` with ``d``'s draws; returns
+    ``(mixed, perm, lam)``, ``lam`` float32 0-d. MixUp blends ``lam * x +
+    (1 - lam) * x[perm]`` in the images' dtype; CutMix pastes the
+    partner's box of side ``sqrt(1 - lam0)`` times the image's about the
+    centre, clipped to the image, and re-derives ``lam`` from the clipped
+    area; with both, ``use_cut`` picks. The loss mixes as ``lam * CE(y) +
+    (1 - lam) * CE(y[perm])``."""
+    b, h, w = images.shape[:3]
+    partner = images.index_select(0, d.perm)
+    mixed = lam = None
+    if d.lam_mixup is not None:
+        lam = d.lam_mixup.float()
+        mixed = (images * lam.to(images.dtype)
+                 + partner * (1.0 - lam).to(images.dtype))
+    if d.lam_cutmix is not None:
+        cut = torch.sqrt(1.0 - d.lam_cutmix.float())
+        ch = (cut * h).to(torch.int32)
+        cw = (cut * w).to(torch.int32)
+        y0 = torch.clamp(d.cy - ch // 2, 0, h)
+        y1 = torch.clamp(d.cy + (ch + 1) // 2, 0, h)
+        x0 = torch.clamp(d.cx - cw // 2, 0, w)
+        x1 = torch.clamp(d.cx + (cw + 1) // 2, 0, w)
+        rows = torch.arange(h, device=images.device)[:, None]
+        cols = torch.arange(w, device=images.device)[None, :]
+        inside = (rows >= y0) & (rows < y1) & (cols >= x0) & (cols < x1)
+        cut_images = torch.where(inside[None, :, :, None], partner, images)
+        cut_lam = 1.0 - ((y1 - y0) * (x1 - x0)).float() / float(h * w)
+        if mixed is None:
+            mixed, lam = cut_images, cut_lam
+        else:
+            mixed = torch.where(d.use_cut, cut_images, mixed)
+            lam = torch.where(d.use_cut, cut_lam, lam)
+    return mixed, d.perm, lam
+
+
+def batch_mix(generator: torch.Generator, images: torch.Tensor,
+              mixup_alpha: float = 0.0, cutmix_alpha: float = 0.0):
+    """MixUp / CutMix (``cnn_tpu``'s ``batch_mix``): draw, then apply; one
+    lambda per batch. Call on float images."""
+    b, h, w = images.shape[:3]
+    return apply_mix(images, draw_mix(generator, b, h, w, mixup_alpha,
+                                      cutmix_alpha))
+
+
+class JitterDraw(NamedTuple):
+    """``color_jitter``'s per-image factors, [B,1,1,1] each."""
+    bright: torch.Tensor     # U(-s, s)
+    contrast: torch.Tensor   # U(1-s, 1+s)
+    sat: torch.Tensor        # U(1-s, 1+s)
+
+
+def draw_jitter(generator: torch.Generator, batch: int, strength: float,
+                dtype=torch.float32) -> JitterDraw:
+    """``color_jitter``'s draws, in ``dtype``, from ``generator`` on its
+    device."""
+    u = torch.rand((3, batch, 1, 1, 1), generator=generator,
+                   device=generator.device)
+    s = float(strength)
+    return JitterDraw((-s + 2 * s * u[0]).to(dtype),
+                      (1 - s + 2 * s * u[1]).to(dtype),
+                      (1 - s + 2 * s * u[2]).to(dtype))
+
+
+def apply_jitter(images: torch.Tensor, d: JitterDraw) -> torch.Tensor:
+    """Saturation (lerp toward the per-pixel channel mean), contrast (about
+    the per-image mean), brightness (added), then clipped to [0, 1]; on
+    float images in [0, 1]. Each mean is ``jnp.mean``'s as XLA computes
+    it: the float32 sum times ``1/n``, in the images' dtype."""
+    def mean(t, dims):
+        n = math.prod(t.shape[d] for d in dims)
+        return (t.sum(dim=dims, keepdim=True, dtype=torch.float32)
+                * (1.0 / n)).to(t.dtype)
+    gray = mean(images, (-1,))
+    x = gray + d.sat * (images - gray)
+    m = mean(x, (1, 2, 3))
+    x = m + d.contrast * (x - m) + d.bright
+    return torch.clamp(x, 0.0, 1.0)
+
+
+def color_jitter(generator: torch.Generator, images: torch.Tensor,
+                 strength: float = 0.2) -> torch.Tensor:
+    """Per-image brightness / contrast / saturation jitter (``cnn_tpu``'s
+    ``color_jitter``): draw, then apply."""
+    return apply_jitter(images, draw_jitter(generator, images.shape[0],
+                                            strength, images.dtype))

@@ -2,11 +2,20 @@
 ``cnn_tpu/parallel/train_step.py``.
 
 A train step runs, in order: the augmentation (or the uint8 normalize
-kernel), the forward in training mode (BN by batch statistics, moving
-statistics updated in place), the softmax cross-entropy, the backward
-(autograd through the conv and pool kernels' Functions) and the optimizer
-update. PyTorch runs eagerly and in place, so the step changes the model,
-the optimizer state and the generator of ``TrainState`` and returns it.
+kernel), then for each of ``grad_accum`` microbatches (one by default) the
+batch mixing (MixUp / CutMix, ``ops/augment.py:batch_mix``), the teachers'
+eval forwards (distillation), the forward in training mode (BN by batch
+statistics, moving statistics updated in place, so once a microbatch),
+the loss and the backward (autograd through the conv and pool kernels'
+Functions); then the optimizer update on the mean gradient and the EMA of
+the model state (``optim.ema_update_state``). PyTorch runs eagerly and in
+place, so the step changes the model, the optimizer state and the
+generator of ``TrainState`` and returns it.
+
+The loss is ``cnn_tpu``'s ``_loss_fn``: the softmax cross-entropy, mixed
+as ``lam * CE(y) + (1 - lam) * CE(y[perm])`` under MixUp / CutMix, then
+``alpha * loss + (1 - alpha) * KD`` with a teacher, KD the
+``T^2``-scaled KL against the mean of the teachers' softmaxes at ``T``.
 
 ``compute_dtype`` is None / float32, or bf16: ``cnn_tpu``'s bf16 policy.
 The master parameters, the optimizer state and BN's moving statistics stay
@@ -14,28 +23,33 @@ float32; uint8 images are normalized to float32 and rounded to bf16 (an
 ``augment_fn``'s output is cast to it); each conv and the linear layer cast
 their input and weights to bf16; the logits go to float32 before the loss.
 
-A Dropout in the model draws its channels from ``ts.rng`` in training.
+Every draw (a Dropout's channels, the mix) comes from ``ts.rng``.
 
 Eval runs in eval mode without gradients: ``make_eval_step`` (with
 test-time augmentation, ``tta``), ``make_ensemble_eval_step`` and
-``make_forward`` (probabilities, for inference).
+``make_forward`` (probabilities, for inference); ``ema_weights`` puts a
+train state's EMA weights and model state in its model around an eval.
 
-Not ported yet (each raises ``NotImplementedError``): other compute dtypes
-(float16), meshes, ``grad_accum``, ``steps_per_call``, mixup/cutmix and
-distillation.
+Not ported (each raises ``NotImplementedError``): other compute dtypes
+(float16) and meshes.
 """
 
 from __future__ import annotations
 
 import math
+from contextlib import contextmanager
 from dataclasses import dataclass
 
 import torch
 from torch import nn
 
 from cnn_tpu_torch.nn.module import leaf_name
+from cnn_tpu_torch.ops.augment import batch_mix
 from cnn_tpu_torch.ops.hopper.normalize import uint8_normalize
-from cnn_tpu_torch.ops.losses import softmax_cross_entropy
+from cnn_tpu_torch.ops.losses import (distillation_loss_from_probs,
+                                      softmax_cross_entropy)
+from cnn_tpu_torch.optim import (ema_model_state, ema_params,
+                                 ema_update_state)
 
 
 @dataclass
@@ -44,7 +58,7 @@ class TrainState:
     random number of the steps on the model's device; ``seed`` keys the
     per-epoch permutations of the epoch samplers."""
     model: nn.Module
-    opt_state: dict
+    opt_state: object
     step: int
     rng: torch.Generator
     seed: int
@@ -60,18 +74,52 @@ def named_params(model) -> dict:
             if not is_state}
 
 
+def named_state(model) -> dict:
+    """``{name: buffer}`` of the model state (BN's moving statistics),
+    named as ``named_params`` names the params."""
+    net = getattr(model, "net", model)
+    return {leaf_name(path): t for path, t, is_state in net.tree_leaves()
+            if is_state}
+
+
 def create_train_state(model, optimizer, seed: int = 0) -> TrainState:
+    """The optimizer's fresh state, its EMA of the model state seeded
+    here (``cnn_tpu``'s ``create_train_state`` does the same)."""
     device = next(model.parameters()).device
     rng = torch.Generator(device=device).manual_seed(seed)
-    return TrainState(model, optimizer.init(named_params(model)), 0, rng, seed)
+    opt_state = ema_update_state(optimizer.init(named_params(model)),
+                                 named_state(model))
+    return TrainState(model, opt_state, 0, rng, seed)
+
+
+@contextmanager
+def ema_weights(ts: TrainState):
+    """Inside the block ``ts.model`` holds the EMA weights of
+    ``ts.opt_state`` and its EMA'd model state (the raw state where a
+    legacy checkpoint has none); outside, its own. Without an EMA, the
+    model as it is."""
+    ema = ema_params(ts.opt_state)
+    if ema is None:
+        yield
+        return
+    live = {**named_params(ts.model), **named_state(ts.model)}
+    swap = {**ema, **ema_model_state(ts.opt_state, {})}
+    with torch.no_grad():
+        kept = {k: live[k].clone() for k in swap}
+        for k, v in swap.items():
+            live[k].copy_(v)
+    try:
+        yield
+    finally:
+        with torch.no_grad():
+            for k, v in kept.items():
+                live[k].copy_(v)
 
 
 def check_supported(**flags) -> None:
-    """Raises ``NotImplementedError`` naming each option not ported yet."""
+    """Raises ``NotImplementedError`` naming each option not ported."""
     off = {"compute_dtype": (None, torch.float32, torch.bfloat16),
-           "mesh": (None,),
-           "grad_accum": (1,), "steps_per_call": (1,), "mixup": (0.0,),
-           "cutmix": (0.0,), "distill": (None,), "tta": tuple(TTA_VIEWS)}
+           "mesh": (None,), "tta": tuple(TTA_VIEWS)}
     for name, value in flags.items():
         if value not in off[name]:
             raise NotImplementedError(f"{name}={value!r} is not ported yet")
@@ -86,29 +134,125 @@ def prep(images: torch.Tensor, compute_dtype=None) -> torch.Tensor:
 
 
 def loss_fn(model, images, labels, label_smoothing: float = 0.0,
-            compute_dtype=None, generator=None):
-    """Forward and loss; returns ``(loss, correct)``. ``generator`` feeds
-    a Dropout in training mode."""
+            compute_dtype=None, generator=None, mix=None, dist=None):
+    """Forward and loss (``cnn_tpu``'s ``_loss_fn``); returns ``(loss,
+    correct)``. ``generator`` feeds a Dropout in training mode; ``mix`` is
+    ``(perm, lam)`` of a mixed batch, ``dist`` ``(teacher_probs, T,
+    alpha)``."""
     logits = model(images, compute_dtype=compute_dtype,
                    generator=generator).float()
-    loss = softmax_cross_entropy(logits, labels, label_smoothing)
+    if mix is not None:
+        perm, lam = mix
+        loss = (lam * softmax_cross_entropy(logits, labels, label_smoothing)
+                + (1.0 - lam) * softmax_cross_entropy(
+                    logits, labels[perm], label_smoothing))
+    else:
+        loss = softmax_cross_entropy(logits, labels, label_smoothing)
+    if dist is not None:
+        probs, temp, alpha = dist
+        loss = alpha * loss + (1.0 - alpha) * distillation_loss_from_probs(
+            logits, probs, temp)
     correct = (logits.argmax(dim=-1) == labels).sum()
     return loss, correct
 
 
-def apply_gradients(ts: TrainState, optimizer, images, labels,
-                    label_smoothing: float = 0.0, compute_dtype=None) -> dict:
-    """Forward in training mode, backward, optimizer update; advances
-    ``ts.step``; a Dropout draws from ``ts.rng``. Returns the metrics, as
-    device tensors."""
+def normalize_distill(distill):
+    """A ``distill`` spec, ``(teacher model or list of them, T, alpha)``
+    (the models hold their weights), as ``([teachers], T, alpha)``, or
+    None."""
+    if distill is None:
+        return None
+    teacher, temp, alpha = distill
+    if not isinstance(teacher, (list, tuple)):
+        teacher = [teacher]
+    return list(teacher), temp, alpha
+
+
+def teacher_probs(teachers, images, temperature: float, compute_dtype=None):
+    """The mean over ``teachers`` of ``softmax(logits / T)``, float32, the
+    teachers run in eval mode without gradients."""
+    probs = None
+    with torch.no_grad():
+        for tm in teachers:
+            tm.eval()
+            logits = tm(images, compute_dtype=compute_dtype)
+            p = torch.softmax(logits.float() / temperature, dim=-1)
+            probs = p if probs is None else probs + p
+    return probs / len(teachers)
+
+
+def mix_and_teacher_targets(generator, images, *, mixup: float = 0.0,
+                            cutmix: float = 0.0, distill=None,
+                            compute_dtype=None):
+    """The step body's first half: the batch mix, then the teachers' soft
+    targets on the mixed images. ``distill`` is a ``normalize_distill``
+    result. Returns ``(images, mix, dist)``, the last two the trailing
+    arguments of ``loss_fn``."""
+    mix = None
+    if mixup > 0.0 or cutmix > 0.0:
+        images, perm, lam = batch_mix(generator, images, mixup_alpha=mixup,
+                                      cutmix_alpha=cutmix)
+        mix = (perm, lam)
+    dist = None
+    if distill is not None:
+        teachers, temp, alpha = distill
+        dist = (teacher_probs(teachers, images, temp, compute_dtype), temp,
+                alpha)
+    return images, mix, dist
+
+
+def accumulate_grads(ts: TrainState, images, labels, *, grad_accum: int = 1,
+                     label_smoothing: float = 0.0, compute_dtype=None,
+                     mixup: float = 0.0, cutmix: float = 0.0, distill=None):
+    """Mean gradients over ``grad_accum`` equal microbatches, run in turn
+    (``cnn_tpu``'s ``accumulate_grads``): BN normalizes each by its own
+    statistics and updates its moving statistics once each; each draws
+    its own mix and Dropout channels from ``ts.rng``, the teachers see the
+    mixed microbatch. One microbatch is the plain step. Returns
+    ``({name: grad}, loss, correct)``, the loss the mean over microbatches
+    and ``correct`` the sum."""
+    K = grad_accum
+    B = images.shape[0]
+    if B % K:
+        raise ValueError(f"batch {B} not divisible by grad_accum {K}")
+    mb = B // K
     ts.model.train()
     params = named_params(ts.model)
-    loss, correct = loss_fn(ts.model, images, labels, label_smoothing,
-                            compute_dtype, ts.rng)
-    grads = torch.autograd.grad(loss, list(params.values()))
-    optimizer.update(dict(zip(params, grads)), ts.opt_state, params)
+    gsum = lsum = csum = None
+    for i in range(K):
+        x, y = images[i * mb:(i + 1) * mb], labels[i * mb:(i + 1) * mb]
+        x, mix, dist = mix_and_teacher_targets(
+            ts.rng, x, mixup=mixup, cutmix=cutmix, distill=distill,
+            compute_dtype=compute_dtype)
+        loss, correct = loss_fn(ts.model, x, y, label_smoothing,
+                                compute_dtype, ts.rng, mix, dist)
+        g = torch.autograd.grad(loss, list(params.values()))
+        if gsum is None:
+            gsum, lsum, csum = list(g), loss.detach(), correct
+        else:
+            gsum = [a + b for a, b in zip(gsum, g)]
+            lsum, csum = lsum + loss.detach(), csum + correct
+    if K > 1:
+        gsum = [g / K for g in gsum]
+        lsum = lsum / K
+    return dict(zip(params, gsum)), lsum, csum
+
+
+def apply_gradients(ts: TrainState, optimizer, images, labels,
+                    label_smoothing: float = 0.0, compute_dtype=None, *,
+                    grad_accum: int = 1, mixup: float = 0.0,
+                    cutmix: float = 0.0, distill=None) -> dict:
+    """``accumulate_grads``, the optimizer update, the EMA of the model
+    state; advances ``ts.step``. Returns the metrics, as device
+    tensors."""
+    grads, loss, correct = accumulate_grads(
+        ts, images, labels, grad_accum=grad_accum,
+        label_smoothing=label_smoothing, compute_dtype=compute_dtype,
+        mixup=mixup, cutmix=cutmix, distill=distill)
+    optimizer.update(grads, ts.opt_state, named_params(ts.model))
+    ts.opt_state = ema_update_state(ts.opt_state, named_state(ts.model))
     ts.step += 1
-    return {"loss": loss.detach(), "correct": correct}
+    return {"loss": loss, "correct": correct}
 
 
 def to_compute(images, generator, augment_fn=None, compute_dtype=None):
@@ -129,16 +273,19 @@ def make_train_step(model, optimizer, *, compute_dtype=None, mesh=None,
     ``images``: [B,H,W,C] uint8 (normalized on the device) or float;
     ``labels``: [B] int. ``augment_fn(generator, images)`` runs first when
     given (e.g. ``ops/augment.py:augment_batch``); its output is cast to
-    ``compute_dtype`` when that is given.
+    ``compute_dtype`` when that is given. ``grad_accum``: microbatches a
+    step (``accumulate_grads``); ``mixup`` / ``cutmix``: Beta alphas, 0
+    off; ``distill``: ``(teacher model(s), T, alpha)``.
     """
-    check_supported(compute_dtype=compute_dtype, mesh=mesh,
-                    grad_accum=grad_accum, mixup=mixup, cutmix=cutmix,
-                    distill=distill)
+    check_supported(compute_dtype=compute_dtype, mesh=mesh)
+    dst = normalize_distill(distill)
 
     def step(ts: TrainState, images, labels):
         images = to_compute(images, ts.rng, augment_fn, compute_dtype)
         metrics = apply_gradients(ts, optimizer, images, labels,
-                                  label_smoothing, compute_dtype)
+                                  label_smoothing, compute_dtype,
+                                  grad_accum=grad_accum, mixup=mixup,
+                                  cutmix=cutmix, distill=dst)
         return ts, metrics
 
     return step

@@ -8,15 +8,15 @@ of the dataset, through the train CLI's eval step (``make_eval_step``,
 with test-time augmentation). ``--ensemble name:ckpt[,name:ckpt...]``
 averages the class probabilities of several checkpoints
 (``make_ensemble_eval_step``) in place of ``--resume``; each member's BN
-layers follow its checkpoint.
+layers follow its checkpoint. A checkpoint of an ``--ema`` run is
+evaluated on its EMA weights with its EMA'd BN statistics (the raw ones
+where a legacy checkpoint has none), as ``cnn_tpu`` does.
 
 It runs on the GPU; ``main(argv, device="cpu")`` runs the plain versions
 on the CPU. ``--name`` and the ensemble members take every family the
 port builds (alexnet, resnet10/18, vgg8/11, mobilenet, pipecnn; a member's
 options as ``pipecnn@width=64@n_blocks=8:ckpt``). Not ported yet, each
-raising ``NotImplementedError``: a checkpoint that tracks EMA weights
-(``cnn_tpu`` evaluates those; ROADMAP.md Queue 1 item 5), the moecnn
-family (item 8) and ``--compile-cache``.
+raising ``NotImplementedError``: the moecnn family and ``--compile-cache``.
 """
 
 from __future__ import annotations
@@ -33,19 +33,22 @@ from cnn_tpu_torch.data import DataLoader, discover_dataset, split_dataset
 from cnn_tpu_torch.models import get_model
 from cnn_tpu_torch.parallel import make_ensemble_eval_step, make_eval_step
 from cnn_tpu_torch.tools.train import evaluate
-from cnn_tpu_torch.utils.checkpoint import (load_jax_params, read_checkpoint,
-                                            refuse_ema, tree_has_bn)
+from cnn_tpu_torch.utils.checkpoint import (eval_trees, load_jax_params,
+                                            read_checkpoint, tree_has_bn)
 from cnn_tpu_torch.utils.metrics import ConfusionMatrix
 
 
-def load_model(path: str, name: str, device, **kwargs):
-    """The ``name`` model with the raw weights of the ``.ckpt`` at
-    ``path``, BN layers where its param tree has them."""
-    payload = read_checkpoint(path)
-    refuse_ema(payload, path)
-    model = get_model(name, batch_norm=tree_has_bn(payload["params"]),
-                      device=device, **kwargs)
-    load_jax_params(model, payload["params"], payload["state"])
+def load_model(path: str, name: str, device, announce: bool = True,
+               **kwargs):
+    """The ``name`` model with the weights of the ``.ckpt`` at ``path``
+    (``eval_trees``: the EMA's where it has them, said in ``cnn_tpu``'s
+    line when ``announce``), BN layers where its param tree has them."""
+    params, state, ema = eval_trees(read_checkpoint(path))
+    if ema and announce:
+        print(f"{path}: evaluating the EMA-averaged weights")
+    model = get_model(name, batch_norm=tree_has_bn(params), device=device,
+                      **kwargs)
+    load_jax_params(model, params, state)
     return model
 
 

@@ -7,8 +7,8 @@ float32 softmax), print the class and its probability. Takes a native
 after each, and prints their p50 and p90.
 
 It runs on the GPU; ``main(argv, device="cpu")`` runs the plain versions on
-the CPU. ``--use-ema`` raises ``NotImplementedError``: EMA weights are not
-ported yet.
+the CPU. ``--use-ema`` serves the EMA weights (with the EMA'd BN
+statistics) of an ``--ema`` run's ``.ckpt``.
 
 Usage:
   python -m cnn_tpu_torch.tools.infer --checkpoint path.[ckpt|model] img1 [img2 ...]
@@ -27,7 +27,7 @@ from cnn_tpu_torch import default_device
 from cnn_tpu_torch.data.image import imread, resize
 from cnn_tpu_torch.models import get_model
 from cnn_tpu_torch.parallel import make_forward
-from cnn_tpu_torch.utils.checkpoint import (load_jax_params,
+from cnn_tpu_torch.utils.checkpoint import (eval_trees, load_jax_params,
                                             load_reference_model,
                                             read_checkpoint)
 
@@ -41,17 +41,21 @@ DEFAULT_IMAGES = [
 
 
 def load_params(checkpoint: str, model, use_ema: bool = False) -> None:
-    """Loads the weights of a ``.model`` or a ``.ckpt`` (its raw params and
-    BN state) into ``model`` in place."""
-    if use_ema:
-        raise NotImplementedError(
-            "--use-ema is not ported yet: EMA weights (optim.with_ema, "
-            "ROADMAP.md Queue 1 item 5)")
+    """Loads the weights of a ``.model`` or a ``.ckpt`` into ``model`` in
+    place: a ``.ckpt``'s raw params and BN state, or with ``use_ema`` its
+    EMA weights and EMA'd state (``ValueError`` where it has none, as
+    ``cnn_tpu`` raises)."""
     if checkpoint.endswith(".model"):
         load_reference_model(model, checkpoint)
         return
     payload = read_checkpoint(checkpoint)
-    load_jax_params(model, payload["params"], payload["state"])
+    params, state = payload["params"], payload["state"]
+    if use_ema:
+        params, state, ema = eval_trees(payload)
+        if not ema:
+            raise ValueError(f"{checkpoint} has no EMA state "
+                             "(trained without --ema)")
+    load_jax_params(model, params, state)
 
 
 def read_image(path: str, size: int):

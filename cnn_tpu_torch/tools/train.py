@@ -10,14 +10,25 @@ SIGTERM or SIGUSR1 asks for a clean stop: the loop writes
 ``preempt_iter_<n>.ckpt`` and exits 0, and ``--resume auto`` continues
 from the newest checkpoint.
 
+The training toolbox is ``cnn_tpu``'s: ``--optimizer adam``,
+``--weight-decay`` and ``--grad-clip`` (``optim.make_optimizer``);
+``--freeze`` prefixes and ``--ema`` (validation and the test then run on
+the EMA weights with the EMA'd BN statistics); ``--init-from`` (a warm
+start, ``utils/checkpoint.py:warm_start``); ``--mixup`` / ``--cutmix``
+and ``--color-jitter`` (the last inside the device augmentation only);
+``--distill-from`` with ``--distill-model``, ``--distill-temp`` and
+``--distill-alpha`` (the teachers' EMA weights where they have them);
+``--grad-accum``; and ``--steps-per-call`` (that many device-dataset
+steps a call), each printing ``cnn_tpu``'s line.
+
 It runs on the GPU; ``main(argv, device="cpu")`` runs the plain versions
 on the CPU (tests). ``--donate`` is accepted and changes nothing: PyTorch
 updates the train state in place either way. Options not ported yet raise
-``NotImplementedError`` naming their flag (``check_flags``: among them
-``--name moecnn``, ``--moe-balance`` and ``--space-to-depth``), as do the host
-augmentation (``--augment true`` without ``--device-augment`` or
-``--device-dataset``), ``--backend native``, ``--optimizer adam``,
-``--weight-decay`` and ``--grad-clip``.
+``NotImplementedError`` naming their flag (``check_flags``: the
+multi-device flags, ``--compile-cache``, ``--name moecnn``,
+``--moe-balance`` and ``--space-to-depth``), as do the host augmentation
+(``--augment true`` without ``--device-augment`` or ``--device-dataset``)
+and ``--backend native``.
 
 Usage: python -m cnn_tpu_torch.tools.train [--total-iters N] [--batch-norm true] ...
 """
@@ -38,21 +49,23 @@ from cnn_tpu_torch.data import (DataLoader, DeviceDataset, discover_dataset,
                                 make_device_train_step, split_dataset)
 from cnn_tpu_torch.models import get_model
 from cnn_tpu_torch.models.registry import UNPORTED
-from cnn_tpu_torch.ops.augment import augment_batch, augment_batch_fast
+from cnn_tpu_torch.ops.augment import (augment_batch, augment_batch_fast,
+                                       color_jitter)
 from cnn_tpu_torch.parallel import (create_train_state, make_eval_step,
                                     make_train_step)
+from cnn_tpu_torch.parallel.train_step import ema_weights
 from cnn_tpu_torch.utils.checkpoint import (checkpoint_name, load_checkpoint,
-                                            save_checkpoint)
+                                            save_checkpoint, warm_start)
 from cnn_tpu_torch.utils.history import HistoryWriter
 from cnn_tpu_torch.utils.metrics import (ClassificationEvaluator,
                                          ConfusionMatrix, MeanLoss)
 from cnn_tpu_torch.utils.profiling import StepTimer, trace
 
 
-def check_flags(model_cfg, data_cfg, train_cfg) -> None:
+def check_flags(model_cfg, train_cfg) -> None:
     """Raises ``NotImplementedError`` for the first flag set to an option
     the port does not run yet."""
-    t, d, m = train_cfg, data_cfg, model_cfg
+    t, m = train_cfg, model_cfg
     unported = (
         ("--multihost", t.multihost),
         ("--pipeline-stages", t.pipeline_stages > 1),
@@ -61,15 +74,6 @@ def check_flags(model_cfg, data_cfg, train_cfg) -> None:
         ("--expert-parallel", t.expert_parallel > 1),
         ("--data-parallel", t.data_parallel > 1),
         ("--compile-cache", bool(t.compile_cache)),
-        ("--init-from", bool(t.init_from)),
-        ("--freeze", bool(t.freeze)),
-        ("--ema", t.ema > 0.0),
-        ("--distill-from", bool(t.distill_from)),
-        ("--mixup", t.mixup > 0.0),
-        ("--cutmix", t.cutmix > 0.0),
-        ("--grad-accum", t.grad_accum > 1),
-        ("--steps-per-call", t.steps_per_call > 1),
-        ("--color-jitter", d.color_jitter > 0.0),
         ("--space-to-depth", m.space_to_depth),
         ("--moe-balance", m.moe_balance > 0.0),
         ("--name", m.name in UNPORTED),
@@ -91,6 +95,34 @@ def model_kwargs(model_cfg) -> dict:
     if model_cfg.n_blocks > 0:
         kwargs["n_blocks"] = model_cfg.n_blocks
     return kwargs
+
+
+def load_teachers(model_cfg, train_cfg, device):
+    """``--distill-from`` (checkpoints, comma-separated) with
+    ``--distill-model`` (one family spec for all, or one each, as
+    ``name[@k=v...]``; default the student's): the teacher models, each
+    with its checkpoint's EMA weights where it has them and BN layers
+    where its params have them; returns ``make_train_step``'s ``distill``
+    and prints ``cnn_tpu``'s line."""
+    from cnn_tpu_torch.tools.evaluate import _member_kwargs, load_model
+    t_ckpts = [c for c in train_cfg.distill_from.split(",") if c]
+    t_specs = ([n for n in train_cfg.distill_model.split(",") if n]
+               or [model_cfg.name])
+    if len(t_specs) == 1:
+        t_specs = t_specs * len(t_ckpts)
+    assert len(t_specs) == len(t_ckpts), \
+        "--distill-model must list one family (shared) or one per ckpt"
+    teachers = []
+    for spec, ck in zip(t_specs, t_ckpts):
+        name, *kvs = spec.split("@")
+        teachers.append(load_model(ck, name, device, announce=False,
+                                   num_classes=model_cfg.num_classes,
+                                   image_size=model_cfg.image_size,
+                                   **_member_kwargs(kvs)))
+    print(f"distilling from {len(teachers)} teacher(s) "
+          f"{list(zip(t_specs, t_ckpts))} "
+          f"(T={train_cfg.distill_temp}, alpha={train_cfg.distill_alpha})")
+    return teachers, train_cfg.distill_temp, train_cfg.distill_alpha
 
 
 def _to(device, images: np.ndarray, labels: np.ndarray):
@@ -154,7 +186,7 @@ def main(argv=None, *, device=None):
 def _main(argv, preempted, device):
     model_cfg, data_cfg, train_cfg, _ = parse_configs(argv,
                                                       "cnn_tpu_torch train")
-    check_flags(model_cfg, data_cfg, train_cfg)
+    check_flags(model_cfg, train_cfg)
     dev = default_device(device)
 
     samples = discover_dataset(data_cfg.dataset_path, data_cfg.categories)
@@ -194,9 +226,22 @@ def _main(argv, preempted, device):
                                warmup_steps=train_cfg.warmup_steps,
                                weight_decay=train_cfg.weight_decay,
                                grad_clip=train_cfg.grad_clip)
+    if train_cfg.freeze:
+        # head-only fine-tuning with --init-from; init asserts a match
+        opt = optim.with_frozen(opt, train_cfg.freeze.split(","))
+        print(f"frozen param prefixes: {train_cfg.freeze}")
+    if train_cfg.ema > 0.0:
+        opt = optim.with_ema(opt, train_cfg.ema)
+        print(f"weight EMA: decay {train_cfg.ema} "
+              "(validation/test use the averaged weights)")
     compute_dtype = (torch.bfloat16 if model_cfg.compute_dtype == "bfloat16"
                      else None)
     ts = create_train_state(model, opt, seed=train_cfg.seed)
+    if train_cfg.init_from:
+        ts, copied, skipped = warm_start(ts, train_cfg.init_from, opt)
+        print(f"warm start from {train_cfg.init_from}: "
+              f"{len(copied)} tensors copied"
+              + (f", kept fresh: {', '.join(skipped)}" if skipped else ""))
 
     resume = train_cfg.resume
     if resume == "auto":
@@ -211,16 +256,29 @@ def _main(argv, preempted, device):
         print(f"resumed from {resume} at step {ts.step}")
 
     augment_fn = None
+    jitter = data_cfg.color_jitter
+    if jitter > 0.0 and not (
+            (device_augment or data_cfg.device_dataset) and data_cfg.augment):
+        sys.exit("--color-jitter is applied by the device-side augmentation "
+                 "pipeline; it needs --augment true plus --device-augment "
+                 "or --device-dataset (on the host-loader path it would "
+                 "silently do nothing)")
     if (device_augment or data_cfg.device_dataset) and data_cfg.augment:
         aug = augment_batch_fast if data_cfg.augment_mode == "fast" else augment_batch
         aug_dtype = compute_dtype or torch.float32
 
         def augment_fn(generator, images):
             # augment in the compute dtype, as cnn_tpu does
-            return aug(generator, images, out_size=data_cfg.image_size,
-                       dtype=aug_dtype)
+            x = aug(generator, images, out_size=data_cfg.image_size,
+                    dtype=aug_dtype)
+            return color_jitter(generator, x, jitter) if jitter > 0.0 else x
         print(f"augmentation: on-device '{data_cfg.augment_mode}' "
-              "(in the train step)")
+              + (f"+ color jitter {jitter} " if jitter > 0.0 else "")
+              + "(in the train step)")
+
+    distill = None
+    if train_cfg.distill_from:
+        distill = load_teachers(model_cfg, train_cfg, dev)
 
     device_train_ds = device_valid_ds = None
     if data_cfg.device_dataset:
@@ -234,11 +292,17 @@ def _main(argv, preempted, device):
             model, opt, device_train_ds, train_cfg.train_batch_size,
             compute_dtype=compute_dtype, augment_fn=augment_fn,
             label_smoothing=train_cfg.label_smoothing,
-            sample_mode=data_cfg.sample_mode)
+            sample_mode=data_cfg.sample_mode,
+            steps_per_call=train_cfg.steps_per_call,
+            grad_accum=train_cfg.grad_accum, mixup=train_cfg.mixup,
+            cutmix=train_cfg.cutmix, distill=distill)
     else:
         step_fn = make_train_step(model, opt, compute_dtype=compute_dtype,
                                   augment_fn=augment_fn,
-                                  label_smoothing=train_cfg.label_smoothing)
+                                  label_smoothing=train_cfg.label_smoothing,
+                                  grad_accum=train_cfg.grad_accum,
+                                  mixup=train_cfg.mixup,
+                                  cutmix=train_cfg.cutmix, distill=distill)
     eval_fn = make_eval_step(model, compute_dtype=compute_dtype,
                              tta=train_cfg.tta)
 
@@ -253,23 +317,37 @@ def _main(argv, preempted, device):
 
     device_mode = device_train_ds is not None
     bs = train_cfg.train_batch_size
+    chunk = train_cfg.steps_per_call if device_mode else 1
     # saves happen at validation boundaries (the checkpoint name embeds the
     # valid accuracy, cnn.cpp:121-124), so an unaligned cadence would
     # silently save every lcm(valid, save) iters — or never
     assert train_cfg.save_iters % train_cfg.valid_iters == 0, \
         f"--save-iters {train_cfg.save_iters} must be a multiple of " \
         f"--valid-iters {train_cfg.valid_iters}"
+    if chunk > 1:
+        # a call advances `chunk` iterations: the validate/save cadence,
+        # the total and a resume point must land on its boundaries
+        assert train_cfg.valid_iters % chunk == 0, \
+            (train_cfg.valid_iters, chunk)
+        assert train_cfg.total_iters % chunk == 0, \
+            f"--total-iters {train_cfg.total_iters} must be a multiple of " \
+            f"--steps-per-call {chunk}"
+        assert (start_iters - 1) % chunk == 0, \
+            f"resume step {start_iters - 1} must align with --steps-per-call"
     with trace(train_cfg.profile_dir or None, dev):
-        for it in range(start_iters, train_cfg.total_iters + 1):
+        for it in range(start_iters + chunk - 1, train_cfg.total_iters + 1,
+                        chunk):
             if device_mode:
-                # on-device step: no host data; the metrics are fetched (a
-                # synchronisation) only at the logging cadence
+                # on-device step(s): no host data; the metrics are fetched
+                # (a synchronisation) only at the logging cadence, once per
+                # crossed multiple of 100
                 ts, metrics = step_fn(ts)
-                timer.tick(bs)
-                if (it % 100 == 0 or it == train_cfg.total_iters
+                timer.tick(bs * chunk)
+                if (it % 100 < chunk or it == train_cfg.total_iters
                         or it % train_cfg.valid_iters == 0):
                     mean_loss.add(float(metrics["loss"]))
-                    train_eval.add_counts(int(metrics["correct"]), bs)
+                    train_eval.add_counts(int(metrics["correct"]),
+                                          bs * chunk)
             else:
                 images, labels = train_loader.generate_batch()
                 ts, metrics = step_fn(ts, *_to(dev, images, labels))
@@ -277,7 +355,7 @@ def _main(argv, preempted, device):
                 train_eval.add_counts(int(metrics["correct"]), len(labels))
                 timer.tick(len(labels))
 
-            if it % 100 == 0 or it == train_cfg.total_iters:
+            if it % 100 < chunk or it == train_cfg.total_iters:
                 print(f"\rTrain===> [batch {it}/{train_cfg.total_iters}] "
                       f"[loss {mean_loss.get():.3f}] [Accuracy {train_eval.get():.3f}] "
                       f"[{timer.images_per_sec:.1f} img/s]", end="", flush=True)
@@ -293,11 +371,14 @@ def _main(argv, preempted, device):
 
             if it % train_cfg.valid_iters == 0:
                 print("\nvalidating...")
-                if device_mode:
-                    v_loss, v_acc = evaluate_device(eval_fn, device_valid_ds,
-                                                    train_cfg.valid_batch_size)
-                else:
-                    v_loss, v_acc = evaluate(eval_fn, valid_loader, dev)
+                # the EMA weights with the EMA'd BN statistics, if any
+                with ema_weights(ts):
+                    if device_mode:
+                        v_loss, v_acc = evaluate_device(
+                            eval_fn, device_valid_ds,
+                            train_cfg.valid_batch_size)
+                    else:
+                        v_loss, v_acc = evaluate(eval_fn, valid_loader, dev)
                 print(f"Valid===> [loss {v_loss:.3f}] [Accuracy {v_acc:.3f}]")
                 history.log(step=it, loss=mean_loss.get(),
                             accuracy=train_eval.get(), valid_loss=v_loss,
@@ -329,7 +410,8 @@ def _main(argv, preempted, device):
                                  backend=data_cfg.backend,
                                  cache=data_cfg.cache)
         confusion = ConfusionMatrix(model_cfg.num_classes)
-        t_loss, t_acc = evaluate(eval_fn, test_loader, dev, confusion)
+        with ema_weights(ts):
+            t_loss, t_acc = evaluate(eval_fn, test_loader, dev, confusion)
         print(f"Test===> [loss {t_loss:.3f}] [Accuracy {t_acc:.3f}]")
         print("confusion matrix (rows = truth):")
         print(confusion.pretty(list(data_cfg.categories)))

@@ -11,8 +11,8 @@ weights, an NHWC-ordered dense in-dim), ``load_jax_params`` copies such
 param/state trees into a port model and ``export_reference_model`` writes
 them back; the ``.model`` format is the flat AlexNet stack's only, as in
 ``cnn_tpu``. ``load_jax_train_state`` carries a whole ``cnn_tpu``
-``TrainState`` across: params, BN state, optax's momentum trace (a tree
-shaped like the params) and its update count, and the step.
+``TrainState`` across: params, BN state, the optimizer state and the
+step; ``warm_start`` copies the leaves that fit into a fresh run.
 
 Trees follow the model's layers (``Layer.tree_leaves``): ``{layer: {key:
 array}}`` for a flat stack, nested for the blocks (``{"block_2": {"body":
@@ -23,16 +23,21 @@ leading [L] axis under a ``StackedBlocks`` (``{"trunk": {"body":
 A native ``.ckpt`` is ``cnn_tpu``'s pickle of a dict: ``params``, ``state``
 and ``opt_state`` as numpy trees, ``step``, ``rng`` (uint32[2], the
 threefry key data that JAX's ``wrap_key_data`` takes) and ``format_version``
-1. ``opt_state`` is optax's own tuple, whose classes the pickle names by
-optax's module paths: ``()`` for plain SGD at a constant rate, else
-``(TraceState(trace) or EmptyState(), ScaleByScheduleState(count) or
-EmptyState())``, the first for momentum, the second for a schedule. The
-port writes the same (``save_checkpoint``), naming optax's classes without
-importing optax, plus one key ``cnn_tpu`` ignores, ``torch_rng``: the
+1. ``opt_state`` is optax's own nesting, whose classes the pickle names by
+optax's module paths: ``()`` for plain SGD at a constant rate; ``(TraceState
+(trace) or EmptyState(), ScaleByScheduleState(count) or EmptyState())`` for
+``optax.sgd``; ``(ScaleByAdamState(count, mu, nu), [EmptyState(),]
+ScaleByScheduleState or EmptyState())`` for Adam (AdamW); weight decay and
+the clip each an ``EmptyState`` link of a chain before it; and
+``cnn_tpu.optim.EmaState(inner, ema, count, decay, mstate)`` around any of
+them for ``--ema``. The port's optimizer state has the same nesting
+(``optim.py``), so it maps one to one: ``save_checkpoint`` writes it
+(``pickled_state``), naming optax's and cnn_tpu's classes without
+importing either, plus one key ``cnn_tpu`` ignores, ``torch_rng``: the
 device type and state of the train state's ``torch.Generator``. Its reader
-(``read_checkpoint``) maps those optax names onto the NamedTuple stubs below
-and refuses every other global but numpy's array and dtype ones, so a
-checkpoint can carry no code.
+(``read_checkpoint``) maps those names onto the port's classes and refuses
+every other global but numpy's array and dtype ones, so a checkpoint can
+carry no code; ``load_opt_state`` copies a read state into a live one.
 
 The generator on a load (``load_checkpoint``): a ``torch_rng`` state saved
 on the same device type is restored as it was. Otherwise (a ``cnn_tpu``
@@ -49,13 +54,17 @@ from __future__ import annotations
 import os
 import pickle
 import re
-from typing import Any, NamedTuple
 
 import numpy as np
 import torch
 
 from cnn_tpu_torch.nn.module import (BatchNorm2D, Conv2D, Linear, leaf_name,
                                      leaf_path)
+from cnn_tpu_torch.optim import (EmaState, EmptyState, ScaleByAdamState,
+                                 ScaleByScheduleState, TraceState,
+                                 ema_model_state, ema_params,
+                                 ema_seed_model_state)
+from cnn_tpu_torch.parallel.train_step import named_params, named_state
 
 
 def _net(model):
@@ -159,7 +168,8 @@ def _at(tree: dict, path, what: str):
 
 
 def _copy_into(dst: torch.Tensor, value, name: str) -> None:
-    src = torch.tensor(np.asarray(value, dtype=np.float32))
+    src = torch.tensor(np.asarray(
+        value, np.float32 if dst.is_floating_point() else None)).to(dst.dtype)
     if tuple(src.shape) != tuple(dst.shape):
         raise ValueError(f"{name}: shape {tuple(src.shape)} != "
                          f"{tuple(dst.shape)}")
@@ -181,23 +191,16 @@ def load_reference_model(model, path) -> None:
     load_jax_params(model, *import_reference_model(path, model))
 
 
-def load_jax_train_state(ts, params: dict, state: dict, trace=None,
-                         count: int = 0, step: int = 0) -> None:
-    """Copies a ``cnn_tpu`` ``TrainState``, given as numpy trees, into the
-    port's ``TrainState`` ``ts`` in place: the params and BN state into
-    ``ts.model``, optax's momentum ``trace`` (``{layer: {key: array}}``, or
-    None for plain SGD) and update ``count`` into ``ts.opt_state``, and the
-    step counter."""
+def load_jax_train_state(ts, params: dict, state: dict, opt_state=(),
+                         step: int = 0) -> None:
+    """Copies a ``cnn_tpu`` ``TrainState``, given as numpy (or JAX) trees,
+    into the port's ``TrainState`` ``ts`` in place: the params and BN state
+    into ``ts.model``, ``opt_state`` (optax's nesting, ``cnn_tpu``'s
+    ``EmaState``) into ``ts.opt_state`` (``load_opt_state``), and the
+    step."""
     load_jax_params(ts.model, params, state)
-    if (trace is None) != (ts.opt_state["trace"] is None):
-        raise ValueError("a momentum trace must come with a momentum "
-                         "optimizer, and only with one")
-    if trace is not None:
-        with torch.no_grad():
-            for name, dst in ts.opt_state["trace"].items():
-                _copy_into(dst, _at(trace, leaf_path(name), "trace"),
-                           f"trace {name}")
-    ts.opt_state["count"] = int(count)
+    ts.opt_state = load_opt_state(ts.opt_state, opt_state,
+                                  named_state(ts.model))
     ts.step = int(step)
 
 
@@ -266,37 +269,15 @@ def export_reference_model(path, net, params: dict | None = None,
 # ---------------------------------------------------------------- native ----
 
 
-class TraceState(NamedTuple):
-    """optax's momentum state: ``trace``, a tree shaped like the params."""
-    trace: Any
-
-
-class ScaleByScheduleState(NamedTuple):
-    """optax's schedule state: ``count``, the updates made so far."""
-    count: Any
-
-
-class EmptyState(NamedTuple):
-    """optax's state of a transform that keeps none."""
-
-
-class EmaState(NamedTuple):
-    """``cnn_tpu.optim.EmaState``, the optimizer state of an ``--ema`` run:
-    the inner state and the EMA weights. Read so that it can be refused:
-    EMA weights are not ported yet (``ema_state``)."""
-    inner: Any
-    ema: Any
-    count: Any
-    decay: Any = None
-    mstate: Any = None
-
-
-# the optax module each stub is written under (optax 0.2's paths); on a
-# read, the class name under any optax module maps onto its stub
-_OPTAX_MODULES = {TraceState: "optax.transforms._accumulation",
-                  ScaleByScheduleState: "optax._src.transform",
-                  EmptyState: "optax._src.base"}
-_STUBS = {cls.__name__: cls for cls in _OPTAX_MODULES}
+# the module each state class is pickled under (optax 0.2's paths, and
+# cnn_tpu's EmaState); on a read, the class name under any optax module
+# maps onto the port's class
+_PICKLED_MODULES = {TraceState: "optax.transforms._accumulation",
+                    ScaleByScheduleState: "optax._src.transform",
+                    ScaleByAdamState: "optax._src.transform",
+                    EmptyState: "optax._src.base",
+                    EmaState: "cnn_tpu.optim"}
+_STUBS = {cls.__name__: cls for cls in _PICKLED_MODULES if cls is not EmaState}
 _NUMPY_GLOBALS = {("numpy", "ndarray"), ("numpy", "dtype"),
                   ("numpy.core.multiarray", "_reconstruct"),
                   ("numpy._core.multiarray", "_reconstruct"),
@@ -305,12 +286,12 @@ _NUMPY_GLOBALS = {("numpy", "ndarray"), ("numpy", "dtype"),
 
 
 class _OptaxPickler(pickle._Pickler):
-    """The pure-Python pickler, which writes the stubs as references to
-    optax's classes: the C pickler's ``save_global`` imports the module it
-    names, and the port does not import optax."""
+    """The pure-Python pickler, which writes the state classes as
+    references to optax's and cnn_tpu's: the C pickler's ``save_global``
+    imports the module it names, and the port imports neither."""
 
     def save_global(self, obj, name=None):
-        module = _OPTAX_MODULES.get(obj)
+        module = _PICKLED_MODULES.get(obj)
         if module is None:
             return super().save_global(obj, name)
         self.save(module)
@@ -320,9 +301,9 @@ class _OptaxPickler(pickle._Pickler):
 
 
 class _RestrictedUnpickler(pickle.Unpickler):
-    """Data-only unpickler: numpy arrays and dtypes, and optax's three
-    state classes and ``cnn_tpu``'s ``EmaState`` as the stubs; any other
-    global is refused."""
+    """Data-only unpickler: numpy arrays and dtypes, and optax's state
+    classes and ``cnn_tpu``'s ``EmaState`` as the port's; any other global
+    is refused."""
 
     def find_class(self, module, name):
         if (module, name) in _NUMPY_GLOBALS:
@@ -345,19 +326,77 @@ def _nest(flat: dict) -> dict:
     return _tree((leaf_path(name), t) for name, t in flat.items())
 
 
-def _optax_state(opt_state: dict):
-    trace = opt_state["trace"]
-    if trace is None and not opt_state["scheduled"]:
-        return ()       # cnn_tpu's own plain SGD keeps no state
-    first = EmptyState() if trace is None else TraceState(_nest(trace))
-    second = (ScaleByScheduleState(np.asarray(opt_state["count"], np.int32))
-              if opt_state["scheduled"] else EmptyState())
-    return (first, second)
+def pickled_state(node):
+    """The port's optimizer state as ``cnn_tpu`` pickles its own: the same
+    classes and tuples, each ``{name: tensor}`` as a nested numpy tree, a
+    count as int32 and the EMA decay as float32 0-d arrays."""
+    if node is None:
+        return None
+    if isinstance(node, torch.Tensor):
+        return _np(node).copy()
+    if isinstance(node, float):
+        return np.asarray(node, np.float32)
+    if isinstance(node, dict):
+        return _nest(node)
+    if hasattr(node, "_fields"):
+        return type(node)(*(pickled_state(v) for v in node))
+    return tuple(pickled_state(v) for v in node)
 
 
-def _find(opt_state, cls):
-    """The ``cls`` state in optax's tuple, or None."""
-    return next((st for st in opt_state if isinstance(st, cls)), None)
+@torch.no_grad()
+def load_opt_state(live, saved, state: dict | None = None, where="opt_state"):
+    """Copies ``saved`` (``cnn_tpu``'s optimizer state, numpy or JAX
+    arrays) into the port's ``live`` state of the same optimizer, in
+    place, and returns it (a new ``EmaState`` where a field changes).
+    The two must have the same nesting: another optimizer's state raises
+    ``ValueError``. A legacy ``EmaState`` keeps ``live``'s decay (the run's
+    ``--ema``) and has its ``mstate`` seeded from ``state``."""
+    if isinstance(live, torch.Tensor):
+        _copy_into(live, saved, where)
+        return live
+    if isinstance(live, dict):
+        if not isinstance(saved, dict):
+            raise ValueError(f"{where}: a tree here, "
+                             f"{type(saved).__name__} saved")
+        for name, t in live.items():
+            _copy_into(t, _at(saved, leaf_path(name), where),
+                       f"{where} {name}")
+        return live
+    if (type(live).__name__ != type(saved).__name__
+            or len(live) != len(saved)):
+        raise ValueError(f"{where}: the optimizer keeps "
+                         f"{pickled_layout(live)}, the checkpoint "
+                         f"{pickled_layout(saved)}")
+    if isinstance(live, EmaState):
+        inner = load_opt_state(live.inner, saved.inner, state,
+                               f"{where}.inner")
+        load_opt_state(live.ema, saved.ema, state, f"{where}.ema")
+        load_opt_state(live.count, saved.count, state, f"{where}.count")
+        decay = live.decay if saved.decay is None else float(
+            np.float32(saved.decay))
+        out = live._replace(inner=inner, decay=decay)
+        if saved.mstate is None:
+            return ema_seed_model_state(out._replace(mstate=None), state)
+        if live.mstate is None:
+            out = ema_seed_model_state(out, state)
+        load_opt_state(out.mstate, saved.mstate, state, f"{where}.mstate")
+        return out
+    fields = getattr(live, "_fields", None)
+    parts = [load_opt_state(a, b, state,
+                            f"{where}.{fields[i] if fields else i}")
+             for i, (a, b) in enumerate(zip(live, saved))]
+    return tuple(parts) if fields is None else type(live)(*parts)
+
+
+def pickled_layout(node) -> str:
+    """The nesting of an optimizer state's classes, its trees and arrays
+    left out (``EmaState((ScaleByAdamState, EmptyState))``), for
+    messages."""
+    inner = ", ".join(pickled_layout(v) for v in node
+                      if isinstance(v, tuple))
+    if hasattr(node, "_fields"):
+        return type(node).__name__ + (f"({inner})" if inner else "")
+    return f"({inner})"
 
 
 def _key_data(seed: int) -> np.ndarray:
@@ -379,7 +418,7 @@ def save_checkpoint(path: str, train_state) -> None:
     payload = {
         "params": params,
         "state": state,
-        "opt_state": _optax_state(ts.opt_state),
+        "opt_state": pickled_state(ts.opt_state),
         "step": int(ts.step),
         "rng": _key_data(ts.seed),
         "format_version": 1,
@@ -394,35 +433,23 @@ def save_checkpoint(path: str, train_state) -> None:
 
 
 def read_checkpoint(path: str) -> dict:
-    """A ``.ckpt``'s payload as it was pickled: numpy trees, the optax
-    states as the stubs."""
+    """A ``.ckpt``'s payload as it was pickled: numpy trees, the optimizer
+    states as the port's classes (``optim.py``)."""
     with open(path, "rb") as f:
         return _RestrictedUnpickler(f).load()
 
 
-def refuse_ema(payload: dict, path: str) -> None:
-    """Raises ``NotImplementedError`` for a checkpoint whose optimizer
-    state tracks EMA weights (``cnn_tpu``'s ``--ema``), which the port
-    does not run yet (ROADMAP.md Queue 1 item 5, ``optim.with_ema``)."""
-    if isinstance(payload["opt_state"], EmaState):
-        raise NotImplementedError(
-            f"{path}: its optimizer state holds EMA weights; EMA "
-            "(optim.with_ema, ROADMAP.md Queue 1 item 5) is not ported yet")
-
-
 def load_checkpoint(path: str, train_state):
     """Loads a ``.ckpt`` (``cnn_tpu``'s or the port's) into the port's
-    ``train_state`` in place and returns it: params, BN state, the momentum
-    trace and the count, the step, and the generator (module docstring)."""
+    ``train_state`` in place and returns it: params, BN state, the
+    optimizer state (``load_opt_state``: a legacy EMA state's decay from
+    the run's, its model-state average seeded from the loaded state), the
+    step, and the generator (module docstring)."""
     ts = train_state
     payload = read_checkpoint(path)
-    refuse_ema(payload, path)
     step = int(payload["step"])
-    trace = _find(payload["opt_state"], TraceState)
-    sched = _find(payload["opt_state"], ScaleByScheduleState)
     load_jax_train_state(ts, payload["params"], payload["state"],
-                         None if trace is None else trace.trace,
-                         step if sched is None else int(sched.count), step)
+                         payload["opt_state"], step)
     ts.seed = _key_seed(payload["rng"])
     saved = payload.get("torch_rng")
     if saved is not None and saved["device"] == ts.rng.device.type:
@@ -431,6 +458,68 @@ def load_checkpoint(path: str, train_state):
     else:
         ts.rng.manual_seed((ts.seed + step) % 2**64)
     return ts
+
+
+def eval_trees(payload: dict) -> tuple[dict, dict, bool]:
+    """A checkpoint's ``(params, state, is_ema)`` to evaluate with: its EMA
+    weights and EMA'd model state where its optimizer state has them (the
+    raw state where a legacy one has no ``mstate``), else its params and
+    state."""
+    ema = ema_params(payload["opt_state"])
+    if ema is None:
+        return payload["params"], payload["state"], False
+    return ema, ema_model_state(payload["opt_state"], payload["state"]), True
+
+
+def warm_start(train_state, path: str, optimizer=None):
+    """Transfer-learning init (``cnn_tpu``'s ``warm_start``): copies into
+    ``train_state``'s model every param and state leaf of the ``.ckpt`` at
+    ``path`` whose tree path exists there with the same shape; the others
+    (e.g. a head of another ``num_classes``) keep their fresh init. With
+    ``optimizer``, the optimizer state is made anew from the merged params
+    and its EMA seeded; the step and the generator stay fresh. Returns
+    ``(train_state, copied_paths, skipped_paths)``, in ``cnn_tpu``'s
+    words."""
+    payload = read_checkpoint(path)
+    copied, skipped = [], []
+
+    def fresh_tree(want_state):
+        tree: dict = {}
+        for p, t, st in _net(train_state.model).tree_leaves():
+            if st == want_state:
+                node = tree
+                for key in p[:-1]:
+                    node = node.setdefault(key, {})
+                node[p[-1]] = t
+        return tree
+
+    def merge(fresh, loaded, prefix):
+        if isinstance(fresh, dict):
+            if not isinstance(loaded, dict):
+                skipped.append(f"{prefix} (not a dict in source)")
+                return
+            for k, v in fresh.items():
+                if k in loaded:
+                    merge(v, loaded[k], f"{prefix}/{k}")
+                else:
+                    skipped.append(f"{prefix}/{k} (missing in source)")
+            return
+        l_shape = getattr(loaded, "shape", None)
+        if l_shape == tuple(fresh.shape):
+            copied.append(prefix)
+            _copy_into(fresh, loaded, prefix)
+        else:
+            skipped.append(f"{prefix} (shape {l_shape} vs "
+                           f"{tuple(fresh.shape)})")
+
+    with torch.no_grad():
+        merge(fresh_tree(False), payload["params"], "")
+        merge(fresh_tree(True), payload["state"], "")
+    if optimizer is not None:
+        train_state.opt_state = ema_seed_model_state(
+            optimizer.init(named_params(train_state.model)),
+            named_state(train_state.model))
+    return train_state, copied, skipped
 
 
 def tree_has_bn(tree) -> bool:

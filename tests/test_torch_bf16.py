@@ -478,7 +478,7 @@ def test_bf16_device_train_steps(rng, monkeypatch):
     assert seen == [(BF16, BF16, BF16)] * 12
     assert all(p.dtype == torch.float32 for p in model.parameters())
     assert all(v.dtype == torch.float32
-               for v in ts.opt_state["trace"].values())
+               for v in ts.opt_state[0].trace.values())
     for layer in model.net:
         if hasattr(layer, "var"):
             assert layer.mean.dtype == layer.var.dtype == torch.float32

@@ -57,9 +57,9 @@ def test_committed_ckpt_loads_bit_equal_to_cnn_tpu(path, step):
     params, state = ck.model_trees(ts.model)
     assert _trees_equal(params, want.params)
     assert _trees_equal(state, want.state)
-    trace = ck._nest(ts.opt_state["trace"])
+    trace = ck._nest(ts.opt_state[0].trace)
     assert _trees_equal(trace, want.opt_state[0].trace)
-    assert ts.opt_state["count"] == int(want.opt_state[1].count) == step
+    assert int(ts.opt_state[1].count) == int(want.opt_state[1].count) == step
     assert ts.step == int(want.step) == step
     k = np.asarray(jax.random.key_data(want.rng))
     assert ts.seed == (int(k[0]) << 32 | int(k[1]))
@@ -113,9 +113,9 @@ def test_port_ckpt_loads_in_cnn_tpu(tmp_path, rng, optimizer, schedule):
     fresh = j_opt.init(jax.tree_util.tree_map(jnp.asarray, params))
     assert (jax.tree_util.tree_structure(got.opt_state)
             == jax.tree_util.tree_structure(fresh))
-    if ts.opt_state["trace"] is not None:
+    if ts.opt_state and hasattr(ts.opt_state[0], "trace"):
         assert _trees_equal(got.opt_state[0].trace,
-                            ck._nest(ts.opt_state["trace"]))
+                            ck._nest(ts.opt_state[0].trace))
     if schedule != "constant":
         assert int(got.opt_state[1].count) == 2
     # and back: the port reads its own file into a fresh state, generator
@@ -123,7 +123,9 @@ def test_port_ckpt_loads_in_cnn_tpu(tmp_path, rng, optimizer, schedule):
     ts2, _ = _state(image_size=64, optimizer=optimizer, schedule=schedule,
                     seed=5)
     ck.load_checkpoint(path, ts2)
-    assert ts2.step == 2 and ts2.opt_state["count"] == 2 and ts2.seed == 212
+    assert ts2.step == 2 and ts2.seed == 212
+    if schedule != "constant":
+        assert int(ts2.opt_state[1].count) == 2
     for name, p in named_params(ts2.model).items():
         assert torch.equal(p, named_params(ts.model)[name]), name
     assert torch.equal(ts2.rng.get_state(), ts.rng.get_state())

@@ -164,8 +164,14 @@ def test_evaluate_cli_loss_matches_cnn_tpu_within_1e5(ppm_dataset,
 def test_evaluate_cli_refusals(ppm_dataset, capsys):
     base = ["--dataset-path", ppm_dataset, "--image-size", "224"]
     assert evaluate.main(["--resume", "/nonexistent.ckpt"], device="cpu") == 2
-    with pytest.raises(NotImplementedError, match="EMA"):
-        evaluate.main(base + ["--resume", EMA], device="cpu")
+    # an EMA checkpoint, once refused, is evaluated on its EMA weights
+    # (against cnn_tpu's: tests/test_torch_toolbox_cli.py)
+    capsys.readouterr()
+    assert evaluate.main(base + ["--resume", EMA, "--split", "test"],
+                         device="cpu") == 0
+    out = capsys.readouterr().out
+    assert f"{EMA}: evaluating the EMA-averaged weights" in out
+    assert "Test===>" in out
     with pytest.raises(NotImplementedError, match="moecnn"):
         evaluate.main(base + ["--ensemble", f"moecnn:{BEST}"], device="cpu")
     with pytest.raises(NotImplementedError, match="moecnn"):

@@ -53,6 +53,13 @@ import cnn_tpu_torch.models.resnet, cnn_tpu_torch.models.vgg
 import cnn_tpu_torch.models.mobilenet, cnn_tpu_torch.models.pipecnn
 import cnn_tpu_torch.models.base, cnn_tpu_torch.ops.pool, cnn_tpu_torch.ops.conv
 import cnn_tpu_torch.nn.module, cnn_tpu_torch.nn.sequential
+import importlib, pkgutil
+# and every module of the package, those the list above does not name
+walked = [m.name for m in pkgutil.walk_packages(cnn_tpu_torch.__path__,
+                                                "cnn_tpu_torch.")]
+for name in walked:
+    importlib.import_module(name)
+assert {"cnn_tpu_torch.optim", "cnn_tpu_torch.tools.train"} <= set(walked)
 import chip_smoke
 leaked = sorted(n for n in sys.modules if n.split(".")[0] in BLOCKED)
 assert not leaked, leaked

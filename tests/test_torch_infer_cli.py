@@ -78,10 +78,20 @@ def test_infer_cli_bench_prints_latency(photo_paths, capsys):
     assert re.match(r"^  p50 latency: [\d.]+ ms \(p90 [\d.]+ ms\)$", out[1])
 
 
-def test_infer_use_ema_raises_naming_itself(photo_paths):
-    with pytest.raises(NotImplementedError, match="--use-ema"):
+def test_infer_use_ema_raises_naming_itself(photo_paths, capsys):
+    """``--use-ema``, once refused, now serves an EMA checkpoint's averaged
+    weights (against cnn_tpu's: tests/test_torch_toolbox_cli.py); on a
+    checkpoint without EMA it raises cnn_tpu's ValueError."""
+    with pytest.raises(ValueError, match="has no EMA state"):
         infer.main(["--checkpoint", CKPT + ".ckpt", "--use-ema",
                     photo_paths[0]], device="cpu")
+    ema = os.path.join(REPO, "checkpoints", "alexnet_distill",
+                       "iter_17000_train_0.992_valid_0.930.ckpt")
+    capsys.readouterr()
+    assert infer.main(["--checkpoint", ema, "--batch-norm", "--use-ema",
+                       *photo_paths[:3]], device="cpu") == 0
+    rows, _ = _parse(capsys.readouterr().out)
+    assert [r[1] for r in rows] == ["dog", "panda", "bird"]
 
 
 @pytest.mark.parametrize("dtype", ["uint8", "float32"])

@@ -20,6 +20,7 @@ from cnn_tpu.parallel.train_step import make_train_step as j_make_train_step
 from cnn_tpu_torch.data import DeviceDataset, make_device_train_step
 from cnn_tpu_torch.data.device_dataset import epoch_indices
 from cnn_tpu_torch.models import get_model
+from cnn_tpu_torch import optim
 from cnn_tpu_torch.optim import make_optimizer, make_schedule, sgd
 from cnn_tpu_torch.parallel import (create_train_state, make_eval_step,
                                     make_train_step)
@@ -79,13 +80,19 @@ def test_optimizer_matches_optax_over_20_steps(rng, name, momentum, schedule):
         opt.update({k: torch.tensor(v) for k, v in g.items()}, state, tp)
     for k in params:
         assert _scaled_dev(tp[k].numpy(), jp[k]) <= 1e-6
+    if name == "sgd" and not momentum and schedule == "constant":
+        assert state == () == jstate    # the reference's plain SGD
+        return
     if momentum or name == "momentum":
         for k in params:
-            assert _scaled_dev(state["trace"][k].numpy(),
+            assert _scaled_dev(state[0].trace[k].numpy(),
                                jstate[0].trace[k]) <= 1e-6
-        if schedule != "constant":    # optax counts only on a schedule
-            assert int(jstate[1].count) == 20
-    assert state["count"] == 20
+    else:
+        assert state[0] == optim.EmptyState()
+    if schedule != "constant":    # optax counts only on a schedule
+        assert int(state[1].count) == int(jstate[1].count) == 20
+    else:
+        assert state[1] == optim.EmptyState()
 
 
 def test_plain_sgd_is_the_reference_update(rng):
@@ -99,10 +106,20 @@ def test_plain_sgd_is_the_reference_update(rng):
 
 @pytest.mark.parametrize("flag", [dict(weight_decay=1e-4),
                                   dict(grad_clip=1.0), dict(name="adam")])
-def test_optimizer_options_not_ported_raise(flag):
+def test_optimizer_options_not_ported_raise(rng, flag):
+    """Weight decay, the clip and Adam, once refused, now run: five
+    updates within 1e-6 of cnn_tpu's (every branch and the state:
+    tests/test_torch_optim_toolbox.py)."""
     kw = dict(name="momentum", learning_rate=0.1) | flag
-    with pytest.raises(NotImplementedError):
-        make_optimizer(**kw)
+    opt, jopt = make_optimizer(**kw), j_make_optimizer(**kw)
+    p = rng.standard_normal((4, 3)).astype(np.float32)
+    tp, jp = {"w": torch.tensor(p)}, {"w": jnp.asarray(p)}
+    state, jstate = opt.init(tp), jopt.init(jp)
+    for _ in range(5):
+        g = rng.standard_normal(p.shape).astype(np.float32)
+        opt.update({"w": torch.tensor(g)}, state, tp)
+        jp, jstate = jopt.update({"w": jnp.asarray(g)}, jstate, jp)
+    assert _scaled_dev(tp["w"].numpy(), jp["w"]) <= 1e-6
 
 
 def _carried_step(rng, batch_norm):
@@ -123,8 +140,7 @@ def _carried_step(rng, batch_norm):
     opt = make_optimizer("momentum", 1e-2, schedule="cosine", total_steps=10)
     pts = create_train_state(model, opt)
     load_jax_train_state(pts, _np(ts.params), _np(ts.state),
-                         _np(ts.opt_state[0].trace),
-                         int(ts.opt_state[1].count), int(ts.step))
+                         _np(ts.opt_state), int(ts.step))
     ts, jm = jstep(ts, jnp.asarray(images), jnp.asarray(labels))
     pts, m = make_train_step(model, opt)(pts, torch.from_numpy(images),
                                          torch.from_numpy(labels))
@@ -141,12 +157,12 @@ def test_train_step_from_carried_state_matches_jax(rng, batch_norm):
     assert abs(m["loss"].item() - float(jm["loss"])) <= 1e-5 * max(
         1.0, abs(float(jm["loss"])))
     assert int(m["correct"]) == int(jm["correct"])
-    assert pts.step == int(ts.step) and pts.opt_state["count"] == int(
+    assert pts.step == int(ts.step) and int(pts.opt_state[1].count) == int(
         ts.opt_state[1].count)
     for name, p in named_params(pts.model).items():
         layer, key = name.split(".")
         assert _scaled_dev(p.detach().numpy(), ts.params[layer][key]) <= 1e-5
-        assert _scaled_dev(pts.opt_state["trace"][name].numpy(),
+        assert _scaled_dev(pts.opt_state[0].trace[name].numpy(),
                            ts.opt_state[0].trace[layer][key]) <= 1e-5, name
     for layer, st in ts.state.items():
         for key in ("mean", "var"):
@@ -261,7 +277,7 @@ def test_device_train_step_runs_every_sample_mode(rng, mode):
     for _ in range(2):
         ts, m = step(ts)
         assert torch.isfinite(m["loss"]) and m["batch"] == 8
-    assert ts.step == 2 and ts.opt_state["count"] == 2
+    assert ts.step == 2 and int(ts.opt_state[1].count) == 2
 
 
 def test_device_train_step_without_augment_normalizes(rng):
@@ -289,11 +305,24 @@ def test_device_train_step_without_augment_normalizes(rng):
 
 @pytest.mark.parametrize("flag", [
     dict(grad_accum=2), dict(steps_per_call=4), dict(mixup=0.2),
-    dict(cutmix=1.0), dict(distill=("teacher",)), dict(mesh="mesh"),
+    dict(cutmix=1.0), dict(distill="teacher"), dict(mesh="mesh"),
     dict(compute_dtype=torch.float16)])
 def test_device_train_step_options_not_ported_raise(rng, flag):
+    """A mesh and float16 stay refused; grad_accum, steps_per_call, MixUp,
+    CutMix and distillation, once refused, now run a step (held against
+    cnn_tpu in tests/test_torch_mix_distill.py)."""
     ds = _tiny_dataset(rng, n=4, size=64)
     model = get_model("alexnet", image_size=64, device="cpu")
-    with pytest.raises(NotImplementedError):
-        make_device_train_step(model, make_optimizer("sgd", 0.1), ds, 2,
-                               **flag)
+    opt = make_optimizer("sgd", 0.1)
+    if "mesh" in flag or "compute_dtype" in flag:
+        with pytest.raises(NotImplementedError):
+            make_device_train_step(model, opt, ds, 2, **flag)
+        return
+    if "distill" in flag:
+        flag = dict(distill=(get_model("alexnet", image_size=64,
+                                       device="cpu"), 2.0, 0.5))
+    ts = create_train_state(model, opt, seed=3)
+    ts, m = make_device_train_step(model, opt, ds, 2, **flag)(ts)
+    k = flag.get("steps_per_call", 1)
+    assert ts.step == k and m["batch"] == 2 * k
+    assert torch.isfinite(m["loss"]) and 0 <= int(m["correct"]) <= 2 * k

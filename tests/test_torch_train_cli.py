@@ -1,7 +1,8 @@
 """The port's train CLI against cnn_tpu's, on the CPU: both resume the same
 cnn_tpu checkpoint on the same host-loader stream and must land on the same
 weights; the device-dataset modes, preemption and ``--resume auto``, the
-flags not ported yet, and ``--profile-dir``."""
+flags not ported yet, the toolbox's flags once refused, and
+``--profile-dir``."""
 
 import glob
 import os
@@ -194,13 +195,59 @@ UNPORTED = [
     ("--color-jitter", "0.1"), ("--space-to-depth", "true"),
     ("--moe-balance", "0.01"), ("--name", "moecnn"),
 ]
+# the flags of the training toolbox, once refused and now run: the
+# flags each needs beside it, and the line it prints
+TOOLBOX = {
+    "--init-from": ((), "warm start from"),
+    "--freeze": (("--init-from", "x.ckpt"), "frozen param prefixes: "),
+    "--ema": ((), "weight EMA: decay 0.99"),
+    "--distill-from": (("--distill-model", "alexnet"),
+                       "distilling from 1 teacher(s)"),
+    "--mixup": ((), ""), "--cutmix": ((), ""), "--grad-accum": ((), ""),
+    "--steps-per-call": (("--device-dataset", "true"), ""),
+    "--color-jitter": (("--device-dataset", "true", "--augment", "true",
+                        "--augment-mode", "fast", "--canvas-size", "72"),
+                       "+ color jitter 0.1"),
+}
+WARM = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))), "checkpoints", "alexnet_bn_device",
+    "iter_5000_train_0.986_valid_0.917.ckpt")
+
+
+def _teacher(path):
+    """A seeded BN AlexNet at 64 px written as a .ckpt, a teacher."""
+    from cnn_tpu_torch.models import get_model
+    from cnn_tpu_torch.optim import make_optimizer
+    from cnn_tpu_torch.parallel import create_train_state
+    from cnn_tpu_torch.utils.checkpoint import save_checkpoint
+    model = get_model("alexnet", num_classes=3, batch_norm=True,
+                      image_size=64, device="cpu")
+    save_checkpoint(path, create_train_state(model,
+                                             make_optimizer("sgd", 0.1)))
+    return path
 
 
 @pytest.mark.parametrize("flag,value", UNPORTED)
-def test_unported_flag_raises_naming_it(tmp_path, flag, value):
-    with pytest.raises(NotImplementedError, match=flag):
-        train.main(["--checkpoint-dir", str(tmp_path), flag, value],
-                   device="cpu")
+def test_unported_flag_raises_naming_it(dataset, tmp_path, capsys, flag,
+                                        value):
+    """The multi-device flags, --compile-cache, --space-to-depth, MoE and
+    moecnn still raise naming their flag; the toolbox's flags, once
+    refused, now run two iterations (against cnn_tpu's CLI:
+    tests/test_torch_toolbox_cli.py)."""
+    if flag not in TOOLBOX:
+        with pytest.raises(NotImplementedError, match=flag):
+            train.main(["--checkpoint-dir", str(tmp_path), flag, value],
+                       device="cpu")
+        return
+    more, line = TOOLBOX[flag]
+    subst = {"x.ckpt": WARM, "t.ckpt": str(tmp_path / "t.ckpt")}
+    if flag == "--distill-from":
+        _teacher(subst["t.ckpt"])
+    argv = [subst.get(a, a) for a in (flag, value, *more)]
+    assert train.main(_args(dataset, tmp_path / "ck", "--total-iters", "2",
+                            *argv), device="cpu") == 0
+    out = capsys.readouterr().out
+    assert line in out and "training done!" in out and "Test===>" in out
 
 
 @pytest.mark.parametrize("argv,name", [
@@ -209,10 +256,28 @@ def test_unported_flag_raises_naming_it(tmp_path, flag, value):
     (["--optimizer", "adam"], "adam"),
     (["--weight-decay", "1e-4"], "weight_decay"),
     (["--grad-clip", "1.0"], "grad_clip")])
-def test_unported_options_raise(dataset, tmp_path, argv, name):
-    with pytest.raises(NotImplementedError, match=name):
-        train.main(_args(dataset, tmp_path, "--total-iters", "2", *argv),
-                   device="cpu")
+def test_unported_options_raise(dataset, tmp_path, capsys, argv, name):
+    """The host augmentation and --backend native still raise; Adam,
+    weight decay and the clip, once refused, now train."""
+    if name in ("augment", "native"):
+        with pytest.raises(NotImplementedError, match=name):
+            train.main(_args(dataset, tmp_path, "--total-iters", "2", *argv),
+                       device="cpu")
+        return
+    assert train.main(_args(dataset, tmp_path, "--total-iters", "2", *argv),
+                      device="cpu") == 0
+    ck = read_checkpoint(_one(str(tmp_path / "iter_2_*.ckpt")))
+    kinds = [type(st).__name__ for st in ck["opt_state"]]
+    assert kinds == {"adam": ["ScaleByAdamState", "ScaleByScheduleState"],
+                     "weight_decay": ["EmptyState", "tuple"],
+                     "grad_clip": ["EmptyState", "tuple"]}[name]
+    assert "training done!" in capsys.readouterr().out
+
+
+def test_color_jitter_without_device_augment_exits(dataset, tmp_path):
+    with pytest.raises(SystemExit, match="--color-jitter is applied by"):
+        train.main(_args(dataset, tmp_path, "--total-iters", "2",
+                         "--color-jitter", "0.1"), device="cpu")
 
 
 def test_profile_dir_writes_a_trace(dataset, tmp_path, capsys):
