@@ -224,6 +224,36 @@
    through the kernels within 1e-4 x max(1, max|ref|) of the plain
    versions on the card, the printed probabilities within 1e-5.
 
+20. MoECNN, AlexNet's space-to-depth convs, Grad-CAM at every family and
+   in a trunk, whole-model remat: the committed MoECNN (width 64, 8
+   experts, hidden 256, 224 px) served at buckets 1, 8 and 64 in float32
+   and bf16 (phase 17's checks; the six photos' logits, as one batch of 6,
+   within 1e-4 x max(1, max|ref|) of ``family_logits.npz``, their top-2
+   router probabilities more than 1e-4 apart), a request of 5 images in
+   bucket 8 bit-equal to the eager forward of the same 5 and 3 zero
+   images; a seeded MoECNN with ``balance_coeff`` 0.01 through 5 train
+   steps at batch 256 in each dtype (finite losses, the aux loss above 0,
+   the loads printed, launches exact); ``tools.train --name moecnn
+   --moe-balance 0.01`` at the flagship's flags for 20 iterations (the
+   ``MoE load`` line, ``moe_load`` in the history), then ``tools.infer``
+   and ``tools.gradcam --layer stem_relu4`` on its checkpoint. AlexNet
+   with ``space_to_depth`` from the committed ``.model`` (its s2d convs
+   run as the stride-2 convs they compute): every conv launch against the
+   plain conv, one forward's launches those of the plain AlexNet, served
+   at B = 64 with logits bit-equal to the plain AlexNet's, 5 train steps
+   at batch 256 in each dtype; no launch of the direct kernel or the
+   gather. ``tools.gradcam`` on the photos for resnet10 ``block_4``,
+   pipecnn ``trunk/block_3`` and ``trunk/block_3/b_conv1`` and moecnn
+   ``stem_relu4``, each CAM within 1e-4 of the plain versions on the card
+   (1e-3 inside the trunk), launches six times one image's. One training
+   step of AlexNet (BN, Dropout) and of MoECNN at batch 256 with
+   ``remat`` True and False, cuDNN deterministic: gradients, loss, state
+   and generator bit-equal, the peak memory of each. The kernels line
+   gains MoECNN's 64 -> 64 stride-2 conv, float32 and bf16, timed at 112
+   px; its launches are those of all three such convs (112, 56 and 28
+   px), the counters telling the sizes apart no more than the stem rows
+   of phase 17 do (MoECNN's 3 -> 64 stem counts on stem_64's).
+
 Every phase prints one flushed line with the seconds since start. Any failed
 check raises, so the exit code is not 0. Without a CUDA device it exits 1
 before printing any result. The line before the last is the kernel table as
@@ -294,7 +324,8 @@ from cnn_tpu_torch.ops.preprocess import uint8_to_float
 from cnn_tpu_torch.optim import make_optimizer, sgd
 from cnn_tpu_torch.parallel import (create_train_state, make_eval_step,
                                     make_train_step)
-from cnn_tpu_torch.parallel.train_step import named_params
+from cnn_tpu_torch.parallel.train_step import (accumulate_grads,
+                                               named_params, named_state)
 from cnn_tpu_torch.utils.checkpoint import (export_reference_model,
                                             import_reference_array,
                                             load_checkpoint, load_jax_params,
@@ -2605,6 +2636,11 @@ PHOTOS = ROOT / "tests" / "fixtures" / "reference_parity.npz"
 PHOTO_CLASSES = ["dog", "panda", "bird"] * 2
 INFER_PROB_ATOL = 1e-6  # printed to 6 places: 5e-7 of it is the rounding
 CAM_ATOL = 1e-4         # the kernel path's CAM against the plain path's
+# the same inside a trunk: a capture at PipeCNN's block 3 of 8 carries the
+# float32 reassociation of the two paths' sums through 16 64-channel convs
+# forward and 10 backward before the range normalisation (1.85e-4 measured
+# at trunk/block_3/b_conv1 on the H100)
+CAM_TRUNK_ATOL = 1e-3
 DROPOUT_P = 0.25
 PRED_LINE = re.compile(r"^(.*)===> \[classification: (\w+)\] "
                        r"\[prob: ([\d.]+)\]$")
@@ -2919,7 +2955,7 @@ FAMILY_CONV_SREL = 1e-5
 # stride, padding) and the families whose first conv it is
 STEMS = {"stem": ((224, 3, 16, 3, 2, 1), ("resnet10",)),
          "stem_32": ((224, 3, 32, 3, 2, 1), ("resnet18", "mobilenet")),
-         "stem_64": ((224, 3, 64, 3, 2, 1), ("pipecnn",)),
+         "stem_64": ((224, 3, 64, 3, 2, 1), ("pipecnn", "moecnn")),
          "stem_s1_32": ((224, 3, 32, 3, 1, 1), ("vgg8",)),
          "stem_s1_64": ((224, 3, 64, 3, 1, 1), ("vgg11",))}
 # (B, H, Cin, Cout, k, stride, padding) of each family kernel row, at the
@@ -3050,116 +3086,138 @@ def family_photos() -> np.ndarray:
     return np.stack([fx[f"image_u8_{i}"] for i in range(6)])
 
 
+def serve_family(name: str, model, dtype, rng, photos: np.ndarray,
+                 imgs64: np.ndarray, ref) -> tuple:
+    """``model`` (family ``name``, with one padded Cin-3 stem) behind
+    ``InferenceEngine`` (buckets 1, 8, 64, one CUDA graph each) in
+    ``dtype``: one forward's launches (one conv per Conv2D layer, the stem
+    on a padded strip, none on the direct kernel or the gather, one pool
+    per MaxPool2D, ATen's conv only for a depthwise conv), every conv
+    launch against the plain conv (``check_family_convs``), each bucket's
+    replay bit-equal to its eager forward (``rng``'s images), a counted
+    predict of the six ``photos`` and of ``imgs64``, the photos' eager
+    logits (one batch of 6)
+    against ``ref`` = (float32 reference logits, what they are, bar x
+    max(1, max|ref|)). Returns the counts of the predicts, the logits, the
+    engine and a line for the log."""
+    tag = f"{name} {'bf16' if dtype else 'float32'}"
+    x6 = torch.from_numpy(photos).cuda()
+    x8 = uint8_normalize(torch.cat([x6, torch.flip(x6[:2], dims=(2,))]))
+    per_fwd, aten = forward_counts(model, dtype)
+    convs = n_convs(model)
+    pools = sum(isinstance(m, nn_module.MaxPool2D) for m in model.modules())
+    check(per_fwd.get("conv2d_bias_relu.launches") == convs
+          and per_fwd.get("max_pool2d_fwd.launches", 0) == pools
+          and sum(per_fwd.get(f"conv2d_bias_relu.{c}", 0)
+                  for c in STRIP_PADDED) == 1
+          and per_fwd.get("conv2d_bias_relu.launches_direct", 0)
+          + per_fwd.get("conv2d_bias_relu.launches_bf16_gather", 0)
+          == 0, f"{tag}: one forward launched {per_fwd}; it has "
+          f"{convs} convs (one a padded Cin-3 stem, on a strip) and "
+          f"{pools} pools")
+    depthwise = sum(type(m).__name__ == "DepthwiseConv2D"
+                    for m in model.modules())
+    check(aten == depthwise, f"{tag}: one forward called ATen's "
+          f"conv {aten} times; only its {depthwise} depthwise convs may")
+    shapes, worst = check_family_convs(model, dtype, x8)
+    want1 = dict(per_fwd, **{"uint8_normalize.launches": 1,
+                             "uint8_normalize.launches_wide": 1})
+    engine = serving.InferenceEngine(model, buckets=BUCKETS, device="cuda",
+                                     compute_dtype=dtype)
+    t = time.perf_counter()
+    engine.warmup()
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t
+    for b in BUCKETS:
+        check(engine._ready[b].launches == want1, f"{tag} bucket "
+              f"{b}'s capture recorded {engine._ready[b].launches}, "
+              f"expected {want1}")
+        chunk = synthetic_images(rng, b)
+        labels, probs = engine.predict(chunk)
+        with torch.no_grad():
+            ep, el = engine._forward(torch.from_numpy(chunk).cuda())
+        check(same_arrays(labels, el.cpu().numpy())
+              and same_arrays(probs, ep.cpu().numpy()),
+              f"{tag} bucket {b}: the replay differs from the eager "
+              "forward")
+    torch.cuda.synchronize()
+    reset_launches()
+    labels, probs = engine.predict(photos)
+    engine.predict(imgs64)
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in read_counters().items() if v}
+    want = {k: 2 * v for k, v in want1.items()}
+    check(counts == want, f"{tag}: predict launches {counts}, "
+          f"expected {want}")
+    # the photos padded with zero images to the bucket, as the engine runs
+    # them (MoECNN's expert capacity is the bucket's), and as one batch
+    bucket = torch.zeros((BUCKETS[1], *x6.shape[1:]), dtype=torch.uint8,
+                         device="cuda")
+    bucket[:len(x6)] = x6
+    with torch.no_grad():
+        padded = engine.model(uint8_normalize(bucket),
+                              compute_dtype=dtype)[:len(x6)].float()
+        logits = engine.model(uint8_normalize(x6),
+                              compute_dtype=dtype).float()
+    check(np.array_equal(labels, padded.argmax(-1).cpu().numpy()),
+          f"{tag}: the engine's labels are not its logits' argmax")
+    ref_logits, what, tol = ref
+    dev_, scale = scaled_dev(logits, ref_logits)
+    check(dev_ <= tol * scale, f"{tag}: logits {dev_:.3g} from {what} (bar "
+          f"{tol * scale:.3g})")
+    if dtype is None:
+        check(np.array_equal(logits.argmax(-1).cpu().numpy(),
+                             ref_logits.argmax(-1).cpu().numpy()),
+              f"{tag}: labels {logits.argmax(-1).cpu().numpy()}, {what}'s "
+              f"{ref_logits.argmax(-1).cpu().numpy()}")
+    engine.predict(imgs64)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    reps = 10
+    for _ in range(reps):
+        engine.predict(imgs64)
+    e2e = reps * 64 / (time.perf_counter() - t)
+    xb = torch.from_numpy(imgs64).cuda()
+    with torch.no_grad():
+        graphed, eager = in_turns(engine._ready[64].graph.replay,
+                                  lambda: engine._forward(xb), 10)
+    line = (f"{tag}: {e2e:.1f} img/s at bucket 64, graph {graphed:.4f} ms, "
+            f"eager {eager:.4f} ms; warmup {warm_s:.2f} s; logits max|dev| "
+            f"{dev_:.3g} from {what}; labels {labels.tolist()}; {shapes} "
+            f"conv shapes at {worst:.3f} of their bar")
+    return counts, logits, engine, line
+
+
 def families_serving_phase(smi: str) -> dict:
     """Phase 17: each family behind ``InferenceEngine`` (buckets 1, 8, 64,
-    one CUDA graph each), float32 and bf16; returns the launches of its
-    counted runs, added up."""
+    one CUDA graph each), float32 and bf16 (``serve_family``); returns the
+    launches of its counted runs, added up."""
     fixture = np.load(FAMILY_FIXTURE)
     rng = np.random.default_rng(17)
     photos = family_photos()
     x6 = torch.from_numpy(photos).cuda()
-    x8 = uint8_normalize(torch.cat([x6, torch.flip(x6[:2], dims=(2,))]))
     imgs64 = synthetic_images(rng, 64)
     total, lines = {}, []
     for name in FAMILIES:
         model = family_model(name, fixture)
         f32_logits = None
         for dtype in (None, BF16):
-            tag = f"{name} {'bf16' if dtype else 'float32'}"
-            per_fwd, aten = forward_counts(model, dtype)
-            convs = n_convs(model)
-            pools = sum(isinstance(m, nn_module.MaxPool2D)
-                        for m in model.modules())
-            check(per_fwd.get("conv2d_bias_relu.launches") == convs
-                  and per_fwd.get("max_pool2d_fwd.launches", 0) == pools
-                  and sum(per_fwd.get(f"conv2d_bias_relu.{c}", 0)
-                          for c in STRIP_PADDED) == 1
-                  and per_fwd.get("conv2d_bias_relu.launches_direct", 0)
-                  + per_fwd.get("conv2d_bias_relu.launches_bf16_gather", 0)
-                  == 0, f"{tag}: one forward launched {per_fwd}; it has "
-                  f"{convs} convs (one a padded Cin-3 stem, on a strip) and "
-                  f"{pools} pools")
-            depthwise = sum(type(m).__name__ == "DepthwiseConv2D"
-                            for m in model.modules())
-            check(aten == depthwise, f"{tag}: one forward called ATen's "
-                  f"conv {aten} times; only its {depthwise} depthwise convs "
-                  "may")
-            shapes, worst = check_family_convs(model, dtype, x8)
-            want1 = dict(per_fwd, **{"uint8_normalize.launches": 1,
-                                     "uint8_normalize.launches_wide": 1})
-            engine = serving.InferenceEngine(model, buckets=BUCKETS,
-                                             device="cuda",
-                                             compute_dtype=dtype)
-            t = time.perf_counter()
-            engine.warmup()
-            torch.cuda.synchronize()
-            warm_s = time.perf_counter() - t
-            for b in BUCKETS:
-                check(engine._ready[b].launches == want1, f"{tag} bucket "
-                      f"{b}'s capture recorded {engine._ready[b].launches}, "
-                      f"expected {want1}")
-                chunk = synthetic_images(rng, b)
-                labels, probs = engine.predict(chunk)
-                with torch.no_grad():
-                    ep, el = engine._forward(torch.from_numpy(chunk).cuda())
-                check(same_arrays(labels, el.cpu().numpy())
-                      and same_arrays(probs, ep.cpu().numpy()),
-                      f"{tag} bucket {b}: the replay differs from the eager "
-                      "forward")
-            torch.cuda.synchronize()
-            reset_launches()
-            labels, probs = engine.predict(photos)
-            engine.predict(imgs64)
-            torch.cuda.synchronize()
-            counts = {k: v for k, v in read_counters().items() if v}
-            want = {k: 2 * v for k, v in want1.items()}
-            check(counts == want, f"{tag}: predict launches {counts}, "
-                  f"expected {want}")
-            add_up(total, counts)
-            add_up(total, stem_counts(name, counts))
-            with torch.no_grad():
-                logits = engine.model(uint8_normalize(x6),
-                                      compute_dtype=dtype).float()
-            check(np.array_equal(labels, logits.argmax(-1).cpu().numpy()),
-                  f"{tag}: the engine's labels are not its logits' argmax")
+            if dtype is not None:
+                ref = (f32_logits, "float32", BF16_MODEL_TOL)
+            elif FAMILIES[name]:
+                ref = (torch.from_numpy(fixture[f"{name}_logits"]).cuda(),
+                       "the fixture", LOGIT_ATOL)
+            else:
+                with plain_versions(), torch.no_grad():
+                    ref = (model(uint8_to_float(x6)),
+                           "the plain versions on the card", LOGIT_ATOL)
+            counts, logits, engine, line = serve_family(
+                name, model, dtype, rng, photos, imgs64, ref)
             if dtype is None:
                 f32_logits = logits
-                if FAMILIES[name]:
-                    ref = torch.from_numpy(fixture[f"{name}_logits"]).cuda()
-                    what = "the fixture"
-                else:
-                    with plain_versions(), torch.no_grad():
-                        ref = model(uint8_to_float(x6))
-                    what = "the plain versions on the card"
-                dev_, scale = scaled_dev(logits, ref)
-                check(dev_ <= LOGIT_ATOL * scale
-                      and np.array_equal(labels,
-                                         ref.argmax(-1).cpu().numpy()),
-                      f"{tag}: logits {dev_:.3g} from {what} (bar "
-                      f"{LOGIT_ATOL * scale:.3g}), labels {labels}, its "
-                      f"{ref.argmax(-1).cpu().numpy()}")
-            else:
-                dev_, scale = scaled_dev(logits, f32_logits)
-                what = "float32"
-                check(dev_ <= BF16_MODEL_TOL * scale, f"{tag}: logits "
-                      f"{dev_:.3g} from float32's (bar "
-                      f"{BF16_MODEL_TOL * scale:.3g})")
-            engine.predict(imgs64)
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            reps = 10
-            for _ in range(reps):
-                engine.predict(imgs64)
-            e2e = reps * 64 / (time.perf_counter() - t)
-            xb = torch.from_numpy(imgs64).cuda()
-            with torch.no_grad():
-                graphed, eager = in_turns(engine._ready[64].graph.replay,
-                                          lambda: engine._forward(xb), 10)
-            lines.append(f"{tag}: {e2e:.1f} img/s at bucket 64, graph "
-                         f"{graphed:.4f} ms, eager {eager:.4f} ms; warmup "
-                         f"{warm_s:.2f} s; logits max|dev| {dev_:.3g} from "
-                         f"{what}; labels {labels.tolist()}; {shapes} conv "
-                         f"shapes at {worst:.3f} of their bar")
+            add_up(total, counts)
+            add_up(total, stem_counts(name, counts))
+            lines.append(line)
             del engine
             torch.cuda.empty_cache()
     for line in lines:
@@ -3361,11 +3419,11 @@ def stem_phase(gen) -> None:
           + "; ".join(conv1))
 
 
-def family_row(key: str, dtype, gen) -> tuple:
-    """A kernel row at a family shape: (max |dev| vs plain, ms through the
-    wrapper, plain ms, cuDNN ms, (bound ms, by), ms alone, cuDNN + ReLU
-    alone)."""
-    bsz, h, cin, cout, k, s, p = FAMILY_ROWS[key]
+def family_row(shape: tuple, dtype, gen) -> tuple:
+    """A kernel row at a family conv ``shape`` (B, H, Cin, Cout, k,
+    stride, padding): (max |dev| vs plain, ms through the wrapper, plain
+    ms, cuDNN ms, (bound ms, by), ms alone, cuDNN + ReLU alone)."""
+    bsz, h, cin, cout, k, s, p = shape
     dev = torch.device("cuda")
     x = torch.relu(torch.randn((bsz, h, h, cin), generator=gen, device=dev)) \
         if cin > 3 else torch.rand((bsz, h, h, cin), generator=gen,
@@ -3378,7 +3436,7 @@ def family_row(key: str, dtype, gen) -> tuple:
     ref = conv2d(x, w, b, s, True, p)
     err = (y.float() - ref.float()).abs().max().item()
     if dtype is None:
-        conv_bar_f32(x, w, b, s, p, y, ref, f"row {key}")
+        conv_bar_f32(x, w, b, s, p, y, ref, f"row {shape}")
     ms = time_ms(lambda: conv2d_bias_relu(x, w, b, s, True, p))
     plain = time_ms(lambda: conv2d(x, w, b, s, True, p), iters=5)
     xn, wn = x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1)
@@ -3415,7 +3473,7 @@ def family_rows(gen, counts: dict) -> list:
     for key in FAMILY_ROWS:
         for dtype, suffix in ((None, ""), (BF16, "_bf16")):
             err, ms, plain, lib, bound, alone, lib_alone = family_row(
-                key, dtype, gen)
+                FAMILY_ROWS[key], dtype, gen)
             name = f"conv2d_bias_relu_{key}{suffix}"
             rows.append(entry(name, launches[key + suffix], err, ms, plain,
                               lib, bound))
@@ -4038,6 +4096,471 @@ def toolbox_checks(run: str, text: str, saved: dict) -> str:
     return "momentum, no toolbox flag"
 
 
+# ---------------------------------------------------------------------------
+# MoECNN, AlexNet's space-to-depth convs, Grad-CAM at every family and inside
+# a trunk, whole-model remat (phase 20)
+# ---------------------------------------------------------------------------
+
+MOE_STEPS = 5            # training steps at the training batch, each dtype
+MOE_BALANCE = 0.01       # --moe-balance of the training runs
+MOE_CLI_STEPS = 20
+# MoECNN's 64 -> 64 stride-2 padded 3x3s, a kernel row timed at the first
+# extent (112); its launches are those of all three (112, 56 and 28)
+MOE_ROWS = {"s2_64": (B, 112, 64, 64, 3, 2, 1)}
+# Grad-CAM through the CLI: (family, its committed checkpoint, layer)
+CAM_CASES = (("resnet10", "block_4"), ("pipecnn", "trunk/block_3"),
+             ("pipecnn", "trunk/block_3/b_conv1"), ("moecnn", "stem_relu4"))
+for _key in MOE_ROWS:
+    for _sfx in ("", "_bf16"):
+        REPLACES[f"conv2d_bias_relu_{_key}{_sfx}"] = REPLACES[
+            "conv2d_bias_relu" + _sfx]
+        SOURCES[f"conv2d_bias_relu_{_key}{_sfx}"] = \
+            "cnn_tpu_torch/csrc/conv.cu"
+
+
+def counted(fn) -> tuple:
+    """``fn()`` with the counters at 0 just before; its result and the
+    non-zero counters just after."""
+    torch.cuda.synchronize()
+    reset_launches()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k: v for k, v in read_counters().items() if v}
+
+
+def normalize_counts(images, dtype) -> dict:
+    """The counters of one normalize of ``images`` into ``dtype``."""
+    return counted(lambda: uint8_normalize(images, dtype or torch.float32))[1]
+
+
+def no_fallback(counts: dict, what: str) -> None:
+    """No launch of the direct conv kernel or of the bf16 gather."""
+    check(counts.get("conv2d_bias_relu.launches_direct", 0)
+          + counts.get("conv2d_bias_relu.launches_bf16_gather", 0) == 0,
+          f"{what}: the direct kernel or the gather launched: {counts}")
+
+
+def router_gap(model, x) -> float:
+    """The least gap between an image's two best router probabilities."""
+    with torch.no_grad():
+        _, feats = model(x, capture=("gap",))
+        probs = torch.softmax(feats["gap"].float()
+                              @ model.net["moe"].router, -1)
+    top2 = probs.sort(dim=-1).values[:, -2:]
+    return float((top2[:, 1] - top2[:, 0]).min())
+
+
+def moecnn_serving(smi: str) -> tuple[dict, list]:
+    """The committed MoECNN (width 64, 8 experts, hidden 256, 224 px)
+    through ``serve_family`` in float32 (the six photos' logits against
+    ``family_logits.npz``) and bf16 (against float32); then a request of 5
+    images in bucket 8 against the eager forward of the same 5 padded with
+    3 zero images. Returns the counts and the log lines."""
+    fixture = np.load(FAMILY_FIXTURE)
+    model = get_model("moecnn", num_classes=3, image_size=224,
+                      batch_norm=True, device="cuda")
+    payload = read_checkpoint(str(ROOT / str(fixture["moecnn_checkpoint"])))
+    load_jax_params(model, payload["params"], payload["state"])
+    model.eval()
+    rng = np.random.default_rng(20)
+    photos = family_photos()
+    imgs64 = synthetic_images(rng, 64)
+    gap = router_gap(model, uint8_normalize(torch.from_numpy(photos).cuda()))
+    check(gap > 1e-4, f"moecnn: the photos' top-2 router gap {gap:.3g}")
+    total, lines, f32 = {}, [], None
+    for dtype in (None, BF16):
+        ref = ((torch.from_numpy(fixture["moecnn_logits"]).cuda(),
+                "the fixture", LOGIT_ATOL) if dtype is None
+               else (f32, "float32", BF16_MODEL_TOL))
+        counts, logits, engine, line = serve_family(
+            "moecnn", model, dtype, rng, photos, imgs64, ref)
+        add_up(total, counts)
+        if dtype is None:
+            f32 = logits
+        five = np.zeros((8, 224, 224, 3), np.uint8)
+        five[:5] = imgs64[:5]
+        (labels, probs), c5 = counted(lambda: engine.predict(imgs64[:5]))
+        check(c5 == engine._ready[8].launches, f"moecnn 5 in bucket 8: "
+              f"launches {c5}, the graph's {engine._ready[8].launches}")
+        add_up(total, c5)
+        with torch.no_grad():
+            ep, el = engine._forward(torch.from_numpy(five).cuda())
+        check(same_arrays(probs, ep[:5].cpu().numpy())
+              and same_arrays(labels, el[:5].cpu().numpy()),
+              "moecnn: 5 images in bucket 8 differ from the eager forward "
+              "of the same 5 and 3 zero images")
+        lines.append(line + "; 5 images in bucket 8 bit-equal to the eager "
+                     "zero-padded forward")
+        del engine
+        torch.cuda.empty_cache()
+    lines.append(f"the photos' least top-2 router gap {gap:.4g} ({smi})")
+    return total, lines
+
+
+def moecnn_training(smi: str) -> tuple[dict, list, dict]:
+    """MoECNN seeded with ``--moe-balance`` 0.01, ``make_train_step`` for
+    ``MOE_STEPS`` steps at the training batch on synthetic uint8 images, in
+    float32 and bf16: finite losses, the aux loss above 0, the loads
+    printed, the launches exact (per step the normalize and one conv per
+    Conv2D layer, none on the direct kernel or the gather). Returns the
+    counts, the log lines and the device ms a step per dtype."""
+    rng = np.random.default_rng(22)
+    x = torch.from_numpy(synthetic_images(rng, TRAIN_B)).cuda()
+    y = torch.arange(TRAIN_B, device="cuda") % 3
+    total, lines, step_ms = {}, [], {}
+    for dtype in (None, BF16):
+        tag = "bf16" if dtype else "float32"
+        model = get_model("moecnn", num_classes=3, image_size=224,
+                          batch_norm=True, balance_coeff=MOE_BALANCE,
+                          device="cuda",
+                          generator=torch.Generator().manual_seed(20))
+        per_fwd = forward_counts(model.eval(), dtype)[0]
+        opt = make_optimizer("momentum", 1.5e-2, schedule="cosine",
+                             total_steps=MOE_STEPS)
+        ts = create_train_state(model, opt, seed=20)
+        step = make_train_step(model, opt, compute_dtype=dtype)
+        events, losses = [], []
+
+        def train():
+            for _ in range(MOE_STEPS):
+                a = torch.cuda.Event(enable_timing=True)
+                e = torch.cuda.Event(enable_timing=True)
+                a.record()
+                _, m = step(ts, x, y)
+                e.record()
+                events.append((a, e))
+                losses.append(m["loss"].detach())
+        _, counts = counted(train)
+        want = {k: v * MOE_STEPS for k, v in {
+            **per_fwd, **normalize_counts(x, dtype)}.items()}
+        check(counts == want, f"moecnn {tag} training: launches {counts}, "
+              f"expected {want}")
+        add_up(total, counts)
+        loss = torch.stack(losses).float().cpu()
+        moe = model.net["moe"]
+        aux = float(moe.aux_loss)
+        check(bool(torch.isfinite(loss).all()) and aux > 0.0,
+              f"moecnn {tag} training: losses {loss.tolist()}, aux {aux}")
+        step_ms[tag] = float(np.mean([a.elapsed_time(e)
+                                      for a, e in events[1:]]))
+        load = moe.load.cpu().numpy().round(4).tolist()
+        lines.append(f"{tag}: {MOE_STEPS} steps at batch {TRAIN_B}, losses "
+                     f"{[round(v, 4) for v in loss.tolist()]}, aux_loss "
+                     f"{aux:.5f}, load {load}, device {step_ms[tag]:.3f} ms "
+                     f"a step (steps 2-{MOE_STEPS}, CUDA events; {smi})")
+    return total, lines, step_ms
+
+
+def gradcam_case(name, ckpt, layer, paths, imgs, out_dir) -> tuple:
+    """``tools.gradcam --model name --layer layer`` on ``paths`` through a
+    counted run: the launches six times those of one image's
+    ``compute_cam`` (none on the direct kernel or the gather), each CAM
+    within ``CAM_ATOL`` of ``compute_cam`` on the plain versions on the
+    card and the same class. Returns the counts, the worst CAM deviation
+    and the run's seconds."""
+    model = get_model(name, num_classes=3, image_size=224, batch_norm=True,
+                      device="cuda")
+    payload = read_checkpoint(str(ckpt))
+    load_jax_params(model, payload["params"], payload["state"])
+    x = [uint8_to_float(torch.from_numpy(img[None]).cuda()) for img in imgs]
+    _, one = counted(lambda: gradcam_cli.compute_cam(model, x[0], layer))
+    no_fallback(one, f"gradcam {name} {layer}")
+    got = []
+    real = gradcam_cli.compute_cam
+
+    def cam(*args, **kwargs):
+        got.append(real(*args, **kwargs))
+        return got[-1]
+    with mock.patch.object(gradcam_cli, "compute_cam", cam):
+        _, counts, secs = counted_run(
+            f"gradcam --model {name} --layer {layer}", gradcam_cli.main,
+            ["--checkpoint", str(ckpt), "--model", name, "--batch-norm",
+             "--layer", layer, "--output-dir", str(out_dir), *paths],
+            {k: len(paths) * v for k, v in one.items()})
+    worst = 0.0
+    for i, xi in enumerate(x):
+        with plain_everywhere():
+            ref, probs = gradcam_cli.compute_cam(model, xi, layer)
+        worst = max(worst, float(np.abs(got[i][0] - ref).max()))
+        check(int(got[i][1].argmax()) == int(probs.argmax()),
+              f"gradcam {name} {layer}: image {i}'s class")
+        check((out_dir / f"{i}.png").exists(), f"gradcam {name} {layer}: "
+              f"no {i}.png")
+    bar = CAM_TRUNK_ATOL if "/" in layer else CAM_ATOL
+    check(worst <= bar, f"gradcam {name} {layer}: CAM against the plain "
+          f"versions max|dev| {worst:.3g} (bar {bar})")
+    return counts, worst, secs
+
+
+def plain_everywhere():
+    """Every conv and pool call of a layer (the wrappers, the autograd
+    Functions, the custom op) and the normalize on their plain versions."""
+    stack = plain_versions()
+    stack.enter_context(plain_training())
+    stack.enter_context(mock.patch.object(nn_module, "conv2d_bias_relu_op",
+                                          conv2d))
+    return stack
+
+
+def moecnn_cli(smi: str, tmp: Path, cli: dict) -> tuple[dict, list]:
+    """``tools.train --name moecnn --moe-balance 0.01`` at the flagship's
+    flags on phase 14's images for ``MOE_CLI_STEPS`` iterations (launches
+    exact, the ``MoE load [moe]`` line and ``moe_load`` in the history),
+    then ``tools.infer --model moecnn`` and ``tools.gradcam --layer
+    stem_relu4`` on the checkpoint it wrote. Returns the counts and the
+    log lines."""
+    nv, nt = cli["valid_batches"], cli["test_batches"]
+    probe = get_model("moecnn", num_classes=3, image_size=224,
+                      batch_norm=True, device="cuda").eval()
+    per_fwd = forward_counts(probe, BF16)[0]
+    per_f32 = forward_counts(probe, None)[0]
+    del probe
+    ck = tmp / "moecnn_cli"
+    argv = CLI_FLAGSHIP + ["--dataset-path", str(cli["data"]), *cli["sizes"],
+                           "--name", "moecnn", "--moe-balance",
+                           str(MOE_BALANCE), "--checkpoint-dir", str(ck),
+                           "--total-iters", str(MOE_CLI_STEPS),
+                           "--valid-iters", "20", "--save-iters", "20"]
+    times = CliTimes()
+    t = time.perf_counter()
+    text, total = run_cli(argv, "train CLI --name moecnn",
+                          family_train_want(per_fwd, MOE_CLI_STEPS,
+                                            (MOE_CLI_STEPS // 20) * nv + nt),
+                          times)
+    secs = time.perf_counter() - t
+    loads = [ln for ln in text.splitlines() if ln.startswith("MoE load [moe]")]
+    hist = read_history(str(ck / "history.jsonl"))
+    check(len(loads) == 1 and hist and "moe_load" in hist[-1],
+          f"train CLI --name moecnn: load lines {loads}, history {hist}")
+    path = sorted(ck.glob(f"iter_{MOE_CLI_STEPS}_*.ckpt"))
+    check(len(path) == 1 and "aux_loss" in read_checkpoint(
+        str(path[0]))["state"]["moe"], f"train CLI --name moecnn: {path}")
+    imgs, paths = write_photos(tmp)
+    text_i, counts, infer_s = counted_run(
+        "infer --model moecnn", infer_cli.main,
+        ["--checkpoint", str(path[0]), "--model", "moecnn", "--batch-norm",
+         *paths],
+        {k: 6 * v for k, v in dict(per_f32, **{
+            "uint8_normalize.launches": 1,
+            "uint8_normalize.launches_wide": 1}).items()})
+    add_up(total, counts)
+    check(len(predictions(text_i)) == 6, f"infer --model moecnn: {text_i!r}")
+    counts, worst, cam_s = gradcam_case(
+        "moecnn", path[0], "stem_relu4", paths, imgs, tmp / "cam_moecnn_cli")
+    add_up(total, counts)
+    return total, [
+        f"train CLI --name moecnn --moe-balance {MOE_BALANCE}, bf16, "
+        f"{MOE_CLI_STEPS} iterations: {loads[0]}; {secs:.1f} s "
+        f"({TRAIN_B * MOE_CLI_STEPS / times.s['loop']:.1f} img/s over the "
+        f"loop); infer on its checkpoint {infer_s:.3f} s; gradcam "
+        f"stem_relu4 CAMs within {worst:.3g} of the plain versions "
+        f"({cam_s:.3f} s; {smi})"]
+
+
+def gradcam_families(smi: str, tmp: Path) -> tuple[dict, list]:
+    """``tools.gradcam`` on the six photos for each of ``CAM_CASES`` from
+    the committed checkpoints (``gradcam_case``)."""
+    fixture = np.load(FAMILY_FIXTURE)
+    imgs, paths = write_photos(tmp)
+    total, lines = {}, []
+    for name, layer in CAM_CASES:
+        ckpt = ROOT / str(fixture[f"{name}_checkpoint"])
+        out = tmp / f"cam_{name}_{layer.replace('/', '_')}"
+        counts, worst, secs = gradcam_case(name, ckpt, layer, paths, imgs,
+                                           out)
+        add_up(total, counts)
+        lines.append(f"--model {name} --layer {layer}: CAMs within "
+                     f"{worst:.3g} of the plain versions, {secs:.3f} s")
+    return total, [f"gradcam CLI, six photos each ({smi}): "
+                   + "; ".join(lines)]
+
+
+def s2d_phase(smi: str) -> tuple[dict, list]:
+    """AlexNet with ``space_to_depth`` from the committed ``.model``, whose
+    s2d convs run as the stride-2 convs they compute: every conv launch
+    against the plain conv (``check_family_convs``), one forward's
+    launches those of the plain AlexNet; served at B = 64 in float32 and
+    bf16, the replay bit-equal to the eager forward and to the plain
+    AlexNet's; 5 train steps at the training batch in each dtype; no
+    launch of the direct kernel or the gather anywhere. Returns the counts
+    and the log lines."""
+    model = get_model("alexnet", num_classes=3, batch_norm=True,
+                      image_size=224, space_to_depth=True, device="cuda")
+    load_reference_model(model, MODEL)
+    flat = get_model("alexnet", num_classes=3, batch_norm=True,
+                     image_size=224, device="cuda")
+    load_reference_model(flat, MODEL)
+    check([l.s2d for l in model.net if isinstance(l, Conv2D)]
+          == [True, True, False, False], "s2d AlexNet: the flagged convs")
+    rng = np.random.default_rng(23)
+    imgs = synthetic_images(rng, B)
+    xb = uint8_normalize(torch.from_numpy(imgs).cuda())
+    total, lines = {}, []
+    for dtype in (None, BF16):
+        tag = f"s2d AlexNet {'bf16' if dtype else 'float32'}"
+        per_fwd = forward_counts(model.eval(), dtype)[0]
+        no_fallback(per_fwd, tag)
+        flat_fwd = forward_counts(flat.eval(), dtype)[0]
+        check(per_fwd == flat_fwd, f"{tag}: one forward launched {per_fwd},"
+              f" the plain AlexNet {flat_fwd}")
+        shapes, worst = check_family_convs(model, dtype, xb[:8])
+        engine = serving.InferenceEngine(model, buckets=(B,), device="cuda",
+                                         compute_dtype=dtype)
+        engine.warmup()
+        (labels, probs), counts = counted(lambda: engine.predict(imgs))
+        check(counts == engine._ready[B].launches, f"{tag} serving: "
+              f"launches {counts}, the graph's {engine._ready[B].launches}")
+        no_fallback(counts, tag)
+        add_up(total, counts)
+        with torch.no_grad():
+            ep, el = engine._forward(torch.from_numpy(imgs).cuda())
+            logits = model(xb, compute_dtype=dtype)
+            ref = flat(xb, compute_dtype=dtype)
+        check(same_arrays(probs, ep.cpu().numpy()), f"{tag}: the replay "
+              "differs from the eager forward")
+        # bf16 -> float32 is exact, so the float32 bits compare bf16 ones
+        check(bits_equal(logits.float(), ref.float()), f"{tag}: logits "
+              "differ from the plain AlexNet's")
+        graphed = time_ms(engine._ready[B].graph.replay, iters=5)
+        del engine
+        # training: normalize, 4 convs, pool forward and backward a step
+        train_model = get_model("alexnet", num_classes=3, batch_norm=True,
+                                image_size=224, space_to_depth=True,
+                                device="cuda")
+        load_reference_model(train_model, MODEL)
+        opt = make_optimizer("momentum", 1.5e-2)
+        ts = create_train_state(train_model, opt, seed=23)
+        step = make_train_step(train_model, opt, compute_dtype=dtype)
+        xt = torch.from_numpy(synthetic_images(rng, TRAIN_B)).cuda()
+        yt = torch.arange(TRAIN_B, device="cuda") % 3
+        losses = []
+
+        def train():
+            for _ in range(MOE_STEPS):
+                losses.append(step(ts, xt, yt)[1]["loss"].detach())
+        _, counts = counted(train)
+        no_fallback(counts, f"{tag} training")
+        pool = "launches_bf16" if dtype else "launches_window"
+        want = {k: v * MOE_STEPS for k, v in {
+            **per_fwd, **normalize_counts(xt, dtype),
+            "max_pool2d_bwd.launches": 1, f"max_pool2d_bwd.{pool}": 1}.items()}
+        check(counts == want, f"{tag} training: launches {counts}, "
+              f"expected {want}")
+        add_up(total, counts)
+        loss = torch.stack(losses).float().cpu()
+        check(bool(torch.isfinite(loss).all()), f"{tag}: losses {loss}")
+        lines.append(f"{tag}: one forward {per_fwd}, as the plain "
+                     f"AlexNet's; {shapes} conv shapes at {worst:.3f} of "
+                     f"their bar; bucket {B} graph {graphed:.4f} ms, logits "
+                     f"bit-equal to the plain AlexNet's; {MOE_STEPS} steps "
+                     f"at batch {TRAIN_B}, losses "
+                     f"{[round(v, 4) for v in loss.tolist()]}")
+    lines.append(f"({smi})")
+    return total, lines
+
+
+def remat_phase(smi: str) -> list:
+    """One training step (``accumulate_grads``) of AlexNet (BN, Dropout
+    0.25) and of MoECNN (balance 0.01) at the training batch in float32,
+    with ``remat`` False and True from the same weights, batch and
+    generator, cuDNN deterministic: the loss, every gradient, the new
+    state and the generator bit-equal; the peak device memory of each."""
+    rng = np.random.default_rng(24)
+    x = uint8_normalize(torch.from_numpy(synthetic_images(rng, TRAIN_B))
+                        .cuda())
+    y = torch.arange(TRAIN_B, device="cuda") % 3
+    kinds = {"alexnet": dict(dropout=0.25),
+             "moecnn": dict(balance_coeff=MOE_BALANCE)}
+    lines = []
+    for name, kw in kinds.items():
+        runs, peak = {}, {}
+        for remat in (False, True):
+            model = get_model(name, num_classes=3, batch_norm=True,
+                              image_size=224, device="cuda",
+                              generator=torch.Generator().manual_seed(24),
+                              **kw)
+            ts = create_train_state(model, sgd(0.1), seed=24)
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            with torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                            deterministic=True,
+                                            allow_tf32=False):
+                grads, loss, _ = accumulate_grads(ts, x, y, remat=remat)
+            torch.cuda.synchronize()
+            peak[remat] = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+            runs[remat] = (loss, grads, {k: v.clone() for k, v in
+                                         named_state(model).items()},
+                           ts.rng.get_state())
+            del model, ts, grads
+        (l0, g0, s0, r0), (l1, g1, s1, r1) = runs[False], runs[True]
+        check(bits_equal(l0, l1) and sorted(g0) == sorted(g1)
+              and all(bits_equal(g0[k], g1[k]) for k in g0)
+              and all(bits_equal(s0[k], s1[k]) for k in s0)
+              and torch.equal(r0, r1), f"{name}: remat=True differs from "
+              "remat=False")
+        lines.append(f"{name} (batch {TRAIN_B}, float32): gradients, loss, "
+                     f"state and generator bit-equal; peak device memory "
+                     f"above the weights remat False {peak[False]:.1f} MiB, "
+                     f"True {peak[True]:.1f} MiB")
+    return [f"remat ({smi}): " + "; ".join(lines)]
+
+
+def phase20(smi: str, tmp: Path, cli: dict, gen) -> tuple[dict, dict,
+                                                          list]:
+    """Phase 20: MoECNN served, trained and through the CLIs; AlexNet's
+    s2d convs; Grad-CAM at the families and in a trunk; whole-model
+    remat. Returns every counted run's launches, added up, MoECNN's runs'
+    alone, and the kernel rows of MoECNN's 64 -> 64 stride-2 conv."""
+    total, lines, rows = {}, [], []
+    counts, ln = moecnn_serving(smi)
+    moe = dict(counts)
+    lines += [f"MoECNN serving, {x}" for x in ln]
+    counts, ln, step_ms = moecnn_training(smi)
+    add_up(moe, counts)
+    lines += [f"MoECNN training, {x}" for x in ln]
+    counts, ln = moecnn_cli(smi, tmp, cli)
+    add_up(moe, counts)
+    lines += ln
+    add_up(total, moe)
+    counts, ln = s2d_phase(smi)
+    add_up(total, counts)
+    lines += [f"space-to-depth, {x}" for x in ln]
+    counts, ln = gradcam_families(smi, tmp)
+    add_up(total, counts)
+    lines += ln
+    lines += remat_phase(smi)
+    # MoECNN's 64 -> 64 stride-2 convs at 112, 56 and 28: its padded
+    # launches off the strip
+    c = {k.split(".")[1]: v for k, v in moe.items()
+         if k.startswith("conv2d_bias_relu.")}
+    launches = {"": c.get("launches_padded", 0)
+                - c.get("launches_bf16_padded", 0)
+                - c.get("launches_strip_padded", 0),
+                "_bf16": c.get("launches_bf16_padded", 0)
+                - c.get("launches_bf16_strip_padded", 0)}
+    for key, shape in MOE_ROWS.items():
+        for dtype, sfx in ((None, ""), (BF16, "_bf16")):
+            err, ms, plain, lib, bound, alone, lib_alone = family_row(
+                shape, dtype, gen)
+            name = f"conv2d_bias_relu_{key}{sfx}"
+            rows.append(entry(name, launches[sfx], err, ms, plain, lib,
+                              bound))
+            lines.append(f"{name} {shape}: {ms:.4f} ms (plain {plain:.4f}, "
+                         f"cuDNN {lib:.4f}, bound {bound[0]:.4f} by "
+                         f"{bound[1]}), alone {alone:.4f} (cuDNN + ReLU "
+                         f"alone {lib_alone:.4f}), max|dev| {err:.3g}, "
+                         f"{launches[sfx]} launches")
+    for row in rows:
+        check(row["launches"] > 0, f"{row['name']}: no launch in phase 20's "
+              "counted runs")
+    for line in lines:
+        phase(f"phase 20: {line}")
+    phase(f"phase 20 ({smi}): MoECNN step ms {step_ms}")
+    return total, moe, rows
+
+
 def same_trees(a, b) -> bool:
     if isinstance(a, dict):
         return (isinstance(b, dict) and sorted(a) == sorted(b)
@@ -4160,6 +4683,10 @@ def main() -> int:
         tool_alex, tool_fam = toolbox_phase(smi, Path(tmp), flagship)
         add_up(cli, tool_alex)
         add_up(fam, tool_fam)
+        # phase 20: its normalize, pool and tma launches count on those
+        # rows, MoECNN's convs on rows of their own (its stem on stem_64's)
+        p20, moe20, rows20 = phase20(smi, Path(tmp), flagship, gen)
+        add_up(fam, stem_counts("moecnn", moe20))
 
     # the CLIs' launches (phases 14-16): float32 ones on the float32 rows,
     # the rotation in either dtype on its one row
@@ -4169,7 +4696,9 @@ def main() -> int:
     # (normalize, pool, rotation); their convs have rows of their own
     fam_f32 = {name: 0 if name == "conv2d_bias_relu" else
                fam.get(f"{name}.launches", 0)
-               - fam.get(f"{name}.launches_bf16", 0) for name in KERNELS}
+               - fam.get(f"{name}.launches_bf16", 0)
+               + p20.get(f"{name}.launches", 0)
+               - p20.get(f"{name}.launches_bf16", 0) for name in KERNELS}
     kernels = [entry(name, launches.get(name, 0) + trained[name]
                      + cli_f32[name] + fam_f32[name], *measured[name])
                for name in KERNELS]
@@ -4191,15 +4720,16 @@ def main() -> int:
     kernels += [entry(name, counts16.get(counter, 0)
                       + served16.get(counter, 0) + cli.get(counter, 0)
                       + (0 if name == "conv2d_bias_relu_bf16"
-                         else fam.get(counter, 0)), *rows16[name])
+                         else fam.get(counter, 0) + p20.get(counter, 0)),
+                      *rows16[name])
                 for name, counter in BF16_KERNELS.items()]
     # the tma kernel's row: its launches over every counted run, timed at
     # AlexNet's conv4 at B = 64
     tma_key = "conv2d_bias_relu.launches_bf16_tma"
     kernels.append(entry("conv2d_bias_relu_bf16_tma", sum(
-        c.get(tma_key, 0) for c in (counts16, served16, cli, fam)),
+        c.get(tma_key, 0) for c in (counts16, served16, cli, fam, p20)),
         tma["err"], tma["ms"], tma["plain"], tma["lib"], tma["bound"]))
-    kernels += family_rows(gen, fam)
+    kernels += family_rows(gen, fam) + rows20
     phase("all checks passed")
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -29,8 +29,8 @@ class ModelConfig:
     dropout: float = 0.0       # reference's Dropout is commented out (alexnet.cpp:28)
     image_size: int = 224
     channels: int = 3
-    # execute lane-starved stride-2 convs as space-to-depth + stride-1
-    # (exact repack; AlexNet family) — see ops/conv.py:conv2d_s2d
+    # cnn_tpu's space-to-depth flag of the stride-2 convs with Cin < 32
+    # (AlexNet family); here they stay stride-2 convs (nn/module.py:Conv2D)
     space_to_depth: bool = False
     moe_balance: float = 0.0   # Switch aux balance-loss coefficient for the
                                # moecnn family (0 = off; load stats are

@@ -4,3 +4,4 @@ from cnn_tpu_torch.models.vgg import VGG  # noqa: F401
 from cnn_tpu_torch.models.resnet import ResNet  # noqa: F401
 from cnn_tpu_torch.models.pipecnn import PipeCNN  # noqa: F401
 from cnn_tpu_torch.models.mobilenet import MobileNet  # noqa: F401
+from cnn_tpu_torch.models.moecnn import MoECNN  # noqa: F401

@@ -33,11 +33,9 @@ def build_alexnet(num_classes: int = 3, batch_norm: bool = False,
     ``generator`` (a CPU ``torch.Generator``; default: seed 0). BN starts at
     gamma 1, beta 0, moving mean 0 and variance 1 (0 with ``compat_bn``).
     ``dropout`` > 0 puts a channel Dropout in ``dropout_compat`` mode
-    between conv4 (or its BN) and its ReLU."""
-    if space_to_depth:
-        raise NotImplementedError(
-            "space_to_depth is not ported yet: it needs ops/conv.py:"
-            "conv2d_s2d")
+    between conv4 (or its BN) and its ReLU. ``space_to_depth`` flags the
+    convs with Cin < 32 (conv1 and conv2) ``Conv2D(s2d=True)``, which run
+    as the stride-2 convs they are."""
     device = default_device(device)
     gen = generator if generator is not None else torch.Generator().manual_seed(0)
     layers = []
@@ -46,6 +44,7 @@ def build_alexnet(num_classes: int = 3, batch_norm: bool = False,
     for i, (cin, cout) in enumerate([(3, 16), (16, 32), (32, 64), (64, 128)],
                                     start=1):
         layers.append(Conv2D(f"conv_layer_{i}", cin, cout, 3, 2,
+                             s2d=space_to_depth and cin < 32,
                              device=device, generator=gen))
         spatial = (spatial - 3) // 2 + 1
         if spatial < 1:

@@ -14,14 +14,7 @@ def register_model(name: str):
     return deco
 
 
-# cnn_tpu families the port does not build yet (ROADMAP.md Queue 1)
-UNPORTED = {"moecnn": "its MoE layer (nn/moe.py) and expert parallelism"}
-
-
 def get_model(name: str, **kwargs):
-    if name in UNPORTED:
-        raise NotImplementedError(f"model family '{name}' is not ported "
-                                  f"yet: {UNPORTED[name]}")
     if name not in _REGISTRY:
         raise KeyError(f"unknown model '{name}'; have {sorted(_REGISTRY)}")
     return _REGISTRY[name](**kwargs)

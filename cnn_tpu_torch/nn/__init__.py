@@ -14,3 +14,4 @@ from cnn_tpu_torch.nn.module import (  # noqa: F401
     StackedBlocks,
 )
 from cnn_tpu_torch.nn.sequential import Sequential  # noqa: F401
+from cnn_tpu_torch.nn.moe import MoEBlock  # noqa: F401

@@ -35,6 +35,7 @@ walks any layer in ``cnn_tpu``'s tree paths, which name the parameters
 
 from __future__ import annotations
 
+import copy
 import functools
 
 import torch
@@ -101,6 +102,14 @@ class Conv2D(Layer):
     side; ``forward(x, relu=True)`` fuses the ReLU. Weights and bias start
     at N(0, 1) * ``init_scale``.
 
+    ``s2d``: ``cnn_tpu``'s flag for running a stride-2 conv as
+    space-to-depth and a stride-1 conv over repacked weights, the same
+    products summed in another order. It is checked (stride 2 only) and
+    kept, but the conv runs as the stride-2 conv on the same kernels:
+    the repacked conv was slower on the H100 than the strip and tiled
+    kernels (``PERF.md``). The parameters keep their [k, k, Cin, Cout]
+    layout either way.
+
     ``named_op``: with a gradient asked for, launch through the custom op
     (``conv2d_bias_relu_op``) rather than the autograd Function, so that a
     selective checkpoint policy sees the conv (``StackedBlocks``,
@@ -108,12 +117,14 @@ class Conv2D(Layer):
     casts = True
 
     def __init__(self, name, in_channels=3, out_channels=16, kernel_size=3,
-                 stride=2, padding=0, init_scale=0.1, *, device=None,
-                 generator=None):
+                 stride=2, padding=0, init_scale=0.1, s2d=False, *,
+                 device=None, generator=None):
         super().__init__(name)
+        assert not (s2d and stride != 2), \
+            "s2d execution is the stride-2 specialization"
         self.in_channels, self.out_channels = in_channels, out_channels
         self.kernel_size, self.stride = kernel_size, stride
-        self.padding = padding
+        self.padding, self.s2d = padding, s2d
         self.named_op = False
         k = kernel_size
         self.w = _normal((k, k, in_channels, out_channels), generator, device,
@@ -314,8 +325,14 @@ class ResidualBlock(Layer):
     def forward(self, x, compute_dtype=None, generator=None, perms=None):
         y = self.body(x, compute_dtype=compute_dtype, generator=generator,
                       perms=perms)
-        sc = x if self.proj is None else self.proj(
+        return self.combine(y, self.shortcut(x, compute_dtype))
+
+    def shortcut(self, x, compute_dtype=None):
+        return x if self.proj is None else self.proj(
             x, compute_dtype=compute_dtype)
+
+    @staticmethod
+    def combine(y, sc):
         return relu(y + sc)
 
 
@@ -452,6 +469,19 @@ class StackedBlocks(Layer):
                     for stack, new in zip(states, out[1:]):
                         stack[i].copy_(new)
         return x
+
+    def block_at(self, i: int) -> Layer:
+        """Block ``i`` as a module of its own, holding copies of slice i of
+        the stacked tensors (which no gradient reaches), in this layer's
+        mode (Grad-CAM's capture inside the trunk)."""
+        device = getattr(self, self._leaves[0][0]).device
+        block = copy.deepcopy(self.block).to_empty(device=device)
+        with torch.no_grad():
+            for key, name, is_state in self._leaves:
+                dst = (block.get_buffer(name) if is_state
+                       else block.get_parameter(name))
+                dst.copy_(getattr(self, key)[i])
+        return block.requires_grad_(False).train(self.training)
 
     def _channels(self, dropout) -> int:
         """The channels a Dropout of the block sees: the output channels

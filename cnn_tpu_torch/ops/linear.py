@@ -34,7 +34,8 @@ def full_precision_reduction():
 
 
 class _Bf16MatmulFn(torch.autograd.Function):
-    """``x @ w`` whose forward and backward products sum in float32."""
+    """``x @ w`` (2-d, or batched over a leading axis) whose forward and
+    backward products sum in float32."""
 
     @staticmethod
     def forward(ctx, x, w):
@@ -48,10 +49,18 @@ class _Bf16MatmulFn(torch.autograd.Function):
         dx = dw = None
         with full_precision_reduction():
             if ctx.needs_input_grad[0]:
-                dx = g @ w.t()
+                dx = g @ w.mT
             if ctx.needs_input_grad[1]:
-                dw = x.t() @ g
+                dw = x.mT @ g
         return dx, dw
+
+
+def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` in their dtype; bf16 products sum in float32, forward and
+    backward (``full_precision_reduction``)."""
+    if x.dtype == torch.bfloat16:
+        return _Bf16MatmulFn.apply(x, w)
+    return x @ w
 
 
 def linear(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
@@ -60,5 +69,5 @@ def linear(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     x = x.reshape(x.shape[0], -1)
     if compute_dtype is None or compute_dtype == torch.float32:
         return x @ w + b
-    out = _Bf16MatmulFn.apply(x.to(compute_dtype), w.to(compute_dtype))
+    out = matmul(x.to(compute_dtype), w.to(compute_dtype))
     return out + b.to(out.dtype)

@@ -379,8 +379,9 @@ def _f32_copy(state: dict) -> dict:
 
 @torch.no_grad()
 def ema_update_state(opt_state, state: dict):
-    """Averages the model ``state`` (``{name: tensor}``, BN's moving
-    statistics) into ``opt_state.mstate`` at the weights' effective decay,
+    """Averages the model ``state`` (``{name: tensor}``: BN's moving
+    statistics, an MoE layer's ``load`` and ``aux_loss``) into
+    ``opt_state.mstate`` at the weights' effective decay,
     the count already advanced by the update; non-float leaves are copied
     through. A no-op unless ``opt_state`` is an ``EmaState``; a missing
     ``mstate`` is seeded with a float32 copy of ``state``. Returns the

@@ -15,7 +15,15 @@ generator of ``TrainState`` and returns it.
 The loss is ``cnn_tpu``'s ``_loss_fn``: the softmax cross-entropy, mixed
 as ``lam * CE(y) + (1 - lam) * CE(y[perm])`` under MixUp / CutMix, then
 ``alpha * loss + (1 - alpha) * KD`` with a teacher, KD the
-``T^2``-scaled KL against the mean of the teachers' softmaxes at ``T``.
+``T^2``-scaled KL against the mean of the teachers' softmaxes at ``T``,
+plus in training every auxiliary term a layer left (``collect_aux_losses``:
+the MoE balance loss).
+
+``remat=True`` wraps the whole training forward in ``torch.utils.checkpoint``
+(``cnn_tpu``'s ``jax.checkpoint`` of ``apply``): the backward recomputes
+it. The recompute draws nothing new and updates no state twice
+(``remat_forward``), so the gradients and the new state are those of
+``remat=False``, bit for bit.
 
 ``compute_dtype`` is None / float32, or bf16: ``cnn_tpu``'s bf16 policy.
 The master parameters, the optimizer state and BN's moving statistics stay
@@ -31,7 +39,7 @@ test-time augmentation, ``tta``), ``make_ensemble_eval_step`` and
 train state's EMA weights and model state in its model around an eval.
 
 Not ported (each raises ``NotImplementedError``): other compute dtypes
-(float16) and meshes.
+(float16) and meshes, expert parallelism among them.
 """
 
 from __future__ import annotations
@@ -42,6 +50,7 @@ from dataclasses import dataclass
 
 import torch
 from torch import nn
+from torch.utils import checkpoint as torch_checkpoint
 
 from cnn_tpu_torch.nn.module import leaf_name
 from cnn_tpu_torch.ops.augment import batch_mix
@@ -133,14 +142,75 @@ def prep(images: torch.Tensor, compute_dtype=None) -> torch.Tensor:
     return uint8_normalize(images, compute_dtype or torch.float32)
 
 
+def collect_aux_losses(model):
+    """The sum of the differentiable auxiliary terms (``aux``) that the
+    model's layers left in their last training forward (the MoE balance
+    loss, ``nn/moe.py``), or None where none did."""
+    total = None
+    for m in model.modules():
+        aux = getattr(m, "aux", None)
+        if aux is not None:
+            total = aux if total is None else total + aux
+    return total
+
+
+def remat_forward(model, images, compute_dtype=None, generator=None):
+    """The training forward under ``torch.utils.checkpoint``: returns
+    ``(logits, aux)`` (``collect_aux_losses``), and the backward recomputes
+    the forward. The forward draws from a copy of ``generator`` taken at
+    its state on entry, which the recompute replays, and ``generator`` is
+    left where the first run left its copy; the recompute puts back every
+    state tensor it wrote (BN's moving statistics, the MoE load) and drops
+    the auxiliary terms it left (which would keep its graph alive through
+    the backward). So the draws, the state and the gradients are those of
+    the plain forward."""
+    state = list(named_state(model).values())
+    start = None if generator is None else generator.get_state()
+    done = []
+
+    def run(x):
+        g = generator
+        if g is not None:
+            g = torch.Generator(device=generator.device)
+            g.set_state(start)
+        kept = [t.clone() for t in state] if done else None
+        logits = model(x, compute_dtype=compute_dtype, generator=g)
+        aux = collect_aux_losses(model)
+        if kept is not None:        # a recompute: its writes are undone,
+            with torch.no_grad():   # and no layer keeps its graph alive
+                for t, k in zip(state, kept):
+                    t.copy_(k)
+            for m in model.modules():
+                if getattr(m, "aux", None) is not None:
+                    m.aux = None
+        else:
+            done.append(True)
+            if generator is not None:
+                generator.set_state(g.get_state())
+        return logits, aux
+
+    # the recompute runs to the end of ``run``, where it undoes its writes
+    # (by default it stops once it has what the backward needs)
+    with torch_checkpoint.set_checkpoint_early_stop(False):
+        return torch_checkpoint.checkpoint(run, images, use_reentrant=False)
+
+
 def loss_fn(model, images, labels, label_smoothing: float = 0.0,
-            compute_dtype=None, generator=None, mix=None, dist=None):
+            compute_dtype=None, generator=None, mix=None, dist=None,
+            remat: bool = False):
     """Forward and loss (``cnn_tpu``'s ``_loss_fn``); returns ``(loss,
     correct)``. ``generator`` feeds a Dropout in training mode; ``mix`` is
     ``(perm, lam)`` of a mixed batch, ``dist`` ``(teacher_probs, T,
-    alpha)``."""
-    logits = model(images, compute_dtype=compute_dtype,
-                   generator=generator).float()
+    alpha)``; ``remat`` runs a training forward through
+    ``remat_forward``. In training the layers' auxiliary terms are added
+    (``collect_aux_losses``)."""
+    if remat and model.training:
+        logits, aux = remat_forward(model, images, compute_dtype, generator)
+    else:
+        logits = model(images, compute_dtype=compute_dtype,
+                       generator=generator)
+        aux = collect_aux_losses(model) if model.training else None
+    logits = logits.float()
     if mix is not None:
         perm, lam = mix
         loss = (lam * softmax_cross_entropy(logits, labels, label_smoothing)
@@ -152,6 +222,8 @@ def loss_fn(model, images, labels, label_smoothing: float = 0.0,
         probs, temp, alpha = dist
         loss = alpha * loss + (1.0 - alpha) * distillation_loss_from_probs(
             logits, probs, temp)
+    if aux is not None:
+        loss = loss + aux
     correct = (logits.argmax(dim=-1) == labels).sum()
     return loss, correct
 
@@ -203,12 +275,14 @@ def mix_and_teacher_targets(generator, images, *, mixup: float = 0.0,
 
 def accumulate_grads(ts: TrainState, images, labels, *, grad_accum: int = 1,
                      label_smoothing: float = 0.0, compute_dtype=None,
-                     mixup: float = 0.0, cutmix: float = 0.0, distill=None):
+                     mixup: float = 0.0, cutmix: float = 0.0, distill=None,
+                     remat: bool = False):
     """Mean gradients over ``grad_accum`` equal microbatches, run in turn
     (``cnn_tpu``'s ``accumulate_grads``): BN normalizes each by its own
     statistics and updates its moving statistics once each; each draws
     its own mix and Dropout channels from ``ts.rng``, the teachers see the
-    mixed microbatch. One microbatch is the plain step. Returns
+    mixed microbatch; ``remat`` recomputes each forward in its backward
+    (``remat_forward``). One microbatch is the plain step. Returns
     ``({name: grad}, loss, correct)``, the loss the mean over microbatches
     and ``correct`` the sum."""
     K = grad_accum
@@ -225,7 +299,7 @@ def accumulate_grads(ts: TrainState, images, labels, *, grad_accum: int = 1,
             ts.rng, x, mixup=mixup, cutmix=cutmix, distill=distill,
             compute_dtype=compute_dtype)
         loss, correct = loss_fn(ts.model, x, y, label_smoothing,
-                                compute_dtype, ts.rng, mix, dist)
+                                compute_dtype, ts.rng, mix, dist, remat)
         g = torch.autograd.grad(loss, list(params.values()))
         if gsum is None:
             gsum, lsum, csum = list(g), loss.detach(), correct
@@ -241,14 +315,15 @@ def accumulate_grads(ts: TrainState, images, labels, *, grad_accum: int = 1,
 def apply_gradients(ts: TrainState, optimizer, images, labels,
                     label_smoothing: float = 0.0, compute_dtype=None, *,
                     grad_accum: int = 1, mixup: float = 0.0,
-                    cutmix: float = 0.0, distill=None) -> dict:
+                    cutmix: float = 0.0, distill=None,
+                    remat: bool = False) -> dict:
     """``accumulate_grads``, the optimizer update, the EMA of the model
     state; advances ``ts.step``. Returns the metrics, as device
     tensors."""
     grads, loss, correct = accumulate_grads(
         ts, images, labels, grad_accum=grad_accum,
         label_smoothing=label_smoothing, compute_dtype=compute_dtype,
-        mixup=mixup, cutmix=cutmix, distill=distill)
+        mixup=mixup, cutmix=cutmix, distill=distill, remat=remat)
     optimizer.update(grads, ts.opt_state, named_params(ts.model))
     ts.opt_state = ema_update_state(ts.opt_state, named_state(ts.model))
     ts.step += 1
@@ -267,7 +342,7 @@ def to_compute(images, generator, augment_fn=None, compute_dtype=None):
 def make_train_step(model, optimizer, *, compute_dtype=None, mesh=None,
                     augment_fn=None, label_smoothing: float = 0.0,
                     grad_accum: int = 1, mixup: float = 0.0,
-                    cutmix: float = 0.0, distill=None):
+                    cutmix: float = 0.0, distill=None, remat: bool = False):
     """Returns ``(ts, images, labels) -> (ts, metrics)``.
 
     ``images``: [B,H,W,C] uint8 (normalized on the device) or float;
@@ -275,7 +350,8 @@ def make_train_step(model, optimizer, *, compute_dtype=None, mesh=None,
     given (e.g. ``ops/augment.py:augment_batch``); its output is cast to
     ``compute_dtype`` when that is given. ``grad_accum``: microbatches a
     step (``accumulate_grads``); ``mixup`` / ``cutmix``: Beta alphas, 0
-    off; ``distill``: ``(teacher model(s), T, alpha)``.
+    off; ``distill``: ``(teacher model(s), T, alpha)``; ``remat``: the
+    backward recomputes the forward (``remat_forward``).
     """
     check_supported(compute_dtype=compute_dtype, mesh=mesh)
     dst = normalize_distill(distill)
@@ -285,7 +361,7 @@ def make_train_step(model, optimizer, *, compute_dtype=None, mesh=None,
         metrics = apply_gradients(ts, optimizer, images, labels,
                                   label_smoothing, compute_dtype,
                                   grad_accum=grad_accum, mixup=mixup,
-                                  cutmix=cutmix, distill=dst)
+                                  cutmix=cutmix, distill=dst, remat=remat)
         return ts, metrics
 
     return step

@@ -9,6 +9,10 @@ kernel (to float32), the model (conv and max-pool kernels) in the engine's
 linear layer), then an f32 softmax and argmax. Weights stay on the device,
 in float32.
 
+A request is padded with zero images at the end, as ``cnn_tpu`` pads it:
+MoECNN's expert capacity depends on the bucket's batch, so its results
+depend on the bucket and on that padding (``nn/moe.py``).
+
 ``warmup()`` makes every bucket ready, as ``cnn_tpu``'s compiles one
 executable per bucket. On a CUDA device it captures one CUDA graph per
 bucket (largest first, one memory pool shared by all), from a static uint8

@@ -13,10 +13,10 @@ evaluated on its EMA weights with its EMA'd BN statistics (the raw ones
 where a legacy checkpoint has none), as ``cnn_tpu`` does.
 
 It runs on the GPU; ``main(argv, device="cpu")`` runs the plain versions
-on the CPU. ``--name`` and the ensemble members take every family the
-port builds (alexnet, resnet10/18, vgg8/11, mobilenet, pipecnn; a member's
-options as ``pipecnn@width=64@n_blocks=8:ckpt``). Not ported yet, each
-raising ``NotImplementedError``: the moecnn family and ``--compile-cache``.
+on the CPU. ``--name`` and the ensemble members take every family
+(alexnet, resnet10/18, vgg8/11, mobilenet, pipecnn, moecnn; a member's
+options as ``pipecnn@width=64@n_blocks=8:ckpt``). Not ported yet, raising
+``NotImplementedError``: ``--compile-cache``.
 """
 
 from __future__ import annotations

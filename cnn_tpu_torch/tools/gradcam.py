@@ -18,9 +18,15 @@ input, JET colormap, blend with the input; written as ``<i>.png``
 (``data/image.py``: the resize, the colormap and the PNG are cv2's).
 
 It runs on the GPU; ``main(argv, device="cpu")`` runs the plain versions on
-the CPU. A top-level layer name is captured; a path into a scanned trunk
-(``trunk/block_<i>[/<layer>]``) needs a ``StackedBlocks`` model, which the
-port does not have yet, and is refused with ``cnn_tpu``'s message.
+the CPU, for any model family (``--model``). A top-level layer name is
+captured; so is a position inside a ``StackedBlocks`` trunk (PipeCNN's):
+``trunk/block_<i>`` (the block's output) or ``trunk/block_<i>/<layer>`` (a
+layer of the block's body), as ``cnn_tpu`` unrolls its scanned trunk at
+block i. Blocks 0..i-1 run as modules built from their slices of the
+stacked tensors (``StackedBlocks.block_at``), then block i up to the
+captured point; the tail replays the rest of block i (its body's later
+layers, the shortcut, the residual sum and ReLU), the later blocks and the
+head.
 
 Usage:
   python -m cnn_tpu_torch.tools.gradcam --checkpoint path.[ckpt|model] \\
@@ -39,6 +45,7 @@ import torch
 from cnn_tpu_torch import default_device
 from cnn_tpu_torch.data.image import apply_colormap_jet, imwrite, resize
 from cnn_tpu_torch.models import get_model
+from cnn_tpu_torch.nn import ResidualBlock, StackedBlocks
 from cnn_tpu_torch.nn.sequential import run_layers
 from cnn_tpu_torch.ops.activations import relu
 from cnn_tpu_torch.ops.preprocess import uint8_to_float
@@ -56,9 +63,10 @@ DEFAULT_IMAGES = [
 
 
 def parse_layer_path(model, layer_path: str):
-    """Validates a capture path against ``model``; raises ValueError.
-    Returns ``(name, None, None)`` for a top-level layer name (the port's
-    models have no scanned trunk to index into)."""
+    """Validates a capture path against ``model``; raises ValueError with
+    ``cnn_tpu``'s messages. Returns ``(name, None, None)`` for a top-level
+    layer, ``(trunk, i, None)`` for ``trunk/block_<i>`` and ``(trunk, i,
+    layer)`` for ``trunk/block_<i>/<layer>``."""
     names = [l.name for l in model.net]
     parts = layer_path.split("/")
     if parts[0] not in names:
@@ -66,25 +74,75 @@ def parse_layer_path(model, layer_path: str):
                          f"choose one of: {', '.join(names)}")
     if len(parts) == 1:
         return (parts[0], None, None)
-    raise ValueError(f"'{parts[0]}' is not a scanned trunk; nested "
-                     "paths address StackedBlocks layers only")
+    trunk = model.net[parts[0]]
+    if not isinstance(trunk, StackedBlocks):
+        raise ValueError(f"'{parts[0]}' is not a scanned trunk; nested "
+                         "paths address StackedBlocks layers only")
+    if len(parts) > 3 or not parts[1].startswith("block_"):
+        raise ValueError(f"bad trunk path '{layer_path}' (want "
+                         f"'{parts[0]}/block_<i>[/<body_layer>]')")
+    i = int(parts[1].split("_")[-1])
+    if not 0 <= i < trunk.n_blocks:
+        raise ValueError(f"block index {i} out of range "
+                         f"[0, {trunk.n_blocks})")
+    sub = parts[2] if len(parts) == 3 else None
+    if sub is not None:
+        if not isinstance(trunk.block, ResidualBlock):
+            raise ValueError("body-layer capture needs a ResidualBlock "
+                             f"trunk block, got {type(trunk.block).__name__}")
+        body_names = [l.name for l in trunk.block.body]
+        if sub not in body_names:
+            raise ValueError(f"'{sub}' not in the trunk block's body; "
+                             f"choose one of: {', '.join(body_names)}")
+    return (parts[0], i, sub)
 
 
 def _forward_with_capture(model, x, layer_path: str):
     """Eval forward without gradients, capturing ``layer_path``'s output.
-    Returns ``(logits, fmap, resume)``; ``resume(act)`` replays the layers
+    Returns ``(logits, fmap, resume)``; ``resume(act)`` replays the network
     after the capture point from ``act``."""
-    name, _, _ = parse_layer_path(model, layer_path)
+    name, i, sub = parse_layer_path(model, layer_path)
     layers = list(model.net)
-    tail = layers[[l.name for l in layers].index(name) + 1:]
+    names = [l.name for l in layers]
+    ti = names.index(name)
     model.eval()
+    if i is None:             # a top-level layer
+        tail = layers[ti + 1:]
+        with torch.no_grad():
+            logits, captured = model(x, capture=(name,))
+        return logits, captured[name], lambda act: run_layers(tail, act)
+
+    trunk = model.net[name]
+    blocks = [trunk.block_at(j) for j in range(trunk.n_blocks)]
+    tail = layers[ti + 1:]
+
+    def finish(h, start):
+        for block in blocks[start:]:
+            h = block(h)
+        return run_layers(tail, h)
+
     with torch.no_grad():
-        logits, captured = model(x, capture=(name,))
+        h = run_layers(layers[:ti], x)
+        for block in blocks[:i]:
+            h = block(h)
+        block_in = h
+        if sub is None:       # the block's output
+            fmap = blocks[i](block_in)
 
-    def resume(act):
-        return run_layers(tail, act)
+            def resume(act):
+                return finish(act, i + 1)
+        else:                 # a layer of the block's body
+            block = blocks[i]
+            body = list(block.body)
+            k = [l.name for l in body].index(sub)
+            fmap = run_layers(body[:k + 1], block_in)
+            sc = block.shortcut(block_in)
 
-    return logits, captured[name], resume
+            def resume(act):
+                y = run_layers(body[k + 1:], act)
+                return finish(block.combine(y, sc), i + 1)
+        logits = resume(fmap)
+    return logits, fmap, resume
 
 
 def compute_cam(model, x: torch.Tensor, layer_name: str,
@@ -136,9 +194,11 @@ def main(argv=None, *, device=None):
     ap.add_argument("--checkpoint", default=DEFAULT_CKPT)
     ap.add_argument("--categories", default="dog,panda,bird")
     ap.add_argument("--model", default="alexnet",
-                    help="model family (alexnet)")
+                    help="model family (alexnet | vgg8 | resnet10 | ...)")
     ap.add_argument("--layer", default="conv_layer_3",
-                    help="capture layer: a top-level name")
+                    help="capture layer: a top-level name (block_4 for "
+                         "resnet10), or inside a scanned trunk: "
+                         "trunk/block_3 or trunk/block_3/b_conv1 (pipecnn)")
     ap.add_argument("--mode", default="gradcam",
                     choices=["gradcam", "reference"])
     ap.add_argument("--image-size", type=int, default=224)
@@ -150,10 +210,6 @@ def main(argv=None, *, device=None):
     ap.add_argument("--n-blocks", type=int, default=0,
                     help="trunk depth (pipecnn checkpoints; 0 = family default)")
     args = ap.parse_args(argv)
-    if args.model != "alexnet":
-        raise NotImplementedError(
-            f"gradcam --model {args.model} is not ported yet (ROADMAP.md "
-            "Queue 1 item 8): Grad-CAM runs the alexnet family")
     categories = args.categories.split(",")
     dev = default_device(device)
 

@@ -21,14 +21,21 @@ and ``--color-jitter`` (the last inside the device augmentation only);
 ``--grad-accum``; and ``--steps-per-call`` (that many device-dataset
 steps a call), each printing ``cnn_tpu``'s line.
 
+Every family trains (``--name``), MoECNN among them, with
+``--moe-balance`` (the Switch balance loss, added to the objective in the
+train step) and a ``MoE load [<layer>]: [...]`` line at each validation
+(``moe_load`` in the history record); ``--space-to-depth`` runs AlexNet's
+conv1 and conv2 as space-to-depth convs and exits with ``cnn_tpu``'s
+message for any other family.
+
 It runs on the GPU; ``main(argv, device="cpu")`` runs the plain versions
 on the CPU (tests). ``--donate`` is accepted and changes nothing: PyTorch
 updates the train state in place either way. Options not ported yet raise
 ``NotImplementedError`` naming their flag (``check_flags``: the
-multi-device flags, ``--compile-cache``, ``--name moecnn``,
-``--moe-balance`` and ``--space-to-depth``), as do the host augmentation
-(``--augment true`` without ``--device-augment`` or ``--device-dataset``)
-and ``--backend native``.
+multi-device flags, expert parallelism among them, and
+``--compile-cache``), as do the host augmentation (``--augment true``
+without ``--device-augment`` or ``--device-dataset``) and ``--backend
+native``.
 
 Usage: python -m cnn_tpu_torch.tools.train [--total-iters N] [--batch-norm true] ...
 """
@@ -48,7 +55,7 @@ from cnn_tpu_torch.core.config import parse_configs
 from cnn_tpu_torch.data import (DataLoader, DeviceDataset, discover_dataset,
                                 make_device_train_step, split_dataset)
 from cnn_tpu_torch.models import get_model
-from cnn_tpu_torch.models.registry import UNPORTED
+from cnn_tpu_torch.nn import MoEBlock
 from cnn_tpu_torch.ops.augment import (augment_batch, augment_batch_fast,
                                        color_jitter)
 from cnn_tpu_torch.parallel import (create_train_state, make_eval_step,
@@ -62,33 +69,38 @@ from cnn_tpu_torch.utils.metrics import (ClassificationEvaluator,
 from cnn_tpu_torch.utils.profiling import StepTimer, trace
 
 
-def check_flags(model_cfg, train_cfg) -> None:
+def check_flags(train_cfg) -> None:
     """Raises ``NotImplementedError`` for the first flag set to an option
     the port does not run yet."""
-    t, m = train_cfg, model_cfg
+    t = train_cfg
+    if t.expert_parallel > 1:
+        raise NotImplementedError(
+            "--expert-parallel is not ported yet (ROADMAP.md Queue 1 item "
+            "10): MoECNN's experts run on one GPU")
     unported = (
         ("--multihost", t.multihost),
         ("--pipeline-stages", t.pipeline_stages > 1),
         ("--model-parallel", t.model_parallel > 1),
         ("--spatial-parallel", t.spatial_parallel > 1),
-        ("--expert-parallel", t.expert_parallel > 1),
         ("--data-parallel", t.data_parallel > 1),
         ("--compile-cache", bool(t.compile_cache)),
-        ("--space-to-depth", m.space_to_depth),
-        ("--moe-balance", m.moe_balance > 0.0),
-        ("--name", m.name in UNPORTED),
     )
     for flag, asked in unported:
         if asked:
             raise NotImplementedError(
-                f"{flag} is not ported yet (cnn_tpu_torch runs the alexnet, "
-                "resnet, vgg, mobilenet and pipecnn families on one GPU)")
+                f"{flag} is not ported yet (cnn_tpu_torch runs every "
+                "family on one GPU)")
 
 
 def model_kwargs(model_cfg) -> dict:
     """The family options ``cnn_tpu``'s train CLI passes to ``get_model``:
-    ``--width`` (an int where it is whole) and ``--n-blocks`` where set."""
+    ``--space-to-depth`` and ``--moe-balance`` where set, ``--width`` (an
+    int where it is whole) and ``--n-blocks`` where set."""
     kwargs = {}
+    if model_cfg.space_to_depth:
+        kwargs["space_to_depth"] = True
+    if model_cfg.moe_balance > 0.0:
+        kwargs["balance_coeff"] = model_cfg.moe_balance
     if model_cfg.width > 0:
         w = model_cfg.width
         kwargs["width"] = int(w) if float(w).is_integer() else w
@@ -123,6 +135,13 @@ def load_teachers(model_cfg, train_cfg, device):
           f"{list(zip(t_specs, t_ckpts))} "
           f"(T={train_cfg.distill_temp}, alpha={train_cfg.distill_alpha})")
     return teachers, train_cfg.distill_temp, train_cfg.distill_alpha
+
+
+def moe_load(model) -> dict:
+    """``{layer: [fraction routed to each expert]}`` of the model's MoE
+    layers (the state the last train step wrote), rounded to 4 places."""
+    return {layer.name: layer.load.cpu().numpy().round(4).tolist()
+            for layer in model.net if isinstance(layer, MoEBlock)}
 
 
 def _to(device, images: np.ndarray, labels: np.ndarray):
@@ -186,7 +205,7 @@ def main(argv=None, *, device=None):
 def _main(argv, preempted, device):
     model_cfg, data_cfg, train_cfg, _ = parse_configs(argv,
                                                       "cnn_tpu_torch train")
-    check_flags(model_cfg, train_cfg)
+    check_flags(train_cfg)
     dev = default_device(device)
 
     samples = discover_dataset(data_cfg.dataset_path, data_cfg.categories)
@@ -213,6 +232,10 @@ def _main(argv, preempted, device):
                                   image_size=data_cfg.image_size,
                                   backend=data_cfg.backend, cache=data_cfg.cache)
 
+    if model_cfg.space_to_depth and model_cfg.name != "alexnet":
+        sys.exit(f"--space-to-depth applies to the AlexNet family only "
+                 f"(its small-Cin stride-2 conv1); --name {model_cfg.name} "
+                 f"does not accept it")
     model = get_model(model_cfg.name, num_classes=model_cfg.num_classes,
                       batch_norm=model_cfg.batch_norm,
                       dropout=model_cfg.dropout,
@@ -380,10 +403,15 @@ def _main(argv, preempted, device):
                     else:
                         v_loss, v_acc = evaluate(eval_fn, valid_loader, dev)
                 print(f"Valid===> [loss {v_loss:.3f}] [Accuracy {v_acc:.3f}]")
+                # the MoE layers' expert loads from the last train step
+                moe_loads = moe_load(model)
+                for n, ld in moe_loads.items():
+                    print(f"MoE load [{n}]: {ld}")
                 history.log(step=it, loss=mean_loss.get(),
                             accuracy=train_eval.get(), valid_loss=v_loss,
                             valid_accuracy=v_acc,
-                            images_per_sec=timer.images_per_sec)
+                            images_per_sec=timer.images_per_sec,
+                            **({"moe_load": moe_loads} if moe_loads else {}))
                 if it % train_cfg.save_iters == 0:
                     name = checkpoint_name(it, train_eval.get(), v_acc)
                     path = os.path.join(train_cfg.checkpoint_dir, name)

@@ -18,7 +18,9 @@ Trees follow the model's layers (``Layer.tree_leaves``): ``{layer: {key:
 array}}`` for a flat stack, nested for the blocks (``{"block_2": {"body":
 {"block_2_conv1": {"w": ...}}, "proj": {...}}}``) and stacked with a
 leading [L] axis under a ``StackedBlocks`` (``{"trunk": {"body":
-{"b_conv1": {"w": [L,3,3,C,C]}}}}``), as ``cnn_tpu``'s are.
+{"b_conv1": {"w": [L,3,3,C,C]}}}}``), as ``cnn_tpu``'s are. An MoE layer's
+params are ``router``, ``w1``, ``b1``, ``w2``, ``b2`` and its state
+``load`` (and ``aux_loss`` with a balance loss): ``{"moe": {"load": [E]}}``.
 
 A native ``.ckpt`` is ``cnn_tpu``'s pickle of a dict: ``params``, ``state``
 and ``opt_state`` as numpy trees, ``step``, ``rng`` (uint32[2], the

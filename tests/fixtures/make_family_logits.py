@@ -1,7 +1,9 @@
 """Writes ``tests/fixtures/family_logits.npz``: ``cnn_tpu``'s float32
 logits for the six 224 px photos of ``reference_parity.npz`` (dog, panda,
 bird, twice) from each committed family checkpoint, the newest of each of
-``checkpoints/{resnet10,resnet18,mobilenet,pipecnn}``.
+``checkpoints/{resnet10,resnet18,mobilenet,pipecnn,moecnn}``. MoECNN's
+expert capacity depends on the batch: its logits are those of the six
+photos as one batch of 6.
 
     JAX_PLATFORMS=cpu python tests/fixtures/make_family_logits.py
 
@@ -22,7 +24,7 @@ import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 REPO = os.path.dirname(os.path.dirname(HERE))
-FAMILIES = ("resnet10", "resnet18", "mobilenet", "pipecnn")
+FAMILIES = ("resnet10", "resnet18", "mobilenet", "pipecnn", "moecnn")
 OUT = os.path.join(HERE, "family_logits.npz")
 
 
@@ -63,6 +65,14 @@ def main() -> int:
         out[f"{name}_checkpoint"] = np.array(newest_checkpoint(name))
     fx = np.load(os.path.join(HERE, "reference_parity.npz"))
     out["labels"] = np.array([int(fx[f"label_{i}"]) for i in range(6)])
+    if os.path.exists(OUT):
+        # the arrays already written stay as they are, bit for bit
+        old = np.load(OUT)
+        changed = [k for k in old.files if not np.array_equal(old[k], out[k])]
+        if changed:
+            print(f"refusing to rewrite {OUT}: {changed} differ from the "
+                  "file", file=sys.stderr)
+            return 1
     np.savez_compressed(OUT, **out)
     for name in FAMILIES:
         print(name, out[f"{name}_checkpoint"], out[f"{name}_logits"].argmax(1))

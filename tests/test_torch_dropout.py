@@ -93,8 +93,16 @@ def test_alexnet_compat_options_match_jax(rng, batch_norm, compat):
 
 
 def test_space_to_depth_raises_naming_itself():
-    with pytest.raises(NotImplementedError, match="space_to_depth"):
-        get_model("alexnet", image_size=64, space_to_depth=True, device="cpu")
+    """``space_to_depth``, once refused, builds conv1 and conv2 as s2d
+    convs (tests/test_torch_s2d.py holds them to cnn_tpu); an s2d conv at
+    a stride other than 2 still raises, naming s2d, as cnn_tpu asserts."""
+    from cnn_tpu_torch.nn import Conv2D
+    model = get_model("alexnet", image_size=64, space_to_depth=True,
+                      device="cpu")
+    assert [l.s2d for l in model.net if l.name.startswith("conv")] == \
+        [True, True, False, False]
+    with pytest.raises(AssertionError, match="s2d"):
+        Conv2D("conv", 3, 16, 3, 1, s2d=True, device="cpu")
 
 
 def test_training_dropout_needs_a_generator():

@@ -199,8 +199,9 @@ def test_stacked_conv_slices_stay_16_byte_aligned(width):
 
 
 def test_moecnn_and_bad_remat_are_refused():
-    with pytest.raises(NotImplementedError, match="moecnn"):
-        get_model("moecnn", device="cpu")
+    """moecnn, once refused, builds (tests/test_torch_moe.py holds it to
+    cnn_tpu); a remat mode cnn_tpu does not have is refused."""
+    assert type(get_model("moecnn", device="cpu")).__name__ == "MoECNN"
     with pytest.raises(ValueError, match="remat"):
         get_model("pipecnn", remat="scan", device="cpu")
 

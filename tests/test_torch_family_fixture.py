@@ -52,3 +52,27 @@ def test_port_on_the_cpu_matches_the_fixture():
     assert np.abs(logits - want).max() <= LOGIT_TOL * max(
         1.0, np.abs(want).max())
     assert (logits.argmax(1) == want.argmax(1)).all()
+
+
+def test_port_on_the_cpu_matches_the_moecnn_fixture():
+    """MoECNN's plain versions from the committed checkpoint on the six
+    photos as one batch (its expert capacity is that batch's): logits
+    within 1e-4 x max(1, max|ref|) of the file, the same classes, and
+    every photo's top-2 router probabilities more than 1e-4 apart, so that
+    no route can flip under another sum order."""
+    model = get_model("moecnn", num_classes=3, image_size=224,
+                      batch_norm=True, device="cpu")
+    payload = ckpt.read_checkpoint(os.path.join(
+        maker.REPO, str(FIXTURE["moecnn_checkpoint"])))
+    ckpt.load_jax_params(model, payload["params"], payload["state"])
+    model.eval()
+    with torch.no_grad():
+        logits, feats = model(prep(torch.from_numpy(maker.photos())),
+                              capture=("gap",))
+        probs = torch.softmax(feats["gap"] @ model.net["moe"].router, -1)
+    top2 = probs.sort(dim=-1).values[:, -2:]
+    assert float((top2[:, 1] - top2[:, 0]).min()) > 1e-4
+    want = FIXTURE["moecnn_logits"]
+    assert np.abs(logits.numpy() - want).max() <= LOGIT_TOL * max(
+        1.0, np.abs(want).max())
+    assert (logits.numpy().argmax(1) == want.argmax(1)).all()

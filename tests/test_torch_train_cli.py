@@ -208,6 +208,10 @@ TOOLBOX = {
     "--color-jitter": (("--device-dataset", "true", "--augment", "true",
                         "--augment-mode", "fast", "--canvas-size", "72"),
                        "+ color jitter 0.1"),
+    # MoECNN and AlexNet's space-to-depth convs, once refused
+    "--space-to-depth": ((), ""),
+    "--moe-balance": (("--name", "moecnn"), "MoE load [moe]: "),
+    "--name": ((), "MoE load [moe]: "),
 }
 WARM = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "checkpoints", "alexnet_bn_device",
@@ -230,10 +234,12 @@ def _teacher(path):
 @pytest.mark.parametrize("flag,value", UNPORTED)
 def test_unported_flag_raises_naming_it(dataset, tmp_path, capsys, flag,
                                         value):
-    """The multi-device flags, --compile-cache, --space-to-depth, MoE and
-    moecnn still raise naming their flag; the toolbox's flags, once
-    refused, now run two iterations (against cnn_tpu's CLI:
-    tests/test_torch_toolbox_cli.py)."""
+    """The multi-device flags (--expert-parallel among them) and
+    --compile-cache still raise naming their flag; the toolbox's flags,
+    --space-to-depth, --moe-balance and --name moecnn, once refused, now
+    run two iterations (against cnn_tpu's CLI:
+    tests/test_torch_toolbox_cli.py, tests/test_torch_moe.py and
+    tests/test_torch_s2d.py)."""
     if flag not in TOOLBOX:
         with pytest.raises(NotImplementedError, match=flag):
             train.main(["--checkpoint-dir", str(tmp_path), flag, value],
