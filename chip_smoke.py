@@ -253,6 +253,39 @@
    px; its launches are those of all three such convs (112, 56 and 28
    px), the counters telling the sizes apart no more than the stem rows
    of phase 17 do (MoECNN's 3 -> 64 stem counts on stem_64's).
+21. BN folding, int8 serving, streaming, artifacts, the TCP server and the
+   leftover CLIs, on the five models of ``tests/fixtures/serving_logits.npz``
+   (the committed BN AlexNet ``.model`` and the newest resnet10,
+   mobilenet, pipecnn and moecnn ``.ckpt``), 224 px, buckets 1, 8, 64:
+   ``quant.fold_batchnorm``'s model behind ``InferenceEngine`` in float32
+   and bf16 through phase 17's checks (one conv launch per folded conv, the
+   stems on the padded strips, none on the direct kernel or the gather,
+   every conv launch against the plain conv, replays bit-equal to the
+   eager forward, exact launches), no call of a BatchNorm2D (forward hooks
+   on the unfolded model's BN modules, and BN's eval function counted),
+   one fused ``relu=True`` launch per conv -> ReLU pair, the photos'
+   logits (one batch of 6) within 1e-4 x max(1, max|ref|) of the fixture
+   with its classes (bf16 within 5e-2), and the bucket-64 graph and eager
+   forward timed in turns with the unfolded model's; the int8 engine
+   calibrated on the six photos: one forward launches the normalize
+   kernel and the float32 pools only, each ``torch._int_mm`` accumulator
+   equal to the float64 product and each depthwise one to the CPU's, the
+   photos' probabilities within 1e-2 of the fixture's with its classes and
+   within 0.1 of float32's, replays bit-equal, exact launches, the
+   bucket-64 graph in turns with the float32 folded one and every int8
+   product of a bucket-64 forward timed alone beside its bound; AlexNet's
+   ``predict_stream`` over 64 images at depth 8 (float32 folded and int8)
+   bit-equal to ``predict``, in order; float32, bf16 and int8 artifacts of
+   AlexNet exported on the card, loaded and served by ``from_artifact``
+   (each bucket's graph launching what its engine's does, predictions
+   bit-equal to the engine's, or within 1e-6 with the reason printed), each
+   file's size; ``serve_tcp`` on port 0 with four concurrent clients
+   sending the photos as PPM frames, an undecodable frame and an oversized
+   length (replies equal to ``predict``'s lines and the ERROR lines); the
+   serve CLI (stdin, ``--stream``, ``--int8``, ``--artifact``),
+   export_artifact, convert (the round trip's ``.model`` bytes equal to
+   the original's), plot (the ASCII branch) and make_gif (phase 15's
+   Grad-CAM PNGs), each run's wall seconds.
 
 Every phase prints one flushed line with the seconds since start. Any failed
 check raises, so the exit code is not 0. Without a CUDA device it exits 1
@@ -269,9 +302,12 @@ import json
 import os
 import re
 import shutil
+import socket
+import struct
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from contextlib import ExitStack, contextmanager, redirect_stdout
@@ -283,14 +319,21 @@ import torch
 import torch.nn.functional as F
 
 import cnn_tpu_torch.nn.module as nn_module
+import cnn_tpu_torch.quant as quant
 import cnn_tpu_torch.serving as serving
+import cnn_tpu_torch.tools.convert as convert_cli
 import cnn_tpu_torch.tools.evaluate as evaluate_cli
+import cnn_tpu_torch.tools.export_artifact as export_artifact_cli
 import cnn_tpu_torch.tools.gradcam as gradcam_cli
 import cnn_tpu_torch.tools.infer as infer_cli
+import cnn_tpu_torch.tools.make_gif as make_gif_cli
+import cnn_tpu_torch.tools.plot as plot_cli
+import cnn_tpu_torch.tools.serve as serve_cli
 import cnn_tpu_torch.tools.train as train_cli
 from cnn_tpu_torch.data import (DeviceDataset, discover_dataset,
                                 make_device_train_step, split_dataset)
-from cnn_tpu_torch.data.image import imread
+from cnn_tpu_torch.data.image import imread, imwrite
+from cnn_tpu_torch.export import ServingArtifact, export_serving_artifact
 from cnn_tpu_torch.models import get_model
 from cnn_tpu_torch.nn import Conv2D, Linear, ReLU, StackedBlocks
 from cnn_tpu_torch.ops import augment as aug
@@ -326,6 +369,7 @@ from cnn_tpu_torch.parallel import (create_train_state, make_eval_step,
                                     make_train_step)
 from cnn_tpu_torch.parallel.train_step import (accumulate_grads,
                                                named_params, named_state)
+from cnn_tpu_torch.quant import fold_batchnorm
 from cnn_tpu_torch.utils.checkpoint import (export_reference_model,
                                             import_reference_array,
                                             load_checkpoint, load_jax_params,
@@ -3087,11 +3131,12 @@ def family_photos() -> np.ndarray:
 
 
 def serve_family(name: str, model, dtype, rng, photos: np.ndarray,
-                 imgs64: np.ndarray, ref) -> tuple:
+                 imgs64: np.ndarray, ref, stems: int = 1) -> tuple:
     """``model`` (family ``name``, with one padded Cin-3 stem) behind
     ``InferenceEngine`` (buckets 1, 8, 64, one CUDA graph each) in
-    ``dtype``: one forward's launches (one conv per Conv2D layer, the stem
-    on a padded strip, none on the direct kernel or the gather, one pool
+    ``dtype``: one forward's launches (one conv per Conv2D layer, ``stems``
+    of them on a padded strip (the stem; AlexNet has none), none on the
+    direct kernel or the gather, one pool
     per MaxPool2D, ATen's conv only for a depthwise conv), every conv
     launch against the plain conv (``check_family_convs``), each bucket's
     replay bit-equal to its eager forward (``rng``'s images), a counted
@@ -3109,11 +3154,11 @@ def serve_family(name: str, model, dtype, rng, photos: np.ndarray,
     check(per_fwd.get("conv2d_bias_relu.launches") == convs
           and per_fwd.get("max_pool2d_fwd.launches", 0) == pools
           and sum(per_fwd.get(f"conv2d_bias_relu.{c}", 0)
-                  for c in STRIP_PADDED) == 1
+                  for c in STRIP_PADDED) == stems
           and per_fwd.get("conv2d_bias_relu.launches_direct", 0)
           + per_fwd.get("conv2d_bias_relu.launches_bf16_gather", 0)
           == 0, f"{tag}: one forward launched {per_fwd}; it has "
-          f"{convs} convs (one a padded Cin-3 stem, on a strip) and "
+          f"{convs} convs ({stems} a padded Cin-3 stem, on a strip) and "
           f"{pools} pools")
     depthwise = sum(type(m).__name__ == "DepthwiseConv2D"
                     for m in model.modules())
@@ -4561,6 +4606,624 @@ def phase20(smi: str, tmp: Path, cli: dict, gen) -> tuple[dict, dict,
     return total, moe, rows
 
 
+# ------------------------------------------------------------- phase 21 ----
+
+SERVING_FIXTURE = ROOT / "tests" / "fixtures" / "serving_logits.npz"
+SERVE_MODELS = ("alexnet", "resnet10", "mobilenet", "pipecnn", "moecnn")
+# int8 probabilities against the fixture's (cnn_tpu's int8 on the photos),
+# absolute: each side calibrates from its own float32 activations, whose
+# absmaxes can sit an ulp apart and flip a level (the CPU tests measured
+# 1.24e-4 at most, PipeCNN's trunk)
+INT8_PROB_TOL = 1e-2
+# int8 against float32 probabilities: cnn_tpu's task bar, where cnn_tpu
+# itself meets it on the photos; its own int8 MoECNN lies 0.2347 from its
+# float32 (the fixture), so a model's bar is the larger of 0.1 and the
+# fixture's own gap plus INT8_PROB_TOL, with float32's classes
+INT8_TASK_TOL = 0.1
+ARTIFACT_TOL = 1e-6      # the bar of an artifact that is not bit-equal
+INT8_OP_PER_S = 1979e12  # dense int8 tensor-core peak of the H100 SXM
+STREAM_N, STREAM_DEPTH = 64, 8
+TCP_CLIENTS = 4
+CATEGORIES = ["dog", "panda", "bird"]
+
+
+def serving_model(name: str, fixture) -> torch.nn.Module:
+    """``name`` at 224 px on the card in eval mode, from the fixture's
+    checkpoint (AlexNet: the committed BN ``.model``)."""
+    model = get_model(name, num_classes=3, image_size=224, batch_norm=True,
+                      device="cuda")
+    path = ROOT / str(fixture[f"{name}_checkpoint"])
+    if name == "alexnet":
+        load_reference_model(model, path)
+    else:
+        payload = read_checkpoint(str(path))
+        load_jax_params(model, payload["params"], payload["state"])
+    return model.eval()
+
+
+def relu_pairs(layers) -> int:
+    """Conv2D -> ReLU pairs of a layer list, a trunk's n_blocks times over,
+    residual bodies included: the fused launches of one forward."""
+    n = 0
+    for i, layer in enumerate(layers):
+        if isinstance(layer, StackedBlocks):
+            n += layer.n_blocks * relu_pairs(list(layer.block.body))
+        elif isinstance(layer, nn_module.ResidualBlock):
+            n += relu_pairs(list(layer.body))
+        elif (isinstance(layer, Conv2D) and i + 1 < len(layers)
+              and isinstance(layers[i + 1], ReLU)):
+            n += 1
+    return n
+
+
+def bn_calls(model, folded, x) -> tuple[int, int, int]:
+    """Forward hooks on ``model``'s BatchNorm2D modules and a count of the
+    BN eval function: (hooked calls in an unfolded forward, hooked calls
+    and BN evaluations in a folded forward)."""
+    calls = []
+    hooks = [m.register_forward_hook(lambda *a: calls.append(1))
+             for m in model.modules()
+             if isinstance(m, nn_module.BatchNorm2D)]
+    real = nn_module.batch_norm2d_eval
+    evals = []
+
+    def counting(*args):
+        evals.append(1)
+        return real(*args)
+    try:
+        with torch.no_grad():
+            model(x)
+            unfolded = len(calls)
+            calls.clear()
+            with mock.patch.object(nn_module, "batch_norm2d_eval", counting):
+                folded(x)
+    finally:
+        for h in hooks:
+            h.remove()
+    return unfolded, len(calls), len(evals)
+
+
+def relu_flags(model, dtype) -> list:
+    """The ``relu`` flag of each conv launch of one eager forward."""
+    flags = []
+    real = nn_module.conv2d_bias_relu
+
+    def rec(x, w, b, stride, relu, padding=0):
+        flags.append(relu)
+        return real(x, w, b, stride, relu, padding)
+    with mock.patch.object(nn_module, "conv2d_bias_relu", rec), \
+            torch.no_grad():
+        model(torch.zeros((2, 224, 224, 3), device="cuda"),
+              compute_dtype=dtype)
+    return flags
+
+
+def replays_match_eager(engine, rng, tag: str) -> None:
+    """Each bucket's replay bit-equal to the eager forward."""
+    for b in engine.buckets:
+        chunk = synthetic_images(rng, b)
+        labels, probs = engine.predict(chunk)
+        with torch.no_grad():
+            ep, el = engine._forward(torch.from_numpy(chunk).cuda())
+        check(same_arrays(labels, el.cpu().numpy())
+              and same_arrays(probs, ep.cpu().numpy()),
+              f"{tag} bucket {b}: the replay differs from the eager forward")
+
+
+def folded_serving(name, model, fixture, rng, photos, imgs64) -> tuple:
+    """The folded model (float32, bf16) behind ``InferenceEngine`` through
+    ``serve_family`` (one conv launch per folded conv, the photos' logits
+    against ``serving_logits.npz``), no BN call, one fused launch per
+    conv -> ReLU pair, and its bucket-64 graph and eager forward timed in
+    turns with the unfolded model's. Returns the counts, the float32
+    folded engine, the photos' float32 probabilities and the log lines."""
+    folded = fold_batchnorm(model)
+    check(not any(isinstance(m, nn_module.BatchNorm2D)
+                  for m in folded.modules()), f"{name}: a BN survived")
+    x6 = torch.from_numpy(photos).cuda()
+    unfolded_bn, folded_bn, bn_evals = bn_calls(model, folded,
+                                                uint8_normalize(x6))
+    check(unfolded_bn > 0 and folded_bn == 0 and bn_evals == 0,
+          f"{name}: BN forwards unfolded {unfolded_bn}, folded {folded_bn} "
+          f"(BN evaluations {bn_evals})")
+    ref = torch.from_numpy(fixture[f"{name}_folded_logits"]).cuda()
+    stems = 0 if name == "alexnet" else 1
+    total, lines, keep, f32_probs = {}, [], None, None
+    xb = torch.from_numpy(imgs64).cuda()
+    for dtype in (None, BF16):
+        tag = f"{name} folded {'bf16' if dtype else 'float32'}"
+        flags = relu_flags(folded, dtype)
+        check(len(flags) == n_convs(folded)
+              and sum(flags) == relu_pairs(list(folded.net)),
+              f"{tag}: {sum(flags)} fused of {len(flags)} conv launches; "
+              f"{relu_pairs(list(folded.net))} conv -> ReLU pairs")
+        bar = LOGIT_ATOL if dtype is None else BF16_MODEL_TOL
+        counts, logits, engine, line = serve_family(
+            f"{name} folded", folded, dtype, rng, photos, imgs64,
+            (ref, "serving_logits.npz", bar), stems=stems)
+        add_up(total, counts)
+        unf = serving.InferenceEngine(model, buckets=(64,), device="cuda",
+                                      compute_dtype=dtype)
+        unf.warmup()
+        with torch.no_grad():
+            g_fold, g_unf = in_turns(engine._ready[64].graph.replay,
+                                     unf._ready[64].graph.replay, 10)
+            e_fold, e_unf = in_turns(lambda: engine._forward(xb),
+                                     lambda: unf._forward(xb), 10)
+        lines.append(f"{line}; {sum(flags)} of {len(flags)} conv launches "
+                     f"fused; bucket 64 in turns: graph {g_fold:.4f} ms "
+                     f"folded / {g_unf:.4f} unfolded, eager {e_fold:.4f} / "
+                     f"{e_unf:.4f}")
+        del unf
+        if dtype is None:
+            keep, f32_probs = engine, torch.softmax(logits, -1)
+        else:
+            del engine
+        torch.cuda.empty_cache()
+    return total, keep, f32_probs, lines
+
+
+def int8_serving(name, model, fixture, rng, photos, imgs64, f32_engine,
+                 f32_probs) -> tuple:
+    """``InferenceEngine(int8_calib=photos)``: one forward launches the
+    normalize kernel and the float32 pools and no conv kernel; every
+    ``_int_mm`` accumulator equal to a float64 product (exact at these
+    magnitudes) and every depthwise one to the CPU's; the photos'
+    probabilities (one batch of 6) within 1e-2 of the fixture's with its
+    classes and within 0.1 of float32's; replays bit-equal to the eager
+    forward; exact launches over a counted predict; the bucket-64 graph
+    in turns with the float32 folded one, and each ``_int_mm`` call of a
+    bucket-64 forward alone. Returns the counts, the engine, the log line
+    and the per-layer product rows."""
+    tag = f"{name} int8"
+    t = time.perf_counter()
+    engine = serving.InferenceEngine(model, buckets=BUCKETS, device="cuda",
+                                     int8_calib=photos)
+    torch.cuda.synchronize()
+    quant_s = time.perf_counter() - t
+    x6 = torch.from_numpy(photos).cuda()
+    pools = sum(isinstance(m, nn_module.MaxPool2D) for m in model.modules())
+    want1 = {"uint8_normalize.launches": 1, "uint8_normalize.launches_wide": 1}
+    if pools:
+        want1["max_pool2d_fwd.launches"] = pools
+    mm, dw = [], []
+    real_mm, real_dw = torch._int_mm, quant._depthwise_s32
+
+    def rec_mm(a, b):
+        out = real_mm(a, b)
+        mm.append((a, b, out))
+        return out
+
+    def rec_dw(qx, w, stride, padding):
+        out = real_dw(qx, w, stride, padding)
+        dw.append((qx, w, stride, padding, out))
+        return out
+
+    with mock.patch.object(torch, "_int_mm", rec_mm), \
+            mock.patch.object(quant, "_depthwise_s32", rec_dw), \
+            torch.no_grad():
+        (probs6, _), c = counted(lambda: engine._forward(x6))
+    check(c == want1, f"{tag}: one forward launched {c}, expected {want1}")
+    check(len(mm) == n_convs(engine.model.folded) + 1,
+          f"{tag}: {len(mm)} int8 products for "
+          f"{n_convs(engine.model.folded)} convs and the head")
+    for a, b, out in mm:
+        check(a.dtype == b.dtype == torch.int8 and out.dtype == torch.int32
+              and torch.equal(out.double(), a.double() @ b.double()),
+              f"{tag}: _int_mm {tuple(a.shape)} x {tuple(b.shape)} is not "
+              "the exact product")
+    for qx, w, stride, padding, out in dw:
+        check(torch.equal(out.cpu(), real_dw(qx.cpu(), w.cpu(), stride,
+                                              padding)),
+              f"{tag}: depthwise {tuple(qx.shape)} differs from the CPU's")
+    want = torch.from_numpy(fixture[f"{name}_int8_probs"]).cuda()
+    dev_fx = (probs6 - want).abs().max().item()
+    dev_f32 = (probs6 - f32_probs).abs().max().item()
+    check(dev_fx <= INT8_PROB_TOL and torch.equal(probs6.argmax(-1),
+                                                  want.argmax(-1)),
+          f"{tag}: probabilities {dev_fx:.3g} from the fixture, classes "
+          f"{probs6.argmax(-1).tolist()} against {want.argmax(-1).tolist()}")
+    ref_logits = torch.from_numpy(fixture[f"{name}_folded_logits"]).cuda()
+    task = max(INT8_TASK_TOL, (want - torch.softmax(ref_logits, -1)).abs()
+               .max().item() + INT8_PROB_TOL)
+    check(dev_f32 <= task and torch.equal(probs6.argmax(-1),
+                                          f32_probs.argmax(-1)),
+          f"{tag}: {dev_f32:.3g} from float32 (bar {task:.3g}), classes "
+          f"{probs6.argmax(-1).tolist()} against "
+          f"{f32_probs.argmax(-1).tolist()}")
+    engine.warmup()
+    for b in BUCKETS:
+        check(engine._ready[b].launches == want1, f"{tag} bucket {b}'s "
+              f"capture recorded {engine._ready[b].launches}")
+    replays_match_eager(engine, rng, tag)
+    torch.cuda.synchronize()
+    reset_launches()
+    engine.predict(photos)
+    engine.predict(imgs64)
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in read_counters().items() if v}
+    check(counts == {k: 2 * v for k, v in want1.items()},
+          f"{tag}: predict launches {counts}")
+    xb = torch.from_numpy(imgs64).cuda()
+    with torch.no_grad():
+        g_int8, g_f32 = in_turns(engine._ready[64].graph.replay,
+                                 f32_engine._ready[64].graph.replay, 10)
+        mm.clear()
+        with mock.patch.object(torch, "_int_mm", rec_mm):
+            engine._forward(xb)
+    rows = []
+    for a, b, out in mm:
+        ms = graph_ms(lambda a=a, b=b: torch._int_mm(a, b))
+        ops = 2.0 * a.shape[0] * a.shape[1] * b.shape[1]
+        bound = bound_ms(nbytes(a, b, out), ops, INT8_OP_PER_S)
+        rows.append((tuple(a.shape), b.shape[1], ms, bound))
+    mm_ms = sum(r[2] for r in rows)
+    line = (f"{tag}: quantized in {quant_s:.2f} s; probabilities "
+            f"{dev_fx:.3g} from the fixture, {dev_f32:.3g} from float32 "
+            f"(bar {task:.3g}); "
+            f"classes {probs6.argmax(-1).tolist()}; {len(rows)} exact int8 "
+            f"products a forward ({len(dw)} depthwise); bucket 64 graph "
+            f"{g_int8:.4f} ms int8 / {g_f32:.4f} float32 folded (in turns), "
+            f"the _int_mm calls alone {mm_ms:.4f} ms")
+    return counts, engine, line, rows
+
+
+def stream_check(engine, imgs, tag: str) -> tuple[dict, str]:
+    """``predict_stream`` over ``imgs`` at depth 8 against ``predict`` of
+    each image alone, bit for bit and in order; one replay of bucket 1's
+    graph per image."""
+    want = [engine.predict(img[None]) for img in imgs]
+    t = time.perf_counter()
+    got, counts = counted(lambda: list(engine.predict_stream(
+        iter(imgs), depth=STREAM_DEPTH)))
+    stream_s = time.perf_counter() - t
+    check(len(got) == len(imgs) and all(
+        label == int(wl[0]) and same_arrays(probs, wp[0])
+        for (label, probs), (wl, wp) in zip(got, want)),
+        f"{tag}: the stream differs from predict")
+    per = engine._ready[engine.buckets[0]].launches
+    check(counts == {k: len(imgs) * v for k, v in per.items()},
+          f"{tag}: stream launches {counts}")
+    t = time.perf_counter()
+    for img in imgs:
+        engine.predict(img[None])
+    seq_s = time.perf_counter() - t
+    return counts, (f"{tag}: {len(imgs)} streamed at depth {STREAM_DEPTH} "
+                    f"bit-equal to predict, in order; "
+                    f"{len(imgs) / stream_s:.1f} img/s streamed, "
+                    f"{len(imgs) / seq_s:.1f} one predict at a time")
+
+
+def artifact_checks(model, photos, imgs64, tmp: Path, engines: dict,
+                    rng) -> tuple[dict, list]:
+    """Float32 and bf16 artifacts of the folded AlexNet and an int8 one
+    (calibrated on the photos), exported on the card, loaded, served by
+    ``from_artifact``: each bucket's graph launches what the source
+    engine's does, and the predictions equal the source engine's bit for
+    bit (or, where not, within 1e-6, with the reason printed)."""
+    total, lines = {}, []
+    folded = fold_batchnorm(model)
+    kinds = {"float32": (folded, None, None), "bf16": (folded, BF16, None),
+             "int8": (model, None, photos)}
+    for kind, (src, dtype, calib) in kinds.items():
+        path = tmp / f"alexnet_{kind}.ctsa"
+        t = time.perf_counter()
+        meta = export_serving_artifact(src, str(path), compute_dtype=dtype,
+                                       int8_calib=calib,
+                                       class_names=CATEGORIES)
+        export_s = time.perf_counter() - t
+        t = time.perf_counter()
+        art = ServingArtifact.load(str(path))
+        load_s = time.perf_counter() - t
+        check(meta["int8"] == (calib is not None)
+              and art.device.type == "cuda", f"artifact {kind}: {meta}")
+        eng = serving.InferenceEngine.from_artifact(art, buckets=BUCKETS)
+        eng.warmup()
+        source = engines[kind]
+        for b in BUCKETS:
+            check(eng._ready[b].launches == source._ready[b].launches,
+                  f"artifact {kind} bucket {b}: its graph launches "
+                  f"{eng._ready[b].launches}, the engine's "
+                  f"{source._ready[b].launches}")
+        replays_match_eager(eng, rng, f"artifact {kind}")
+        (got, counts) = counted(lambda: (eng.predict(photos),
+                                         eng.predict(imgs64)))
+        add_up(total, counts)
+        want = (source.predict(photos), source.predict(imgs64))
+        exact = all(same_arrays(g, w) for gw in zip(got, want)
+                    for g, w in zip(*gw))
+        note = "bit-equal to its engine"
+        if not exact:
+            dev_ = max(float(np.abs(g[1] - w[1]).max())
+                       for g, w in zip(got, want))
+            labels_ok = all(np.array_equal(g[0], w[0])
+                            for g, w in zip(got, want))
+            note = (f"NOT bit-equal to its engine: probabilities {dev_:.3g} "
+                    f"apart (the exported program runs its aten ops, not "
+                    f"the eager layers' calls), held to {ARTIFACT_TOL}")
+            check(labels_ok and dev_ <= ARTIFACT_TOL, f"artifact {kind}: "
+                  + note)
+        lines.append(f"{kind}: {path.stat().st_size / 1e6:.3f} MB, exported "
+                     f"in {export_s:.2f} s, loaded in {load_s:.2f} s, "
+                     f"{note}")
+        del eng, art
+        torch.cuda.empty_cache()
+    return total, lines
+
+
+def ppm_bytes(img: np.ndarray) -> bytes:
+    h, w, _ = img.shape
+    return (f"P6\n{w} {h}\n255\n".encode()
+            + np.ascontiguousarray(img[:, :, ::-1]).tobytes())
+
+
+def tcp_reply(conn) -> str:
+    head = b""
+    while len(head) < 4:
+        chunk = conn.recv(4 - len(head))
+        check(bool(chunk), "tcp: the server closed mid-reply")
+        head += chunk
+    (n,) = struct.unpack(">I", head)
+    body = b""
+    while len(body) < n:
+        body += conn.recv(n - len(body))
+    return body.decode()
+
+
+def tcp_check(engine, photos) -> tuple[dict, str]:
+    """``serve_tcp`` on port 0 in a thread: four concurrent clients send
+    the six photos as PPM frames, then an undecodable frame and an
+    oversized length; the replies equal ``predict``'s lines, then
+    ``ERROR\\tundecodable`` and ``ERROR\\tframe too large``, and the server
+    hangs up."""
+    labels, probs = engine.predict(photos)
+    want = [f"{CATEGORIES[l]}\t{p[l]:.6f}" for l, p in zip(labels, probs)]
+    ready, stop, port = threading.Event(), threading.Event(), []
+    torch.cuda.synchronize()
+    reset_launches()
+    server = threading.Thread(target=serve_cli.serve_tcp, args=(
+        engine, 0, 224, CATEGORIES, 64, 2.0), kwargs=dict(
+        ready_event=ready, stop_event=stop, port_out=port), daemon=True)
+    quiet = redirect_stdout(io.StringIO())    # its "serving on" line
+    quiet.__enter__()
+    server.start()
+    check(ready.wait(60), "tcp: the server did not start")
+
+    def client(_):
+        with socket.create_connection(("127.0.0.1", port[0]),
+                                      timeout=60) as conn:
+            out = []
+            for img in photos:
+                payload = ppm_bytes(img)
+                conn.sendall(struct.pack(">I", len(payload)) + payload)
+                out.append(tcp_reply(conn))
+            conn.sendall(struct.pack(">I", 12) + b"not an image")
+            out.append(tcp_reply(conn))
+            conn.sendall(struct.pack(">I", serve_cli.MAX_FRAME_BYTES + 1))
+            out.append(tcp_reply(conn))
+            out.append(conn.recv(1))
+            return out
+
+    t = time.perf_counter()
+    try:
+        with ThreadPoolExecutor(TCP_CLIENTS) as pool:
+            results = list(pool.map(client, range(TCP_CLIENTS)))
+    finally:
+        stop.set()
+        server.join(30)
+        quiet.__exit__(None, None, None)
+    tcp_s = time.perf_counter() - t
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in read_counters().items() if v}
+    check(not server.is_alive(), "tcp: the server did not stop")
+    for out in results:
+        check(out == want + ["ERROR\tundecodable", "ERROR\tframe too large",
+                             b""], f"tcp: replies {out}, expected {want}")
+    no_fallback(counts, "tcp")
+    return counts, (f"TCP: {TCP_CLIENTS} clients x 6 photos (PPM frames) "
+                    f"in {tcp_s:.3f} s, replies equal to predict's lines, "
+                    "the undecodable and oversized frames answered "
+                    f"ERROR; {counts.get('uint8_normalize.launches', 0)} "
+                    "bucket calls")
+
+
+def cli_run(what: str, main, argv, stdin: str | None = None,
+            **patches) -> tuple[str, dict, float]:
+    """One in-process CLI run with the counters at 0 just before: exit code
+    0, no fallback conv; returns its output, counts and wall seconds."""
+    torch.cuda.synchronize()
+    reset_launches()
+    out = io.StringIO()
+    t = time.perf_counter()
+    with ExitStack() as stack:
+        stack.enter_context(redirect_stdout(out))
+        if stdin is not None:
+            stack.enter_context(mock.patch.object(sys, "stdin",
+                                                  io.StringIO(stdin)))
+        for target, value in patches.items():
+            stack.enter_context(mock.patch.dict(sys.modules,
+                                                {target: value}))
+        try:
+            rc = main(argv)
+        except BaseException:
+            print(f"{what}: raised; its output ends "
+                  f"{out.getvalue()[-2000:]!r}", file=sys.stderr)
+            raise
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t
+    counts = {k: v for k, v in read_counters().items() if v}
+    check(rc == 0, f"{what}: exit code {rc}")
+    no_fallback(counts, what)
+    return out.getvalue(), counts, seconds
+
+
+def served_rows(text: str) -> list:
+    return [tuple(line.split("\t")) for line in text.splitlines()
+            if line.count("\t") == 2]
+
+
+def check_served(text: str, paths, labels, probs, what: str) -> None:
+    """The serve CLI's lines: each path with the engine's class and its
+    probability within 1e-6 (printed to 6 places)."""
+    rows = served_rows(text)
+    check([r[0] for r in rows] == list(paths), f"{what}: printed {rows}")
+    for (_, cat, p), label, pr in zip(rows, labels, probs):
+        check(cat == CATEGORIES[label]
+              and abs(float(p) - float(pr[label])) <= INFER_PROB_ATOL,
+              f"{what}: {cat} {p} against {CATEGORIES[label]} "
+              f"{pr[label]:.6f}")
+
+
+def cli_checks(photos, tmp: Path, engines: dict) -> tuple:
+    """The serve CLI in stdin, ``--stream``, ``--int8`` and ``--artifact``
+    modes, then export_artifact, convert (a round trip whose ``.model``
+    bytes are the original's), plot (the ASCII branch) and make_gif (on
+    phase 15's Grad-CAM PNGs). Returns the counts and the log line."""
+    total, parts = {}, []
+    root = tmp / "p21"
+    root.mkdir(exist_ok=True)
+    paths = []
+    for i, img in enumerate(photos):
+        paths.append(str(root / f"{i}.ppm"))
+        Path(paths[-1]).write_bytes(ppm_bytes(img))
+    stdin = "\n".join(paths) + "\n"
+    base = ["--checkpoint", str(MODEL), "--batch-norm"]
+    f32 = engines["unfolded"].predict(photos)
+    single = [engines["unfolded"].predict(img[None]) for img in photos]
+    single = (np.concatenate([s[0] for s in single]),
+              np.concatenate([s[1] for s in single]))
+    int8 = engines["int8"].predict(photos)
+    runs = {"serve": (base, f32), "serve --stream": (base + ["--stream"],
+                                                     single),
+            "serve --int8": (base + ["--int8"], int8)}
+    for what, (argv, (labels, probs)) in runs.items():
+        text, counts, s = cli_run(what, serve_cli.main, argv, stdin)
+        check_served(text, paths, labels, probs, what)
+        add_up(total, counts)
+        parts.append(f"{what} {s:.2f} s")
+    art = str(root / "alexnet.ctsa")
+    text, counts, s = cli_run("export_artifact", export_artifact_cli.main,
+                              [str(MODEL), art, "--batch-norm", "true"])
+    check(text.startswith(f"exported {MODEL} -> {art} (")
+          and "platforms=['cuda', 'cpu'], int8=False)" in text,
+          f"export_artifact printed {text!r}")
+    add_up(total, counts)
+    parts.append(f"export_artifact {s:.2f} s "
+                 f"({Path(art).stat().st_size / 1e6:.2f} MB)")
+    text, counts, s = cli_run("serve --artifact", serve_cli.main,
+                              ["--artifact", art], stdin)
+    check_served(text, paths, *f32, "serve --artifact")
+    add_up(total, counts)
+    parts.append(f"serve --artifact {s:.2f} s")
+    ck, back = str(root / "a.ckpt"), str(root / "a.model")
+    _, counts, s1 = cli_run("convert .model", convert_cli.main,
+                            [str(MODEL), ck, "--batch-norm", "true"])
+    _, counts, s2 = cli_run("convert .ckpt", convert_cli.main,
+                            [ck, back, "--batch-norm", "true"])
+    check(Path(back).read_bytes() == MODEL.read_bytes(),
+          "convert: the round trip's .model differs from the original")
+    parts.append(f"convert round trip {s1 + s2:.2f} s (.model bytes equal)")
+    history_file = MODEL.parent / "history.jsonl"
+    text, _, s = cli_run("plot", plot_cli.main, [str(history_file)],
+                         matplotlib=None)
+    check("--- loss ---" in text and "max " in text and "*" in text,
+          f"plot printed {text[:300]!r}")
+    parts.append(f"plot (ASCII) {s:.2f} s")
+    frames = tmp / "cam_conv_layer_3_gradcam"
+    if not frames.is_dir():      # phase 15 did not run: the photos as PNG
+        frames = root / "frames"
+        frames.mkdir()
+        for i, img in enumerate(photos):
+            imwrite(str(frames / f"{i}.png"), img)
+    gif = str(root / "cams.gif")
+    text, _, s = cli_run("make_gif", make_gif_cli.main, [str(frames), gif])
+    from PIL import Image
+    pngs = sorted(frames.glob("*.png"))
+    first = imread(str(pngs[0]))
+    with Image.open(gif) as im:
+        n_frames, size = im.n_frames, im.size
+    check(n_frames == len(pngs) and size == (first.shape[1], first.shape[0]),
+          f"make_gif: {n_frames} frames of {size}, from {len(pngs)} PNGs of "
+          f"{first.shape}")
+    parts.append(f"make_gif {s:.2f} s ({n_frames} frames of {frames.name})")
+    return total, "CLIs: " + "; ".join(parts)
+
+
+def phase21(smi: str, tmp: Path) -> tuple[dict, dict, dict]:
+    """Phase 21: BN folding, int8 serving, streaming, artifacts, the TCP
+    server and the leftover CLIs. Returns the launches of every counted
+    run, added up, those of AlexNet's runs alone, and the families' conv
+    counters (MoECNN's stem only) with their stem strips keyed by
+    family."""
+    fixture = np.load(SERVING_FIXTURE)
+    rng = np.random.default_rng(21)
+    photos = family_photos()
+    imgs64 = synthetic_images(rng, 64)
+    total, alex, fam, lines, mm_lines = {}, {}, {}, [], []
+    engines = {}
+    for name in SERVE_MODELS:
+        model = serving_model(name, fixture)
+        counts, f32_engine, f32_probs, ln = folded_serving(
+            name, model, fixture, rng, photos, imgs64)
+        lines += ln
+        c8, int8_engine, ln8, rows = int8_serving(
+            name, model, fixture, rng, photos, imgs64, f32_engine, f32_probs)
+        add_up(counts, c8)
+        lines.append(ln8)
+        mm_lines.append(f"{name}: " + ", ".join(
+            f"{m}x{k}x{n} {ms:.4f} ms (bound {bd[0]:.4f} by {bd[1]})"
+            for (m, k), n, ms, bd in rows))
+        for line in lines:
+            phase(f"phase 21 ({smi}): {line}")
+        lines.clear()
+        if name == "alexnet":
+            add_up(alex, counts)
+            engines.update(float32=f32_engine, int8=int8_engine)
+        else:
+            add_up(total, counts)
+            # MoECNN's convs other than its stem have rows of their own
+            if name != "moecnn":
+                add_up(fam, {k: v for k, v in counts.items()
+                             if k.startswith("conv2d_bias_relu.")})
+            add_up(fam, stem_counts(name, counts))
+            del f32_engine, int8_engine
+        torch.cuda.empty_cache()
+    alexnet = serving_model("alexnet", fixture)
+    engines["bf16"] = serving.InferenceEngine(
+        fold_batchnorm(alexnet), buckets=BUCKETS, device="cuda",
+        compute_dtype=BF16)
+    engines["unfolded"] = serving.InferenceEngine(alexnet, buckets=BUCKETS,
+                                                  device="cuda")
+    engines["bf16"].warmup()
+    engines["unfolded"].warmup()
+    for kind in ("float32", "int8"):
+        counts, line = stream_check(engines[kind], imgs64[:STREAM_N],
+                                    f"AlexNet {kind} stream")
+        add_up(alex, counts)
+        phase(f"phase 21 ({smi}): {line}")
+    counts, art_lines = artifact_checks(alexnet, photos, imgs64, tmp,
+                                        engines, rng)
+    add_up(alex, counts)
+    phase(f"phase 21 ({smi}): artifacts: " + "; ".join(art_lines))
+    counts, line = tcp_check(engines["float32"], photos)
+    add_up(alex, counts)
+    phase(f"phase 21 ({smi}): {line}")
+    counts, line = cli_checks(photos, tmp, engines)
+    add_up(alex, counts)
+    phase(f"phase 21 ({smi}): {line}")
+    add_up(total, alex)
+    for line in mm_lines:
+        phase(f"phase 21: int8 products alone at bucket 64 ({smi}), "
+              f"M x K x N: {line}")
+    phase(f"phase 21 ({smi}): five models folded (float32 within 1e-4 x "
+          "max(1, max|ref|) of serving_logits.npz, bf16 within 5e-2) and "
+          "int8 (probabilities within 1e-2 of the fixture, 0.1 of float32), "
+          "streaming, artifacts, TCP and the CLIs")
+    del engines
+    torch.cuda.empty_cache()
+    return total, alex, fam
+
+
 def same_trees(a, b) -> bool:
     if isinstance(a, dict):
         return (isinstance(b, dict) and sorted(a) == sorted(b)
@@ -4687,6 +5350,11 @@ def main() -> int:
         # rows, MoECNN's convs on rows of their own (its stem on stem_64's)
         p20, moe20, rows20 = phase20(smi, Path(tmp), flagship, gen)
         add_up(fam, stem_counts("moecnn", moe20))
+        # phase 21: every run's normalize and pool launches count on those
+        # rows, AlexNet's convs on its conv rows, the families' convs on
+        # theirs (fam21: conv counters and stem strips only)
+        p21, alex21, fam21 = phase21(smi, Path(tmp))
+        add_up(fam, fam21)
 
     # the CLIs' launches (phases 14-16): float32 ones on the float32 rows,
     # the rotation in either dtype on its one row
@@ -4694,11 +5362,15 @@ def main() -> int:
                - cli.get(f"{name}.launches_bf16", 0) for name in KERNELS}
     # the families' float32 launches of the kernels they share with AlexNet
     # (normalize, pool, rotation); their convs have rows of their own
-    fam_f32 = {name: 0 if name == "conv2d_bias_relu" else
+    fam_f32 = {name: alex21.get(f"{name}.launches", 0)
+               - alex21.get(f"{name}.launches_bf16", 0)
+               if name == "conv2d_bias_relu" else
                fam.get(f"{name}.launches", 0)
                - fam.get(f"{name}.launches_bf16", 0)
                + p20.get(f"{name}.launches", 0)
-               - p20.get(f"{name}.launches_bf16", 0) for name in KERNELS}
+               - p20.get(f"{name}.launches_bf16", 0)
+               + p21.get(f"{name}.launches", 0)
+               - p21.get(f"{name}.launches_bf16", 0) for name in KERNELS}
     kernels = [entry(name, launches.get(name, 0) + trained[name]
                      + cli_f32[name] + fam_f32[name], *measured[name])
                for name in KERNELS]
@@ -4719,15 +5391,18 @@ def main() -> int:
     }
     kernels += [entry(name, counts16.get(counter, 0)
                       + served16.get(counter, 0) + cli.get(counter, 0)
-                      + (0 if name == "conv2d_bias_relu_bf16"
-                         else fam.get(counter, 0) + p20.get(counter, 0)),
+                      + (alex21.get(counter, 0)
+                         if name == "conv2d_bias_relu_bf16"
+                         else fam.get(counter, 0) + p20.get(counter, 0)
+                         + p21.get(counter, 0)),
                       *rows16[name])
                 for name, counter in BF16_KERNELS.items()]
     # the tma kernel's row: its launches over every counted run, timed at
     # AlexNet's conv4 at B = 64
     tma_key = "conv2d_bias_relu.launches_bf16_tma"
     kernels.append(entry("conv2d_bias_relu_bf16_tma", sum(
-        c.get(tma_key, 0) for c in (counts16, served16, cli, fam, p20)),
+        c.get(tma_key, 0) for c in (counts16, served16, cli, fam, p20, p21))
+        - fam21.get(tma_key, 0),
         tma["err"], tma["ms"], tma["plain"], tma["lib"], tma["bound"]))
     kernels += family_rows(gen, fam) + rows20
     phase("all checks passed")

@@ -2,7 +2,8 @@
 ``cv2.imread`` and ``cv2.resize`` calls of ``cnn_tpu/data/loader.py``.
 
 ``imread(path)`` returns what ``cv2.imread(path)`` returns for a colour
-image: a BGR uint8 [H,W,3] array. A binary PPM (P6, maxval 255) is decoded
+image: a BGR uint8 [H,W,3] array; ``imdecode(data)`` the same for encoded
+bytes, as ``cv2.imdecode`` (None where they do not decode). A binary PPM (P6, maxval 255) is decoded
 in numpy; every other format through PIL, imported at the first such call
 (baseline JPEG and PNG decode bit-equal to ``cv2.imread``; the EXIF
 orientation is applied, as ``cv2.imread`` does). A file that neither can
@@ -99,6 +100,14 @@ def _decode_pil(path: str, data: bytes) -> np.ndarray:
     return np.ascontiguousarray(rgb[:, :, ::-1])
 
 
+def _decode(what: str, data: bytes) -> np.ndarray:
+    if data[:2] == b"P6":
+        img = _decode_p6(data)
+        if img is not None:
+            return img
+    return _decode_pil(what, data)
+
+
 def imread(path: str) -> np.ndarray:
     """``cv2.imread(path)``: BGR uint8 [H,W,3]; raises ``IOError`` for a
     missing or unreadable file."""
@@ -107,11 +116,17 @@ def imread(path: str) -> np.ndarray:
             data = f.read()
     except OSError as e:
         raise IOError(f"unreadable image: {path}") from e
-    if data[:2] == b"P6":
-        img = _decode_p6(data)
-        if img is not None:
-            return img
-    return _decode_pil(path, data)
+    return _decode(path, data)
+
+
+def imdecode(data: bytes):
+    """``cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_COLOR)``:
+    the encoded image ``data`` as BGR uint8 [H,W,3], or None where it does
+    not decode (the TCP server's frames)."""
+    try:
+        return _decode("<bytes>", bytes(data))
+    except IOError:
+        return None
 
 
 def _taps(src: int, dst: int, clamp_weights: bool):

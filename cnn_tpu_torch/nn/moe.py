@@ -51,8 +51,14 @@ class MoEBlock(Layer):
     """[B, D] -> [B, D]: residual top-1 MoE FFN (Switch semantics). The
     router and the expert weights start at N(0, 1) / sqrt(D), the biases
     and ``w2`` at zero (the block starts as the identity); ``load`` at
-    1/E, ``aux_loss`` at 0."""
+    1/E, ``aux_loss`` at 0.
+
+    ``state_eval_inert``: the state is monitoring only, never read by the
+    forward, so the eval-only transforms (``quant.py``'s BN folding and
+    int8 serving) keep the block and drop its buffers, as ``cnn_tpu``'s
+    flag lets them."""
     casts = True
+    state_eval_inert = True
 
     def __init__(self, name, dim=128, hidden=256, n_experts=8,
                  capacity_factor=2.0, balance_coeff=0.0, *, device=None,
@@ -75,9 +81,10 @@ class MoEBlock(Layer):
 
     def tree_leaves(self):
         yield from super().tree_leaves()
-        yield ("load",), self.load, True
-        if self.balance_coeff > 0.0:
-            yield ("aux_loss",), self.aux_loss, True
+        # ``load``, then ``aux_loss`` with a balance loss: the buffers it
+        # holds (a folded copy holds none)
+        for key, t in self.named_buffers(recurse=False):
+            yield (key,), t, True
 
     def capacity(self, batch: int) -> int:
         return max(1, int(self.capacity_factor * batch / self.n_experts))

@@ -527,8 +527,12 @@ def conv2d_bias_relu(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     """x [B,H,W,Cin], w [k,k,Cin,Cout], b [Cout] -> [B,Ho,Wo,Cout], all
     float32 or all bf16; ``padding`` zero rows and columns on each side.
 
-    A CPU tensor takes the plain version (``ops/conv.py:conv2d``).
+    A CPU tensor takes the plain version (``ops/conv.py:conv2d``). While a
+    program is exported (``export.py``) the call goes through the operator
+    ``conv2d_bias_relu_op``, which ``torch.export`` records by name.
     """
+    if torch.compiler.is_exporting():
+        return conv2d_bias_relu_op(x, w, b, stride, relu, padding)
     if x.dim() != 4 or w.dim() != 4 or b.dim() != 1:
         raise ValueError("conv2d_bias_relu: expects x [B,H,W,Cin], "
                          "w [k,k,Cin,Cout], b [Cout]")

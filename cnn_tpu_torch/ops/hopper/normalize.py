@@ -14,6 +14,11 @@ The Pallas kernel is uint8 -> float32 only; a bf16 compute dtype
 (``uint8_normalize(x, torch.bfloat16)``) runs this kernel and rounds its
 output to bf16, which is ``cnn_tpu``'s ``uint8_to_float(x, jnp.bfloat16)``
 bit for bit.
+
+``uint8_normalize_op`` is the wrapper as a PyTorch operator
+(``torch.ops.cnn_tpu_torch.uint8_normalize``) with a fake version, so that
+``torch.export`` records the kernel's call by name: while a program is
+exported the wrapper goes through it (``export.py``).
 """
 
 from __future__ import annotations
@@ -98,6 +103,8 @@ def uint8_normalize(x: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
 
     A CPU tensor takes the plain version; a CUDA tensor the kernel.
     """
+    if torch.compiler.is_exporting():
+        return uint8_normalize_op(x).to(dtype)
     if x.device.type == "cpu":
         return uint8_to_float(x, dtype)
     y, variant = launch_normalize(x)
@@ -110,3 +117,15 @@ def uint8_normalize(x: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
 uint8_normalize.launches = 0           # every launch, either variant
 uint8_normalize.launches_wide = 0
 uint8_normalize.launches_bytes = 0
+
+
+@torch.library.custom_op("cnn_tpu_torch::uint8_normalize", mutates_args=())
+def uint8_normalize_op(x: torch.Tensor) -> torch.Tensor:
+    """``uint8_normalize(x)`` (float32) as an operator: the kernel on a
+    CUDA tensor, the plain version on a CPU one."""
+    return uint8_normalize(x)
+
+
+@uint8_normalize_op.register_fake
+def _(x):
+    return x.new_empty(x.shape, dtype=torch.float32)

@@ -18,6 +18,11 @@ In bf16 the forward and the window backward run their bf16 instances
 backward the window kernel cannot take (C % 4 != 0, g not 8-byte aligned)
 raises. Each wrapper counts its bf16 launches in ``launches_bf16`` beside
 ``launches``; the variant counters count the float32 kernels.
+
+``max_pool2d_fwd_op`` is the forward without the tap as a PyTorch operator
+(``torch.ops.cnn_tpu_torch.max_pool2d_fwd``) with a fake version, so that
+``torch.export`` records the kernel's call by name: while a program is
+exported the wrapper goes through it (``export.py``).
 """
 
 from __future__ import annotations
@@ -37,6 +42,8 @@ def max_pool2d_fwd(x: torch.Tensor, with_tap: bool = False):
     version."""
     if x.dim() != 4:
         raise ValueError(f"max_pool2d_fwd: expects [B,H,W,C], got {tuple(x.shape)}")
+    if torch.compiler.is_exporting() and not with_tap:
+        return max_pool2d_fwd_op(x)
     if x.device.type == "cpu":
         out, tap = plain.max_pool2d_taps(x)
         return (out, tap) if with_tap else out
@@ -60,6 +67,19 @@ def max_pool2d_fwd(x: torch.Tensor, with_tap: bool = False):
 
 max_pool2d_fwd.launches = 0           # every launch, either dtype
 max_pool2d_fwd.launches_bf16 = 0
+
+
+@torch.library.custom_op("cnn_tpu_torch::max_pool2d_fwd", mutates_args=())
+def max_pool2d_fwd_op(x: torch.Tensor) -> torch.Tensor:
+    """``max_pool2d_fwd(x)`` as an operator: the kernel on a CUDA tensor,
+    the plain version on a CPU one."""
+    return max_pool2d_fwd(x)
+
+
+@max_pool2d_fwd_op.register_fake
+def _(x):
+    b, h, w, c = x.shape
+    return x.new_empty((b, h // 2, w // 2, c))
 
 
 def pool_bwd_variant(b: int, h2: int, w2: int, c: int,

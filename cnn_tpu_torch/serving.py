@@ -20,6 +20,12 @@ input to static probs and labels, so that a bucket call is a copy in, one
 replay and a copy out. On the CPU, which the caller has to ask for, every
 call runs eagerly and warmup runs each bucket once.
 
+The same buckets and graphs serve a folded model (``quant.fold_batchnorm``,
+passed as the model), the int8 graph (``int8_calib=``: BN folded, every
+conv and the dense head s8 x s8 -> s32, ``quant.py``) and a loaded serving
+artifact (``from_artifact``, ``export.py``). ``predict_stream`` pipelines
+single-image requests through the smallest bucket's graph.
+
 Usage:
     engine = InferenceEngine(model, buckets=(1, 8, 64))
     engine.warmup()
@@ -32,6 +38,7 @@ import bisect
 import queue
 import threading
 import time
+from collections import deque
 from concurrent.futures import Future
 from dataclasses import dataclass
 
@@ -55,14 +62,61 @@ class BucketGraph:
     stale: int = 0          # rows of ``host`` holding an earlier request
 
 
+def bucket_forward(model, images: torch.Tensor, compute_dtype=None):
+    """One bucket's work: uint8 [B,H,W,3] -> (labels [B], probs [B,C] f32)
+    through the normalize kernel, ``model`` (in ``compute_dtype``) and a
+    float32 softmax; what a serving artifact exports (``export.py``)."""
+    logits = model(uint8_normalize(images), compute_dtype=compute_dtype)
+    probs = torch.softmax(logits.float(), dim=-1)
+    return torch.argmax(probs, dim=-1), probs
+
+
+@dataclass
+class StreamSlot:
+    """One in-flight request of ``predict_stream``: its pinned input and
+    outputs and the event after its outputs' copy."""
+    host: torch.Tensor
+    probs: torch.Tensor
+    labels: torch.Tensor
+    done: torch.cuda.Event
+
+
 class InferenceEngine:
     def __init__(self, model, buckets=(1, 8, 64), device=None,
-                 compute_dtype=None):
+                 compute_dtype=None, int8_calib=None):
+        """``int8_calib``: a [N,H,W,3] uint8 batch of representative images
+        switches the engine to the post-training-quantized graph
+        (``quant.py``): BatchNorm folded away, every conv and the dense
+        head s8 x s8 -> s32 with calibrated activation scales; it is
+        quantized once, here, on the engine's device (``compute_dtype``
+        then has no effect). A folded model (``quant.fold_batchnorm``) is
+        served by passing it as ``model``."""
         self.device = default_device(device)
-        self.model = model.to(self.device).eval()
         self.compute_dtype = compute_dtype
+        self._artifact = None
+        model = model.to(self.device).eval()
+        if int8_calib is not None:
+            from cnn_tpu_torch.quant import QuantizedModel, quantize_int8
+            model = QuantizedModel(*quantize_int8(model, int8_calib))
+        self.model = model
+        self._setup(buckets, model.image_size)
+
+    @classmethod
+    def from_artifact(cls, artifact, buckets=(1, 8, 64)) -> "InferenceEngine":
+        """Serve a loaded ``export.ServingArtifact``: the program and its
+        weights come out of the file, no model class is built; the engine
+        adds the buckets, one CUDA graph per bucket around the program,
+        streaming and micro-batching, on the artifact's device."""
+        eng = cls.__new__(cls)
+        eng.device = artifact.device
+        eng.compute_dtype = None
+        eng._artifact = artifact
+        eng.model = artifact          # only .image_size is read
+        eng._setup(buckets, artifact.image_size)
+        return eng
+
+    def _setup(self, buckets, size: int) -> None:
         self.buckets = tuple(sorted(buckets))
-        size = model.image_size
         self.image_shape = (size, size, 3)
         # bucket -> its BucketGraph on CUDA, None on the CPU
         self._ready: dict[int, BucketGraph | None] = {}
@@ -90,10 +144,11 @@ class InferenceEngine:
 
     def _forward(self, images: torch.Tensor):
         """uint8 [B,H,W,3] on the device -> (probs [B,C] f32, labels [B])."""
-        logits = self.model(uint8_normalize(images),
-                            compute_dtype=self.compute_dtype)
-        probs = torch.softmax(logits.float(), dim=-1)
-        return probs, torch.argmax(probs, dim=-1)
+        if self._artifact is not None:
+            labels, probs = self._artifact(images)
+            return probs, labels
+        labels, probs = bucket_forward(self.model, images, self.compute_dtype)
+        return probs, labels
 
     def _capture(self, bucket: int) -> BucketGraph:
         """One eager pass on a side stream, then the capture. The capture's
@@ -142,6 +197,61 @@ class InferenceEngine:
         labels_out.append(l)
         probs_out.append(p)
         return np.concatenate(labels_out), np.concatenate(probs_out)
+
+    def predict_stream(self, images_iter, depth: int = 8):
+        """Pipelined request stream, as ``cnn_tpu``'s: each image runs alone
+        in the smallest configured bucket, its outputs copied back
+        asynchronously, and a result is read only once ``depth`` requests
+        are in flight. Yields ``(label int, probs [C])`` in submission
+        order, bit for bit what ``predict`` gives each image.
+
+        On CUDA each request takes a slot of a ring of ``depth``: a pinned
+        input staging buffer, pinned outputs and an event. Every replay of
+        the bucket's graph overwrites the same static outputs, so each
+        request's are copied into its own slot (non-blocking, on the
+        stream, before the next replay) and the event marks them copied. A
+        slot is taken again only after its request was yielded, past its
+        event, so its staging is never rewritten before its upload ran."""
+        b = self.buckets[0]
+        if self.device.type != "cuda":
+            for img in images_iter:
+                labels, probs = self._run_eager(b, np.asarray(img)[None])
+                yield int(labels[0]), probs[0]
+            return
+        if b not in self._ready:
+            raise RuntimeError(f"bucket {b} has no CUDA graph: call "
+                               "warmup() before the first request")
+        g = self._ready[b]
+        slots = [StreamSlot(torch.zeros(g.host.shape, dtype=torch.uint8,
+                                        pin_memory=True),
+                            torch.empty(g.probs.shape, dtype=g.probs.dtype,
+                                        pin_memory=True),
+                            torch.empty(g.labels.shape, dtype=g.labels.dtype,
+                                        pin_memory=True),
+                            torch.cuda.Event())
+                 for _ in range(depth)]
+        inflight: deque = deque()
+
+        def drain_one():
+            slot = inflight.popleft()
+            slot.done.synchronize()
+            return int(slot.labels[0]), slot.probs[0].numpy().copy()
+
+        for j, img in enumerate(images_iter):
+            slot = slots[j % depth]
+            slot.host.numpy()[0] = img
+            with self._lock:
+                g.images.copy_(slot.host, non_blocking=True)
+                g.graph.replay()
+                add_counters(g.launches)
+                slot.probs.copy_(g.probs, non_blocking=True)
+                slot.labels.copy_(g.labels, non_blocking=True)
+                slot.done.record()
+            inflight.append(slot)
+            if len(inflight) >= depth:
+                yield drain_one()
+        while inflight:
+            yield drain_one()
 
     def _run(self, bucket: int, chunk: np.ndarray):
         if self.device.type != "cuda":

@@ -16,7 +16,8 @@ from cnn_tpu_torch.models import get_model
 from cnn_tpu_torch.optim import make_optimizer
 from cnn_tpu_torch.parallel import create_train_state
 from cnn_tpu_torch.serving import InferenceEngine
-from cnn_tpu_torch.tools import evaluate, gradcam, infer, train
+from cnn_tpu_torch.tools import (convert, evaluate, export_artifact,
+                                 gradcam, infer, serve, train)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -53,6 +54,9 @@ import cnn_tpu_torch.models.resnet, cnn_tpu_torch.models.vgg
 import cnn_tpu_torch.models.mobilenet, cnn_tpu_torch.models.pipecnn
 import cnn_tpu_torch.models.base, cnn_tpu_torch.ops.pool, cnn_tpu_torch.ops.conv
 import cnn_tpu_torch.nn.module, cnn_tpu_torch.nn.sequential
+import cnn_tpu_torch.quant, cnn_tpu_torch.export, cnn_tpu_torch.tools.serve
+import cnn_tpu_torch.tools.export_artifact, cnn_tpu_torch.tools.convert
+import cnn_tpu_torch.tools.plot, cnn_tpu_torch.tools.make_gif
 import importlib, pkgutil
 # and every module of the package, those the list above does not name
 walked = [m.name for m in pkgutil.walk_packages(cnn_tpu_torch.__path__,
@@ -173,3 +177,44 @@ def test_family_entry_points_need_cuda_or_an_explicit_cpu(monkeypatch, name):
     labels, probs = engine.predict(np.zeros((5, 32, 32, 3), np.uint8))
     assert labels.shape == (5,) and probs.shape == (5, 3)
     assert np.allclose(probs.sum(axis=1), 1.0, atol=1e-5)
+
+
+def test_serving_tools_need_cuda_or_an_explicit_cpu(monkeypatch, tmp_path):
+    """serve, export_artifact and convert, ``fold_batchnorm``'s model, the
+    int8 engine and ``ServingArtifact.load`` take the card by default:
+    without one they raise before reading a checkpoint or an image, and
+    run when asked for the CPU."""
+    from cnn_tpu_torch.export import ServingArtifact
+    from cnn_tpu_torch.quant import fold_batchnorm
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    model_file = os.path.join(REPO, "checkpoints", "alexnet_bn_device",
+                              "iter_12000_train_0.997_valid_0.937.model")
+    img = tmp_path / "grey.ppm"
+    img.write_bytes(b"P6\n32 32\n255\n" + bytes(32 * 32 * 3))
+    art = str(tmp_path / "a.ctsa")
+    tools = {
+        serve: ["--checkpoint", model_file, "--batch-norm", str(img)],
+        export_artifact: [model_file, art, "--batch-norm", "true"],
+        convert: [model_file, str(tmp_path / "a.ckpt"), "--batch-norm",
+                  "true"],
+    }
+    for tool, argv in tools.items():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            tool.main(argv)
+        assert tool.main(argv, device="cpu") == 0
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ServingArtifact.load(art)
+    assert ServingArtifact.load(art, device="cpu").image_size == 224
+    model = get_model("alexnet", batch_norm=True, image_size=64,
+                      device="cpu")
+    folded = fold_batchnorm(model)
+    assert next(folded.parameters()).device.type == "cpu"
+    with pytest.raises(RuntimeError):
+        InferenceEngine(folded, buckets=(1,))
+    with pytest.raises(RuntimeError):
+        InferenceEngine(model, buckets=(1,),
+                        int8_calib=np.zeros((2, 64, 64, 3), np.uint8))
+    engine = InferenceEngine(model, buckets=(1,), device="cpu",
+                             int8_calib=np.zeros((2, 64, 64, 3), np.uint8))
+    assert engine.predict(np.zeros((1, 64, 64, 3), np.uint8))[1].shape == (
+        1, 3)
