@@ -286,6 +286,27 @@
    export_artifact, convert (the round trip's ``.model`` bytes equal to
    the original's), plot (the ASCII branch) and make_gif (phase 15's
    Grad-CAM PNGs), each run's wall seconds.
+22. the host augmentation, ``--compile-cache`` and captured calls: the
+   port's ``ImageAugmentor`` against ``tests/fixtures/host_augment.npz``
+   (cnn_tpu's, through cv2, which this machine lacks); the host loader's
+   seconds per batch on phase 14's images with and without ``augment``;
+   each device-dataset call as one CUDA graph against the eager loop
+   under cuDNN's deterministic mode, 4 calls of 4 steps at batch 64: every
+   parameter, model state and optimizer tensor (counts included), the
+   metrics of each call, the step, the generator's next draw and every
+   kernel counter bit-equal, for the flagship flags in float32 and bf16,
+   grad-accum 4, each sample mode, AdamW + clip + EMA + MixUp + CutMix +
+   jitter, a resnet10 teacher, resnet10 with its stem frozen, MoECNN's
+   balance loss and PipeCNN's block remat; device and host ms per step,
+   eager against captured, for bf16 AlexNet at batch 256 and 1, 4 and 16
+   steps a call, and for grad-accum 4 x 4 steps a call against the plain
+   step; then ``python -m cnn_tpu_torch.tools.train``'s main in two fresh
+   processes on phase 14's images at batch 64 for 20 iterations, both
+   with ``--compile-cache DIR``: ``cnn_tpu``'s default host augmentation
+   (the first builds the kernel library into DIR and prints its seconds)
+   and ``--augment false`` (started once the library is in DIR: it loads
+   it without building); finite losses, exact launches (no rotation), the
+   default ``build/`` root left as it was.
 
 Every phase prints one flushed line with the seconds since start. Any failed
 check raises, so the exit code is not 0. Without a CUDA device it exits 1
@@ -296,6 +317,7 @@ JSON; the last line is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import copy
+import functools
 import io
 import itertools
 import json
@@ -330,8 +352,10 @@ import cnn_tpu_torch.tools.make_gif as make_gif_cli
 import cnn_tpu_torch.tools.plot as plot_cli
 import cnn_tpu_torch.tools.serve as serve_cli
 import cnn_tpu_torch.tools.train as train_cli
-from cnn_tpu_torch.data import (DeviceDataset, discover_dataset,
-                                make_device_train_step, split_dataset)
+from cnn_tpu_torch.data import (DataLoader, DeviceDataset, ImageAugmentor,
+                                discover_dataset, make_device_train_step,
+                                split_dataset)
+from cnn_tpu_torch.data.device_dataset import GraphedSteps
 from cnn_tpu_torch.data.image import imread, imwrite
 from cnn_tpu_torch.export import ServingArtifact, export_serving_artifact
 from cnn_tpu_torch.models import get_model
@@ -342,7 +366,7 @@ from cnn_tpu_torch.ops.conv import conv2d, conv_out_size
 from cnn_tpu_torch.ops.hopper import (BF16_TILES,
                                       STRIP_ROWS, TILES, TMA_TILES,
                                       WGMMA_TILES,
-                                      _build, conv2d_bias_relu,
+                                      _build, add_counters, conv2d_bias_relu,
                                       conv2d_bias_relu_fn, conv_bf16_plan,
                                       conv_tile_plan, counted_capture,
                                       launch_conv_bf16,
@@ -364,7 +388,7 @@ from cnn_tpu_torch.ops.losses import softmax_cross_entropy
 from cnn_tpu_torch.ops.pool import max_pool2d, max_pool2d_taps
 from cnn_tpu_torch.ops.pool import max_pool2d_bwd as pool_bwd_plain
 from cnn_tpu_torch.ops.preprocess import uint8_to_float
-from cnn_tpu_torch.optim import make_optimizer, sgd
+from cnn_tpu_torch.optim import make_optimizer, sgd, with_ema, with_frozen
 from cnn_tpu_torch.parallel import (create_train_state, make_eval_step,
                                     make_train_step)
 from cnn_tpu_torch.parallel.train_step import (accumulate_grads,
@@ -511,8 +535,15 @@ def read_extent(n: int, k: int, s: int) -> int:
 
 
 def bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
-    return a.shape == b.shape and a.dtype == b.dtype and bool(
-        torch.equal(a.view(torch.int32), b.view(torch.int32)))
+    """Equal bit for bit: floats as the integers of their width (so -0.0
+    and NaN payloads count), integers as they are."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if a.is_floating_point():
+        view = {2: torch.int16, 4: torch.int32, 8: torch.int64}[
+            a.element_size()]
+        a, b = a.view(view), b.view(view)
+    return bool(torch.equal(a, b))
 
 
 def check(ok: bool, what: str) -> None:
@@ -1707,7 +1738,7 @@ def training_phase() -> dict:
         ts, mk = step(ts)
     got, got_bn = state_tensors(ts), bn_stats(model)
     plain_step = make_device_train_step(model, opt, ds, TRAIN_B,
-                                        augment_fn=plain_augment)
+                                        augment_fn=plain_augment, eager=True)
     restore(ts, snap)
     with plain_training():
         ts, _ = plain_step(ts)
@@ -2958,7 +2989,14 @@ def evaluation_phase(smi: str, tmp: Path, cli: dict) -> dict:
     drop_ck = tmp / "dropout"
     times = CliTimes()
     t = time.perf_counter()
-    with mock.patch.object(train_cli, "get_model", get_model_hooked):
+    # the hook checks each training forward on the host, which a captured
+    # call does not run: this run keeps the eager loop (phase 22 holds a
+    # captured dropout step to it)
+    eager_steps = functools.partial(train_cli.make_device_train_step,
+                                    eager=True)
+    with mock.patch.object(train_cli, "get_model", get_model_hooked), \
+            mock.patch.object(train_cli, "make_device_train_step",
+                              eager_steps):
         _, counts = run_cli(CLI_FLAGSHIP + base + [
             "--checkpoint-dir", str(drop_ck), "--dropout", str(DROPOUT_P),
             "--total-iters", "20", "--valid-iters", "20",
@@ -4975,9 +5013,15 @@ def tcp_check(engine, photos) -> tuple[dict, str]:
     the six photos as PPM frames, then an undecodable frame and an
     oversized length; the replies equal ``predict``'s lines, then
     ``ERROR\\tundecodable`` and ``ERROR\\tframe too large``, and the server
-    hangs up."""
-    labels, probs = engine.predict(photos)
-    want = [f"{CATEGORIES[l]}\t{p[l]:.6f}" for l, p in zip(labels, probs)]
+    hangs up. The server batches whatever requests are waiting, so a
+    photo is served in bucket 1 or 8 as the clients' timing falls; its
+    reply must equal ``predict``'s line through one of them (the linear
+    layer's product sums in another order at another batch, which can
+    move the sixth decimal)."""
+    def lines(labels, probs):
+        return [f"{CATEGORIES[l]}\t{p[l]:.6f}" for l, p in zip(labels, probs)]
+    want = lines(*engine.predict(photos))
+    alone = [lines(*engine.predict(img[None]))[0] for img in photos]
     ready, stop, port = threading.Event(), threading.Event(), []
     torch.cuda.synchronize()
     reset_launches()
@@ -5017,8 +5061,11 @@ def tcp_check(engine, photos) -> tuple[dict, str]:
     counts = {k: v for k, v in read_counters().items() if v}
     check(not server.is_alive(), "tcp: the server did not stop")
     for out in results:
-        check(out == want + ["ERROR\tundecodable", "ERROR\tframe too large",
-                             b""], f"tcp: replies {out}, expected {want}")
+        check(all(o in (w, a) for o, w, a in zip(out, want, alone))
+              and out[len(want):] == ["ERROR\tundecodable",
+                                      "ERROR\tframe too large", b""],
+              f"tcp: replies {out}, expected {want} (bucket 8) or {alone} "
+              "(bucket 1)")
     no_fallback(counts, "tcp")
     return counts, (f"TCP: {TCP_CLIENTS} clients x 6 photos (PPM frames) "
                     f"in {tcp_s:.3f} s, replies equal to predict's lines, "
@@ -5224,6 +5271,362 @@ def phase21(smi: str, tmp: Path) -> tuple[dict, dict, dict]:
     return total, alex, fam
 
 
+# ---------------------------------------------------------------------------
+# phase 22: the host augmentation, --compile-cache, and each device-dataset
+# call as one CUDA graph
+# ---------------------------------------------------------------------------
+
+HOST_AUG_FIXTURE = ROOT / "tests" / "fixtures" / "host_augment.npz"
+GRAPH_N = 200          # canvases of the graph cases (batches straddle epochs)
+GRAPH_B = B            # the batch of the bit-equality cases
+GRAPH_K = 4            # steps a call
+GRAPH_CALLS = 4        # the eager first call, the capture's, two replays
+P22_ITERS = 20         # iterations of each CLI run
+P22_B = B              # their batch
+# the train CLI's main in a fresh process, its kernel counters printed last
+CHILD = ("import json, sys\n"
+         "from cnn_tpu_torch.ops.hopper import read_counters\n"
+         "from cnn_tpu_torch.tools import train\n"
+         "rc = train.main(sys.argv[1:])\n"
+         "print('child launches: ' + json.dumps("
+         "{k: v for k, v in read_counters().items() if v}))\n"
+         "sys.exit(rc)\n")
+# case -> (model, its kwargs, compute dtype, make_device_train_step's
+# options, the optimizer's): phase 19's options, the sample modes,
+# MoECNN's balance loss and PipeCNN's block remat
+GRAPH_CASES = {
+    "flagship float32": ("alexnet", {}, None, {}, {}),
+    "flagship bf16": ("alexnet", {}, BF16, {}, {}),
+    "dropout 0.25": ("alexnet", {"dropout": DROPOUT_P}, BF16, {}, {}),
+    "grad-accum 4": ("alexnet", {}, BF16, {"grad_accum": 4}, {}),
+    "sample global": ("alexnet", {}, BF16, {"sample_mode": "global"}, {}),
+    "sample epoch": ("alexnet", {}, BF16, {"sample_mode": "epoch"}, {}),
+    "sample epoch_fixed": ("alexnet", {}, BF16,
+                           {"sample_mode": "epoch_fixed"}, {}),
+    "adamw+clip+ema+mixup+cutmix+jitter": (
+        "alexnet", {}, BF16, {"mixup": 0.2, "cutmix": 1.0, "jitter": 0.2},
+        {"name": "adam", "lr": 1e-3, "weight_decay": 1e-4, "clip": 1.0,
+         "ema": 0.999}),
+    "distilled from resnet10": ("alexnet", {}, BF16, {"teacher": True}, {}),
+    "resnet10, stem frozen": ("resnet10", {}, BF16, {}, {"freeze": "stem"}),
+    "moecnn, balance 0.01": ("moecnn", {"balance_coeff": MOE_BALANCE}, BF16,
+                             {}, {}),
+    "pipecnn, remat conv": ("pipecnn", {"remat": "conv"}, BF16, {}, {}),
+}
+
+
+def fixture_phase() -> str:
+    """The port's ``ImageAugmentor`` on the fixture's images and
+    generators against cnn_tpu's outputs stored there (bit-equal: the
+    file was written where cv2 runs the build the warp follows)."""
+    sys.path.insert(0, str(ROOT / "tests" / "fixtures"))
+    try:
+        import make_host_augment as mk
+    finally:
+        sys.path.pop(0)
+    fx = np.load(HOST_AUG_FIXTURE)
+    imgs = [fx[f"img{i}"] for i in range(len(mk.SHAPES))]
+    ours = mk.augmented(ImageAugmentor(), imgs)
+    check(sorted(ours) == sorted(fx.files), f"fixture keys {fx.files}")
+    bad = [k for k, v in ours.items() if not same_arrays(v, fx[k])]
+    check(not bad, f"host augmentation differs from the fixture at {bad}")
+    rotated = sum(ours[k].shape != fx[k.replace("out", "img")
+                                      .split("_")[0]].shape
+                  for k in ours if k.startswith("out"))
+    return (f"ImageAugmentor bit-equal to cnn_tpu's (cv2) on "
+            f"{len(ours) - len(imgs)} outputs of {len(imgs)} images "
+            f"({rotated} resized by a crop or an expanding rotation), "
+            f"numpy {np.__version__}")
+
+
+def loader_seconds(samples, augment: bool, batches: int = 4) -> float:
+    """Seconds per batch of the train CLI's host loader at its defaults
+    (2 workers, prefetch 4, the decode cache) at ``P22_B``, after its
+    first batch: decode (the cache fills over an epoch), augmentation,
+    resize."""
+    dl = DataLoader(samples, P22_B, augment=augment, image_size=224,
+                    num_workers=2, prefetch=4, cache=True)
+    try:
+        dl.generate_batch()
+        t = time.perf_counter()
+        for _ in range(batches):
+            images, _ = dl.generate_batch()
+        secs = (time.perf_counter() - t) / batches
+    finally:
+        dl.close()
+    check(images.shape == (P22_B, 224, 224, 3), f"loader {images.shape}")
+    return secs
+
+
+def graph_dataset() -> DeviceDataset:
+    imgs, labels = synthetic_canvases(np.random.default_rng(22), GRAPH_N,
+                                      CANVAS)
+    return DeviceDataset.from_arrays(imgs, labels, device="cuda")
+
+
+def graph_run(case: str, ds, eager: bool, batch: int = GRAPH_B,
+              steps: int = GRAPH_K):
+    """A fresh, seeded train state of ``case`` and its device step:
+    ``(ts, step)``."""
+    name, kwargs, dtype, opts, ospec = GRAPH_CASES[case]
+    model = get_model(name, num_classes=3, image_size=224, batch_norm=True,
+                      device="cuda", generator=torch.Generator().manual_seed(
+                          FAMILY_SEED), **kwargs)
+    opt = make_optimizer(ospec.get("name", "momentum"),
+                         ospec.get("lr", 1.5e-2), schedule="cosine",
+                         total_steps=64,
+                         weight_decay=ospec.get("weight_decay", 0.0),
+                         grad_clip=ospec.get("clip", 0.0))
+    if "freeze" in ospec:
+        opt = with_frozen(opt, [ospec["freeze"]])
+    if "ema" in ospec:
+        opt = with_ema(opt, ospec["ema"])
+    ts = create_train_state(model, opt, seed=7)
+    adt = dtype or torch.float32
+    jitter = opts.get("jitter", 0.0)
+
+    def augment_fn(gen, im):
+        x = aug.augment_batch(gen, im, dtype=adt)
+        return aug.color_jitter(gen, x, jitter) if jitter else x
+
+    distill = None
+    if opts.get("teacher"):
+        teacher = get_model("resnet10", num_classes=3, image_size=224,
+                            batch_norm=True, device="cuda",
+                            generator=torch.Generator().manual_seed(4))
+        distill = (teacher, 4.0, 0.5)
+    step = make_device_train_step(
+        model, opt, ds, batch, compute_dtype=dtype, augment_fn=augment_fn,
+        sample_mode=opts.get("sample_mode", "local"), steps_per_call=steps,
+        grad_accum=opts.get("grad_accum", 1), mixup=opts.get("mixup", 0.0),
+        cutmix=opts.get("cutmix", 0.0), distill=distill, eager=eager)
+    check(isinstance(step, GraphedSteps) != eager,
+          f"{case}: eager={eager} gave {type(step).__name__}")
+    return ts, step
+
+
+def train_tensors(ts) -> dict:
+    """Every tensor a train step changes, by name: the parameters, the
+    model state, each leaf of the optimizer state (its counts among
+    them)."""
+    out = {f"param {k}": v for k, v in named_params(ts.model).items()}
+    out.update({f"state {k}": v for k, v in named_state(ts.model).items()})
+
+    def walk(tree, path):
+        if isinstance(tree, torch.Tensor):
+            out[f"opt {path}"] = tree
+        elif isinstance(tree, dict):
+            for k in sorted(tree):
+                walk(tree[k], f"{path}/{k}")
+        elif isinstance(tree, tuple):
+            names = getattr(tree, "_fields", None) or range(len(tree))
+            for k, v in zip(names, tree):
+                walk(v, f"{path}/{k}")
+    walk(ts.opt_state, "")
+    return out
+
+
+def graph_case(case: str, ds) -> tuple[dict, str]:
+    """``GRAPH_CALLS`` calls of the eager loop and of the captured step
+    from one seeded start, under cuDNN's deterministic mode: every tensor
+    of ``train_tensors``, each call's metrics, the step, the generator's
+    next draw and the kernel counters bit-equal. Returns the captured
+    run's counters."""
+    runs = []
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                    deterministic=True, allow_tf32=False):
+        for eager in (True, False):
+            ts, step = graph_run(case, ds, eager)
+            torch.cuda.synchronize()
+            reset_launches()
+            metrics = []
+            for _ in range(GRAPH_CALLS):
+                ts, m = step(ts)
+                metrics.append((m["loss"].clone(), m["correct"].clone(),
+                                m["batch"]))
+            torch.cuda.synchronize()
+            counts = {k: v for k, v in read_counters().items() if v}
+            tensors = {k: v.detach().clone() for k, v in
+                       train_tensors(ts).items()}
+            draw = torch.rand(16, generator=ts.rng, device="cuda")
+            runs.append((tensors, metrics, counts, ts.step, draw))
+            del ts, step
+    (te, me, ce, se, de), (tg, mg, cg, sg, dg) = runs
+    diff = [k for k in te if not bits_equal(te[k], tg[k])]
+    check(sorted(te) == sorted(tg) and not diff,
+          f"graph {case}: tensors differ from the eager loop's: {diff[:8]}")
+    check(all(bits_equal(a[0], b[0]) and bits_equal(a[1], b[1])
+              and a[2] == b[2] for a, b in zip(me, mg)),
+          f"graph {case}: metrics {me} against eager {mg}")
+    check(se == sg == GRAPH_CALLS * GRAPH_K, f"graph {case}: steps {se} {sg}")
+    check(bits_equal(de, dg), f"graph {case}: the generator's next draw "
+          "differs")
+    check(ce == cg, f"graph {case}: counters {cg} against eager {ce}")
+    check(all(bool(torch.isfinite(m[0])) for m in mg),
+          f"graph {case}: non-finite loss {mg}")
+    losses = [round(float(m[0]), 4) for m in mg]
+    return cg, (f"{case}: {len(te)} tensors, losses {losses}, "
+                f"{sum(cg.values())} counted launches")
+
+
+def graph_time(case: str, ds, steps: int, eager: bool, batch: int = TRAIN_B,
+               total: int = 16) -> tuple[float, float]:
+    """Device and host wall ms per step of ``total`` steps, ``steps`` a
+    call, after the first call (and the capture: the second), with the
+    counters put back."""
+    ts, step = graph_run(case, ds, eager, batch, steps)
+    before = read_counters()
+    for _ in range(1 if eager else 2):
+        ts, _m = step(ts)
+    torch.cuda.synchronize()
+    a, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    t = time.perf_counter()
+    a.record()
+    for _ in range(total // steps):
+        ts, m = step(ts)
+    e.record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    check(bool(torch.isfinite(m["loss"])), f"timed {case}: loss {m}")
+    reset_launches()
+    add_counters(before)
+    return a.elapsed_time(e) / total, 1e3 * wall / total
+
+
+def graph_timings(ds, smi: str) -> list:
+    """bf16 AlexNet at the flagship's flags, batch 256: eager against
+    captured at 1, 4 and 16 steps a call, and grad-accum 4 at 4 steps a
+    call against the plain step, in turns (eager, captured, captured,
+    eager), each the mean of the two."""
+    lines = []
+    for case, ks in (("flagship bf16", (1, 4, 16)), ("grad-accum 4", (4,))):
+        for k in ks:
+            got = {}
+            for eager in (True, False, False, True):
+                dev_ms, host_ms = graph_time(case, ds, k, eager)
+                d, h = got.get(eager, (0.0, 0.0))
+                got[eager] = (d + dev_ms / 2, h + host_ms / 2)
+            (ed, eh), (gd, gh) = got[True], got[False]
+            lines.append(f"{case}, {k} steps a call ({smi}): eager device "
+                         f"{ed:.3f} ms / host {eh:.3f} ms per step, captured "
+                         f"device {gd:.3f} / host {gh:.3f}")
+            if case == "flagship bf16" and k == 1:
+                plain = gh
+            if case == "grad-accum 4":
+                lines[-1] += (f"; captured {gh / plain:.2f}x the plain "
+                              f"captured step's host ms ({plain:.3f})")
+    torch.cuda.empty_cache()
+    return lines
+
+
+def fresh_train(argv, what: str):
+    """``CHILD`` with ``argv`` from the checkout: a running process."""
+    return subprocess.Popen([sys.executable, "-c", CHILD, *argv], cwd=ROOT,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+
+
+def fresh_result(proc, what: str, want: dict, timeout: float = 600):
+    """The fresh process's output and counters; exit 0, "training done!",
+    finite logged losses and exactly ``want``."""
+    out, err = proc.communicate(timeout=timeout)
+    check(proc.returncode == 0 and "training done!" in out,
+          f"{what}: exit {proc.returncode}; output ends {out[-1500:]!r}; "
+          f"errors end {err[-1500:]!r}")
+    counts = json.loads(out.rsplit("child launches: ", 1)[1].splitlines()[0])
+    check(counts == want, f"{what}: launches {counts}, expected {want}")
+    losses = [float(x) for x in re.findall(r"\[loss ([-+\w.]+)\]", out)]
+    check(losses and all(np.isfinite(losses)), f"{what}: losses {losses}")
+    return out, counts
+
+
+def build_root_listing() -> dict:
+    root = _build.BUILD_ROOT
+    return ({str(p.relative_to(root)): p.stat().st_mtime_ns
+             for p in root.rglob("*")} if root.exists() else {})
+
+
+def phase22(smi: str, tmp: Path, cli: dict) -> tuple[dict, dict]:
+    """Phase 22: the fixture, the host loader's seconds per batch, the
+    captured calls against the eager loop and their times, then the train
+    CLI in two fresh processes with ``--compile-cache``. Returns the
+    launches of the AlexNet runs and of the families', each added up."""
+    alex, fam = {}, {}
+    phase(f"phase 22: {fixture_phase()}")
+    samples = split_dataset(discover_dataset(str(cli["data"]), (
+        "dog", "panda", "bird")))["train"]
+    with_aug = loader_seconds(samples, True)
+    without = loader_seconds(samples, False)
+    phase(f"phase 22: host loader, batch {P22_B} of phase 14's "
+          f"{CLI_HW[0]}x{CLI_HW[1]} PPMs at 224 px, 2 workers, after its "
+          f"first batch: {with_aug:.4f} s a batch with augment "
+          f"({P22_B / with_aug:.1f} img/s), {without:.4f} s without "
+          f"({P22_B / without:.1f} img/s)")
+
+    ds = graph_dataset()
+    for line in graph_timings(ds, smi):
+        phase(f"phase 22: {line}")
+
+    # the first CLI run builds into the cache while the cases run
+    cache = tmp / "compile_cache"
+    listing = build_root_listing()
+    nv, nt = cli["valid_batches"], cli["test_batches"]
+    base = ["--dataset-path", str(cli["data"]), *cli["sizes"],
+            "--train-batch-size", str(P22_B), "--total-iters",
+            str(P22_ITERS), "--valid-iters", str(P22_ITERS),
+            "--save-iters", str(P22_ITERS), "--compile-cache", str(cache)]
+    want = cli_want(P22_ITERS, nv + nt, False, False)
+    for key in ("uint8_normalize.launches", "uint8_normalize.launches_wide"):
+        want[key] += P22_ITERS      # the host loader's batches
+    t0 = time.perf_counter()
+    first = fresh_train(base + ["--checkpoint-dir", str(tmp / "p22_aug")],
+                        "host augmentation")
+    for case in GRAPH_CASES:
+        counts, line = graph_case(case, ds)
+        name = GRAPH_CASES[case][0]
+        if name == "alexnet":
+            add_up(alex, counts)
+        elif name != "moecnn":      # MoECNN's convs have rows of their own
+            add_up(fam, counts)
+            add_up(fam, stem_counts(name, counts))
+        phase(f"phase 22: captured calls bit-equal to the eager loop, "
+              f"{line}")
+    del ds
+    torch.cuda.empty_cache()
+    # the second run starts once the library is in the cache
+    deadline = time.perf_counter() + 300
+    while not list(cache.glob("cnn_tpu_torch/*/libcnn_tpu_torch.so")):
+        check(first.poll() is None and time.perf_counter() < deadline,
+              "the first --compile-cache run wrote no library")
+        time.sleep(0.5)
+    second = fresh_train(base + ["--checkpoint-dir", str(tmp / "p22_plain"),
+                                 "--augment", "false"], "no augmentation")
+    out1, c1 = fresh_result(first, "train CLI, host augmentation", want)
+    s1 = time.perf_counter() - t0
+    out2, c2 = fresh_result(second, "train CLI, --augment false", want)
+    s2 = time.perf_counter() - t0
+    lib = [l for l in out1.splitlines() if l.startswith("kernel library:")]
+    check(len(lib) == 1 and lib[0].startswith("kernel library: built in ")
+          and str(cache) in lib[0], f"first run: {lib}")
+    lib2 = [l for l in out2.splitlines() if l.startswith("kernel library:")]
+    check(len(lib2) == 1 and lib2[0].startswith(
+        "kernel library: already built, loaded from ")
+        and str(cache) in lib2[0], f"second run: {lib2}")
+    check(build_root_listing() == listing,
+          "the default build root changed under --compile-cache")
+    add_up(alex, c1)
+    add_up(alex, c2)
+    for what, out in (("augment", out1), ("no augment", out2)):
+        for line in out.splitlines():
+            if line.startswith(("Valid===>", "Test===>")):
+                phase(f"phase 22: train CLI ({what}): {line.strip()}")
+    phase(f"phase 22: train CLI in fresh processes, {P22_ITERS} iterations "
+          f"at batch {P22_B}: {lib[0]} (done {s1:.1f} s after its start); "
+          f"{lib2[0]} (done at {s2:.1f} s); launches exact, no rotation "
+          f"({c1}); the default build root unchanged")
+    return alex, fam
+
+
 def same_trees(a, b) -> bool:
     if isinstance(a, dict):
         return (isinstance(b, dict) and sorted(a) == sorted(b)
@@ -5355,6 +5758,11 @@ def main() -> int:
         # theirs (fam21: conv counters and stem strips only)
         p21, alex21, fam21 = phase21(smi, Path(tmp))
         add_up(fam, fam21)
+        # phase 22: AlexNet's runs count on the CLIs' rows, resnet10's and
+        # PipeCNN's on the families'
+        alex22, fam22 = phase22(smi, Path(tmp), flagship)
+        add_up(cli, alex22)
+        add_up(fam, fam22)
 
     # the CLIs' launches (phases 14-16): float32 ones on the float32 rows,
     # the rotation in either dtype on its one row

@@ -1,21 +1,24 @@
-"""Host data loader: decode -> resize -> uint8 NHWC batches, counterpart of
-``cnn_tpu/data/loader.py``.
+"""Host data loader: decode -> augment -> resize -> uint8 NHWC batches,
+counterpart of ``cnn_tpu/data/loader.py``.
 
 The same loader as ``cnn_tpu``'s: a producer thread assembles batches
 (decode through a worker pool) into a bounded queue; ``generate_batch`` is
 the infinite epoch-wrapping stream, ``__iter__`` one sequential epoch for
 eval loops; the epoch order is a numpy permutation of ``seed + epoch``
 (``compat_fixed_epoch_shuffle=True``: of ``seed``, every epoch, the
-reference's quirk); ``cache=True`` keeps each resized image in RAM. It
-yields the same uint8 [B,H,W,3] batches and int32 labels as ``cnn_tpu``'s
-Python path, decoding with ``data/image.py`` (bit-equal to cv2) in place of
-cv2.
+reference's quirk). ``augment=True`` runs ``data/augment.py``'s
+``ImageAugmentor`` on each decoded image before the resize, drawing from
+``np.random.default_rng((seed, epoch, position))``, so the batches do not
+depend on the threads' order. ``cache=True`` keeps each image in RAM once
+decoded: resized without augmentation, the original with it (the ops act
+on the full-resolution image). It yields the same uint8 [B,H,W,3] batches
+and int32 labels as ``cnn_tpu``'s Python path, decoding and resizing with
+``data/image.py`` (bit-equal to cv2) and warping with
+``data/augment.py:warp_affine`` (bit-equal to cv2 5.0's) in place of cv2.
 
-Not ported: host augmentation (``augment=True``, ``cnn_tpu/data/augment.py``
-through ``cv2.warpAffine``; the port augments on the device) and the C++
-decoder (``backend='native'``). Each raises ``NotImplementedError``;
-``backend='auto'`` takes the Python path, as ``cnn_tpu``'s does where the
-native library is absent.
+Not ported: the C++ decoder (``backend='native'``), which raises
+``NotImplementedError``; ``backend='auto'`` takes the Python path, as
+``cnn_tpu``'s does where the native library is absent.
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ from typing import Iterator, Optional, Sequence
 
 import numpy as np
 
+from cnn_tpu_torch.data.augment import ImageAugmentor
 from cnn_tpu_torch.data.dataset import Sample
 from cnn_tpu_torch.data.image import imread, resize
 
@@ -41,11 +45,6 @@ class DataLoader:
                  compat_fixed_epoch_shuffle: bool = False,
                  backend: str = "python", cache: bool = False):
         assert batch_size >= 1
-        if augment:
-            raise NotImplementedError(
-                "DataLoader(augment=True): host augmentation is not ported "
-                "yet; augment on the device (--device-augment true or "
-                "--device-dataset true)")
         if backend == "native":
             raise NotImplementedError(
                 "DataLoader(backend='native'): the C++ loader is not ported; "
@@ -61,8 +60,10 @@ class DataLoader:
         self.num_workers = max(1, num_workers)
         self.prefetch = max(1, prefetch)
         self.compat_fixed_epoch_shuffle = compat_fixed_epoch_shuffle
-        # decode-once RAM cache of resized images (decode dominates host
-        # time; epochs then become memcpy)
+        self.augmentor = ImageAugmentor(seed=seed)
+        # decode-once RAM cache (decode dominates host time): resized
+        # images without augmentation (epochs then become memcpy), the
+        # decoded originals with it
         self.cache = cache
         self._cached: dict[str, np.ndarray] = {}
         self._queue: Optional[queue.Queue] = None
@@ -87,18 +88,28 @@ class DataLoader:
         s = self.seed if self.compat_fixed_epoch_shuffle else self.seed + epoch
         return np.random.default_rng(s).permutation(len(self.samples))
 
-    def _load_one(self, path: str, label: int):
+    def _load_one(self, path: str, label: int, epoch: int, pos: int):
+        size = (self.image_size, self.image_size)
+        cache_resized = self.cache and not self.augment
         img = self._cached.get(path) if self.cache else None
         if img is None:
-            img = resize(imread(path), (self.image_size, self.image_size))
+            img = imread(path)
+            if cache_resized:
+                img = resize(img, size)
             if self.cache:
                 img.flags.writeable = False  # shared across epochs
                 self._cached[path] = img
-        return img, label
+        if cache_resized:
+            return img, label
+        if self.augment:
+            rng = np.random.default_rng((self.seed, epoch, pos))
+            img = self.augmentor(img, rng)
+        return np.ascontiguousarray(resize(img, size)), label
 
-    def _assemble(self, pool, idxs):
+    def _assemble(self, pool, idxs, epoch: int):
         """Decode one batch through the worker pool: (uint8 stack, labels)."""
-        futs = [pool.submit(self._load_one, *self.samples[i]) for i in idxs]
+        futs = [pool.submit(self._load_one, *self.samples[i], epoch, int(i))
+                for i in idxs]
         imgs, labels = zip(*[f.result() for f in futs])
         return np.stack(imgs), np.asarray(labels, np.int32)
 
@@ -129,7 +140,8 @@ class DataLoader:
             for start in range(0, len(order) - self.batch_size + 1,
                                self.batch_size):
                 batch = self._assemble(pool,
-                                       order[start:start + self.batch_size])
+                                       order[start:start + self.batch_size],
+                                       epoch)
                 while not stop.is_set():
                     try:
                         q.put(batch, timeout=0.5)
@@ -181,7 +193,8 @@ class DataLoader:
         pool = ThreadPoolExecutor(max_workers=self.num_workers)
         try:
             for start in range(0, len(order), self.batch_size):
-                yield self._assemble(pool, order[start:start + self.batch_size])
+                yield self._assemble(pool, order[start:start + self.batch_size],
+                                     0)
         finally:
             pool.shutdown(wait=False)
 

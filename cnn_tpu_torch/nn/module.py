@@ -452,17 +452,22 @@ class StackedBlocks(Layer):
                        else getattr(self, key)[i]
                        for key, _, st in self._leaves]
             run = functools.partial(self._run, drawn[i], compute_dtype)
+            # the block draws nothing (its permutations are drawn above), so
+            # the checkpoint keeps no generator state: a CUDA graph, which
+            # cannot read one, captures it
             if not remat:
                 out = run(x, *tensors)
             elif self.remat == "conv":
                 out = torch_checkpoint.checkpoint(
                     run, x, *tensors, use_reentrant=False,
+                    preserve_rng_state=False,
                     context_fn=functools.partial(
                         torch_checkpoint.create_selective_checkpoint_contexts,
                         _save_convs))
             else:
                 out = torch_checkpoint.checkpoint(run, x, *tensors,
-                                                  use_reentrant=False)
+                                                  use_reentrant=False,
+                                                  preserve_rng_state=False)
             x = out[0]
             if self.training:
                 with torch.no_grad():

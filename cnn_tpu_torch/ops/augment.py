@@ -239,10 +239,11 @@ def draw_fast(generator: torch.Generator, batch: int, hflip_p: float = 0.5,
 def to_unit(images: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
     """``images`` as ``dtype``, uint8 divided by 255 elementwise (true
     division by a device scalar, which PyTorch's CUDA division does not
-    turn into a reciprocal multiply)."""
+    turn into a reciprocal multiply; filled on the device, so that a CUDA
+    graph captures it)."""
     x = images.to(dtype)
     if images.dtype == torch.uint8:
-        x = x / torch.tensor(255.0, dtype=dtype, device=x.device)
+        x = x / torch.full((), 255.0, dtype=dtype, device=x.device)
     return x
 
 

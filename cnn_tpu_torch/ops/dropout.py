@@ -48,7 +48,7 @@ def channel_dropout(x: torch.Tensor, p: float, *, train: bool,
     if not train:
         if compat == "inverted":
             return x
-        return x * torch.tensor(1.0 - p, dtype=x.dtype, device=x.device)
+        return x * torch.full((), 1.0 - p, dtype=x.dtype, device=x.device)
     if compat == "reference":
         keep = torch.arange(c, device=x.device) >= n_drop
         return x * keep.to(x.dtype)
@@ -57,6 +57,6 @@ def channel_dropout(x: torch.Tensor, p: float, *, train: bool,
                          "pass a permutation (draw_permutation)")
     keep = (perm.to(x.device) >= n_drop).to(x.dtype)
     if compat == "inverted":
-        keep = keep / torch.tensor(1.0 - n_drop / c, dtype=x.dtype,
-                                   device=x.device)
+        keep = keep / torch.full((), 1.0 - n_drop / c, dtype=x.dtype,
+                                 device=x.device)
     return x * keep

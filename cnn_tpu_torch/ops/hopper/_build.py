@@ -11,7 +11,10 @@ rounded to be bit-identical to its plain version.
 
 The library lands in ``build/cnn_tpu_torch/<hash>/`` beside the package,
 keyed by a hash of the sources and flags, so a checkout builds once and an
-edited source rebuilds.
+edited source rebuilds. ``set_build_root(DIR)`` (the CLIs'
+``--compile-cache DIR``) puts it in ``DIR/cnn_tpu_torch/<hash>/`` instead,
+before the first ``load()``: a later process with the same DIR and sources
+loads it without building, from any checkout.
 
 Every entry point takes a ``cudaStream_t`` and returns the ``cudaError_t`` of
 its launch. ``launch`` makes the tensors' device current for the call only,
@@ -73,8 +76,37 @@ SIGNATURES = {
 
 _lock = threading.Lock()
 _lib = None
+_lib_path = None       # where the loaded library came from
 build_seconds = None   # wall time of the nvcc call of this process, if any
 build_log = ""         # nvcc's output for that call (register/smem report)
+
+
+def set_build_root(cache_dir) -> Path:
+    """Builds and loads the library under ``cache_dir/cnn_tpu_torch/``
+    (made if missing) from now on; returns that root. Raises if this
+    process already loaded the library from another root: it is loaded
+    once."""
+    global BUILD_ROOT
+    root = Path(cache_dir).resolve() / "cnn_tpu_torch"
+    with _lock:
+        if _lib is not None and _lib_path.parent.parent != root:
+            raise RuntimeError(
+                f"the kernel library is already loaded from {_lib_path}; "
+                f"set the compile cache ({cache_dir}) before the first "
+                "kernel call")
+        root.mkdir(parents=True, exist_ok=True)
+        BUILD_ROOT = root
+    return root
+
+
+def describe() -> str:
+    """Where the loaded library came from, and whether this process built
+    it (with the seconds) or found it built."""
+    if _lib is None:
+        return "kernel library: not loaded"
+    if build_seconds is None:
+        return f"kernel library: already built, loaded from {_lib_path}"
+    return f"kernel library: built in {build_seconds:.1f} s into {_lib_path}"
 
 
 def _nvcc() -> str:
@@ -141,7 +173,7 @@ def _build(out: Path) -> None:
 
 def load() -> ctypes.CDLL:
     """The kernel library, built on first use in this checkout."""
-    global _lib
+    global _lib, _lib_path
     with _lock:
         if _lib is None:
             path = library_path()
@@ -152,7 +184,7 @@ def load() -> ctypes.CDLL:
                 fn = getattr(lib, name)
                 fn.argtypes = [P, *args]
                 fn.restype = I
-            _lib = lib
+            _lib, _lib_path = lib, path
     return _lib
 
 

@@ -21,6 +21,13 @@ parameter name, and a count is a 0-d int32 tensor on the CPU (a schedule
 reads it without a device synchronisation). ``utils/checkpoint.py`` writes
 that state as optax's pickled tree and reads it back into place.
 
+A value the host computes from a count each update (a scheduled rate,
+Adam's bias corrections, the EMA rate) reaches the update as a 0-d float32
+tensor on the parameters' device (``step_scalar``): filled from the host
+value eagerly, or, while work is captured into a CUDA graph, a slot of a
+``ScalarFeed``'s device buffer that the feed fills before each replay. The
+arithmetic is the same either way.
+
 ``with_ema`` keeps a float32 exponential moving average of the weights in
 ``EmaState`` (effective decay ``min(d, (1+t)/(10+t))``); the train step
 averages the model state (BN's moving statistics) beside it with
@@ -32,6 +39,7 @@ optax's.
 from __future__ import annotations
 
 import math
+from contextlib import contextmanager
 from typing import Any, Callable, NamedTuple
 
 import numpy as np
@@ -99,6 +107,90 @@ def tree_path(name: str) -> str:
 
 def _zeros(params: dict) -> dict:
     return {k: torch.zeros_like(p) for k, p in params.items()}
+
+
+def _device(tree: dict):
+    """The device of a dict's tensors (the CPU for an empty one)."""
+    return next((t.device for t in tree.values()), torch.device("cpu"))
+
+
+# ------------------------------------------------------- per-step scalars --
+
+_FEED = None   # the ScalarFeed of a capture underway, if any
+
+
+def step_scalar(count, fn, device) -> torch.Tensor:
+    """``fn(int(count))`` as a 0-d float32 tensor on ``device``: filled
+    from the host value, or, inside ``feeding(feed)``, the next slot of
+    ``feed``'s buffer."""
+    if _FEED is not None:
+        return _FEED.read(count, fn)
+    return torch.full((), fn(int(count)), dtype=torch.float32, device=device)
+
+
+def counts(opt_state) -> list:
+    """Every count of an optimizer state (the ``count`` field of each
+    state class that has one), in tree order."""
+    if isinstance(opt_state, tuple) and hasattr(opt_state, "_fields"):
+        found = []
+        for field in opt_state._fields:
+            value = getattr(opt_state, field)
+            found += [value] if field == "count" else counts(value)
+        return found
+    if isinstance(opt_state, (tuple, list)):
+        return [c for s in opt_state for c in counts(s)]
+    return []
+
+
+class ScalarFeed:
+    """The per-update scalars of work captured into a CUDA graph.
+
+    Made before the capture with the state's counts as they stand
+    (``counts``); inside ``feeding(feed)`` each ``step_scalar`` takes the
+    next slot of a float32 device buffer and records its function and its
+    count's offset from that start (the capture runs each update's host
+    side, so the counts move). ``fill()`` computes every slot from the
+    counts as they stand then and copies them to the device in one
+    transfer: call it before each replay, with the counts advanced by the
+    replays before it."""
+
+    def __init__(self, counts_now, device, capacity: int = 256):
+        self.base = {id(c): int(c) for c in counts_now}
+        self.buf = torch.zeros(capacity, dtype=torch.float32, device=device)
+        self.entries = []
+
+    def read(self, count, fn) -> torch.Tensor:
+        if id(count) not in self.base:
+            raise RuntimeError("step_scalar: a count the ScalarFeed was not "
+                               "made with")
+        if len(self.entries) == self.buf.numel():
+            raise RuntimeError(f"ScalarFeed: more than {self.buf.numel()} "
+                               "scalars")
+        self.entries.append((fn, count, int(count) - self.base[id(count)]))
+        return self.buf[len(self.entries) - 1]
+
+    def values(self) -> list:
+        """Each slot's value at the counts as they stand."""
+        return [fn(int(count) + off) for fn, count, off in self.entries]
+
+    def fill(self) -> None:
+        vals = torch.tensor(self.values(), dtype=torch.float32)
+        if self.buf.is_cuda:
+            vals = vals.pin_memory()
+        self.buf[:len(vals)].copy_(vals, non_blocking=True)
+
+
+@contextmanager
+def feeding(feed: ScalarFeed):
+    """``step_scalar`` reads ``feed`` inside the block."""
+    global _FEED
+    if _FEED is not None:
+        raise RuntimeError("a ScalarFeed is already active")
+    _FEED = feed
+    try:
+        yield feed
+    finally:
+        _FEED = None
 
 
 # -------------------------------------------------------------- schedules --
@@ -212,7 +304,7 @@ def scale_by_schedule(schedule) -> GradientTransformation:
         return ScaleByScheduleState(counter())
 
     def update(updates, state, params):
-        step = schedule(int(state.count))
+        step = step_scalar(state.count, schedule, _device(updates))
         state.count.add_(1)
         return {k: u * step for k, u in updates.items()}
 
@@ -281,8 +373,9 @@ def scale_by_adam(b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
             state.mu[k].mul_(b1).add_((1 - b1) * g)
             state.nu[k].mul_(b2).add_((1 - b2) * (g * g))
         state.count.add_(1)
-        c = int(state.count)
-        bc1, bc2 = _bias_correction(b1, c), _bias_correction(b2, c)
+        dev = _device(updates)
+        bc1 = step_scalar(state.count, lambda c: _bias_correction(b1, c), dev)
+        bc2 = step_scalar(state.count, lambda c: _bias_correction(b2, c), dev)
         out = {}
         for k in updates:
             nu_hat = state.nu[k] / bc2
@@ -343,9 +436,17 @@ def _ema_rate(decay, count: int) -> float:
     return float(min(d, np.float32(1 + count) / np.float32(10 + count)))
 
 
-def _lerp_into(avg: torch.Tensor, new: torch.Tensor, eff: float) -> None:
-    """``avg = eff * avg + (1 - eff) * new``, float32."""
-    avg.mul_(eff).add_(new.float() * float(np.float32(1) - np.float32(eff)))
+def _ema_scalars(decay, count, device):
+    """The effective decay after update ``count`` and one minus it, in
+    float32, as ``step_scalar``s."""
+    return (step_scalar(count, lambda c: _ema_rate(decay, c), device),
+            step_scalar(count, lambda c: float(
+                np.float32(1) - np.float32(_ema_rate(decay, c))), device))
+
+
+def _lerp_into(avg: torch.Tensor, new: torch.Tensor, eff, rest) -> None:
+    """``avg = eff * avg + rest * new`` (``rest`` = 1 - eff), float32."""
+    avg.mul_(eff).add_(new.float() * rest)
 
 
 def with_ema(opt: Optimizer, decay: float = 0.999) -> Optimizer:
@@ -365,9 +466,9 @@ def with_ema(opt: Optimizer, decay: float = 0.999) -> Optimizer:
     def update(grads, opt_state, params):
         opt.update(grads, opt_state.inner, params)
         opt_state.count.add_(1)
-        eff = _ema_rate(d, int(opt_state.count))
+        eff, rest = _ema_scalars(d, opt_state.count, _device(params))
         for k, e in opt_state.ema.items():
-            _lerp_into(e, params[k], eff)
+            _lerp_into(e, params[k], eff, rest)
 
     return Optimizer(init, update)
 
@@ -390,10 +491,11 @@ def ema_update_state(opt_state, state: dict):
         return opt_state
     if opt_state.mstate is None:
         return opt_state._replace(mstate=_f32_copy(state))
-    eff = _ema_rate(opt_state.decay, int(opt_state.count))
+    eff, rest = _ema_scalars(opt_state.decay, opt_state.count,
+                             _device(opt_state.mstate))
     for k, m in opt_state.mstate.items():
         if m.is_floating_point():
-            _lerp_into(m, state[k], eff)
+            _lerp_into(m, state[k], eff, rest)
         else:
             m.copy_(state[k])
     return opt_state

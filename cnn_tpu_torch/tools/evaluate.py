@@ -15,8 +15,8 @@ where a legacy checkpoint has none), as ``cnn_tpu`` does.
 It runs on the GPU; ``main(argv, device="cpu")`` runs the plain versions
 on the CPU. ``--name`` and the ensemble members take every family
 (alexnet, resnet10/18, vgg8/11, mobilenet, pipecnn, moecnn; a member's
-options as ``pipecnn@width=64@n_blocks=8:ckpt``). Not ported yet, raising
-``NotImplementedError``: ``--compile-cache``.
+options as ``pipecnn@width=64@n_blocks=8:ckpt``). ``--compile-cache DIR``
+builds and loads the kernel library under DIR, as the train CLI does.
 """
 
 from __future__ import annotations
@@ -32,7 +32,7 @@ from cnn_tpu_torch.core.config import parse_configs
 from cnn_tpu_torch.data import DataLoader, discover_dataset, split_dataset
 from cnn_tpu_torch.models import get_model
 from cnn_tpu_torch.parallel import make_ensemble_eval_step, make_eval_step
-from cnn_tpu_torch.tools.train import evaluate
+from cnn_tpu_torch.tools.train import evaluate, use_compile_cache
 from cnn_tpu_torch.utils.checkpoint import (eval_trees, load_jax_params,
                                             read_checkpoint, tree_has_bn)
 from cnn_tpu_torch.utils.metrics import ConfusionMatrix
@@ -81,8 +81,7 @@ def main(argv=None, *, device=None):
         print(f"--resume must point at a checkpoint (got '{train_cfg.resume}')",
               file=sys.stderr)
         return 2
-    if train_cfg.compile_cache:
-        raise NotImplementedError("--compile-cache is not ported yet")
+    use_compile_cache(train_cfg.compile_cache)
     dev = default_device(device)
 
     samples = discover_dataset(data_cfg.dataset_path, data_cfg.categories)

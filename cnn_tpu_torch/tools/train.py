@@ -28,13 +28,21 @@ train step) and a ``MoE load [<layer>]: [...]`` line at each validation
 conv1 and conv2 as space-to-depth convs and exits with ``cnn_tpu``'s
 message for any other family.
 
+The host loader augments on the host (``--augment true`` without
+``--device-augment`` or ``--device-dataset``, ``cnn_tpu``'s default:
+``data/augment.py``, cv2's warp in numpy). On the GPU each
+``--device-dataset`` call is one CUDA graph of its ``--steps-per-call``
+steps from the second call on (``data/device_dataset.py:GraphedSteps``).
+``--compile-cache DIR`` builds and loads the kernel library under DIR
+(``ops/hopper/_build.py:set_build_root``), so that a later run with the
+same DIR and sources builds nothing; the run ends with a line that says
+which it was. With ``device="cpu"`` nothing is built.
+
 It runs on the GPU; ``main(argv, device="cpu")`` runs the plain versions
 on the CPU (tests). ``--donate`` is accepted and changes nothing: PyTorch
 updates the train state in place either way. Options not ported yet raise
 ``NotImplementedError`` naming their flag (``check_flags``: the
-multi-device flags, expert parallelism among them, and
-``--compile-cache``), as do the host augmentation (``--augment true``
-without ``--device-augment`` or ``--device-dataset``) and ``--backend
+multi-device flags, expert parallelism among them), as does ``--backend
 native``.
 
 Usage: python -m cnn_tpu_torch.tools.train [--total-iters N] [--batch-norm true] ...
@@ -58,6 +66,7 @@ from cnn_tpu_torch.models import get_model
 from cnn_tpu_torch.nn import MoEBlock
 from cnn_tpu_torch.ops.augment import (augment_batch, augment_batch_fast,
                                        color_jitter)
+from cnn_tpu_torch.ops.hopper import _build
 from cnn_tpu_torch.parallel import (create_train_state, make_eval_step,
                                     make_train_step)
 from cnn_tpu_torch.parallel.train_step import ema_weights
@@ -83,7 +92,6 @@ def check_flags(train_cfg) -> None:
         ("--model-parallel", t.model_parallel > 1),
         ("--spatial-parallel", t.spatial_parallel > 1),
         ("--data-parallel", t.data_parallel > 1),
-        ("--compile-cache", bool(t.compile_cache)),
     )
     for flag, asked in unported:
         if asked:
@@ -202,10 +210,18 @@ def main(argv=None, *, device=None):
                 pass
 
 
+def use_compile_cache(cache_dir: str) -> None:
+    """``--compile-cache DIR``: made if missing, then the kernel library's
+    build root (``cnn_tpu``'s flag points XLA's persistent cache there)."""
+    if cache_dir:
+        _build.set_build_root(cache_dir)
+
+
 def _main(argv, preempted, device):
     model_cfg, data_cfg, train_cfg, _ = parse_configs(argv,
                                                       "cnn_tpu_torch train")
     check_flags(train_cfg)
+    use_compile_cache(train_cfg.compile_cache)
     dev = default_device(device)
 
     samples = discover_dataset(data_cfg.dataset_path, data_cfg.categories)
@@ -443,6 +459,8 @@ def _main(argv, preempted, device):
         print(f"Test===> [loss {t_loss:.3f}] [Accuracy {t_acc:.3f}]")
         print("confusion matrix (rows = truth):")
         print(confusion.pretty(list(data_cfg.categories)))
+    if train_cfg.compile_cache and dev.type == "cuda":
+        print(_build.describe())
     return 0
 
 

@@ -201,9 +201,12 @@ def test_loader_batches_equal_cnn_tpu(dataset, cache, workers):
 
 
 def test_loader_refuses_what_is_not_ported(dataset):
+    """backend='native' raises; augment=True, once refused, augments on
+    the host (against cnn_tpu's loader: tests/test_torch_host_augment.py)."""
     samples = discover_dataset(dataset, CATEGORIES)
-    with pytest.raises(NotImplementedError, match="augment"):
-        DataLoader(samples, augment=True)
+    images, labels = DataLoader(samples, batch_size=2, augment=True,
+                                image_size=32).generate_batch()
+    assert images.shape == (2, 32, 32, 3) and images.dtype == np.uint8
     with pytest.raises(NotImplementedError, match="native"):
         DataLoader(samples, backend="native")
     assert DataLoader(samples, backend="auto").generate_batch()[0].shape == \

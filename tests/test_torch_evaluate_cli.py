@@ -17,6 +17,7 @@ from cnn_tpu.parallel import make_ensemble_eval_step as j_make_ensemble
 from cnn_tpu.parallel import make_eval_step as j_make_eval_step
 from cnn_tpu.tools import evaluate as j_evaluate
 from cnn_tpu_torch.models import get_model
+from cnn_tpu_torch.ops.hopper import _build
 from cnn_tpu_torch.parallel import make_ensemble_eval_step, make_eval_step
 from cnn_tpu_torch.tools import evaluate
 from cnn_tpu_torch.utils.checkpoint import load_jax_params
@@ -161,7 +162,7 @@ def test_evaluate_cli_loss_matches_cnn_tpu_within_1e5(ppm_dataset,
         assert abs(gl - wl) <= 1e-5 and ga == wa
 
 
-def test_evaluate_cli_refusals(ppm_dataset, capsys):
+def test_evaluate_cli_refusals(ppm_dataset, capsys, tmp_path, monkeypatch):
     base = ["--dataset-path", ppm_dataset, "--image-size", "224"]
     assert evaluate.main(["--resume", "/nonexistent.ckpt"], device="cpu") == 2
     # an EMA checkpoint, once refused, is evaluated on its EMA weights
@@ -176,6 +177,12 @@ def test_evaluate_cli_refusals(ppm_dataset, capsys):
     # committed one): an AlexNet checkpoint does not fit it
     with pytest.raises(KeyError, match="stem_conv1"):
         evaluate.main(base + ["--ensemble", f"moecnn:{BEST}"], device="cpu")
-    with pytest.raises(NotImplementedError, match="--compile-cache"):
-        evaluate.main(base + ["--resume", BEST, "--compile-cache", "cc"],
-                      device="cpu")
+    # --compile-cache, once refused, moves the kernel library's build root
+    # under its directory (on the CPU nothing is built)
+    monkeypatch.setattr(_build, "BUILD_ROOT", _build.BUILD_ROOT)
+    cache = tmp_path / "cc"
+    assert evaluate.main(base + ["--resume", BEST, "--split", "valid",
+                                 "--compile-cache", str(cache)],
+                         device="cpu") == 0
+    assert _build.library_path().is_relative_to(cache)
+    assert _build._lib is None

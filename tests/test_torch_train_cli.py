@@ -13,6 +13,7 @@ import pytest
 
 from cnn_tpu.tools import train as j_train
 from cnn_tpu.utils.checkpoint import load_checkpoint as j_load_checkpoint
+from cnn_tpu_torch.ops.hopper import _build
 from cnn_tpu_torch.tools import train
 from cnn_tpu_torch.utils.checkpoint import (parse_checkpoint_name,
                                             read_checkpoint)
@@ -212,6 +213,9 @@ TOOLBOX = {
     "--space-to-depth": ((), ""),
     "--moe-balance": (("--name", "moecnn"), "MoE load [moe]: "),
     "--name": ((), "MoE load [moe]: "),
+    # the kernel library's build root, once refused (on the CPU nothing
+    # is built, and the CLI prints no library line)
+    "--compile-cache": ((), ""),
 }
 WARM = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "checkpoints", "alexnet_bn_device",
@@ -232,28 +236,34 @@ def _teacher(path):
 
 
 @pytest.mark.parametrize("flag,value", UNPORTED)
-def test_unported_flag_raises_naming_it(dataset, tmp_path, capsys, flag,
-                                        value):
-    """The multi-device flags (--expert-parallel among them) and
-    --compile-cache still raise naming their flag; the toolbox's flags,
-    --space-to-depth, --moe-balance and --name moecnn, once refused, now
+def test_unported_flag_raises_naming_it(dataset, tmp_path, capsys,
+                                        monkeypatch, flag, value):
+    """The multi-device flags (--expert-parallel among them) still raise
+    naming their flag; the toolbox's flags, --space-to-depth,
+    --moe-balance, --name moecnn and --compile-cache, once refused, now
     run two iterations (against cnn_tpu's CLI:
     tests/test_torch_toolbox_cli.py, tests/test_torch_moe.py and
-    tests/test_torch_s2d.py)."""
+    tests/test_torch_s2d.py); --compile-cache makes its directory and
+    moves the kernel library's build root under it."""
     if flag not in TOOLBOX:
         with pytest.raises(NotImplementedError, match=flag):
             train.main(["--checkpoint-dir", str(tmp_path), flag, value],
                        device="cpu")
         return
     more, line = TOOLBOX[flag]
-    subst = {"x.ckpt": WARM, "t.ckpt": str(tmp_path / "t.ckpt")}
+    subst = {"x.ckpt": WARM, "t.ckpt": str(tmp_path / "t.ckpt"),
+             "cc": str(tmp_path / "cc")}
     if flag == "--distill-from":
         _teacher(subst["t.ckpt"])
+    monkeypatch.setattr(_build, "BUILD_ROOT", _build.BUILD_ROOT)
     argv = [subst.get(a, a) for a in (flag, value, *more)]
     assert train.main(_args(dataset, tmp_path / "ck", "--total-iters", "2",
                             *argv), device="cpu") == 0
     out = capsys.readouterr().out
     assert line in out and "training done!" in out and "Test===>" in out
+    if flag == "--compile-cache":
+        assert _build.library_path().is_relative_to(tmp_path / "cc")
+        assert _build._lib is None and "kernel library" not in out
 
 
 @pytest.mark.parametrize("argv,name", [
@@ -263,15 +273,19 @@ def test_unported_flag_raises_naming_it(dataset, tmp_path, capsys, flag,
     (["--weight-decay", "1e-4"], "weight_decay"),
     (["--grad-clip", "1.0"], "grad_clip")])
 def test_unported_options_raise(dataset, tmp_path, capsys, argv, name):
-    """The host augmentation and --backend native still raise; Adam,
-    weight decay and the clip, once refused, now train."""
-    if name in ("augment", "native"):
+    """--backend native still raises; the host augmentation, Adam, weight
+    decay and the clip, once refused, now train (the host augmentation
+    against cnn_tpu's CLI: tests/test_torch_host_augment.py)."""
+    if name == "native":
         with pytest.raises(NotImplementedError, match=name):
             train.main(_args(dataset, tmp_path, "--total-iters", "2", *argv),
                        device="cpu")
         return
     assert train.main(_args(dataset, tmp_path, "--total-iters", "2", *argv),
                       device="cpu") == 0
+    if name == "augment":
+        assert "training done!" in capsys.readouterr().out
+        return
     ck = read_checkpoint(_one(str(tmp_path / "iter_2_*.ckpt")))
     kinds = [type(st).__name__ for st in ck["opt_state"]]
     assert kinds == {"adam": ["ScaleByAdamState", "ScaleByScheduleState"],
