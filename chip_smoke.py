@@ -307,6 +307,25 @@
    and ``--augment false`` (started once the library is in DIR: it loads
    it without building); finite losses, exact launches (no rotation), the
    default ``build/`` root left as it was.
+23. data and tensor parallelism on ``torch.distributed``, two ranks on
+   the one card over gloo: the flagship AlexNet (BN, 224 px, full device
+   augmentation, momentum on a cosine schedule) in float32, one
+   ``'global'``-sampling device-dataset step at batch 256 on a DP2 and on
+   a TP2 mesh (two processes, ``phase23_rank``) against the one-process
+   port step on the same seed (every param, BN statistic and optimizer
+   leaf within 1e-4 x max(1, max|ref|), the two ranks bit-equal), then a
+   sharded eval batch; each rank's counters exact (the conv per variant at
+   its Cout/2 shapes under TP, pool, rotation, normalize; no direct or
+   gather conv); device and wall ms per step of each mesh and of the one
+   process (eager and captured); the train CLI with ``--multihost`` as two
+   processes, ``--data-parallel 2`` and ``--model-parallel 2``, each 10
+   iterations of the bf16 flagship: the same loss lines on both, exact
+   launches per rank, one checkpoint written by process 0 alone, which
+   reads back as the full tree; ``tools.multihost_smoke`` as two
+   processes with the same loss on both; and a world-size-1 NCCL mesh,
+   in this process, whose captured device-dataset call (the NCCL
+   collectives in its graph) is bit-equal to its eager loop under cuDNN's
+   deterministic mode.
 
 Every phase prints one flushed line with the seconds since start. Any failed
 check raises, so the exit code is not 0. Without a CUDA device it exits 1
@@ -338,6 +357,7 @@ from unittest import mock
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 import cnn_tpu_torch.nn.module as nn_module
@@ -390,9 +410,11 @@ from cnn_tpu_torch.ops.pool import max_pool2d_bwd as pool_bwd_plain
 from cnn_tpu_torch.ops.preprocess import uint8_to_float
 from cnn_tpu_torch.optim import make_optimizer, sgd, with_ema, with_frozen
 from cnn_tpu_torch.parallel import (create_train_state, make_eval_step,
-                                    make_train_step)
+                                    make_train_step, shard_train_state)
+from cnn_tpu_torch.parallel.mesh import init_distributed, make_mesh
 from cnn_tpu_torch.parallel.train_step import (accumulate_grads,
-                                               named_params, named_state)
+                                               named_params, named_state,
+                                               unsharded)
 from cnn_tpu_torch.quant import fold_batchnorm
 from cnn_tpu_torch.utils.checkpoint import (export_reference_model,
                                             import_reference_array,
@@ -5627,6 +5649,356 @@ def phase22(smi: str, tmp: Path, cli: dict) -> tuple[dict, dict]:
     return alex, fam
 
 
+# ---------------------------------------------------------------------------
+# phase 23: data and tensor parallelism
+# ---------------------------------------------------------------------------
+
+P23_N = 512            # canvases of the step parity (2 shards, no padding)
+P23_MESHES = {"dp2": (2, 1), "tp2": (1, 2)}
+P23_TOL = 1e-4         # times max(1, max|ref|)
+P23_STEPS = 5          # timed steps of each mesh
+P23_ITERS = 10         # iterations of each two-process CLI run
+P23_TP_SHARDS = ["conv_layer_3.w", "conv_layer_4.w", "linear_1.w"]
+
+
+def p23_run(mesh=None, dtype=None, batch: int = TRAIN_B, steps: int = 1,
+            eager: bool = True, sample_mode: str = "global"):
+    """The seeded flagship AlexNet (BN, 224 px, momentum on a cosine
+    schedule), its train state (sharded on ``mesh``) and a device step
+    with the full augmentation on ``P23_N`` seeded canvases (on
+    ``mesh``): ``(model, ts, step)``."""
+    model = get_model("alexnet", num_classes=3, image_size=224,
+                      batch_norm=True, device="cuda",
+                      generator=torch.Generator().manual_seed(FAMILY_SEED))
+    opt = make_optimizer("momentum", 1.5e-2, schedule="cosine",
+                         total_steps=64)
+    ts = create_train_state(model, opt, seed=7)
+    if mesh is not None:
+        shard_train_state(ts, mesh, model)
+    imgs, labels = synthetic_canvases(np.random.default_rng(23), P23_N,
+                                      CANVAS)
+    ds = DeviceDataset.from_arrays(imgs, labels, mesh=mesh, device="cuda")
+    adt = dtype or torch.float32
+    step = make_device_train_step(
+        model, opt, ds, batch, compute_dtype=dtype, mesh=mesh,
+        augment_fn=lambda g, im: aug.augment_batch(g, im, dtype=adt),
+        sample_mode=sample_mode, steps_per_call=steps, eager=eager)
+    return model, ts, step
+
+
+def p23_eval(model, mesh=None) -> dict:
+    """One eval batch of 256 uint8 images (the normalize kernel)."""
+    rng = np.random.default_rng(24)
+    x = torch.from_numpy(synthetic_images(rng, TRAIN_B))
+    y = torch.from_numpy(rng.integers(0, 3, TRAIN_B))
+    if mesh is None:
+        x, y = x.cuda(), y.cuda()
+    return make_eval_step(model, mesh=mesh)(x, y)
+
+
+def p23_time(ts, step, n: int = P23_STEPS) -> tuple[float, float]:
+    """Device (CUDA events) and wall ms per step over ``n`` steps, the
+    counters put back."""
+    before = read_counters()
+    torch.cuda.synchronize()
+    a, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    t = time.perf_counter()
+    a.record()
+    for _ in range(n):
+        ts, m = step(ts)
+    e.record()
+    torch.cuda.synchronize()
+    wall = 1e3 * (time.perf_counter() - t) / n
+    check(bool(torch.isfinite(m["loss"])), f"timed steps: loss {m}")
+    reset_launches()
+    add_counters(before)
+    return a.elapsed_time(e) / n, wall
+
+
+def phase23_rank(tmp: str, port: int, rank: int) -> None:
+    """One of the two ranks of phase 23's step parity: on each mesh of
+    ``P23_MESHES``, one ``'global'`` device step from the seeded state and
+    one eval batch with the counters from 0, the full tensors saved to
+    ``tmp``, then the timed steps; prints its report as one JSON line."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    init_distributed(f"localhost:{port}", 2, rank, "cuda")
+    report = {"backend": dist.get_backend(), "device": str(
+        torch.cuda.current_device())}
+    for tag, shape in P23_MESHES.items():
+        mesh = make_mesh(*shape)
+        model, ts, step = p23_run(mesh)
+        torch.cuda.synchronize()
+        reset_launches()
+        ts, m = step(ts)
+        ev = p23_eval(model, mesh)
+        torch.cuda.synchronize()
+        counts = {k: v for k, v in read_counters().items() if v}
+        with unsharded(ts):
+            torch.save({k: v.detach().cpu() for k, v in
+                        train_tensors(ts).items()},
+                       os.path.join(tmp, f"p23_{tag}_{rank}.pt"))
+        dev_ms, wall_ms = p23_time(ts, step)
+        report[tag] = {"counts": counts, "loss": float(m["loss"]),
+                       "eval_loss": float(ev["loss"]),
+                       "eval_correct": int(ev["correct"]),
+                       "shards": sorted(ts.shards), "ms": dev_ms,
+                       "wall_ms": wall_ms}
+        del model, ts, step
+        torch.cuda.empty_cache()
+    print("p23 rank: " + json.dumps(report), flush=True)
+    dist.destroy_process_group()
+
+
+def p23_spawn(argv: list, code: str | None = None) -> list:
+    """Two processes of ``argv`` (``{rank}`` and ``{port}`` filled in)
+    under ``python -c code`` or ``python -m``; running."""
+    port = free_port()
+    procs = []
+    for r in range(2):
+        args = [a.format(rank=r, port=port) for a in argv]
+        cmd = ([sys.executable, "-c", code, *args] if code is not None
+               else [sys.executable, "-m", *args])
+        procs.append(subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.PIPE,
+                                      stderr=subprocess.PIPE, text=True))
+    return procs
+
+
+def p23_outputs(procs, what: str, timeout: float = 600) -> list:
+    """Each process's output; every one exits 0."""
+    outs = []
+    for r, p in enumerate(procs):
+        try:
+            out, err = p.communicate(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            for q in procs:
+                q.kill()
+            raise
+        check(p.returncode == 0, f"{what}, rank {r}: exit {p.returncode}; "
+              f"output ends {out[-1500:]!r}; errors end {err[-2500:]!r}")
+        outs.append(out)
+    return outs
+
+
+def free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def p23_step_want() -> dict:
+    """One float32 step (the rotation) and one eval batch (the normalize)
+    of the flagship: on every rank, TP's Cout/2 convs on the same kernels
+    as the full ones."""
+    return cli_want(1, 1, False, True)
+
+
+def p23_parity(tmp: Path, smi: str) -> tuple[dict, list]:
+    """The two-process step parity against this process's step; returns
+    the ranks' launches, added up, and the report's lines."""
+    procs = p23_spawn([str(tmp), "{port}", "{rank}"], code=(
+        "import sys, chip_smoke as c\n"
+        "c.phase23_rank(sys.argv[1], int(sys.argv[2]), int(sys.argv[3]))\n"))
+    # meanwhile the one-process reference on the same seed
+    model, ts, step = p23_run()
+    ts, m = step(ts)
+    ref = {k: v.detach().cpu().clone() for k, v in
+           train_tensors(ts).items()}
+    ref_loss = float(m["loss"])
+    outs = p23_outputs(procs, "phase 23 step parity")
+    reports = [json.loads(o.rsplit("p23 rank: ", 1)[1].splitlines()[0])
+               for o in outs]
+    one_ms = p23_time(ts, step)
+    _, gts, gstep = p23_run(eager=False)
+    for _ in range(2):                 # the eager call, the capture's
+        gts, _m = gstep(gts)
+    graph_one = p23_time(gts, gstep)
+    del model, ts, step, gts, gstep
+    torch.cuda.empty_cache()
+    total, lines = {}, []
+    want = p23_step_want()
+    for tag in P23_MESHES:
+        got = [torch.load(tmp / f"p23_{tag}_{r}.pt") for r in range(2)]
+        check(sorted(got[0]) == sorted(ref),
+              f"{tag}: tensors {sorted(set(got[0]) ^ set(ref))[:6]}")
+        check(all(bits_equal(got[0][k], got[1][k]) for k in ref),
+              f"{tag}: the two ranks' tensors differ")
+        worst, where = 0.0, ""
+        for k, want_t in ref.items():
+            d = float((got[0][k].double() - want_t.double()).abs().max())
+            d /= max(1.0, float(want_t.double().abs().max()))
+            if d > worst:
+                worst, where = d, k
+        check(worst <= P23_TOL, f"{tag}: {where} off the one-process step "
+              f"by {worst:.3e} x max(1, max|ref|)")
+        shards = P23_TP_SHARDS if tag == "tp2" else []
+        for r, rep in enumerate(reports):
+            part = rep[tag]
+            check(rep["backend"] == "gloo", f"{tag}: backend {rep}")
+            check(part["shards"] == shards, f"{tag} rank {r}: shards "
+                  f"{part['shards']}")
+            check(part["counts"] == want, f"{tag} rank {r}: launches "
+                  f"{part['counts']}, expected {want}")
+            check(abs(part["loss"] - ref_loss) <= P23_TOL * max(
+                1.0, abs(ref_loss)), f"{tag}: loss {part['loss']} against "
+                f"{ref_loss}")
+            add_up(total, part["counts"])
+        ms = [rep[tag]["ms"] for rep in reports]
+        walls = [rep[tag]["wall_ms"] for rep in reports]
+        lines.append(
+            f"{tag}: one step within {worst:.3e} x max(1, max|ref|) of the "
+            f"one-process step (worst {where}), the ranks bit-equal, "
+            f"launches exact on each; {P23_STEPS} steps at global batch "
+            f"{TRAIN_B}, float32: device {ms[0]:.3f} / {ms[1]:.3f} ms per "
+            f"step, wall {walls[0]:.3f} / {walls[1]:.3f} (ranks 0 / 1, "
+            f"{smi})")
+    lines.append(f"one process, the same step: device {one_ms[0]:.3f} ms "
+                 f"per step, wall {one_ms[1]:.3f} (eager); captured device "
+                 f"{graph_one[0]:.3f}, wall {graph_one[1]:.3f} ({smi})")
+    return total, lines
+
+
+P23_LOSS = re.compile(r"\[loss ([-+\w.]+)\]")
+
+
+def p23_cli(cli: dict, tmp: Path) -> tuple[dict, list]:
+    """The two-process train CLI runs (DP2, TP2) and multihost_smoke, all
+    started at once; returns the CLI ranks' launches and the lines."""
+    nv, nt = cli["valid_batches"], cli["test_batches"]
+    base = CLI_FLAGSHIP + [
+        "--dataset-path", str(cli["data"]), *cli["sizes"],
+        "--total-iters", str(P23_ITERS), "--valid-iters", str(P23_ITERS),
+        "--save-iters", str(P23_ITERS), "--multihost", "true",
+        "--coordinator", "localhost:{port}", "--num-processes", "2",
+        "--process-id", "{rank}"]
+    runs = {"dp2": ["--data-parallel", "2"], "tp2": ["--model-parallel", "2"]}
+    procs = {tag: p23_spawn(base + flags + ["--checkpoint-dir",
+                                            str(tmp / f"p23_{tag}")],
+                            code=CHILD)
+             for tag, flags in runs.items()}
+    smoke = p23_spawn(["cnn_tpu_torch.tools.multihost_smoke",
+                       "--coordinator", "localhost:{port}",
+                       "--num-processes", "2", "--process-id", "{rank}"])
+    nccl_line, nccl_counts = p23_nccl()
+    want = cli_want(P23_ITERS, nv + nt, True, True)
+    total, lines = {}, [nccl_line]
+    add_up(total, nccl_counts)
+    for tag in runs:
+        outs = p23_outputs(procs[tag], f"phase 23 CLI {tag}")
+        shape = {"dp2": "{'data': 2, 'model': 1}",
+                 "tp2": "{'data': 1, 'model': 2}"}[tag]
+        logged = []
+        for r, out in enumerate(outs):
+            counts = json.loads(out.rsplit("child launches: ", 1)[1]
+                                .splitlines()[0])
+            check(counts == want, f"CLI {tag} rank {r}: launches {counts}, "
+                  f"expected {want}")
+            add_up(total, counts)
+            check(f"mesh: {shape}" in out and "training done!" in out
+                  and f"multihost: process {r}/2" in out,
+                  f"CLI {tag} rank {r}: output ends {out[-1500:]!r}")
+            logged.append([re.sub(r"\[[\d.]+ img/s\]", "", ln)
+                           for ln in re.split(r"[\r\n]", out)
+                           if ln.startswith(("Train===>", "Valid===>",
+                                             "Test===>"))])
+        check(logged[0] == logged[1] and logged[0],
+              f"CLI {tag}: the ranks logged {logged}")
+        losses = [float(x) for x in P23_LOSS.findall(outs[0])]
+        check(losses and all(np.isfinite(losses)), f"CLI {tag}: {losses}")
+        saved = [out.count("weights have been saved to") for out in outs]
+        check(saved == [1, 0], f"CLI {tag}: saves per rank {saved}")
+        cks = sorted((tmp / f"p23_{tag}").glob("*.ckpt"))
+        check(len(cks) == 1, f"CLI {tag}: checkpoints {cks}")
+        payload = read_checkpoint(str(cks[0]))
+        check(payload["step"] == P23_ITERS and tuple(
+            payload["params"]["conv_layer_3"]["w"].shape) == (3, 3, 32, 64)
+            and tuple(payload["params"]["linear_1"]["w"].shape) == (4608, 3),
+            f"CLI {tag}: the checkpoint's step {payload['step']}, shapes")
+        back = get_model("alexnet", num_classes=3, image_size=224,
+                         batch_norm=True, device="cuda")
+        load_checkpoint(str(cks[0]), create_train_state(
+            back, make_optimizer("momentum", 1.5e-2, schedule="cosine",
+                                 total_steps=P23_ITERS)))
+        test = [ln for ln in logged[0] if ln.startswith("Test===>")]
+        lines.append(f"train CLI --multihost, {tag} ({shape}), {P23_ITERS} "
+                     f"iterations of the bf16 flagship at global batch "
+                     f"{TRAIN_B}: the same lines on both ranks (losses "
+                     f"{losses}; {test[0].strip() if test else 'no test'}), "
+                     f"launches exact per rank, {cks[0].name} written by "
+                     "process 0 alone and read back")
+    outs = p23_outputs(smoke, "phase 23 multihost_smoke")
+    oks = [next((ln for ln in o.splitlines()
+                 if ln.startswith("MULTIHOST OK")), None) for o in outs]
+    check(oks[0] is not None and oks[0] == oks[1],
+          f"multihost_smoke: {oks}")
+    lines.append(f"tools.multihost_smoke, two processes: {oks[0]} on both")
+    return total, lines
+
+
+def p23_nccl() -> tuple[str, dict]:
+    """A world-size-1 NCCL process group in this process: the bf16
+    flagship's device call on its 1 x 1 mesh captured (the NCCL
+    all-reduces of BN's statistics, the gradients and the metrics in the
+    graph) against the eager loop, ``GRAPH_CALLS`` calls of ``GRAPH_K``
+    steps at batch ``GRAPH_B`` under cuDNN's deterministic mode: every
+    tensor, metric, the step, the generator's next draw and the counters
+    bit-equal. Returns its line and the captured run's counters."""
+    init_distributed(f"localhost:{free_port()}", 1, 0, "cuda")
+    try:
+        check(dist.get_backend() == "nccl", f"backend {dist.get_backend()}")
+        mesh = make_mesh(1, 1)
+        runs = []
+        with torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                        deterministic=True, allow_tf32=False):
+            for eager in (True, False):
+                _, ts, step = p23_run(mesh, BF16, GRAPH_B, GRAPH_K, eager,
+                                      "local")
+                check(isinstance(step, GraphedSteps) != eager,
+                      f"NCCL mesh: eager={eager} gave {type(step).__name__}")
+                torch.cuda.synchronize()
+                reset_launches()
+                metrics = []
+                for _ in range(GRAPH_CALLS):
+                    ts, m = step(ts)
+                    metrics.append((m["loss"].clone(), m["correct"].clone()))
+                torch.cuda.synchronize()
+                counts = {k: v for k, v in read_counters().items() if v}
+                tensors = {k: v.detach().clone()
+                           for k, v in train_tensors(ts).items()}
+                draw = torch.rand(16, generator=ts.rng, device="cuda")
+                runs.append((tensors, metrics, counts, ts.step, draw))
+                del ts, step
+    finally:
+        dist.destroy_process_group()
+    (te, me, ce, se, de), (tg, mg, cg, sg, dg) = runs
+    diff = [k for k in te if not bits_equal(te[k], tg[k])]
+    check(sorted(te) == sorted(tg) and not diff,
+          f"NCCL mesh: the captured call's tensors differ: {diff[:8]}")
+    check(all(bits_equal(a[0], b[0]) and bits_equal(a[1], b[1])
+              for a, b in zip(me, mg)), f"NCCL mesh: metrics {me} {mg}")
+    check(se == sg == GRAPH_CALLS * GRAPH_K and bits_equal(de, dg),
+          "NCCL mesh: the step or the generator differs")
+    check(ce == cg, f"NCCL mesh: counters {cg} against eager {ce}")
+    torch.cuda.empty_cache()
+    return (f"a world-size-1 NCCL mesh: {GRAPH_CALLS} captured calls of "
+            f"{GRAPH_K} bf16 steps at batch {GRAPH_B} (NCCL all-reduces in "
+            f"the graph) bit-equal to the eager loop: {len(te)} tensors, "
+            f"losses {[round(float(m[0]), 4) for m in mg]}"), cg
+
+
+def phase23(smi: str, tmp: Path, cli: dict) -> dict:
+    """Phase 23: the step parity, then the CLI runs, multihost_smoke and
+    the NCCL mesh. Returns every counted launch, added up."""
+    t0 = time.perf_counter()
+    total, lines = p23_parity(tmp, smi)
+    got, more = p23_cli(cli, tmp)
+    add_up(total, got)
+    for line in lines + more:
+        phase(f"phase 23: {line}")
+    phase(f"phase 23: {time.perf_counter() - t0:.1f} s")
+    return total
+
+
 def same_trees(a, b) -> bool:
     if isinstance(a, dict):
         return (isinstance(b, dict) and sorted(a) == sorted(b)
@@ -5763,6 +6135,8 @@ def main() -> int:
         alex22, fam22 = phase22(smi, Path(tmp), flagship)
         add_up(cli, alex22)
         add_up(fam, fam22)
+        # phase 23: every rank's launches count on AlexNet's rows
+        add_up(cli, phase23(smi, Path(tmp), flagship))
 
     # the CLIs' launches (phases 14-16): float32 ones on the float32 rows,
     # the rotation in either dtype on its one row

@@ -19,9 +19,34 @@ on the GPU for comparisons.
 in place of cv2), as ``cnn_tpu`` does, and uploads the result;
 ``DeviceDataset.from_arrays`` takes in-memory arrays. ``epoch_batches``
 walks the rows in order for eval.
+
+On a mesh (``parallel/mesh.py``) the dataset shards over ``'data'``: the
+rows are padded to a multiple of the data axis by re-listing the leading
+ones, and each rank holds (and decodes) its contiguous shard only. The
+sharded step samples each rank's rows of the global batch:
+
+- ``'local'``: each shard samples its ``B / D`` rows from its own rows,
+  uniformly with replacement; every rank draws the indices of all the
+  shards (``[D, B / D]``, from ``ts.rng``, in the same state on every
+  rank) and keeps its own, so no collective runs;
+- ``'global'``: the unsharded path's indices (one draw of ``B`` over the
+  whole padded set), each rank keeping its rows of the batch, which the
+  ranks holding them send (a zero-filled ``all_reduce``); the
+  single-device equivalence mode;
+- ``'epoch'`` / ``'epoch_fixed'``: each shard walks its own per-epoch
+  permutation of its rows, the shard index folded into the seed; the
+  last shard's pad slots are remapped to real rows of its own, drawn
+  anew each epoch, so every real row is seen at least once an epoch and
+  no fixed row twice.
+
+On the GPU the sharded call is one CUDA graph where the process group is
+NCCL (collectives included); under gloo, whose collectives a graph
+cannot capture, the eager loop runs and the step says so when made.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -31,20 +56,38 @@ from cnn_tpu_torch.data.loader import DataLoader
 from cnn_tpu_torch.ops.hopper import add_counters, counted_capture
 from cnn_tpu_torch.parallel.train_step import (TrainState, apply_gradients,
                                                check_supported,
-                                               normalize_distill, to_compute)
+                                               normalize_distill, shard_model,
+                                               to_compute)
+
+
+def _shard_rows(n_real: int, mesh) -> tuple[int, range]:
+    """The padded row count (a multiple of the data axis) and the rows of
+    the real set that this rank's shard lists (pad rows re-list the
+    leading ones)."""
+    n = n_real + (-n_real) % mesh.size("data")
+    k = n // mesh.size("data")
+    lo = mesh.index("data") * k
+    return n, range(lo, lo + k)
 
 
 class DeviceDataset:
-    """[N,S,S,C] uint8 canvases and [N] int64 labels held on one device."""
+    """[N,S,S,C] uint8 canvases and [N] int64 labels held on one device;
+    on a mesh this rank's shard of them (``n`` rows padded, ``n_real``
+    real, ``n_local`` here)."""
 
     def __init__(self, samples, image_size: int = 256, num_workers: int = 4,
                  sharding=None, mesh=None, device=None):
         """Decodes ``samples`` at ``image_size`` (``num_workers`` threads)
-        and uploads them to ``device`` (default: the GPU)."""
-        check_supported(mesh=mesh)
+        and uploads them to ``device`` (default: the GPU; on ``mesh``, its
+        device, this rank's shard only)."""
         if sharding is not None:
-            raise NotImplementedError("sharding is not ported yet")
-        dev = default_device(device)
+            raise NotImplementedError("a sharding other than the mesh's "
+                                      "'data' axis is not ported")
+        dev = mesh.device if mesh is not None else default_device(device)
+        n_real = len(samples)
+        if mesh is not None:
+            samples = [samples[i % n_real]
+                       for i in _shard_rows(n_real, mesh)[1]]
         # batch_size bounds the loader's in-flight decode futures: at 1 the
         # worker pool degenerates to serial decode (one future per yield)
         bs = max(1, min(8 * num_workers, len(samples)))
@@ -57,45 +100,58 @@ class DeviceDataset:
             imgs[pos:pos + len(lbl)] = img
             lbls[pos:pos + len(lbl)] = lbl
             pos += len(lbl)
-        self._place(imgs, lbls, dev)
+        self._place(imgs, lbls, dev, mesh, n_real)
 
     @classmethod
     def from_arrays(cls, images: np.ndarray, labels: np.ndarray,
                     sharding=None, mesh=None, device=None) -> "DeviceDataset":
-        """Uploads in-memory arrays to ``device`` (default: the GPU)."""
-        check_supported(mesh=mesh)
+        """Uploads in-memory arrays to ``device`` (default: the GPU); on
+        ``mesh``, this rank's shard of them to its device."""
         if sharding is not None:
-            raise NotImplementedError("sharding is not ported yet")
-        self = cls.__new__(cls)
-        self._place(images, labels, default_device(device))
-        return self
-
-    def _place(self, images: np.ndarray, labels: np.ndarray, device) -> None:
+            raise NotImplementedError("a sharding other than the mesh's "
+                                      "'data' axis is not ported")
         if images.shape[:1] != np.shape(labels):
             raise ValueError(f"{images.shape[0]} images, {np.shape(labels)} "
                              "labels")
+        self = cls.__new__(cls)
+        n_real = len(labels)
+        if mesh is None:
+            self._place(images, labels, default_device(device), None, n_real)
+        else:
+            rows = [i % n_real for i in _shard_rows(n_real, mesh)[1]]
+            self._place(images[rows], np.asarray(labels)[rows], mesh.device,
+                        mesh, n_real)
+        return self
+
+    def _place(self, images: np.ndarray, labels: np.ndarray, device, mesh,
+               n_real: int) -> None:
         self.images = torch.from_numpy(np.ascontiguousarray(images)).to(device)
         self.labels = torch.from_numpy(np.asarray(labels, np.int64)).to(device)
-        self.n = self.n_real = images.shape[0]
+        self.mesh, self.n_real = mesh, n_real
+        self.n_local = images.shape[0]
+        self.n = n_real if mesh is None else _shard_rows(n_real, mesh)[0]
         self.image_size = images.shape[1]
 
     def sample(self, generator: torch.Generator, batch_size: int):
-        """Uniform sampling with replacement, on the device."""
+        """Uniform sampling with replacement, on the device (unsharded:
+        a sharded set samples through ``shard_sample``)."""
+        self._unsharded()
         idx = torch.randint(0, self.n, (batch_size,), generator=generator,
                             device=self.images.device)
         return self.images.index_select(0, idx), self.labels.index_select(0, idx)
 
-    def epoch_sample(self, seed: int, step: int, batch_size: int,
-                     fixed: bool):
-        """The batch of ``step`` when walking per-epoch permutations."""
-        idx = epoch_indices(seed, step, batch_size, self.n, fixed,
-                            self.images.device)
-        return self.images.index_select(0, idx), self.labels.index_select(0, idx)
+    def _unsharded(self) -> None:
+        if self.mesh is not None:
+            raise ValueError("this dataset is sharded over a mesh: its rows "
+                             "are one shard's (make_device_train_step "
+                             "samples it)")
 
     def epoch_batches(self, batch_size: int):
         """Sequential full-epoch iteration (for eval): the rows in order,
         ``batch_size`` at a time, then the remainder; views of the device
-        tensors."""
+        tensors. (An unsharded dataset only, as ``cnn_tpu``'s train CLI
+        keeps its validation set.)"""
+        self._unsharded()
         n = self.n_real
         for start in range(0, n - batch_size + 1, batch_size):
             yield (self.images[start:start + batch_size],
@@ -105,10 +161,21 @@ class DeviceDataset:
             yield self.images[n - rem:n], self.labels[n - rem:n]
 
 
-def _epoch_perm(seed: int, epoch: int, n: int, device) -> torch.Tensor:
-    g = torch.Generator(device=device)
-    g.manual_seed((seed * 0x9E3779B1 + 0x45504F43 + epoch) % 2**63)
-    return torch.randperm(n, generator=g, device=device)
+def _epoch_generator(seed: int, epoch: int, device, shard=None,
+                     stream: int = 0x45504F43) -> torch.Generator:
+    """The generator of ``epoch``'s draws: ``stream`` "EPOC" for the
+    permutation, "PADD" for the pad slots' rows; a shard's index folded
+    into the seed."""
+    key = seed * 0x9E3779B1 + stream + epoch
+    if shard is not None:
+        key = key * 0x9E3779B1 + shard + 1
+    return torch.Generator(device=device).manual_seed(key % 2**63)
+
+
+def _epoch_perm(seed: int, epoch: int, n: int, device,
+                shard=None) -> torch.Tensor:
+    return torch.randperm(n, generator=_epoch_generator(
+        seed, epoch, device, shard), device=device)
 
 
 def epoch_indices(seed: int, step: int, batch_size: int, n: int, fixed: bool,
@@ -123,19 +190,28 @@ def epoch_indices(seed: int, step: int, batch_size: int, n: int, fixed: bool,
 
 
 def call_indices(seed: int, step: int, steps: int, batch_size: int, n: int,
-                 fixed: bool, device) -> torch.Tensor:
+                 fixed: bool, device, shard=None, real: int | None = None,
+                 ) -> torch.Tensor:
     """``epoch_indices`` of batches ``step .. step + steps - 1``, as
-    [steps, batch_size], each epoch's permutation drawn once."""
+    [steps, batch_size], each epoch's permutation drawn once. ``shard``:
+    the data shard whose ``n`` local rows these walk (its own
+    permutations), of which the first ``real`` are real: a slot on a pad
+    row takes a real row drawn for it each epoch."""
     if batch_size > n:
         raise ValueError(f"batch {batch_size} exceeds the dataset ({n} rows)")
     g = step * batch_size + torch.arange(steps * batch_size, device=device)
     e, pos = g // n, g % n
-    if fixed:
-        return _epoch_perm(seed, 0, n, device)[pos].reshape(steps, -1)
     e0, e1 = step * batch_size // n, ((step + steps) * batch_size - 1) // n
-    perms = torch.stack([_epoch_perm(seed, k, n, device)
-                         for k in range(e0, e1 + 1)])
-    return perms[e - e0, pos].reshape(steps, -1)
+    epochs = [0] if fixed else range(e0, e1 + 1)
+    at = torch.zeros_like(e) if fixed else e - e0
+    idx = torch.stack([_epoch_perm(seed, k, n, device, shard)
+                       for k in epochs])[at, pos]
+    if real is not None and real < n:
+        repl = torch.stack([torch.randint(
+            0, real, (n,), device=device, generator=_epoch_generator(
+                seed, k, device, shard, 0x50414444)) for k in epochs])
+        idx = torch.where(idx >= real, repl[at, pos], idx)
+    return idx.reshape(steps, -1)
 
 
 class GraphedSteps:
@@ -209,8 +285,7 @@ class GraphedSteps:
         step = ts.step
         self.feed = optim.ScalarFeed(self.counts, dev, capacity=64 * self.k)
         self.rows = (None if self.sampler is None else
-                     torch.empty((self.k, self.batch_size), dtype=torch.long,
-                                 device=dev))
+                     torch.empty_like(self.sampler(ts.seed, ts.step)))
         graph = torch.cuda.CUDAGraph()
         graph.register_generator_state(ts.rng)
 
@@ -227,6 +302,32 @@ class GraphedSteps:
             c.fill_(s)
         ts.step = step
         self.graph = graph
+
+
+def shard_sample(dataset: DeviceDataset, mode: str,
+                 generator: torch.Generator, batch_size: int):
+    """This rank's rows of a uniform global batch on a sharded dataset
+    (module docstring): ``'local'`` from its shard, ``'global'`` the
+    unsharded path's indices over the padded set."""
+    mesh, dev = dataset.mesh, dataset.images.device
+    d, size = mesh.index("data"), mesh.size("data")
+    per = batch_size // size
+    if mode == "local":
+        idx = torch.randint(0, dataset.n_local, (size, per),
+                            generator=generator, device=dev)[d]
+        return (dataset.images.index_select(0, idx),
+                dataset.labels.index_select(0, idx))
+    idx = torch.randint(0, dataset.n, (batch_size,), generator=generator,
+                        device=dev)
+    # every row of the batch from the rank whose shard holds it, the
+    # others adding zeros
+    mine = (idx // dataset.n_local) == d
+    own = torch.where(mine, idx - d * dataset.n_local, torch.zeros_like(idx))
+    images = dataset.images.index_select(0, own) * mine.to(
+        torch.uint8)[:, None, None, None]
+    labels = dataset.labels.index_select(0, own) * mine
+    return (mesh.all_sum(images, "data")[d * per:(d + 1) * per],
+            mesh.all_sum(labels, "data")[d * per:(d + 1) * per])
 
 
 def make_device_train_step(model, optimizer, dataset: DeviceDataset,
@@ -258,29 +359,45 @@ def make_device_train_step(model, optimizer, dataset: DeviceDataset,
     On the GPU a call is one CUDA graph of its steps from the second call
     on (``GraphedSteps``); ``eager=True`` keeps the eager loop there, the
     graph's oracle.
+
+    ``mesh``: the dataset's (``DeviceDataset(..., mesh=)``); each rank
+    samples its rows of the global batch (module docstring) and the step
+    runs sharded (``parallel/train_step.py``). The call is captured only
+    where the process group is NCCL; under gloo the eager loop runs, and
+    the step prints which.
     """
-    check_supported(compute_dtype=compute_dtype, mesh=mesh)
+    check_supported(compute_dtype=compute_dtype)
     if sample_mode not in ("local", "global", "epoch", "epoch_fixed"):
         raise ValueError(f"unknown sample_mode '{sample_mode}'")
+    if mesh is not dataset.mesh:
+        raise ValueError("the dataset must be uploaded onto the same mesh")
     epoch_mode = sample_mode.startswith("epoch")
     dst = normalize_distill(distill)
+    if mesh is not None:
+        shard_model(model, mesh)
+        for teacher in (dst[0] if dst else ()):
+            shard_model(teacher, mesh)
+        if batch_size % mesh.size("data"):
+            raise ValueError(f"batch {batch_size} does not split over "
+                             f"{mesh.size('data')} data shards")
 
     fixed = sample_mode == "epoch_fixed"
+    sample = (dataset.sample if mesh is None
+              else functools.partial(shard_sample, dataset, sample_mode))
 
     def one(ts: TrainState, rows=None):
+        if rows is None and epoch_mode:
+            rows = sampler(ts.seed, ts.step)[0]
         if rows is not None:
             images = dataset.images.index_select(0, rows)
             labels = dataset.labels.index_select(0, rows)
-        elif epoch_mode:
-            images, labels = dataset.epoch_sample(ts.seed, ts.step,
-                                                  batch_size, fixed)
         else:
-            images, labels = dataset.sample(ts.rng, batch_size)
-        images = to_compute(images, ts.rng, augment_fn, compute_dtype)
+            images, labels = sample(ts.rng, batch_size)
+        images = to_compute(images, ts.rng, augment_fn, compute_dtype, mesh)
         return apply_gradients(ts, optimizer, images, labels,
                                label_smoothing, compute_dtype,
                                grad_accum=grad_accum, mixup=mixup,
-                               cutmix=cutmix, distill=dst)
+                               cutmix=cutmix, distill=dst, mesh=mesh)
 
     def run(ts: TrainState, rows=None) -> dict:
         """The call's steps; ``rows``: their [K, B] epoch-sampler rows."""
@@ -291,14 +408,34 @@ def make_device_train_step(model, optimizer, dataset: DeviceDataset,
         return {"loss": torch.stack([m["loss"] for m in runs]).mean(),
                 "correct": sum(m["correct"] for m in runs)}
 
-    if dataset.images.device.type == "cuda" and not eager:
-        sampler = None
-        if epoch_mode:
-            def sampler(seed, step):
-                return call_indices(seed, step, steps_per_call, batch_size,
-                                    dataset.n, fixed, dataset.images.device)
+    def sampler(seed, step, steps=1):
+        """The [steps, rows] dataset rows of the epoch modes."""
+        if mesh is None:
+            return call_indices(seed, step, steps, batch_size, dataset.n,
+                                fixed, dataset.images.device)
+        d, size = mesh.index("data"), mesh.size("data")
+        assert dataset.n - dataset.n_real < dataset.n_local, (
+            dataset.n, dataset.n_real, dataset.n_local)
+        # the pad rows are the padded set's tail: the last shard's
+        real = (dataset.n_real - (size - 1) * dataset.n_local
+                if d == size - 1 else dataset.n_local)
+        return call_indices(seed, step, steps, batch_size // size,
+                            dataset.n_local, fixed, dataset.images.device,
+                            shard=d, real=real)
+
+    captured = dataset.images.device.type == "cuda" and not eager and (
+        mesh is None or mesh.backend == "nccl")
+    if mesh is not None:
+        how = "one CUDA graph a call" if captured else "the eager loop"
+        if not captured and dataset.images.device.type == "cuda" and not eager:
+            how += " (gloo's collectives cannot be captured)"
+        backend = mesh.backend or "no process group"
+        print(f"device step on the mesh {mesh.shape} ({backend}): {how}",
+              flush=True)
+    if captured:
         return GraphedSteps(run, steps_per_call, batch_size, dataset,
-                            sampler)
+                            functools.partial(sampler, steps=steps_per_call)
+                            if epoch_mode else None)
 
     def step(ts: TrainState):
         metrics = run(ts)

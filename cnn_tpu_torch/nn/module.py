@@ -31,6 +31,14 @@ i reading slice i, with ``cnn_tpu``'s ``remat`` modes). ``tree_leaves``
 walks any layer in ``cnn_tpu``'s tree paths, which name the parameters
 (``parallel/train_step.py:named_params``) and the checkpoint trees
 (``utils/checkpoint.py``).
+
+On a mesh (``parallel/mesh.py``, set by ``parallel/train_step.py:
+shard_model``) a layer holds it in ``mesh``: BN sums its batch statistics
+over ``'data'``. ``param_pspecs`` declares, as ``cnn_tpu``'s layers do,
+which parameter axes shard over ``'model'`` (a wide conv's out-channels, a
+dense layer's in-features); a layer whose ``w`` holds its shard keeps the
+mesh in ``tp`` and runs its slice through the same kernels, then joins the
+ranks' results (``_forward_tp``).
 """
 
 from __future__ import annotations
@@ -50,7 +58,7 @@ from cnn_tpu_torch.ops.hopper.conv import (conv2d_bias_relu,
                                            conv2d_bias_relu_fn,
                                            conv2d_bias_relu_op)
 from cnn_tpu_torch.ops.hopper.pool import max_pool2d_fn, max_pool2d_fwd
-from cnn_tpu_torch.ops.linear import linear
+from cnn_tpu_torch.ops.linear import linear, matmul
 from cnn_tpu_torch.ops.pool import avg_pool2d, global_avg_pool
 
 
@@ -84,10 +92,18 @@ class Layer(nn.Module):
     ahead for its Dropouts)."""
     casts = False
     draws = False
+    mesh = None     # the mesh of a sharded step (parallel/train_step.py)
+    tp = None       # the mesh whose 'model' axis shards ``w``
 
     def __init__(self, name: str):
         super().__init__()
         self.name = name
+
+    def param_pspecs(self, model_dim: int):
+        """``{param key: spec}``, a spec naming the mesh axis of each of
+        the tensor's dims (``cnn_tpu``'s ``PartitionSpec`` as a tuple), for
+        the params that shard over ``'model'``; None to replicate all."""
+        return None
 
     def tree_leaves(self):
         """``(path, tensor, is_state)`` of this layer's ``cnn_tpu`` param
@@ -131,8 +147,30 @@ class Conv2D(Layer):
                          init_scale)
         self.b = _normal((out_channels,), generator, device, init_scale)
 
+    def param_pspecs(self, model_dim: int):
+        # wide convs only: a shard of a narrow one starves its kernel
+        if model_dim > 1 and self.out_channels % model_dim == 0 \
+                and self.out_channels >= 32 * model_dim:
+            return {"w": (None, None, None, "model")}
+        return None
+
     def forward(self, x, relu: bool = False, compute_dtype=None):
-        w, b = self.w, self.b
+        if self.tp is not None:
+            return self._forward_tp(x, relu, compute_dtype)
+        return self._conv(x, self.w, self.b, relu, compute_dtype)
+
+    def _forward_tp(self, x, relu, compute_dtype):
+        """``w`` holds this rank's out-channels: the conv of the replicated
+        ``x`` with them and their slice of the replicated bias, then the
+        ranks' outputs joined along the channels."""
+        mesh = self.tp
+        k = self.w.shape[-1]
+        lo = mesh.index("model") * k
+        b = mesh.model_input(self.b)[lo:lo + k]
+        y = self._conv(mesh.model_input(x), self.w, b, relu, compute_dtype)
+        return mesh.gather(y, "model", -1)
+
+    def _conv(self, x, w, b, relu, compute_dtype):
         if compute_dtype is not None:
             x, w, b = (x.to(compute_dtype), w.to(compute_dtype),
                        b.to(compute_dtype))
@@ -232,8 +270,28 @@ class Linear(Layer):
         self.w = _normal((in_features, out_features), generator, device)
         self.b = _normal((out_features,), generator, device)
 
+    def param_pspecs(self, model_dim: int):
+        # in-features over 'model': each rank's partial product, summed
+        if model_dim > 1 and self.in_features % model_dim == 0:
+            return {"w": ("model", None)}
+        return None
+
     def forward(self, x, compute_dtype=None):
-        return linear(x, self.w, self.b, compute_dtype)
+        if self.tp is None:
+            return linear(x, self.w, self.b, compute_dtype)
+        # ``w`` holds a row range of the flattened (h, w, c) features: the
+        # partial product of those columns of the replicated ``x``, summed
+        # over the ranks, then the replicated bias once
+        mesh = self.tp
+        k = self.w.shape[0]
+        lo = mesh.index("model") * k
+        x = mesh.model_input(x.reshape(x.shape[0], -1))[:, lo:lo + k]
+        if compute_dtype is None or compute_dtype == torch.float32:
+            part = x @ self.w
+        else:
+            part = matmul(x.to(compute_dtype), self.w.to(compute_dtype))
+        y = mesh.psum(part, "model")
+        return y + self.b.to(y.dtype)
 
 
 class BatchNorm2D(Layer):
@@ -269,7 +327,8 @@ class BatchNorm2D(Layer):
             return batch_norm2d_eval(x, self.gamma, self.beta, self.mean,
                                      self.var, self.eps)
         y, mean, var = batch_norm2d_train(x, self.gamma, self.beta, self.mean,
-                                          self.var, self.eps, self.momentum)
+                                          self.var, self.eps, self.momentum,
+                                          self.mesh)
         if self.defer_update:
             self.pending = (mean, var)
         else:

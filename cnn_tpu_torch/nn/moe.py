@@ -34,8 +34,20 @@ differentiable term in ``aux``, which the train step adds to the loss
 (``parallel/train_step.py:collect_aux_losses``); an eval forward writes
 nothing and leaves ``aux`` None.
 
+On a mesh whose batch shards over ``'data'`` (``mesh``, set by
+``parallel/train_step.py:shard_model``) the block routes the global batch,
+as ``cnn_tpu``'s GSPMD step does: the capacity comes from the global batch
+size, a token's place in its expert's queue is the lower data ranks'
+counts for that expert plus its place among this rank's tokens (each
+rank's counts are gathered once a forward), and ``load`` and the balance
+term are means over the global batch (the router probabilities summed
+over the axis, differentiably). The experts' MLP acts on each queue slot
+alone, so each rank runs its own tokens at their global places. The
+block declares no ``'model'`` sharding (``param_pspecs`` None, as in
+``cnn_tpu``).
+
 Expert parallelism (``cnn_tpu``'s ``param_pspecs_ep`` and
-``--expert-parallel``) is not ported.
+``--expert-parallel``) is not ported (ROADMAP.md Queue 1 item 10b).
 """
 
 from __future__ import annotations
@@ -89,16 +101,35 @@ class MoEBlock(Layer):
     def capacity(self, batch: int) -> int:
         return max(1, int(self.capacity_factor * batch / self.n_experts))
 
+    def _global_counts(self, onehot, mesh):
+        """``(batch, lower, counts)`` of the global batch: its size, the
+        lower data ranks' tokens per expert [E] and every rank's [E] summed,
+        from one gather of each rank's counts and batch size. In training
+        the shards are equal, so the size needs no read on the host."""
+        bsz, e = onehot.shape
+        mine = torch.cat([onehot.sum(dim=0), onehot.new_full((1,), bsz)])
+        d, size = mesh.index("data"), mesh.size("data")
+        table = mesh.assemble(mine[None], "data", size, d)      # [D, E+1]
+        total = bsz * size if self.training else int(table[:, e].sum())
+        return total, table[:d, :e].sum(dim=0), table[:, :e].sum(dim=0)
+
     def forward(self, x, compute_dtype=None):
         e = self.n_experts
         bsz = x.shape[0]
-        cap = self.capacity(bsz)
+        mesh = self.mesh if self.mesh is not None and self.mesh.active(
+            "data") else None
         logits = x.float() @ self.router.float()               # [B, E]
         probs = torch.softmax(logits, dim=-1)
         experts = torch.arange(e, device=x.device)
         onehot = (probs.argmax(dim=-1)[:, None] == experts).float()
         # each token's place in its expert's queue; -1 off its expert
-        pos = torch.cumsum(onehot, dim=0) * onehot - 1.0        # [B, E]
+        place = torch.cumsum(onehot, dim=0)
+        total = bsz
+        if mesh is not None:
+            total, lower, counts = self._global_counts(onehot, mesh)
+            place = place + lower
+        cap = self.capacity(total)
+        pos = place * onehot - 1.0                              # [B, E]
         keep = (pos >= 0) & (pos < cap)
         slots = torch.arange(cap, device=x.device)
         dispatch = ((pos.long()[..., None] == slots)
@@ -117,11 +148,13 @@ class MoEBlock(Layer):
 
         self.aux = None
         if self.training:
-            f = onehot.mean(dim=0)
+            f = onehot.mean(dim=0) if mesh is None else counts / total
             with torch.no_grad():
                 self.load.copy_(f)
             if self.balance_coeff > 0.0:
-                aux = self.balance_coeff * e * (f * probs.mean(dim=0)).sum()
+                p_mean = (probs.mean(dim=0) if mesh is None else
+                          mesh.psum(probs.sum(dim=0), "data") / total)
+                aux = self.balance_coeff * e * (f * p_mean).sum()
                 with torch.no_grad():
                     self.aux_loss.copy_(aux)
                 self.aux = aux

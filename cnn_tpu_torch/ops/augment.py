@@ -28,11 +28,19 @@ same three shears as ``_rotate_core``, each a direct gather of its two taps.
 ``batch_mix`` (MixUp / CutMix) and ``color_jitter`` are split the same way
 (``draw_mix`` / ``apply_mix``, ``draw_jitter`` / ``apply_jitter``); they
 are elementwise PyTorch, as ``cnn_tpu`` leaves them to XLA.
+
+Per-image draws on a sharded batch (``shard_draws(index, count)``, which
+the sharded train steps enter): each rank holds shard ``index`` of
+``count`` equal shards of the global batch and draws, from a generator in
+the same state on every rank, the parameters of the whole global batch,
+keeping its own images'. So the shards together are augmented as the
+single-device step augments the global batch.
 """
 
 from __future__ import annotations
 
 import math
+from contextlib import contextmanager
 from typing import NamedTuple
 
 import torch
@@ -213,12 +221,39 @@ class FastParams(NamedTuple):
     ux: torch.Tensor
 
 
+_SHARD = None   # (index, count) inside ``shard_draws``
+
+
+@contextmanager
+def shard_draws(index: int, count: int):
+    """Inside, a per-image draw for ``batch`` images draws for the
+    ``batch * count`` of the global batch and keeps shard ``index``'s."""
+    global _SHARD
+    before, _SHARD = _SHARD, (index, count)
+    try:
+        yield
+    finally:
+        _SHARD = before
+
+
+def draw_rows(generator: torch.Generator, shape: tuple) -> torch.Tensor:
+    """``torch.rand(shape)`` whose dim 1 counts images: under
+    ``shard_draws``, this shard's columns of the global batch's draw."""
+    if _SHARD is None:
+        return torch.rand(shape, generator=generator, device=generator.device)
+    index, count = _SHARD
+    b = shape[1]
+    u = torch.rand((shape[0], b * count, *shape[2:]), generator=generator,
+                   device=generator.device)
+    return u[:, index * b:(index + 1) * b]
+
+
 def draw_full(generator: torch.Generator, batch: int, hflip_p: float = 0.5,
               vflip_p: float = 0.2, crop_p: float = 0.7,
               rotate_p: float = 0.5) -> FullParams:
     """The full policy's random parameters, from ``generator`` on its
     device (``augment_batch``'s ``draw``)."""
-    u = torch.rand((9, batch), generator=generator, device=generator.device)
+    u = draw_rows(generator, (9, batch))
     ang = 15.0 + u[0] * 60.0
     ang = torch.where(u[1] < 0.5, -ang, ang) * math.pi / 180.0
     ang = torch.where(u[2] < rotate_p, ang, torch.zeros_like(ang))
@@ -230,7 +265,7 @@ def draw_full(generator: torch.Generator, batch: int, hflip_p: float = 0.5,
 def draw_fast(generator: torch.Generator, batch: int, hflip_p: float = 0.5,
               vflip_p: float = 0.2, crop_p: float = 0.7) -> FastParams:
     """The fast policy's random parameters (``augment_batch_fast``'s)."""
-    u = torch.rand((6, batch), generator=generator, device=generator.device)
+    u = draw_rows(generator, (6, batch))
     keep = torch.where(u[0] < crop_p, 0.7 + u[1] * 0.25,
                        torch.ones_like(u[1]))
     return FastParams(u[2] < hflip_p, u[3] < vflip_p, keep, u[4], u[5])
@@ -364,16 +399,19 @@ def draw_mix(generator: torch.Generator, batch: int, height: int, width: int,
     return MixDraw(perm, lam_mixup, lam_cutmix, cy, cx, use_cut)
 
 
-def apply_mix(images: torch.Tensor, d: MixDraw):
+def apply_mix(images: torch.Tensor, d: MixDraw, partners=None):
     """MixUp / CutMix of float NHWC ``images`` with ``d``'s draws; returns
     ``(mixed, perm, lam)``, ``lam`` float32 0-d. MixUp blends ``lam * x +
     (1 - lam) * x[perm]`` in the images' dtype; CutMix pastes the
     partner's box of side ``sqrt(1 - lam0)`` times the image's about the
     centre, clipped to the image, and re-derives ``lam`` from the clipped
     area; with both, ``use_cut`` picks. The loss mixes as ``lam * CE(y) +
-    (1 - lam) * CE(y[perm])``."""
+    (1 - lam) * CE(y[perm])``. ``partners``: the batch ``d.perm`` indexes
+    (default ``images``; a shard's rows take them from the global
+    batch)."""
     b, h, w = images.shape[:3]
-    partner = images.index_select(0, d.perm)
+    partner = (images if partners is None else partners).index_select(
+        0, d.perm)
     mixed = lam = None
     if d.lam_mixup is not None:
         lam = d.lam_mixup.float()
@@ -420,8 +458,7 @@ def draw_jitter(generator: torch.Generator, batch: int, strength: float,
                 dtype=torch.float32) -> JitterDraw:
     """``color_jitter``'s draws, in ``dtype``, from ``generator`` on its
     device."""
-    u = torch.rand((3, batch, 1, 1, 1), generator=generator,
-                   device=generator.device)
+    u = draw_rows(generator, (3, batch, 1, 1, 1))
     s = float(strength)
     return JitterDraw((-s + 2 * s * u[0]).to(dtype),
                       (1 - s + 2 * s * u[1]).to(dtype),

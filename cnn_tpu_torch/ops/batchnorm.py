@@ -10,6 +10,12 @@
   statistics, as ``jax.grad`` does.
 Both normalize as ``x * inv + (beta - mean * inv)`` with
 ``inv = gamma * reciprocal(sqrt(var + eps))``.
+
+On a mesh whose batch shards over ``'data'`` the statistics are the
+global batch's, as in ``cnn_tpu``'s GSPMD step: each rank's per-channel
+sums of ``x`` and ``x^2`` are summed over the axis (differentiably,
+``parallel/collectives.py:psum``) before the mean and the variance, so
+the moving statistics agree on every rank.
 """
 
 from __future__ import annotations
@@ -33,13 +39,21 @@ def batch_norm2d_eval(x: torch.Tensor, gamma: torch.Tensor,
 def batch_norm2d_train(x: torch.Tensor, gamma: torch.Tensor,
                        beta: torch.Tensor, moving_mean: torch.Tensor,
                        moving_var: torch.Tensor, eps: float = 1e-5,
-                       momentum: float = 0.1):
-    """NHWC, batch statistics. Returns ``(y, new_mean, new_var)``; the new
-    moving statistics are detached and keep the moving statistics' dtype."""
+                       momentum: float = 0.1, mesh=None):
+    """NHWC, batch statistics, over ``mesh``'s ``'data'`` axis where one is
+    given. Returns ``(y, new_mean, new_var)``; the new moving statistics
+    are detached and keep the moving statistics' dtype."""
     x32 = x.float()
-    mean = x32.mean(dim=(0, 1, 2))
-    var = torch.clamp(x32.square().mean(dim=(0, 1, 2)) - mean.square(),
-                      min=0.0)
+    if mesh is None or not mesh.active("data"):
+        mean = x32.mean(dim=(0, 1, 2))
+        sq = x32.square().mean(dim=(0, 1, 2))
+    else:
+        n = x32.numel() // x32.shape[-1] * mesh.size("data")
+        sums = mesh.psum(torch.stack([x32.sum(dim=(0, 1, 2)),
+                                      x32.square().sum(dim=(0, 1, 2))]),
+                         "data")
+        mean, sq = sums[0] / n, sums[1] / n
+    var = torch.clamp(sq - mean.square(), min=0.0)
     with torch.no_grad():
         new_mean = ((1.0 - momentum) * moving_mean.float()
                     + momentum * mean).to(moving_mean.dtype)

@@ -335,18 +335,29 @@ def add_decayed_weights(weight_decay: float) -> GradientTransformation:
     return GradientTransformation(lambda params: EmptyState(), update)
 
 
-def global_norm(updates: dict) -> torch.Tensor:
+def global_norm(updates: dict, params: dict | None = None) -> torch.Tensor:
     """optax's global norm: the leaves' sums of squares added in tree
-    order (keys sorted level by level), then the square root."""
+    order (keys sorted level by level), then the square root. A leaf
+    whose parameter holds a shard over a mesh's ``'model'`` axis (its
+    ``tp``, ``(mesh, dim)``: ``parallel/train_step.py:shard_train_state``)
+    adds the squares of every rank's shard."""
     names = sorted(updates, key=lambda n: tuple(tree_path(n).split("/")))
-    return torch.sqrt(sum(torch.sum(updates[n] * updates[n]) for n in names))
+    shards = {n: getattr((params or {}).get(n), "tp", None) for n in names}
+    total = sum(torch.sum(updates[n] * updates[n]) for n in names
+                if shards[n] is None)
+    sharded = [n for n in names if shards[n] is not None]
+    if sharded:
+        mesh = shards[sharded[0]][0]
+        total = total + mesh.all_sum(sum(
+            torch.sum(updates[n] * updates[n]) for n in sharded), "model")
+    return torch.sqrt(total)
 
 
 def clip_by_global_norm(max_norm: float) -> GradientTransformation:
     """optax.clip_by_global_norm: where the global norm ``g`` is at least
     ``max_norm``, each update becomes ``(u / g) * max_norm``."""
     def update(updates, state, params):
-        g_norm = global_norm(updates)
+        g_norm = global_norm(updates, params)
         keep = g_norm < max_norm
         return {k: torch.where(keep, u, (u / g_norm.to(u.dtype)) * max_norm)
                 for k, u in updates.items()}

@@ -1,3 +1,4 @@
+from cnn_tpu_torch.parallel.mesh import Mesh, make_mesh  # noqa: F401
 from cnn_tpu_torch.parallel.train_step import (  # noqa: F401
     TrainState,
     create_train_state,
@@ -5,4 +6,6 @@ from cnn_tpu_torch.parallel.train_step import (  # noqa: F401
     make_eval_step,
     make_forward,
     make_train_step,
+    model_pspecs,
+    shard_train_state,
 )

@@ -38,22 +38,49 @@ test-time augmentation, ``tta``), ``make_ensemble_eval_step`` and
 ``make_forward`` (probabilities, for inference); ``ema_weights`` puts a
 train state's EMA weights and model state in its model around an eval.
 
+On a mesh (``parallel/mesh.py``, ``mesh=``) a step computes what
+``cnn_tpu``'s GSPMD step computes on the global batch, which is what the
+single-device step computes: not plain DDP, whose BN statistics and MoE
+capacities would be each rank's. ``shard_train_state`` puts the mesh in
+the model's layers (``shard_model``: BN's statistics and MoE's routing
+over ``'data'``, ``nn/moe.py``) and cuts each leaf that the layers'
+``param_pspecs`` shard over ``'model'`` to this rank's slice, its
+optimizer leaves with it (``model_pspecs``, ``cnn_tpu``'s walk of
+``layers``, ``body`` and ``proj``). The steps take the global batch and
+keep this rank's rows (``Mesh.rows``). Each rank draws from a generator in
+the same state, so every draw is the global batch's, each rank keeping
+its rows (the augmentation: ``ops/augment.py:shard_draws``; MixUp /
+CutMix mix its rows with partners from the gathered batch; a Dropout's
+channels are one draw for all). The objective on a rank is its part of
+the global batch's loss (``loss / D`` over ``D`` data shards: the aux
+terms are the global batch's, added on every rank); the gradients are
+summed over ``'data'`` in one bucket, a replicated param's averaged over
+``'model'`` (which keeps the replicas bit-equal); ``grad_clip``'s norm
+adds every ``'model'`` shard's squares (``optim.global_norm``); the
+metrics are the global batch's, the same on every rank. Microbatch ``k``
+of ``grad_accum`` is slice ``k`` of every rank's rows (``cnn_tpu``'s
+``make_microbatch_regroup``). ``unsharded`` holds the full
+tensors in place around a checkpoint's write or read.
+
 Not ported (each raises ``NotImplementedError``): other compute dtypes
-(float16) and meshes, expert parallelism among them.
+(float16); the ``'spatial'`` and ``'expert'`` axes and the pipeline
+(``parallel/mesh.py``, ROADMAP.md Queue 1 item 10b/10c).
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 from contextlib import contextmanager
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import torch
 from torch import nn
 from torch.utils import checkpoint as torch_checkpoint
 
-from cnn_tpu_torch.nn.module import leaf_name
-from cnn_tpu_torch.ops.augment import batch_mix
+from cnn_tpu_torch.nn.module import Layer, StackedBlocks, leaf_name, leaf_path
+from cnn_tpu_torch.ops.augment import (apply_mix, batch_mix, draw_mix,
+                                       shard_draws)
 from cnn_tpu_torch.ops.hopper.normalize import uint8_normalize
 from cnn_tpu_torch.ops.losses import (distillation_loss_from_probs,
                                       softmax_cross_entropy)
@@ -65,12 +92,16 @@ from cnn_tpu_torch.optim import (ema_model_state, ema_params,
 class TrainState:
     """``model`` holds the params and the BN state; ``rng`` draws every
     random number of the steps on the model's device; ``seed`` keys the
-    per-epoch permutations of the epoch samplers."""
+    per-epoch permutations of the epoch samplers. On a mesh
+    (``shard_train_state``): ``mesh``, and ``shards``, the params held as
+    this rank's slice over ``'model'`` -> the dim cut."""
     model: nn.Module
     opt_state: object
     step: int
     rng: torch.Generator
     seed: int
+    mesh: object = None
+    shards: dict = field(default_factory=dict)
 
 
 def named_params(model) -> dict:
@@ -128,7 +159,7 @@ def ema_weights(ts: TrainState):
 def check_supported(**flags) -> None:
     """Raises ``NotImplementedError`` naming each option not ported."""
     off = {"compute_dtype": (None, torch.float32, torch.bfloat16),
-           "mesh": (None,), "tta": tuple(TTA_VIEWS)}
+           "tta": tuple(TTA_VIEWS)}
     for name, value in flags.items():
         if value not in off[name]:
             raise NotImplementedError(f"{name}={value!r} is not ported yet")
@@ -200,7 +231,7 @@ def loss_fn(model, images, labels, label_smoothing: float = 0.0,
             remat: bool = False):
     """Forward and loss (``cnn_tpu``'s ``_loss_fn``); returns ``(loss,
     correct)``. ``generator`` feeds a Dropout in training mode; ``mix`` is
-    ``(perm, lam)`` of a mixed batch, ``dist`` ``(teacher_probs, T,
+    ``(partner labels, lam)`` of a mixed batch, ``dist`` ``(teacher_probs, T,
     alpha)``; ``remat`` runs a training forward through
     ``remat_forward``. In training the layers' auxiliary terms are added
     (``collect_aux_losses``)."""
@@ -212,10 +243,10 @@ def loss_fn(model, images, labels, label_smoothing: float = 0.0,
         aux = collect_aux_losses(model) if model.training else None
     logits = logits.float()
     if mix is not None:
-        perm, lam = mix
+        partner, lam = mix
         loss = (lam * softmax_cross_entropy(logits, labels, label_smoothing)
                 + (1.0 - lam) * softmax_cross_entropy(
-                    logits, labels[perm], label_smoothing))
+                    logits, partner, label_smoothing))
     else:
         loss = softmax_cross_entropy(logits, labels, label_smoothing)
     if dist is not None:
@@ -253,18 +284,28 @@ def teacher_probs(teachers, images, temperature: float, compute_dtype=None):
     return probs / len(teachers)
 
 
-def mix_and_teacher_targets(generator, images, *, mixup: float = 0.0,
-                            cutmix: float = 0.0, distill=None,
-                            compute_dtype=None):
+def mix_and_teacher_targets(generator, images, labels, *,
+                            mixup: float = 0.0, cutmix: float = 0.0,
+                            distill=None, compute_dtype=None, mesh=None):
     """The step body's first half: the batch mix, then the teachers' soft
     targets on the mixed images. ``distill`` is a ``normalize_distill``
     result. Returns ``(images, mix, dist)``, the last two the trailing
-    arguments of ``loss_fn``."""
+    arguments of ``loss_fn``. On a mesh ``images`` and ``labels`` are this
+    rank's rows of the batch, which the draw and the partners span."""
     mix = None
-    if mixup > 0.0 or cutmix > 0.0:
+    if (mixup > 0.0 or cutmix > 0.0) and (mesh is None
+                                          or not mesh.active("data")):
         images, perm, lam = batch_mix(generator, images, mixup_alpha=mixup,
                                       cutmix_alpha=cutmix)
-        mix = (perm, lam)
+        mix = (labels[perm], lam)
+    elif mixup > 0.0 or cutmix > 0.0:
+        b, h, w = images.shape[:3]
+        lo, n = mesh.index("data") * b, b * mesh.size("data")
+        d = draw_mix(generator, n, h, w, mixup, cutmix)
+        images, perm, lam = apply_mix(
+            images, d._replace(perm=d.perm[lo:lo + b]),
+            partners=mesh.assemble(images, "data", n, lo))
+        mix = (mesh.assemble(labels, "data", n, lo)[perm], lam)
     dist = None
     if distill is not None:
         teachers, temp, alpha = distill
@@ -276,7 +317,7 @@ def mix_and_teacher_targets(generator, images, *, mixup: float = 0.0,
 def accumulate_grads(ts: TrainState, images, labels, *, grad_accum: int = 1,
                      label_smoothing: float = 0.0, compute_dtype=None,
                      mixup: float = 0.0, cutmix: float = 0.0, distill=None,
-                     remat: bool = False):
+                     remat: bool = False, mesh=None):
     """Mean gradients over ``grad_accum`` equal microbatches, run in turn
     (``cnn_tpu``'s ``accumulate_grads``): BN normalizes each by its own
     statistics and updates its moving statistics once each; each draws
@@ -284,22 +325,37 @@ def accumulate_grads(ts: TrainState, images, labels, *, grad_accum: int = 1,
     mixed microbatch; ``remat`` recomputes each forward in its backward
     (``remat_forward``). One microbatch is the plain step. Returns
     ``({name: grad}, loss, correct)``, the loss the mean over microbatches
-    and ``correct`` the sum."""
+    and ``correct`` the sum.
+
+    On ``mesh`` the batch is this rank's rows and microbatch ``k`` is
+    their slice ``k``: ``cnn_tpu``'s regroup, where each microbatch takes
+    an equal contiguous slice of every shard. Each rank differentiates its
+    part of the objective (the loss over ``D`` data shards); the gradients,
+    the loss and ``correct`` are summed over ``'data'`` (the global
+    batch's)."""
     K = grad_accum
     B = images.shape[0]
     if B % K:
-        raise ValueError(f"batch {B} not divisible by grad_accum {K}")
+        raise ValueError(
+            f"batch {B} not divisible by grad_accum {K}" if mesh is None else
+            f"a shard's {B} rows do not split into {K} microbatches (a "
+            "microbatch smaller than the data axis is not ported)")
     mb = B // K
+    parts = 1
+    if mesh is not None and mesh.active("data"):
+        parts = mesh.size("data")
     ts.model.train()
     params = named_params(ts.model)
     gsum = lsum = csum = None
     for i in range(K):
         x, y = images[i * mb:(i + 1) * mb], labels[i * mb:(i + 1) * mb]
         x, mix, dist = mix_and_teacher_targets(
-            ts.rng, x, mixup=mixup, cutmix=cutmix, distill=distill,
-            compute_dtype=compute_dtype)
+            ts.rng, x, y, mixup=mixup, cutmix=cutmix, distill=distill,
+            compute_dtype=compute_dtype, mesh=mesh)
         loss, correct = loss_fn(ts.model, x, y, label_smoothing,
                                 compute_dtype, ts.rng, mix, dist, remat)
+        if parts > 1:
+            loss = loss / parts
         g = torch.autograd.grad(loss, list(params.values()))
         if gsum is None:
             gsum, lsum, csum = list(g), loss.detach(), correct
@@ -309,34 +365,214 @@ def accumulate_grads(ts: TrainState, images, labels, *, grad_accum: int = 1,
     if K > 1:
         gsum = [g / K for g in gsum]
         lsum = lsum / K
+    if parts > 1:
+        gsum = sum_over(gsum, mesh, "data")
+        lsum = mesh.all_sum(lsum, "data")
+        csum = mesh.all_sum(csum, "data")
+    if mesh is not None and mesh.active("model"):
+        # a replicated param's gradient is the same on every 'model' rank
+        # in exact arithmetic, but a backward kernel whose sum order varies
+        # from run to run (cuDNN's) can move its last bits: the ranks'
+        # mean keeps the replicas bit-equal
+        rep = [i for i, p in enumerate(params.values())
+               if getattr(p, "tp", None) is None]
+        size = mesh.size("model")
+        for i, g in zip(rep, sum_over([gsum[i] for i in rep], mesh,
+                                      "model")):
+            gsum[i] = g / size
     return dict(zip(params, gsum)), lsum, csum
+
+
+def sum_over(tensors: list, mesh, axis: str) -> list:
+    """Each tensor summed over ``mesh``'s ``axis``, in one collective of
+    their concatenation."""
+    if not tensors:
+        return []
+    flat = mesh.all_sum(torch.cat([t.reshape(-1) for t in tensors]), axis)
+    return [part.view_as(t) for part, t in
+            zip(flat.split([t.numel() for t in tensors]), tensors)]
 
 
 def apply_gradients(ts: TrainState, optimizer, images, labels,
                     label_smoothing: float = 0.0, compute_dtype=None, *,
                     grad_accum: int = 1, mixup: float = 0.0,
                     cutmix: float = 0.0, distill=None,
-                    remat: bool = False) -> dict:
+                    remat: bool = False, mesh=None) -> dict:
     """``accumulate_grads``, the optimizer update, the EMA of the model
     state; advances ``ts.step``. Returns the metrics, as device
     tensors."""
     grads, loss, correct = accumulate_grads(
         ts, images, labels, grad_accum=grad_accum,
         label_smoothing=label_smoothing, compute_dtype=compute_dtype,
-        mixup=mixup, cutmix=cutmix, distill=distill, remat=remat)
+        mixup=mixup, cutmix=cutmix, distill=distill, remat=remat, mesh=mesh)
     optimizer.update(grads, ts.opt_state, named_params(ts.model))
     ts.opt_state = ema_update_state(ts.opt_state, named_state(ts.model))
     ts.step += 1
     return {"loss": loss, "correct": correct}
 
 
-def to_compute(images, generator, augment_fn=None, compute_dtype=None):
+def to_compute(images, generator, augment_fn=None, compute_dtype=None,
+               mesh=None):
     """The step's images: ``augment_fn(generator, images)`` cast to
-    ``compute_dtype`` when both are given, else ``prep``."""
+    ``compute_dtype`` when both are given, else ``prep``. On ``mesh``,
+    ``images`` are this rank's shard of the batch, which the
+    augmentation's draws span (``ops/augment.py:shard_draws``)."""
     if augment_fn is None:
         return prep(images, compute_dtype)
-    images = augment_fn(generator, images)
+    draws = (shard_draws(mesh.index("data"), mesh.size("data"))
+             if mesh is not None and mesh.size("data") > 1
+             else contextlib.nullcontext())
+    with draws:
+        images = augment_fn(generator, images)
     return images if compute_dtype is None else images.to(compute_dtype)
+
+
+def local_rows(mesh, images, labels, even: bool = True):
+    """This rank's rows (``Mesh.rows``) of a global batch, on its device;
+    ``even``: the shards must be equal (training)."""
+    n = images.shape[0]
+    if even and n % mesh.size("data"):
+        raise ValueError(f"batch {n} does not split over "
+                         f"{mesh.size('data')} data shards")
+    lo, hi = mesh.rows(n)
+    return images[lo:hi].to(mesh.device), labels[lo:hi].to(mesh.device)
+
+
+# ------------------------------------------------------------ the mesh --
+
+def spec_layers(model):
+    """The layers whose ``param_pspecs`` ``cnn_tpu`` reads: the model's,
+    and within each, those of its ``body`` and its ``proj`` (a
+    ``StackedBlocks``' block is not entered)."""
+    stack = list(getattr(model, "net", model))
+    while stack:
+        layer = stack.pop()
+        yield layer
+        body = getattr(layer, "body", None)
+        if body is not None:
+            stack.extend(body)
+        proj = getattr(layer, "proj", None)
+        if proj is not None:
+            stack.append(proj)
+
+
+def model_pspecs(model, mesh) -> dict:
+    """``{layer name: {param key: spec}}``: each layer's declared
+    ``'model'`` sharding on this mesh (``cnn_tpu``'s ``model_pspecs``, a
+    spec a tuple of axis names)."""
+    model_dim = mesh.shape.get("model", 1)
+    specs = {}
+    for layer in spec_layers(model):
+        ps = layer.param_pspecs(model_dim)
+        if ps:
+            specs[layer.name] = ps
+    return specs
+
+
+def _all_layers(model):
+    for m in model.modules():
+        yield m
+        if isinstance(m, StackedBlocks):   # its template, off the tree
+            yield from m.block.modules()
+
+
+def shard_model(model, mesh) -> None:
+    """Puts ``mesh`` in every layer of ``model`` (BN's statistics and MoE's
+    routing then span its ``'data'`` axis)."""
+    for m in _all_layers(model):
+        if isinstance(m, Layer):
+            m.mesh = mesh
+
+
+def _opt_trees(node):
+    """The ``{name: tensor}`` trees of an optimizer state."""
+    if isinstance(node, dict):
+        yield node
+    elif isinstance(node, tuple):
+        for v in node:
+            yield from _opt_trees(v)
+
+
+def _own(t: torch.Tensor, dim: int, mesh) -> torch.Tensor:
+    """This rank's slice over ``'model'`` of the full ``t`` (a copy)."""
+    k = t.shape[dim] // mesh.size("model")
+    return t.narrow(dim, mesh.index("model") * k, k).contiguous()
+
+
+def _full(t: torch.Tensor, dim: int, mesh) -> torch.Tensor:
+    """Every rank's slice ``t`` over ``'model'`` joined (no gradient)."""
+    k = t.shape[dim]
+    return mesh.assemble(t, "model", k * mesh.size("model"),
+                         mesh.index("model") * k, dim)
+
+
+def shard_train_state(ts: TrainState, mesh, model=None) -> TrainState:
+    """``ts`` on ``mesh``, in place: the mesh in its model's layers
+    (``shard_model``) and, with ``model``, each param that its layer's
+    ``param_pspecs`` shard over ``'model'`` (where every sharded dim
+    divides, as ``cnn_tpu`` checks) cut to this rank's slice, with its
+    optimizer leaves; the layer then runs its slice (``Layer.tp``). Without
+    ``model``, everything stays replicated (plain data parallelism)."""
+    if ts.shards:
+        raise ValueError("this train state is sharded already")
+    shard_model(ts.model, mesh)
+    ts.mesh = mesh
+    if model is None:
+        return ts
+    specs = model_pspecs(model, mesh)
+    owners = {layer.name: layer for layer in spec_layers(model)}
+    with torch.no_grad():
+        for name, p in named_params(ts.model).items():
+            path = leaf_path(name)
+            for n in path:
+                spec = specs.get(n, {}).get(path[-1])
+                if spec and len(spec) == p.dim() and all(
+                        ax is None or p.shape[i] % mesh.size(ax) == 0
+                        for i, ax in enumerate(spec)):
+                    dim = spec.index("model")
+                    p.data = _own(p.data, dim, mesh)
+                    p.tp = (mesh, dim)
+                    owners[n].tp = mesh
+                    ts.shards[name] = dim
+                    for tree in _opt_trees(ts.opt_state):
+                        if name in tree:
+                            tree[name] = _own(tree[name], dim, mesh)
+                    break
+    return ts
+
+
+@contextmanager
+def unsharded(ts: TrainState):
+    """Inside, each param and optimizer leaf of ``ts`` held as a slice over
+    ``'model'`` holds the full tensor (gathered from every rank: every rank
+    enters); on the way out each takes back its slice of it, into its own
+    storage, so a load inside sticks and a captured step's addresses
+    hold."""
+    if not ts.shards:
+        yield ts
+        return
+    mesh, params = ts.mesh, named_params(ts.model)
+    kept = []   # (param or None, tree or None, name, dim, its slice)
+    with torch.no_grad():
+        for name, dim in ts.shards.items():
+            p = params[name]
+            kept.append((p, None, name, dim, p.data))
+            p.data = _full(p.data, dim, mesh)
+            for tree in _opt_trees(ts.opt_state):
+                if name in tree:
+                    kept.append((None, tree, name, dim, tree[name]))
+                    tree[name] = _full(tree[name], dim, mesh)
+    try:
+        yield ts
+    finally:
+        with torch.no_grad():
+            for p, tree, name, dim, part in kept:
+                part.copy_(_own(p.data if p is not None else tree[name],
+                                dim, mesh))
+                if p is not None:
+                    p.data = part
+                else:
+                    tree[name] = part
 
 
 def make_train_step(model, optimizer, *, compute_dtype=None, mesh=None,
@@ -351,17 +587,26 @@ def make_train_step(model, optimizer, *, compute_dtype=None, mesh=None,
     ``compute_dtype`` when that is given. ``grad_accum``: microbatches a
     step (``accumulate_grads``); ``mixup`` / ``cutmix``: Beta alphas, 0
     off; ``distill``: ``(teacher model(s), T, alpha)``; ``remat``: the
-    backward recomputes the forward (``remat_forward``).
+    backward recomputes the forward (``remat_forward``). ``mesh``: the
+    images and labels are the global batch, on any device, identical on
+    every rank; the step keeps this rank's rows (module docstring).
     """
-    check_supported(compute_dtype=compute_dtype, mesh=mesh)
+    check_supported(compute_dtype=compute_dtype)
     dst = normalize_distill(distill)
+    if mesh is not None:
+        shard_model(model, mesh)
+        for teacher in (dst[0] if dst else ()):
+            shard_model(teacher, mesh)
 
     def step(ts: TrainState, images, labels):
-        images = to_compute(images, ts.rng, augment_fn, compute_dtype)
+        if mesh is not None:
+            images, labels = local_rows(mesh, images, labels)
+        images = to_compute(images, ts.rng, augment_fn, compute_dtype, mesh)
         metrics = apply_gradients(ts, optimizer, images, labels,
                                   label_smoothing, compute_dtype,
                                   grad_accum=grad_accum, mixup=mixup,
-                                  cutmix=cutmix, distill=dst, remat=remat)
+                                  cutmix=cutmix, distill=dst, remat=remat,
+                                  mesh=mesh)
         return ts, metrics
 
     return step
@@ -392,10 +637,34 @@ def make_eval_step(model, *, compute_dtype=None, mesh=None, tta: str = ""):
     """Returns ``(images, labels) -> {"loss", "correct", "pred"}`` in eval
     mode (``metrics_from_log_ps``). ``tta``: '' (off), 'hflip' (the image
     and its horizontal flip) or 'flips' (all four flips); the class
-    probabilities are averaged over the views."""
-    check_supported(mesh=mesh)
-    return make_ensemble_eval_step((model,), compute_dtype=compute_dtype,
-                                   tta=tta)
+    probabilities are averaged over the views.
+
+    ``mesh``: the images and labels are the global batch, on any device,
+    identical on every rank; each rank runs its rows (shards as even as
+    they go) and the metrics are the global batch's on every rank, ``pred``
+    among them. A batch smaller than the data axis runs whole on every
+    rank, its ``'data'`` collectives off."""
+    local = make_ensemble_eval_step((model,), compute_dtype=compute_dtype,
+                                    tta=tta)
+    if mesh is None:
+        return local
+    shard_model(model, mesh)
+
+    def step(images, labels):
+        n = images.shape[0]
+        if n < mesh.size("data"):
+            shard_model(model, mesh.without_data())
+            try:
+                return local(images.to(mesh.device), labels.to(mesh.device))
+            finally:
+                shard_model(model, mesh)
+        lo, hi = mesh.rows(n)
+        m = local(*local_rows(mesh, images, labels, even=False))
+        return {"loss": mesh.all_sum(m["loss"] * (hi - lo), "data") / n,
+                "correct": mesh.all_sum(m["correct"], "data"),
+                "pred": mesh.assemble(m["pred"], "data", n, lo)}
+
+    return step
 
 
 def make_ensemble_eval_step(models, *, compute_dtype=None, tta: str = ""):

@@ -38,12 +38,29 @@ steps from the second call on (``data/device_dataset.py:GraphedSteps``).
 same DIR and sources builds nothing; the run ends with a line that says
 which it was. With ``device="cpu"`` nothing is built.
 
+Data and tensor parallelism are ``cnn_tpu``'s: with more than one rank
+(``--multihost``: ``--coordinator HOST:PORT``, ``--num-processes``,
+``--process-id``, or torchrun's environment where a flag is absent;
+``parallel/mesh.py:init_distributed``), ``--data-parallel`` or
+``--model-parallel``, the run takes a ``('data', 'model')`` mesh of the
+ranks (one device each; ``mesh: {...}``), shards the train state over it
+and steps on the global batch (``parallel/train_step.py``). Every process
+reads the same seeded host batches and keeps its rows; the device dataset
+shards over ``'data'`` (the validation set stays whole on each). All
+processes must start at the same iteration (a resume that differs
+raises), agree at each validation whether to stop, and write their
+history to ``history.p{rank}.jsonl`` beside process 0's
+``history.jsonl``; only process 0 writes checkpoints, each the full
+(``'model'``-gathered) tree a one-rank run writes. With more than one
+process the final test runs on the final state (process 0 alone holds
+the best checkpoint).
+
 It runs on the GPU; ``main(argv, device="cpu")`` runs the plain versions
-on the CPU (tests). ``--donate`` is accepted and changes nothing: PyTorch
-updates the train state in place either way. Options not ported yet raise
-``NotImplementedError`` naming their flag (``check_flags``: the
-multi-device flags, expert parallelism among them), as does ``--backend
-native``.
+on the CPU (tests; gloo between processes). ``--donate`` is accepted and
+changes nothing: PyTorch updates the train state in place either way.
+Options not ported yet raise ``NotImplementedError`` naming their flag
+(``check_flags``: the pipeline, spatial and expert axes), as does
+``--backend native``.
 
 Usage: python -m cnn_tpu_torch.tools.train [--total-iters N] [--batch-norm true] ...
 """
@@ -57,6 +74,7 @@ import sys
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from cnn_tpu_torch import default_device, optim
 from cnn_tpu_torch.core.config import parse_configs
@@ -68,7 +86,8 @@ from cnn_tpu_torch.ops.augment import (augment_batch, augment_batch_fast,
                                        color_jitter)
 from cnn_tpu_torch.ops.hopper import _build
 from cnn_tpu_torch.parallel import (create_train_state, make_eval_step,
-                                    make_train_step)
+                                    make_train_step, shard_train_state)
+from cnn_tpu_torch.parallel.mesh import init_distributed, make_mesh
 from cnn_tpu_torch.parallel.train_step import ema_weights
 from cnn_tpu_torch.utils.checkpoint import (checkpoint_name, load_checkpoint,
                                             save_checkpoint, warm_start)
@@ -82,22 +101,16 @@ def check_flags(train_cfg) -> None:
     """Raises ``NotImplementedError`` for the first flag set to an option
     the port does not run yet."""
     t = train_cfg
-    if t.expert_parallel > 1:
-        raise NotImplementedError(
-            "--expert-parallel is not ported yet (ROADMAP.md Queue 1 item "
-            "10): MoECNN's experts run on one GPU")
     unported = (
-        ("--multihost", t.multihost),
-        ("--pipeline-stages", t.pipeline_stages > 1),
-        ("--model-parallel", t.model_parallel > 1),
-        ("--spatial-parallel", t.spatial_parallel > 1),
-        ("--data-parallel", t.data_parallel > 1),
+        ("--pipeline-stages", t.pipeline_stages, "10c"),
+        ("--spatial-parallel", t.spatial_parallel, "10b"),
+        ("--expert-parallel", t.expert_parallel, "10b"),
     )
-    for flag, asked in unported:
-        if asked:
+    for flag, n, item in unported:
+        if n > 1:
             raise NotImplementedError(
-                f"{flag} is not ported yet (cnn_tpu_torch runs every "
-                "family on one GPU)")
+                f"{flag} {n} is not ported yet (ROADMAP.md Queue 1 item "
+                f"{item}; item 10's 'data' and 'model' axes run)")
 
 
 def model_kwargs(model_cfg) -> dict:
@@ -153,13 +166,28 @@ def moe_load(model) -> dict:
 
 
 def _to(device, images: np.ndarray, labels: np.ndarray):
-    return (torch.from_numpy(images).to(device),
-            torch.from_numpy(labels.astype(np.int64)).to(device))
+    images = torch.from_numpy(images)
+    labels = torch.from_numpy(labels.astype(np.int64))
+    if device is None:
+        return images, labels
+    return images.to(device), labels.to(device)
+
+
+def agree(mesh, value: int) -> list:
+    """Every rank's ``value``, in rank order (a zero-filled
+    ``all_reduce`` over the ranks)."""
+    n = mesh.size("data") * mesh.size("model")
+    mine = torch.zeros(n, dtype=torch.int64, device=mesh.device)
+    mine[mesh.rank] = value
+    dist.all_reduce(mine)
+    return mine.tolist()
 
 
 def evaluate(eval_step, loader, device,
              confusion: ConfusionMatrix | None = None) -> tuple[float, float]:
-    """Mean loss and accuracy over one epoch of the host ``loader``."""
+    """Mean loss and accuracy over one epoch of the host ``loader``
+    (``device`` None: the batches go to the step on the host, as a
+    sharded step takes them)."""
     ev = ClassificationEvaluator()
     ml = MeanLoss()
     for images, labels in loader:
@@ -196,9 +224,12 @@ def main(argv=None, *, device=None):
                 sig, lambda *_: preempted.append(True))
         except (ValueError, OSError):  # not the main thread
             pass
+    had_group = dist.is_initialized()
     try:
         return _main(argv, preempted, device)
     finally:
+        if not had_group and dist.is_initialized():
+            dist.destroy_process_group()    # the one --multihost started
         for sig, handler in prev_handlers.items():
             if handler is None:
                 # installed from C, not Python: nothing to restore, and
@@ -221,8 +252,26 @@ def _main(argv, preempted, device):
     model_cfg, data_cfg, train_cfg, _ = parse_configs(argv,
                                                       "cnn_tpu_torch train")
     check_flags(train_cfg)
-    use_compile_cache(train_cfg.compile_cache)
     dev = default_device(device)
+    rank, world = 0, 1
+    if train_cfg.multihost:
+        init_distributed(train_cfg.coordinator, train_cfg.num_processes,
+                         train_cfg.process_id, dev)
+        rank, world = dist.get_rank(), dist.get_world_size()
+        print(f"multihost: process {rank}/{world}")
+    is_main = rank == 0
+    mesh = None
+    if (world > 1 or train_cfg.data_parallel > 1
+            or train_cfg.model_parallel > 1):
+        mesh = make_mesh(train_cfg.data_parallel, train_cfg.model_parallel,
+                         device=dev if dev.type == "cpu" else None)
+        dev = mesh.device
+    # rank 0 builds the kernel library; the others load it once it is there
+    use_compile_cache(train_cfg.compile_cache)
+    if world > 1 and dev.type == "cuda":
+        if is_main:
+            _build.load()
+        dist.barrier()
 
     samples = discover_dataset(data_cfg.dataset_path, data_cfg.categories)
     splits = split_dataset(samples, data_cfg.train_ratio, data_cfg.test_ratio,
@@ -273,6 +322,8 @@ def _main(argv, preempted, device):
         opt = optim.with_ema(opt, train_cfg.ema)
         print(f"weight EMA: decay {train_cfg.ema} "
               "(validation/test use the averaged weights)")
+    if mesh is not None:
+        print(f"mesh: {mesh.shape}")
     compute_dtype = (torch.bfloat16 if model_cfg.compute_dtype == "bfloat16"
                      else None)
     ts = create_train_state(model, opt, seed=train_cfg.seed)
@@ -293,6 +344,18 @@ def _main(argv, preempted, device):
         ts = load_checkpoint(resume, ts)
         start_iters = max(start_iters, ts.step + 1)
         print(f"resumed from {resume} at step {ts.step}")
+    if mesh is not None:
+        # the full state, loaded or fresh, cut to this rank's shards
+        ts = shard_train_state(ts, mesh, model)
+    if world > 1:
+        # every process must enter the loop at the same iteration: a resume
+        # that differs would desynchronize the collectives and hang
+        starts = agree(mesh, start_iters)
+        if len(set(starts)) > 1:
+            raise RuntimeError(
+                f"resume state diverges across processes (start iters "
+                f"{starts}); use a shared checkpoint dir or an explicit "
+                "--resume path present on every host")
 
     augment_fn = None
     jitter = data_cfg.color_jitter
@@ -323,32 +386,39 @@ def _main(argv, preempted, device):
     if data_cfg.device_dataset:
         canvas = data_cfg.canvas_size if data_cfg.augment else data_cfg.image_size
         print(f"uploading dataset to device (canvas {canvas}px)...")
+        # the train set shards over the mesh's 'data' axis; the validation
+        # set stays whole on every rank
         device_train_ds = DeviceDataset(splits["train"], canvas,
-                                        data_cfg.num_workers, device=dev)
+                                        data_cfg.num_workers, mesh=mesh,
+                                        device=dev)
         device_valid_ds = DeviceDataset(splits["valid"], data_cfg.image_size,
                                         data_cfg.num_workers, device=dev)
         step_fn = make_device_train_step(
             model, opt, device_train_ds, train_cfg.train_batch_size,
             compute_dtype=compute_dtype, augment_fn=augment_fn,
-            label_smoothing=train_cfg.label_smoothing,
+            label_smoothing=train_cfg.label_smoothing, mesh=mesh,
             sample_mode=data_cfg.sample_mode,
             steps_per_call=train_cfg.steps_per_call,
             grad_accum=train_cfg.grad_accum, mixup=train_cfg.mixup,
             cutmix=train_cfg.cutmix, distill=distill)
     else:
         step_fn = make_train_step(model, opt, compute_dtype=compute_dtype,
-                                  augment_fn=augment_fn,
+                                  mesh=mesh, augment_fn=augment_fn,
                                   label_smoothing=train_cfg.label_smoothing,
                                   grad_accum=train_cfg.grad_accum,
                                   mixup=train_cfg.mixup,
                                   cutmix=train_cfg.cutmix, distill=distill)
-    eval_fn = make_eval_step(model, compute_dtype=compute_dtype,
+    eval_fn = make_eval_step(model, compute_dtype=compute_dtype, mesh=mesh,
                              tta=train_cfg.tta)
+    # a sharded step takes the global batch on the host and keeps its rows
+    host_dev = None if mesh is not None else dev
 
     os.makedirs(train_cfg.checkpoint_dir, exist_ok=True)
-    history = HistoryWriter(train_cfg.history_path
-                            or os.path.join(train_cfg.checkpoint_dir,
-                                            "history.jsonl"))
+    history = HistoryWriter(
+        train_cfg.history_path
+        or os.path.join(train_cfg.checkpoint_dir,
+                        "history.jsonl" if is_main
+                        else f"history.p{rank}.jsonl"))
     train_eval = ClassificationEvaluator()
     mean_loss = MeanLoss()
     best_acc, best_path = -1.0, None
@@ -389,7 +459,7 @@ def _main(argv, preempted, device):
                                           bs * chunk)
             else:
                 images, labels = train_loader.generate_batch()
-                ts, metrics = step_fn(ts, *_to(dev, images, labels))
+                ts, metrics = step_fn(ts, *_to(host_dev, images, labels))
                 mean_loss.add(float(metrics["loss"]))
                 train_eval.add_counts(int(metrics["correct"]), len(labels))
                 timer.tick(len(labels))
@@ -399,7 +469,11 @@ def _main(argv, preempted, device):
                       f"[loss {mean_loss.get():.3f}] [Accuracy {train_eval.get():.3f}] "
                       f"[{timer.images_per_sec:.1f} img/s]", end="", flush=True)
 
-            if preempted:
+            stop_now = bool(preempted) and world == 1
+            if world > 1 and it % train_cfg.valid_iters == 0:
+                # a sync point: the processes agree to stop together
+                stop_now = any(agree(mesh, int(bool(preempted))))
+            if stop_now:
                 path = os.path.join(train_cfg.checkpoint_dir,
                                     f"preempt_iter_{it}.ckpt")
                 save_checkpoint(path, ts)
@@ -417,7 +491,8 @@ def _main(argv, preempted, device):
                             eval_fn, device_valid_ds,
                             train_cfg.valid_batch_size)
                     else:
-                        v_loss, v_acc = evaluate(eval_fn, valid_loader, dev)
+                        v_loss, v_acc = evaluate(eval_fn, valid_loader,
+                                                 host_dev)
                 print(f"Valid===> [loss {v_loss:.3f}] [Accuracy {v_acc:.3f}]")
                 # the MoE layers' expert loads from the last train step
                 moe_loads = moe_load(model)
@@ -432,7 +507,8 @@ def _main(argv, preempted, device):
                     name = checkpoint_name(it, train_eval.get(), v_acc)
                     path = os.path.join(train_cfg.checkpoint_dir, name)
                     save_checkpoint(path, ts)
-                    print(f"weights have been saved to {path}")
+                    if is_main:
+                        print(f"weights have been saved to {path}")
                     if v_acc > best_acc:
                         best_acc, best_path = v_acc, path
                 mean_loss.clear()
@@ -444,9 +520,15 @@ def _main(argv, preempted, device):
     history.close()
     print("\ntraining done!")
 
+    # the decision to test keys on best_acc, the same on every process
+    # (the sharded eval's collectives need all of them)
     if best_acc >= 0.0:
-        print(f"best checkpoint: {best_path} (valid acc {best_acc:.3f})")
-        ts = load_checkpoint(best_path, ts)
+        if world == 1:
+            print(f"best checkpoint: {best_path} (valid acc {best_acc:.3f})")
+            ts = load_checkpoint(best_path, ts)
+        else:
+            print(f"best checkpoint (on process 0): {best_path} "
+                  f"(valid acc {best_acc:.3f}); testing the FINAL state")
         test_loader = DataLoader(splits["test"], train_cfg.valid_batch_size,
                                  augment=False, shuffle=False,
                                  image_size=data_cfg.image_size,
@@ -455,7 +537,8 @@ def _main(argv, preempted, device):
                                  cache=data_cfg.cache)
         confusion = ConfusionMatrix(model_cfg.num_classes)
         with ema_weights(ts):
-            t_loss, t_acc = evaluate(eval_fn, test_loader, dev, confusion)
+            t_loss, t_acc = evaluate(eval_fn, test_loader, host_dev,
+                                     confusion)
         print(f"Test===> [loss {t_loss:.3f}] [Accuracy {t_acc:.3f}]")
         print("confusion matrix (rows = truth):")
         print(confusion.pretty(list(data_cfg.categories)))

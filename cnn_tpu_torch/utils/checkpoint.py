@@ -41,6 +41,11 @@ device type and state of the train state's ``torch.Generator``. Its reader
 every other global but numpy's array and dtype ones, so a checkpoint can
 carry no code; ``load_opt_state`` copies a read state into a live one.
 
+On a mesh (``parallel/train_step.py:shard_train_state``) the file holds
+the full tree all the same: ``save_checkpoint`` gathers each slice held
+over ``'model'`` and process 0 alone writes; ``load_checkpoint`` reads the
+full tree on every rank and keeps its slices.
+
 The generator on a load (``load_checkpoint``): a ``torch_rng`` state saved
 on the same device type is restored as it was. Otherwise (a ``cnn_tpu``
 checkpoint, or one saved on another device type) the key data's words,
@@ -66,7 +71,8 @@ from cnn_tpu_torch.optim import (EmaState, EmptyState, ScaleByAdamState,
                                  ScaleByScheduleState, TraceState,
                                  ema_model_state, ema_params,
                                  ema_seed_model_state)
-from cnn_tpu_torch.parallel.train_step import named_params, named_state
+from cnn_tpu_torch.parallel.train_step import (named_params, named_state,
+                                               unsharded)
 
 
 def _net(model):
@@ -414,8 +420,17 @@ def _key_seed(key) -> int:
 
 def save_checkpoint(path: str, train_state) -> None:
     """Writes the port's ``TrainState`` as a ``cnn_tpu`` ``.ckpt``
-    (module docstring), atomically."""
+    (module docstring), atomically. On a mesh every rank calls it: the
+    params and optimizer leaves held as slices over ``'model'`` are
+    gathered (``parallel/train_step.py:unsharded``), and process 0 alone
+    writes the full tree, the one a one-rank run writes."""
     ts = train_state
+    with unsharded(ts):
+        if ts.mesh is None or ts.mesh.rank == 0:
+            _write(path, ts)
+
+
+def _write(path: str, ts) -> None:
     params, state = model_trees(ts.model)
     payload = {
         "params": params,
@@ -446,12 +461,14 @@ def load_checkpoint(path: str, train_state):
     ``train_state`` in place and returns it: params, BN state, the
     optimizer state (``load_opt_state``: a legacy EMA state's decay from
     the run's, its model-state average seeded from the loaded state), the
-    step, and the generator (module docstring)."""
+    step, and the generator (module docstring). On a mesh every rank
+    loads the full tree and keeps its slices."""
     ts = train_state
     payload = read_checkpoint(path)
     step = int(payload["step"])
-    load_jax_train_state(ts, payload["params"], payload["state"],
-                         payload["opt_state"], step)
+    with unsharded(ts):
+        load_jax_train_state(ts, payload["params"], payload["state"],
+                             payload["opt_state"], step)
     ts.seed = _key_seed(payload["rng"])
     saved = payload.get("torch_rng")
     if saved is not None and saved["device"] == ts.rng.device.type:

@@ -24,6 +24,7 @@ from cnn_tpu_torch import optim
 from cnn_tpu_torch.optim import make_optimizer, make_schedule, sgd
 from cnn_tpu_torch.parallel import (create_train_state, make_eval_step,
                                     make_train_step)
+from cnn_tpu_torch.parallel.mesh import make_mesh
 from cnn_tpu_torch.parallel.train_step import named_params
 from cnn_tpu_torch.utils.checkpoint import (import_reference_array,
                                             load_jax_params,
@@ -308,16 +309,25 @@ def test_device_train_step_without_augment_normalizes(rng):
     dict(cutmix=1.0), dict(distill="teacher"), dict(mesh="mesh"),
     dict(compute_dtype=torch.float16)])
 def test_device_train_step_options_not_ported_raise(rng, flag):
-    """A mesh and float16 stay refused; grad_accum, steps_per_call, MixUp,
-    CutMix and distillation, once refused, now run a step (held against
-    cnn_tpu in tests/test_torch_mix_distill.py)."""
+    """float16 stays refused; grad_accum, steps_per_call, MixUp, CutMix and
+    distillation, once refused, now run a step (held against cnn_tpu in
+    tests/test_torch_mix_distill.py); so does a mesh, where the dataset is
+    on it (another dataset's is refused; sharded runs:
+    tests/test_torch_parallel.py)."""
     ds = _tiny_dataset(rng, n=4, size=64)
     model = get_model("alexnet", image_size=64, device="cpu")
     opt = make_optimizer("sgd", 0.1)
-    if "mesh" in flag or "compute_dtype" in flag:
+    if "compute_dtype" in flag:
         with pytest.raises(NotImplementedError):
             make_device_train_step(model, opt, ds, 2, **flag)
         return
+    if "mesh" in flag:
+        mesh = make_mesh(device="cpu")
+        with pytest.raises(ValueError, match="same mesh"):
+            make_device_train_step(model, opt, ds, 2, mesh=mesh)
+        ds = DeviceDataset.from_arrays(ds.images.numpy(), ds.labels.numpy(),
+                                       mesh=mesh)
+        flag = dict(mesh=mesh)
     if "distill" in flag:
         flag = dict(distill=(get_model("alexnet", image_size=64,
                                        device="cpu"), 2.0, 0.5))

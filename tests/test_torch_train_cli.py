@@ -7,9 +7,11 @@ flags not ported yet, the toolbox's flags once refused, and
 import glob
 import os
 import signal
+import socket
 
 import numpy as np
 import pytest
+import torch
 
 from cnn_tpu.tools import train as j_train
 from cnn_tpu.utils.checkpoint import load_checkpoint as j_load_checkpoint
@@ -217,6 +219,12 @@ TOOLBOX = {
     # is built, and the CLI prints no library line)
     "--compile-cache": ((), ""),
 }
+# the mesh flags, once refused: --multihost runs a one-process job, and a
+# mesh of more devices than the ranks fails cnn_tpu's assertion (two
+# ranks: tests/test_torch_parallel.py)
+MESH = {"--multihost": "multihost: process 0/1",
+        "--model-parallel": r"\(1, 2\)",   # 1 device, model 2
+        "--data-parallel": "need 2 devices, have 1"}
 WARM = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "checkpoints", "alexnet_bn_device",
     "iter_5000_train_0.986_valid_0.917.ckpt")
@@ -238,13 +246,32 @@ def _teacher(path):
 @pytest.mark.parametrize("flag,value", UNPORTED)
 def test_unported_flag_raises_naming_it(dataset, tmp_path, capsys,
                                         monkeypatch, flag, value):
-    """The multi-device flags (--expert-parallel among them) still raise
-    naming their flag; the toolbox's flags, --space-to-depth,
-    --moe-balance, --name moecnn and --compile-cache, once refused, now
-    run two iterations (against cnn_tpu's CLI:
+    """The pipeline, spatial and expert flags still raise naming their
+    flag; --multihost runs two iterations as a one-process job, and
+    --model-parallel / --data-parallel 2 on one rank fail cnn_tpu's
+    assertion that the mesh has its devices; the toolbox's flags,
+    --space-to-depth, --moe-balance, --name moecnn and --compile-cache,
+    once refused, now run two iterations (against cnn_tpu's CLI:
     tests/test_torch_toolbox_cli.py, tests/test_torch_moe.py and
     tests/test_torch_s2d.py); --compile-cache makes its directory and
     moves the kernel library's build root under it."""
+    if flag == "--multihost":
+        with socket.socket() as sock:
+            sock.bind(("localhost", 0))
+            port = sock.getsockname()[1]
+        assert train.main(_args(
+            dataset, tmp_path / "ck", "--total-iters", "2", flag, value,
+            "--coordinator", f"localhost:{port}", "--num-processes", "1",
+            "--process-id", "0"), device="cpu") == 0
+        out = capsys.readouterr().out
+        assert MESH[flag] in out and "training done!" in out
+        assert not torch.distributed.is_initialized()
+        return
+    if flag in MESH:
+        with pytest.raises(AssertionError, match=MESH[flag]):
+            train.main(["--checkpoint-dir", str(tmp_path), flag, value],
+                       device="cpu")
+        return
     if flag not in TOOLBOX:
         with pytest.raises(NotImplementedError, match=flag):
             train.main(["--checkpoint-dir", str(tmp_path), flag, value],
