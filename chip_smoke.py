@@ -326,6 +326,26 @@
    in this process, whose captured device-dataset call (the NCCL
    collectives in its graph) is bit-equal to its eager loop under cuDNN's
    deterministic mode.
+24. the ``'spatial'`` and ``'expert'`` axes, two ranks on the one card over
+   gloo: BN's float64-summed statistics timed against float32 means at
+   conv1's training shape; the flagship's float32 ``'global'`` device
+   step and an eval batch on an SP2 mesh (image rows in strips, the halo
+   exchange feeding the strip, tiled and pool kernels), resnet10 at 224
+   px on SP2 in float32 (the tiled kernel at its padded 3x3s and 1x1
+   projections) and in bf16 (wgmma and "tma"), MoECNN at its defaults on
+   EP2 (four of its eight experts a rank), one train step and one eval
+   batch each (``phase24_rank`` in two processes), against the
+   one-process step on the same seed: every param, BN statistic and
+   optimizer leaf within 1e-4 x max(1, max|ref|) (bf16 within the bf16
+   model bar, 5e-2), MoE's load within 1e-6, the eval predictions equal,
+   the ranks bit-equal; each rank's launches (conv, pool and tma
+   nonzero, no direct or gather conv), the halo rows a step exchanges,
+   device and wall ms per step of each mesh and of one process; then the
+   train CLI with ``--multihost`` as two processes, ``--spatial-parallel
+   2`` (the bf16 flagship: launches per rank exactly one process's) and
+   ``--expert-parallel 2 --name moecnn``, 10 iterations each: the same
+   lines on both ranks, one checkpoint written by process 0 alone, which
+   reads back.
 
 Every phase prints one flushed line with the seconds since start. Any failed
 check raises, so the exit code is not 0. Without a CUDA device it exits 1
@@ -382,6 +402,7 @@ from cnn_tpu_torch.models import get_model
 from cnn_tpu_torch.nn import Conv2D, Linear, ReLU, StackedBlocks
 from cnn_tpu_torch.ops import augment as aug
 from cnn_tpu_torch.ops.activations import relu as ops_relu
+from cnn_tpu_torch.ops.batchnorm import batch_norm2d_train
 from cnn_tpu_torch.ops.conv import conv2d, conv_out_size
 from cnn_tpu_torch.ops.hopper import (BF16_TILES,
                                       STRIP_ROWS, TILES, TMA_TILES,
@@ -411,6 +432,7 @@ from cnn_tpu_torch.ops.preprocess import uint8_to_float
 from cnn_tpu_torch.optim import make_optimizer, sgd, with_ema, with_frozen
 from cnn_tpu_torch.parallel import (create_train_state, make_eval_step,
                                     make_train_step, shard_train_state)
+from cnn_tpu_torch.parallel import collectives
 from cnn_tpu_torch.parallel.mesh import init_distributed, make_mesh
 from cnn_tpu_torch.parallel.train_step import (accumulate_grads,
                                                named_params, named_state,
@@ -5999,6 +6021,347 @@ def phase23(smi: str, tmp: Path, cli: dict) -> dict:
     return total
 
 
+# ---------------------------------------------------------------------------
+# phase 24: the 'spatial' and 'expert' axes
+# ---------------------------------------------------------------------------
+
+P24_TOL = 1e-4         # times max(1, max|ref|), as phase 23
+P24_LOAD_TOL = 1e-6    # MoE's load
+P24_B = B              # resnet10's and MoECNN's batch
+P24_STEPS = 3          # timed steps of each mesh
+P24_EP = ["moe.b1", "moe.b2", "moe.w1", "moe.w2"]
+# tag -> (family, compute dtype, mesh sizes (data, model, spatial,
+# expert)); the flagship AlexNet's SP2 step is phase 23's device step
+P24_CASES = {"resnet10 sp2": ("resnet10", None, (1, 1, 2, 1)),
+             "resnet10 sp2 bf16": ("resnet10", BF16, (1, 1, 2, 1)),
+             "moecnn ep2": ("moecnn", None, (1, 1, 1, 2))}
+
+
+def p24_batch() -> tuple[torch.Tensor, torch.Tensor]:
+    """``P24_B`` seeded uint8 images at 224 px and their labels (CPU)."""
+    rng = np.random.default_rng(25)
+    return (torch.from_numpy(synthetic_images(rng, P24_B)),
+            torch.from_numpy(rng.integers(0, 3, P24_B)))
+
+
+def p24_run(family: str, dtype=None, mesh=None):
+    """A seeded ``family`` at 224 px (MoECNN at its defaults: width 64, 8
+    experts, hidden 256), its train state (sharded on ``mesh``) and its
+    train and eval steps on uint8 batches: ``(model, ts, step, ev)``."""
+    model = get_model(family, num_classes=3, image_size=224, device="cuda",
+                      generator=torch.Generator().manual_seed(FAMILY_SEED))
+    opt = make_optimizer("momentum", 1e-2, schedule="cosine",
+                         total_steps=64)
+    ts = create_train_state(model, opt, seed=7)
+    if mesh is not None:
+        shard_train_state(ts, mesh, model)
+    return (model, ts,
+            make_train_step(model, opt, compute_dtype=dtype, mesh=mesh),
+            make_eval_step(model, compute_dtype=dtype, mesh=mesh))
+
+
+def p24_time(fn, n: int = P24_STEPS) -> tuple[float, float]:
+    """Device (CUDA events) and wall ms per call of ``fn`` over ``n``
+    calls, the counters put back."""
+    before = read_counters()
+    torch.cuda.synchronize()
+    a, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    t = time.perf_counter()
+    a.record()
+    for _ in range(n):
+        fn()
+    e.record()
+    torch.cuda.synchronize()
+    wall = 1e3 * (time.perf_counter() - t) / n
+    reset_launches()
+    add_counters(before)
+    return a.elapsed_time(e) / n, wall
+
+
+def p24_counted(run) -> tuple[object, dict, int]:
+    """``run()`` with the kernels' counters and the halo exchange's row
+    count from 0: its result, its launches and the rows exchanged."""
+    torch.cuda.synchronize()
+    reset_launches()
+    rows = collectives.counts["halo_rows"]
+    out = run()
+    torch.cuda.synchronize()
+    return (out, {k: v for k, v in read_counters().items() if v},
+            collectives.counts["halo_rows"] - rows)
+
+
+def phase24_rank(tmp: str, port: int, rank: int) -> None:
+    """One of the two ranks of phase 24: the flagship AlexNet's float32
+    ``'global'`` device step and an eval batch on an SP2 mesh, then each
+    case of ``P24_CASES`` (one train step and one eval batch), each with
+    the counters from 0 and the full tensors saved to ``tmp``, then its
+    timed steps; prints its report as one JSON line."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    init_distributed(f"localhost:{port}", 2, rank, "cuda")
+    report = {"backend": dist.get_backend()}
+    mesh = make_mesh(1, 1, 2)
+    model, ts, step = p23_run(mesh)
+    (ts, m), counts, rows = p24_counted(lambda: step(ts))
+    ev, ev_counts, ev_rows = p24_counted(lambda: p23_eval(model, mesh))
+    with unsharded(ts):
+        torch.save({k: v.detach().cpu() for k, v in
+                    train_tensors(ts).items()},
+                   os.path.join(tmp, f"p24_alexnet_{rank}.pt"))
+    ms = p23_time(ts, step, P24_STEPS)
+    report["alexnet sp2"] = {
+        "shape": repr(mesh.shape), "counts": counts, "eval": ev_counts,
+        "rows": rows, "eval_rows": ev_rows, "loss": float(m["loss"]),
+        "eval_loss": float(ev["loss"]), "shards": sorted(ts.shards),
+        "ms": ms}
+    del model, ts, step
+    x, y = p24_batch()
+    for tag, (family, dtype, sizes) in P24_CASES.items():
+        mesh = make_mesh(*sizes)
+        model, ts, step, evs = p24_run(family, dtype, mesh)
+        (ts, m), counts, rows = p24_counted(lambda: step(ts, x, y))
+        ev, ev_counts, ev_rows = p24_counted(lambda: evs(x, y))
+        with unsharded(ts):
+            torch.save({k: v.detach().cpu() for k, v in
+                        train_tensors(ts).items()},
+                       os.path.join(tmp, f"p24_{tag}_{rank}.pt"))
+        ms = p24_time(lambda: step(ts, x, y))
+        report[tag] = {"shape": repr(mesh.shape), "counts": counts,
+                       "eval": ev_counts, "rows": rows, "eval_rows": ev_rows,
+                       "loss": float(m["loss"]),
+                       "eval_loss": float(ev["loss"]),
+                       "pred": ev["pred"].tolist(),
+                       "shards": sorted(ts.shards), "ms": ms}
+        del model, ts, step, evs
+        torch.cuda.empty_cache()
+    print("p24 rank: " + json.dumps(report), flush=True)
+    dist.destroy_process_group()
+
+
+def p24_worst(got: dict, ref: dict) -> tuple[float, str]:
+    """The largest deviation of ``got``'s tensors from ``ref``'s, times
+    max(1, max|ref|), and where (with the next five, for the record)."""
+    devs = []
+    for k, want in ref.items():
+        d = float((got[k].double() - want.double()).abs().max())
+        devs.append((d / max(1.0, float(want.double().abs().max())), k))
+    devs.sort(reverse=True)
+    return devs[0][0], "; ".join(f"{k} {d:.3e}" for d, k in devs[:6])
+
+
+def p24_parity(tmp: Path, smi: str) -> tuple[dict, dict, list]:
+    """The two ranks against this process's steps on the same seeds;
+    returns AlexNet's and the families' launches (every rank's, added up)
+    and the report's lines."""
+    procs = p23_spawn([str(tmp), "{port}", "{rank}"], code=(
+        "import sys, chip_smoke as c\n"
+        "c.phase24_rank(sys.argv[1], int(sys.argv[2]), int(sys.argv[3]))\n"))
+    # meanwhile the one-process references
+    refs, ref_ms = {}, {}
+    model, ts, step = p23_run()
+    ts, m = step(ts)
+    refs["alexnet sp2"] = ({k: v.detach().cpu().clone() for k, v in
+                            train_tensors(ts).items()}, float(m["loss"]),
+                           None)
+    ref_ms["alexnet sp2"] = p23_time(ts, step, P24_STEPS)
+    del model, ts, step
+    x, y = p24_batch()
+    for tag, (family, dtype, _) in P24_CASES.items():
+        model, ts, step, evs = p24_run(family, dtype)
+        ts, m = step(ts, x.cuda(), y.cuda())
+        ev = evs(x.cuda(), y.cuda())
+        refs[tag] = ({k: v.detach().cpu().clone() for k, v in
+                      train_tensors(ts).items()}, float(m["loss"]),
+                     ev["pred"].tolist())
+        ref_ms[tag] = p24_time(lambda: step(ts, x.cuda(), y.cuda()))
+        del model, ts, step, evs
+        torch.cuda.empty_cache()
+    outs = p23_outputs(procs, "phase 24 parity")
+    reports = [json.loads(o.rsplit("p24 rank: ", 1)[1].splitlines()[0])
+               for o in outs]
+    alex, fam, lines = {}, {}, []
+    for tag, (ref, ref_loss, ref_pred) in refs.items():
+        name = "alexnet" if tag == "alexnet sp2" else tag
+        got = [torch.load(tmp / f"p24_{name}_{r}.pt") for r in range(2)]
+        check(sorted(got[0]) == sorted(ref),
+              f"{tag}: tensors {sorted(set(got[0]) ^ set(ref))[:6]}")
+        check(all(bits_equal(got[0][k], got[1][k]) for k in ref),
+              f"{tag}: the two ranks' tensors differ")
+        bf16 = tag.endswith("bf16")
+        bar = BF16_MODEL_TOL if bf16 else P24_TOL
+        worst, where = p24_worst(got[0], ref)
+        check(worst <= bar, f"{tag}: {where} off the one-process step by "
+              f"{worst:.3e} x max(1, max|ref|) (bar {bar})")
+        loads = [k for k in ref if k.endswith(".load")]
+        load_dev = max((float((got[0][k] - ref[k]).abs().max())
+                        for k in loads), default=0.0)
+        check(load_dev <= P24_LOAD_TOL, f"{tag}: MoE load off by "
+              f"{load_dev:.3e}")
+        launches = []
+        for r, rep in enumerate(reports):
+            part = rep[tag]
+            check(rep["backend"] == "gloo", f"{tag}: backend {rep}")
+            check(part["shards"] == (P24_EP if "ep2" in tag else []),
+                  f"{tag} rank {r}: shards {part['shards']}")
+            check(abs(part["loss"] - ref_loss) <= bar * max(
+                1.0, abs(ref_loss)), f"{tag}: loss {part['loss']} against "
+                f"{ref_loss}")
+            if ref_pred is not None and not bf16:
+                check(part["pred"] == ref_pred, f"{tag} rank {r}: preds")
+            both = dict(part["counts"])
+            add_up(both, part["eval"])
+            want = ["conv2d_bias_relu.launches"] + (
+                ["max_pool2d_fwd.launches", "max_pool2d_bwd.launches"]
+                if name == "alexnet" else []) + (
+                ["conv2d_bias_relu.launches_bf16_tma"] if bf16 else [])
+            check(all(both.get(k, 0) > 0 for k in want) and not any(
+                both.get(f"conv2d_bias_relu.launches_{v}", 0)
+                for v in ("direct", "bf16_gather")),
+                f"{tag} rank {r}: launches {both}")
+            if "sp2" in tag:
+                check(part["rows"] > 0, f"{tag} rank {r}: no halo rows")
+            # MoECNN's convs have rows of their own (phase 20)
+            if name == "alexnet":
+                add_up(alex, both)
+            elif tag.startswith("resnet10"):
+                add_up(fam, both)
+                add_up(fam, stem_counts("resnet10", both))
+            launches.append(both)
+        dev = [rep[tag]["ms"][0] for rep in reports]
+        wall = [rep[tag]["ms"][1] for rep in reports]
+        p = reports[0][tag]
+        lines.append(
+            f"{tag} {p['shape']}: one step within {worst:.3e} x max(1, "
+            f"max|ref|) of the one-process step (worst {where}; bar {bar}"
+            + (f"; MoE load within {load_dev:.2e}" if loads else "")
+            + f"), eval preds {'equal' if not bf16 else 'not compared'}, "
+            f"the ranks bit-equal; halo rows exchanged per step "
+            f"{p['rows']} (its eval batch {p['eval_rows']}); launches per "
+            f"rank {launches}; device {dev[0]:.3f} / {dev[1]:.3f} ms per "
+            f"step, wall {wall[0]:.3f} / {wall[1]:.3f} (ranks 0 / 1), one "
+            f"process device {ref_ms[tag][0]:.3f}, wall "
+            f"{ref_ms[tag][1]:.3f} ({smi})")
+    return alex, fam, lines
+
+
+def p24_cli(cli: dict, tmp: Path) -> tuple[dict, dict, list]:
+    """The two-process train CLI runs, ``--spatial-parallel 2`` (the bf16
+    flagship) and ``--expert-parallel 2`` (MoECNN at its defaults, bf16),
+    started at once; returns AlexNet's and MoECNN's launches and the
+    lines."""
+    nv, nt = cli["valid_batches"], cli["test_batches"]
+    base = CLI_FLAGSHIP + [
+        "--dataset-path", str(cli["data"]), *cli["sizes"],
+        "--total-iters", str(P23_ITERS), "--valid-iters", str(P23_ITERS),
+        "--save-iters", str(P23_ITERS), "--multihost", "true",
+        "--coordinator", "localhost:{port}", "--num-processes", "2",
+        "--process-id", "{rank}"]
+    runs = {"sp2": (["--spatial-parallel", "2"],
+                    "{'data': 1, 'model': 1, 'spatial': 2}"),
+            "ep2": (["--expert-parallel", "2", "--name", "moecnn"],
+                    "{'data': 1, 'model': 1, 'expert': 2}")}
+    procs = {tag: p23_spawn(base + flags + ["--checkpoint-dir",
+                                            str(tmp / f"p24_{tag}")],
+                            code=CHILD)
+             for tag, (flags, _) in runs.items()}
+    # each rank runs every conv on its strip: the counts of one process
+    want = cli_want(P23_ITERS, nv + nt, True, True)
+    alex, moe, lines = {}, {}, []
+    for tag, (_, shape) in runs.items():
+        outs = p23_outputs(procs[tag], f"phase 24 CLI {tag}")
+        logged, launches = [], []
+        for r, out in enumerate(outs):
+            counts = json.loads(out.rsplit("child launches: ", 1)[1]
+                                .splitlines()[0])
+            if tag == "sp2":
+                check(counts == want, f"CLI {tag} rank {r}: launches "
+                      f"{counts}, expected {want}")
+            else:
+                check(counts.get("conv2d_bias_relu.launches_bf16_tma", 0)
+                      > 0 and counts.get("uint8_normalize.launches", 0) > 0,
+                      f"CLI {tag} rank {r}: launches {counts}")
+            add_up(alex if tag == "sp2" else moe, counts)
+            launches.append(counts)
+            check(f"mesh: {shape}" in out and "training done!" in out
+                  and f"multihost: process {r}/2" in out,
+                  f"CLI {tag} rank {r}: output ends {out[-1500:]!r}")
+            logged.append([re.sub(r"\[[\d.]+ img/s\]", "", ln)
+                           for ln in re.split(r"[\r\n]", out)
+                           if ln.startswith(("Train===>", "Valid===>",
+                                             "Test===>", "MoE load"))])
+        check(logged[0] == logged[1] and logged[0],
+              f"CLI {tag}: the ranks logged {logged}")
+        losses = [float(v) for v in P23_LOSS.findall(outs[0])]
+        check(losses and all(np.isfinite(losses)), f"CLI {tag}: {losses}")
+        saved = [out.count("weights have been saved to") for out in outs]
+        check(saved == [1, 0], f"CLI {tag}: saves per rank {saved}")
+        cks = sorted((tmp / f"p24_{tag}").glob("*.ckpt"))
+        check(len(cks) == 1, f"CLI {tag}: checkpoints {cks}")
+        payload = read_checkpoint(str(cks[0]))
+        if tag == "ep2":
+            check(tuple(payload["params"]["moe"]["w1"].shape)
+                  == (8, 64, 256), "CLI ep2: the checkpoint's experts")
+        family = "alexnet" if tag == "sp2" else "moecnn"
+        back = get_model(family, num_classes=3, image_size=224,
+                         batch_norm=True, device="cuda")
+        load_checkpoint(str(cks[0]), create_train_state(
+            back, make_optimizer("momentum", 1.5e-2, schedule="cosine",
+                                 total_steps=P23_ITERS)))
+        test = [ln for ln in logged[0] if ln.startswith("Test===>")]
+        lines.append(f"train CLI --multihost, {tag} ({shape}), {P23_ITERS} "
+                     f"iterations of the bf16 {family} at global batch "
+                     f"{TRAIN_B}: the same lines on both ranks (losses "
+                     f"{losses}; {test[0].strip() if test else 'no test'}), "
+                     f"launches per rank {launches}"
+                     + (" (exact: one process's)" if tag == "sp2" else "")
+                     + f", {cks[0].name} written by process 0 alone and "
+                     "read back")
+    return alex, moe, lines
+
+
+def p24_bn_cost(smi: str) -> str:
+    """BN's training statistics from float64 sums (``ops/batchnorm.py``,
+    which a split batch or image reproduces bit for bit) against the
+    float32 means they replaced, forward and backward at conv1's training
+    shape, timed in turns; the line."""
+    x = torch.randn(TRAIN_B, 111, 111, 16, device="cuda",
+                    requires_grad=True)
+    g = torch.randn_like(x)
+    gamma, beta = torch.ones(16, device="cuda"), torch.zeros(16,
+                                                             device="cuda")
+    mean, var = torch.zeros(16, device="cuda"), torch.ones(16, device="cuda")
+
+    def f64():
+        y, _, _ = batch_norm2d_train(x, gamma, beta, mean, var)
+        torch.autograd.grad(y, x, g)
+
+    def f32():
+        m = x.mean(dim=(0, 1, 2))
+        v = torch.clamp(x.square().mean(dim=(0, 1, 2)) - m.square(), min=0.0)
+        inv = gamma * torch.reciprocal(torch.sqrt(v + 1e-5))
+        torch.autograd.grad(x * inv + (beta - m * inv), x, g)
+
+    a, b = in_turns(f64, f32, 10)
+    return (f"BN forward + backward at [{TRAIN_B},111,111,16] float32: "
+            f"float64 sums {a:.4f} ms against float32 means {b:.4f} "
+            f"(in turns, through the wrappers; {smi})")
+
+
+def phase24(smi: str, tmp: Path, cli: dict) -> tuple[dict, dict]:
+    """Phase 24: the SP2 and EP2 steps against one process, then the CLI
+    runs. Returns the AlexNet runs' launches and resnet10's (MoECNN's
+    convs have rows of their own), each added up."""
+    t0 = time.perf_counter()
+    bn = p24_bn_cost(smi)
+    alex, fam, lines = p24_parity(tmp, smi)
+    got, _, more = p24_cli(cli, tmp)
+    add_up(alex, got)
+    for line in [bn] + lines + more:
+        phase(f"phase 24: {line}")
+    phase(f"phase 24: {time.perf_counter() - t0:.1f} s")
+    return alex, fam
+
+
 def same_trees(a, b) -> bool:
     if isinstance(a, dict):
         return (isinstance(b, dict) and sorted(a) == sorted(b)
@@ -6137,6 +6500,11 @@ def main() -> int:
         add_up(fam, fam22)
         # phase 23: every rank's launches count on AlexNet's rows
         add_up(cli, phase23(smi, Path(tmp), flagship))
+        # phase 24: the AlexNet runs' launches count on its rows,
+        # resnet10's on the families'
+        alex24, fam24 = phase24(smi, Path(tmp), flagship)
+        add_up(cli, alex24)
+        add_up(fam, fam24)
 
     # the CLIs' launches (phases 14-16): float32 ones on the float32 rows,
     # the rotation in either dtype on its one row

@@ -39,6 +39,12 @@ sharded step samples each rank's rows of the global batch:
   anew each epoch, so every real row is seen at least once an epoch and
   no fixed row twice.
 
+The ranks that share a data shard (the other axes: ``'model'``,
+``'spatial'``, ``'expert'``) hold the same rows and draw from generators
+in the same state, so they sample, augment and mix the same whole images;
+the model then cuts each rank's strip of their rows
+(``nn/sequential.py:cut_rows``).
+
 On the GPU the sharded call is one CUDA graph where the process group is
 NCCL (collectives included); under gloo, whose collectives a graph
 cannot capture, the eager loop runs and the step says so when made.

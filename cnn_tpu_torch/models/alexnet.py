@@ -21,6 +21,7 @@ from cnn_tpu_torch import default_device
 from cnn_tpu_torch.models.registry import register_model
 from cnn_tpu_torch.nn import (BatchNorm2D, Conv2D, Dropout, Linear, MaxPool2D,
                               ReLU, Sequential)
+from cnn_tpu_torch.nn.sequential import cut_rows
 
 
 def build_alexnet(num_classes: int = 3, batch_norm: bool = False,
@@ -93,8 +94,8 @@ class AlexNet(nn.Module):
         parameters stay float32. ``generator`` feeds a training-mode
         Dropout; with ``capture`` (layer names) it returns ``(logits,
         {name: activation})`` (``Sequential.forward``)."""
-        return self.net(x, compute_dtype=compute_dtype, generator=generator,
-                        capture=capture)
+        return self.net(cut_rows(self.net, x), compute_dtype=compute_dtype,
+                        generator=generator, capture=capture)
 
 
 @register_model("alexnet")

@@ -7,6 +7,7 @@ import torch
 from torch import nn
 
 from cnn_tpu_torch import default_device
+from cnn_tpu_torch.nn.sequential import cut_rows
 
 
 class SequentialModel(nn.Module):
@@ -25,8 +26,8 @@ class SequentialModel(nn.Module):
         ``compute_dtype`` when given (the parameters stay float32);
         ``generator`` feeds a training-mode Dropout; with ``capture``
         (layer names) ``(logits, {name: activation})``."""
-        return self.net(x, compute_dtype=compute_dtype, generator=generator,
-                        capture=capture)
+        return self.net(cut_rows(self.net, x), compute_dtype=compute_dtype,
+                        generator=generator, capture=capture)
 
 
 def init_args(device=None, generator=None) -> tuple[torch.device,

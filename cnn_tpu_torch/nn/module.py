@@ -34,11 +34,22 @@ walks any layer in ``cnn_tpu``'s tree paths, which name the parameters
 
 On a mesh (``parallel/mesh.py``, set by ``parallel/train_step.py:
 shard_model``) a layer holds it in ``mesh``: BN sums its batch statistics
-over ``'data'``. ``param_pspecs`` declares, as ``cnn_tpu``'s layers do,
-which parameter axes shard over ``'model'`` (a wide conv's out-channels, a
-dense layer's in-features); a layer whose ``w`` holds its shard keeps the
-mesh in ``tp`` and runs its slice through the same kernels, then joins the
-ranks' results (``_forward_tp``).
+over ``'data'`` and ``'spatial'``. ``param_pspecs`` declares, as
+``cnn_tpu``'s layers do, which parameter axes shard over ``'model'`` (a
+wide conv's out-channels, a dense layer's in-features); a layer whose
+``w`` holds its shard keeps the mesh in ``tp`` and runs its slice through
+the same kernels, then joins the ranks' results (``_forward_tp``).
+
+On a mesh with a ``'spatial'`` axis each activation is this rank's strip
+of its image rows (``Mesh.strip``; the model's entry cuts the images,
+``nn/sequential.py:cut_rows``, after ``plan_rows`` has given each layer
+the rows of its input over all ranks, ``rows``). A layer that reads a
+window of rows (Conv2D, DepthwiseConv2D, MaxPool2D, AvgPool2D) takes the
+rows its output rows read from their owners (``Mesh.halo``) and runs its
+own op, kernels included, on that strip with its own padding, then crops
+the outputs that read the rows above it (``_windowed``); GlobalAvgPool
+sums its rows over the axis; Flatten and a Linear fed by a conv gather
+the rows first (``_whole_rows``).
 """
 
 from __future__ import annotations
@@ -53,7 +64,7 @@ from torch.utils import checkpoint as torch_checkpoint
 from cnn_tpu_torch.ops.activations import relu
 from cnn_tpu_torch.ops import dropout as dropout_ops
 from cnn_tpu_torch.ops.batchnorm import batch_norm2d_eval, batch_norm2d_train
-from cnn_tpu_torch.ops.conv import depthwise_conv2d
+from cnn_tpu_torch.ops.conv import conv_out_size, depthwise_conv2d
 from cnn_tpu_torch.ops.hopper.conv import (conv2d_bias_relu,
                                            conv2d_bias_relu_fn,
                                            conv2d_bias_relu_op)
@@ -94,6 +105,8 @@ class Layer(nn.Module):
     draws = False
     mesh = None     # the mesh of a sharded step (parallel/train_step.py)
     tp = None       # the mesh whose 'model' axis shards ``w``
+    ep = None       # the mesh whose 'expert' axis shards its experts
+    rows = None     # the image rows of its input over a 'spatial' axis
 
     def __init__(self, name: str):
         super().__init__()
@@ -111,6 +124,51 @@ class Layer(nn.Module):
         and BN's moving statistics as state."""
         for key, p in self.named_parameters(recurse=False):
             yield (key,), p, False
+
+    def plan_rows(self, h):
+        """Records ``h``, the image rows of its input over every
+        ``'spatial'`` rank (None once a layer has taken them away), in
+        ``rows``; returns its output's."""
+        self.rows = h
+        return h
+
+    def on_strips(self) -> bool:
+        """Whether its input is a strip of rows of a ``'spatial'`` mesh."""
+        return (self.mesh is not None and self.rows is not None
+                and self.mesh.active("spatial"))
+
+
+def _windowed(layer, x, k, stride, padding, op, channels, dtype=None):
+    """``op`` on this rank's strip of ``x``'s rows on a ``'spatial'`` mesh:
+    the layer of window ``k``, ``stride`` and ``padding`` on ``layer.rows``
+    image rows. The strip holds the rows its output rows read
+    (``Mesh.halo``); ``op`` runs it with the layer's own padding, and the
+    outputs that read the strip's top margin are cropped. A rank that owns
+    no output row (fewer rows than ranks) returns an empty [B, 0, Wo,
+    ``channels``] that still leads back to the exchange, whose backward
+    every rank of the axis joins."""
+    mesh = layer.mesh
+    plan = mesh.halo_plan(layer.rows, k, stride, padding)
+    me = mesh.index("spatial")
+    strip = mesh.halo(x, plan)
+    olo, ohi = plan.out[me]
+    if ohi == olo:
+        wo = (x.shape[2] + 2 * padding - k) // stride + 1
+        return strip[:, :0, :1, :1].expand(
+            x.shape[0], 0, wo, channels).to(dtype or x.dtype)
+    y = op(strip)
+    if plan.crop == 0 and y.shape[1] == ohi - olo:
+        return y
+    return y.narrow(1, plan.crop, ohi - olo)
+
+
+def _whole_rows(layer, x):
+    """A 4-D strip of a ``'spatial'`` mesh with every rank's rows joined
+    (``Mesh.gather``); anything else as it is."""
+    if x.dim() != 4 or not layer.on_strips():
+        return x
+    lo, _ = layer.mesh.strip(layer.rows)
+    return layer.mesh.gather(x, "spatial", 1, layer.rows, lo)
 
 
 class Conv2D(Layer):
@@ -154,7 +212,19 @@ class Conv2D(Layer):
             return {"w": (None, None, None, "model")}
         return None
 
+    def plan_rows(self, h):
+        self.rows = h
+        return conv_out_size(h, self.kernel_size, self.stride, self.padding)
+
     def forward(self, x, relu: bool = False, compute_dtype=None):
+        if self.on_strips():
+            return _windowed(self, x, self.kernel_size, self.stride,
+                             self.padding,
+                             lambda s: self._forward(s, relu, compute_dtype),
+                             self.out_channels, compute_dtype)
+        return self._forward(x, relu, compute_dtype)
+
+    def _forward(self, x, relu, compute_dtype):
         if self.tp is not None:
             return self._forward_tp(x, relu, compute_dtype)
         return self._conv(x, self.w, self.b, relu, compute_dtype)
@@ -204,7 +274,19 @@ class DepthwiseConv2D(Layer):
     def out_channels(self) -> int:
         return self.channels * self.channel_multiplier
 
+    def plan_rows(self, h):
+        self.rows = h
+        return conv_out_size(h, self.kernel_size, self.stride, self.padding)
+
     def forward(self, x, compute_dtype=None):
+        if self.on_strips():
+            return _windowed(self, x, self.kernel_size, self.stride,
+                             self.padding,
+                             lambda s: self._forward(s, compute_dtype),
+                             self.out_channels, compute_dtype)
+        return self._forward(x, compute_dtype)
+
+    def _forward(self, x, compute_dtype):
         w, b = self.w, self.b
         if compute_dtype is not None:
             x, w, b = (x.to(compute_dtype), w.to(compute_dtype),
@@ -224,7 +306,17 @@ class MaxPool2D(Layer):
                 f"{name}: the pool kernel takes 2x2 windows at stride 2, not "
                 f"{kernel_size}x{kernel_size} at stride {stride}")
 
+    def plan_rows(self, h):
+        self.rows = h
+        return h // 2
+
     def forward(self, x):
+        if self.on_strips():
+            return _windowed(self, x, 2, 2, 0, self._pool, x.shape[-1])
+        return self._pool(x)
+
+    @staticmethod
+    def _pool(x):
         if _wants_grad(x):
             return max_pool2d_fn(x)
         return max_pool2d_fwd(x)
@@ -237,15 +329,33 @@ class AvgPool2D(Layer):
         super().__init__(name)
         self.kernel_size, self.stride = kernel_size, stride
 
+    def plan_rows(self, h):
+        self.rows = h
+        return (h - self.kernel_size) // self.stride + 1
+
     def forward(self, x):
-        return avg_pool2d(x, self.kernel_size, self.stride)
+        def pool(s):
+            return avg_pool2d(s, self.kernel_size, self.stride)
+        if self.on_strips():
+            return _windowed(self, x, self.kernel_size, self.stride, 0, pool,
+                             x.shape[-1])
+        return pool(x)
 
 
 class GlobalAvgPool(Layer):
-    """[B,H,W,C] -> [B,C], the float32 spatial mean in x's dtype."""
+    """[B,H,W,C] -> [B,C], the float32 spatial mean in x's dtype; on a
+    ``'spatial'`` mesh each rank's float32 sum of its rows, summed over the
+    axis and divided by the image's H x W."""
+
+    def plan_rows(self, h):
+        self.rows = h
+        return None
 
     def forward(self, x):
-        return global_avg_pool(x)
+        if not self.on_strips():
+            return global_avg_pool(x)
+        total = self.mesh.psum(x.float().sum(dim=(1, 2)), "spatial")
+        return (total / (self.rows * x.shape[2])).to(x.dtype)
 
 
 class ReLU(Layer):
@@ -254,10 +364,15 @@ class ReLU(Layer):
 
 
 class Flatten(Layer):
-    """[B,H,W,C] -> [B, H*W*C], NHWC order."""
+    """[B,H,W,C] -> [B, H*W*C], NHWC order (every ``'spatial'`` rank's rows
+    joined first)."""
+
+    def plan_rows(self, h):
+        self.rows = h
+        return None
 
     def forward(self, x):
-        return x.reshape(x.shape[0], -1)
+        return _whole_rows(self, x).reshape(x.shape[0], -1)
 
 
 class Linear(Layer):
@@ -276,7 +391,12 @@ class Linear(Layer):
             return {"w": ("model", None)}
         return None
 
+    def plan_rows(self, h):
+        self.rows = h
+        return None
+
     def forward(self, x, compute_dtype=None):
+        x = _whole_rows(self, x)      # the rows of a conv's strips, joined
         if self.tp is None:
             return linear(x, self.w, self.b, compute_dtype)
         # ``w`` holds a row range of the flattened (h, w, c) features: the
@@ -381,6 +501,12 @@ class ResidualBlock(Layer):
             for path, t, is_state in self.proj.tree_leaves():
                 yield ("proj", *path), t, is_state
 
+    def plan_rows(self, h):
+        self.rows = h
+        if self.proj is not None:
+            self.proj.plan_rows(h)
+        return self.body.plan_rows(h)
+
     def forward(self, x, compute_dtype=None, generator=None, perms=None):
         y = self.body(x, compute_dtype=compute_dtype, generator=generator,
                       perms=perms)
@@ -401,9 +527,9 @@ REMAT_MODES = (False, True, "full", "conv")
 def _save_convs(ctx, op, *args, **kwargs):
     """The ``remat='conv'`` policy, ``cnn_tpu``'s
     ``save_only_these_names("conv_out", "bn_stats")``: keep each conv's
-    output and BN's batch means, recompute the rest."""
+    output and BN's batch moments, recompute the rest."""
     if op in (torch.ops.cnn_tpu_torch.conv2d_bias_relu.default,
-              torch.ops.aten.mean.dim):
+              torch.ops.aten.var_mean.correction):
         return torch_checkpoint.CheckpointPolicy.MUST_SAVE
     return torch_checkpoint.CheckpointPolicy.PREFER_RECOMPUTE
 
@@ -427,7 +553,7 @@ class StackedBlocks(Layer):
     ``torch.utils.checkpoint`` (the backward recomputes it); 'conv' is the
     selective policy of ``cnn_tpu``'s ``remat='conv'``: the block's convs
     launch through the custom op ``cnn_tpu_torch::conv2d_bias_relu``, whose
-    outputs (and BN's batch means) the checkpoint keeps, so the backward
+    outputs (and BN's batch moments) the checkpoint keeps, so the backward
     recomputes only the elementwise tail and never a conv. The three give
     the same gradients and statistics, bit for bit."""
     casts = True
@@ -475,6 +601,10 @@ class StackedBlocks(Layer):
     def tree_leaves(self):
         for key, _, is_state in self._leaves:
             yield tuple(key.split("/")), getattr(self, key), is_state
+
+    def plan_rows(self, h):
+        self.rows = h
+        return self.block.plan_rows(h)    # every block alike
 
     def _run(self, perms, compute_dtype, x, *tensors):
         """One block on ``tensors`` (its slices, in ``_leaves`` order);

@@ -46,8 +46,16 @@ alone, so each rank runs its own tokens at their global places. The
 block declares no ``'model'`` sharding (``param_pspecs`` None, as in
 ``cnn_tpu``).
 
-Expert parallelism (``cnn_tpu``'s ``param_pspecs_ep`` and
-``--expert-parallel``) is not ported (ROADMAP.md Queue 1 item 10b).
+Expert parallelism is ``cnn_tpu``'s ``param_pspecs_ep``: on a mesh with
+an ``'expert'`` axis of n ranks, ``parallel/train_step.py:
+shard_train_state`` cuts every [E]-leading tensor (``w1``, ``b1``, ``w2``,
+``b2``) to this rank's E / n experts and marks the block (``ep``). The
+batch is not sharded over ``'expert'``: every rank of the axis routes the
+same tokens, exactly as above, and runs the queues of its own experts
+only; their partial ``y`` (zero for a token routed elsewhere) is summed
+over the axis (``collectives.psum``, whose backward sums the ranks'
+cotangents: the router's gradient through ``combine`` is partial on each
+rank, and the train step sums it over the axis).
 """
 
 from __future__ import annotations
@@ -90,6 +98,12 @@ class MoEBlock(Layer):
         if balance_coeff > 0.0:
             self.register_buffer("aux_loss", torch.zeros((), device=device))
         self.aux = None
+
+    def param_pspecs_ep(self) -> dict:
+        """``cnn_tpu``'s expert-parallel placement: every [E]-leading
+        tensor over ``'expert'``."""
+        return {"w1": ("expert", None, None), "b1": ("expert", None),
+                "w2": ("expert", None, None), "b2": ("expert", None)}
 
     def tree_leaves(self):
         yield from super().tree_leaves()
@@ -136,15 +150,21 @@ class MoEBlock(Layer):
                     & keep[..., None]).float()                  # [B, E, C]
         gate = (probs * onehot).sum(dim=-1)                     # [B]
         combine = dispatch * gate[:, None, None]
+        n = self.w1.shape[0]            # the experts held here
+        if self.ep is not None:         # this rank's queues only
+            lo = self.ep.index("expert") * n
+            dispatch, combine = dispatch[:, lo:lo + n], combine[:, lo:lo + n]
 
         wd = compute_dtype or x.dtype
-        flat = dispatch.to(wd).reshape(bsz, e * cap)
-        xe = matmul(flat.mT, x.to(wd)).reshape(e, cap, -1)      # [E, C, D]
+        flat = dispatch.to(wd).reshape(bsz, n * cap)
+        xe = matmul(flat.mT, x.to(wd)).reshape(n, cap, -1)      # [n, C, D]
         h = torch.relu(matmul(xe, self.w1.to(wd))
                        + self.b1[:, None, :].to(wd))
         ye = matmul(h, self.w2.to(wd)) + self.b2[:, None, :].to(wd)
-        y = matmul(combine.to(wd).reshape(bsz, e * cap),
-                   ye.reshape(e * cap, -1))                     # [B, D]
+        y = matmul(combine.to(wd).reshape(bsz, n * cap),
+                   ye.reshape(n * cap, -1))                     # [B, D]
+        if self.ep is not None:
+            y = self.ep.psum(y, "expert")
 
         self.aux = None
         if self.training:

@@ -21,6 +21,12 @@ returned beside the result, as ``apply(capture=)``: a captured conv runs
 A Sequential nests inside a ``ResidualBlock`` as its body, with the same
 fusion rule; ``tree_leaves`` gives ``cnn_tpu``'s tree paths, keyed by
 layer name.
+
+On a mesh with a ``'spatial'`` axis (``parallel/mesh.py``) the model's
+entry calls ``cut_rows``: it plans every layer's input rows for images of
+the batch's height (``plan_rows``) and hands the stack this rank's strip
+of them, so that the images arrive whole (augmented, mixed and flipped as
+a whole) and every layer runs on strips (``nn/module.py``).
 """
 
 from __future__ import annotations
@@ -69,6 +75,18 @@ def run_layers(layers: Sequence[Layer], x, *, compute_dtype=None,
     return x
 
 
+def cut_rows(net: "Sequential", x):
+    """On a mesh with a live ``'spatial'`` axis (its first layer's
+    ``mesh``): ``net.plan_rows`` for the images ``x`` [B, H, W, C] and this
+    rank's strip of their rows (``Mesh.strip``); elsewhere ``x``."""
+    mesh = next(iter(net)).mesh
+    if mesh is None or not mesh.active("spatial"):
+        return x
+    net.plan_rows(x.shape[1])
+    lo, hi = mesh.strip(x.shape[1])
+    return x[:, lo:hi]
+
+
 class Sequential(nn.Module):
     def __init__(self, layers: Sequence[Layer]):
         super().__init__()
@@ -89,6 +107,13 @@ class Sequential(nn.Module):
         for layer in self:
             for path, t, is_state in layer.tree_leaves():
                 yield (layer.name, *path), t, is_state
+
+    def plan_rows(self, h):
+        """Each layer's input rows in turn (``Layer.plan_rows``); the
+        output's."""
+        for layer in self:
+            h = layer.plan_rows(h)
+        return h
 
     def forward(self, x, compute_dtype=None, generator=None, capture=None,
                 perms=None):

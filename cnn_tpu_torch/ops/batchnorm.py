@@ -11,11 +11,24 @@
 Both normalize as ``x * inv + (beta - mean * inv)`` with
 ``inv = gamma * reciprocal(sqrt(var + eps))``.
 
-On a mesh whose batch shards over ``'data'`` the statistics are the
-global batch's, as in ``cnn_tpu``'s GSPMD step: each rank's per-channel
-sums of ``x`` and ``x^2`` are summed over the axis (differentiably,
-``parallel/collectives.py:psum``) before the mean and the variance, so
-the moving statistics agree on every rank.
+The batch's ``E[x]`` and ``E[x^2]`` come from float64 sums (one float64
+pass, ``_Moments``), each rounded to float32 once: so they are the same
+float32 bits however the batch is split (the float64 sums of two orders
+round alike, but for a value within about 1e-12 of a rounding boundary),
+and a sharded step normalizes exactly as one process does. Float32 sums
+in another order would move their last bits, and with them, at a batch of
+256, a few ReLU masks and pool taps at near-ties, which move the
+gradients by about 1e-3 of their size. The sums' backward stays in
+float32.
+
+On a mesh whose batch shards over ``'data'`` and whose image rows shard
+over ``'spatial'`` the statistics are the global batch's over all its
+rows, as in ``cnn_tpu``'s GSPMD step: each rank's per-channel sums of
+``x`` and ``x^2`` and its count of pixels are summed over both axes
+(differentiably, ``parallel/collectives.py:psum``) before the mean and the
+variance, so the moving statistics agree on every rank and with one
+process's. The counts are summed, not assumed: row strips can be uneven
+(111 rows over two ranks) or empty.
 """
 
 from __future__ import annotations
@@ -29,6 +42,29 @@ def _normalize(x, gamma, beta, mean, var, eps):
     return y.to(x.dtype)
 
 
+class _Moments(torch.autograd.Function):
+    """x [..., C] float32 -> [3, C] float64: per channel the sum of x, the
+    sum of x^2 and the count, from one float64 pass (``torch.var_mean``);
+    the backward in float32, ``g_sum + 2 x g_sq``."""
+
+    @staticmethod
+    def forward(ctx, x32):
+        ctx.save_for_backward(x32)
+        flat = x32.reshape(-1, x32.shape[-1])
+        n = flat.shape[0]
+        if n == 0:      # a strip with no rows here
+            return flat.new_zeros((3, flat.shape[1]), dtype=torch.float64)
+        var, mean = torch.var_mean(flat.double(), dim=0, correction=0)
+        return torch.stack([mean * n, (var + mean * mean) * n,
+                            torch.full_like(mean, n)])
+
+    @staticmethod
+    def backward(ctx, g):
+        (x32,) = ctx.saved_tensors
+        g = g.float()
+        return torch.addcmul(g[0], x32, 2.0 * g[1])
+
+
 def batch_norm2d_eval(x: torch.Tensor, gamma: torch.Tensor,
                       beta: torch.Tensor, mean: torch.Tensor,
                       var: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
@@ -40,19 +76,15 @@ def batch_norm2d_train(x: torch.Tensor, gamma: torch.Tensor,
                        beta: torch.Tensor, moving_mean: torch.Tensor,
                        moving_var: torch.Tensor, eps: float = 1e-5,
                        momentum: float = 0.1, mesh=None):
-    """NHWC, batch statistics, over ``mesh``'s ``'data'`` axis where one is
-    given. Returns ``(y, new_mean, new_var)``; the new moving statistics
-    are detached and keep the moving statistics' dtype."""
-    x32 = x.float()
-    if mesh is None or not mesh.active("data"):
-        mean = x32.mean(dim=(0, 1, 2))
-        sq = x32.square().mean(dim=(0, 1, 2))
-    else:
-        n = x32.numel() // x32.shape[-1] * mesh.size("data")
-        sums = mesh.psum(torch.stack([x32.sum(dim=(0, 1, 2)),
-                                      x32.square().sum(dim=(0, 1, 2))]),
-                         "data")
-        mean, sq = sums[0] / n, sums[1] / n
+    """NHWC, batch statistics, over ``mesh``'s ``'data'`` and
+    ``'spatial'`` axes where it has them. Returns ``(y, new_mean,
+    new_var)``; the new moving statistics are detached and keep the moving
+    statistics' dtype."""
+    sums = _Moments.apply(x.float())
+    for axis in ("data", "spatial"):
+        if mesh is not None and mesh.active(axis):
+            sums = mesh.psum(sums, axis)
+    mean, sq = (sums[0] / sums[2]).float(), (sums[1] / sums[2]).float()
     var = torch.clamp(sq - mean.square(), min=0.0)
     with torch.no_grad():
         new_mean = ((1.0 - momentum) * moving_mean.float()

@@ -340,16 +340,20 @@ def global_norm(updates: dict, params: dict | None = None) -> torch.Tensor:
     order (keys sorted level by level), then the square root. A leaf
     whose parameter holds a shard over a mesh's ``'model'`` axis (its
     ``tp``, ``(mesh, dim)``: ``parallel/train_step.py:shard_train_state``)
-    adds the squares of every rank's shard."""
+    or its ``'expert'`` axis (its ``ep``) adds the squares of every rank's
+    shard, summed over that axis."""
     names = sorted(updates, key=lambda n: tuple(tree_path(n).split("/")))
-    shards = {n: getattr((params or {}).get(n), "tp", None) for n in names}
+    params = params or {}
     total = sum(torch.sum(updates[n] * updates[n]) for n in names
-                if shards[n] is None)
-    sharded = [n for n in names if shards[n] is not None]
-    if sharded:
-        mesh = shards[sharded[0]][0]
-        total = total + mesh.all_sum(sum(
-            torch.sum(updates[n] * updates[n]) for n in sharded), "model")
+                if getattr(params.get(n), "tp", None) is None
+                and getattr(params.get(n), "ep", None) is None)
+    for axis, mark in (("model", "tp"), ("expert", "ep")):
+        sharded = [n for n in names
+                   if getattr(params.get(n), mark, None) is not None]
+        if sharded:
+            mesh = getattr(params[sharded[0]], mark)[0]
+            total = total + mesh.all_sum(sum(
+                torch.sum(updates[n] * updates[n]) for n in sharded), axis)
     return torch.sqrt(total)
 
 

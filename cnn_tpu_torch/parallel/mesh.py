@@ -2,14 +2,19 @@
 ``cnn_tpu/parallel/mesh.py``.
 
 ``cnn_tpu`` runs one process over many devices and arranges them as a
-``('data', 'model')`` mesh; PyTorch's idiom is one process per device, so
-here the ranks of the default process group are the mesh's devices, in
-``cnn_tpu``'s order: rank ``r`` sits at ``('data', 'model') = (r // M, r %
-M)``. The batch shards over ``'data'`` and wide layers over ``'model'``
-(``parallel/train_step.py``). Each axis has one process subgroup per line
-of the mesh; a rank's collectives over an axis run in its own line
-(``parallel/collectives.py``). With no process group the mesh is 1 x 1 and
-every collective is the identity: the single-device path.
+``('data', 'model'[, 'spatial'][, 'expert'])`` mesh, an axis beyond the
+first two present only when its size is above 1; PyTorch's idiom is one
+process per device, so here the ranks of the default process group are
+the mesh's devices, in ``cnn_tpu``'s order: rank ``r`` sits at the
+row-major coordinates of ``(data, model, spatial, expert)`` (``rank_of``).
+The batch shards over ``'data'``, wide layers over ``'model'``, the image
+rows (each activation's H) over ``'spatial'`` (``Mesh.strip``; the halo
+exchange of ``parallel/collectives.py``) and MoE's experts over
+``'expert'`` (``parallel/train_step.py``, ``nn/moe.py``). Each axis has
+one process subgroup per line of the mesh; a rank's collectives over an
+axis run in its own line (``parallel/collectives.py``). With no process
+group the mesh has one device and every collective is the identity: the
+single-device path.
 
 ``init_distributed`` starts the process group, from ``cnn_tpu``'s
 ``--coordinator`` / ``--num-processes`` / ``--process-id`` or, where one is
@@ -17,14 +22,12 @@ not given, torchrun's environment (``MASTER_ADDR``/``MASTER_PORT``,
 ``WORLD_SIZE``, ``RANK``). The backend follows from the devices: NCCL
 where every rank of the host has a GPU of its own, gloo on the CPU and
 where ranks share a GPU.
-
-The ``'spatial'`` and ``'expert'`` axes are not ported
-(``NotImplementedError``, naming ROADMAP.md Queue 1 item 10).
 """
 
 from __future__ import annotations
 
 import copy
+import itertools
 import os
 
 import torch
@@ -33,7 +36,7 @@ import torch.distributed as dist
 from cnn_tpu_torch import default_device
 from cnn_tpu_torch.parallel import collectives
 
-AXES = ("data", "model")
+AXES = ("data", "model", "spatial", "expert")
 
 
 def local_rank() -> int:
@@ -77,21 +80,51 @@ def init_distributed(coordinator: str = "", num_processes: int = 0,
         world_size=world, rank=rank)
 
 
+def rank_of(sizes: dict, coords: dict) -> int:
+    """The rank at ``coords`` of a mesh of ``sizes``, row-major in
+    ``AXES`` order (``cnn_tpu``'s device array)."""
+    r = 0
+    for a in AXES:
+        r = r * sizes[a] + coords.get(a, 0)
+    return r
+
+
+def axis_lines(sizes: dict, axis: str) -> list:
+    """The lines of ``axis``: for each place of the other axes (row-major),
+    the ranks that differ only in ``axis``, in its order."""
+    others = [a for a in AXES if a != axis]
+    return [[rank_of(sizes, {**dict(zip(others, place)), axis: i})
+             for i in range(sizes[axis])]
+            for place in itertools.product(*(range(sizes[a])
+                                             for a in others))]
+
+
 class Mesh:
-    """One rank's view of a ``('data', 'model')`` mesh: ``shape`` (axis ->
-    size), this rank's ``coords``, its subgroup of each axis (``groups``,
-    None without a process group), its ``device`` and the ``backend``."""
-    axis_names = AXES
+    """One rank's view of a ``('data', 'model'[, 'spatial'][, 'expert'])``
+    mesh: ``shape`` (axis -> size; ``'spatial'`` and ``'expert'`` only when
+    above 1, as in ``cnn_tpu``), this rank's ``coords`` on every axis (0 on
+    an absent one), its subgroup of each axis (``groups``, None without a
+    process group or on an absent axis), its ``device`` and the
+    ``backend``."""
 
     def __init__(self, shape: dict, rank: int = 0, groups=None,
                  device=None, backend: str | None = None):
-        self.shape = {a: int(shape[a]) for a in AXES}
-        m = self.shape["model"]
+        sizes = {a: int(shape.get(a, 1)) for a in AXES}
+        self.shape = {a: n for a, n in sizes.items()
+                      if a in ("data", "model") or n > 1}
         self.rank = rank
-        self.coords = {"data": rank // m, "model": rank % m}
-        self.groups = groups or {a: None for a in AXES}
+        self.coords, r = {}, rank
+        for a in reversed(AXES):
+            self.coords[a], r = r % sizes[a], r // sizes[a]
+        self.coords = {a: self.coords[a] for a in AXES}
+        self.groups = {a: None for a in AXES}
+        self.groups.update(groups or {})
         self.device = torch.device(device if device is not None else "cpu")
         self.backend = backend
+
+    @property
+    def axis_names(self) -> tuple:
+        return tuple(self.shape)
 
     def __repr__(self) -> str:
         return (f"Mesh({self.shape}, rank {self.rank} at {self.coords}, "
@@ -108,7 +141,7 @@ class Mesh:
         return other
 
     def size(self, axis: str) -> int:
-        return self.shape[axis]
+        return self.shape.get(axis, 1)
 
     def index(self, axis: str) -> int:
         return self.coords[axis]
@@ -116,13 +149,21 @@ class Mesh:
     def active(self, axis: str) -> bool:
         """Whether a collective over ``axis`` runs (``collectives``)."""
         return self.groups[axis] is not None and (
-            self.shape[axis] > 1 or self.backend == "nccl")
+            self.size(axis) > 1 or self.backend == "nccl")
 
     def rows(self, n: int) -> tuple[int, int]:
-        """This rank's ``[lo, hi)`` of ``n`` rows sharded over ``'data'``
-        (contiguous, as even as they go)."""
-        d, size = self.coords["data"], self.shape["data"]
-        return d * n // size, (d + 1) * n // size
+        """This rank's ``[lo, hi)`` of ``n`` batch rows (images) sharded
+        over ``'data'`` (contiguous, as even as they go)."""
+        return collectives.even_split(n, self.coords["data"],
+                                      self.size("data"))
+
+    def strip(self, n: int, index: int | None = None) -> tuple[int, int]:
+        """The ``[lo, hi)`` of ``n`` image rows (an activation's H) that
+        ``'spatial'`` rank ``index`` (default: this rank's) holds:
+        contiguous, as even as they go, empty where ``n`` is below the
+        axis's size."""
+        s = self.coords["spatial"] if index is None else index
+        return collectives.even_split(n, s, self.size("spatial"))
 
     # the collectives, so that a layer holding a mesh needs no import
     def all_sum(self, x, axis):
@@ -134,56 +175,57 @@ class Mesh:
     def psum(self, x, axis):
         return collectives.psum(x, self, axis)
 
-    def gather(self, x, axis, dim):
-        return collectives.gather(x, self, axis, dim)
+    def gather(self, x, axis, dim, total=None, start=None):
+        return collectives.gather(x, self, axis, dim, total, start)
 
     def model_input(self, x):
         return collectives.model_input(x, self)
+
+    def halo_plan(self, h, k, stride, padding):
+        return collectives.halo_plan(h, k, stride, padding,
+                                     self.size("spatial"))
+
+    def halo(self, x, plan):
+        return collectives.halo(x, self, plan)
 
 
 def make_mesh(data_parallel: int = 0, model_parallel: int = 1,
               spatial_parallel: int = 1, expert_parallel: int = 1,
               device=None) -> Mesh:
-    """The ``('data', 'model')`` mesh of the default group's ranks;
-    ``data_parallel=0`` means the rest. Every rank calls it (the subgroups
-    are made collectively). ``device``: this rank's (default: GPU
-    ``LOCAL_RANK % device_count``); with no process group the mesh is
-    1 x 1 on ``device``."""
-    for flag, n in (("--spatial-parallel", spatial_parallel),
-                    ("--expert-parallel", expert_parallel)):
-        if n > 1:
-            raise NotImplementedError(
-                f"{flag} {n}: the 'spatial' and 'expert' axes are not ported "
-                "yet (ROADMAP.md Queue 1 item 10b)")
+    """``cnn_tpu``'s ``('data', 'model'[, 'spatial'][, 'expert'])`` mesh of
+    the default group's ranks; ``data_parallel=0`` means the rest. Every
+    rank calls it (the subgroups are made collectively, in one order).
+    ``device``: this rank's (default: GPU ``LOCAL_RANK % device_count``);
+    with no process group the mesh has one device, ``device``."""
     n = dist.get_world_size() if dist.is_initialized() else 1
+    extra = model_parallel * spatial_parallel * expert_parallel
     if data_parallel <= 0:
-        assert n % model_parallel == 0, (n, model_parallel)
-        data_parallel = n // model_parallel
-    need = data_parallel * model_parallel
+        assert n % extra == 0, (n, model_parallel, spatial_parallel,
+                                expert_parallel)
+        data_parallel = n // extra
+    need = data_parallel * extra
     assert need <= n, f"need {need} devices, have {n}"
     if need != n:
-        raise ValueError(f"the {data_parallel} x {model_parallel} mesh leaves "
+        raise ValueError(f"the {data_parallel} x {extra} mesh leaves "
                          f"{n - need} of {n} ranks out: each rank is one "
                          "device of the mesh")
     if device is None:
         device = torch.device("cuda", local_rank()
                               % max(1, torch.cuda.device_count())) \
             if torch.cuda.is_available() else default_device()
-    shape = {"data": data_parallel, "model": model_parallel}
+    sizes = {"data": data_parallel, "model": model_parallel,
+             "spatial": spatial_parallel, "expert": expert_parallel}
     if not dist.is_initialized():
-        return Mesh(shape, 0, None, device)
+        return Mesh(sizes, 0, None, device)
     rank = dist.get_rank()
-    d_own, m_own = rank // model_parallel, rank % model_parallel
-    lines = {"data": [[d * model_parallel + m for d in range(data_parallel)]
-                      for m in range(model_parallel)],
-             "model": [[d * model_parallel + m for m in range(model_parallel)]
-                       for d in range(data_parallel)]}
     groups = {}
-    for axis, own in (("data", m_own), ("model", d_own)):
-        for i, ranks in enumerate(lines[axis]):
+    for axis in AXES:
+        if axis in ("spatial", "expert") and sizes[axis] == 1:
+            continue            # absent from the mesh: no subgroup
+        for ranks in axis_lines(sizes, axis):
             # every rank makes every subgroup, in the same order
             g = (dist.group.WORLD if len(ranks) == n
                  else dist.new_group(ranks))
-            if i == own:
+            if rank in ranks:
                 groups[axis] = g
-    return Mesh(shape, rank, groups, device, dist.get_backend())
+    return Mesh(sizes, rank, groups, device, dist.get_backend())

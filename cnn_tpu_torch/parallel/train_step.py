@@ -42,29 +42,35 @@ On a mesh (``parallel/mesh.py``, ``mesh=``) a step computes what
 ``cnn_tpu``'s GSPMD step computes on the global batch, which is what the
 single-device step computes: not plain DDP, whose BN statistics and MoE
 capacities would be each rank's. ``shard_train_state`` puts the mesh in
-the model's layers (``shard_model``: BN's statistics and MoE's routing
-over ``'data'``, ``nn/moe.py``) and cuts each leaf that the layers'
-``param_pspecs`` shard over ``'model'`` to this rank's slice, its
-optimizer leaves with it (``model_pspecs``, ``cnn_tpu``'s walk of
-``layers``, ``body`` and ``proj``). The steps take the global batch and
-keep this rank's rows (``Mesh.rows``). Each rank draws from a generator in
-the same state, so every draw is the global batch's, each rank keeping
-its rows (the augmentation: ``ops/augment.py:shard_draws``; MixUp /
-CutMix mix its rows with partners from the gathered batch; a Dropout's
-channels are one draw for all). The objective on a rank is its part of
-the global batch's loss (``loss / D`` over ``D`` data shards: the aux
-terms are the global batch's, added on every rank); the gradients are
-summed over ``'data'`` in one bucket, a replicated param's averaged over
-``'model'`` (which keeps the replicas bit-equal); ``grad_clip``'s norm
-adds every ``'model'`` shard's squares (``optim.global_norm``); the
-metrics are the global batch's, the same on every rank. Microbatch ``k``
-of ``grad_accum`` is slice ``k`` of every rank's rows (``cnn_tpu``'s
-``make_microbatch_regroup``). ``unsharded`` holds the full
-tensors in place around a checkpoint's write or read.
+the model's layers (``shard_model``: BN's statistics over ``'data'`` and
+``'spatial'``, MoE's routing over ``'data'``, ``nn/moe.py``; the layers
+run on strips of image rows over ``'spatial'``, ``nn/module.py``) and cuts
+each leaf that the layers' ``param_pspecs`` shard over ``'model'``, and,
+on a mesh with an ``'expert'`` axis, each that MoE's
+``param_pspecs_ep`` shards over it, to this rank's slice, its optimizer
+leaves with it (``model_pspecs``, ``cnn_tpu``'s walk of ``layers``,
+``body`` and ``proj``). The steps take the global batch and keep this
+rank's rows (``Mesh.rows``), whole images, which the model cuts into
+strips of rows after the augmentation and the mix. Each rank draws from a
+generator in the same state, so every draw is the global batch's, each
+rank keeping its rows (the augmentation: ``ops/augment.py:shard_draws``;
+MixUp / CutMix mix its rows with partners from the gathered batch; a
+Dropout's channels are one draw for all). The objective on a rank is its
+part of the global batch's loss (``loss / (D * S * E)`` over the sizes of
+``'data'``, ``'spatial'`` and ``'expert'``: the aux terms are the global
+batch's, added on every rank, and ``parallel/collectives.py`` sums the
+cotangents over these axes); a gradient is summed over each of the three
+axes that does not shard its param, each in one bucket, and a replicated
+param's averaged over ``'model'`` (which keeps the replicas bit-equal);
+``grad_clip``'s norm adds every ``'model'`` and ``'expert'`` shard's
+squares (``optim.global_norm``); the metrics are the global batch's, the
+same on every rank. Microbatch ``k`` of ``grad_accum`` is slice ``k`` of
+every rank's rows (``cnn_tpu``'s ``make_microbatch_regroup``).
+``unsharded`` holds the full tensors in place around a checkpoint's write
+or read.
 
 Not ported (each raises ``NotImplementedError``): other compute dtypes
-(float16); the ``'spatial'`` and ``'expert'`` axes and the pipeline
-(``parallel/mesh.py``, ROADMAP.md Queue 1 item 10b/10c).
+(float16); the pipeline (ROADMAP.md Queue 1 item 10c).
 """
 
 from __future__ import annotations
@@ -94,7 +100,7 @@ class TrainState:
     random number of the steps on the model's device; ``seed`` keys the
     per-epoch permutations of the epoch samplers. On a mesh
     (``shard_train_state``): ``mesh``, and ``shards``, the params held as
-    this rank's slice over ``'model'`` -> the dim cut."""
+    this rank's slice -> ``(axis, dim)``, the mesh axis and the dim cut."""
     model: nn.Module
     opt_state: object
     step: int
@@ -330,9 +336,11 @@ def accumulate_grads(ts: TrainState, images, labels, *, grad_accum: int = 1,
     On ``mesh`` the batch is this rank's rows and microbatch ``k`` is
     their slice ``k``: ``cnn_tpu``'s regroup, where each microbatch takes
     an equal contiguous slice of every shard. Each rank differentiates its
-    part of the objective (the loss over ``D`` data shards); the gradients,
-    the loss and ``correct`` are summed over ``'data'`` (the global
-    batch's)."""
+    part of the objective (the loss over the ``'data'``, ``'spatial'`` and
+    ``'expert'`` ranks); the gradients (a param's not over the axis that
+    shards it) and the loss are summed over those axes, ``correct`` over
+    ``'data'`` (the global batch's). A param that no output of this rank
+    reaches (a layer with no image row here) has a zero part."""
     K = grad_accum
     B = images.shape[0]
     if B % K:
@@ -341,9 +349,9 @@ def accumulate_grads(ts: TrainState, images, labels, *, grad_accum: int = 1,
             f"a shard's {B} rows do not split into {K} microbatches (a "
             "microbatch smaller than the data axis is not ported)")
     mb = B // K
-    parts = 1
-    if mesh is not None and mesh.active("data"):
-        parts = mesh.size("data")
+    split = [a for a in ("data", "spatial", "expert") if mesh is not None
+             and mesh.active(a) and mesh.size(a) > 1]
+    parts = math.prod(mesh.size(a) for a in split)
     ts.model.train()
     params = named_params(ts.model)
     gsum = lsum = csum = None
@@ -356,7 +364,10 @@ def accumulate_grads(ts: TrainState, images, labels, *, grad_accum: int = 1,
                                 compute_dtype, ts.rng, mix, dist, remat)
         if parts > 1:
             loss = loss / parts
-        g = torch.autograd.grad(loss, list(params.values()))
+        g = torch.autograd.grad(loss, list(params.values()),
+                                allow_unused=True)
+        g = [torch.zeros_like(p) if t is None else t
+             for t, p in zip(g, params.values())]
         if gsum is None:
             gsum, lsum, csum = list(g), loss.detach(), correct
         else:
@@ -365,9 +376,14 @@ def accumulate_grads(ts: TrainState, images, labels, *, grad_accum: int = 1,
     if K > 1:
         gsum = [g / K for g in gsum]
         lsum = lsum / K
-    if parts > 1:
-        gsum = sum_over(gsum, mesh, "data")
-        lsum = mesh.all_sum(lsum, "data")
+    owned = [shard_axis(p) for p in params.values()]
+    for axis in split:
+        summed = [i for i, a in enumerate(owned) if a != axis]
+        for i, t in zip(summed, sum_over([gsum[i] for i in summed], mesh,
+                                         axis)):
+            gsum[i] = t
+        lsum = mesh.all_sum(lsum, axis)
+    if "data" in split:
         csum = mesh.all_sum(csum, "data")
     if mesh is not None and mesh.active("model"):
         # a replicated param's gradient is the same on every 'model' rank
@@ -381,6 +397,14 @@ def accumulate_grads(ts: TrainState, images, labels, *, grad_accum: int = 1,
                                       "model")):
             gsum[i] = g / size
     return dict(zip(params, gsum)), lsum, csum
+
+
+def shard_axis(p) -> str | None:
+    """The mesh axis whose ranks each hold a slice of param ``p``
+    (``shard_train_state``), or None."""
+    if getattr(p, "tp", None) is not None:
+        return "model"
+    return "expert" if getattr(p, "ep", None) is not None else None
 
 
 def sum_over(tensors: list, mesh, axis: str) -> list:
@@ -458,12 +482,17 @@ def spec_layers(model):
 
 def model_pspecs(model, mesh) -> dict:
     """``{layer name: {param key: spec}}``: each layer's declared
-    ``'model'`` sharding on this mesh (``cnn_tpu``'s ``model_pspecs``, a
-    spec a tuple of axis names)."""
+    ``'model'`` sharding on this mesh and, where the mesh has an
+    ``'expert'`` axis, MoE's ``param_pspecs_ep`` (``cnn_tpu``'s
+    ``model_pspecs``, a spec a tuple of axis names)."""
     model_dim = mesh.shape.get("model", 1)
+    has_ep = "expert" in mesh.shape
     specs = {}
     for layer in spec_layers(model):
         ps = layer.param_pspecs(model_dim)
+        ep = getattr(layer, "param_pspecs_ep", None)
+        if has_ep and ep is not None:
+            ps = {**(ps or {}), **ep()}
         if ps:
             specs[layer.name] = ps
     return specs
@@ -493,26 +522,31 @@ def _opt_trees(node):
             yield from _opt_trees(v)
 
 
-def _own(t: torch.Tensor, dim: int, mesh) -> torch.Tensor:
-    """This rank's slice over ``'model'`` of the full ``t`` (a copy)."""
-    k = t.shape[dim] // mesh.size("model")
-    return t.narrow(dim, mesh.index("model") * k, k).contiguous()
+def _own(t: torch.Tensor, shard: tuple, mesh) -> torch.Tensor:
+    """This rank's slice of the full ``t`` over ``shard``'s ``(axis,
+    dim)`` (a copy)."""
+    axis, dim = shard
+    k = t.shape[dim] // mesh.size(axis)
+    return t.narrow(dim, mesh.index(axis) * k, k).contiguous()
 
 
-def _full(t: torch.Tensor, dim: int, mesh) -> torch.Tensor:
-    """Every rank's slice ``t`` over ``'model'`` joined (no gradient)."""
+def _full(t: torch.Tensor, shard: tuple, mesh) -> torch.Tensor:
+    """Every rank's slice ``t`` over ``shard``'s ``(axis, dim)`` joined
+    (no gradient)."""
+    axis, dim = shard
     k = t.shape[dim]
-    return mesh.assemble(t, "model", k * mesh.size("model"),
-                         mesh.index("model") * k, dim)
+    return mesh.assemble(t, axis, k * mesh.size(axis),
+                         mesh.index(axis) * k, dim)
 
 
 def shard_train_state(ts: TrainState, mesh, model=None) -> TrainState:
     """``ts`` on ``mesh``, in place: the mesh in its model's layers
     (``shard_model``) and, with ``model``, each param that its layer's
-    ``param_pspecs`` shard over ``'model'`` (where every sharded dim
-    divides, as ``cnn_tpu`` checks) cut to this rank's slice, with its
-    optimizer leaves; the layer then runs its slice (``Layer.tp``). Without
-    ``model``, everything stays replicated (plain data parallelism)."""
+    specs (``model_pspecs``) shard over ``'model'`` or ``'expert'`` (where
+    every sharded dim divides, as ``cnn_tpu`` checks) cut to this rank's
+    slice, with its optimizer leaves; the layer then runs its slice
+    (``Layer.tp``, ``Layer.ep``). Without ``model``, everything stays
+    replicated (plain data parallelism)."""
     if ts.shards:
         raise ValueError("this train state is sharded already")
     shard_model(ts.model, mesh)
@@ -529,14 +563,16 @@ def shard_train_state(ts: TrainState, mesh, model=None) -> TrainState:
                 if spec and len(spec) == p.dim() and all(
                         ax is None or p.shape[i] % mesh.size(ax) == 0
                         for i, ax in enumerate(spec)):
-                    dim = spec.index("model")
-                    p.data = _own(p.data, dim, mesh)
-                    p.tp = (mesh, dim)
-                    owners[n].tp = mesh
-                    ts.shards[name] = dim
+                    axis = next(ax for ax in spec if ax is not None)
+                    shard = (axis, spec.index(axis))
+                    p.data = _own(p.data, shard, mesh)
+                    mark = "tp" if axis == "model" else "ep"
+                    setattr(p, mark, (mesh, shard[1]))
+                    setattr(owners[n], mark, mesh)
+                    ts.shards[name] = shard
                     for tree in _opt_trees(ts.opt_state):
                         if name in tree:
-                            tree[name] = _own(tree[name], dim, mesh)
+                            tree[name] = _own(tree[name], shard, mesh)
                     break
     return ts
 
@@ -544,31 +580,31 @@ def shard_train_state(ts: TrainState, mesh, model=None) -> TrainState:
 @contextmanager
 def unsharded(ts: TrainState):
     """Inside, each param and optimizer leaf of ``ts`` held as a slice over
-    ``'model'`` holds the full tensor (gathered from every rank: every rank
-    enters); on the way out each takes back its slice of it, into its own
-    storage, so a load inside sticks and a captured step's addresses
-    hold."""
+    ``'model'`` or ``'expert'`` holds the full tensor (gathered from every
+    rank: every rank enters); on the way out each takes back its slice of
+    it, into its own storage, so a load inside sticks and a captured
+    step's addresses hold."""
     if not ts.shards:
         yield ts
         return
     mesh, params = ts.mesh, named_params(ts.model)
-    kept = []   # (param or None, tree or None, name, dim, its slice)
+    kept = []   # (param or None, tree or None, name, shard, its slice)
     with torch.no_grad():
-        for name, dim in ts.shards.items():
+        for name, shard in ts.shards.items():
             p = params[name]
-            kept.append((p, None, name, dim, p.data))
-            p.data = _full(p.data, dim, mesh)
+            kept.append((p, None, name, shard, p.data))
+            p.data = _full(p.data, shard, mesh)
             for tree in _opt_trees(ts.opt_state):
                 if name in tree:
-                    kept.append((None, tree, name, dim, tree[name]))
-                    tree[name] = _full(tree[name], dim, mesh)
+                    kept.append((None, tree, name, shard, tree[name]))
+                    tree[name] = _full(tree[name], shard, mesh)
     try:
         yield ts
     finally:
         with torch.no_grad():
-            for p, tree, name, dim, part in kept:
+            for p, tree, name, shard, part in kept:
                 part.copy_(_own(p.data if p is not None else tree[name],
-                                dim, mesh))
+                                shard, mesh))
                 if p is not None:
                     p.data = part
                 else:

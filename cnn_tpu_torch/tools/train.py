@@ -38,13 +38,15 @@ steps from the second call on (``data/device_dataset.py:GraphedSteps``).
 same DIR and sources builds nothing; the run ends with a line that says
 which it was. With ``device="cpu"`` nothing is built.
 
-Data and tensor parallelism are ``cnn_tpu``'s: with more than one rank
-(``--multihost``: ``--coordinator HOST:PORT``, ``--num-processes``,
-``--process-id``, or torchrun's environment where a flag is absent;
-``parallel/mesh.py:init_distributed``), ``--data-parallel`` or
-``--model-parallel``, the run takes a ``('data', 'model')`` mesh of the
-ranks (one device each; ``mesh: {...}``), shards the train state over it
-and steps on the global batch (``parallel/train_step.py``). Every process
+Data, tensor, spatial and expert parallelism are ``cnn_tpu``'s: with more
+than one rank (``--multihost``: ``--coordinator HOST:PORT``,
+``--num-processes``, ``--process-id``, or torchrun's environment where a
+flag is absent; ``parallel/mesh.py:init_distributed``),
+``--data-parallel``, ``--model-parallel``, ``--spatial-parallel`` or
+``--expert-parallel``, the run takes a ``('data', 'model'[,
+'spatial'][, 'expert'])`` mesh of the ranks (one device each; ``mesh:
+{...}``), shards the train state over it and steps on the global batch
+(``parallel/train_step.py``). Every process
 reads the same seeded host batches and keeps its rows; the device dataset
 shards over ``'data'`` (the validation set stays whole on each). All
 processes must start at the same iteration (a resume that differs
@@ -59,8 +61,7 @@ It runs on the GPU; ``main(argv, device="cpu")`` runs the plain versions
 on the CPU (tests; gloo between processes). ``--donate`` is accepted and
 changes nothing: PyTorch updates the train state in place either way.
 Options not ported yet raise ``NotImplementedError`` naming their flag
-(``check_flags``: the pipeline, spatial and expert axes), as does
-``--backend native``.
+(``check_flags``: the pipeline), as does ``--backend native``.
 
 Usage: python -m cnn_tpu_torch.tools.train [--total-iters N] [--batch-norm true] ...
 """
@@ -100,17 +101,12 @@ from cnn_tpu_torch.utils.profiling import StepTimer, trace
 def check_flags(train_cfg) -> None:
     """Raises ``NotImplementedError`` for the first flag set to an option
     the port does not run yet."""
-    t = train_cfg
-    unported = (
-        ("--pipeline-stages", t.pipeline_stages, "10c"),
-        ("--spatial-parallel", t.spatial_parallel, "10b"),
-        ("--expert-parallel", t.expert_parallel, "10b"),
-    )
-    for flag, n, item in unported:
-        if n > 1:
-            raise NotImplementedError(
-                f"{flag} {n} is not ported yet (ROADMAP.md Queue 1 item "
-                f"{item}; item 10's 'data' and 'model' axes run)")
+    n = train_cfg.pipeline_stages
+    if n > 1:
+        raise NotImplementedError(
+            f"--pipeline-stages {n} is not ported yet (ROADMAP.md Queue 1 "
+            "item 10c; the 'data', 'model', 'spatial' and 'expert' axes "
+            "run)")
 
 
 def model_kwargs(model_cfg) -> dict:
@@ -176,7 +172,7 @@ def _to(device, images: np.ndarray, labels: np.ndarray):
 def agree(mesh, value: int) -> list:
     """Every rank's ``value``, in rank order (a zero-filled
     ``all_reduce`` over the ranks)."""
-    n = mesh.size("data") * mesh.size("model")
+    n = dist.get_world_size()
     mine = torch.zeros(n, dtype=torch.int64, device=mesh.device)
     mine[mesh.rank] = value
     dist.all_reduce(mine)
@@ -262,8 +258,12 @@ def _main(argv, preempted, device):
     is_main = rank == 0
     mesh = None
     if (world > 1 or train_cfg.data_parallel > 1
-            or train_cfg.model_parallel > 1):
+            or train_cfg.model_parallel > 1
+            or train_cfg.spatial_parallel > 1
+            or train_cfg.expert_parallel > 1):
         mesh = make_mesh(train_cfg.data_parallel, train_cfg.model_parallel,
+                         train_cfg.spatial_parallel,
+                         train_cfg.expert_parallel,
                          device=dev if dev.type == "cpu" else None)
         dev = mesh.device
     # rank 0 builds the kernel library; the others load it once it is there

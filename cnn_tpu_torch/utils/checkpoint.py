@@ -43,7 +43,7 @@ carry no code; ``load_opt_state`` copies a read state into a live one.
 
 On a mesh (``parallel/train_step.py:shard_train_state``) the file holds
 the full tree all the same: ``save_checkpoint`` gathers each slice held
-over ``'model'`` and process 0 alone writes; ``load_checkpoint`` reads the
+over ``'model'`` or ``'expert'`` and process 0 alone writes; ``load_checkpoint`` reads the
 full tree on every rank and keeps its slices.
 
 The generator on a load (``load_checkpoint``): a ``torch_rng`` state saved
@@ -421,9 +421,9 @@ def _key_seed(key) -> int:
 def save_checkpoint(path: str, train_state) -> None:
     """Writes the port's ``TrainState`` as a ``cnn_tpu`` ``.ckpt``
     (module docstring), atomically. On a mesh every rank calls it: the
-    params and optimizer leaves held as slices over ``'model'`` are
-    gathered (``parallel/train_step.py:unsharded``), and process 0 alone
-    writes the full tree, the one a one-rank run writes."""
+    params and optimizer leaves held as slices over ``'model'`` or
+    ``'expert'`` are gathered (``parallel/train_step.py:unsharded``), and
+    process 0 alone writes the full tree, the one a one-rank run writes."""
     ts = train_state
     with unsharded(ts):
         if ts.mesh is None or ts.mesh.rank == 0:

@@ -80,22 +80,38 @@ def trained(ts) -> dict:
     return out
 
 
+def mesh_of(case):
+    return make_mesh(case["data"], case["model_parallel"],
+                     case.get("spatial", 1), case.get("expert", 1),
+                     device="cpu")
+
+
 def case_mesh(case, inputs, world):
     out = {"shape": np.array(list(make_mesh(device="cpu").shape.values()))}
     out["shape_2x2"] = np.array(list(make_mesh(2, 2, device="cpu")
                                      .shape.values()))
-    try:
-        make_mesh(world, 2, device="cpu")
-        out["too_big"] = np.array("no error")
-    except AssertionError as e:
-        out["too_big"] = np.array(f"AssertionError: {e}")
+    # the four-axis meshes: each shape as its repr, this rank's coordinates
+    for sizes in ((2, 1, 2, 1), (1, 1, 1, 4), (1, 2, 2, 1), (0, 1, 2, 1)):
+        mesh = make_mesh(*sizes, device="cpu")
+        tag = "x".join(map(str, sizes))
+        out[f"shape_{tag}"] = np.array(repr(mesh.shape))
+        out[f"coords_{tag}"] = np.array([mesh.index(a) for a in
+                                         ("data", "model", "spatial",
+                                          "expert")])
+    for sizes, tag in (((world, 2), "too_big"),
+                       ((2, 1, 2, 2), "too_big_4")):
+        try:
+            make_mesh(*sizes, device="cpu")
+            out[tag] = np.array("no error")
+        except AssertionError as e:
+            out[tag] = np.array(f"AssertionError: {e}")
     return out
 
 
 def case_step(case, inputs, world):
-    """One sharded step's gradients (before it), then the step: its
-    params, state and optimizer trees, and its loss."""
-    mesh = make_mesh(case["data"], case["model_parallel"], device="cpu")
+    """One sharded step's gradients (before it), then ``steps`` steps (1
+    by default): the params, state and optimizer trees, and the loss."""
+    mesh = mesh_of(case)
     model, opt, ts = build(case, inputs)
     tstep.shard_train_state(ts, mesh, model)
     x = torch.from_numpy(inputs[case["x"]])
@@ -111,8 +127,9 @@ def case_step(case, inputs, world):
     with torch.no_grad():
         for n, v in tstep.named_state(model).items():
             v.copy_(kept[n])
-    ts, m = tstep.make_train_step(model, opt, mesh=mesh, grad_accum=k)(
-        ts, x, y)
+    step = tstep.make_train_step(model, opt, mesh=mesh, grad_accum=k)
+    for _ in range(case.get("steps", 1)):
+        ts, m = step(ts, x, y)
     out.update(trained(ts))
     out["loss"] = m["loss"].numpy()
     out["grad_loss"] = loss.numpy()
@@ -122,7 +139,7 @@ def case_step(case, inputs, world):
 
 def case_mix(case, inputs, world):
     """One sharded step with MixUp and CutMix (partners across shards)."""
-    mesh = make_mesh(case["data"], case["model_parallel"], device="cpu")
+    mesh = mesh_of(case)
     model, opt, ts = build(case, inputs)
     tstep.shard_train_state(ts, mesh, model)
     ts, m = tstep.make_train_step(model, opt, mesh=mesh, mixup=0.2,
@@ -135,7 +152,7 @@ def case_mix(case, inputs, world):
 
 
 def case_eval(case, inputs, world):
-    mesh = make_mesh(case["data"], case["model_parallel"], device="cpu")
+    mesh = mesh_of(case)
     model, _, ts = build(case, inputs)
     tstep.shard_train_state(ts, mesh, model)
     ev = tstep.make_eval_step(model, mesh=mesh)
@@ -146,7 +163,7 @@ def case_eval(case, inputs, world):
 
 def case_device_global(case, inputs, world):
     """One 'global'-sampling device-dataset step on the mesh."""
-    mesh = make_mesh(case["data"], case["model_parallel"], device="cpu")
+    mesh = mesh_of(case)
     model, opt, ts = build(case, inputs)
     tstep.shard_train_state(ts, mesh, model)
     ds = DeviceDataset.from_arrays(inputs[case["images"]],
@@ -162,8 +179,9 @@ def case_device_global(case, inputs, world):
 
 
 def case_ckpt(case, inputs, world):
-    """The TP state after one step, written as a .ckpt by process 0."""
-    mesh = make_mesh(case["data"], case["model_parallel"], device="cpu")
+    """The sharded state after one step, written as a .ckpt by process
+    0."""
+    mesh = mesh_of(case)
     model, opt, ts = build(case, inputs)
     tstep.shard_train_state(ts, mesh, model)
     ts, _ = tstep.make_train_step(model, opt, mesh=mesh)(

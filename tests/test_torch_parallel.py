@@ -1,6 +1,7 @@
-"""The port's data and tensor parallelism (``parallel/mesh.py``,
-``parallel/collectives.py``, the sharded steps, the sharded device dataset
-and the ``--multihost`` train CLI) against ``cnn_tpu`` on the CPU.
+"""The port's data, tensor, spatial and expert parallelism
+(``parallel/mesh.py``, ``parallel/collectives.py``, the sharded steps, the
+row-sharded layers, MoE's expert shards, the sharded device dataset and
+the ``--multihost`` train CLI) against ``cnn_tpu`` on the CPU.
 
 Real gloo processes run the port (``tests/fixtures/torch_rank_worker.py``,
 which imports no JAX): one launch of 4 ranks and one of 2 for the whole
@@ -9,22 +10,34 @@ module, each started before the JAX references are computed here, on the
 ranks, and results come back, through ``.npz`` files.
 
 - A sharded step at DP4 and at DP2 x TP2, BN AlexNet (64 px) and MoECNN
-  (32 px, width 16, 4 experts, balance 0.01), momentum with the gradient
-  clip on: every gradient, BN statistic, momentum leaf and updated param
-  within 1e-4 x max(1, max|ref|) of ``cnn_tpu``'s single-device step, the
-  MoE load within 1e-6.
+  (32 px, width 16, 4 experts, balance 0.01), and BN AlexNet at DP2 x SP2
+  and DP1 x TP2 x SP2 (image rows over ``'spatial'``, the halo exchange),
+  momentum with the gradient clip on: every gradient, BN statistic,
+  momentum leaf and updated param within 1e-4 x max(1, max|ref|) of
+  ``cnn_tpu``'s single-device step, the MoE load within 1e-6. MoECNN at
+  DP2 x EP2 (experts over ``'expert'``) over three steps, against three of
+  ``cnn_tpu``'s, as ``tests/test_moe.py``'s expert-parallel case. The
+  meshes' shapes and coordinates on four axes.
+- The eval step at SP4: BN AlexNet at 64 px (conv3 and conv4 have fewer
+  rows than ranks) and resnet10 at 64 and 32 px (its last stage fewer
+  rows than ranks at 32), against ``cnn_tpu``'s unsharded eval.
 - ``grad_accum 2`` at DP2 against ``cnn_tpu``'s step on ``make_mesh(2,
   1)``; the eval step at DP2 on an uneven batch of 7 and on one image
   (loss, correct, pred); a TP2 ``.ckpt`` equal to the one-rank tree,
   which ``cnn_tpu`` reads; a ``'global'``-sampling device step at DP2
   (full augmentation) and a MixUp + CutMix step with ``grad_accum 2`` at
   DP2, each equal to the port's single-device step; a two-process
-  ``--multihost`` train CLI run of 2 iterations.
+  ``--multihost`` train CLI run of 2 iterations, and one each with
+  ``--spatial-parallel 2`` (BN AlexNet) and ``--expert-parallel 2``
+  (MoECNN); an EP2 ``.ckpt`` equal to the one-rank tree, which ``cnn_tpu``
+  reads.
 - In this process: ``model_pspecs`` equal to ``cnn_tpu``'s for AlexNet,
-  resnet10, mobilenet and MoECNN at model 2 and 4 (no compile); the
-  sharded dataset's padding, its ``'local'`` sampler and its epoch
-  samplers at DP4 (one rank's view each); ``check_flags`` refusing the
-  later axes.
+  resnet10, mobilenet and MoECNN at model 2 and 4, and MoECNN's on an
+  ``'expert'`` mesh of the 8 virtual devices (no compile); the halo plan
+  (every rank's strip, run through the layer and cropped, joins into the
+  whole layer's output); the sharded dataset's padding, its ``'local'``
+  sampler and its epoch samplers at DP4 (one rank's view each);
+  ``check_flags`` refusing the pipeline.
 """
 
 import json
@@ -40,6 +53,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from jax.sharding import Mesh as JMesh
 
 from cnn_tpu import optim as j_optim
 from cnn_tpu.models import get_model as j_get_model
@@ -57,7 +71,9 @@ from cnn_tpu_torch.data.device_dataset import (DeviceDataset, call_indices,
                                                shard_sample)
 from cnn_tpu_torch.models import get_model
 from cnn_tpu_torch.ops.augment import augment_batch
+from cnn_tpu_torch.ops.conv import conv2d
 from cnn_tpu_torch.parallel import create_train_state, model_pspecs
+from cnn_tpu_torch.parallel.collectives import halo_plan
 from cnn_tpu_torch.parallel.mesh import Mesh
 from cnn_tpu_torch.parallel.train_step import (_opt_trees, make_train_step,
                                                named_params, named_state)
@@ -74,7 +90,11 @@ LR = 0.05
 ALEX = dict(num_classes=3, batch_norm=True, image_size=64)
 MOE = dict(num_classes=3, width=16, n_experts=4, expert_hidden=32,
            image_size=32, balance_coeff=0.01)
-MODELS = {"alex": ("alexnet", ALEX, 64), "moe": ("moecnn", MOE, 32)}
+RES = dict(num_classes=3, image_size=64)
+MODELS = {"alex": ("alexnet", ALEX, 64), "moe": ("moecnn", MOE, 32),
+          "res": ("resnet10", RES, 64)}
+MOE_EP = ["moe.b1", "moe.b2", "moe.w1", "moe.w2"]
+TP_SHARDS = ["conv_layer_3.w", "conv_layer_4.w", "linear_1.w"]
 
 
 def _free_port() -> int:
@@ -173,7 +193,10 @@ def _case(kind, name, key, data, model, **more):
 
 @pytest.fixture(scope="module")
 def refs():
-    return _inputs(("alex", "moe"))
+    out, refs = _inputs(("alex", "moe", "res"))
+    # resnet10's weights fit any image size (a global pool feeds its head)
+    out["res/x32"] = out["res/x"][:, ::2, ::2].copy()
+    return out, refs
 
 
 @pytest.fixture(scope="module")
@@ -182,6 +205,15 @@ def world4(tmp_path_factory, refs):
     for key in ("alex", "moe"):
         plan.append(_case("step", f"{key}_dp4", key, 4, 1))
         plan.append(_case("step", f"{key}_dp2tp2", key, 2, 2))
+    plan += [
+        _case("step", "alex_dp2sp2", "alex", 2, 1, spatial=2),
+        _case("step", "alex_tp2sp2", "alex", 1, 2, spatial=2),
+        _case("step", "moe_dp2ep2", "moe", 2, 1, expert=2, steps=3),
+        _case("eval", "alex_sp4_eval", "alex", 1, 1, spatial=4),
+        _case("eval", "res_sp4_eval", "res", 1, 1, spatial=4),
+        _case("eval", "res32_sp4_eval", "res", 1, 1, spatial=4,
+              x="res/x32"),
+    ]
     return Ranks(tmp_path_factory.mktemp("world4"), 4, plan, refs[0])
 
 
@@ -212,6 +244,10 @@ def world2(tmp_path_factory, refs, dataset):
            "--num-workers", "2", "--multihost", "true",
            "--coordinator", f"localhost:{_free_port()}",
            "--num-processes", "2", "--process-id", "{rank}"]
+    axes = {"sp2": ["--spatial-parallel", "2"],
+            "ep2": ["--expert-parallel", "2", "--name", "moecnn",
+                    "--moe-balance", "0.01", "--image-size", "32",
+                    "--width", "16"]}
     plan = [
         _case("step", "alex_accum", "alex", 2, 1, grad_accum=2),
         _case("eval", "alex_eval", "alex", 2, 1, x="alex/x7", y="alex/y7"),
@@ -221,8 +257,14 @@ def world2(tmp_path_factory, refs, dataset):
         _case("device_global", "global", "alex", 2, 1, images="ds/images",
               labels="ds/labels", batch=8, augment=64),
         _case("ckpt", "ckpt", "alex", 1, 2, path=str(tmp / "tp2.ckpt")),
+        _case("ckpt", "ep2_ckpt", "moe", 1, 1, expert=2,
+              path=str(tmp / "ep2.ckpt")),
         {"kind": "cli", "name": "cli", "argv": cli},
     ]
+    for tag, flags in axes.items():
+        argv = [str(tmp / f"cli_{tag}") if a == str(tmp / "cli") else a
+                for a in cli] + flags
+        plan.append({"kind": "cli", "name": f"cli_{tag}", "argv": argv})
     ranks = Ranks(tmp, 2, plan, inputs)
     ranks.tmp, ranks.inputs = tmp, inputs
     return ranks
@@ -253,7 +295,8 @@ def _j_trace(opt_state) -> dict:
 def single(refs):
     """``cnn_tpu``'s single-device gradients and step of each model."""
     out = {}
-    for key, (jm, params, state, x, y) in refs[1].items():
+    for key in ("alex", "moe"):
+        jm, params, state, x, y = refs[1][key]
         (loss, (new_state, _)), grads = jax.jit(
             jax.value_and_grad(j_loss_fn, has_aux=True),
             static_argnums=(2, 6, 7))(params, state, jm, jnp.asarray(x),
@@ -293,9 +336,11 @@ def _check_step(got: dict, want: dict, what: str, grads: bool = True):
 
 @pytest.mark.parametrize("key,case,shards", [
     ("alex", "dp4", []),
-    ("alex", "dp2tp2", ["conv_layer_3.w", "conv_layer_4.w", "linear_1.w"]),
+    ("alex", "dp2tp2", TP_SHARDS),
     ("moe", "dp4", []),
-    ("moe", "dp2tp2", ["linear_1.w"])])
+    ("moe", "dp2tp2", ["linear_1.w"]),
+    ("alex", "dp2sp2", []),
+    ("alex", "tp2sp2", TP_SHARDS)])
 def test_sharded_step_matches_cnn_tpu(world4, single, key, case, shards):
     """One sharded step (clip on) against ``cnn_tpu``'s single-device
     step: gradients, BN statistics (and MoE's load, aux_loss), momentum
@@ -317,6 +362,69 @@ def test_make_mesh_shapes_and_asserts(world4):
     assert got["shape"].tolist() == [4, 1]
     assert got["shape_2x2"].tolist() == [2, 2]
     assert str(got["too_big"]) == "AssertionError: need 8 devices, have 4"
+
+
+def test_make_mesh_four_axes(world4):
+    """``cnn_tpu``'s ``make_mesh`` on four axes, on each rank: the shape
+    (``'spatial'`` and ``'expert'`` listed only above 1, as the CLI's
+    ``mesh:`` line prints it) and the rank's coordinates, those of its
+    device in ``cnn_tpu``'s device array; the device count asserted."""
+    devices = jax.devices()[:4]
+    for tag in ("2x1x2x1", "1x1x1x4", "1x2x2x1", "0x1x2x1"):
+        j_mesh = j_make_mesh(*map(int, tag.split("x")), devices=devices)
+        for r in range(4):
+            got = world4.case("mesh", r)
+            assert str(got[f"shape_{tag}"]) == repr(dict(j_mesh.shape))
+            place = np.argwhere(np.asarray(j_mesh.devices) == devices[r])[0]
+            at = dict(zip(j_mesh.axis_names, place.tolist()))
+            assert got[f"coords_{tag}"].tolist() == [
+                at.get(a, 0) for a in ("data", "model", "spatial",
+                                       "expert")], (tag, r)
+    assert str(world4.case("mesh")["too_big_4"]) == \
+        "AssertionError: need 8 devices, have 4"
+
+
+def test_expert_parallel_steps_match_cnn_tpu(world4, refs, single):
+    """MoECNN at DP2 x EP2 (each rank two of the four experts' ``w1``,
+    ``b1``, ``w2``, ``b2``): the first step's gradients against
+    ``cnn_tpu``'s single-device gradients, and after three steps every
+    param, BN statistic, momentum leaf and the MoE load against three of
+    ``cnn_tpu``'s single-device steps (``tests/test_moe.py``'s
+    expert-parallel case); the loss the same on every rank."""
+    jm, params, state, x, y = refs[1]["moe"]
+    opt = _j_opt()
+    step = j_make_train_step(jm, opt, donate=False)
+    jts = _j_state(jm, params, state, opt)
+    for _ in range(3):
+        jts, m = step(jts, jnp.asarray(x), jnp.asarray(y))
+    want = dict(grads=single["moe"]["grads"], params=_flat(jts.params),
+                state=_flat(jts.state), trace=_j_trace(jts.opt_state))
+    got = world4.case("moe_dp2ep2")
+    assert sorted(got["shards"].tolist()) == MOE_EP
+    _check_step(got, want, "moe dp2ep2")
+    assert abs(float(got["loss"]) - float(m["loss"])) <= TOL
+    for r in range(1, 4):
+        assert float(world4.case("moe_dp2ep2", r)["loss"]) == float(
+            got["loss"])
+
+
+@pytest.mark.parametrize("case,key,x", [
+    ("alex_sp4_eval", "alex", "alex/x"), ("res_sp4_eval", "res", "res/x"),
+    ("res32_sp4_eval", "res", "res/x32")])
+def test_spatial_eval_matches_cnn_tpu(world4, refs, case, key, x):
+    """The eval step with the image rows over four ``'spatial'`` ranks
+    (a rank that owns no row of a small layer still joins its
+    exchanges): the loss within 1e-4 x max(1, |ref|), ``correct`` and
+    every prediction equal to ``cnn_tpu``'s unsharded eval step, on every
+    rank."""
+    jm, params, state, _, y = refs[1][key]
+    want = j_make_eval_step(jm)(params, state, jnp.asarray(refs[0][x]),
+                                jnp.asarray(y))
+    for r in range(4):
+        got = world4.case(case, r)
+        assert _scaled(got["loss"], float(want["loss"])) <= TOL, r
+        assert int(got["correct"]) == int(want["correct"])
+        assert got["pred"].tolist() == np.asarray(want["pred"]).tolist()
 
 
 def test_grad_accum_matches_cnn_tpu_mesh_step(world2, refs):
@@ -430,19 +538,28 @@ def test_tp2_checkpoint_is_the_one_rank_tree(world2):
     """Process 0 writes the TP2 state gathered: the same tree as a
     one-rank run's ``.ckpt`` after the same step (values within 1e-5 x
     max(1, max|ref|)), and ``cnn_tpu`` reads it."""
+    _one_rank_tree(world2, "ckpt", "alex", "tp2", TP_SHARDS)
+
+
+def test_ep2_checkpoint_is_the_one_rank_tree(world2):
+    """The same for MoECNN's expert shards at EP2: process 0 writes every
+    expert's tensors, gathered over ``'expert'``."""
+    _one_rank_tree(world2, "ep2_ckpt", "moe", "ep2", MOE_EP)
+
+
+def _one_rank_tree(world2, case, key, tag, shards):
     inputs = world2.inputs
-    got_case = world2.case("ckpt")
-    assert sorted(got_case["shards"].tolist()) == [
-        "conv_layer_3.w", "conv_layer_4.w", "linear_1.w"]
-    model = _port_model(inputs, "alex")
+    got_case = world2.case(case)
+    assert sorted(got_case["shards"].tolist()) == shards
+    model = _port_model(inputs, key)
     opt = optim.make_optimizer("momentum", LR, 0.9, grad_clip=CLIP)
     ts = create_train_state(model, opt, seed=0)
     ts, _ = make_train_step(model, opt)(ts, torch.from_numpy(
-        inputs["alex/x"]), torch.from_numpy(inputs["alex/y"]))
-    one = str(world2.tmp / "one.ckpt")
+        inputs[f"{key}/x"]), torch.from_numpy(inputs[f"{key}/y"]))
+    one = str(world2.tmp / f"one_{tag}.ckpt")
     ckpt.save_checkpoint(one, ts)
     got, want = (ckpt.read_checkpoint(p) for p in
-                 (str(world2.tmp / "tp2.ckpt"), one))
+                 (str(world2.tmp / f"{tag}.ckpt"), one))
 
     def leaves(node, path=""):
         if isinstance(node, dict):
@@ -461,8 +578,10 @@ def test_tp2_checkpoint_is_the_one_rank_tree(world2):
         assert g[k].shape == w[k].shape, k
         assert _scaled(g[k], w[k]) <= 1e-5, k
     assert got["step"] == want["step"] == 1
-    jts = j_load_checkpoint(str(world2.tmp / "tp2.ckpt"))
+    jts = j_load_checkpoint(str(world2.tmp / f"{tag}.ckpt"))
     assert _flat(jts.params).keys() == _flat(got["params"]).keys()
+    for name, v in _flat(jts.params).items():
+        assert v.shape == np.shape(_flat(want["params"])[name]), name
 
 
 def test_multihost_cli_two_processes(world2):
@@ -492,6 +611,32 @@ def test_multihost_cli_two_processes(world2):
     assert (cli / "history.p1.jsonl").exists()
 
 
+@pytest.mark.parametrize("tag,shape", [
+    ("sp2", "{'data': 1, 'model': 1, 'spatial': 2}"),
+    ("ep2", "{'data': 1, 'model': 1, 'expert': 2}")])
+def test_multihost_cli_spatial_and_expert(world2, tag, shape):
+    """``--spatial-parallel 2`` (BN AlexNet, image rows over two ranks)
+    and ``--expert-parallel 2`` (MoECNN, two experts a rank) in the
+    two-process train CLI: ``cnn_tpu``'s mesh line, the same loss and
+    MoE load lines on both ranks, one checkpoint, written by process 0,
+    that ``cnn_tpu`` reads."""
+    outs = []
+    for r in range(2):
+        got = world2.case(f"cli_{tag}", r)
+        assert int(got["rc"]) == 0
+        outs.append(str(got["stdout"]))
+        assert f"mesh: {shape}" in outs[-1] and "Test===>" in outs[-1]
+    lines = [[re.sub(r"\[[\d.]+ img/s\]", "", ln)
+              for ln in re.split(r"[\r\n]", out)
+              if ln.startswith(("Train===>", "Valid===>", "Test===>",
+                                "MoE load"))] for out in outs]
+    assert lines[0] == lines[1] and lines[0]
+    assert ("MoE load [moe]" in outs[0]) == (tag == "ep2")
+    cks = list((world2.tmp / f"cli_{tag}").glob("*.ckpt"))
+    assert len(cks) == 1
+    j_load_checkpoint(str(cks[0]))
+
+
 # ------------------------------------------------------- in this process --
 
 @pytest.mark.parametrize("name,kw", [
@@ -510,6 +655,59 @@ def test_model_pspecs_equal_cnn_tpu(name, kw, model_dim):
     got = model_pspecs(get_model(name, num_classes=3, device="cpu", **kw),
                        mesh)
     assert got == want and want
+
+
+@pytest.mark.parametrize("sizes", [(2, 1, 4), (2, 2, 2)])
+def test_model_pspecs_expert_mesh_equal_cnn_tpu(sizes):
+    """MoECNN's specs on an ``'expert'`` mesh of the 8 virtual devices
+    (``('data', 'expert')`` 2 x 4, and ``('data', 'model', 'expert')``
+    2 x 2 x 2): the experts' [E]-leading tensors over ``'expert'``, as
+    ``cnn_tpu``'s ``model_pspecs`` gives them (no compile)."""
+    axes = [(a, n) for a, n in zip(("data", "model", "expert"), sizes)
+            if a != "model" or n > 1]
+    j_mesh = JMesh(np.asarray(jax.devices()).reshape([n for _, n in axes]),
+                   tuple(a for a, _ in axes))
+    want = {layer: {k: tuple(v) for k, v in ps.items()} for layer, ps in
+            j_model_pspecs(j_get_model("moecnn", **MOE), j_mesh).items()}
+    mesh = Mesh({"data": sizes[0], "model": sizes[1], "expert": sizes[2]})
+    got = model_pspecs(get_model("moecnn", device="cpu", **MOE), mesh)
+    assert got == want and want["moe"]["w1"] == ("expert", None, None)
+
+
+@pytest.mark.parametrize("h,k,stride,padding,size", [
+    (64, 3, 2, 0, 4), (31, 2, 2, 0, 2), (7, 3, 2, 0, 4), (3, 3, 2, 0, 4),
+    (16, 3, 1, 1, 4), (15, 3, 2, 1, 2), (9, 3, 2, 1, 4), (4, 1, 2, 0, 4),
+    (2, 3, 1, 1, 4), (224, 3, 2, 0, 2)])
+def test_halo_plan_strips_join_into_the_layer(h, k, stride, padding, size):
+    """Every rank's strip (``halo_plan``: its own rows, the rows read from
+    their owners, zero rows outside the image and at its top margin), run
+    through the conv with its own padding and cropped, gives that rank's
+    output rows; the ranks' outputs join into the whole conv's. Uneven
+    strips, strided and padded windows, and fewer output rows than ranks
+    (a rank with none) included."""
+    gen = torch.Generator().manual_seed(h * 7 + k)
+    x = torch.randn(2, h, 5, 3, generator=gen)
+    w = torch.randn(k, k, 3, 4, generator=gen)
+    b = torch.randn(4, generator=gen)
+    full = conv2d(x, w, b, stride, False, padding)
+    plan = halo_plan(h, k, stride, padding, size)
+    parts = []
+    for r in range(size):
+        (start, end), (olo, ohi) = plan.span[r], plan.out[r]
+        (u, v), (lo, hi) = plan.reads[r], plan.own[r]
+        strip = torch.zeros(2, end - start, 5, 3)
+        strip[:, u - start:v - start] = x[:, u:v]
+        # the exchange brings exactly the rows it reads and does not hold
+        fetched = {g for rr, g0, g1, _ in plan.segments if rr == r
+                   for g in range(g0, g1)}
+        assert fetched == {g for g in range(u, v) if not lo <= g < hi}
+        if ohi == olo:
+            continue
+        y = conv2d(strip, w, b, stride, False, padding)
+        parts.append(y[:, plan.crop:plan.crop + ohi - olo])
+    assert plan.ho == full.shape[1]
+    assert torch.allclose(torch.cat(parts, 1), full, atol=1e-5, rtol=1e-5)
+    assert plan.total == sum(g1 - g0 for _, g0, g1, _ in plan.segments)
 
 
 def _fake(d, size=4):
@@ -586,9 +784,7 @@ def test_epoch_sampler_per_shard(n, bs, steps):
         assert len(set(dup_rows)) > 1, dup_rows
 
 
-@pytest.mark.parametrize("flag,item", [("--pipeline-stages", "10c"),
-                                       ("--spatial-parallel", "10b"),
-                                       ("--expert-parallel", "10b")])
+@pytest.mark.parametrize("flag,item", [("--pipeline-stages", "10c")])
 def test_check_flags_refuses_the_later_axes(tmp_path, flag, item):
     with pytest.raises(NotImplementedError, match=f"{flag}.*item {item}"):
         train.main(["--checkpoint-dir", str(tmp_path), flag, "2"],
