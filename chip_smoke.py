@@ -345,7 +345,27 @@
    2`` (the bf16 flagship: launches per rank exactly one process's) and
    ``--expert-parallel 2 --name moecnn``, 10 iterations each: the same
    lines on both ranks, one checkpoint written by process 0 alone, which
-   reads back.
+   reads back;
+25. pipeline parallelism over a ``'stage'`` axis, two ranks on the one
+   card over gloo (``phase25_rank``): PipeCNN at its defaults (width 64,
+   8 blocks, 224 px, BN, remat 'conv'), one float32 step at batch 64 on
+   a PP2 mesh from the seeded state: GPipe at M = 1 against the
+   one-process step, 1F1B and interleaved 1F1B (V = 2) at M = 4 against
+   GPipe at M = 4 (every param, BN statistic and momentum leaf within
+   1e-4 x max(1, max|ref|)), bf16 GPipe at M = 4 against its float32
+   step (5e-2); the ranks' gathered trees bit-equal, the stage hops each
+   schedule makes, each rank's launches (the padded strip, tiled, bf16
+   "tma"; no direct or gather conv), device and wall ms per step beside
+   one process; peak memory per rank at M = 8, 1F1B's below GPipe's on
+   stage 0; the committed PipeCNN's logits through ``make_pp_forward`` at
+   M = 2 within 1e-4 of ``tests/fixtures/family_logits.npz`` with its
+   classes, and ``make_pp_eval_step`` with ``tta='flips'`` equal to one
+   process's; then the train CLI as two processes, ``--pipeline-stages 2
+   --data-parallel 1 --name pipecnn`` in bf16 with the device
+   augmentation, 1F1B at M = 4 and interleaved (``--virtual-stages 2``),
+   4 iterations each: finite losses, the same lines on both ranks, the
+   checkpoint process 0 writes equal to both ranks' gathered trees; and
+   ``tools/multihost_pp_smoke.py`` as four processes, its four OK lines.
 
 Every phase prints one flushed line with the seconds since start. Any failed
 check raises, so the exit code is not 0. Without a CUDA device it exits 1
@@ -431,9 +451,12 @@ from cnn_tpu_torch.ops.pool import max_pool2d_bwd as pool_bwd_plain
 from cnn_tpu_torch.ops.preprocess import uint8_to_float
 from cnn_tpu_torch.optim import make_optimizer, sgd, with_ema, with_frozen
 from cnn_tpu_torch.parallel import (create_train_state, make_eval_step,
-                                    make_train_step, shard_train_state)
+                                    make_pp_eval_step, make_pp_forward,
+                                    make_pp_train_step, make_train_step,
+                                    shard_pp_train_state, shard_train_state)
 from cnn_tpu_torch.parallel import collectives
-from cnn_tpu_torch.parallel.mesh import init_distributed, make_mesh
+from cnn_tpu_torch.parallel.mesh import (init_distributed, make_mesh,
+                                         make_pp_mesh)
 from cnn_tpu_torch.parallel.train_step import (accumulate_grads,
                                                named_params, named_state,
                                                unsharded)
@@ -6362,6 +6385,414 @@ def phase24(smi: str, tmp: Path, cli: dict) -> tuple[dict, dict]:
     return alex, fam
 
 
+# ---------------------------------------------------------------------------
+# phase 25: pipeline parallelism over a 'stage' axis
+# ---------------------------------------------------------------------------
+
+P25_TOL = 1e-4         # times max(1, max|ref|), as phases 23-24
+P25_B = B              # PipeCNN's batch in the step parity
+P25_STEPS = 2          # timed steps of each schedule
+P25_ITERS = 4          # iterations of each two-process CLI run
+P25_CLI_B = B          # their global batch
+# tag -> (microbatches, schedule, virtual stages, compute dtype) of the
+# ranks' steps, each one step from the same seeded state
+P25_RUNS = {"gpipe m1": (1, "gpipe", 1, None),
+            "gpipe m4": (4, "gpipe", 1, None),
+            "1f1b m4": (4, "1f1b", 1, None),
+            "interleaved m4": (4, "1f1b", 2, None),
+            "gpipe m4 bf16": (4, "gpipe", 1, BF16)}
+P25_TIMED = ("gpipe m4", "1f1b m4", "interleaved m4")
+P25_STAGED = sorted(f"trunk/body/{layer}.{key}" for layer, keys in (
+    ("b_conv1", "wb"), ("b_bn1", ("gamma", "beta", "mean", "var")),
+    ("b_conv2", "wb"), ("b_bn2", ("gamma", "beta", "mean", "var")))
+    for key in keys)
+# the conv variants PipeCNN's float32 and bf16 steps at 224 px run: the
+# padded strip (stem_conv1), the tiled kernel, the bf16 widened strip and
+# "tma"; the direct and gather fallbacks must not run
+P25_FALLBACKS = ("direct", "bf16_gather")
+
+
+def p25_model(dtype=None):
+    """PipeCNN at its defaults (width 64, 8 blocks, 224 px, BN, remat
+    'conv'), seeded, its momentum optimizer and a fresh train state."""
+    model = get_model("pipecnn", num_classes=3, image_size=224,
+                      device="cuda",
+                      generator=torch.Generator().manual_seed(FAMILY_SEED))
+    opt = make_optimizer("momentum", 1e-2, 0.9)
+    return model, opt, create_train_state(model, opt, seed=7)
+
+
+def p25_batch() -> tuple[torch.Tensor, torch.Tensor]:
+    """``P25_B`` seeded uint8 images at 224 px and their labels (CPU)."""
+    rng = np.random.default_rng(26)
+    return (torch.from_numpy(synthetic_images(rng, P25_B)),
+            torch.from_numpy(rng.integers(0, 3, P25_B)))
+
+
+def p25_counted(run) -> tuple[object, dict, int]:
+    """``run()`` with the kernels' counters from 0: its result, its
+    launches and the stage hops it made."""
+    torch.cuda.synchronize()
+    reset_launches()
+    hops = collectives.counts["stage_hops"]
+    out = run()
+    torch.cuda.synchronize()
+    return (out, {k: v for k, v in read_counters().items() if v},
+            collectives.counts["stage_hops"] - hops)
+
+
+def phase25_rank(tmp: str, port: int, rank: int) -> None:
+    """One of the two ranks of phase 25 on a PP2 ``('data', 'stage')``
+    mesh: each step of ``P25_RUNS`` from the seeded state with the
+    counters from 0, the gathered tensors saved to ``tmp``, the timed
+    steps of ``P25_TIMED``; GPipe's and 1F1B's peak memory at M = 8; the
+    committed PipeCNN's logits and TTA eval; prints its report as one JSON
+    line."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    init_distributed(f"localhost:{port}", 2, rank, "cuda")
+    mesh = make_pp_mesh(1, 2)
+    report = {"backend": dist.get_backend(), "shape": repr(mesh.shape)}
+    x, y = p25_batch()
+    for tag, (m, schedule, v, dtype) in P25_RUNS.items():
+        model, opt, ts = p25_model()
+        shard_pp_train_state(ts, mesh, model, v)
+        step = make_pp_train_step(model, opt, mesh, n_microbatches=m,
+                                  schedule=schedule, virtual_stages=v,
+                                  compute_dtype=dtype)
+        (ts, met), counts, hops = p25_counted(lambda: step(ts, x, y))
+        with unsharded(ts):
+            torch.save({k: v.detach().cpu() for k, v in
+                        train_tensors(ts).items()},
+                       os.path.join(tmp, f"p25_{tag}_{rank}.pt"))
+        ms = (p24_time(lambda: step(ts, x, y)) if tag in P25_TIMED
+              else None)
+        report[tag] = {"counts": counts, "hops": hops,
+                       "loss": float(met["loss"]),
+                       "shards": sorted(ts.shards), "ms": ms}
+        del model, ts, step
+        torch.cuda.empty_cache()
+    peak = {}
+    for schedule in ("gpipe", "1f1b"):
+        model, opt, ts = p25_model()
+        shard_pp_train_state(ts, mesh, model)
+        step = make_pp_train_step(model, opt, mesh, n_microbatches=8,
+                                  schedule=schedule)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        ts, met = step(ts, x, y)
+        torch.cuda.synchronize()
+        peak[schedule] = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+        del model, ts, step
+        torch.cuda.empty_cache()
+    report["peak_mib"] = peak
+    fixture = np.load(FAMILY_FIXTURE)
+    model = family_model("pipecnn", fixture)
+    ts = create_train_state(model, make_optimizer("momentum", 1e-2, 0.9),
+                            seed=7)
+    shard_pp_train_state(ts, mesh, model)
+    photos = torch.from_numpy(family_photos())
+    labels = torch.from_numpy(fixture["pipecnn_logits"].argmax(-1))
+    (logits, ev), counts, hops = p25_counted(lambda: (
+        make_pp_forward(model, mesh, n_microbatches=2)(photos),
+        make_pp_eval_step(model, mesh, n_microbatches=2, tta="flips")(
+            photos, labels)))
+    report["eval"] = {"logits": logits.cpu().tolist(),
+                      "pred": ev["pred"].tolist(), "loss": float(ev["loss"]),
+                      "counts": counts, "hops": hops}
+    print("p25 rank: " + json.dumps(report), flush=True)
+    dist.destroy_process_group()
+
+
+def p25_hops(m: int, v: int, schedule: str, stages: int = 2) -> int:
+    """The stage hops of one step: GPipe's ``M + S - 2`` forward and as
+    many backward; 1F1B's ``2 (C - 1) + 2 (M V - S (V - 1))``, ``C = V
+    S``."""
+    if schedule == "gpipe":
+        return 2 * (m + stages - 2)
+    return 2 * (v * stages - 1) + 2 * (m * v - stages * (v - 1))
+
+
+def p25_parity(tmp: Path, smi: str) -> tuple[dict, list]:
+    """The two ranks against this process's step and each other; returns
+    their launches, added up, and the report's lines."""
+    procs = p23_spawn([str(tmp), "{port}", "{rank}"], code=(
+        "import sys, chip_smoke as c\n"
+        "c.phase25_rank(sys.argv[1], int(sys.argv[2]), int(sys.argv[3]))\n"))
+    # meanwhile the one-process step on the same seed, and its eval
+    x, y = p25_batch()
+    model, opt, ts = p25_model()
+    step = make_train_step(model, opt)
+    ts, m = step(ts, x.cuda(), y.cuda())
+    ref = {k: v.detach().cpu().clone() for k, v in train_tensors(ts).items()}
+    ref_loss = float(m["loss"])
+    one_ms = p24_time(lambda: step(ts, x.cuda(), y.cuda()))
+    del model, ts, step
+    fixture = np.load(FAMILY_FIXTURE)
+    model = family_model("pipecnn", fixture)
+    photos = torch.from_numpy(family_photos()).cuda()
+    want_logits = torch.from_numpy(fixture["pipecnn_logits"])
+    labels = want_logits.argmax(-1)
+    tta = make_eval_step(model, tta="flips")(photos, labels.cuda())
+    del model
+    torch.cuda.empty_cache()
+    outs = p23_outputs(procs, "phase 25 step parity")
+    reports = [json.loads(o.rsplit("p25 rank: ", 1)[1].splitlines()[0])
+               for o in outs]
+    got = {tag: [torch.load(tmp / f"p25_{tag}_{r}.pt") for r in range(2)]
+           for tag in P25_RUNS}
+    total, lines = {}, []
+    for tag, (mb, schedule, v, dtype) in P25_RUNS.items():
+        check(sorted(got[tag][0]) == sorted(ref),
+              f"{tag}: tensors {sorted(set(got[tag][0]) ^ set(ref))[:6]}")
+        check(all(bits_equal(got[tag][0][k], got[tag][1][k]) for k in ref),
+              f"{tag}: the two ranks' tensors differ")
+        # M = 1 is the unpipelined step; the other schedules are GPipe's
+        # at M = 4, and bf16 is held to its float32 step
+        against, bar = {"gpipe m1": (ref, P25_TOL),
+                        "gpipe m4 bf16": (got["gpipe m4"][0],
+                                          BF16_MODEL_TOL)}.get(
+            tag, (got["gpipe m4"][0], P25_TOL))
+        worst, where = p24_worst(got[tag][0], against)
+        if tag != "gpipe m4":
+            check(worst <= bar, f"{tag}: {where} off by {worst:.3e} x "
+                  f"max(1, max|ref|) (bar {bar})")
+        launches = []
+        for r, rep in enumerate(reports):
+            part = rep[tag]
+            check(rep["backend"] == "gloo" and rep["shape"]
+                  == "{'data': 1, 'stage': 2}", f"{tag}: mesh {rep}")
+            check(part["shards"] == P25_STAGED, f"{tag} rank {r}: shards "
+                  f"{part['shards']}")
+            check(part["hops"] == p25_hops(mb, v, schedule),
+                  f"{tag} rank {r}: {part['hops']} stage hops, expected "
+                  f"{p25_hops(mb, v, schedule)}")
+            c = part["counts"]
+            want = ["conv2d_bias_relu.launches"] + (
+                ["conv2d_bias_relu.launches_bf16_tma"] if dtype else
+                ["conv2d_bias_relu.launches_tiled"]) + (
+                ["conv2d_bias_relu.launches_strip_padded"]
+                if r == 0 and not dtype else [])
+            check(all(c.get(k, 0) > 0 for k in want) and not any(
+                c.get(f"conv2d_bias_relu.launches_{f}", 0)
+                for f in P25_FALLBACKS), f"{tag} rank {r}: launches {c}")
+            check(np.isfinite(part["loss"]), f"{tag}: loss {part['loss']}")
+            add_up(total, c)
+            launches.append(c)
+        check(reports[0][tag]["loss"] == reports[1][tag]["loss"],
+              f"{tag}: the ranks' losses differ")
+        if tag == "gpipe m1":
+            check(abs(reports[0][tag]["loss"] - ref_loss) <= P25_TOL * max(
+                1.0, abs(ref_loss)), f"{tag}: loss {reports[0][tag]['loss']}"
+                f" against {ref_loss}")
+        times = ""
+        if tag in P25_TIMED:
+            dev = [rep[tag]["ms"][0] for rep in reports]
+            wall = [rep[tag]["ms"][1] for rep in reports]
+            times = (f"; device {dev[0]:.3f} / {dev[1]:.3f} ms per step, "
+                     f"wall {wall[0]:.3f} / {wall[1]:.3f} (ranks 0 / 1)")
+        what = {"gpipe m1": "the one-process step",
+                "gpipe m4 bf16": "GPipe's float32 step at M = 4"}.get(
+            tag, "GPipe's step at M = 4")
+        lines.append(
+            f"PP2 {tag} at batch {P25_B}: "
+            + (f"within {worst:.3e} x max(1, max|ref|) of {what} (worst "
+               f"{where}; bar {bar}), " if tag != "gpipe m4" else "")
+            + f"the ranks bit-equal, {reports[0][tag]['hops']} stage hops "
+            f"a step, launches per rank {launches}{times}")
+    lines.append(f"one process, the same float32 step: device "
+                 f"{one_ms[0]:.3f} ms per step, wall {one_ms[1]:.3f} "
+                 f"({smi}; the ranks time-slice the card over gloo)")
+    peaks = [rep["peak_mib"] for rep in reports]
+    check(peaks[0]["1f1b"] < peaks[0]["gpipe"],
+          f"M = 8: stage 0's peak MiB {peaks[0]}")
+    lines.append(
+        f"peak device memory per rank at M = 8, float32, batch {P25_B} "
+        f"(MiB above the weights): GPipe {peaks[0]['gpipe']:.1f} / "
+        f"{peaks[1]['gpipe']:.1f}, 1F1B {peaks[0]['1f1b']:.1f} / "
+        f"{peaks[1]['1f1b']:.1f} (stages 0 / 1; {smi})")
+    for r, rep in enumerate(reports):
+        ev = rep["eval"]
+        logits = torch.tensor(ev["logits"])
+        dev = float((logits - want_logits).abs().max()) / max(
+            1.0, float(want_logits.abs().max()))
+        check(dev <= P25_TOL and torch.equal(logits.argmax(-1), labels),
+              f"eval rank {r}: logits {dev:.3e} off family_logits.npz")
+        check(ev["pred"] == tta["pred"].tolist() and abs(
+            ev["loss"] - float(tta["loss"])) <= P25_TOL * max(
+            1.0, abs(float(tta["loss"]))),
+              f"eval rank {r}: TTA {ev['pred']} {ev['loss']} against one "
+              f"process's {tta['pred'].tolist()} {float(tta['loss'])}")
+        check(not any(ev["counts"].get(f"conv2d_bias_relu.launches_{f}", 0)
+                      for f in P25_FALLBACKS), f"eval rank {r}: "
+              f"{ev['counts']}")
+        add_up(total, ev["counts"])
+    lines.append(
+        f"the committed PipeCNN (iter_11000) through make_pp_forward at M "
+        f"= 2 on the six photos: logits within {dev:.3e} x max(1, |ref|) "
+        f"of family_logits.npz, the same classes; make_pp_eval_step with "
+        f"tta='flips' at M = 2: predictions and loss equal to one "
+        f"process's ({reports[0]['eval']['hops']} hops)")
+    return total, lines
+
+
+# the train CLI in a fresh process (``CHILD``'s), each rank also saving
+# its gathered tree beside every checkpoint it helps write, and printing
+# its stage hops
+P25_CHILD = (
+    "import json, sys, torch\n"
+    "import torch.distributed as dist\n"
+    "from cnn_tpu_torch.ops.hopper import read_counters\n"
+    "from cnn_tpu_torch.parallel.collectives import counts\n"
+    "from cnn_tpu_torch.parallel.train_step import (named_params,\n"
+    "    named_state, unsharded)\n"
+    "from cnn_tpu_torch.tools import train\n"
+    "real = train.save_checkpoint\n"
+    "def save(path, ts):\n"
+    "    real(path, ts)\n"
+    "    with unsharded(ts):\n"
+    "        tree = {k: v.detach().cpu().clone() for k, v in\n"
+    "                {**named_params(ts.model),\n"
+    "                 **named_state(ts.model)}.items()}\n"
+    "    torch.save(tree, path + f'.rank{dist.get_rank()}')\n"
+    "train.save_checkpoint = save\n"
+    "rc = train.main(sys.argv[1:])\n"
+    "print('child launches: ' + json.dumps(\n"
+    "    {k: v for k, v in read_counters().items() if v}))\n"
+    "print('child hops: ' + str(counts['stage_hops']))\n"
+    "sys.exit(rc)\n")
+
+
+def p25_flat(tree: dict, path: tuple = ()) -> dict:
+    """A checkpoint's nested tree by ``leaf_name``."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(p25_flat(v, path + (k,)))
+        else:
+            out["/".join(path) + "." + k] = np.asarray(v)
+    return out
+
+
+def p25_smoke() -> list:
+    """``multihost_pp_smoke`` as four processes; running."""
+    port = free_port()
+    return [subprocess.Popen(
+        [sys.executable, "-m", "cnn_tpu_torch.tools.multihost_pp_smoke",
+         "--coordinator", f"localhost:{port}", "--num-processes", "4",
+         "--process-id", str(r)], cwd=ROOT, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for r in range(4)]
+
+
+def p25_cli(cli: dict, tmp: Path, smoke: list) -> tuple[dict, list]:
+    """The two-process pipelined train CLI runs (1F1B at M = 4, and
+    interleaved with two chunks a stage), started at once, then the
+    output of ``smoke`` (``p25_smoke``); returns the CLI ranks' launches
+    and the lines."""
+    base = CLI_FLAGSHIP + [
+        "--dataset-path", str(cli["data"]), *cli["sizes"],
+        "--train-batch-size", str(P25_CLI_B), "--name", "pipecnn",
+        "--total-iters", str(P25_ITERS), "--valid-iters", str(P25_ITERS),
+        "--save-iters", str(P25_ITERS), "--multihost", "true",
+        "--coordinator", "localhost:{port}", "--num-processes", "2",
+        "--process-id", "{rank}", "--pipeline-stages", "2",
+        "--data-parallel", "1", "--pipeline-schedule", "1f1b",
+        "--microbatches", "4"]
+    runs = {"1f1b": [], "interleaved": ["--virtual-stages", "2"]}
+    procs = {tag: p23_spawn(base + flags + ["--checkpoint-dir",
+                                            str(tmp / f"p25_{tag}")],
+                            code=P25_CHILD)
+             for tag, flags in runs.items()}
+    total, lines = {}, []
+    for tag in runs:
+        outs = p23_outputs(procs[tag], f"phase 25 CLI {tag}")
+        logged, launches, hops = [], [], []
+        for r, out in enumerate(outs):
+            counts = json.loads(out.rsplit("child launches: ", 1)[1]
+                                .splitlines()[0])
+            hops.append(int(out.rsplit("child hops: ", 1)[1].split()[0]))
+            check(counts.get("conv2d_bias_relu.launches_bf16_tma", 0) > 0
+                  and counts.get("rotate_shear.launches", 0) > 0
+                  and not any(counts.get(f"conv2d_bias_relu.launches_{f}", 0)
+                              for f in P25_FALLBACKS),
+                  f"CLI {tag} rank {r}: launches {counts}")
+            add_up(total, counts)
+            launches.append(counts)
+            check("pipeline mesh: {'data': 1, 'stage': 2} (microbatches 4, "
+                  "schedule 1f1b)" in out and "training done!" in out
+                  and f"multihost: process {r}/2" in out,
+                  f"CLI {tag} rank {r}: output ends {out[-1500:]!r}")
+            logged.append([re.sub(r"\[[\d.]+ img/s\]", "", ln)
+                           for ln in re.split(r"[\r\n]", out)
+                           if ln.startswith(("Train===>", "Valid===>",
+                                             "Test===>"))])
+        check(logged[0] == logged[1] and logged[0],
+              f"CLI {tag}: the ranks logged {logged}")
+        losses = [float(v) for v in P23_LOSS.findall(outs[0])]
+        check(losses and all(np.isfinite(losses)), f"CLI {tag}: {losses}")
+        saved = [out.count("weights have been saved to") for out in outs]
+        check(saved == [1, 0], f"CLI {tag}: saves per rank {saved}")
+        cks = sorted((tmp / f"p25_{tag}").glob("*.ckpt"))
+        check(len(cks) == 1, f"CLI {tag}: checkpoints {cks}")
+        payload = read_checkpoint(str(cks[0]))
+        tree = {**p25_flat(payload["params"]), **p25_flat(payload["state"])}
+        for r in range(2):
+            ranks = torch.load(str(cks[0]) + f".rank{r}")
+            check(sorted(ranks) == sorted(tree) and all(
+                np.array_equal(ranks[k].numpy(), tree[k]) for k in tree),
+                f"CLI {tag}: the checkpoint differs from rank {r}'s tree")
+        check(tree["trunk/body/b_conv1.w"].shape == (8, 3, 3, 64, 64),
+              f"CLI {tag}: trunk {tree['trunk/body/b_conv1.w'].shape}")
+        back = get_model("pipecnn", num_classes=3, image_size=224,
+                         device="cuda")
+        load_checkpoint(str(cks[0]), create_train_state(
+            back, make_optimizer("momentum", 1.5e-2, schedule="cosine",
+                                 total_steps=P25_ITERS)))
+        test = [ln for ln in logged[0] if ln.startswith("Test===>")]
+        lines.append(
+            f"train CLI --multihost --pipeline-stages 2, {tag} 1F1B at M = "
+            f"4, {P25_ITERS} iterations of the bf16 PipeCNN at global "
+            f"batch {P25_CLI_B} with the full device augmentation: the "
+            f"same lines on both ranks (losses {losses}; "
+            f"{test[0].strip() if test else 'no test'}), stage hops per "
+            f"rank {hops}, launches per rank {launches}, {cks[0].name} "
+            "written by process 0 alone, equal to both ranks' gathered "
+            "trees and read back")
+    outs = p23_outputs(smoke, "phase 25 multihost_pp_smoke")
+    oks = [[ln for ln in o.splitlines()
+            if ln.split(" ", 1)[0] in ("PP", "PP-1F1B", "PP3", "EPOCH")]
+           for o in outs]
+    losses = {tuple(ln.split("loss=")[1].split()[0] for ln in ok
+                    if "loss=" in ln) for ok in oks}
+    check(all(len(ok) == 4 for ok in oks) and len(losses) == 1,
+          f"multihost_pp_smoke: {oks}")
+    lines.append("tools.multihost_pp_smoke, four processes (DP2 x PP2, DP1 "
+                 f"x PP2 x TP2): {oks[0]} on every one")
+    return total, lines
+
+
+def phase25(smi: str, tmp: Path, cli: dict) -> dict:
+    """Phase 25: the pipelined steps against one process and each other,
+    the memory of GPipe and 1F1B, the pipelined eval of the committed
+    PipeCNN, then the CLI runs and multihost_pp_smoke. Returns every
+    PipeCNN launch, added up (the families' rows)."""
+    t0 = time.perf_counter()
+    # the small smoke starts first: its four processes import while the
+    # step parity runs
+    smoke = p25_smoke()
+    total, lines = p25_parity(tmp, smi)
+    t1 = time.perf_counter()
+    got, more = p25_cli(cli, tmp, smoke)
+    add_up(total, got)
+    for line in lines + more:
+        phase(f"phase 25: {line}")
+    phase(f"phase 25: {time.perf_counter() - t0:.1f} s (the step parity "
+          f"{t1 - t0:.1f} s)")
+    return total
+
+
 def same_trees(a, b) -> bool:
     if isinstance(a, dict):
         return (isinstance(b, dict) and sorted(a) == sorted(b)
@@ -6505,6 +6936,10 @@ def main() -> int:
         alex24, fam24 = phase24(smi, Path(tmp), flagship)
         add_up(cli, alex24)
         add_up(fam, fam24)
+        # phase 25: every PipeCNN launch counts on the families' rows
+        fam25 = phase25(smi, Path(tmp), flagship)
+        add_up(fam, fam25)
+        add_up(fam, stem_counts("pipecnn", fam25))
 
     # the CLIs' launches (phases 14-16): float32 ones on the float32 rows,
     # the rotation in either dtype on its one row

@@ -39,8 +39,8 @@ sharded step samples each rank's rows of the global batch:
   anew each epoch, so every real row is seen at least once an epoch and
   no fixed row twice.
 
-The ranks that share a data shard (the other axes: ``'model'``,
-``'spatial'``, ``'expert'``) hold the same rows and draw from generators
+The ranks that share a data shard (the other axes: ``'stage'``,
+``'model'``, ``'spatial'``, ``'expert'``) hold the same rows and draw from generators
 in the same state, so they sample, augment and mix the same whole images;
 the model then cuts each rank's strip of their rows
 (``nn/sequential.py:cut_rows``).
@@ -48,6 +48,8 @@ the model then cuts each rank's strip of their rows
 On the GPU the sharded call is one CUDA graph where the process group is
 NCCL (collectives included); under gloo, whose collectives a graph
 cannot capture, the eager loop runs and the step says so when made.
+``device_batches`` is the sampling of both this step and the pipelined
+one (``parallel/pipeline.py``), whose stages of a data shard draw alike.
 """
 
 from __future__ import annotations
@@ -336,6 +338,47 @@ def shard_sample(dataset: DeviceDataset, mode: str,
             mesh.all_sum(labels, "data")[d * per:(d + 1) * per])
 
 
+def device_batches(dataset: DeviceDataset, batch_size: int, mesh=None,
+                   sample_mode: str = "local"):
+    """The batches of a device step: ``(draw, sampler)``. ``draw(ts,
+    rows=None)`` is this rank's ``(images, labels)`` of the step's batch:
+    dataset ``rows`` where given, the epoch modes' rows of ``ts.step``
+    (``sampler(ts.seed, ts.step)``), else a uniform draw from ``ts.rng``
+    (``DeviceDataset.sample``, or ``shard_sample`` on ``mesh``).
+    ``sampler(seed, step, steps=1)``: the [steps, rows] dataset rows of
+    the epoch modes."""
+    if sample_mode not in ("local", "global", "epoch", "epoch_fixed"):
+        raise ValueError(f"unknown sample_mode '{sample_mode}'")
+    epoch_mode = sample_mode.startswith("epoch")
+    fixed = sample_mode == "epoch_fixed"
+    sample = (dataset.sample if mesh is None
+              else functools.partial(shard_sample, dataset, sample_mode))
+
+    def draw(ts: TrainState, rows=None):
+        if rows is None and epoch_mode:
+            rows = sampler(ts.seed, ts.step)[0]
+        if rows is not None:
+            return (dataset.images.index_select(0, rows),
+                    dataset.labels.index_select(0, rows))
+        return sample(ts.rng, batch_size)
+
+    def sampler(seed, step, steps=1):
+        if mesh is None:
+            return call_indices(seed, step, steps, batch_size, dataset.n,
+                                fixed, dataset.images.device)
+        d, size = mesh.index("data"), mesh.size("data")
+        assert dataset.n - dataset.n_real < dataset.n_local, (
+            dataset.n, dataset.n_real, dataset.n_local)
+        # the pad rows are the padded set's tail: the last shard's
+        real = (dataset.n_real - (size - 1) * dataset.n_local
+                if d == size - 1 else dataset.n_local)
+        return call_indices(seed, step, steps, batch_size // size,
+                            dataset.n_local, fixed, dataset.images.device,
+                            shard=d, real=real)
+
+    return draw, sampler
+
+
 def make_device_train_step(model, optimizer, dataset: DeviceDataset,
                            batch_size: int, *, compute_dtype=None,
                            augment_fn=None, label_smoothing: float = 0.0,
@@ -373,8 +416,7 @@ def make_device_train_step(model, optimizer, dataset: DeviceDataset,
     the step prints which.
     """
     check_supported(compute_dtype=compute_dtype)
-    if sample_mode not in ("local", "global", "epoch", "epoch_fixed"):
-        raise ValueError(f"unknown sample_mode '{sample_mode}'")
+    draw, sampler = device_batches(dataset, batch_size, mesh, sample_mode)
     if mesh is not dataset.mesh:
         raise ValueError("the dataset must be uploaded onto the same mesh")
     epoch_mode = sample_mode.startswith("epoch")
@@ -387,18 +429,8 @@ def make_device_train_step(model, optimizer, dataset: DeviceDataset,
             raise ValueError(f"batch {batch_size} does not split over "
                              f"{mesh.size('data')} data shards")
 
-    fixed = sample_mode == "epoch_fixed"
-    sample = (dataset.sample if mesh is None
-              else functools.partial(shard_sample, dataset, sample_mode))
-
     def one(ts: TrainState, rows=None):
-        if rows is None and epoch_mode:
-            rows = sampler(ts.seed, ts.step)[0]
-        if rows is not None:
-            images = dataset.images.index_select(0, rows)
-            labels = dataset.labels.index_select(0, rows)
-        else:
-            images, labels = sample(ts.rng, batch_size)
+        images, labels = draw(ts, rows)
         images = to_compute(images, ts.rng, augment_fn, compute_dtype, mesh)
         return apply_gradients(ts, optimizer, images, labels,
                                label_smoothing, compute_dtype,
@@ -413,21 +445,6 @@ def make_device_train_step(model, optimizer, dataset: DeviceDataset,
             return runs[0]
         return {"loss": torch.stack([m["loss"] for m in runs]).mean(),
                 "correct": sum(m["correct"] for m in runs)}
-
-    def sampler(seed, step, steps=1):
-        """The [steps, rows] dataset rows of the epoch modes."""
-        if mesh is None:
-            return call_indices(seed, step, steps, batch_size, dataset.n,
-                                fixed, dataset.images.device)
-        d, size = mesh.index("data"), mesh.size("data")
-        assert dataset.n - dataset.n_real < dataset.n_local, (
-            dataset.n, dataset.n_real, dataset.n_local)
-        # the pad rows are the padded set's tail: the last shard's
-        real = (dataset.n_real - (size - 1) * dataset.n_local
-                if d == size - 1 else dataset.n_local)
-        return call_indices(seed, step, steps, batch_size // size,
-                            dataset.n_local, fixed, dataset.images.device,
-                            shard=d, real=real)
 
     captured = dataset.images.device.type == "cuda" and not eager and (
         mesh is None or mesh.backend == "nccl")

@@ -187,7 +187,14 @@ class Conv2D(Layer):
     ``named_op``: with a gradient asked for, launch through the custom op
     (``conv2d_bias_relu_op``) rather than the autograd Function, so that a
     selective checkpoint policy sees the conv (``StackedBlocks``,
-    ``remat='conv'``)."""
+    ``remat='conv'``).
+
+    ``pipe_tp``: ``(role, mesh)`` in a pipelined trunk's block under a
+    ``'model'`` axis (``parallel/pipeline.py``, Megatron's pair): the
+    ``"column"`` conv holds its out-channels' slice and takes its input
+    through ``Mesh.model_input``; the ``"row"`` conv holds its
+    in-channels' slice, and its partial sums, without the bias, are summed
+    over the axis (the backward the identity), then the bias is added."""
     casts = True
 
     def __init__(self, name, in_channels=3, out_channels=16, kernel_size=3,
@@ -200,6 +207,7 @@ class Conv2D(Layer):
         self.kernel_size, self.stride = kernel_size, stride
         self.padding, self.s2d = padding, s2d
         self.named_op = False
+        self.pipe_tp = None
         k = kernel_size
         self.w = _normal((k, k, in_channels, out_channels), generator, device,
                          init_scale)
@@ -227,7 +235,19 @@ class Conv2D(Layer):
     def _forward(self, x, relu, compute_dtype):
         if self.tp is not None:
             return self._forward_tp(x, relu, compute_dtype)
+        if self.pipe_tp is not None:
+            return self._forward_pipe_tp(x, relu, compute_dtype)
         return self._conv(x, self.w, self.b, relu, compute_dtype)
+
+    def _forward_pipe_tp(self, x, fuse_relu, compute_dtype):
+        role, mesh = self.pipe_tp
+        if role == "column":
+            return self._conv(mesh.model_input(x), self.w, self.b, fuse_relu,
+                              compute_dtype)
+        y = self._conv(x, self.w, torch.zeros_like(self.b), False,
+                       compute_dtype)
+        y = mesh.psum(y, "model") + self.b.to(y.dtype)
+        return relu(y) if fuse_relu else y
 
     def _forward_tp(self, x, relu, compute_dtype):
         """``w`` holds this rank's out-channels: the conv of the replicated
@@ -460,8 +480,14 @@ class BatchNorm2D(Layer):
 class Dropout(Layer):
     """Channel dropout (``ops/dropout.py``) in one of its ``compat`` modes.
     In training the two random modes draw a permutation of the channels
-    from ``generator``, or take ``perm``, one drawn ahead."""
+    from ``generator``, or take ``perm``, one drawn ahead.
+
+    ``channel_cut``: the mesh whose ``'model'`` rank holds a slice of the
+    channels (between a pipelined trunk's column and row convs,
+    ``Conv2D.pipe_tp``): the mask is the whole layer's, from ``perm`` over
+    every channel, and this rank applies its slice of it."""
     draws = True
+    channel_cut = None
 
     def __init__(self, name, p=0.5, compat="inverted"):
         super().__init__(name)
@@ -477,6 +503,13 @@ class Dropout(Layer):
                 raise ValueError(f"{self.name}: {self.compat} dropout needs "
                                  "a generator in training")
             perm = dropout_ops.draw_permutation(x.shape[-1], generator)
+        if self.channel_cut is not None and self.p > 0.0:
+            c = x.shape[-1]
+            lo = self.channel_cut.index("model") * c
+            mask = dropout_ops.channel_dropout(
+                x.new_ones(c * self.channel_cut.size("model")), self.p,
+                train=self.training, perm=perm, compat=self.compat)
+            return x * mask[lo:lo + c]
         return dropout_ops.channel_dropout(x, self.p, train=self.training,
                                            perm=perm, compat=self.compat)
 
@@ -619,28 +652,45 @@ class StackedBlocks(Layer):
         return (y, *[bn.pending[i] for bn, i in self._state_of])
 
     def forward(self, x, compute_dtype=None, generator=None, perms=None):
-        self.block.train(self.training)
+        drawn = (self.draw_perms(generator) if self.training
+                 else [{}] * self.n_blocks)
+        return self.run_blocks(x, range(self.n_blocks), drawn, compute_dtype)
+
+    def draw_perms(self, generator) -> list:
+        """Every block's Dropout permutations (``{name: perm}`` a block),
+        drawn from ``generator`` in block order, as a training forward
+        draws them."""
         drawn = [{} for _ in range(self.n_blocks)]
-        if self.training:
-            for i in range(self.n_blocks):
-                for d in self._drops:
-                    if d.random:
-                        if generator is None:
-                            raise ValueError(f"{self.name}: {d.name} needs a "
-                                             "generator in training")
-                        drawn[i][d.name] = dropout_ops.draw_permutation(
-                            self._channels(d), generator)
-        states = [getattr(self, key) for key, _, st in self._leaves if st]
-        remat = (self.training and self.remat is not False
-                 and torch.is_grad_enabled())
         for i in range(self.n_blocks):
+            for d in self._drops:
+                if d.random:
+                    if generator is None:
+                        raise ValueError(f"{self.name}: {d.name} needs a "
+                                         "generator in training")
+                    drawn[i][d.name] = dropout_ops.draw_permutation(
+                        self._channels(d), generator)
+        return drawn
+
+    def run_blocks(self, x, rows, drawn, compute_dtype=None, *,
+                   remat: bool = True, write_state: bool = True):
+        """The blocks on ``rows`` of the stacked tensors in turn, block
+        ``rows[j]`` with the permutations ``drawn[j]`` (``forward``: every
+        row; a pipeline stage: its rows, ``parallel/pipeline.py``). In
+        training each block's new BN statistics go into its row, unless
+        ``write_state`` is False (a recompute); ``remat`` False runs
+        without the checkpoint whatever the layer's mode."""
+        self.block.train(self.training)
+        states = [getattr(self, key) for key, _, st in self._leaves if st]
+        remat = (remat and self.training and self.remat is not False
+                 and torch.is_grad_enabled())
+        for i, perms in zip(rows, drawn):
             # a checkpoint keeps its inputs for the recompute: the state
             # slices go in as copies, so that writing slice i below leaves
             # them as they were
             tensors = [getattr(self, key)[i].clone() if st and remat
                        else getattr(self, key)[i]
                        for key, _, st in self._leaves]
-            run = functools.partial(self._run, drawn[i], compute_dtype)
+            run = functools.partial(self._run, perms, compute_dtype)
             # the block draws nothing (its permutations are drawn above), so
             # the checkpoint keeps no generator state: a CUDA graph, which
             # cannot read one, captures it
@@ -658,7 +708,7 @@ class StackedBlocks(Layer):
                                                   use_reentrant=False,
                                                   preserve_rng_state=False)
             x = out[0]
-            if self.training:
+            if self.training and write_state:
                 with torch.no_grad():
                     for stack, new in zip(states, out[1:]):
                         stack[i].copy_(new)

@@ -340,20 +340,34 @@ def global_norm(updates: dict, params: dict | None = None) -> torch.Tensor:
     order (keys sorted level by level), then the square root. A leaf
     whose parameter holds a shard over a mesh's ``'model'`` axis (its
     ``tp``, ``(mesh, dim)``: ``parallel/train_step.py:shard_train_state``)
-    or its ``'expert'`` axis (its ``ep``) adds the squares of every rank's
-    shard, summed over that axis."""
+    or its ``'expert'`` axis (its ``ep``), or a pipelined trunk's over
+    ``'stage'`` and ``'model'`` (its ``cuts``, ``(mesh, axes)``:
+    ``parallel/pipeline.py:shard_pp_train_state``), adds the squares of
+    every rank's shard, summed over those axes."""
     names = sorted(updates, key=lambda n: tuple(tree_path(n).split("/")))
     params = params or {}
+    split = {}      # axes -> (mesh, names)
+    for n in names:
+        p = params.get(n)
+        if getattr(p, "tp", None) is not None:
+            mesh, axes = p.tp[0], ("model",)
+        elif getattr(p, "ep", None) is not None:
+            mesh, axes = p.ep[0], ("expert",)
+        elif getattr(p, "cuts", None) is not None:
+            mesh, axes = p.cuts
+        else:
+            continue
+        split.setdefault(axes, (mesh, []))[1].append(n)
+    held = {n for _, part in split.values() for n in part}
     total = sum(torch.sum(updates[n] * updates[n]) for n in names
-                if getattr(params.get(n), "tp", None) is None
-                and getattr(params.get(n), "ep", None) is None)
-    for axis, mark in (("model", "tp"), ("expert", "ep")):
-        sharded = [n for n in names
-                   if getattr(params.get(n), mark, None) is not None]
-        if sharded:
-            mesh = getattr(params[sharded[0]], mark)[0]
-            total = total + mesh.all_sum(sum(
-                torch.sum(updates[n] * updates[n]) for n in sharded), axis)
+                if n not in held)
+    order = [("model",), ("expert",)]
+    for axes in sorted(split, key=lambda a: (order + [a]).index(a)):
+        mesh, part = split[axes]
+        squares = sum(torch.sum(updates[n] * updates[n]) for n in part)
+        for axis in axes:
+            squares = mesh.all_sum(squares, axis)
+        total = total + squares
     return torch.sqrt(total)
 
 

@@ -30,6 +30,17 @@ just those rows (``halo_plan``); its backward sends each such row's
 cotangent back to its owner, in one more, and adds it there. ``counts``
 keeps the rows they carried.
 
+``hop`` is the pipeline's move over ``'stage'`` (``cnn_tpu``'s ring
+``lax.ppermute``, the wrap from the last stage to the first included):
+each rank's tensor goes ``shift`` stages on. It is one ``all_reduce`` of
+an ``S``-slot buffer in which each rank fills the slot of the rank it
+sends to, so every rank of the line enters the same collective at every
+hop, whatever it computed; ``counts["stage_hops"]`` counts them. Under
+NCCL, with a GPU per rank, a ``batch_isend_irecv`` pair would move ``S``
+times fewer bytes; it is not written, since one card cannot run such a
+mesh (``ROADMAP.md`` Constraints), and the ``all_reduce`` runs under
+both backends.
+
 Low-precision floats are summed in float32 and rounded back once.
 """
 
@@ -42,8 +53,8 @@ import torch
 import torch.distributed as dist
 
 # the rows the halo exchanges' buffers carried, forward and backward
-# (``halo``)
-counts = {"halo_rows": 0}
+# (``halo``), and the pipeline's stage hops (``hop``)
+counts = {"halo_rows": 0, "stage_hops": 0}
 
 
 def even_split(n: int, index: int, size: int) -> tuple[int, int]:
@@ -264,3 +275,19 @@ def halo(x: torch.Tensor, mesh, plan: HaloPlan) -> torch.Tensor:
     zero, differentiable (module docstring). The rows it holds are copied,
     the others come in one exchange of ``plan.total`` rows."""
     return _Halo.apply(x, mesh, plan)
+
+
+# ------------------------------------------------------------ stage hop --
+
+def hop(x: torch.Tensor, mesh, shift: int) -> torch.Tensor:
+    """The ring move over ``'stage'`` (module docstring): ``x`` goes from
+    stage ``s`` to stage ``(s + shift) % S``, and the tensor of the same
+    shape that stage ``(s - shift) % S`` sent comes back (no gradient).
+    Every rank of the line calls it, in the same order."""
+    if not mesh.active("stage"):
+        return x
+    size, me = mesh.size("stage"), mesh.index("stage")
+    buf = x.new_zeros((size, *x.shape))
+    buf[(me + shift) % size] = x
+    counts["stage_hops"] += 1
+    return all_sum(buf, mesh, "stage")[me]

@@ -3,11 +3,15 @@
 
 ``cnn_tpu`` runs one process over many devices and arranges them as a
 ``('data', 'model'[, 'spatial'][, 'expert'])`` mesh, an axis beyond the
-first two present only when its size is above 1; PyTorch's idiom is one
-process per device, so here the ranks of the default process group are
-the mesh's devices, in ``cnn_tpu``'s order: rank ``r`` sits at the
-row-major coordinates of ``(data, model, spatial, expert)`` (``rank_of``).
-The batch shards over ``'data'``, wide layers over ``'model'``, the image
+first two present only when its size is above 1, or, for the pipeline,
+as a ``('data', 'stage'[, 'model'])`` mesh (``make_pp_mesh``); PyTorch's
+idiom is one process per device, so here the ranks of the default process
+group are the mesh's devices, in ``cnn_tpu``'s order: rank ``r`` sits at
+the row-major coordinates of ``(data, stage, model, spatial, expert)``
+(``rank_of``; an axis of size 1 adds nothing, so a mesh without
+``'stage'`` orders its ranks as before). The batch shards over
+``'data'``, the depth of a pipelined trunk over ``'stage'``
+(``parallel/pipeline.py``), wide layers over ``'model'``, the image
 rows (each activation's H) over ``'spatial'`` (``Mesh.strip``; the halo
 exchange of ``parallel/collectives.py``) and MoE's experts over
 ``'expert'`` (``parallel/train_step.py``, ``nn/moe.py``). Each axis has
@@ -36,7 +40,7 @@ import torch.distributed as dist
 from cnn_tpu_torch import default_device
 from cnn_tpu_torch.parallel import collectives
 
-AXES = ("data", "model", "spatial", "expert")
+AXES = ("data", "stage", "model", "spatial", "expert")
 
 
 def local_rank() -> int:
@@ -101,17 +105,22 @@ def axis_lines(sizes: dict, axis: str) -> list:
 
 class Mesh:
     """One rank's view of a ``('data', 'model'[, 'spatial'][, 'expert'])``
-    mesh: ``shape`` (axis -> size; ``'spatial'`` and ``'expert'`` only when
-    above 1, as in ``cnn_tpu``), this rank's ``coords`` on every axis (0 on
-    an absent one), its subgroup of each axis (``groups``, None without a
-    process group or on an absent axis), its ``device`` and the
-    ``backend``."""
+    mesh or of a pipeline's ``('data', 'stage'[, 'model'])`` mesh (one
+    whose ``shape`` names ``'stage'``): ``shape`` (axis -> size, as
+    ``cnn_tpu`` prints it: ``'spatial'`` and ``'expert'`` only when above
+    1, and on a pipeline mesh ``'model'`` too), this rank's ``coords`` on
+    every axis (0 on an absent one), its subgroup of each axis
+    (``groups``, None without a process group or on an absent axis), its
+    ``device`` and the ``backend``."""
 
     def __init__(self, shape: dict, rank: int = 0, groups=None,
                  device=None, backend: str | None = None):
         sizes = {a: int(shape.get(a, 1)) for a in AXES}
+        pipeline = "stage" in shape
         self.shape = {a: n for a, n in sizes.items()
-                      if a in ("data", "model") or n > 1}
+                      if a == "data" or n > 1
+                      or (a == "stage" and pipeline)
+                      or (a == "model" and not pipeline)}
         self.rank = rank
         self.coords, r = {}, rank
         for a in reversed(AXES):
@@ -188,6 +197,9 @@ class Mesh:
     def halo(self, x, plan):
         return collectives.halo(x, self, plan)
 
+    def hop(self, x, shift):
+        return collectives.hop(x, self, shift)
+
 
 def make_mesh(data_parallel: int = 0, model_parallel: int = 1,
               spatial_parallel: int = 1, expert_parallel: int = 1,
@@ -209,23 +221,61 @@ def make_mesh(data_parallel: int = 0, model_parallel: int = 1,
         raise ValueError(f"the {data_parallel} x {extra} mesh leaves "
                          f"{n - need} of {n} ranks out: each rank is one "
                          "device of the mesh")
-    if device is None:
-        device = torch.device("cuda", local_rank()
-                              % max(1, torch.cuda.device_count())) \
-            if torch.cuda.is_available() else default_device()
+    device = _rank_device(device)
     sizes = {"data": data_parallel, "model": model_parallel,
              "spatial": spatial_parallel, "expert": expert_parallel}
     if not dist.is_initialized():
         return Mesh(sizes, 0, None, device)
+    return _grouped(sizes, device)
+
+
+def _grouped(sizes: dict, device) -> Mesh:
+    """The mesh of ``sizes`` over the default group's ranks, with a
+    subgroup for each line of each axis it has."""
     rank = dist.get_rank()
+    n = dist.get_world_size()
+    full = {a: sizes.get(a, 1) for a in AXES}
     groups = {}
     for axis in AXES:
-        if axis in ("spatial", "expert") and sizes[axis] == 1:
+        if axis not in sizes or (axis in ("stage", "spatial", "expert")
+                                 and sizes[axis] == 1):
             continue            # absent from the mesh: no subgroup
-        for ranks in axis_lines(sizes, axis):
+        for ranks in axis_lines(full, axis):
             # every rank makes every subgroup, in the same order
             g = (dist.group.WORLD if len(ranks) == n
                  else dist.new_group(ranks))
             if rank in ranks:
                 groups[axis] = g
     return Mesh(sizes, rank, groups, device, dist.get_backend())
+
+
+def _rank_device(device):
+    if device is not None:
+        return device
+    return (torch.device("cuda", local_rank()
+                         % max(1, torch.cuda.device_count()))
+            if torch.cuda.is_available() else default_device())
+
+
+def make_pp_mesh(data_parallel: int, stages: int, model_parallel: int = 1,
+                 device=None) -> Mesh:
+    """The pipeline's ``('data', 'stage'[, 'model'])`` mesh of the default
+    group's ranks (``cnn_tpu``'s ``Mesh(devices.reshape(dp, stages[,
+    tp]), ("data", "stage"[, "model"]))``): ``'model'`` only where
+    ``model_parallel`` is above 1. Every rank calls it; ``device`` as in
+    ``make_mesh``."""
+    n = dist.get_world_size() if dist.is_initialized() else 1
+    need = data_parallel * stages * model_parallel
+    assert need <= n, f"need {need} devices, have {n}"
+    if need != n:
+        raise ValueError(f"the {data_parallel} x {stages} x "
+                         f"{model_parallel} pipeline mesh leaves "
+                         f"{n - need} of {n} ranks out: each rank is one "
+                         "device of the mesh")
+    device = _rank_device(device)
+    sizes = {"data": data_parallel, "stage": stages}
+    if model_parallel > 1:
+        sizes["model"] = model_parallel
+    if not dist.is_initialized():
+        return Mesh(sizes, 0, None, device)
+    return _grouped(sizes, device)

@@ -69,8 +69,11 @@ every rank's rows (``cnn_tpu``'s ``make_microbatch_regroup``).
 ``unsharded`` holds the full tensors in place around a checkpoint's write
 or read.
 
+The pipeline's steps, on a ``('data', 'stage'[, 'model'])`` mesh, are
+``parallel/pipeline.py``'s.
+
 Not ported (each raises ``NotImplementedError``): other compute dtypes
-(float16); the pipeline (ROADMAP.md Queue 1 item 10c).
+(float16).
 """
 
 from __future__ import annotations
@@ -100,7 +103,9 @@ class TrainState:
     random number of the steps on the model's device; ``seed`` keys the
     per-epoch permutations of the epoch samplers. On a mesh
     (``shard_train_state``): ``mesh``, and ``shards``, the params held as
-    this rank's slice -> ``(axis, dim)``, the mesh axis and the dim cut."""
+    this rank's slice -> ``(axis, dim)``, the mesh axis and the dim cut (a
+    pipeline's trunk leaves, BN buffers among them, -> a tuple of such
+    cuts, ``_cuts``: ``parallel/pipeline.py:shard_pp_train_state``)."""
     model: nn.Module
     opt_state: object
     step: int
@@ -247,6 +252,17 @@ def loss_fn(model, images, labels, label_smoothing: float = 0.0,
         logits = model(images, compute_dtype=compute_dtype,
                        generator=generator)
         aux = collect_aux_losses(model) if model.training else None
+    loss, correct = objective(logits, labels, label_smoothing, mix, dist)
+    if aux is not None:
+        loss = loss + aux
+    return loss, correct
+
+
+def objective(logits, labels, label_smoothing: float = 0.0, mix=None,
+              dist=None):
+    """``(loss, correct)`` of ``logits`` (taken to float32): the (mixed)
+    cross-entropy, then the distillation term (``loss_fn``'s ``mix`` and
+    ``dist``), and the count of right argmaxes."""
     logits = logits.float()
     if mix is not None:
         partner, lam = mix
@@ -259,10 +275,7 @@ def loss_fn(model, images, labels, label_smoothing: float = 0.0,
         probs, temp, alpha = dist
         loss = alpha * loss + (1.0 - alpha) * distillation_loss_from_probs(
             logits, probs, temp)
-    if aux is not None:
-        loss = loss + aux
-    correct = (logits.argmax(dim=-1) == labels).sum()
-    return loss, correct
+    return loss, (logits.argmax(dim=-1) == labels).sum()
 
 
 def normalize_distill(distill):
@@ -522,21 +535,43 @@ def _opt_trees(node):
             yield from _opt_trees(v)
 
 
+def _cuts(shard: tuple) -> tuple:
+    """A shard's cuts: ``(axis, dim)``, or ``(axis, dim, V)`` for the
+    ``'stage'`` rows of a pipelined trunk held as V chunks; a shard is one
+    cut or a tuple of them, applied in turn."""
+    return (shard,) if isinstance(shard[0], str) else tuple(shard)
+
+
 def _own(t: torch.Tensor, shard: tuple, mesh) -> torch.Tensor:
-    """This rank's slice of the full ``t`` over ``shard``'s ``(axis,
-    dim)`` (a copy)."""
-    axis, dim = shard
-    k = t.shape[dim] // mesh.size(axis)
-    return t.narrow(dim, mesh.index(axis) * k, k).contiguous()
+    """This rank's slice of the full ``t`` over ``shard``'s cuts (a copy).
+    A ``'stage'`` cut of ``V`` chunks keeps rows ``(k * S + s) * l + j``
+    (``l = L / (S * V)``), chunk k at rows ``k * l + j``: ``cnn_tpu``'s
+    interleaved placement; V = 1 keeps rows ``[s * l, (s + 1) * l)``."""
+    for axis, dim, *v in _cuts(shard):
+        n, i = mesh.size(axis), mesh.index(axis)
+        if v:
+            rows = t.shape[dim] // (n * v[0])
+            t = t.unflatten(dim, (v[0], n, rows)).select(dim + 1, i)
+            t = t.flatten(dim, dim + 1)
+        else:
+            k = t.shape[dim] // n
+            t = t.narrow(dim, i * k, k)
+    return t.contiguous()
 
 
 def _full(t: torch.Tensor, shard: tuple, mesh) -> torch.Tensor:
-    """Every rank's slice ``t`` over ``shard``'s ``(axis, dim)`` joined
-    (no gradient)."""
-    axis, dim = shard
-    k = t.shape[dim]
-    return mesh.assemble(t, axis, k * mesh.size(axis),
-                         mesh.index(axis) * k, dim)
+    """Every rank's slice ``t`` over ``shard``'s cuts joined (no
+    gradient): ``_own``'s inverse."""
+    for axis, dim, *v in reversed(_cuts(shard)):
+        n, i = mesh.size(axis), mesh.index(axis)
+        if v:
+            rows = t.shape[dim] // v[0]
+            t = mesh.assemble(t.unflatten(dim, (v[0], 1, rows)), axis, n, i,
+                              dim + 1).flatten(dim, dim + 2)
+        else:
+            k = t.shape[dim]
+            t = mesh.assemble(t, axis, k * n, i * k, dim)
+    return t
 
 
 def shard_train_state(ts: TrainState, mesh, model=None) -> TrainState:
@@ -579,19 +614,21 @@ def shard_train_state(ts: TrainState, mesh, model=None) -> TrainState:
 
 @contextmanager
 def unsharded(ts: TrainState):
-    """Inside, each param and optimizer leaf of ``ts`` held as a slice over
-    ``'model'`` or ``'expert'`` holds the full tensor (gathered from every
+    """Inside, each param, model-state buffer and optimizer leaf of ``ts``
+    held as a slice (over ``'model'`` or ``'expert'``, or a pipelined
+    trunk's over ``'stage'``) holds the full tensor (gathered from every
     rank: every rank enters); on the way out each takes back its slice of
     it, into its own storage, so a load inside sticks and a captured
     step's addresses hold."""
     if not ts.shards:
         yield ts
         return
-    mesh, params = ts.mesh, named_params(ts.model)
-    kept = []   # (param or None, tree or None, name, shard, its slice)
+    mesh = ts.mesh
+    held = {**named_params(ts.model), **named_state(ts.model)}
+    kept = []   # (tensor or None, tree or None, name, shard, its slice)
     with torch.no_grad():
         for name, shard in ts.shards.items():
-            p = params[name]
+            p = held[name]
             kept.append((p, None, name, shard, p.data))
             p.data = _full(p.data, shard, mesh)
             for tree in _opt_trees(ts.opt_state):

@@ -46,7 +46,13 @@ flag is absent; ``parallel/mesh.py:init_distributed``),
 ``--expert-parallel``, the run takes a ``('data', 'model'[,
 'spatial'][, 'expert'])`` mesh of the ranks (one device each; ``mesh:
 {...}``), shards the train state over it and steps on the global batch
-(``parallel/train_step.py``). Every process
+(``parallel/train_step.py``). With ``--pipeline-stages N`` above 1 it takes
+``cnn_tpu``'s ``('data', 'stage')`` mesh instead (``pipeline mesh:
+{...}``, ``--data-parallel`` 0 meaning the ranks over N), places the
+state for the pipeline (``--virtual-stages`` chunks a stage) and runs the
+pipelined train step (``--microbatches``, ``--pipeline-schedule``) on the
+host batches or the device dataset, and the pipelined eval
+(``parallel/pipeline.py``). Every process
 reads the same seeded host batches and keeps its rows; the device dataset
 shards over ``'data'`` (the validation set stays whole on each). All
 processes must start at the same iteration (a resume that differs
@@ -60,8 +66,7 @@ the best checkpoint).
 It runs on the GPU; ``main(argv, device="cpu")`` runs the plain versions
 on the CPU (tests; gloo between processes). ``--donate`` is accepted and
 changes nothing: PyTorch updates the train state in place either way.
-Options not ported yet raise ``NotImplementedError`` naming their flag
-(``check_flags``: the pipeline), as does ``--backend native``.
+``--backend native`` raises ``NotImplementedError`` (``data/loader.py``).
 
 Usage: python -m cnn_tpu_torch.tools.train [--total-iters N] [--batch-norm true] ...
 """
@@ -87,8 +92,11 @@ from cnn_tpu_torch.ops.augment import (augment_batch, augment_batch_fast,
                                        color_jitter)
 from cnn_tpu_torch.ops.hopper import _build
 from cnn_tpu_torch.parallel import (create_train_state, make_eval_step,
-                                    make_train_step, shard_train_state)
-from cnn_tpu_torch.parallel.mesh import init_distributed, make_mesh
+                                    make_pp_eval_step, make_pp_train_step,
+                                    make_train_step, shard_pp_train_state,
+                                    shard_train_state)
+from cnn_tpu_torch.parallel.mesh import (init_distributed, make_mesh,
+                                         make_pp_mesh)
 from cnn_tpu_torch.parallel.train_step import ema_weights
 from cnn_tpu_torch.utils.checkpoint import (checkpoint_name, load_checkpoint,
                                             save_checkpoint, warm_start)
@@ -98,15 +106,21 @@ from cnn_tpu_torch.utils.metrics import (ClassificationEvaluator,
 from cnn_tpu_torch.utils.profiling import StepTimer, trace
 
 
-def check_flags(train_cfg) -> None:
-    """Raises ``NotImplementedError`` for the first flag set to an option
-    the port does not run yet."""
-    n = train_cfg.pipeline_stages
-    if n > 1:
-        raise NotImplementedError(
-            f"--pipeline-stages {n} is not ported yet (ROADMAP.md Queue 1 "
-            "item 10c; the 'data', 'model', 'spatial' and 'expert' axes "
-            "run)")
+def pipeline_mesh(train_cfg, world: int, device):
+    """``--pipeline-stages``: ``cnn_tpu``'s divisibility checks, then the
+    ``('data', 'stage')`` mesh of the ranks."""
+    stages = train_cfg.pipeline_stages
+    dp = train_cfg.data_parallel or max(1, world // stages)
+    # the real constraint is per data shard per accumulation chunk: each
+    # chunk's sub-batch must split into the microbatches
+    assert train_cfg.train_batch_size % (dp * train_cfg.grad_accum) == 0, \
+        f"--train-batch-size {train_cfg.train_batch_size} must divide " \
+        f"over {dp} data shards x {train_cfg.grad_accum} accum chunks"
+    per_chunk = train_cfg.train_batch_size // dp // train_cfg.grad_accum
+    assert per_chunk % train_cfg.microbatches == 0, \
+        f"per-shard per-chunk batch {per_chunk} must divide into " \
+        f"{train_cfg.microbatches} microbatches"
+    return make_pp_mesh(dp, stages, device=device)
 
 
 def model_kwargs(model_cfg) -> dict:
@@ -247,7 +261,6 @@ def use_compile_cache(cache_dir: str) -> None:
 def _main(argv, preempted, device):
     model_cfg, data_cfg, train_cfg, _ = parse_configs(argv,
                                                       "cnn_tpu_torch train")
-    check_flags(train_cfg)
     dev = default_device(device)
     rank, world = 0, 1
     if train_cfg.multihost:
@@ -257,7 +270,12 @@ def _main(argv, preempted, device):
         print(f"multihost: process {rank}/{world}")
     is_main = rank == 0
     mesh = None
-    if (world > 1 or train_cfg.data_parallel > 1
+    pipelined = train_cfg.pipeline_stages > 1
+    if pipelined:
+        mesh = pipeline_mesh(train_cfg, world,
+                             dev if dev.type == "cpu" else None)
+        dev = mesh.device
+    elif (world > 1 or train_cfg.data_parallel > 1
             or train_cfg.model_parallel > 1
             or train_cfg.spatial_parallel > 1
             or train_cfg.expert_parallel > 1):
@@ -322,7 +340,11 @@ def _main(argv, preempted, device):
         opt = optim.with_ema(opt, train_cfg.ema)
         print(f"weight EMA: decay {train_cfg.ema} "
               "(validation/test use the averaged weights)")
-    if mesh is not None:
+    if pipelined:
+        print(f"pipeline mesh: {mesh.shape} "
+              f"(microbatches {train_cfg.microbatches}, "
+              f"schedule {train_cfg.pipeline_schedule})")
+    elif mesh is not None:
         print(f"mesh: {mesh.shape}")
     compute_dtype = (torch.bfloat16 if model_cfg.compute_dtype == "bfloat16"
                      else None)
@@ -344,7 +366,11 @@ def _main(argv, preempted, device):
         ts = load_checkpoint(resume, ts)
         start_iters = max(start_iters, ts.step + 1)
         print(f"resumed from {resume} at step {ts.step}")
-    if mesh is not None:
+    if pipelined:
+        # the full state, loaded or fresh, cut to this rank's stage rows
+        ts = shard_pp_train_state(ts, mesh, model,
+                                  train_cfg.virtual_stages)
+    elif mesh is not None:
         # the full state, loaded or fresh, cut to this rank's shards
         ts = shard_train_state(ts, mesh, model)
     if world > 1:
@@ -393,23 +419,36 @@ def _main(argv, preempted, device):
                                         device=dev)
         device_valid_ds = DeviceDataset(splits["valid"], data_cfg.image_size,
                                         data_cfg.num_workers, device=dev)
+    toolbox = dict(compute_dtype=compute_dtype,
+                   label_smoothing=train_cfg.label_smoothing,
+                   grad_accum=train_cfg.grad_accum, mixup=train_cfg.mixup,
+                   cutmix=train_cfg.cutmix, distill=distill)
+    if pipelined:
+        # the pipelined step, on host batches or the device dataset; the
+        # eval at one microbatch (pipelining gains nothing there), padding
+        # ragged batches itself
+        step_fn = make_pp_train_step(
+            model, opt, mesh, n_microbatches=train_cfg.microbatches,
+            dataset=device_train_ds, batch_size=train_cfg.train_batch_size,
+            augment_fn=augment_fn, sample_mode=data_cfg.sample_mode,
+            steps_per_call=train_cfg.steps_per_call,
+            schedule=train_cfg.pipeline_schedule,
+            virtual_stages=train_cfg.virtual_stages, **toolbox)
+        eval_fn = make_pp_eval_step(model, mesh, n_microbatches=1,
+                                    compute_dtype=compute_dtype,
+                                    tta=train_cfg.tta)
+    elif data_cfg.device_dataset:
         step_fn = make_device_train_step(
             model, opt, device_train_ds, train_cfg.train_batch_size,
-            compute_dtype=compute_dtype, augment_fn=augment_fn,
-            label_smoothing=train_cfg.label_smoothing, mesh=mesh,
+            augment_fn=augment_fn, mesh=mesh,
             sample_mode=data_cfg.sample_mode,
-            steps_per_call=train_cfg.steps_per_call,
-            grad_accum=train_cfg.grad_accum, mixup=train_cfg.mixup,
-            cutmix=train_cfg.cutmix, distill=distill)
+            steps_per_call=train_cfg.steps_per_call, **toolbox)
     else:
-        step_fn = make_train_step(model, opt, compute_dtype=compute_dtype,
-                                  mesh=mesh, augment_fn=augment_fn,
-                                  label_smoothing=train_cfg.label_smoothing,
-                                  grad_accum=train_cfg.grad_accum,
-                                  mixup=train_cfg.mixup,
-                                  cutmix=train_cfg.cutmix, distill=distill)
-    eval_fn = make_eval_step(model, compute_dtype=compute_dtype, mesh=mesh,
-                             tta=train_cfg.tta)
+        step_fn = make_train_step(model, opt, mesh=mesh,
+                                  augment_fn=augment_fn, **toolbox)
+    if not pipelined:
+        eval_fn = make_eval_step(model, compute_dtype=compute_dtype,
+                                 mesh=mesh, tta=train_cfg.tta)
     # a sharded step takes the global batch on the host and keeps its rows
     host_dev = None if mesh is not None else dev
 

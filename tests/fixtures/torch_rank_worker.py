@@ -1,4 +1,5 @@
-"""One rank of ``tests/test_torch_parallel.py``'s gloo runs on the CPU.
+"""One rank of the gloo runs of ``tests/test_torch_parallel.py`` and
+``tests/test_torch_pipeline.py`` on the CPU.
 
     python tests/fixtures/torch_rank_worker.py WORKDIR PORT WORLD RANK
 
@@ -35,9 +36,11 @@ from cnn_tpu_torch.models import get_model  # noqa: E402
 from cnn_tpu_torch.nn.module import leaf_path  # noqa: E402
 from cnn_tpu_torch.ops.augment import augment_batch  # noqa: E402
 from cnn_tpu_torch.parallel import train_step as tstep  # noqa: E402
+from cnn_tpu_torch.parallel import pipeline  # noqa: E402
+from cnn_tpu_torch.parallel.collectives import counts  # noqa: E402
 from cnn_tpu_torch.parallel.mesh import (init_distributed,  # noqa: E402
-                                         make_mesh)
-from cnn_tpu_torch.tools import train  # noqa: E402
+                                         make_mesh, make_pp_mesh)
+from cnn_tpu_torch.tools import multihost_pp_smoke, train  # noqa: E402
 from cnn_tpu_torch.utils.checkpoint import save_checkpoint  # noqa: E402
 
 
@@ -55,15 +58,25 @@ def nest(flat: dict, prefix: str) -> dict:
 
 
 def build(case, inputs):
-    """The case's model with the test's weights, its optimizer and a
-    fresh train state."""
+    """The case's model with the test's weights, its optimizer (with the
+    case's ``freeze`` prefixes and ``ema`` decay) and a fresh train
+    state."""
+    model = load_model(case, inputs)
+    opt = optim.make_optimizer("momentum", case.get("lr", 0.05), 0.9,
+                               grad_clip=case.get("clip", 0.0))
+    if case.get("freeze"):
+        opt = optim.with_frozen(opt, case["freeze"])
+    if case.get("ema"):
+        opt = optim.with_ema(opt, case["ema"])
+    return model, opt, tstep.create_train_state(model, opt, seed=0)
+
+
+def load_model(case, inputs):
     from cnn_tpu_torch.utils.checkpoint import load_jax_params
     model = get_model(case["model"], device="cpu", **case["kwargs"])
     w = case["weights"]
     load_jax_params(model, nest(inputs, f"{w}/p"), nest(inputs, f"{w}/s"))
-    opt = optim.make_optimizer("momentum", case.get("lr", 0.05), 0.9,
-                               grad_clip=case.get("clip", 0.0))
-    return model, opt, tstep.create_train_state(model, opt, seed=0)
+    return model
 
 
 def trained(ts) -> dict:
@@ -200,7 +213,91 @@ def case_cli(case, inputs, world):
     return {"rc": np.array(rc), "stdout": np.array(buf.getvalue())}
 
 
+def pp_mesh(case):
+    return make_pp_mesh(case["data"], case["stages"],
+                        case.get("model_parallel", 1), device="cpu")
+
+
+def case_pp_step(case, inputs, world):
+    """One pipelined step (``case["steps"]`` calls in device mode) with
+    the case's schedule and toolbox options; the trees after it, the loss,
+    the stage hops, and the ``.ckpt`` process 0 writes where ``path`` is
+    given."""
+    mesh = pp_mesh(case)
+    model, opt, ts = build(case, inputs)
+    V = case.get("V", 1)
+    pipeline.shard_pp_train_state(ts, mesh, model, V)
+    kw = dict(n_microbatches=case["M"], schedule=case.get("schedule",
+                                                          "gpipe"),
+              virtual_stages=V, grad_accum=case.get("grad_accum", 1),
+              mixup=case.get("mixup", 0.0), cutmix=case.get("cutmix", 0.0))
+    if case.get("teacher"):
+        kw["distill"] = (load_model(case, inputs), 2.0, 0.5)
+    x = torch.from_numpy(inputs[case["x"]])
+    y = torch.from_numpy(inputs[case["y"]])
+    hops = counts["stage_hops"]
+    if case.get("images"):
+        ds = DeviceDataset.from_arrays(inputs[case["images"]],
+                                       inputs[case["labels"]], mesh=mesh)
+        size = case["augment"]
+        step = pipeline.make_pp_train_step(
+            model, opt, mesh, dataset=ds, batch_size=case["batch"],
+            sample_mode="global", steps_per_call=case.get("spc", 1),
+            augment_fn=lambda g, im: augment_batch(g, im, out_size=size),
+            **kw)
+        ts, m = step(ts)
+    else:
+        ts, m = pipeline.make_pp_train_step(model, opt, mesh, **kw)(ts, x, y)
+    out = trained(ts)
+    out["loss"] = m["loss"].numpy()
+    out["correct"] = np.array(int(m["correct"]))
+    out["hops"] = np.array(counts["stage_hops"] - hops)
+    out["shards"] = np.array(sorted(ts.shards))
+    if case.get("path"):
+        save_checkpoint(case["path"], ts)
+    return out
+
+
+def case_pp_eval(case, inputs, world):
+    mesh = pp_mesh(case)
+    model, opt, ts = build(case, inputs)
+    pipeline.shard_pp_train_state(ts, mesh, model, case.get("V", 1))
+    ev = pipeline.make_pp_eval_step(model, mesh, tta=case.get("tta", ""))
+    m = ev(torch.from_numpy(inputs[case["x"]]),
+           torch.from_numpy(inputs[case["y"]]))
+    return {k: v.numpy() for k, v in m.items()}
+
+
+def case_pp_epoch(case, inputs, world):
+    """The labels (unique ids) the epoch sampler gives this rank over one
+    epoch of a device dataset on the pipeline mesh."""
+    from cnn_tpu_torch.data.device_dataset import device_batches
+    mesh = pp_mesh(case)
+    n, bs = case["n"], case["batch"]
+    ds = DeviceDataset.from_arrays(np.zeros((n, 8, 8, 3), np.uint8),
+                                   np.arange(n), mesh=mesh)
+    draw, _ = device_batches(ds, bs, mesh, "epoch")
+    ts = tstep.TrainState(None, None, 0, None, 7)
+    seen = []
+    for i in range(n // bs):
+        ts.step = i
+        seen += draw(ts)[1].tolist()
+    return {"seen": np.array(seen), "local": ds.labels.numpy()}
+
+
+def case_pp_smoke(case, inputs, world):
+    """``tools/multihost_pp_smoke`` on these ranks; its output."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = multihost_pp_smoke.main(
+            ["--coordinator", "unused", "--num-processes", str(world),
+             "--process-id", str(dist.get_rank())], device="cpu")
+    return {"rc": np.array(rc), "stdout": np.array(buf.getvalue())}
+
+
 CASES = {"mesh": case_mesh, "step": case_step, "eval": case_eval,
+         "pp_step": case_pp_step, "pp_eval": case_pp_eval,
+         "pp_epoch": case_pp_epoch, "pp_smoke": case_pp_smoke,
          "mix": case_mix,
          "device_global": case_device_global, "ckpt": case_ckpt,
          "cli": case_cli}

@@ -36,8 +36,8 @@ ranks, and results come back, through ``.npz`` files.
   ``'expert'`` mesh of the 8 virtual devices (no compile); the halo plan
   (every rank's strip, run through the layer and cropped, joins into the
   whole layer's output); the sharded dataset's padding, its ``'local'``
-  sampler and its epoch samplers at DP4 (one rank's view each);
-  ``check_flags`` refusing the pipeline.
+  sampler and its epoch samplers at DP4 (one rank's view each). The
+  pipeline's ``'stage'`` axis is ``tests/test_torch_pipeline.py``'s.
 """
 
 import json
@@ -77,7 +77,6 @@ from cnn_tpu_torch.parallel.collectives import halo_plan
 from cnn_tpu_torch.parallel.mesh import Mesh
 from cnn_tpu_torch.parallel.train_step import (_opt_trees, make_train_step,
                                                named_params, named_state)
-from cnn_tpu_torch.tools import train
 from cnn_tpu_torch.utils import checkpoint as ckpt
 from test_torch_data import write_dataset
 
@@ -782,10 +781,3 @@ def test_epoch_sampler_per_shard(n, bs, steps):
             dup_rows.append(tuple(np.nonzero(counts > 1)[0]))
     if n != 40:
         assert len(set(dup_rows)) > 1, dup_rows
-
-
-@pytest.mark.parametrize("flag,item", [("--pipeline-stages", "10c")])
-def test_check_flags_refuses_the_later_axes(tmp_path, flag, item):
-    with pytest.raises(NotImplementedError, match=f"{flag}.*item {item}"):
-        train.main(["--checkpoint-dir", str(tmp_path), flag, "2"],
-                   device="cpu")

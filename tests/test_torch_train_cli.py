@@ -223,6 +223,7 @@ TOOLBOX = {
 # mesh of more devices than the ranks fails cnn_tpu's assertion (two
 # ranks and four: tests/test_torch_parallel.py)
 MESH = {"--multihost": "multihost: process 0/1",
+        "--pipeline-stages": "need 2 devices, have 1",
         # 1 device: cnn_tpu's (devices, model, spatial, expert) assertion
         "--model-parallel": r"\(1, 2, 1, 1\)",
         "--spatial-parallel": r"\(1, 1, 2, 1\)",
@@ -249,10 +250,11 @@ def _teacher(path):
 @pytest.mark.parametrize("flag,value", UNPORTED)
 def test_unported_flag_raises_naming_it(dataset, tmp_path, capsys,
                                         monkeypatch, flag, value):
-    """The pipeline flag still raises naming it; --multihost runs two
-    iterations as a one-process job, and --model-parallel,
-    --spatial-parallel, --expert-parallel and --data-parallel 2 on one
-    rank fail cnn_tpu's assertion that the mesh has its devices; the toolbox's flags,
+    """--multihost runs two iterations as a one-process job, and
+    --pipeline-stages, --model-parallel, --spatial-parallel,
+    --expert-parallel and --data-parallel 2 on one rank fail cnn_tpu's
+    assertion that the mesh has its devices (the pipeline on two ranks
+    and four: tests/test_torch_pipeline.py); the toolbox's flags,
     --space-to-depth, --moe-balance, --name moecnn and --compile-cache,
     once refused, now run two iterations (against cnn_tpu's CLI:
     tests/test_torch_toolbox_cli.py, tests/test_torch_moe.py and
