@@ -366,6 +366,19 @@
    4 iterations each: finite losses, the same lines on both ranks, the
    checkpoint process 0 writes equal to both ranks' gathered trees; and
    ``tools/multihost_pp_smoke.py`` as four processes, its four OK lines.
+26. the native loader: the resize kernel (``csrc/resize.cu``, cv2's
+   fixed-point INTER_LINEAR for a whole batch in one launch) bit-equal to
+   its plain version on 64 images of 18 shapes (phase 14's PPM size, a
+   photo's 375 x 500, a pixel, a row, a column, exact 2x downscales,
+   upscales) to 224 and to the 256 canvas, and to ``data/image.py``'s
+   ``resize`` at 224; alone, through the wrapper and plain, beside its
+   bound (no library call computes cv2's rounding); ``DataLoader(backend=
+   'native')`` bit-equal to the Python path over phase 14's validation and
+   test images, one launch a batch, and the seconds a batch of both
+   streams; the train CLI (the host loader, batch 64) and the evaluate CLI
+   with ``--backend native --cache false``, exact launches (a resize a
+   batch the loaders assembled), the evaluation's lines equal to the
+   Python path's; every family's FLOPs per image (``utils/flops.py``).
 
 Every phase prints one flushed line with the seconds since start. Any failed
 check raises, so the exit code is not 0. Without a CUDA device it exits 1
@@ -417,6 +430,8 @@ from cnn_tpu_torch.data import (DataLoader, DeviceDataset, ImageAugmentor,
                                 split_dataset)
 from cnn_tpu_torch.data.device_dataset import GraphedSteps
 from cnn_tpu_torch.data.image import imread, imwrite
+from cnn_tpu_torch.data.image import resize as host_resize
+from cnn_tpu_torch.data.native import NativeLoader
 from cnn_tpu_torch.export import ServingArtifact, export_serving_artifact
 from cnn_tpu_torch.models import get_model
 from cnn_tpu_torch.nn import Conv2D, Linear, ReLU, StackedBlocks
@@ -439,6 +454,9 @@ from cnn_tpu_torch.ops.hopper import (BF16_TILES,
                                       rotate_shear, rotate_tile_plan,
                                       uint8_normalize)
 from cnn_tpu_torch.ops.hopper.augment import TILES as ROTATE_TILES
+from cnn_tpu_torch.ops.hopper.resize import (launch_resize, pack,
+                                             resize_batch_plain,
+                                             resize_linear_u8, to_device)
 from cnn_tpu_torch.ops.hopper.conv import (BF16_STRIP_SMEM_MAX,
                                            BF16_STRIP_TILES, BF16_VARIANTS,
                                            STRIP_SMEM_MAX,
@@ -466,6 +484,8 @@ from cnn_tpu_torch.utils.checkpoint import (export_reference_model,
                                             load_checkpoint, load_jax_params,
                                             load_reference_model,
                                             read_checkpoint, save_checkpoint)
+from cnn_tpu_torch.utils.flops import (forward_flops_per_image,
+                                       train_flops_per_image)
 from cnn_tpu_torch.utils.history import read_history
 
 ROOT = Path(__file__).resolve().parent
@@ -506,6 +526,8 @@ REPLACES = {
     "conv2d_bias_relu_bf16_tma": "cnn_tpu/ops/pallas/conv.py:77",
     "max_pool2d_fwd_bf16": "cnn_tpu/ops/pallas/pool.py:61",
     "max_pool2d_bwd_bf16": "cnn_tpu/ops/pallas/pool.py:82",
+    # no Pallas kernel: the cv::resize of cnn_tpu's native loader
+    "resize_linear_u8": "csrc/dataloader.cpp:28",
 }
 SOURCES = {
     "uint8_normalize": "cnn_tpu_torch/csrc/normalize.cu",
@@ -517,6 +539,7 @@ SOURCES = {
     "conv2d_bias_relu_bf16_tma": "cnn_tpu_torch/csrc/conv.cu",
     "max_pool2d_fwd_bf16": "cnn_tpu_torch/csrc/pool.cu",
     "max_pool2d_bwd_bf16": "cnn_tpu_torch/csrc/pool.cu",
+    "resize_linear_u8": "cnn_tpu_torch/csrc/resize.cu",
 }
 for _key in ("stem", "stem_32", "stem_64", "stem_s1_32", "stem_s1_64",
              "padded_3x3", "1x1"):
@@ -2788,10 +2811,11 @@ PRED_LINE = re.compile(r"^(.*)===> \[classification: (\w+)\] "
                        r"\[prob: ([\d.]+)\]$")
 
 
-def counted_run(what: str, main, argv, want: dict) -> tuple:
+def counted_run(what: str, main, argv, want) -> tuple:
     """One in-process ``main(argv)`` with the counters at 0 just before:
-    exit code 0 and exactly the launch counts ``want``; returns its output,
-    the counts and its wall seconds (the device synchronised)."""
+    exit code 0 and exactly the launch counts ``want`` (a dict, or a
+    function giving it after the run); returns its output, the counts and
+    its wall seconds (the device synchronised)."""
     torch.cuda.synchronize()
     reset_launches()
     out = io.StringIO()
@@ -2808,6 +2832,8 @@ def counted_run(what: str, main, argv, want: dict) -> tuple:
     counts = {k: v for k, v in read_counters().items() if v}
     text = out.getvalue()
     check(rc == 0, f"{what}: exit code {rc}; output ends {text[-2000:]!r}")
+    if callable(want):      # counts known only once the run has ended
+        want = want()
     check(counts == want, f"{what}: launches {counts}, expected {want}")
     return text, counts, seconds
 
@@ -6793,6 +6819,252 @@ def phase25(smi: str, tmp: Path, cli: dict) -> dict:
     return total
 
 
+# ---------------------------------------------------------------------------
+# phase 26: the native loader (the batched resize kernel), --backend native
+# in the CLIs, and the FLOP counts
+# ---------------------------------------------------------------------------
+
+# the resize kernel's batch: phase 14's PPM size and a photo's, a pixel, a
+# row and a column, exact 2x downscales (cv2 runs them as INTER_AREA) to
+# 224 and to the 256 canvas, upscales, the output's own sizes
+P26_SHAPES = ([CLI_HW] * 24 + [(375, 500)] * 24
+              + [(1, 1), (1, 500), (375, 1), (448, 448), (512, 512),
+                 (112, 112), (100, 150), (224, 224), (256, 256), (7, 300),
+                 (300, 7), (223, 225), (129, 257), (2, 2), (33, 47),
+                 (640, 480)])
+P26_SIZES = (224, CANVAS)
+P26_FAMILIES = ("alexnet", "resnet10", "resnet18", "vgg8", "vgg11",
+                "mobilenet", "pipecnn", "moecnn")
+P26_LOADER_BATCHES = 4     # timed batches of each host loader, after one
+# integer operations a resized channel takes (two rows: 2 products and a
+# sum, a shift; then 2 products, 2 shifts and a sum; the rounding)
+RESIZE_OPS = 14
+
+
+def resize_bytes(p) -> int:
+    """Bytes the resize of ``p`` must move: each source pixel that a tap
+    reads, once, the tables and ``meta``, and the output."""
+    xt, yt = p.xtab.cpu().numpy(), p.ytab.cpu().numpy()
+    touched = sum(len(np.unique(y[:2])) * len(np.unique(x[:2])) * 3
+                  for x, y in zip(xt, yt))
+    n, s = p.meta.shape[0], p.size
+    return touched + nbytes(p.xtab, p.ytab, p.meta) + n * s * s * 3
+
+
+def resize_phase() -> tuple[tuple, str]:
+    """The kernel against ``resize_batch_plain`` on the card, bit for bit,
+    on P26_SHAPES to 224 and to the canvas (and against ``data/image.py``'s
+    ``resize`` on the host at 224), two launches bit-identical; timed at
+    224 alone (graph), through the wrapper and plain. Returns the row's
+    (err, ms, plain, library, bound) and a line."""
+    rng = np.random.default_rng(26)
+    imgs = [rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+            for h, w in P26_SHAPES]
+    check(len(imgs) == B, f"{len(imgs)} images")
+    for size in P26_SIZES:
+        p = to_device(pack(imgs, size), "cuda")
+        got, again = launch_resize(p), launch_resize(p)
+        ref = resize_batch_plain(p)
+        torch.cuda.synchronize()
+        check(bits_equal(got, ref) and bits_equal(got, again),
+              f"resize to {size}: the kernel differs from its plain version "
+              f"at {int((got != ref).sum())} bytes")
+        if size == 224:
+            host = np.stack([host_resize(im, (size, size)) for im in imgs])
+            check(same_arrays(got.cpu().numpy(), host),
+                  "resize: the kernel differs from data/image.py's resize")
+            p224, out = p, torch.empty_like(got)
+    ms = graph_ms(lambda: launch_resize(p224, out))
+    wrapped = time_ms(lambda: resize_linear_u8(p224, out))
+    plain = time_ms(lambda: resize_batch_plain(p224), iters=3, warmup=1)
+    resize_linear_u8.launches = 0    # the comparisons count nothing
+    nb = resize_bytes(p224)
+    bound = bound_ms(nb, RESIZE_OPS * B * 224 * 224 * 3)
+    return (0.0, ms, plain, None, bound), (
+        f"resize kernel bit-equal to resize_batch_plain on {B} images "
+        f"({len(set(P26_SHAPES))} shapes) to {P26_SIZES} and to "
+        f"data/image.py's resize at 224, two launches bit-identical; at "
+        f"224 alone {ms:.4f} ms (graph), through the wrapper {wrapped:.4f} "
+        f"ms, plain {plain:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]}, "
+        f"{nb / 1e6:.2f} MB); library: none (F.interpolate's bilinear is "
+        f"float arithmetic, not cv2's 11-bit fixed point, so it computes "
+        f"another function)")
+
+
+def loader_batch_seconds(samples, backend: str) -> float:
+    """Seconds a batch of the host loader's stream at ``B`` without cache
+    or augmentation (2 workers, prefetch 4), after its first batch."""
+    dl = DataLoader(samples, B, image_size=224, num_workers=2, prefetch=4,
+                    backend=backend, cache=False, device="cuda")
+    try:
+        dl.generate_batch()
+        t = time.perf_counter()
+        for _ in range(P26_LOADER_BATCHES):
+            images, _ = dl.generate_batch()
+        secs = (time.perf_counter() - t) / P26_LOADER_BATCHES
+    finally:
+        dl.close()
+    check(images.shape == (B, 224, 224, 3), f"loader {images.shape}")
+    return secs
+
+
+def native_loader_phase(cli: dict) -> tuple[int, str]:
+    """``DataLoader(backend='native')`` against ``backend='python'`` on
+    phase 14's images: one epoch of the validation and test splits
+    bit-equal, one resize launch a batch; then seconds a batch of each
+    stream. Returns the epoch's resize launches and a line."""
+    splits = split_dataset(discover_dataset(str(cli["data"]),
+                                            ("dog", "panda", "bird")))
+    samples = splits["valid"] + splits["test"]
+    kw = dict(batch_size=B, shuffle=False, image_size=224, num_workers=2)
+    native = DataLoader(samples, backend="native", device="cuda", **kw)
+    python = DataLoader(samples, backend="python", **kw)
+    reset_launches()
+    batches = 0
+    for (ni, nl), (pi, pl) in zip(native, python):
+        check(same_arrays(ni, pi) and same_arrays(nl, pl),
+              f"native loader batch {batches} differs from the Python path")
+        batches += 1
+    launches = resize_linear_u8.launches
+    check(batches == -(-len(samples) // B) and launches == batches
+          and read_counters()["resize_linear_u8.launches"] == launches,
+          f"native epoch: {batches} batches, {launches} resize launches")
+    turns = [(b, loader_batch_seconds(splits["train"], b))
+             for b in ("python", "native", "native", "python")]
+    # one batch's two steps apart: the decode in 2 threads, then the
+    # native engine's resize call (pack, copy in, kernel, copy out)
+    paths = [path for path, _ in splits["train"][:B]]
+    engine = NativeLoader(224, device="cuda")
+    split = {"decode": 0.0, "resize": 0.0}
+    for _ in range(3):
+        t = time.perf_counter()
+        with ThreadPoolExecutor(max_workers=2) as pool:
+            imgs = list(pool.map(imread, paths))
+        split["decode"] += (time.perf_counter() - t) / 3
+        t = time.perf_counter()
+        engine.resize(imgs)
+        split["resize"] += (time.perf_counter() - t) / 3
+    reset_launches()
+    return launches, (
+        f"DataLoader(backend='native') bit-equal to backend='python' over "
+        f"{len(samples)} of phase 14's {CLI_HW[0]}x{CLI_HW[1]} PPM images "
+        f"({batches} batches, one resize launch each); seconds a batch of "
+        f"{B} at 224 px (2 workers, prefetch 4, no cache, no augmentation, "
+        f"after the first), in turns: "
+        + ", ".join(f"{b} {t:.4f}" for b, t in turns)
+        + f"; one native batch apart (mean of 3): decode in 2 threads "
+        f"{split['decode']:.4f} s, the resize call {split['resize']:.4f} s")
+
+
+def counted_train_loaders():
+    """``train_cli.DataLoader`` as a subclass that records each batch its
+    native engine resizes (in the producer thread or the caller's)."""
+    resized = []
+
+    class Counted(DataLoader):
+        def _assemble(self, *args):
+            out = super()._assemble(*args)
+            if self._native_batch:
+                resized.append(self.image_size)
+            return out
+
+    return mock.patch.object(train_cli, "DataLoader", Counted), resized
+
+
+def native_cli_phase(smi: str, tmp: Path, cli: dict) -> tuple[dict, list]:
+    """``--backend native --cache false``: the train CLI's host-loader run
+    (float32, the fast device augmentation, batch 64, 20 iterations), then
+    the evaluate CLI on phase 14's best checkpoint, beside the same
+    evaluation on the Python path (the same printed lines). Exact launches:
+    a resize a batch the loaders assembled (train batches at the canvas,
+    the prefetch beyond the 20 consumed included; validation and test at
+    224). Returns the launches, added up, and the lines."""
+    nv, nt = cli["valid_batches"], cli["test_batches"]
+    base = ["--dataset-path", str(cli["data"]), *cli["sizes"],
+            "--cache", "false"]
+    total, lines = {}, []
+    patch, resized = counted_train_loaders()
+    t = time.perf_counter()
+    with patch:
+        text, counts, _ = counted_run(
+            "train CLI --backend native", train_cli.main, base + [
+                "--backend", "native", "--checkpoint-dir",
+                str(tmp / "native"), "--device-augment", "true",
+                "--augment-mode", "fast", "--batch-norm", "true",
+                "--optimizer", "momentum", "--learning-rate", "1.5e-2",
+                "--lr-schedule", "cosine", "--train-batch-size", str(B),
+                "--total-iters", "20", "--valid-iters", "20",
+                "--save-iters", "20"],
+            lambda: {**cli_want(20, nv + nt, False, False),
+                     "resize_linear_u8.launches": len(resized)})
+    secs = time.perf_counter() - t
+    train_batches = resized.count(CANVAS)
+    check("training done!" in text and 20 <= train_batches <= 20 + 4 + 1
+          and len(resized) - train_batches == nv + nt,
+          f"train CLI --backend native: {train_batches} train batches "
+          f"resized, {len(resized) - train_batches} eval batches; output "
+          f"ends {text[-1500:]!r}")
+    add_up(total, counts)
+    test = [l for l in text.splitlines() if l.startswith("Test===>")]
+    lines.append(f"train CLI --backend native --cache false, 20 iterations "
+                 f"at batch {B}: {test[-1]}; resize launches "
+                 f"{counts['resize_linear_u8.launches']} ({train_batches} "
+                 f"train batches at {CANVAS} px, {nv + nt} eval); "
+                 f"{secs:.3f} s ({smi})")
+    argv = base + ["--resume", cli["best"], "--split", "both"]
+    out = {}
+    for backend in ("python", "native"):
+        want = eval_want(nv + nt, nv + nt)
+        if backend == "native":
+            want["resize_linear_u8.launches"] = nv + nt
+        text, counts, secs = counted_run(
+            f"evaluate --backend {backend}", evaluate_cli.main,
+            argv + ["--backend", backend], want)
+        add_up(total, counts)
+        out[backend] = (text, secs)
+    check(out["native"][0] == out["python"][0],
+          "evaluate --backend native printed other lines than the Python "
+          f"path: {out['native'][0][-1500:]!r}")
+    lines.append(f"evaluate --split both --backend native --cache false: the "
+                 f"Python path's lines ({nv + nt} resize launches), "
+                 f"{out['native'][1]:.3f} s against {out['python'][1]:.3f} s")
+    return total, lines
+
+
+def flops_line() -> str:
+    """Every family's analytic FLOPs per image at 224 px (utils/flops.py),
+    and PipeCNN at width 256 (the deep MFU model)."""
+    figures = []
+    for name, kw in [(n, {}) for n in P26_FAMILIES] + [
+            ("pipecnn", {"width": 256, "n_blocks": 8})]:
+        model = get_model(name, num_classes=3, device="cuda", **kw)
+        fwd, train = (forward_flops_per_image(model),
+                      train_flops_per_image(model))
+        check(0 < fwd < train, f"{name} flops {fwd}, {train}")
+        figures.append(f"{name}{'@w256' if kw else ''} {fwd:.0f} / "
+                       f"{train:.0f}")
+    return "FLOPs per image, forward / train step: " + "; ".join(figures)
+
+
+def phase26(smi: str, tmp: Path, cli: dict) -> tuple[int, tuple, dict]:
+    """Phase 26: the resize kernel, the native loader, ``--backend
+    native`` through the train and evaluate CLIs, the FLOP counts. Returns
+    the resize launches of its counted runs, the resize row's numbers and
+    every launch of the CLI runs (AlexNet's rows)."""
+    t0 = time.perf_counter()
+    row, line = resize_phase()
+    phase(f"phase 26: {line}")
+    epoch_launches, line = native_loader_phase(cli)
+    phase(f"phase 26: {line}")
+    total, lines = native_cli_phase(smi, tmp, cli)
+    for line in lines:
+        phase(f"phase 26: {line}")
+    phase(f"phase 26: {flops_line()}")
+    phase(f"phase 26: {time.perf_counter() - t0:.1f} s")
+    resize = total.pop("resize_linear_u8.launches") + epoch_launches
+    return resize, row, total
+
+
 def same_trees(a, b) -> bool:
     if isinstance(a, dict):
         return (isinstance(b, dict) and sorted(a) == sorted(b)
@@ -6853,7 +7125,7 @@ def main() -> int:
                for pad in (0, 1) for k3 in (0, 1)] + [
             "maxpool2x2_bwd_window<f32>", "maxpool2x2_bwd_window<bf16>",
             "maxpool2x2_fwd<bf16>", "normalize_u8_wide<1>",
-            "normalize_u8_wide<0>"] + [
+            "normalize_u8_wide<0>", "resize_linear_u8"] + [
             f"conv2d_bf16<{mt}x{nt}x{v}>" for mt, nt in BF16_TILES
             for v in (0, 1)] + [
             f"conv2d_bf16_strip<{r}x{int(wide)}x{nt}>"
@@ -6867,7 +7139,7 @@ def main() -> int:
         check(not (name.startswith(("conv2d_tiled", "conv2d_strip",
                                      "conv2d_bf16", "maxpool2x2_fwd",
                                      "maxpool2x2_bwd_window", "rotate_shear",
-                                     "normalize_u8_wide"))
+                                     "normalize_u8_wide", "resize_linear_u8"))
                    and spills), f"{name} spills: {spills}")
     # ptxas's advisories on wgmma (e.g. a pipeline it serializes)
     advice = [ln.strip() for ln in _build.build_log.splitlines()
@@ -6940,6 +7212,10 @@ def main() -> int:
         fam25 = phase25(smi, Path(tmp), flagship)
         add_up(fam, fam25)
         add_up(fam, stem_counts("pipecnn", fam25))
+        # phase 26: the CLI runs' launches count on AlexNet's rows, the
+        # resize launches on the resize row
+        resize_n, resize_row, alex26 = phase26(smi, Path(tmp), flagship)
+        add_up(cli, alex26)
 
     # the CLIs' launches (phases 14-16): float32 ones on the float32 rows,
     # the rotation in either dtype on its one row
@@ -6990,6 +7266,7 @@ def main() -> int:
         - fam21.get(tma_key, 0),
         tma["err"], tma["ms"], tma["plain"], tma["lib"], tma["bound"]))
     kernels += family_rows(gen, fam) + rows20
+    kernels.append(entry("resize_linear_u8", resize_n, *resize_row))
     phase("all checks passed")
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -34,6 +34,7 @@ and ``imwrite(path, img)`` writes a PNG that ``cv2.imread`` reads back as
 
 from __future__ import annotations
 
+import functools
 import struct
 import zlib
 
@@ -144,7 +145,24 @@ def _taps(src: int, dst: int, clamp_weights: bool):
     c1 = np.rint(f * np.float32(_COEF_SCALE))
     i1 = np.clip(i0 + 1, 0, src - 1)
     i0 = np.clip(i0, 0, src - 1)
-    return i0, i1, c0.astype(np.int32), c1.astype(np.int32)
+    return (i0.astype(np.int32), i1.astype(np.int32), c0.astype(np.int32),
+            c1.astype(np.int32))
+
+
+@functools.lru_cache(maxsize=256)
+def tap_tables(sh: int, sw: int, dh: int, dw: int) -> tuple[np.ndarray,
+                                                            np.ndarray]:
+    """cv2's INTER_LINEAR taps of a resize from ``sh`` x ``sw`` to ``dh`` x
+    ``dw``: the columns' [4, dw] and the rows' [4, dh] int32 tables, each
+    row of a table (i0, i1, c0, c1) (module docstring: the columns'
+    weights clamp at the edges, the rows' keep their fraction). ``resize``,
+    ``ops/hopper/resize.py``'s kernel and its plain version all read
+    these; read-only, shared between calls."""
+    xt = np.stack(_taps(sw, dw, clamp_weights=True))
+    yt = np.stack(_taps(sh, dh, clamp_weights=False))
+    for t in (xt, yt):
+        t.flags.writeable = False
+    return xt, yt
 
 
 def resize(img: np.ndarray, size: tuple[int, int]) -> np.ndarray:
@@ -156,8 +174,7 @@ def resize(img: np.ndarray, size: tuple[int, int]) -> np.ndarray:
     sh, sw = img.shape[:2]
     if (dw, dh) == (sw, sh):
         return img.copy()
-    x0, x1, a0, a1 = _taps(sw, dw, clamp_weights=True)
-    y0, y1, b0, b1 = _taps(sh, dh, clamp_weights=False)
+    (x0, x1, a0, a1), (y0, y1, b0, b1) = tap_tables(sh, sw, dh, dw)
     s = img.astype(np.int32)
     extra = (1,) * (img.ndim - 2)
     a0 = a0.reshape(1, dw, *extra)

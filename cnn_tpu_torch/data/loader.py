@@ -16,9 +16,18 @@ and int32 labels as ``cnn_tpu``'s Python path, decoding and resizing with
 ``data/image.py`` (bit-equal to cv2) and warping with
 ``data/augment.py:warp_affine`` (bit-equal to cv2 5.0's) in place of cv2.
 
-Not ported: the C++ decoder (``backend='native'``), which raises
-``NotImplementedError``; ``backend='auto'`` takes the Python path, as
-``cnn_tpu``'s does where the native library is absent.
+``backend='native'`` is ``cnn_tpu``'s native engine (``data/native.py``):
+without ``augment`` and without ``cache`` (where ``cnn_tpu`` uses it), the
+pool decodes a batch and one ``NativeLoader.resize`` call resizes it, one
+kernel launch a batch on the card (the plain version with
+``device='cpu'``); the bytes are those of the Python path.
+``backend='auto'`` is ``'native'`` on a CUDA device and ``'python'`` on the
+CPU, by the ``device`` the caller passes (None: the card,
+``cnn_tpu_torch.default_device``); ``'python'`` needs no device.
+
+No CUDA graph is captured while a native loader's producer thread runs:
+the train CLI's host loaders live only where no device-dataset graph is
+captured, and the evaluate CLI captures none.
 """
 
 from __future__ import annotations
@@ -30,6 +39,7 @@ from typing import Iterator, Optional, Sequence
 
 import numpy as np
 
+from cnn_tpu_torch import default_device
 from cnn_tpu_torch.data.augment import ImageAugmentor
 from cnn_tpu_torch.data.dataset import Sample
 from cnn_tpu_torch.data.image import imread, resize
@@ -43,13 +53,10 @@ class DataLoader:
                  image_size: int = 224, seed: int = 212,
                  num_workers: int = 2, prefetch: int = 4,
                  compat_fixed_epoch_shuffle: bool = False,
-                 backend: str = "python", cache: bool = False):
+                 backend: str = "python", cache: bool = False,
+                 device=None):
         assert batch_size >= 1
-        if backend == "native":
-            raise NotImplementedError(
-                "DataLoader(backend='native'): the C++ loader is not ported; "
-                "use backend='python' or 'auto'")
-        if backend not in ("python", "auto"):
+        if backend not in ("python", "native", "auto"):
             raise ValueError(f"unknown loader backend '{backend}'")
         self.samples = list(samples)
         self.batch_size = batch_size
@@ -66,6 +73,15 @@ class DataLoader:
         # decoded originals with it
         self.cache = cache
         self._cached: dict[str, np.ndarray] = {}
+        self._native = None
+        if backend != "python":
+            dev = default_device(device)
+            if backend == "native" or dev.type == "cuda":
+                from cnn_tpu_torch.data.native import NativeLoader
+                self._native = NativeLoader(image_size, dev)
+        # where cnn_tpu's loader takes its native engine
+        self._native_batch = (self._native is not None and not augment
+                              and not cache)
         self._queue: Optional[queue.Queue] = None
         self._stop = threading.Event()
         self._thread: Optional[threading.Thread] = None
@@ -89,6 +105,8 @@ class DataLoader:
         return np.random.default_rng(s).permutation(len(self.samples))
 
     def _load_one(self, path: str, label: int, epoch: int, pos: int):
+        if self._native_batch:
+            return imread(path), label    # resized with its batch
         size = (self.image_size, self.image_size)
         cache_resized = self.cache and not self.augment
         img = self._cached.get(path) if self.cache else None
@@ -111,7 +129,10 @@ class DataLoader:
         futs = [pool.submit(self._load_one, *self.samples[i], epoch, int(i))
                 for i in idxs]
         imgs, labels = zip(*[f.result() for f in futs])
-        return np.stack(imgs), np.asarray(labels, np.int32)
+        labels = np.asarray(labels, np.int32)
+        if self._native_batch:
+            return self._native.resize(imgs), labels
+        return np.stack(imgs), labels
 
     def _producer(self, stop: threading.Event, q: queue.Queue):
         # ``stop``/``q`` are THIS producer's own bindings: a zombie thread

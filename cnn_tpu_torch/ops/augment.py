@@ -25,6 +25,11 @@ with TF32 off unless the caller turned it on, or bf16, summed in float32
 ``rotate_shear_plain`` is the plain version of the rotation kernel: the
 same three shears as ``_rotate_core``, each a direct gather of its two taps.
 
+``augment_batch_gather`` is ``cnn_tpu``'s one-resample oracle of the full
+policy: one affine matrix an image from nine draws (``affine_for_draws``,
+a function of the draws, so that tests feed it JAX's) and a bilinear
+gather (``sample_affine``, ``map_coordinates``' rule in plain PyTorch).
+
 ``batch_mix`` (MixUp / CutMix) and ``color_jitter`` are split the same way
 (``draw_mix`` / ``apply_mix``, ``draw_jitter`` / ``apply_jitter``); they
 are elementwise PyTorch, as ``cnn_tpu`` leaves them to XLA.
@@ -353,6 +358,108 @@ def augment_batch_fast(generator: torch.Generator, images: torch.Tensor,
     """Flips and random-resized-crop only (no rotation): draw, then apply."""
     p = draw_fast(generator, images.shape[0], hflip_p, vflip_p, crop_p)
     return apply_fast(images, p, out_size, dtype)
+
+
+# ---------------------------------------------------------------------------
+# the one-resample oracle: the policy as one affine map and a bilinear gather
+# ---------------------------------------------------------------------------
+
+def affine_for_draws(u: torch.Tensor, canvas: int, out_size: int,
+                     hflip_p: float = 0.5, vflip_p: float = 0.2,
+                     crop_p: float = 0.7, rotate_p: float = 0.5
+                     ) -> torch.Tensor:
+    """[B, 3, 3] float32 matrices mapping output pixel coordinates (y, x,
+    1) to canvas coordinates, ``cnn_tpu``'s ``_affine_for_sample`` as a
+    function of its nine uniform draws in [0, 1): ``u`` [9, B] holds, in
+    order, those of its keys ``k_h``, ``k_v``, ``k_c``, ``k_cy``, ``k_cx``,
+    ``k_r``, ``k_ra``, ``k_rs`` and ``fold_in(k_r, 1)``. The ranges are
+    applied as JAX's ``uniform(minval, maxval)`` applies them, in float32:
+    the keep ratio ``0.7 + u * 0.25``, the angle ``u * 60 + 15`` degrees.
+    The product is rot @ crop @ vflip @ hflip @ base."""
+    u = u.float()
+    b, dev, s = u.shape[1], u.device, canvas
+    f32 = dict(dtype=torch.float32, device=dev)
+    eye = torch.eye(3, **f32).expand(b, 3, 3)
+
+    def stack(rows):
+        """[B, 3, 3] from 3 x 3 entries, each a [B] tensor or a number."""
+        return torch.stack([torch.stack([
+            v if torch.is_tensor(v) else torch.full((b,), v, **f32)
+            for v in row], -1) for row in rows], -2)
+
+    def pick(draw, p, m):
+        return torch.where((draw < p).view(b, 1, 1), m, eye)
+
+    base = stack([[s / out_size, 0, 0], [0, s / out_size, 0], [0, 0, 1]])
+    hflip = pick(u[0], hflip_p, stack([[1, 0, 0], [0, -1, s - 1],
+                                       [0, 0, 1]]))
+    vflip = pick(u[1], vflip_p, stack([[-1, 0, s - 1], [0, 1, 0],
+                                       [0, 0, 1]]))
+    r = 0.7 + u[2] * 0.25
+    ch = r * s
+    oy, ox = u[3] * (s - ch), u[4] * (s - ch)
+    crop = pick(u[5], crop_p, stack([[r, 0, oy], [0, r, ox], [0, 0, 1]]))
+    ang = u[6] * 60.0 + 15.0
+    ang = torch.where(u[7] < 0.5, -ang, ang) * math.pi / 180.0
+    f = torch.abs(torch.cos(ang)) + torch.abs(torch.sin(ang))
+    c = (s - 1) / 2.0
+    cos, sin = torch.cos(ang) * f, torch.sin(ang) * f
+    rot = pick(u[8], rotate_p, stack([
+        [cos, -sin, c - cos * c + sin * c],
+        [sin, cos, c - sin * c - cos * c], [0, 0, 1]]))
+    return rot @ crop @ vflip @ hflip @ base
+
+
+def sample_affine(images: torch.Tensor, matrices: torch.Tensor,
+                  out_size: int) -> torch.Tensor:
+    """[B, out, out, C]: each float [S, S, C] image sampled at its matrix's
+    image of the output grid, ``cnn_tpu``'s ``_sample_one``: bilinear
+    ``map_coordinates`` with zeros outside (a tap outside the image reads
+    0), the four taps' weight products summed in its order ((y0, x0), (y0,
+    x1), (y1, x0), (y1, x1)). A gather and a blend; not ``grid_sample``,
+    whose edge rule differs."""
+    bsz, sh, sw, ch = images.shape
+    dev = images.device
+    g = torch.arange(out_size, dtype=torch.float32, device=dev)
+    gy, gx = torch.meshgrid(g, g, indexing="ij")
+    coords = torch.stack([gy, gx, torch.ones_like(gy)])
+    src = torch.einsum("bij,jhw->bihw", matrices.float(), coords)
+    sy, sx = src[:, 0], src[:, 1]
+
+    def taps(coord):
+        lower = torch.floor(coord)
+        upper_w = coord - lower
+        i = lower.to(torch.int64)
+        return (i, 1 - upper_w), (i + 1, upper_w)
+
+    flat = images.reshape(bsz * sh * sw, ch)
+    first = torch.arange(bsz, device=dev).view(bsz, 1, 1) * (sh * sw)
+    out = None
+    for iy, wy in taps(sy):
+        for ix, wx in taps(sx):
+            valid = (iy >= 0) & (iy < sh) & (ix >= 0) & (ix < sw)
+            idx = first + iy.clamp(0, sh - 1) * sw + ix.clamp(0, sw - 1)
+            v = torch.where(valid.unsqueeze(-1), flat[idx],
+                            torch.zeros((), dtype=flat.dtype, device=dev))
+            term = (wy * wx).unsqueeze(-1) * v
+            out = term if out is None else out + term
+    return out
+
+
+def augment_batch_gather(generator: torch.Generator, images: torch.Tensor,
+                         out_size: int = 224, hflip_p: float = 0.5,
+                         vflip_p: float = 0.2, crop_p: float = 0.7,
+                         rotate_p: float = 0.5) -> torch.Tensor:
+    """[B, S, S, C] uint8/float canvases -> [B, out, out, C] float32 in
+    [0, 1], ``cnn_tpu``'s ``augment_batch_gather``: the whole policy as one
+    affine resample an image (``affine_for_draws`` of nine draws an image
+    from ``generator``, then ``sample_affine``). The correctness oracle of
+    the three-stage ``augment_batch``; no training path runs it."""
+    b, s, s2, _ = images.shape
+    assert s == s2, "square canvases expected"
+    mats = affine_for_draws(draw_rows(generator, (9, b)), s, out_size,
+                            hflip_p, vflip_p, crop_p, rotate_p)
+    return sample_affine(to_unit(images), mats.to(images.device), out_size)
 
 
 # ---------------------------------------------------------------------------

@@ -1,4 +1,5 @@
-"""Hand-written CUDA kernels for Hopper, counterparts of ``cnn_tpu/ops/pallas``.
+"""Hand-written CUDA kernels for Hopper, counterparts of ``cnn_tpu/ops/pallas``
+(and, in ``resize.py``, of the native loader's ``cv::resize``).
 
 Each wrapper takes its plain PyTorch version for a CPU tensor and launches
 its kernel for a CUDA tensor, or raises; it counts its launches in
@@ -27,6 +28,9 @@ from cnn_tpu_torch.ops.hopper.normalize import (launch_normalize,  # noqa: F401
 from cnn_tpu_torch.ops.hopper.pool import (launch_pool_bwd,  # noqa: F401
                                            max_pool2d_bwd, max_pool2d_fn,
                                            max_pool2d_fwd, pool_bwd_variant)
+from cnn_tpu_torch.ops.hopper.resize import (launch_resize,  # noqa: F401
+                                             resize_batch_plain,
+                                             resize_linear_u8)
 
 # every counter of each wrapper: all its launches, then each variant's
 COUNTERS = {
@@ -44,6 +48,7 @@ COUNTERS = {
                        "launches_strip_padded",
                        "launches_bf16_strip_padded"),
     rotate_shear: ("launches",),
+    resize_linear_u8: ("launches",),
 }
 _BY_NAME = {fn.__name__: fn for fn in COUNTERS}
 

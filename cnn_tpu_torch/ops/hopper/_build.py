@@ -72,6 +72,8 @@ SIGNATURES = {
     "cnn_rotate_shear": [P, P, P, P, P, I, I, I, I, I, I, I, I, I, I, I],
     # img, s1, s2, s3, out, B, S, C, L, pad_l, bf16: the previous design
     "cnn_rotate_shear_direct": [P, P, P, P, P, I, I, I, I, I, I],
+    # src, meta, xtab, ytab, out, n, s (ops/hopper/resize.py:Packed)
+    "cnn_resize_linear_u8": [P, P, P, P, P, I, I],
 }
 
 _lock = threading.Lock()

@@ -17,6 +17,8 @@ on the CPU. ``--name`` and the ensemble members take every family
 (alexnet, resnet10/18, vgg8/11, mobilenet, pipecnn, moecnn; a member's
 options as ``pipecnn@width=64@n_blocks=8:ckpt``). ``--compile-cache DIR``
 builds and loads the kernel library under DIR, as the train CLI does.
+``--backend`` is the train CLI's: with ``--cache false``, ``native`` (and
+``auto`` on the GPU) resizes each batch with one resize-kernel launch.
 """
 
 from __future__ import annotations
@@ -120,7 +122,8 @@ def main(argv=None, *, device=None):
                             augment=False, shuffle=False,
                             image_size=data_cfg.image_size,
                             num_workers=data_cfg.num_workers,
-                            backend=data_cfg.backend, cache=data_cfg.cache)
+                            backend=data_cfg.backend, cache=data_cfg.cache,
+                            device=dev)
         confusion = ConfusionMatrix(model_cfg.num_classes)
         try:
             loss, acc = evaluate(eval_fn, loader, dev, confusion)

@@ -66,7 +66,10 @@ the best checkpoint).
 It runs on the GPU; ``main(argv, device="cpu")`` runs the plain versions
 on the CPU (tests; gloo between processes). ``--donate`` is accepted and
 changes nothing: PyTorch updates the train state in place either way.
-``--backend native`` raises ``NotImplementedError`` (``data/loader.py``).
+``--backend native`` (and ``auto``, the default, on the GPU) resizes each
+host-loader batch with one launch of the resize kernel where ``--cache
+false`` and the host augmentation is off, as ``cnn_tpu``'s native engine
+applies (``data/native.py``); on the CPU ``auto`` is the Python path.
 
 Usage: python -m cnn_tpu_torch.tools.train [--total-iters N] [--batch-norm true] ...
 """
@@ -309,11 +312,13 @@ def _main(argv, preempted, device):
                                   seed=data_cfg.loader_seed,
                                   num_workers=data_cfg.num_workers,
                                   prefetch=data_cfg.prefetch,
-                                  backend=data_cfg.backend, cache=data_cfg.cache)
+                                  backend=data_cfg.backend, cache=data_cfg.cache,
+                                  device=dev)
         valid_loader = DataLoader(splits["valid"], train_cfg.valid_batch_size,
                                   augment=False, shuffle=False,
                                   image_size=data_cfg.image_size,
-                                  backend=data_cfg.backend, cache=data_cfg.cache)
+                                  backend=data_cfg.backend, cache=data_cfg.cache,
+                                  device=dev)
 
     if model_cfg.space_to_depth and model_cfg.name != "alexnet":
         sys.exit(f"--space-to-depth applies to the AlexNet family only "
@@ -573,7 +578,7 @@ def _main(argv, preempted, device):
                                  image_size=data_cfg.image_size,
                                  num_workers=data_cfg.num_workers,
                                  backend=data_cfg.backend,
-                                 cache=data_cfg.cache)
+                                 cache=data_cfg.cache, device=dev)
         confusion = ConfusionMatrix(model_cfg.num_classes)
         with ema_weights(ts):
             t_loss, t_acc = evaluate(eval_fn, test_loader, host_dev,

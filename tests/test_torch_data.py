@@ -201,16 +201,24 @@ def test_loader_batches_equal_cnn_tpu(dataset, cache, workers):
 
 
 def test_loader_refuses_what_is_not_ported(dataset):
-    """backend='native' raises; augment=True, once refused, augments on
-    the host (against cnn_tpu's loader: tests/test_torch_host_augment.py)."""
+    """Nothing is refused any more: augment=True augments on the host
+    (against cnn_tpu's loader: tests/test_torch_host_augment.py);
+    backend='native' loads, its batches those of the Python path (against
+    cnn_tpu's engine: tests/test_torch_native.py); 'auto' follows the
+    device, the Python path on the CPU."""
     samples = discover_dataset(dataset, CATEGORIES)
     images, labels = DataLoader(samples, batch_size=2, augment=True,
                                 image_size=32).generate_batch()
     assert images.shape == (2, 32, 32, 3) and images.dtype == np.uint8
-    with pytest.raises(NotImplementedError, match="native"):
-        DataLoader(samples, backend="native")
-    assert DataLoader(samples, backend="auto").generate_batch()[0].shape == \
-        (4, 224, 224, 3)
+    kw = dict(batch_size=4, image_size=48, shuffle=False)
+    native = DataLoader(samples, backend="native", device="cpu", **kw)
+    assert native._native is not None
+    for (ni, nl), (pi, pl) in zip(native, DataLoader(samples, **kw)):
+        assert np.array_equal(ni, pi) and np.array_equal(nl, pl)
+    auto = DataLoader(samples, backend="auto", device="cpu")
+    assert auto._native is None
+    assert auto.generate_batch()[0].shape == (4, 224, 224, 3)
+    auto.close()
 
 
 @pytest.mark.parametrize("bs", [4, 7, 30])

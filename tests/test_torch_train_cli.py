@@ -305,13 +305,29 @@ def test_unported_flag_raises_naming_it(dataset, tmp_path, capsys,
     (["--weight-decay", "1e-4"], "weight_decay"),
     (["--grad-clip", "1.0"], "grad_clip")])
 def test_unported_options_raise(dataset, tmp_path, capsys, argv, name):
-    """--backend native still raises; the host augmentation, Adam, weight
-    decay and the clip, once refused, now train (the host augmentation
-    against cnn_tpu's CLI: tests/test_torch_host_augment.py)."""
+    """The options once refused now train: ``--backend native`` (with
+    ``--cache false``, where the native engine resizes each host batch,
+    here through the resize kernel's plain version) lands bit for bit on
+    the weights of the Python path's run; the host augmentation, Adam,
+    weight decay and the clip train (the host augmentation against
+    cnn_tpu's CLI: tests/test_torch_host_augment.py)."""
     if name == "native":
-        with pytest.raises(NotImplementedError, match=name):
-            train.main(_args(dataset, tmp_path, "--total-iters", "2", *argv),
-                       device="cpu")
+        trees = []
+        for backend in ("native", "python"):
+            assert train.main(_args(dataset, tmp_path / backend,
+                                    "--total-iters", "2", "--cache", "false",
+                                    "--backend", backend),
+                              device="cpu") == 0
+            assert "training done!" in capsys.readouterr().out
+            ck = read_checkpoint(_one(str(tmp_path / backend
+                                          / "iter_2_*.ckpt")))
+            trees.append((ck["params"], ck["state"]))
+        for tree in (0, 1):
+            native, python = trees[0][tree], trees[1][tree]
+            assert set(native) == set(python)
+            for layer, leaves in native.items():
+                for key, w in leaves.items():
+                    assert np.array_equal(w, python[layer][key]), (layer, key)
         return
     assert train.main(_args(dataset, tmp_path, "--total-iters", "2", *argv),
                       device="cpu") == 0
