@@ -459,10 +459,13 @@ from cnn_tpu_torch.ops.hopper.resize import (launch_resize, pack,
                                              resize_linear_u8, to_device)
 from cnn_tpu_torch.ops.hopper.conv import (BF16_STRIP_SMEM_MAX,
                                            BF16_STRIP_TILES, BF16_VARIANTS,
-                                           STRIP_SMEM_MAX,
+                                           PW_SMEM_MAX, PW_TILES,
+                                           STRIP_SMEM_MAX, pw_grid,
+                                           pw_kernel_takes, pw_smem_bytes,
+                                           pw_tile_for,
                                            strip_bf16_smem_bytes,
                                            strip_bf16_takes,
-                                           strip_smem_bytes)
+                                           strip_smem_bytes, tiled_plan)
 from cnn_tpu_torch.ops.losses import softmax_cross_entropy
 from cnn_tpu_torch.ops.pool import max_pool2d, max_pool2d_taps
 from cnn_tpu_torch.ops.pool import max_pool2d_bwd as pool_bwd_plain
@@ -673,11 +676,12 @@ def plain_versions():
 
 
 def conv_entry(x, w, b, stride, relu, tile=None, strip=None,
-               padding=0) -> torch.Tensor:
-    """The direct conv kernel (``tile`` and ``strip`` None), the tiled one
-    with tile id ``tile`` or the strip one with strip id ``strip``, called
-    through its C entry point: no plan and no count, for comparisons beside
-    the wrapper."""
+               padding=0, pw=None) -> torch.Tensor:
+    """The direct conv kernel (``tile``, ``strip`` and ``pw`` None), the
+    tiled one with tile id ``tile``, the strip one with strip id ``strip``
+    or the pointwise one with ``pw`` = (tile id, blocks), called through
+    its C entry point: no plan and no count, for comparisons beside the
+    wrapper."""
     bsz, h, wid, cin = x.shape
     k, cout = w.shape[0], w.shape[-1]
     out = torch.empty((bsz, conv_out_size(h, k, stride, padding),
@@ -686,7 +690,10 @@ def conv_entry(x, w, b, stride, relu, tile=None, strip=None,
     args = (x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(), bsz, h,
             wid, cin, cout, k, stride, padding, int(relu))
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    if strip is not None:
+    if pw is not None:
+        _build.launch("cnn_conv2d_bias_relu_pw", x.device, stream, *args,
+                      *pw)
+    elif strip is not None:
         _build.launch("cnn_conv2d_bias_relu_strip", x.device, stream, *args,
                       strip)
     elif tile is not None:
@@ -1141,6 +1148,7 @@ def serving_want(calls: int) -> dict:
             "conv2d_bias_relu.launches": 4 * calls,
             "conv2d_bias_relu.launches_strip": calls,
             "conv2d_bias_relu.launches_tiled": 3 * calls,
+            "conv2d_bias_relu.launches_pw": 0,
             "conv2d_bias_relu.launches_direct": 0,
             "conv2d_bias_relu.launches_bf16": 0,
             "conv2d_bias_relu.launches_bf16_gather": 0,
@@ -3180,6 +3188,24 @@ def n_convs(model) -> int:
     return n
 
 
+def pointwise_convs(model, dtype=None) -> tuple[int, int]:
+    """Of one forward of ``model`` in ``dtype``: the float32 1x1 conv
+    launches that the plan sends to the pointwise kernel (Cout >= 64), and
+    all its float32 1x1 launches (StackedBlocks' layers n_blocks times)."""
+    if dtype is not None:
+        return 0, 0
+    pw = f32 = 0
+    for layer in model.modules():
+        n = layer.n_blocks if isinstance(layer, StackedBlocks) else 1
+        convs = (layer.block.modules() if isinstance(layer, StackedBlocks)
+                 else [layer] if isinstance(layer, Conv2D) else [])
+        for conv in convs:
+            if isinstance(conv, Conv2D) and conv.kernel_size == 1:
+                f32 += n
+                pw += n * (conv.out_channels >= 64)
+    return pw, f32
+
+
 def forward_counts(model, dtype=None) -> dict:
     """The non-zero counters of one eager eval forward (no normalize), and
     under ``"F.conv2d"`` its calls of ATen's convolution."""
@@ -3295,6 +3321,12 @@ def serve_family(name: str, model, dtype, rng, photos: np.ndarray,
                     for m in model.modules())
     check(aten == depthwise, f"{tag}: one forward called ATen's "
           f"conv {aten} times; only its {depthwise} depthwise convs may")
+    pw, f32_1x1 = pointwise_convs(model, dtype)
+    check(per_fwd.get("conv2d_bias_relu.launches_pw", 0) == pw
+          and per_fwd.get("conv2d_bias_relu.launches_1x1", 0)
+          - per_fwd.get("conv2d_bias_relu.launches_bf16_1x1", 0) == f32_1x1,
+          f"{tag}: one forward launched {per_fwd}; its float32 1x1s are "
+          f"{f32_1x1}, {pw} of them (Cout >= 64) for the pointwise kernel")
     shapes, worst = check_family_convs(model, dtype, x8)
     want1 = dict(per_fwd, **{"uint8_normalize.launches": 1,
                              "uint8_normalize.launches_wide": 1})
@@ -3595,6 +3627,170 @@ def stem_phase(gen) -> None:
           + "; ".join(conv1))
 
 
+# the families' float32 1x1s, the pointwise kernel's shapes: name -> (H,
+# Cin, Cout, stride) at 224 px (MobileNet's pw_1-pw_6, the projections of
+# resnet10's and resnet18's stride-2 blocks)
+PW_SHAPES = {"pw_1": (112, 32, 64, 1), "pw_2": (56, 64, 128, 1),
+             "pw_3": (56, 128, 128, 1), "pw_4": (28, 128, 256, 1),
+             "pw_5": (28, 256, 256, 1), "pw_6": (14, 256, 512, 1),
+             "r10_proj_2": (112, 16, 32, 2), "r10_proj_3": (56, 32, 64, 2),
+             "r10_proj_4": (28, 64, 128, 2), "r18_proj_2": (112, 32, 64, 2),
+             "r18_proj_3": (56, 64, 128, 2),
+             "r18_proj_4": (28, 128, 256, 2)}
+
+
+def pw_phase(gen) -> None:
+    """The float32 1x1s of the families (``PW_SHAPES``) at B = 1, 8 and
+    64: planned onto "pw" where ``pw_tile_for`` finds a tile (Cout >= 64),
+    else onto the tiled kernel; through the wrapper bit-equal to the
+    direct kernel (ReLU off and on), within atol 1e-5 + 1e-5 x S of the
+    plain conv, two launches bit-identical; through every tile of
+    ``PW_TILES`` that fits, bit-equal to the direct kernel too. Each timed
+    alone: the plan's kernel through the wrapper (L2-warm, and L2-cold
+    over copies of x), the tiled kernel at the tile its plan gives the
+    shape and the pointwise kernel at every tile (through their entry
+    points, for the record), cuDNN + ReLU, and the bound (x's bytes: the
+    pixels a stride-s 1x1 reads)."""
+    dev = torch.device("cuda")
+    lines = []
+    for name, (h, cin, cout, s) in PW_SHAPES.items():
+        for bsz in (1, 8, B):
+            x = torch.relu(torch.randn((bsz, h, h, cin), generator=gen,
+                                       device=dev))
+            w = torch.randn((1, 1, cin, cout), generator=gen,
+                            device=dev) * 0.1
+            b = torch.randn((cout,), generator=gen, device=dev) * 0.1
+            what = f"{name} [{bsz},{h},{h},{cin}]->{cout} s{s}"
+            ho = conv_out_size(h, 1, s)
+            m = bsz * ho * ho
+            plan = plan_of(x, w, s)
+            check(pw_kernel_takes(cin, cout, 1, s, 0, True)
+                  and plan.variant == ("tiled" if pw_tile_for(
+                      m, cin, cout) is None else "pw"),
+                  f"{what}: planned {plan}")
+            check_same_as_direct(x, w, b, s, what)
+            for relu in (False, True):
+                y = conv2d_bias_relu(x, w, b, s, relu)
+                conv_bar_f32(x, w, b, s, 0, y, conv2d(x, w, b, s, relu),
+                             f"{what} relu={relu}")
+                check(bits_equal(y, conv2d_bias_relu(x, w, b, s, relu)),
+                      f"{what} relu={relu}: two launches differ")
+            tiles = [t for t in range(len(PW_TILES))
+                     if pw_smem_bytes(t, cin) <= PW_SMEM_MAX]
+            for t in tiles:
+                blocks = pw_grid(m, cout, t)[0]
+                for relu in (False, True):
+                    check(bits_equal(
+                        conv_entry(x, w, b, s, relu, pw=(t, blocks)),
+                        conv_entry(x, w, b, s, relu)),
+                        f"{what} pw tile {PW_TILES[t]} relu={relu}: "
+                        "differs from the direct kernel")
+            tiled = tiled_plan(m, cout).tile
+            xn, wn = x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1)
+            row = {
+                "ms": graph_ms(lambda: conv2d_bias_relu(x, w, b, s, True)),
+                "cold": cold_ms(lambda xi: conv2d_bias_relu(
+                    xi, w, b, s, True), x, nbytes(x, y)),
+                "tiled": graph_ms(lambda: conv_entry(x, w, b, s, True,
+                                                     tile=tiled)),
+                "pw": {t: graph_ms(lambda t=t: conv_entry(
+                    x, w, b, s, True, pw=(t, pw_grid(m, cout, t)[0])))
+                    for t in tiles},
+                "lib": graph_ms(lambda: torch.relu(F.conv2d(xn, wn, b, s))),
+                "bound": bound_ms(4 * m * cin + nbytes(w, b, y),
+                                  2.0 * m * cout * cin)}
+            tile = (f"tile {'x'.join(map(str, PW_TILES[plan.tile]))}, grid "
+                    f"{plan.grid}" if plan.variant == "pw" else
+                    plan_name(plan))
+            lines.append(
+                f"{what}: {row['ms']:.4f} ms alone (L2-cold "
+                f"{row['cold']:.4f}; {tile}); tiled {row['tiled']:.4f}, "
+                f"pw " + ", ".join(f"{'x'.join(map(str, PW_TILES[t]))} "
+                                  f"{v:.4f}" for t, v in row["pw"].items())
+                + f"; cuDNN + ReLU {row['lib']:.4f}; bound "
+                f"{row['bound'][0]:.4f} ({row['bound'][1]}, "
+                f"{row['bound'][0] / row['ms']:.2f} of it)")
+    for line in lines:
+        phase(f"pointwise, {line}")
+
+
+PW_STEP_REPS = 5           # timed float32 MobileNet steps at TRAIN_B
+
+
+def pw_models_phase(smi: str) -> dict:
+    """The models whose 1x1s the pointwise kernel runs, float32:
+    MobileNet and resnet18 behind single-bucket engines (64), unfolded
+    and BN-folded, their captures' pointwise launches exact and the two
+    graphs timed in turns; then an eager float32 MobileNet train step at
+    batch ``TRAIN_B`` on synthetic images, one step counted (one launch
+    per conv, its six 1x1s on the pointwise kernel) and ``PW_STEP_REPS``
+    timed with CUDA events. Returns the counted runs' launches."""
+    fixture = np.load(FAMILY_FIXTURE)
+    total, lines = {}, []
+    for name in ("mobilenet", "resnet18"):
+        model = family_model(name, fixture)
+        pw = pointwise_convs(model)[0]
+        graphs = {}
+        for tag, net in (("unfolded", model), ("folded",
+                                                fold_batchnorm(model))):
+            engine = serving.InferenceEngine(net, buckets=(B,),
+                                             device="cuda")
+            engine.warmup()
+            got = engine._ready[B].launches
+            check(got.get("conv2d_bias_relu.launches_pw", 0) == pw
+                  and got.get("conv2d_bias_relu.launches_direct", 0) == 0,
+                  f"{name} {tag}: the bucket-{B} capture launches {got}; "
+                  f"{pw} of its 1x1s take the pointwise kernel")
+            graphs[tag] = engine
+        with torch.no_grad():
+            g_fold, g_unf = in_turns(graphs["folded"]._ready[B].graph.replay,
+                                     graphs["unfolded"]._ready[B].graph
+                                     .replay, 10)
+        lines.append(f"{name} float32 bucket {B}: graph {g_unf:.4f} ms "
+                     f"unfolded / {g_fold:.4f} folded (in turns), {pw} "
+                     "pointwise launches a forward")
+        del graphs, model
+        torch.cuda.empty_cache()
+    rng = np.random.default_rng(26)
+    x = torch.from_numpy(synthetic_images(rng, TRAIN_B)).cuda()
+    y = torch.from_numpy(rng.integers(0, 3, TRAIN_B)).cuda()
+    model = get_model("mobilenet", num_classes=3, image_size=224,
+                      batch_norm=True, device="cuda",
+                      generator=torch.Generator().manual_seed(FAMILY_SEED))
+    opt = make_optimizer("momentum", 1.5e-2, schedule="cosine",
+                         total_steps=64)
+    ts = create_train_state(model, opt, seed=7)
+    step = make_train_step(model, opt)
+    for _ in range(2):
+        ts, m = step(ts, x, y)
+    (ts, m), counts = counted(lambda: step(ts, x, y))
+    pw, convs = pointwise_convs(model)[0], n_convs(model)
+    check(counts.get("conv2d_bias_relu.launches") == convs
+          and counts.get("conv2d_bias_relu.launches_pw") == pw == 6
+          and counts.get("conv2d_bias_relu.launches_tiled", 0) == 0
+          and counts.get("conv2d_bias_relu.launches_direct", 0) == 0
+          and bool(torch.isfinite(m["loss"])),
+          f"mobilenet float32 train step: launches {counts}, loss "
+          f"{m['loss']}; {convs} convs, {pw} of them 1x1s")
+    add_up(total, counts)
+    a = torch.cuda.Event(enable_timing=True)
+    e = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    a.record()
+    for _ in range(PW_STEP_REPS):
+        ts, m = step(ts, x, y)
+    e.record()
+    e.synchronize()
+    lines.append(f"mobilenet float32 train step at batch {TRAIN_B} (eager): "
+                 f"{a.elapsed_time(e) / PW_STEP_REPS:.3f} ms device (CUDA "
+                 f"events, mean of {PW_STEP_REPS}), one step {counts}")
+    del ts, step, model
+    torch.cuda.empty_cache()
+    for line in lines:
+        phase(f"pointwise models ({smi}), {line}")
+    return total
+
+
 def family_row(shape: tuple, dtype, gen) -> tuple:
     """A kernel row at a family conv ``shape`` (B, H, Cin, Cout, k,
     stride, padding): (max |dev| vs plain, ms through the wrapper, plain
@@ -3642,7 +3838,9 @@ def family_rows(gen, counts: dict) -> list:
         - c.get("launches_strip_padded", 0),
         "padded_3x3_bf16": c.get("launches_bf16_padded", 0)
         - c.get("launches_bf16_strip_padded", 0),
-        "1x1": c.get("launches_1x1", 0) - c.get("launches_bf16_1x1", 0),
+        # the float32 1x1s on the pointwise kernel (resnet10's 16 -> 32
+        # projection stays on the tiled kernel)
+        "1x1": c.get("launches_pw", 0),
         "1x1_bf16": c.get("launches_bf16_1x1", 0),
     })
     rows, lines = [], []
@@ -7132,11 +7330,14 @@ def main() -> int:
             for r, wide in BF16_STRIP_TILES for nt in (2, 4, 8)] + [
             f"conv2d_bf16_wgmma<{'x'.join(map(str, t))}>"
             for t in WGMMA_TILES] + [
-            f"conv2d_bf16_tma<{'x'.join(map(str, t))}>" for t in TMA_TILES]
+            f"conv2d_bf16_tma<{'x'.join(map(str, t))}>" for t in TMA_TILES] + [
+            f"conv2d_pw<{'x'.join(map(str, t))}x{full}>" for t in PW_TILES
+            for full in (0, 1)]
         check(all(n in report for n in new), f"ptxas reported no "
               f"{[n for n in new if n not in report]}: {sorted(report)}")
     for name, (regs, spills) in report.items():
         check(not (name.startswith(("conv2d_tiled", "conv2d_strip",
+                                     "conv2d_pw",
                                      "conv2d_bf16", "maxpool2x2_fwd",
                                      "maxpool2x2_bwd_window", "rotate_shear",
                                      "normalize_u8_wide", "resize_linear_u8"))
@@ -7167,6 +7368,7 @@ def main() -> int:
     conv16, conv16_ms = bf16_conv_phase(gen)
     tma = tma_phase(gen)
     stem_phase(gen)
+    pw_phase(gen)
     pool16 = bf16_pool_phase(gen)
     bf16_function_phase(gen)
     counts16 = bf16_training_phase(f32_stats)
@@ -7179,6 +7381,7 @@ def main() -> int:
         # the families (phases 17-18), each counted run with the counters
         # at 0 just before it
         fam = families_serving_phase(smi)
+        add_up(fam, pw_models_phase(smi))
         family_function_phase(gen)
         pipecnn_memory_phase(smi)
         add_up(fam, families_training_phase(smi, Path(tmp), flagship))

@@ -1,8 +1,9 @@
-// k x k convolution + bias (+ ReLU), NHWC / HWIO, for Hopper: three
-// float32 kernels, chosen by shape in ops/hopper/conv.py:conv_tile_plan, and
-// four bf16 tensor-core kernels behind one entry point (the last sections
-// of this file: the mma.sync kernel, the strip, the wgmma and the tma
-// kernel), planned by ops/hopper/conv.py:conv_bf16_plan.
+// k x k convolution + bias (+ ReLU), NHWC / HWIO, for Hopper: four
+// float32 kernels, chosen by shape in ops/hopper/conv.py:conv_tile_plan (the
+// direct, tiled and strip kernels here, the pointwise kernel in the last
+// section), and four bf16 tensor-core kernels behind one entry point (the
+// mma.sync kernel, the strip, the wgmma and the tma kernel), planned by
+// ops/hopper/conv.py:conv_bf16_plan.
 //
 // Replaces: cnn_tpu/ops/pallas/conv.py, conv2d_bias_relu_pallas -> _forward
 // (kernel body _conv_kernel): k*k shifted [Ho*Wo, Cin] x [Cin, Cout]
@@ -16,12 +17,12 @@
 // The strip kernels stage whole input rows, with zero margins and zero rows
 // for the padding.
 //
-// All three are implicit GEMMs: M = B*Ho*Wo output pixels, N = Cout,
+// All four are implicit GEMMs: M = B*Ho*Wo output pixels, N = Cout,
 // K = k*k*Cin in (dy, dx, ci) order, in which the HWIO weights are already a
 // row-major [K, N] matrix. No TF32 and no tensor cores: every sum is a chain
 // of full float32 FMAs in k order, one thread per output, as the 1e-5 parity
 // with the plain version and JAX's Precision.HIGHEST need. No split-K and no
-// atomics, so a launch is bit-identical to the next, and the three kernels
+// atomics, so a launch is bit-identical to the next, and the four kernels
 // sum in the same order: on the same inputs they give the same bits.
 //
 // Bound on this card: on the AlexNet shapes, bytes for conv1 (Cin = 3, so
@@ -122,9 +123,9 @@
 // held against the plain conv and the Pallas kernel in interpret mode:
 //   JAX_PLATFORMS=cpu python -m pytest -q (one command)
 //       tests/test_torch_conv_plan.py tests/test_torch_ops.py
-// On the card, python3 chip_smoke.py builds the three kernels and holds
-// each against the plain conv, and the strip and tiled kernels bit for bit
-// against the direct one.
+// On the card, python3 chip_smoke.py builds the four kernels and holds
+// each against the plain conv, and the strip, tiled and pointwise kernels
+// bit for bit against the direct one.
 #include <cstdint>
 #include <cuda.h>   // CUtensorMap and its enums: the encoders are looked
                     // up at run time (tma_maps), no link to libcuda
@@ -2327,6 +2328,387 @@ extern "C" int cnn_conv2d_bias_relu_bf16(void* stream, const void* x,
         case 8: return (int)launch_bf16_tma<128, 256, 3, 2>(st, xb, wb, bb, yb, B, H, W, Cin, Cout, k, stride, pad, r);
         default: return (int)cudaErrorInvalidValue;
       }
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The float32 pointwise kernel (cnn_conv2d_bias_relu_pw): a 1x1 conv with no
+// padding (MobileNet's pw_1-pw_6, ResNet's stride-2 projections), the k = 1
+// case of conv2d_bias_relu_pallas: y[m, n] = ReLU(sum over ci of x[m, ci] *
+// w[0,0,ci,n] + b[n]), M = B*Ho*Wo output pixels, K = Cin, N = Cout.
+//
+//  - Bound on this card: bytes and float32 operations about equally at
+//    MobileNet's pw_2 ([64,56,56,64] -> 128: x 51.4 MB, y 102.8 MB, 0.046
+//    ms at 3.35 TB/s; 3.29 GFLOP, 0.049 ms at 67 TFLOP/s), bytes for
+//    K = 16-32, operations for K = 128-256. So an SM has to multiply one
+//    tile while the tile before it drains to memory and the tile after it
+//    arrives. The tiled kernel above runs each BM x BN tile through a
+//    prologue, a K loop of 8-float slices and a store from registers, one
+//    tile a block: at K = 64 the fill, the drain and the store are a large
+//    share of every block, and every block fetches its weight slice again.
+//  - A persistent grid: each block owns one N range of BN columns
+//    (blockIdx.y) and walks the M tiles blockIdx.x, blockIdx.x + gridDim.x,
+//    ... (ops/hopper/conv.py:conv_tile_plan gives gridDim.x: the 132 SMs
+//    over the N ranges, one block each).
+//  - Weights resident: the block's [Cin x BN] slice of w (zero past Cout)
+//    goes into shared memory once, before its first tile; every M tile
+//    reads it there.
+//  - A ring of S stages that runs on across tiles: one producer lane
+//    copies each K slice of A (BM pixels x 32 channels, one 128-byte row a
+//    pixel, the 128-byte swizzle) with cp.async.bulk.tensor under full /
+//    empty mbarriers; the slices of the next tiles are in flight while the
+//    consumers finish a tile and run its epilogue. Stride 1: x is a
+//    row-major [M, Cin] matrix, a 2-D tiled map. Stride s > 1: an im2col
+//    map over NHWC (C, W, H, N) with traversal strides {1, s, s, 1}, corners
+//    0 (a 1x1 window), copies of up to 128 pixels that walk across rows
+//    and images. Rows past M and channels past Cin are zero-filled.
+//  - 256 consumer threads, each a TM x TN micro-tile as in the tiled
+//    kernel (rows tm + i*BM/TM, column groups of 4 at tn*4 + g*BN/(TN/4));
+//    a warp is 4 values of tm by 8 of tn. A row's 16-byte chunk c sits at
+//    chunk c ^ (row % 8) of its 128-byte row, and a warp's 4 rows differ
+//    in row % 8, so a read of A is one wavefront, as is a read of 8
+//    neighbouring 16-byte words of w. The sum over ci = 0 .. Cin-1 is one
+//    fmaf chain from 0 in ci order, then + bias, then the optional ReLU:
+//    the direct kernel's arithmetic, so the two give the same bits. No
+//    split of K, no atomics: two launches are bit-identical.
+//  - Epilogue: bias and ReLU in registers, the tile into a staging buffer
+//    in shared memory, then one bulk tensor store (clipped at M and Cout)
+//    that drains while the block computes its next tile; before the next
+//    tile overwrites the staging, the thread that issued the store waits
+//    for it to have been read (cp.async.bulk.wait_group.read).
+//  - (BM, BN, TM, TN, S) are template arguments; the switch maps ids to
+//    them in the order of PW_TILES in ops/hopper/conv.py, whose plan
+//    (pw_tile_for) picks one by shape and checks the shared memory
+//    (pw_smem_bytes: the ring, the staging, the weights, 1 KB of
+//    alignment) against kPwSmemMax. The tensor maps are encoded per call
+//    and passed as __grid_constant__ parameters, as for the tma kernel.
+//
+// Tests. On the CPU, the plan and a torch emulation of this walk (the
+// persistent order of tiles, the swizzled stages, the fmaf order, the
+// staged epilogue and the clipped store) against the plain conv and the
+// Pallas kernel in interpret mode:
+//   JAX_PLATFORMS=cpu python -m pytest -q tests/test_torch_conv_plan.py
+// On the card, python3 chip_smoke.py holds it bit for bit against the direct
+// kernel at every 1x1 of the families.
+
+namespace {
+
+// CONV_PW_PROBE (tools/conv_bf16_probe.py): bit 1 skips the FMAs (and
+// their shared-memory reads), 2 the copies of A (the producer arrives on
+// the stage's barrier instead), 4 the stores of the output tiles
+#ifndef CONV_PW_PROBE
+#define CONV_PW_PROBE 0
+#endif
+constexpr int kPwProbe = CONV_PW_PROBE;
+
+constexpr int kPwCh = 32;             // channels of a K slice: 128 bytes
+constexpr int kPwRow = kPwCh * 4;     // bytes of a staged pixel
+constexpr int kPwPix = 128;           // pixels of one im2col copy
+constexpr int kPwConsumers = 256;     // consumer threads of a block
+constexpr int kPwSmemMax = 226 * 1024;
+
+__host__ __device__ inline int pw_smem_bytes(int BM, int BN, int S,
+                                             int Cin) {
+  return kTmaSw + S * BM * kPwRow + BM * BN * 4 + Cin * BN * 4;
+}
+
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map,
+                                             uint32_t src, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, "
+      "%3}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+__device__ __forceinline__ void pw_sync() {   // the consumers only
+  asm volatile("bar.sync 1, %0;\n" ::"n"(kPwConsumers) : "memory");
+}
+
+// kFull: Cin % 32 == 0, every K slice whole (no test of the chunks left)
+template <int BM, int BN, int TM, int TN, int S, bool kFull>
+__global__ void __launch_bounds__(kPwConsumers + 32, 1)
+    conv2d_pw_kernel(const __grid_constant__ CUtensorMap tmx,
+                     const __grid_constant__ CUtensorMap tmy,
+                     const float* __restrict__ w,
+                     const float* __restrict__ bias, int M, int Cin,
+                     int Cout, int Ho, int Wo, int s, bool relu) {
+  constexpr int kGroups = TN / 4;          // column groups of 4 per thread
+  constexpr int kGroupStride = BN / kGroups;
+  constexpr int kRowStep = BM / TM;        // a thread's rows: tm + i*kRowStep
+  constexpr int kStage = BM * kPwRow;
+  constexpr int kPix = BM < kPwPix ? BM : kPwPix;
+  constexpr int kWarpsN = BN / TN / 8;     // warps across a row of threads
+  static_assert((BM / TM) * (BN / TN) == kPwConsumers && TN % 4 == 0 &&
+                    kRowStep % 8 == 0 && (BN / TN) % 8 == 0 &&
+                    BM % kPix == 0 && BM <= 256 && BN <= 256 && S >= 2,
+                "tile");
+  extern __shared__ unsigned char smem_pw[];
+  __shared__ __align__(8) uint64_t full[S], empty[S];
+  unsigned char* smem =
+      smem_pw + (kTmaSw - smem_u32(smem_pw) % kTmaSw) % kTmaSw;
+  const uint32_t ring = smem_u32(smem);
+  float* so = reinterpret_cast<float*>(smem + S * kStage);   // output tile
+  float* sw = so + BM * BN;                                  // [Cin][BN]
+  const int tid = threadIdx.x;
+  const int n0 = blockIdx.y * BN;
+  const int KT = (Cin + kPwCh - 1) / kPwCh;
+  const int tiles = (M + BM - 1) / BM;
+
+  if (tid == 0) {
+    for (int i = 0; i < S; ++i) {
+      mbar_init(smem_u32(&full[i]), 1);
+      mbar_init(smem_u32(&empty[i]), kPwConsumers / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid >= kPwConsumers) {   // the producer warp: one lane copies
+    if (tid == kPwConsumers) {
+      int q = 0;   // slices issued, over every tile of this block
+      for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+        const int m0 = t * BM;
+        for (int kt = 0; kt < KT; ++kt, ++q) {
+          const int st = q % S;
+          mbar_wait(smem_u32(&empty[st]), ((q / S) & 1) ^ 1);
+          const uint32_t dst = ring + st * kStage;
+          const uint32_t bar = smem_u32(&full[st]);
+          if (kPwProbe & 2) {
+            mbar_arrive(bar);
+            continue;
+          }
+          mbar_expect_tx(bar, kStage);
+          if (s == 1) {
+            tma_tile(dst, &tmx, bar, kt * kPwCh, m0);
+          } else {
+            for (int j = 0; j < BM / kPix; ++j) {
+              // a copy wholly past M starts in an image past the last
+              const int m = m0 + j * kPix, ox = m % Wo, r = m / Wo;
+              tma_im2col(dst + j * kPix * kPwRow, &tmx, bar, kt * kPwCh,
+                         ox * s, (r % Ho) * s, r / Ho, 0, 0);
+            }
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  // a warp holds 4 rows x 8 column groups of threads, so that its reads
+  // of A hit 4 rows (row % 8 apart: one wavefront) and its reads of w 8
+  // neighbouring 16-byte words (one wavefront)
+  const int warp = tid >> 5, lane = tid & 31;
+  const int tm = (warp / kWarpsN) * 4 + (lane >> 3);
+  const int tn = (warp % kWarpsN) * 8 + (lane & 7);
+  // the block's weight slice, zero past Cout, and this thread's biases
+  for (int c = tid; c < Cin * (BN / 4); c += kPwConsumers) {
+    const int r = c / (BN / 4), j = (c % (BN / 4)) * 4;
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (n0 + j < Cout)
+      v = __ldg(reinterpret_cast<const float4*>(w + (int64_t)r * Cout + n0 +
+                                                j));
+    *reinterpret_cast<float4*>(sw + r * BN + j) = v;
+  }
+  float bv[TN];
+#pragma unroll
+  for (int g = 0; g < kGroups; ++g)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int n = n0 + g * kGroupStride + tn * 4 + j;
+      bv[g * 4 + j] = n < Cout ? __ldg(bias + n) : 0.f;
+    }
+  pw_sync();
+
+  const int sx = tm & 7;   // row % 8 of every row this thread reads
+  int q = 0;               // slices consumed
+  for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+    float acc[TM][TN];
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
+    for (int kt = 0; kt < KT; ++kt, ++q) {
+      const int st = q % S;
+      mbar_wait(smem_u32(&full[st]), (q / S) & 1);
+      const float* As = reinterpret_cast<const float*>(smem + st * kStage);
+      const float* Ws = sw + kt * kPwCh * BN;
+      const int chunks =
+          kFull ? kPwCh / 4 : min(kPwCh, Cin - kt * kPwCh) / 4;
+#pragma unroll
+      for (int c = 0; c < kPwCh / 4; ++c) {
+        if (c >= chunks || (kPwProbe & 1)) break;
+        float a[TM][4];
+#pragma unroll
+        for (int i = 0; i < TM; ++i) {
+          const float4 v = *reinterpret_cast<const float4*>(
+              As + (tm + i * kRowStep) * kPwCh + ((c ^ sx) * 4));
+          a[i][0] = v.x;
+          a[i][1] = v.y;
+          a[i][2] = v.z;
+          a[i][3] = v.w;
+        }
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float b[TN];
+#pragma unroll
+          for (int g = 0; g < kGroups; ++g) {
+            const float4 v = *reinterpret_cast<const float4*>(
+                Ws + (c * 4 + e) * BN + g * kGroupStride + tn * 4);
+            b[g * 4 + 0] = v.x;
+            b[g * 4 + 1] = v.y;
+            b[g * 4 + 2] = v.z;
+            b[g * 4 + 3] = v.w;
+          }
+#pragma unroll
+          for (int i = 0; i < TM; ++i)
+#pragma unroll
+            for (int j = 0; j < TN; ++j)
+              acc[i][j] = fmaf(a[i][e], b[j], acc[i][j]);
+        }
+      }
+      __syncwarp();   // the warp's reads of the stage are done: free it
+      if (lane == 0) mbar_arrive(smem_u32(&empty[st]));
+    }
+
+    // epilogue: the previous tile's store has read the staging, then this
+    // tile goes there, then one store of it
+    if (tid == 0) bulk_wait_read();
+    pw_sync();
+#pragma unroll
+    for (int i = 0; i < TM; ++i) {
+#pragma unroll
+      for (int g = 0; g < kGroups; ++g) {
+        float v[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const float u = acc[i][g * 4 + j] + bv[g * 4 + j];
+          v[j] = relu ? (u > 0.f ? u : 0.f) : u;
+        }
+        *reinterpret_cast<float4*>(so + (tm + i * kRowStep) * BN +
+                                   g * kGroupStride + tn * 4) =
+            make_float4(v[0], v[1], v[2], v[3]);
+      }
+    }
+    // the staging's writes, seen by the bulk copy (the async proxy)
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    pw_sync();
+    if (tid == 0) {
+      if (!(kPwProbe & 4)) tma_store_2d(&tmy, smem_u32(so), n0, t * BM);
+      bulk_commit();
+    }
+  }
+  if (tid == 0) bulk_wait();
+}
+
+// x's map (stride 1: [M, Cin] tiled, boxes of 32 channels x BM rows;
+// stride s: im2col over NHWC, 32 channels x kPix pixels a copy), both with
+// the 128-byte swizzle, and y's [M, Cout] tiled map, boxes of BN x BM
+cudaError_t pw_maps(CUtensorMap* mx, CUtensorMap* my, const float* x,
+                    const float* y, int B, int H, int W, int Cin, int Cout,
+                    int s, int M, int BM, int BN) {
+  static EncodeIm2col im2col = reinterpret_cast<EncodeIm2col>(
+      cuda_entry_point("cuTensorMapEncodeIm2col"));
+  static EncodeTiled tiled = reinterpret_cast<EncodeTiled>(
+      cuda_entry_point("cuTensorMapEncodeTiled"));
+  if (!im2col || !tiled) return cudaErrorSymbolNotFound;
+  const cuuint32_t one[4] = {1, 1, 1, 1};
+  if (s == 1) {
+    const cuuint64_t dim[2] = {(cuuint64_t)Cin, (cuuint64_t)M};
+    const cuuint64_t stride[1] = {(cuuint64_t)Cin * 4};
+    const cuuint32_t box[2] = {kPwCh, (cuuint32_t)BM};
+    if (tiled(mx, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<float*>(x),
+              dim, stride, box, one, CU_TENSOR_MAP_INTERLEAVE_NONE,
+              CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+      return cudaErrorInvalidValue;
+  } else {
+    const cuuint64_t dim[4] = {(cuuint64_t)Cin, (cuuint64_t)W, (cuuint64_t)H,
+                               (cuuint64_t)B};
+    const cuuint64_t stride[3] = {(cuuint64_t)Cin * 4,
+                                  (cuuint64_t)W * Cin * 4,
+                                  (cuuint64_t)H * W * Cin * 4};
+    const int lower[2] = {0, 0}, upper[2] = {0, 0};
+    const cuuint32_t es[4] = {1, (cuuint32_t)s, (cuuint32_t)s, 1};
+    if (im2col(mx, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, const_cast<float*>(x),
+               dim, stride, lower, upper, kPwCh, BM < kPwPix ? BM : kPwPix,
+               es, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+               CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+               CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+      return cudaErrorInvalidValue;
+  }
+  const cuuint64_t ydim[2] = {(cuuint64_t)Cout, (cuuint64_t)M};
+  const cuuint64_t ystride[1] = {(cuuint64_t)Cout * 4};
+  const cuuint32_t ybox[2] = {(cuuint32_t)BN, (cuuint32_t)BM};
+  if (tiled(my, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<float*>(y),
+            ydim, ystride, ybox, one, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_NONE,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return cudaErrorInvalidValue;
+  return cudaSuccess;
+}
+
+template <int BM, int BN, int TM, int TN, int S>
+cudaError_t launch_pw(cudaStream_t stream, const float* x, const float* w,
+                      const float* b, float* y, int B, int H, int W, int Cin,
+                      int Cout, int s, bool relu, int blocks) {
+  const int Ho = (H - 1) / s + 1, Wo = (W - 1) / s + 1;
+  const int M = B * Ho * Wo;
+  const int smem = pw_smem_bytes(BM, BN, S, Cin);
+  if (smem > kPwSmemMax) return cudaErrorInvalidValue;
+  CUtensorMap mx, my;
+  const cudaError_t e = pw_maps(&mx, &my, x, y, B, H, W, Cin, Cout, s, M,
+                                BM, BN);
+  if (e != cudaSuccess) return e;
+  // the attribute allows the largest launch (a graph may hold several)
+  auto kernel = Cin % kPwCh == 0 ? conv2d_pw_kernel<BM, BN, TM, TN, S, true>
+                                 : conv2d_pw_kernel<BM, BN, TM, TN, S, false>;
+  const cudaError_t a = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kPwSmemMax);
+  if (a != cudaSuccess) return a;
+  const dim3 grid(blocks, (Cout + BN - 1) / BN);
+  kernel<<<grid, kPwConsumers + 32, smem, stream>>>(mx, my, w, b, M, Cin,
+                                                    Cout, Ho, Wo, s, relu);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// x, w, b, y, B, H, W, Cin, Cout, k, stride, pad, relu as the other float32
+// entry points (k must be 1 and pad 0), then the tile id of PW_TILES in
+// ops/hopper/conv.py and the grid's x (blocks a column range)
+extern "C" int cnn_conv2d_bias_relu_pw(void* stream, const void* x,
+                                       const void* w, const void* b, void* y,
+                                       int B, int H, int W, int Cin, int Cout,
+                                       int k, int stride, int pad, int relu,
+                                       int tile, int blocks) {
+  if (k != 1 || pad != 0 || Cin % 4 != 0 || Cout % 4 != 0 || stride < 1 ||
+      stride > 8 || blocks < 1 || B < 1 || H > kExtentMax ||
+      W > kExtentMax || (Cout + 63) / 64 > 65535 ||
+      reinterpret_cast<uintptr_t>(x) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(w) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(y) % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  const float* xf = static_cast<const float*>(x);
+  const float* wf = static_cast<const float*>(w);
+  const float* bf = static_cast<const float*>(b);
+  float* yf = static_cast<float*>(y);
+  const bool r = relu != 0;
+  switch (tile) {   // (BM, BN, TM, TN, S), in the order of PW_TILES
+    case 0: return (int)launch_pw<128, 128, 8, 8, 4>(st, xf, wf, bf, yf, B, H, W, Cin, Cout, stride, r, blocks);
+    case 1: return (int)launch_pw<128, 128, 8, 8, 2>(st, xf, wf, bf, yf, B, H, W, Cin, Cout, stride, r, blocks);
+    case 2: return (int)launch_pw<256, 64, 8, 8, 3>(st, xf, wf, bf, yf, B, H, W, Cin, Cout, stride, r, blocks);
+    case 3: return (int)launch_pw<128, 64, 8, 4, 4>(st, xf, wf, bf, yf, B, H, W, Cin, Cout, stride, r, blocks);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -15,7 +15,7 @@ from cnn_tpu_torch.ops.hopper.augment import (launch_rotate,  # noqa: F401
                                               rotate_tile_plan)
 from cnn_tpu_torch.ops.hopper.conv import (BF16_STRIP_ROWS,  # noqa: F401
                                            BF16_STRIP_TILES, BF16_TILES,
-                                           STRIP_ROWS, TILES,
+                                           PW_TILES, STRIP_ROWS, TILES,
                                            TMA_TILES, WGMMA_TILES,
                                            conv2d_bias_relu,
                                            conv2d_bias_relu_fn,
@@ -39,7 +39,7 @@ COUNTERS = {
     max_pool2d_bwd: ("launches", "launches_window", "launches_element",
                      "launches_bf16"),
     conv2d_bias_relu: ("launches", "launches_strip", "launches_tiled",
-                       "launches_direct", "launches_bf16",
+                       "launches_pw", "launches_direct", "launches_bf16",
                        "launches_bf16_gather", "launches_bf16_vec",
                        "launches_bf16_strip", "launches_bf16_wgmma",
                        "launches_bf16_tma",

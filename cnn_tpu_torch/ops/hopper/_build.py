@@ -61,6 +61,9 @@ SIGNATURES = {
     "cnn_conv2d_bias_relu": [P, P, P, P, I, I, I, I, I, I, I, I, I],
     # the same, then the tile id of ops/hopper/conv.py:TILES
     "cnn_conv2d_bias_relu_tiled": [P, P, P, P, I, I, I, I, I, I, I, I, I, I],
+    # the same (k 1, pad 0), then the tile id of ops/hopper/conv.py:PW_TILES
+    # and the grid's x
+    "cnn_conv2d_bias_relu_pw": [P, P, P, P, I, I, I, I, I, I, I, I, I, I, I],
     # the same, then the strip id of ops/hopper/conv.py:STRIP_ROWS
     "cnn_conv2d_bias_relu_strip": [P, P, P, P, I, I, I, I, I, I, I, I, I, I],
     # x, w, b, y, B, H, W, Cin, Cout, k, stride, pad, relu, then

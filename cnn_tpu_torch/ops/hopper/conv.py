@@ -8,14 +8,19 @@ XLA convolutions outside any Pallas kernel (``_vjp_bwd``), so here ATen's
 convolution gradients compute it, in full float32 for float32 inputs and in
 bf16 for bf16 ones.
 
-Three kernels compute the float32 forward: a row-strip kernel over shared
+Four kernels compute the float32 forward: a row-strip kernel over shared
 memory (``cnn_conv2d_bias_relu_strip``) for few input channels, conv1 of
-the AlexNet and the families' padded Cin-3 stems; a tiled implicit GEMM
-over shared memory
-(``cnn_conv2d_bias_relu_tiled``) for the shapes whose vector loads it can
-make, conv2-4; and the direct kernel (``cnn_conv2d_bias_relu``) for the
-rest. ``conv_tile_plan`` chooses by shape and alignment alone. All three
-sum in the same order and give the same bits.
+the AlexNet and the families' padded Cin-3 stems; a pointwise kernel
+(``cnn_conv2d_bias_relu_pw``) for the 1x1s (MobileNet's pointwise convs,
+ResNet's projections): a persistent grid, the weights resident in shared
+memory, a ring of tensor-memory copies under mbarriers that runs on from
+one output tile into the next, and a bulk tensor store of each tile that
+drains while the next is computed; a tiled implicit GEMM over shared
+memory (``cnn_conv2d_bias_relu_tiled``) for the other shapes whose vector
+loads it can make, conv2-4 and the families' padded 3x3s; and the direct
+kernel (``cnn_conv2d_bias_relu``) for the rest. ``conv_tile_plan``
+chooses by shape and alignment alone. All four sum in the same order and
+give the same bits.
 
 Four tensor-core kernels compute the bf16 forward, ``_forward``'s bf16
 path (exact bf16 products summed in float32, the bias read into float32,
@@ -143,9 +148,90 @@ def strip_smem_bytes(rows: int, w: int, cin: int, cout: int, k: int,
     return 4 * (weights + strip_input_rows(rows, k, stride) * row + staging)
 
 
+# the pointwise kernel: tile id -> (BM, BN, TM, TN, stages), in the order
+# of csrc/conv.cu's switch. A block of 256 consumer threads (a TM x TN
+# micro-tile each) and one producer warp owns BN columns and walks M tiles
+# of BM rows; its ring holds `stages` K slices of PW_CH channels.
+PW_TILES = ((128, 128, 8, 8, 4), (128, 128, 8, 8, 2), (256, 64, 8, 8, 3),
+            (128, 64, 8, 4, 4))
+PW_CH = 32                   # channels of a K slice: one 128-byte row
+PW_CONSUMERS = 256
+PW_ALIGN = 1024              # the 128-byte swizzle's period
+PW_SMEM_MAX = 226 * 1024     # dynamic: the launch sets the attribute
+PW_STRIDE_MAX = 8            # the im2col map's traversal stride
+
+
+def pw_smem_bytes(tile: int, cin: int) -> int:
+    """Dynamic shared memory of a pointwise block (``csrc/conv.cu:
+    pw_smem_bytes``): 1 KB to align the ring, the ring's stages of BM
+    pixels x 128 bytes, the output tile's staging (BM x BN floats) and the
+    resident weights (Cin x BN floats)."""
+    bm, bn, _, _, stages = PW_TILES[tile]
+    return PW_ALIGN + stages * bm * 4 * PW_CH + 4 * bm * bn + 4 * cin * bn
+
+
+def pw_kernel_takes(cin: int, cout: int, k: int, stride: int,
+                    padding: int, aligned: bool) -> bool:
+    """Whether the pointwise kernel can compute the shape (its entry
+    point's preconditions): a 1x1 with no padding, rows of x and y in
+    whole 16 bytes (Cin % 4 == 0, Cout % 4 == 0: the tensor maps'
+    strides), x and w 16-byte aligned, a stride the im2col map allows, and
+    a tile whose shared memory fits ``PW_SMEM_MAX``."""
+    return (k == 1 and padding == 0 and cin % 4 == 0 and cout % 4 == 0
+            and aligned and 1 <= stride <= PW_STRIDE_MAX
+            and any(pw_smem_bytes(t, cin) <= PW_SMEM_MAX
+                    for t in range(len(PW_TILES))))
+
+
+def pw_tiles(m: int, cout: int, tile: int) -> int:
+    """Output tiles of ``tile`` over M pixels and Cout: M tiles times
+    column ranges."""
+    bm, bn = PW_TILES[tile][:2]
+    return -(-m // bm) * -(-cout // bn)
+
+
+def pw_tile_for(m: int, cin: int, cout: int) -> int | None:
+    """The pointwise tile for M output pixels, Cin and Cout, or None where
+    the plan leaves the shape to the tiled kernel: Cout below 64, which
+    fills no BN 64 tile (resnet10's 16 -> 32 projection; on the H100 the
+    pointwise kernel took 1.25x the tiled kernel's time there at B=64,
+    PERF.md §6). Which kernel a shape takes does not depend on M, so a
+    layer launches one kernel at every batch.
+
+    A tile is a candidate where its shared memory fits (``pw_smem_bytes``)
+    and Cout fills its BN: for Cout above 64 BM 128 x BN 128 (an 8 x 8
+    micro-tile; four stages where the weights leave room, Cin <= 128,
+    else two), then BM 256 x BN 64 (8 x 8), then BM 128 x BN 64 (8 x 4);
+    for Cout 64 the last two. The first candidate whose output tiles
+    (``pw_tiles``) fill two waves of 132 blocks is taken, else the last
+    (the most tiles): a persistent block walks its tiles one after
+    another, and with fewer tiles than that the SMs wait on the last ones.
+    On the H100 (``chip_smoke.py``'s pointwise phase) each pick was
+    within 5% of the fastest tile at the families' 1x1s at B = 64."""
+    fits = [t for t in ((0, 1, 2, 3) if cout > 64 else (2, 3))
+            if pw_smem_bytes(t, cin) <= PW_SMEM_MAX
+            and cout >= PW_TILES[t][1]]
+    if not fits:
+        return None
+    return next((t for t in fits if pw_tiles(m, cout, t) >= 2 * H100_SMS),
+                fits[-1])
+
+
+def pw_grid(m: int, cout: int, tile: int) -> tuple[int, int]:
+    """The pointwise grid for M output pixels, Cout and ``tile``: (blocks
+    a column range, column ranges). The 132 SMs are shared among the
+    ranges, one block each (its shared memory keeps one block an SM), at
+    least one block a range and at most one per M tile."""
+    bm, bn = PW_TILES[tile][:2]
+    ranges = -(-cout // bn)
+    return min(-(-m // bm), max(1, H100_SMS // ranges)), ranges
+
+
 class ConvPlan(NamedTuple):
-    """``variant`` "direct"; "tiled" with its ``tile`` id and grid; or
-    "strip" with its ``rows`` per block and grid (strips, images)."""
+    """``variant`` "direct"; "tiled" with its ``tile`` id and grid; "pw"
+    with its ``tile`` id (``PW_TILES``) and grid (blocks a column range,
+    column ranges); or "strip" with its ``rows`` per block and grid
+    (strips, images)."""
     variant: str
     tile: int | None = None
     grid: tuple[int, int] | None = None
@@ -174,12 +260,16 @@ def conv_tile_plan(b: int, h: int, w: int, cin: int, cout: int, k: int,
     / 0.2590 / 0.2526, vgg11's 3 -> 64 s1 0.5387 / 0.5165 / 0.5006; every
     stem 2.5-4.2x faster than the direct kernel it replaced.
 
-    The tiled kernel needs Cin % 8 == 0 (a K slice of 8 stays inside one
-    tap and loads as 16-byte vectors), Cout % 4 == 0 and x and w 16-byte
-    aligned; anything else takes the direct kernel. Its BN is Cout rounded
-    up to 32, 64 or 128, or half of that; of those tiles, the largest one
-    that still gives two waves of 132 SMs, else the one with the most
-    blocks.
+    The pointwise kernel takes the 1x1s that it can compute
+    (``pw_kernel_takes``: k 1, padding 0, Cin % 4 == 0, Cout % 4 == 0, x
+    and w 16-byte aligned, stride <= 8, a tile within ``PW_SMEM_MAX`` of
+    shared memory) and for which ``pw_tile_for`` finds a tile (Cout >=
+    64), on the grid of ``pw_grid``; each block walks the M tiles
+    blockIdx.x, blockIdx.x + blocks, ...
+
+    The tiled kernel (``tiled_plan``) needs Cin % 8 == 0 (a K slice of 8
+    stays inside one tap and loads as 16-byte vectors), Cout % 4 == 0 and
+    x and w 16-byte aligned; anything else takes the direct kernel.
     """
     if (1 <= cin <= STRIP_CIN_MAX and cout % 4 == 0
             and cout <= STRIP_COUT_MAX and (w * cin) % 4 == 0 and aligned
@@ -194,10 +284,23 @@ def conv_tile_plan(b: int, h: int, w: int, cin: int, cout: int, k: int,
             many = [r for r in fits if -(-ho // r) * b >= 2 * H100_SMS]
             r = max(many) if many else min(fits)
             return ConvPlan("strip", grid=(-(-ho // r), b), rows=r)
-    if cin % TILED_BK or cout % 4 or not aligned:
-        return ConvPlan("direct")
     m = (b * conv_out_size(h, k, stride, padding)
          * conv_out_size(w, k, stride, padding))
+    tile = (pw_tile_for(m, cin, cout)
+            if pw_kernel_takes(cin, cout, k, stride, padding, aligned)
+            else None)
+    if tile is not None:
+        return ConvPlan("pw", tile, pw_grid(m, cout, tile))
+    if cin % TILED_BK or cout % 4 or not aligned:
+        return ConvPlan("direct")
+    return tiled_plan(m, cout)
+
+
+def tiled_plan(m: int, cout: int) -> ConvPlan:
+    """The tiled kernel's tile and grid for M output pixels and Cout. Its
+    BN is Cout rounded up to 32, 64 or 128, or half of that; of those
+    tiles, the largest one that still gives two waves of 132 SMs, else the
+    one with the most blocks."""
     full = next((n for n in (32, 64, 128) if n >= cout), 128)
     cands = [i for i, t in enumerate(TILES) if t.bn in (full, full // 2)]
 
@@ -579,6 +682,10 @@ def conv2d_bias_relu(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
         conv2d_bias_relu.launches_strip += 1
         if padding:
             conv2d_bias_relu.launches_strip_padded += 1
+    elif plan.variant == "pw":
+        launch("cnn_conv2d_bias_relu_pw", x.device, stream, *args,
+               plan.tile, plan.grid[0])
+        conv2d_bias_relu.launches_pw += 1
     elif plan.variant == "tiled":
         launch("cnn_conv2d_bias_relu_tiled", x.device, stream, *args,
                plan.tile)
@@ -629,6 +736,7 @@ def launch_conv_bf16(x, w, b, stride: int, relu: bool,
 conv2d_bias_relu.launches = 0          # every launch, any kernel
 conv2d_bias_relu.launches_strip = 0    # the float32 kernels
 conv2d_bias_relu.launches_tiled = 0
+conv2d_bias_relu.launches_pw = 0
 conv2d_bias_relu.launches_direct = 0
 conv2d_bias_relu.launches_bf16 = 0     # the bf16 kernel, every variant
 conv2d_bias_relu.launches_bf16_gather = 0

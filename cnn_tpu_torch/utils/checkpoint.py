@@ -418,12 +418,33 @@ def _key_seed(key) -> int:
     return k
 
 
-def save_checkpoint(path: str, train_state) -> None:
+# cnn_tpu's other store, refused by name: its save_checkpoint(...,
+# backend="orbax") writes a directory and its load_checkpoint reads one
+ORBAX_REFUSED = (
+    "cnn_tpu's orbax checkpoint store (a directory) is not supported by "
+    "cnn_tpu_torch: orbax is a JAX library, the card's machine has none, "
+    "and the port never imports it. Where JAX is installed, convert the "
+    "directory to a .ckpt with cnn_tpu: "
+    "cnn_tpu.utils.checkpoint.save_checkpoint(path, "
+    "cnn_tpu.utils.checkpoint.load_checkpoint(directory)) writes the "
+    "pickle .ckpt that cnn_tpu_torch reads.")
+
+
+def save_checkpoint(path: str, train_state, backend: str = "pickle") -> None:
     """Writes the port's ``TrainState`` as a ``cnn_tpu`` ``.ckpt``
     (module docstring), atomically. On a mesh every rank calls it: the
     params and optimizer leaves held as slices over ``'model'`` or
     ``'expert'`` are gathered (``parallel/train_step.py:unsharded``), and
-    process 0 alone writes the full tree, the one a one-rank run writes."""
+    process 0 alone writes the full tree, the one a one-rank run writes.
+
+    ``backend`` is ``cnn_tpu``'s keyword: "pickle" (the ``.ckpt``) is the
+    one store the port writes; "orbax" raises ``NotImplementedError``
+    (``ORBAX_REFUSED``), any other value ``ValueError``."""
+    if backend == "orbax":
+        raise NotImplementedError(ORBAX_REFUSED)
+    if backend != "pickle":
+        raise ValueError(f"save_checkpoint: backend {backend!r}: the port "
+                         "writes 'pickle' (a .ckpt) only")
     ts = train_state
     with unsharded(ts):
         if ts.mesh is None or ts.mesh.rank == 0:
@@ -451,7 +472,10 @@ def _write(path: str, ts) -> None:
 
 def read_checkpoint(path: str) -> dict:
     """A ``.ckpt``'s payload as it was pickled: numpy trees, the optimizer
-    states as the port's classes (``optim.py``)."""
+    states as the port's classes (``optim.py``). A directory (``cnn_tpu``'s
+    orbax store) raises ``NotImplementedError`` (``ORBAX_REFUSED``)."""
+    if os.path.isdir(path):
+        raise NotImplementedError(f"{path}: {ORBAX_REFUSED}")
     with open(path, "rb") as f:
         return _RestrictedUnpickler(f).load()
 
@@ -462,7 +486,8 @@ def load_checkpoint(path: str, train_state):
     optimizer state (``load_opt_state``: a legacy EMA state's decay from
     the run's, its model-state average seeded from the loaded state), the
     step, and the generator (module docstring). On a mesh every rank
-    loads the full tree and keeps its slices."""
+    loads the full tree and keeps its slices. A directory (``cnn_tpu``'s
+    orbax store) raises ``NotImplementedError`` (``ORBAX_REFUSED``)."""
     ts = train_state
     payload = read_checkpoint(path)
     step = int(payload["step"])

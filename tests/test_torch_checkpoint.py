@@ -100,7 +100,13 @@ def test_port_ckpt_loads_in_cnn_tpu(tmp_path, rng, optimizer, schedule):
         ts, _ = step(ts, x, y)
     path = str(tmp_path / "p.ckpt")
     ck.save_checkpoint(path, ts)
-    got = jck.load_checkpoint(path)
+    # cnn_tpu's backend keyword: "pickle" writes the same .ckpt, byte for
+    # byte, which cnn_tpu reads below
+    named = str(tmp_path / "named.ckpt")
+    ck.save_checkpoint(named, ts, backend="pickle")
+    with open(path, "rb") as f, open(named, "rb") as g:
+        assert f.read() == g.read()
+    got = jck.load_checkpoint(named)
     params, state = ck.model_trees(ts.model)
     assert _trees_equal(got.params, params)
     assert _trees_equal(got.state, state)
@@ -176,6 +182,42 @@ def test_export_of_a_cnn_tpu_ckpt_matches_cnn_tpu(tmp_path):
     jck.export_reference_model(ref, jmodel.net, j_ts.params, j_ts.state)
     with open(ref, "rb") as f, open(out, "rb") as g:
         assert f.read() == g.read()
+
+
+def test_save_checkpoint_refuses_cnn_tpus_orbax_store_by_name(tmp_path):
+    """backend="orbax" raises NotImplementedError, says why and how to get
+    a .ckpt, and writes nothing."""
+    ts, _ = _state(image_size=64)
+    path = tmp_path / "orbax_dir"
+    with pytest.raises(NotImplementedError, match="orbax") as err:
+        ck.save_checkpoint(str(path), ts, backend="orbax")
+    assert str(err.value) == ck.ORBAX_REFUSED
+    for words in ("never imports it", "load_checkpoint(directory)",
+                  "save_checkpoint(path"):
+        assert words in str(err.value)
+    assert not path.exists()
+
+
+def test_save_checkpoint_refuses_an_unknown_backend(tmp_path):
+    ts, _ = _state(image_size=64)
+    path = tmp_path / "x.ckpt"
+    with pytest.raises(ValueError, match="'msgpack'"):
+        ck.save_checkpoint(str(path), ts, backend="msgpack")
+    assert not path.exists()
+
+
+@pytest.mark.parametrize("reader", ["read_checkpoint", "load_checkpoint"])
+def test_a_directory_is_refused_as_cnn_tpus_orbax_store(tmp_path, reader):
+    """cnn_tpu's load_checkpoint opens a directory as an orbax store; the
+    port's readers refuse it by name instead of an IsADirectoryError."""
+    store = tmp_path / "iter_100"
+    store.mkdir()
+    (store / "checkpoint").write_bytes(b"")
+    args = (str(store),) if reader == "read_checkpoint" else (
+        str(store), None)
+    with pytest.raises(NotImplementedError) as err:
+        getattr(ck, reader)(*args)
+    assert str(err.value) == f"{store}: {ck.ORBAX_REFUSED}"
 
 
 class _Evil:

@@ -640,3 +640,275 @@ def test_padded_strip_infinity_reaches_exactly_its_windows(rng):
         assert torch.equal(got.isfinite(), ref.isfinite())
         assert not bool(ref.isfinite().all())
         assert torch.equal(got[~got.isfinite()], ref[~ref.isfinite()])
+
+
+# ------------------------------------------------------- the pointwise ----
+
+# the families' float32 1x1s at 224 px: (H, Cin, Cout, stride) of
+# MobileNet's pw_1-pw_6 and the projections of resnet10 and resnet18
+FAMILY_1X1 = [(112, 32, 64, 1), (56, 64, 128, 1), (56, 128, 128, 1),
+              (28, 128, 256, 1), (28, 256, 256, 1), (14, 256, 512, 1),
+              (112, 16, 32, 2), (56, 32, 64, 2), (28, 64, 128, 2),
+              (112, 32, 64, 2), (56, 64, 128, 2), (28, 128, 256, 2)]
+PW_CONSUMERS = 256   # csrc/conv.cu kPwConsumers
+
+
+@pytest.mark.parametrize("batch", [1, 8, 64, 256])
+@pytest.mark.parametrize("shape", FAMILY_1X1,
+                         ids=lambda g: "x".join(map(str, g)))
+def test_plan_sends_the_1x1s_to_the_pointwise_kernel(shape, batch):
+    """Every family float32 1x1 with Cout >= 64 takes "pw" at every batch
+    (resnet10's 16 -> 32 projection the tiled kernel); its persistent grid
+    walks every M tile exactly once per column range, and the column
+    ranges cover Cout exactly."""
+    h, cin, cout, s = shape
+    plan = conv_tile_plan(batch, h, h, cin, cout, 1, s, aligned=True)
+    m = _m(batch, h, h, 1, s)
+    if cout < 64:
+        assert plan.variant == "tiled" and hconv.pw_tile_for(
+            m, cin, cout) is None
+        return
+    assert plan.variant == "pw" and plan.rows is None
+    bm, bn = hconv.PW_TILES[plan.tile][:2]
+    blocks, ranges = plan.grid
+    assert plan.grid == hconv.pw_grid(m, cout, plan.tile)
+    assert (ranges - 1) * bn < cout <= ranges * bn
+    tiles = -(-m // bm)
+    walked = sorted(t for bx in range(blocks)
+                    for t in range(bx, tiles, blocks))
+    assert walked == list(range(tiles))
+    assert blocks * ranges <= H100_SMS or blocks == 1
+    assert hconv.pw_smem_bytes(plan.tile, cin) <= hconv.PW_SMEM_MAX
+    # the first tile in PW_TILES' order with two waves of output tiles,
+    # else the one with the most
+    if hconv.pw_tiles(m, cout, plan.tile) < 2 * H100_SMS:
+        assert plan.tile == len(hconv.PW_TILES) - 1
+
+
+@pytest.mark.parametrize("case", [
+    # (B, H, W, Cin, Cout, k, stride, aligned, padding)
+    ("3x3", (8, 56, 56, 64, 128, 3, 1, True, 0)),
+    ("padded 1x1", (8, 56, 56, 64, 128, 1, 1, True, 1)),
+    ("Cin 6", (8, 56, 56, 6, 128, 1, 1, True, 0)),
+    ("Cout 66", (8, 56, 56, 64, 66, 1, 1, True, 0)),
+    ("misaligned", (8, 56, 56, 64, 128, 1, 1, False, 0)),
+    ("stride 9", (8, 90, 90, 64, 128, 1, 9, True, 0)),
+    ("Cin 1024", (8, 14, 14, 1024, 128, 1, 1, True, 0)),
+], ids=lambda c: c[0])
+def test_pw_plan_leaves_what_the_kernel_cannot_take(case):
+    """A shape outside the kernel's preconditions goes where it went
+    before: the tiled kernel, or the direct one."""
+    b, h, w, cin, cout, k, s, aligned, p = case[1]
+    assert not hconv.pw_kernel_takes(cin, cout, k, s, p, aligned)
+    plan = conv_tile_plan(b, h, w, cin, cout, k, s, aligned, p)
+    want = ("tiled" if cin % 8 == 0 and cout % 4 == 0 and aligned
+            else "direct")
+    assert plan.variant == want
+
+
+@pytest.mark.parametrize("tile", range(len(hconv.PW_TILES)))
+def test_every_pw_tile_fits_its_block(tile):
+    """256 consumer threads a block, warps of 4 rows x 8 column groups,
+    rows 8 apart in row % 8 (the swizzle's reads), and the largest family
+    Cin (256) within the shared-memory budget where the plan can take the
+    tile."""
+    bm, bn, tm, tn, stages = hconv.PW_TILES[tile]
+    assert (bm // tm) * (bn // tn) == PW_CONSUMERS
+    assert tn % 4 == 0 and (bn // tn) % 8 == 0 and (bm // tm) % 8 == 0
+    assert stages >= 2 and bm <= 256 and bn <= 256
+    assert hconv.pw_smem_bytes(tile, 256) <= hconv.PW_SMEM_MAX or tile == 0
+    assert hconv.pw_smem_bytes(tile, 128) <= hconv.PW_SMEM_MAX
+    assert hconv.pw_smem_bytes(tile, 32) == (
+        1024 + stages * bm * 128 + 4 * bm * bn + 4 * 32 * bn)
+
+
+def test_pw_tiles_match_the_cuda_source():
+    """The plan's pointwise tile ids index the kernel's switch in
+    ``csrc/conv.cu``, and its constants and budget are the kernel's."""
+    src = CONV_CU.read_text()
+    cases = re.findall(r"case (\d+): return \(int\)launch_pw<(\d+), (\d+), "
+                       r"(\d+), (\d+), (\d+)>", src)
+    assert [(int(c), *map(int, rest)) for c, *rest in cases] == [
+        (i, *t) for i, t in enumerate(hconv.PW_TILES)]
+    assert re.search(r"constexpr int kPwCh = (\d+);", src).group(1) == str(
+        hconv.PW_CH)
+    assert re.search(r"constexpr int kPwConsumers = (\d+);", src).group(
+        1) == str(PW_CONSUMERS)
+    assert f"constexpr int kPwSmemMax = {hconv.PW_SMEM_MAX // 1024} * " \
+        "1024;" in src
+    assert re.search(r"constexpr int kTmaSw = (\d+);", src).group(1) == str(
+        hconv.PW_ALIGN)
+    assert ("return kTmaSw + S * BM * kPwRow + BM * BN * 4 + Cin * BN * 4;"
+            in src)
+    assert len(SIGNATURES["cnn_conv2d_bias_relu_pw"]) == len(
+        SIGNATURES["cnn_conv2d_bias_relu_tiled"]) + 1
+
+
+@pytest.mark.parametrize("shape", [(56, 64, 128, 1), (112, 16, 32, 2),
+                                   (28, 64, 128, 2)],
+                         ids=["pw_2", "r10_16_32", "r10_64_128"])
+def test_wrapper_launches_the_pw_kernel_and_counts_it(monkeypatch, shape):
+    """Off the CPU a 1x1 with Cout >= 64 goes to the pointwise entry point
+    with its tile id and the grid's x after the shared arguments, counted
+    as a pointwise launch and a 1x1; Cout 32 goes to the tiled kernel
+    (meta tensors stand in for the card; the launch is recorded, not
+    made)."""
+    calls = []
+    monkeypatch.setattr(hconv, "cuda_args", lambda *a, **k: 0)
+    monkeypatch.setattr(hconv, "launch", lambda name, dev, stream, *args:
+                        calls.append((name, args)))
+    h, cin, cout, s = shape
+    x = torch.empty((8, h, h, cin), device="meta")
+    w = torch.empty((1, 1, cin, cout), device="meta")
+    reset_launches()
+    y = conv2d_bias_relu(x, w, torch.empty((cout,), device="meta"), s, True)
+    ho = conv_out_size(h, 1, s)
+    assert y.shape == (8, ho, ho, cout)
+    plan = conv_tile_plan(8, h, h, cin, cout, 1, s, aligned=True)
+    (name, args), = calls
+    assert len(args) == len(SIGNATURES[name])
+    assert args[4:13] == (8, h, h, cin, cout, 1, s, 0, 1)
+    c = {k.split(".")[1]: v for k, v in read_counters().items()
+         if k.startswith("conv2d_bias_relu.")}
+    if cout >= 64:
+        assert name == "cnn_conv2d_bias_relu_pw" and plan.variant == "pw"
+        assert args[13:] == (plan.tile, plan.grid[0])
+    else:
+        assert name == "cnn_conv2d_bias_relu_tiled" and args[13] == plan.tile
+    pw = int(cout >= 64)
+    assert (c["launches"], c["launches_pw"], c["launches_tiled"],
+            c["launches_1x1"], c["launches_direct"]) == (1, pw, 1 - pw, 1, 0)
+    reset_launches()
+    assert read_counters()["conv2d_bias_relu.launches_pw"] == 0
+
+
+def _fma(a, b, acc):
+    """fmaf in torch: the float32 product is exact in float64, the sum is
+    rounded to float64 and then to float32 (a rare tie one float32 ulp from
+    fmaf's single rounding; the bit-for-bit test below uses exactly
+    representable sums, where every rounding is exact)."""
+    return (acc.double() + a.double() * b.double()).float()
+
+
+def _emulate_pw(x, w, bias, stride, relu, tile, blocks):
+    """The pointwise kernel's walk in torch: for each column range and
+    block, the M tiles blockIdx.x, blockIdx.x + blocks, ...; per tile the
+    K slices of 32 channels as the copies write them into a stage (rows
+    past M and channels past Cin zero, 16-byte chunk c of row r at chunk
+    c ^ (r % 8)), read back by each of the 256 consumer threads (warp w,
+    lane l: rows tm + i*BM/TM and columns tn*4 + g*BN/(TN/4) + e, tm = (w
+    // warps across) * 4 + l // 8, tn = (w % warps across) * 8 + l % 8)
+    through the same XOR; one fmaf chain per output from 0 in ci order,
+    then the bias, then the ReLU; the tile staged, then stored clipped at
+    M and Cout. Returns the output and how many times each output was
+    written."""
+    bm, bn, tm_n, tn_n, _ = hconv.PW_TILES[tile]
+    bsz, h, wid, cin = x.shape
+    cout = w.shape[-1]
+    ho, wo = conv_out_size(h, 1, stride), conv_out_size(wid, 1, stride)
+    m = bsz * ho * wo
+    a_rows = x[:, ::stride, ::stride, :].reshape(m, cin)   # the pixels read
+    t = torch.arange(PW_CONSUMERS)
+    warp, lane = t // 32, t % 32
+    across = bn // tn_n // 8
+    tm = (warp // across) * 4 + lane // 8
+    tn = (warp % across) * 8 + lane % 8
+    rows = tm[:, None] + torch.arange(tm_n)[None, :] * (bm // tm_n)
+    j = torch.arange(tn_n)
+    cols = (j // 4)[None, :] * (bn // (tn_n // 4)) + tn[:, None] * 4 + \
+        (j % 4)[None, :]
+    # every output of the tile belongs to exactly one thread's slot
+    owner = torch.zeros((bm, bn), dtype=torch.int32)
+    owner.index_put_((rows[:, :, None].expand(-1, -1, tn_n),
+                      cols[:, None, :].expand(-1, tm_n, -1)),
+                     torch.ones((), dtype=torch.int32), accumulate=True)
+    assert bool((owner == 1).all())
+    y = torch.full((m, cout), float("nan"))
+    writes = torch.zeros((m, cout), dtype=torch.int32)
+    tiles = -(-m // bm)
+    r = torch.arange(bm)[:, None]
+    c = torch.arange(hconv.PW_CH)[None, :]
+    swizzled = r * hconv.PW_CH + ((c // 4) ^ (r % 8)) * 4 + c % 4
+    for n0 in range(0, cout, bn):
+        sw = torch.zeros((cin, bn))                   # resident weights
+        sw[:, :min(bn, cout - n0)] = w[0, 0, :, n0:n0 + bn]
+        bv = torch.zeros(bn)
+        bv[:min(bn, cout - n0)] = bias[n0:n0 + bn]
+        for bx in range(blocks):
+            for tile_m in range(bx, tiles, blocks):
+                m0 = tile_m * bm
+                acc = torch.zeros((PW_CONSUMERS, tm_n, tn_n))
+                for k0 in range(0, cin, hconv.PW_CH):
+                    src = torch.zeros((bm, hconv.PW_CH))
+                    part = a_rows[m0:m0 + bm, k0:k0 + hconv.PW_CH]
+                    src[:part.shape[0], :part.shape[1]] = part
+                    stage = torch.full((bm * hconv.PW_CH,), float("nan"))
+                    stage[swizzled.reshape(-1)] = src.reshape(-1)
+                    for ch in range(min(hconv.PW_CH, cin - k0) // 4):
+                        for e in range(4):
+                            a = stage[rows * hconv.PW_CH
+                                      + (ch ^ (rows % 8)) * 4 + e]
+                            b = sw[k0 + ch * 4 + e][cols]
+                            acc = _fma(a[:, :, None], b[:, None, :], acc)
+                out = acc + bv[cols][:, None, :]
+                if relu:
+                    out = torch.where(out > 0, out, torch.zeros(()))
+                staging = torch.full((bm, bn), float("nan"))
+                staging[rows[:, :, None], cols[:, None, :]] = out
+                mr, nc = min(bm, m - m0), min(bn, cout - n0)
+                y[m0:m0 + mr, n0:n0 + nc] = staging[:mr, :nc]
+                writes[m0:m0 + mr, n0:n0 + nc] += 1
+    return y.reshape(bsz, ho, wo, cout), writes
+
+
+# (B, H, W, Cin, Cout, stride): an M tail, a partial K slice (Cin 40) and
+# two slices, Cin 16 at stride 2 with an odd extent and an N tail (Cout
+# 68), a stride-2 tail of rows
+PW_WALKS = [(2, 12, 12, 64, 128, 1), (1, 9, 9, 16, 68, 2),
+            (3, 7, 5, 40, 64, 1), (2, 11, 10, 8, 132, 2)]
+
+
+@pytest.mark.parametrize("tile", range(len(hconv.PW_TILES)))
+@pytest.mark.parametrize("shape", PW_WALKS,
+                         ids=lambda g: "x".join(map(str, g)))
+def test_pw_walk_writes_each_output_once_and_equals_the_plain_conv(
+        rng, shape, tile):
+    """The walk on the plan's grid and on two blocks (each walking several
+    tiles), ReLU off and on: every output written once, bit-equal to the
+    plain conv on inputs whose every sum is exact (multiples of 1/8 and
+    1/16 of small integers), so that any misrouted read, row, column or
+    slice shows whatever the order of the sums."""
+    b, h, wid, cin, cout, s = shape
+    x = torch.from_numpy(rng.integers(0, 8, (b, h, wid, cin))
+                         .astype(np.float32) / 8)
+    w = torch.from_numpy(rng.integers(-4, 5, (1, 1, cin, cout))
+                         .astype(np.float32) / 16)
+    bias = torch.from_numpy(rng.integers(-8, 9, cout).astype(np.float32)
+                            / 16)
+    m = _m(b, h, wid, 1, s)
+    for blocks in sorted({hconv.pw_grid(m, cout, tile)[0], 2}):
+        for relu_on in (False, True):
+            got, writes = _emulate_pw(x, w, bias, s, relu_on, tile, blocks)
+            assert bool((writes == 1).all())
+            ref = conv2d(x, w, bias, s, relu_on)
+            assert torch.equal(got.view(torch.int32), ref.view(torch.int32))
+
+
+def test_pw_walk_vs_pallas_interpret_at_stride_1(rng):
+    """MobileNet's pw_2 geometry (64 -> 128, 1x1) at 32 px and B = 2
+    through the walk with the plan's tile and grid, against cnn_tpu's
+    Pallas ``_forward`` at k = 1 in interpret mode, on random inputs."""
+    b, h, cin, cout = 2, 32, 64, 128
+    plan = conv_tile_plan(b, h, h, cin, cout, 1, 1, aligned=True)
+    assert plan.variant == "pw"
+    x = np.maximum(rng.standard_normal((b, h, h, cin)), 0).astype(np.float32)
+    wt = (rng.standard_normal((1, 1, cin, cout)) * 0.1).astype(np.float32)
+    bias = (rng.standard_normal((cout,)) * 0.1).astype(np.float32)
+    want = np.asarray(pallas_conv_forward(
+        jnp.asarray(x), jnp.asarray(wt), jnp.asarray(bias), 1, True,
+        interpret=True))
+    got, writes = _emulate_pw(torch.from_numpy(x), torch.from_numpy(wt),
+                              torch.from_numpy(bias), 1, True, plan.tile,
+                              plan.grid[0])
+    assert bool((writes == 1).all())
+    np.testing.assert_allclose(got.numpy(), want, **CONV_TOL)

@@ -25,6 +25,7 @@ from cnn_tpu_torch.ops.hopper.conv import (BF16_VARIANTS, conv2d_bias_relu,
                                            conv2d_bias_relu_fn,
                                            conv2d_bias_relu_op,
                                            conv_bf16_plan, conv_tile_plan)
+from test_torch_conv_plan import _emulate_pw
 
 # float32 sums in another order than XLA's (PERF.md section 2)
 CONV_TOL = dict(atol=1e-5, rtol=1e-5)
@@ -139,6 +140,29 @@ def test_avg_pools_match_cnn_tpu(rng, dtype):
                                    atol=1e-6 if dtype == "float32" else 0)
 
 
+def test_pw_walk_vs_pallas_interpret_at_stride_2(rng):
+    """resnet18's 32 -> 64 stride-2 projection at 32 px and B = 2 through
+    the pointwise kernel's walk (``tests/test_torch_conv_plan.py``) with
+    the plan's tile and grid, against cnn_tpu's Pallas ``_forward`` at
+    k = 1, stride 2, in interpret mode, and ``cnn_tpu.ops.conv.conv2d``."""
+    from cnn_tpu.ops.pallas.conv import _forward as pallas_conv_forward
+    b, h, cin, cout, s = 2, 32, 32, 64, 2
+    plan = conv_tile_plan(b, h, h, cin, cout, 1, s, True)
+    assert plan.variant == "pw"
+    x, w, bias = _inputs(rng, b, h, cin, cout, 1)
+    want = np.asarray(pallas_conv_forward(
+        jnp.asarray(x), jnp.asarray(w), jnp.asarray(bias), s, False,
+        interpret=True))
+    got, writes = _emulate_pw(torch.from_numpy(x), torch.from_numpy(w),
+                              torch.from_numpy(bias), s, False, plan.tile,
+                              plan.grid[0])
+    assert bool((writes == 1).all())
+    np.testing.assert_allclose(got.numpy(), want, **CONV_TOL)
+    xla = jops.conv2d({"w": jnp.asarray(w), "b": jnp.asarray(bias)},
+                      jnp.asarray(x), s)
+    np.testing.assert_allclose(got.numpy(), np.asarray(xla), **CONV_TOL)
+
+
 # ------------------------------------------------------------- the plans ----
 
 FAMILIES = ("resnet10", "resnet18", "vgg8", "vgg11", "mobilenet", "pipecnn")
@@ -172,10 +196,11 @@ def family_convs(name: str, size: int = 224):
 
 
 # the variants every family conv takes, float32 / bf16: a padded Cin-3 stem
-# takes both strips (bf16: the widened layout); every other conv is tiled,
-# and in bf16 tma where Cin % 64 == 0, wgmma but for the 1x1 stride-2
-# projections with k*Cin = 16 (ResNet's block_2), which the bf16 strip
-# takes (natural layout)
+# takes both strips (bf16: the widened layout); a float32 1x1 with Cout >=
+# 64 the pointwise kernel (resnet10's 16 -> 32 projection, Cout 32, stays
+# tiled); every other conv is tiled, and in bf16 tma where Cin % 64 == 0,
+# wgmma but for the 1x1 stride-2 projections with k*Cin = 16 (ResNet's
+# block_2), which the bf16 strip takes (natural layout)
 @pytest.mark.parametrize("name", FAMILIES)
 @pytest.mark.parametrize("batch", [1, 8, 64, 256])
 def test_plans_take_every_family_conv(name, batch):
@@ -183,8 +208,9 @@ def test_plans_take_every_family_conv(name, batch):
         f32 = conv_tile_plan(batch, h, h, cin, cout, k, s, True, p)
         bf = conv_bf16_plan(batch, h, h, cin, cout, k, s, True, None, p)
         strip = k * cin == 16 and p == 0 and cout <= 64
+        f32_want = "pw" if k == 1 and cout >= 64 else "tiled"
         want = (("strip", "strip") if cin == 3
-                else ("tiled", "strip" if strip else
+                else (f32_want, "strip" if strip else
                       "tma" if cin % 64 == 0 else "wgmma"))
         assert (f32.variant, bf.variant) == want, (h, cin, cout, k, s, p)
         ho = tconv.conv_out_size(h, k, s, p)
@@ -208,6 +234,10 @@ def test_plans_take_every_family_conv(name, batch):
             t = hconv.TILES[f32.tile]
             assert (f32.grid[0] - 1) * t.bm < batch * ho * ho <= \
                 f32.grid[0] * t.bm
+        if f32.variant == "pw":
+            bm, bn = hconv.PW_TILES[f32.tile][:2]
+            assert f32.grid[1] == -(-cout // bn) and cout >= bn
+            assert 1 <= f32.grid[0] <= -(-(batch * ho * ho) // bm)
 
 
 def test_a_padded_conv_never_takes_a_strip():
@@ -270,11 +300,17 @@ def test_wrapper_passes_the_padding_to_the_planned_entry(monkeypatch, dtype):
         assert counts["conv2d_bias_relu.launches_bf16_tma"] == tma
         assert counts["conv2d_bias_relu.launches_bf16_wgmma"] == n - 2 - tma
     else:
+        # the 1x1 projections 32 -> 64 and 64 -> 128 take the pointwise
+        # kernel, 16 -> 32 the tiled one
+        pw = sum(k == 1 and cout >= 64
+                 for _, _, cout, k, *_ in family_convs("resnet10", 64)[0])
+        assert pw == 2
         assert counts["conv2d_bias_relu.launches_direct"] == 0
         assert counts["conv2d_bias_relu.launches_strip"] == 1
         assert counts["conv2d_bias_relu.launches_strip_padded"] == 1
         assert counts["conv2d_bias_relu.launches_bf16_strip_padded"] == 0
-        assert counts["conv2d_bias_relu.launches_tiled"] == n - 1
+        assert counts["conv2d_bias_relu.launches_pw"] == pw
+        assert counts["conv2d_bias_relu.launches_tiled"] == n - 1 - pw
     reset_launches()
 
 
