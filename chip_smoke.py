@@ -380,6 +380,27 @@
    batch the loaders assembled), the evaluation's lines equal to the
    Python path's; every family's FLOPs per image (``utils/flops.py``).
 
+27. MaxPool2D at any window, the fast device augmentation, --profile-dir:
+   the BN AlexNet with its pool the overlapping 3x3 stride-2 one, beside
+   the flagship's 2x2 one, both from the committed ``.ckpt`` through
+   ``load_jax_params``, served at buckets 1, 8 and 64 in float32 and bf16
+   (each replay bit-equal to the eager forward; a counted predict of the
+   3x3 model launching exactly the 2x2 model's counters less the pool's;
+   its float32 logits within 1e-4 of the plain versions on the card, bf16
+   within 5e-2 x max(1, max|f32|) of float32, the photos' classes equal) and
+   trained 10 device-dataset steps at batch 256 with the full augmentation
+   in each dtype (finite losses, the mean of the last 5 below the first 5,
+   the flagship's launches less the pool's), no call of the 2x2 pool's
+   plain version on a CUDA tensor throughout; ``make_device_train_step``
+   with ``augment_batch_fast`` in float32 and bf16, captured against the
+   eager loop under phase 22's rules; ``python -m
+   cnn_tpu_torch.tools.train --profile-dir`` for 4 iterations of the
+   float32 flagship in a fresh process: its ``trace.json`` names the
+   port's conv, normalize and rotation kernels among its CUDA kernel
+   events, whose counts are printed. The 3x3 model's SP2 eval is not run
+   here: two fresh processes would cost phase 23's start-up; the CPU tests
+   hold its halo path against ``cnn_tpu``.
+
 Every phase prints one flushed line with the seconds since start. Any failed
 check raises, so the exit code is not 0. Without a CUDA device it exits 1
 before printing any result. The line before the last is the kernel table as
@@ -414,6 +435,7 @@ import torch.distributed as dist
 import torch.nn.functional as F
 
 import cnn_tpu_torch.nn.module as nn_module
+import cnn_tpu_torch.ops.pool as pool_ops
 import cnn_tpu_torch.quant as quant
 import cnn_tpu_torch.serving as serving
 import cnn_tpu_torch.tools.convert as convert_cli
@@ -434,7 +456,7 @@ from cnn_tpu_torch.data.image import resize as host_resize
 from cnn_tpu_torch.data.native import NativeLoader
 from cnn_tpu_torch.export import ServingArtifact, export_serving_artifact
 from cnn_tpu_torch.models import get_model
-from cnn_tpu_torch.nn import Conv2D, Linear, ReLU, StackedBlocks
+from cnn_tpu_torch.nn import Conv2D, Linear, MaxPool2D, ReLU, StackedBlocks
 from cnn_tpu_torch.ops import augment as aug
 from cnn_tpu_torch.ops.activations import relu as ops_relu
 from cnn_tpu_torch.ops.batchnorm import batch_norm2d_train
@@ -1209,7 +1231,7 @@ def serving_phase(model) -> dict:
             batch[:n] = chunk
             with torch.no_grad():
                 ep, el = engine._forward(torch.from_numpy(batch).to(dev))
-            check(same_arrays(labels, el[:n].cpu().numpy())
+            check(same_arrays(labels, el[:n].int().cpu().numpy())
                   and same_arrays(probs, ep[:n].cpu().numpy()),
                   f"bucket {b}, {n} images: the replay differs from the "
                   "eager forward")
@@ -2441,7 +2463,7 @@ def bf16_serving_phase(model) -> dict:
             batch[:n] = chunk
             with torch.no_grad():
                 ep, el = engine._forward(torch.from_numpy(batch).to(dev))
-            check(same_arrays(labels, el[:n].cpu().numpy())
+            check(same_arrays(labels, el[:n].int().cpu().numpy())
                   and same_arrays(probs, ep[:n].cpu().numpy()),
                   f"bf16 bucket {b}, {n} images: the replay differs from the "
                   "eager forward")
@@ -3344,7 +3366,7 @@ def serve_family(name: str, model, dtype, rng, photos: np.ndarray,
         labels, probs = engine.predict(chunk)
         with torch.no_grad():
             ep, el = engine._forward(torch.from_numpy(chunk).cuda())
-        check(same_arrays(labels, el.cpu().numpy())
+        check(same_arrays(labels, el.int().cpu().numpy())
               and same_arrays(probs, ep.cpu().numpy()),
               f"{tag} bucket {b}: the replay differs from the eager "
               "forward")
@@ -4560,7 +4582,7 @@ def moecnn_serving(smi: str) -> tuple[dict, list]:
         with torch.no_grad():
             ep, el = engine._forward(torch.from_numpy(five).cuda())
         check(same_arrays(probs, ep[:5].cpu().numpy())
-              and same_arrays(labels, el[:5].cpu().numpy()),
+              and same_arrays(labels, el[:5].int().cpu().numpy()),
               "moecnn: 5 images in bucket 8 differ from the eager forward "
               "of the same 5 and 3 zero images")
         lines.append(line + "; 5 images in bucket 8 bit-equal to the eager "
@@ -5034,7 +5056,7 @@ def replays_match_eager(engine, rng, tag: str) -> None:
         labels, probs = engine.predict(chunk)
         with torch.no_grad():
             ep, el = engine._forward(torch.from_numpy(chunk).cuda())
-        check(same_arrays(labels, el.cpu().numpy())
+        check(same_arrays(labels, el.int().cpu().numpy())
               and same_arrays(probs, ep.cpu().numpy()),
               f"{tag} bucket {b}: the replay differs from the eager forward")
 
@@ -5659,7 +5681,7 @@ def graph_run(case: str, ds, eager: bool, batch: int = GRAPH_B,
               steps: int = GRAPH_K):
     """A fresh, seeded train state of ``case`` and its device step:
     ``(ts, step)``."""
-    name, kwargs, dtype, opts, ospec = GRAPH_CASES[case]
+    name, kwargs, dtype, opts, ospec = (GRAPH_CASES | P27_GRAPH_CASES)[case]
     model = get_model(name, num_classes=3, image_size=224, batch_norm=True,
                       device="cuda", generator=torch.Generator().manual_seed(
                           FAMILY_SEED), **kwargs)
@@ -5676,8 +5698,11 @@ def graph_run(case: str, ds, eager: bool, batch: int = GRAPH_B,
     adt = dtype or torch.float32
     jitter = opts.get("jitter", 0.0)
 
+    augment = (aug.augment_batch_fast if opts.get("augment") == "fast"
+               else aug.augment_batch)
+
     def augment_fn(gen, im):
-        x = aug.augment_batch(gen, im, dtype=adt)
+        x = augment(gen, im, dtype=adt)
         return aug.color_jitter(gen, x, jitter) if jitter else x
 
     distill = None
@@ -7263,6 +7288,270 @@ def phase26(smi: str, tmp: Path, cli: dict) -> tuple[int, tuple, dict]:
     return resize, row, total
 
 
+# ---------------------------------------------------------------------------
+# phase 27: MaxPool2D at any window (the flagship AlexNet with the
+# overlapping 3x3 stride-2 pool), the fast device augmentation captured,
+# --profile-dir
+# ---------------------------------------------------------------------------
+
+CKPT = MODEL.with_suffix(".ckpt")     # the same weights as a cnn_tpu tree
+P27_STEPS = 10         # train steps of the 3x3/2 AlexNet in each dtype
+P27_N = 512            # canvases of its device dataset
+P27_ITERS = 4          # iterations of the --profile-dir run
+P27_POOL_KEYS = ("max_pool2d_fwd.", "max_pool2d_bwd.")
+# the captured calls of make_device_train_step with augment_batch_fast
+P27_GRAPH_CASES = {
+    "fast augmentation float32": ("alexnet", {}, None, {"augment": "fast"},
+                                  {}),
+    "fast augmentation bf16": ("alexnet", {}, BF16, {"augment": "fast"}, {}),
+}
+
+
+def pool33_model(window: int) -> torch.nn.Module:
+    """The BN AlexNet at 224 px on the card with ``max_pool_1`` the
+    ``window`` x ``window`` stride-2 pool (2: the flagship; 3: the
+    overlapping pool), the committed ``.ckpt``'s trees loaded through
+    ``load_jax_params``; 111 rows pool to 55 either way."""
+    model = get_model("alexnet", num_classes=3, batch_norm=True,
+                      image_size=224, device="cuda")
+    if window != 2:
+        model.net.layers["max_pool_1"] = MaxPool2D("max_pool_1", window, 2)
+    payload = read_checkpoint(str(CKPT))
+    load_jax_params(model, payload["params"], payload["state"])
+    return model
+
+
+def without_pool(counts: dict) -> dict:
+    return {k: v for k, v in counts.items() if not k.startswith(P27_POOL_KEYS)}
+
+
+@contextmanager
+def taps_on_the_card():
+    """Counts the calls of the 2x2 pool's plain version
+    (``ops/pool.py:max_pool2d_taps``) on a CUDA tensor: none may happen."""
+    real, seen = pool_ops.max_pool2d_taps, []
+
+    def spy(x):
+        if x.is_cuda:
+            seen.append(tuple(x.shape))
+        return real(x)
+
+    with mock.patch.object(pool_ops, "max_pool2d_taps", spy):
+        yield seen
+
+
+def pool33_serving(models: dict, rng) -> tuple[dict, list]:
+    """Both models behind ``InferenceEngine`` (buckets 1, 8, 64, one CUDA
+    graph each) in float32 and bf16: each bucket's replay bit-equal to the
+    eager forward; a counted predict of 5 and of 64 images launching, for
+    the 3x3 model, exactly the 2x2 model's counters less the pool's (4
+    convs a call, none on the direct kernel or the gather); the 3x3 model's
+    float32 logits within 1e-4 of the plain versions on the card, bf16
+    within 5e-2 x max(1, max|f32|) of float32 with its argmax."""
+    imgs5, imgs64 = synthetic_images(rng, 5), synthetic_images(rng, 64)
+    x = torch.from_numpy(imgs64).cuda()
+    total, lines, logits = {}, [], {}
+    for dtype in (None, BF16):
+        tag = "bf16" if dtype else "float32"
+        counts = {}
+        for window, model in models.items():
+            engine = serving.InferenceEngine(model, buckets=BUCKETS,
+                                             device="cuda",
+                                             compute_dtype=dtype)
+            engine.warmup()
+            replays_match_eager(engine, rng, f"{window}x{window} {tag}")
+            (got, counts[window]) = counted(lambda: (engine.predict(imgs5),
+                                                     engine.predict(imgs64)))
+            add_up(total, counts[window])
+            for (labels, probs), n in zip(got, (5, 64)):
+                check(labels.dtype == np.int32 and labels.shape == (n,)
+                      and bool(np.isfinite(probs).all())
+                      and bool((labels == probs.argmax(-1)).all()),
+                      f"{window}x{window} {tag}: labels {labels.dtype} "
+                      f"{labels.shape}")
+            del engine
+        c2, c3 = counts[2], counts[3]
+        check(any(k.startswith(P27_POOL_KEYS) for k in c2)
+              and not any(k.startswith(P27_POOL_KEYS) for k in c3)
+              and c3 == without_pool(c2)
+              and c3["conv2d_bias_relu.launches"] == 4 * 2,
+              f"{tag}: the 3x3 model's launches {c3} against the 2x2 "
+              f"model's {c2}")
+        no_fallback(c3, f"3x3 {tag} serving")
+        with torch.no_grad():
+            logits[tag] = models[3](uint8_normalize(x),
+                                    compute_dtype=dtype).float()
+        lines.append(f"{tag}: replays bit-equal at buckets {BUCKETS}; "
+                     f"launches of 2 bucket calls {c3}, the 2x2 model's "
+                     f"less its {c2['max_pool2d_fwd.launches']} pool "
+                     f"launches")
+    with torch.no_grad(), plain_versions():
+        plain = models[3](uint8_to_float(x))
+    dev_plain = (logits["float32"] - plain).abs().max().item()
+    check(dev_plain <= LOGIT_ATOL, f"3x3 logits against the plain versions "
+          f"on the card: {dev_plain:.3g}")
+    d16, scale = scaled_dev(logits["bf16"], logits["float32"])
+    check(d16 <= BF16_MODEL_TOL * scale, f"3x3 bf16 logits against float32: "
+          f"{d16:.3g} (scale {scale:.3g})")
+    # the classes on the six photos, as phase 17 holds the families; on
+    # the synthetic images a near tie may flip, counted with its margin
+    photos = torch.from_numpy(family_photos()).cuda()
+    with torch.no_grad():
+        p32, p16 = (models[3](uint8_normalize(photos), compute_dtype=dt)
+                    .argmax(-1) for dt in (None, BF16))
+    check(bool((p32 == p16).all()), f"3x3 bf16 classes of the photos "
+          f"{p16.tolist()} against float32's {p32.tolist()}")
+    flips = logits["bf16"].argmax(-1) != logits["float32"].argmax(-1)
+    top2 = logits["float32"].topk(2, dim=-1).values
+    margins = (top2[:, 0] - top2[:, 1])[flips].tolist()
+    lines.append(f"float32 logits (|logit| <= "
+                 f"{logits['float32'].abs().max().item():.1f}) max|dev| "
+                 f"{dev_plain:.3g} from the plain versions on the card (atol "
+                 f"{LOGIT_ATOL}); bf16 {d16 / scale:.3g} x max(1, max|f32|) "
+                 f"from float32; the photos' classes {p32.tolist()} in both; "
+                 f"{len(margins)} of 64 synthetic images change class in "
+                 f"bf16, float32 top-2 margins {margins}")
+    return total, lines
+
+
+def pool33_training(smi: str) -> tuple[dict, list]:
+    """The 3x3 model, from the committed weights, ``P27_STEPS`` device-
+    dataset steps at batch 256 with the full augmentation, momentum on a
+    cosine schedule, in float32 and bf16: finite losses, the mean of the
+    last 5 below the first 5, exactly the flagship's launches less the
+    pool's (``cli_want``: 4 convs and one rotation a step)."""
+    imgs, labels = synthetic_canvases(np.random.default_rng(27), P27_N,
+                                      CANVAS)
+    ds = DeviceDataset.from_arrays(imgs, labels, device="cuda")
+    total, lines = {}, []
+    for dtype in (None, BF16):
+        tag = "bf16" if dtype else "float32"
+        model = pool33_model(3).train()
+        opt = make_optimizer("momentum", 1.5e-2, schedule="cosine",
+                             total_steps=P27_STEPS)
+        ts = create_train_state(model, opt, seed=7)
+        adt = dtype or torch.float32
+        step = make_device_train_step(
+            model, opt, ds, TRAIN_B, compute_dtype=dtype,
+            augment_fn=lambda g, im: aug.augment_batch(g, im, dtype=adt))
+        torch.cuda.synchronize()
+        reset_launches()
+        t = time.perf_counter()
+        losses = []
+        for _ in range(P27_STEPS):
+            ts, m = step(ts)
+            losses.append(m["loss"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        counts = {k: v for k, v in read_counters().items() if v}
+        add_up(total, counts)
+        want = without_pool(cli_want(P27_STEPS, 0, dtype is not None, True))
+        check(counts == want, f"3x3 {tag} training: launches {counts}, "
+              f"expected {want}")
+        losses = torch.stack(losses).float().cpu()
+        first, last = losses[:5].mean().item(), losses[-5:].mean().item()
+        check(bool(torch.isfinite(losses).all()) and last < first,
+              f"3x3 {tag} training: losses {losses.tolist()}")
+        lines.append(f"{tag}: loss {losses[0].item():.4f} -> "
+                     f"{losses[-1].item():.4f} (mean of the first 5 "
+                     f"{first:.4f}, last 5 {last:.4f}); "
+                     f"{P27_STEPS * TRAIN_B / wall:.1f} img/s over the "
+                     f"{P27_STEPS} steps, the first call's capture included "
+                     f"({smi}); launches {counts}")
+        del model, ts, step
+    del ds
+    torch.cuda.empty_cache()
+    return total, lines
+
+
+def port_kernel_names() -> set:
+    """The ``__global__`` functions of ``cnn_tpu_torch/csrc``."""
+    names = set()
+    for src in (ROOT / "cnn_tpu_torch" / "csrc").glob("*.cu"):
+        names |= set(re.findall(r"__global__[^;{]*?\b(\w+_kernel)\s*\(",
+                                src.read_text()))
+    return names
+
+
+def profile_run(cli: dict, tmp: Path):
+    """``python -m cnn_tpu_torch.tools.train`` in a fresh process with
+    ``--profile-dir``: ``P27_ITERS`` iterations of the float32 flagship
+    (device dataset, full augmentation) at batch 64 on phase 14's images,
+    validating once; a running process."""
+    argv = ["--dataset-path", str(cli["data"]), *cli["sizes"],
+            "--checkpoint-dir", str(tmp / "p27_ck"), "--device-dataset",
+            "true", "--augment-mode", "full", "--batch-norm", "true",
+            "--optimizer", "momentum", "--learning-rate", "1.5e-2",
+            "--train-batch-size", str(B), "--total-iters", str(P27_ITERS),
+            "--valid-iters", str(P27_ITERS), "--save-iters", str(P27_ITERS),
+            "--profile-dir", str(tmp / "p27_trace")]
+    return subprocess.Popen(
+        [sys.executable, "-m", "cnn_tpu_torch.tools.train", *argv],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def profile_result(proc, tmp: Path) -> str:
+    """The run exits 0 after "training done!"; its ``trace.json`` holds
+    CUDA kernel events naming the port's conv, normalize and rotation
+    kernels. Returns their counts by kernel."""
+    out, err = proc.communicate(timeout=600)
+    check(proc.returncode == 0 and "training done!" in out,
+          f"--profile-dir run: exit {proc.returncode}; output ends "
+          f"{out[-1500:]!r}; errors end {err[-1500:]!r}")
+    path = tmp / "p27_trace" / "trace.json"
+    check(path.is_file(), f"--profile-dir wrote no {path}")
+    events = json.loads(path.read_text())["traceEvents"]
+    names = port_kernel_names()
+    seen: dict = {}
+    for e in events:
+        if e.get("cat") != "kernel":
+            continue
+        for n in set(re.findall(r"\w+_kernel", e.get("name", ""))) & names:
+            seen[n] = seen.get(n, 0) + 1
+    kinds = {k: sum(v for n, v in seen.items() if n.startswith(k))
+             for k in ("conv2d_", "normalize_u8_", "rotate_shear_")}
+    check(all(kinds.values()), f"the trace's CUDA kernels name the port's "
+          f"{seen}, missing {[k for k, v in kinds.items() if not v]}")
+    n_kernels = sum(e.get("cat") == "kernel" for e in events)
+    return (f"--profile-dir: {path.stat().st_size} bytes of trace, "
+            f"{n_kernels} CUDA kernel events, the port's by kernel {seen}")
+
+
+def phase27(smi: str, tmp: Path, cli: dict) -> dict:
+    """Phase 27: the 3x3/2 AlexNet served and trained beside the 2x2 one,
+    no call of the 2x2 pool's plain version on the card, the fast device
+    augmentation captured against the eager loop, and the train CLI's
+    ``--profile-dir`` (in a fresh process, started first). Returns every
+    launch of its counted runs (AlexNet's rows)."""
+    t0 = time.perf_counter()
+    proc = profile_run(cli, tmp)
+    total = {}
+    rng = np.random.default_rng(27)
+    with taps_on_the_card() as seen:
+        models = {w: pool33_model(w).eval() for w in (2, 3)}
+        counts, lines = pool33_serving(models, rng)
+        add_up(total, counts)
+        for line in lines:
+            phase(f"phase 27: 3x3/2 AlexNet served, {line}")
+        del models
+        counts, lines = pool33_training(smi)
+        add_up(total, counts)
+        for line in lines:
+            phase(f"phase 27: 3x3/2 AlexNet trained {P27_STEPS} steps at "
+                  f"batch {TRAIN_B}, full augmentation, {line}")
+    check(not seen, f"the 2x2 pool's plain version ran on the card: {seen}")
+    ds = graph_dataset()
+    for case in P27_GRAPH_CASES:
+        counts, line = graph_case(case, ds)
+        add_up(total, counts)
+        phase(f"phase 27: captured calls bit-equal to the eager loop, {line}")
+    del ds
+    torch.cuda.empty_cache()
+    phase(f"phase 27: {profile_result(proc, tmp)}")
+    phase(f"phase 27: {time.perf_counter() - t0:.1f} s ({smi})")
+    return total
+
+
 def same_trees(a, b) -> bool:
     if isinstance(a, dict):
         return (isinstance(b, dict) and sorted(a) == sorted(b)
@@ -7419,6 +7708,8 @@ def main() -> int:
         # resize launches on the resize row
         resize_n, resize_row, alex26 = phase26(smi, Path(tmp), flagship)
         add_up(cli, alex26)
+        # phase 27: every launch counts on AlexNet's rows
+        add_up(cli, phase27(smi, Path(tmp), flagship))
 
     # the CLIs' launches (phases 14-16): float32 ones on the float32 rows,
     # the rotation in either dtype on its one row

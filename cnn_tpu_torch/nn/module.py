@@ -5,11 +5,12 @@ HWIO and ``b``; dense ``w`` [in,out] and ``b``; BN ``gamma``/``beta`` with
 ``mean``/``var`` buffers), so a ``cnn_tpu`` param tree loads as it is
 (``utils/checkpoint.py:load_jax_params``). Activations are NHWC.
 
-Conv2D and MaxPool2D go through the kernels in ``ops/hopper``: the CUDA
-kernel for a CUDA tensor, the plain version for a CPU tensor. When a
-gradient is asked for, they call the kernels' autograd Functions
-(``conv2d_bias_relu_fn``, ``max_pool2d_fn``), whose backward is the conv's
-ATen gradients and the pool backward kernel; otherwise the bare wrappers.
+Conv2D and MaxPool2D (its 2x2 window at stride 2) go through the kernels
+in ``ops/hopper``: the CUDA kernel for a CUDA tensor, the plain version
+for a CPU tensor. When a gradient is asked for, they call the kernels'
+autograd Functions (``conv2d_bias_relu_fn``, ``max_pool2d_fn``), whose
+backward is the conv's ATen gradients and the pool backward kernel;
+otherwise the bare wrappers.
 BatchNorm2D normalizes by batch statistics in training mode and updates its
 moving statistics in place. Dropout (``ops/dropout.py``) draws its channels
 in training mode from the generator its ``forward`` is given, as
@@ -70,7 +71,7 @@ from cnn_tpu_torch.ops.hopper.conv import (conv2d_bias_relu,
                                            conv2d_bias_relu_op)
 from cnn_tpu_torch.ops.hopper.pool import max_pool2d_fn, max_pool2d_fwd
 from cnn_tpu_torch.ops.linear import linear, matmul
-from cnn_tpu_torch.ops.pool import avg_pool2d, global_avg_pool
+from cnn_tpu_torch.ops.pool import avg_pool2d, global_avg_pool, max_pool2d
 
 
 def leaf_name(path) -> str:
@@ -316,27 +317,30 @@ class DepthwiseConv2D(Layer):
 
 
 class MaxPool2D(Layer):
-    """2x2 stride-2 max pool, the window every family uses and the kernel
-    takes."""
+    """Max pool of any window and stride, VALID (``cnn_tpu``'s
+    ``MaxPool2D``). The 2x2 window at stride 2, the one every family uses,
+    runs the pool kernels (the autograd Function when a gradient is asked
+    for, the bare forward otherwise), which on a CUDA tensor launch or
+    raise; any other window has no kernel in ``cnn_tpu`` and runs the
+    plain op (``ops/pool.py:max_pool2d``) on either device."""
 
     def __init__(self, name, kernel_size=2, stride=2):
         super().__init__(name)
-        if (kernel_size, stride) != (2, 2):
-            raise NotImplementedError(
-                f"{name}: the pool kernel takes 2x2 windows at stride 2, not "
-                f"{kernel_size}x{kernel_size} at stride {stride}")
+        self.kernel_size, self.stride = kernel_size, stride
 
     def plan_rows(self, h):
         self.rows = h
-        return h // 2
+        return conv_out_size(h, self.kernel_size, self.stride)
 
     def forward(self, x):
         if self.on_strips():
-            return _windowed(self, x, 2, 2, 0, self._pool, x.shape[-1])
+            return _windowed(self, x, self.kernel_size, self.stride, 0,
+                             self._pool, x.shape[-1])
         return self._pool(x)
 
-    @staticmethod
-    def _pool(x):
+    def _pool(self, x):
+        if (self.kernel_size, self.stride) != (2, 2):
+            return max_pool2d(x, self.kernel_size, self.stride)
         if _wants_grad(x):
             return max_pool2d_fn(x)
         return max_pool2d_fwd(x)

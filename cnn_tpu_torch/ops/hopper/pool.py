@@ -19,6 +19,12 @@ backward the window kernel cannot take (C % 4 != 0, g not 8-byte aligned)
 raises. Each wrapper counts its bf16 launches in ``launches_bf16`` beside
 ``launches``; the variant counters count the float32 kernels.
 
+The kernels take the 2x2 window at stride 2 only, as the Pallas kernel
+does: ``nn/module.py:MaxPool2D`` sends that window here and any other to
+the plain op (``ops/pool.py:max_pool2d``), as ``cnn_tpu`` runs every
+other window through XLA. On a CUDA tensor each wrapper here launches its
+kernel or raises; only a CPU tensor takes the plain version.
+
 ``max_pool2d_fwd_op`` is the forward without the tap as a PyTorch operator
 (``torch.ops.cnn_tpu_torch.max_pool2d_fwd``) with a fake version, so that
 ``torch.export`` records the kernel's call by name: while a program is

@@ -15,8 +15,9 @@ from __future__ import annotations
 import torch
 
 
-def softmax(logits: torch.Tensor, dim: int = -1) -> torch.Tensor:
-    return torch.softmax(logits.float(), dim=dim)
+def softmax(logits: torch.Tensor, axis: int = -1) -> torch.Tensor:
+    """Float32 softmax over ``axis`` (``cnn_tpu``'s keyword)."""
+    return torch.softmax(logits.float(), dim=axis)
 
 
 def one_hot(labels: torch.Tensor, num_classes: int,

@@ -1,11 +1,23 @@
-"""2x2 stride-2 max pooling, NHWC (plain version of the pool kernel).
+"""Max pooling, NHWC and VALID, counterpart of ``cnn_tpu/ops/pool.py:
+max_pool2d``, and the plain version of the 2x2 stride-2 pool kernel
+(``cnn_tpu/ops/pallas/pool.py``, forward and backward).
 
-Counterpart of ``cnn_tpu/ops/pool.py:max_pool2d`` and of
-``cnn_tpu/ops/pallas/pool.py`` (forward and backward). VALID: odd extents
-crop the last row/col. Ties go to the earliest tap in row-major window order
-(00, 01, 10, 11), which matters after ReLU, where exact zeros tie; the
-backward routes each window's cotangent to that tap. The CUDA kernels are
-``ops/hopper/pool.py``.
+``max_pool2d(x, kernel_size, stride)`` takes any window and stride, as
+``lax.reduce_window`` does in ``cnn_tpu``: a window that does not fit is
+cropped (the last rows and columns an extent leaves over). The tie rule
+is XLA's select-and-scatter's: the first maximum in row-major window
+order is the window's maximum and takes its cotangent, and where windows
+overlap (stride < window) a pixel adds up the cotangents of every window
+it is the maximum of. Ties matter after ReLU, where exact zeros tie. A
+maximum is exact, so the forward is exact in any dtype.
+
+2x2 at stride 2 runs ``max_pool2d_taps`` (the taps 00, 01, 10, 11 in that
+order, the earliest of a tie kept), whose tap index the backward
+``max_pool2d_bwd`` routes by: the plain version of the CUDA kernels in
+``ops/hopper/pool.py``. Any other window has no kernel in ``cnn_tpu`` (it
+is XLA's ``reduce_window`` there) and runs ``F.max_pool2d`` over the
+channels-last view, on either device; its autograd keeps the index of the
+first maximum of each window and adds the cotangents a pixel receives.
 
 ``avg_pool2d`` and ``global_avg_pool`` (no kernel in ``cnn_tpu``) sum in
 float32 and return the input's dtype.
@@ -31,9 +43,13 @@ def max_pool2d_taps(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return torch.where(down, m1, m0), torch.where(down, i1, i0)
 
 
-def max_pool2d(x: torch.Tensor) -> torch.Tensor:
-    """[B,H,W,C] -> [B,H//2,W//2,C]."""
-    return max_pool2d_taps(x)[0]
+def max_pool2d(x: torch.Tensor, kernel_size: int = 2,
+               stride: int = 2) -> torch.Tensor:
+    """[B,H,W,C] -> [B,(H-k)//s+1,(W-k)//s+1,C] in x's dtype."""
+    if (kernel_size, stride) == (2, 2):
+        return max_pool2d_taps(x)[0]
+    y = F.max_pool2d(x.permute(0, 3, 1, 2), kernel_size, stride)
+    return y.permute(0, 2, 3, 1)
 
 
 def max_pool2d_bwd(tap: torch.Tensor, g: torch.Tensor, h: int,

@@ -187,10 +187,9 @@ def _trunk_input_shape(stem: Sequential, shape) -> tuple:
             h, w = (conv_out_size(v, l.kernel_size, l.stride, l.padding)
                     for v in (h, w))
             c = l.out_channels
-        elif isinstance(l, MaxPool2D):
-            h, w = h // 2, w // 2
-        elif isinstance(l, AvgPool2D):
-            h, w = ((v - l.kernel_size) // l.stride + 1 for v in (h, w))
+        elif isinstance(l, (MaxPool2D, AvgPool2D)):
+            h, w = (conv_out_size(v, l.kernel_size, l.stride)
+                    for v in (h, w))
         elif _has_params(l) and not isinstance(l, BatchNorm2D):
             raise NotImplementedError(
                 f"{l.name} ({type(l).__name__}) in a pipelined stem")

@@ -71,6 +71,12 @@ def bucket_forward(model, images: torch.Tensor, compute_dtype=None):
     return torch.argmax(probs, dim=-1), probs
 
 
+def _host_labels(labels: torch.Tensor) -> np.ndarray:
+    """A bucket's labels copied out as numpy int32, the dtype of
+    ``cnn_tpu``'s ``jnp.argmax``; the graphs keep their int64 argmax."""
+    return labels.cpu().numpy().astype(np.int32)
+
+
 @dataclass
 class StreamSlot:
     """One in-flight request of ``predict_stream``: its pinned input and
@@ -174,7 +180,7 @@ class InferenceEngine:
         return BucketGraph(graph, host, images, probs, labels, launches)
 
     def predict(self, images_u8: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
-        """[N,H,W,3] uint8 -> (labels [N] int64, probs [N,C] f32)."""
+        """[N,H,W,3] uint8 -> (labels [N] int32, probs [N,C] f32)."""
         images_u8 = np.asarray(images_u8)
         if images_u8.dtype != np.uint8 or images_u8.ndim != 4 \
                 or images_u8.shape[1:] != self.image_shape \
@@ -270,7 +276,8 @@ class InferenceEngine:
             g.images.copy_(g.host, non_blocking=True)
             g.graph.replay()
             add_counters(g.launches)
-            return g.labels[:rem].cpu().numpy(), g.probs[:rem].cpu().numpy()
+            return (_host_labels(g.labels[:rem]),
+                    g.probs[:rem].cpu().numpy())
 
     def _run_eager(self, bucket: int, chunk: np.ndarray):
         rem = chunk.shape[0]
@@ -278,7 +285,7 @@ class InferenceEngine:
         batch[:rem] = chunk
         with torch.inference_mode():
             probs, labels = self._forward(torch.from_numpy(batch).to(self.device))
-            return labels[:rem].cpu().numpy(), probs[:rem].cpu().numpy()
+            return _host_labels(labels[:rem]), probs[:rem].cpu().numpy()
 
 
 class BatchingServer:

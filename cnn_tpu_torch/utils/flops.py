@@ -26,10 +26,7 @@ def _out_shape(layer, shape: tuple) -> tuple:
         k, s, p = layer.kernel_size, layer.stride, layer.padding
         return (conv_out_size(h, k, s, p), conv_out_size(w, k, s, p),
                 layer.out_channels)
-    if isinstance(layer, MaxPool2D):
-        h, w, c = shape
-        return (conv_out_size(h, 2, 2), conv_out_size(w, 2, 2), c)
-    if isinstance(layer, AvgPool2D):
+    if isinstance(layer, (MaxPool2D, AvgPool2D)):
         h, w, c = shape
         k, s = layer.kernel_size, layer.stride
         return (conv_out_size(h, k, s), conv_out_size(w, k, s), c)

@@ -72,8 +72,14 @@ def build(case, inputs):
 
 
 def load_model(case, inputs):
+    """The case's model; ``pool`` [k, s] makes AlexNet's ``max_pool_1``
+    that window and stride."""
+    from cnn_tpu_torch.nn import MaxPool2D
     from cnn_tpu_torch.utils.checkpoint import load_jax_params
     model = get_model(case["model"], device="cpu", **case["kwargs"])
+    if case.get("pool"):
+        model.net.layers["max_pool_1"] = MaxPool2D("max_pool_1",
+                                                   *case["pool"])
     w = case["weights"]
     load_jax_params(model, nest(inputs, f"{w}/p"), nest(inputs, f"{w}/s"))
     return model

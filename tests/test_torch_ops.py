@@ -198,6 +198,7 @@ def test_relu_linear_batchnorm_vs_jax(rng):
 
 import jax  # noqa: E402
 
+from cnn_tpu.ops.losses import softmax as j_softmax  # noqa: E402
 from cnn_tpu.ops.losses import softmax_cross_entropy as j_softmax_ce  # noqa: E402
 from cnn_tpu.ops.pallas.conv import _vjp_bwd as pallas_conv_vjp_bwd  # noqa: E402
 from cnn_tpu.ops.pallas.pool import _bwd_call as pallas_pool_bwd  # noqa: E402
@@ -322,6 +323,20 @@ def test_loss_and_its_gradient_vs_jax(rng, smoothing):
                                                smoothing).item(), want, 1e-6)
     _scaled_close(losses.softmax(_t(logits)).numpy(),
                   jax.nn.softmax(jnp.asarray(logits)), 1e-6)
+
+
+def test_softmax_takes_cnn_tpu_axis_keyword(rng):
+    """``softmax(x, axis=)``, ``cnn_tpu``'s keyword, over each axis of a
+    [6, 3] batch, in float32 from bf16 logits too."""
+    logits = (rng.standard_normal((6, 3)) * 4).astype(np.float32)
+    for axis in (0, 1, -1):
+        want = j_softmax(jnp.asarray(logits), axis=axis)
+        got = losses.softmax(_t(logits), axis=axis)
+        assert got.dtype == torch.float32
+        _scaled_close(got.numpy(), want, 1e-6)
+    half = _t(logits).to(torch.bfloat16)
+    want = j_softmax(jnp.asarray(logits, jnp.bfloat16), axis=0)
+    _scaled_close(losses.softmax(half, axis=0).numpy(), want, 1e-6)
 
 
 @pytest.mark.parametrize("wrapper,args", [

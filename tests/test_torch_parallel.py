@@ -19,8 +19,12 @@ ranks, and results come back, through ``.npz`` files.
   ``cnn_tpu``'s, as ``tests/test_moe.py``'s expert-parallel case. The
   meshes' shapes and coordinates on four axes.
 - The eval step at SP4: BN AlexNet at 64 px (conv3 and conv4 have fewer
-  rows than ranks) and resnet10 at 64 and 32 px (its last stage fewer
-  rows than ranks at 32), against ``cnn_tpu``'s unsharded eval.
+  rows than ranks), the same with its pool the overlapping 3x3 stride-2
+  one (each strip takes the row below it through the halo), and resnet10
+  at 64 and 32 px (its last stage fewer rows than ranks at 32), against
+  ``cnn_tpu``'s unsharded eval. The pipelined stem's output shape through
+  a 2x2 and a 3x3/2 pool (``pipeline._trunk_input_shape``) against
+  ``cnn_tpu``'s ``out_shapes``.
 - ``grad_accum 2`` at DP2 against ``cnn_tpu``'s step on ``make_mesh(2,
   1)``; the eval step at DP2 on an uneven batch of 7 and on one image
   (loss, correct, pred); a TP2 ``.ckpt`` equal to the one-rank tree,
@@ -40,6 +44,7 @@ ranks, and results come back, through ``.npz`` files.
   pipeline's ``'stage'`` axis is ``tests/test_torch_pipeline.py``'s.
 """
 
+import copy
 import json
 import os
 import re
@@ -57,6 +62,10 @@ from jax.sharding import Mesh as JMesh
 
 from cnn_tpu import optim as j_optim
 from cnn_tpu.models import get_model as j_get_model
+from cnn_tpu.nn import Conv2D as JConv2D
+from cnn_tpu.nn import MaxPool2D as JMaxPool2D
+from cnn_tpu.nn import ReLU as JReLU
+from cnn_tpu.nn import Sequential as JSequential
 from cnn_tpu.parallel import make_mesh as j_make_mesh
 from cnn_tpu.parallel.train_step import TrainState as JTrainState
 from cnn_tpu.parallel.train_step import _loss_fn as j_loss_fn
@@ -70,9 +79,11 @@ from cnn_tpu_torch.data.device_dataset import (DeviceDataset, call_indices,
                                                make_device_train_step,
                                                shard_sample)
 from cnn_tpu_torch.models import get_model
+from cnn_tpu_torch.nn import Conv2D, MaxPool2D, ReLU, Sequential
 from cnn_tpu_torch.ops.augment import augment_batch
 from cnn_tpu_torch.ops.conv import conv2d
 from cnn_tpu_torch.parallel import create_train_state, model_pspecs
+from cnn_tpu_torch.parallel import pipeline
 from cnn_tpu_torch.parallel.collectives import halo_plan
 from cnn_tpu_torch.parallel.mesh import Mesh
 from cnn_tpu_torch.parallel.train_step import (_opt_trees, make_train_step,
@@ -209,6 +220,8 @@ def world4(tmp_path_factory, refs):
         _case("step", "alex_tp2sp2", "alex", 1, 2, spatial=2),
         _case("step", "moe_dp2ep2", "moe", 2, 1, expert=2, steps=3),
         _case("eval", "alex_sp4_eval", "alex", 1, 1, spatial=4),
+        _case("eval", "alex33_sp4_eval", "alex", 1, 1, spatial=4,
+              pool=[3, 2]),
         _case("eval", "res_sp4_eval", "res", 1, 1, spatial=4),
         _case("eval", "res32_sp4_eval", "res", 1, 1, spatial=4,
               x="res/x32"),
@@ -407,16 +420,31 @@ def test_expert_parallel_steps_match_cnn_tpu(world4, refs, single):
             got["loss"])
 
 
+def _j_pool33(jm):
+    """A shallow copy of ``cnn_tpu``'s AlexNet ``jm`` whose ``max_pool_1``
+    is the overlapping 3x3 stride-2 pool (the same weights fit: conv1's
+    rows pool to as many rows as through the 2x2 pool)."""
+    jm = copy.copy(jm)
+    jm.net = JSequential([JMaxPool2D("max_pool_1", kernel_size=3, stride=2)
+                          if l.name == "max_pool_1" else l
+                          for l in jm.net.layers])
+    return jm
+
+
 @pytest.mark.parametrize("case,key,x", [
-    ("alex_sp4_eval", "alex", "alex/x"), ("res_sp4_eval", "res", "res/x"),
+    ("alex_sp4_eval", "alex", "alex/x"),
+    ("alex33_sp4_eval", "alex", "alex/x"), ("res_sp4_eval", "res", "res/x"),
     ("res32_sp4_eval", "res", "res/x32")])
 def test_spatial_eval_matches_cnn_tpu(world4, refs, case, key, x):
     """The eval step with the image rows over four ``'spatial'`` ranks
     (a rank that owns no row of a small layer still joins its
-    exchanges): the loss within 1e-4 x max(1, |ref|), ``correct`` and
-    every prediction equal to ``cnn_tpu``'s unsharded eval step, on every
-    rank."""
+    exchanges; under the 3x3/2 pool each strip of conv1's output also
+    reads a row of the strip below it): the loss within 1e-4 x max(1,
+    |ref|), ``correct`` and every prediction equal to ``cnn_tpu``'s
+    unsharded eval step, on every rank."""
     jm, params, state, _, y = refs[1][key]
+    if case.startswith("alex33"):
+        jm = _j_pool33(jm)
     want = j_make_eval_step(jm)(params, state, jnp.asarray(refs[0][x]),
                                 jnp.asarray(y))
     for r in range(4):
@@ -424,6 +452,23 @@ def test_spatial_eval_matches_cnn_tpu(world4, refs, case, key, x):
         assert _scaled(got["loss"], float(want["loss"])) <= TOL, r
         assert int(got["correct"]) == int(want["correct"])
         assert got["pred"].tolist() == np.asarray(want["pred"]).tolist()
+
+
+@pytest.mark.parametrize("k,s", [(2, 2), (3, 2)])
+def test_pipelined_stem_shape_through_pool(k, s):
+    """``pipeline._trunk_input_shape`` of a conv -> ReLU -> pool stem at
+    65 x 64 px: ``cnn_tpu``'s ``out_shapes`` of the same stem and the
+    shape the port's stem gives."""
+    stem = Sequential([Conv2D("c", 3, 16, 3, 2, device="cpu"), ReLU("r"),
+                       MaxPool2D("p", k, s)])
+    jstem = JSequential([JConv2D("c", in_channels=3, out_channels=16,
+                                 kernel_size=3, stride=2), JReLU("r"),
+                         JMaxPool2D("p", kernel_size=k, stride=s)])
+    want = jstem.out_shapes((65, 64, 3))[-1][1]
+    with torch.no_grad():
+        ran = stem(torch.zeros(2, 65, 64, 3)).shape
+    assert pipeline._trunk_input_shape(stem, (2, 65, 64, 3)) == (
+        2, *want) == tuple(ran)
 
 
 def test_grad_accum_matches_cnn_tpu_mesh_step(world2, refs):

@@ -10,6 +10,7 @@ import pytest
 import torch
 
 from cnn_tpu.models import get_model as j_get_model
+from cnn_tpu.serving import BatchingServer as JBatchingServer
 from cnn_tpu.serving import InferenceEngine as JInferenceEngine
 from cnn_tpu.utils.checkpoint import import_reference_model as j_import
 from cnn_tpu_torch.models import get_model
@@ -201,6 +202,27 @@ def test_full_width_logits_match_jax(engines):
     with torch.no_grad():
         got = eng.model(uint8_to_float(torch.from_numpy(imgs))).numpy()
     np.testing.assert_allclose(got, np.asarray(want), atol=1e-4, rtol=0)
+
+
+def test_labels_carry_cnn_tpu_dtype(engines):
+    """5 images in bucket 8: ``predict``'s labels are numpy int32, the
+    dtype of ``cnn_tpu``'s ``jnp.argmax``, with its values; through each
+    package's ``BatchingServer`` every future's label is the same Python
+    int."""
+    jeng, eng, _ = engines
+    imgs = _images(np.random.default_rng(27), 5)
+    want, _ = jeng.predict(imgs)
+    labels, _ = eng.predict(imgs)
+    assert labels.dtype == want.dtype == np.int32
+    np.testing.assert_array_equal(labels, want)
+    served = []
+    for server, engine in ((JBatchingServer, jeng), (BatchingServer, eng)):
+        with server(engine, batch_timeout_ms=20.0) as srv, \
+                ThreadPoolExecutor(5) as pool:
+            futs = list(pool.map(srv.submit, imgs))
+            served.append([f.result(timeout=60)[0] for f in futs])
+    assert all(type(label) is int for label in served[1])
+    assert served[1] == served[0] == want.tolist()
 
 
 def test_predict_rejects_bad_input(engines):
