@@ -8,11 +8,14 @@
 2. build: one ``nvcc`` per ``cnn_tpu_torch/csrc/*.cu`` for sm_90a, side by
    side; each kernel's registers, shared memory and spills (the strip,
    tiled and bf16 conv, every bf16 strip R, wgmma and tma tile, the pool
-   forward and window backward in both dtypes, the rotation and the wide
-   normalize kernels must not spill); ptxas's advisories on wgmma, if any;
+   forward's window and element kernels and the window backward in both
+   dtypes, the rotation and the wide normalize kernels must not spill);
+   ptxas's advisories on wgmma, if any;
 3. kernels: each CUDA kernel against its plain PyTorch version on the card,
    at the serving path's shapes with batch 64 (normalize and max-pool
-   bit-exact, conv within atol 1e-5 + rtol 1e-5), timed with CUDA events
+   bit-exact, the pool forward through the window kernel and against the
+   element kernel, the two timed alone in turns; conv within atol 1e-5 +
+   rtol 1e-5), timed with CUDA events
    beside the plain version, one PyTorch library call and the bound, both
    through the wrapper (``time_ms``) and graph-timed (``graph_ms``: 20
    calls captured into one CUDA graph, no host cost); normalize through
@@ -40,7 +43,11 @@
    the plain versions on the card (0 launches) and the engine on the CPU;
    the warmup's seconds and memory, each bucket's first call, and the
    bucket-64 forward through the graph beside the eager one;
-5. training kernels, at the training shapes (batch 256): the pool backward
+5. training kernels, at the training shapes (batch 256): the pool forward
+   with tap through the window kernel bit-exact against the plain version
+   and the element kernel, on +-0 ties and at 7 x 9 x 8 and 5 x 4 x 4, the
+   two timed alone in turns (the window kernel must not be the slower)
+   beside ATen and the bound; the pool backward
    through the window kernel bit-exact against its plain version and
    against autograd through the plain forward, on 33% exact ties, its
    cropped row and column zero, and against the element kernel (the
@@ -108,9 +115,15 @@
    AlexNet's bf16 conv1 on its natural layout in turns with the widened
    one;
 9. the bf16 pool forward with tap and window backward at [256,111,111,16]
-   and B = 64 on forced ties and at 7 x 9 and 5 x 4 extents, bit-exact
-   against the plain versions and autograd, timed beside the float32
-   kernels and ATen bf16;
+   and B = 64 on forced ties (the forward also on +-0 ties) and at 7 x 9 x
+   8, 5 x 4 x 8 and (the element forward) 5 x 4 x 4, bit-exact against the
+   plain versions, autograd and the forward's element kernel, timed beside
+   the float32 kernels and ATen bf16; the window and element forwards
+   alone in turns in both dtypes (the window kernel must not be the
+   slower), HBM-cold at B = 64; then the forward without the tap at every
+   vgg8 and vgg11 pool shape at B = 64 in both dtypes, planned on the
+   window kernel, bit-exact, in turns with the element kernel, beside
+   the bound;
 10. the conv Function in bf16 at the four training shapes: dx/dw/db within
    2 bf16 ulps of max|ref| of autograd through the plain bf16 conv;
    forward+backward timed in bf16 and float32;
@@ -469,9 +482,10 @@ from cnn_tpu_torch.ops.hopper import (BF16_TILES,
                                       conv_tile_plan, counted_capture,
                                       launch_conv_bf16,
                                       launch_normalize, launch_pool_bwd,
-                                      launch_rotate, max_pool2d_bwd,
-                                      max_pool2d_fn, max_pool2d_fwd,
-                                      normalize_plan, pool_bwd_variant,
+                                      launch_pool_fwd, launch_rotate,
+                                      max_pool2d_bwd, max_pool2d_fn,
+                                      max_pool2d_fwd, normalize_plan,
+                                      pool_bwd_variant, pool_fwd_variant,
                                       read_counters, reset_launches,
                                       rotate_shear, rotate_tile_plan,
                                       uint8_normalize)
@@ -767,6 +781,66 @@ def in_turns(fa, fb, iters: int = 20) -> tuple[float, float]:
     return (a1 + a2) / 2, (b1 + b2) / 2
 
 
+def signed_ties(gen, shape, dtype=torch.float32) -> torch.Tensor:
+    """ReLU output quantized to quarters, so a third of a window's first two
+    taps tie exactly, with a quarter of its zeros made -0: ties of equal
+    values and of +0 against -0 (the first of a tie wins, bit for bit)."""
+    dev = torch.device("cuda")
+    x = torch.relu(torch.round(torch.randn(shape, generator=gen, device=dev)
+                               * 4) / 4)
+    flip = torch.rand(shape, generator=gen, device=dev) < 0.25
+    x = torch.where(flip & (x == 0), torch.full((), -0.0, device=dev), x)
+    return x.to(dtype)
+
+
+def check_pool_fwd(x, what: str) -> str:
+    """The forward through the wrapper (its variant, counted under it), with
+    and without the tap, against the plain version and the element kernel
+    (values and taps, bit for bit); returns the variant."""
+    b, h, w_, c = x.shape
+    bf16 = x.dtype == BF16
+    variant = pool_fwd_variant(b, h // 2, w_ // 2, c, bf16,
+                               x.data_ptr() % 16 == 0)
+    key = f"launches_bf16_{variant}" if bf16 else f"launches_{variant}"
+    before = getattr(max_pool2d_fwd, key)
+    y, tap = max_pool2d_fwd(x, with_tap=True)
+    check(getattr(max_pool2d_fwd, key) == before + 1,
+          f"{what}: the {variant} forward was not counted")
+    ref, ref_tap = max_pool2d_taps(x)
+    elem, elem_tap = launch_pool_fwd(x, True, "element")
+    check(bits_equal(y, ref) and torch.equal(tap, ref_tap),
+          f"{what} ({variant} kernel): differs from the plain version")
+    check(bits_equal(y, elem) and torch.equal(tap, elem_tap),
+          f"{what} ({variant} kernel): differs from the element kernel")
+    check(bits_equal(max_pool2d_fwd(x), ref), f"{what} ({variant} kernel): "
+          "differs without the tap")
+    return variant
+
+
+def pool_fwd_turns(x, with_tap: bool) -> tuple[float, float]:
+    """The window and the element forward kernels alone (``graph_ms``), in
+    turns window, element, element, window."""
+    return in_turns_graph(lambda: launch_pool_fwd(x, with_tap, "window"),
+                          lambda: launch_pool_fwd(x, with_tap, "element"))
+
+
+def in_turns_graph(fa, fb) -> tuple[float, float]:
+    """Mean ``graph_ms`` of ``fa`` and ``fb`` timed a, b, b, a."""
+    a1, b1 = graph_ms(fa), graph_ms(fb)
+    b2, a2 = graph_ms(fb), graph_ms(fa)
+    return (a1 + a2) / 2, (b1 + b2) / 2
+
+
+def pool_fwd_bound(x, with_tap: bool) -> tuple[float, str]:
+    """The forward's bound: x's covered rows and columns read, y (and the
+    tap) written once; three comparisons an output."""
+    b, h, w_, c = x.shape
+    out = b * (h // 2) * (w_ // 2) * c
+    return bound_ms(x.element_size() * (b * (h // 2 * 2) * (w_ // 2 * 2) * c
+                                        + out) + (out if with_tap else 0),
+                    3 * out)
+
+
 def check_same_as_direct(x, w, b, stride, what) -> None:
     """The wrapper's kernel equal bit for bit to the direct kernel, ReLU off
     and on: the three conv kernels sum in one order."""
@@ -903,10 +977,10 @@ def kernel_phase(model) -> dict:
     # (zeros and equal positives); value and tap index bit for bit
     x = torch.randn((B, 111, 111, 16), generator=gen, device=dev)
     x = torch.relu(torch.round(x * 4) / 4)
-    (y, tap), (ref, ref_tap) = max_pool2d_fwd(x, with_tap=True), max_pool2d_taps(x)
+    check(check_pool_fwd(x, "max pool [64,111,111,16]") == "window",
+          "max pool: not planned on the window kernel")
+    ref = max_pool2d_taps(x)[0]
     bsz, h, w_, c = x.shape
-    check(bits_equal(y, ref), "max pool: value differs from the plain version")
-    check(torch.equal(tap, ref_tap), "max pool: tap differs from the plain version")
     ties = (x[:, :110:2, :110:2] == x[:, :110:2, 1:110:2]).float().mean().item()
     y = max_pool2d_fwd(x)
     out["max_pool2d_fwd"] = (
@@ -915,12 +989,15 @@ def kernel_phase(model) -> dict:
         time_ms(lambda: F.max_pool2d(x.permute(0, 3, 1, 2), 2, 2)),
         bound_ms(4 * bsz * read_extent(h, 2, 2) * read_extent(w_, 2, 2) * c
                  + nbytes(y), 3 * y.numel()))
+    alone = pool_fwd_turns(x, False)
     graphed = (graph_ms(lambda: max_pool2d_fwd(x)),
                graph_ms(lambda: F.max_pool2d(x.permute(0, 3, 1, 2), 2, 2)))
-    phase(f"max pool [64,111,111,16] (tie share {ties:.3f}): value and tap "
-          f"exact; ms (wrapper, plain, ATen)={out['max_pool2d_fwd'][1:4]}; "
-          f"graph-timed kernel {graphed[0]:.4f}, ATen {graphed[1]:.4f}; bound "
-          f"{out['max_pool2d_fwd'][4][0]:.4f}")
+    phase(f"max pool [64,111,111,16] (tie share {ties:.3f}), window kernel: "
+          f"value and tap exact against the plain version and the element "
+          f"kernel; ms (wrapper, plain, ATen)={out['max_pool2d_fwd'][1:4]}; "
+          f"graph-timed wrapper {graphed[0]:.4f}, ATen {graphed[1]:.4f}; "
+          f"alone in turns: window {alone[0]:.4f}, element {alone[1]:.4f}; "
+          f"bound {out['max_pool2d_fwd'][4][0]:.4f}")
 
     # conv: the four layers with the checkpoint's weights, ReLU off (the BN
     # path) and on (the fused path); times are for ReLU off, as served. The
@@ -1161,12 +1238,16 @@ def serving_counts() -> dict:
 def serving_want(calls: int) -> dict:
     """Those counters after ``calls`` bucket calls: normalize through the
     wide kernel, conv1 through the strip kernel, conv2-4 through the tiled
-    one, one pool forward."""
+    one, one pool forward through the window kernel."""
     return {"uint8_normalize.launches": calls,
             "uint8_normalize.launches_wide": calls,
             "uint8_normalize.launches_bytes": 0,
             "max_pool2d_fwd.launches": calls,
+            "max_pool2d_fwd.launches_window": calls,
+            "max_pool2d_fwd.launches_element": 0,
             "max_pool2d_fwd.launches_bf16": 0,
+            "max_pool2d_fwd.launches_bf16_window": 0,
+            "max_pool2d_fwd.launches_bf16_element": 0,
             "conv2d_bias_relu.launches": 4 * calls,
             "conv2d_bias_relu.launches_strip": calls,
             "conv2d_bias_relu.launches_tiled": 3 * calls,
@@ -1504,14 +1585,33 @@ def train_kernel_phase() -> dict:
     x = torch.randn((TRAIN_B, 111, 111, 16), generator=gen, device=dev)
     x = torch.relu(torch.round(x * 4) / 4)
     y, tap = max_pool2d_fwd(x, with_tap=True)
+    # the forward: the window kernel bit-exact against the plain version and
+    # the element kernel, here, on +-0 ties and at odd small extents
+    check(check_pool_fwd(x, "pool forward [256,111,111,16]") == "window",
+          "pool forward: not planned on the window kernel")
+    check_pool_fwd(signed_ties(gen, x.shape), "pool forward "
+                   "[256,111,111,16] with +-0")
+    for shape in ((3, 7, 9, 8), (2, 5, 4, 4)):
+        check(check_pool_fwd(signed_ties(gen, shape), f"pool forward "
+                             f"{shape}") == "window",
+              f"pool forward {shape}: not planned on the window kernel")
+    xn = x.permute(0, 3, 1, 2)
     fwd = (time_ms(lambda: max_pool2d_fwd(x, with_tap=True)),
            time_ms(lambda: max_pool2d_taps(x)),
-           time_ms(lambda: F.max_pool2d(x.permute(0, 3, 1, 2), 2, 2,
-                                        return_indices=True)),
-           bound_ms(4 * TRAIN_B * 110 * 110 * 16 + nbytes(y, tap),
-                    3 * y.numel()))
-    phase(f"pool forward with tap [256,111,111,16] (training): ms={fwd[:3]} "
-          f"bound={fwd[3][0]:.4f}")
+           time_ms(lambda: F.max_pool2d(xn, 2, 2, return_indices=True)),
+           pool_fwd_bound(x, True))
+    alone = pool_fwd_turns(x, True)
+    aten = graph_ms(lambda: F.max_pool2d(xn, 2, 2, return_indices=True))
+    check(alone[0] <= alone[1], f"pool forward [256,111,111,16]: the window "
+          f"kernel ({alone[0]:.4f} ms) is slower than the element kernel "
+          f"({alone[1]:.4f})")
+    phase(f"pool forward with tap [256,111,111,16] (training), window "
+          f"kernel: bit-exact against the plain version and the element "
+          f"kernel, with +-0 ties, and at 7x9x8 and 5x4x4; ms (wrapper, "
+          f"plain, ATen)={fwd[:3]}; alone in turns: window {alone[0]:.4f}, "
+          f"element {alone[1]:.4f} ({alone[0] / alone[1]:.3f} of it), ATen "
+          f"with indices {aten:.4f}; bound={fwd[3][0]:.4f}, window at "
+          f"{fwd[3][0] / alone[0]:.3f} of it")
     g = torch.randn((TRAIN_B, 55, 55, 16), generator=gen, device=dev)
     check(pool_bwd_variant(TRAIN_B, 55, 55, 16, True) == "window",
           "pool backward: not planned on the window kernel")
@@ -1915,6 +2015,8 @@ def training_phase() -> dict:
                 conv2d_bias_relu.launches_direct)
     pool_variants = (max_pool2d_bwd.launches_window,
                      max_pool2d_bwd.launches_element)
+    fwd_variants = (max_pool2d_fwd.launches_window,
+                    max_pool2d_fwd.launches_element)
     n_eval = -(-held.shape[0] // TRAIN_B)
     want = {"uint8_normalize": n_eval, "max_pool2d_fwd": TRAIN_STEPS + n_eval,
             "max_pool2d_bwd": TRAIN_STEPS,
@@ -1927,6 +2029,9 @@ def training_phase() -> dict:
     check(pool_variants == (TRAIN_STEPS, 0), f"training pool backward "
           f"launches window/element {pool_variants}, expected "
           f"{(TRAIN_STEPS, 0)}")
+    check(fwd_variants == (TRAIN_STEPS + n_eval, 0), f"training pool "
+          f"forward launches window/element {fwd_variants}, expected "
+          f"{(TRAIN_STEPS + n_eval, 0)}")
     losses = torch.stack(losses).cpu()
     check(bool(torch.isfinite(losses).all()), f"non-finite loss: {losses}")
     first, last = losses[:5].mean().item(), losses[-5:].mean().item()
@@ -1939,8 +2044,9 @@ def training_phase() -> dict:
           f"({1e3 * wall / TRAIN_STEPS:.2f} ms per step); eval accuracy "
           f"{acc:.4f} on {held.shape[0]} held-out images; launches {counts}; "
           f"conv strip {variants[0]}, tiled {variants[1]}, direct "
-          f"{variants[2]}; pool backward window {pool_variants[0]}, element "
-          f"{pool_variants[1]}")
+          f"{variants[2]}; pool forward window {fwd_variants[0]}, element "
+          f"{fwd_variants[1]}; pool backward window {pool_variants[0]}, "
+          f"element {pool_variants[1]}")
     split = step_split(ts, ds, opt)
     phase("device ms per step (mean of 5): " + ", ".join(
         f"{k} {v:.4f}" for k, v in split.items())
@@ -2234,18 +2340,20 @@ def bf16_conv_phase(gen) -> tuple:
 def bf16_pool_phase(gen) -> tuple:
     """The bf16 pool forward with tap and the window backward at
     [256,111,111,16] and B = 64, bit-exact against the plain versions on
-    forced ties, a 7 x 9 extent; times beside the float32 kernels."""
+    forced ties (and the forward on +-0 ties against the element kernel),
+    at 7 x 9 and 5 x 4 extents; times beside the float32 kernels, the
+    window and element forwards alone in turns (and HBM-cold at B = 64);
+    then the forward at every VGG pool shape (``vgg_pool_table``)."""
     dev = torch.device("cuda")
     out = {}
     for bsz in (TRAIN_B, B):
         x = torch.randn((bsz, 111, 111, 16), generator=gen, device=dev)
         x = torch.relu(torch.round(x * 4) / 4).to(BF16)
-        (y, tap), (ref, ref_tap) = (max_pool2d_fwd(x, with_tap=True),
-                                    max_pool2d_taps(x))
-        check(same16(y, ref) and torch.equal(tap, ref_tap),
-              f"bf16 pool forward B={bsz}: differs from the plain version")
-        check(same16(y, max_pool2d_fwd(x)), "bf16 pool forward: differs "
-              "without the tap")
+        check(check_pool_fwd(x, f"bf16 pool forward B={bsz}") == "window",
+              f"bf16 pool forward B={bsz}: not planned on the window kernel")
+        check_pool_fwd(signed_ties(gen, x.shape, BF16),
+                       f"bf16 pool forward B={bsz} with +-0")
+        y, tap = max_pool2d_fwd(x, with_tap=True)
         ties = (x[:, :110:2, :110:2] == x[:, :110:2, 1:110:2]).float().mean()
         g = torch.randn((bsz, 55, 55, 16), generator=gen, device=dev).to(BF16)
         dx, dref = max_pool2d_bwd(tap, g, 111, 111), pool_bwd_plain(tap, g,
@@ -2261,15 +2369,18 @@ def bf16_pool_phase(gen) -> tuple:
         _, tap32 = max_pool2d_fwd(x32, with_tap=True)
         xn, gn = x.permute(0, 3, 1, 2), g.permute(0, 3, 1, 2)
         _, ind = F.max_pool2d(xn, 2, 2, return_indices=True)
+        win, elem = pool_fwd_turns(x, True)
+        win32, elem32 = pool_fwd_turns(x32, True)
+        check(win <= elem and win32 <= elem32, f"pool forward B={bsz}: the "
+              f"window kernel is slower than the element kernel (bf16 "
+              f"{win:.4f} / {elem:.4f}, float32 {win32:.4f} / "
+              f"{elem32:.4f} ms)")
         t = {
-            "fwd": (time_ms(lambda: max_pool2d_fwd(x, with_tap=True)),
-                    graph_ms(lambda: max_pool2d_fwd(x, with_tap=True)),
+            "fwd": (time_ms(lambda: max_pool2d_fwd(x, with_tap=True)), win,
                     time_ms(lambda: max_pool2d_taps(x)),
                     graph_ms(lambda: F.max_pool2d(xn, 2, 2,
                                                   return_indices=True)),
-                    bound_ms(2 * bsz * 110 * 110 * 16 + nbytes(y, tap),
-                             3 * y.numel()),
-                    graph_ms(lambda: max_pool2d_fwd(x32, with_tap=True))),
+                    pool_fwd_bound(x, True), win32),
             "bwd": (time_ms(lambda: max_pool2d_bwd(tap, g, 111, 111)),
                     graph_ms(lambda: max_pool2d_bwd(tap, g, 111, 111)),
                     time_ms(lambda: pool_bwd_plain(tap, g, 111, 111)),
@@ -2280,29 +2391,98 @@ def bf16_pool_phase(gen) -> tuple:
                     bound_ms(nbytes(tap, g, dx), 0),
                     graph_ms(lambda: max_pool2d_bwd(tap32, g32, 111, 111)))}
         out[bsz] = t
+        # HBM-cold: x fits the 50 MB L2 at B = 64, so the launches take it
+        # in turn from four copies (100 MB in bf16)
+        cold = ""
+        if bsz == B:
+            xs = [x] + [x.clone() for _ in range(3)]
+            cw, ce = in_turns_graph(
+                cycling(lambda xi: launch_pool_fwd(xi, True, "window"), xs),
+                cycling(lambda xi: launch_pool_fwd(xi, True, "element"), xs))
+            cold = (f"; forward alone HBM-cold in turns: window {cw:.4f}, "
+                    f"element {ce:.4f}")
+            del xs
         phase(f"bf16 pool [{bsz},111,111,16] (tie share {ties.item():.3f}): "
-              f"forward value and tap and the window backward bit-exact "
-              f"against the plain versions and autograd, cropped row and "
-              f"column zero; " + "; ".join(
+              f"forward value and tap on the window kernel bit-exact against "
+              f"the plain version and the element kernel (and on +-0 ties), "
+              f"the window backward bit-exact against the plain version and "
+              f"autograd, cropped row and column zero; " + "; ".join(
                   f"{k} ms through the wrapper {v[0]:.4f}, alone {v[1]:.4f} "
                   f"(float32 kernel {v[5]:.4f}), plain {v[2]:.4f}, ATen bf16 "
                   f"alone {v[3]:.4f}, bound {v[4][0]:.4f}"
-                  for k, v in t.items()))
-    for (bsz, h, w_, c) in ((3, 7, 9, 8), (2, 5, 4, 4)):
-        xs = torch.relu(torch.round(torch.randn((bsz, h, w_, c), generator=gen,
-                                                device=dev) * 2) / 2).to(BF16)
-        (ys, ts), (rs, rts) = max_pool2d_fwd(xs, with_tap=True), \
-            max_pool2d_taps(xs)
+                  for k, v in t.items())
+              + f"; forward alone in turns: window {win:.4f}, element "
+              f"{elem:.4f} ({win / elem:.3f} of it), window at "
+              f"{t['fwd'][4][0] / win:.3f} of the bound; float32 window "
+              f"{win32:.4f}, element {elem32:.4f}, bound "
+              f"{pool_fwd_bound(x32, True)[0]:.4f}" + cold)
+    for (bsz, h, w_, c) in ((3, 7, 9, 8), (2, 5, 4, 8), (2, 5, 4, 4)):
+        xs = signed_ties(gen, (bsz, h, w_, c), BF16)
+        variant = check_pool_fwd(xs, f"bf16 pool {h}x{w_}x{c}")
+        check(variant == ("element" if c == 4 else "window"),
+              f"bf16 pool {h}x{w_}x{c}: planned on the {variant} kernel")
+        ys, ts = max_pool2d_fwd(xs, with_tap=True)
         gs = torch.randn(ys.shape, generator=gen, device=dev).to(BF16)
         got = max_pool2d_bwd(ts, gs, h, w_)
-        check(same16(ys, rs) and torch.equal(ts, rts)
-              and same16(got, pool_bwd_plain(ts, gs, h, w_))
+        check(same16(got, pool_bwd_plain(ts, gs, h, w_))
               and not got[:, h - 1].any().item()
               and (w_ % 2 == 0 or not got[:, :, w_ - 1].any().item()),
               f"bf16 pool {h}x{w_}x{c}: differs")
-    phase("bf16 pool 7x9x8 and 5x4x4: forward and window backward bit-exact, "
-          "cropped rows and columns zero")
+    phase("bf16 pool 7x9x8 and 5x4x8 (window forward), 5x4x4 (element "
+          "forward), +-0 ties: forward bit-exact against the plain version "
+          "and the element kernel, window backward bit-exact, cropped rows "
+          "and columns zero")
+    out["vgg"] = vgg_pool_table(gen)
     return out
+
+
+# (name, the pool's input at B = 64) for every 2x2 pool of vgg8 and vgg11
+# (cnn_tpu/models/vgg.py: CONFIGS, 224 px)
+VGG_POOLS = (("vgg8 pool_1", (B, 224, 224, 32)),
+             ("vgg8 pool_2", (B, 112, 112, 64)),
+             ("vgg8 pool_4", (B, 56, 56, 128)),
+             ("vgg8 pool_6", (B, 28, 28, 256)),
+             ("vgg11 pool_1", (B, 224, 224, 64)),
+             ("vgg11 pool_2", (B, 112, 112, 128)),
+             ("vgg11 pool_4", (B, 56, 56, 256)),
+             ("vgg11 pool_6", (B, 28, 28, 512)),
+             ("vgg11 pool_8", (B, 14, 14, 512)))
+
+
+def cycling(fn, xs):
+    """``fn`` on each of ``xs`` in turn, call by call."""
+    it = itertools.cycle(xs)
+    return lambda: fn(next(it))
+
+
+def vgg_pool_table(gen) -> dict:
+    """The pool forward without the tap (as served) at every VGG pool shape
+    at B = 64, in float32 and bf16: planned on the window kernel,
+    bit-exact against the plain version and the element kernel on +-0
+    ties, and alone in turns with the element kernel (it must not be the
+    slower), beside its bound. Returns (dtype, shape) -> (window ms,
+    element ms, bound ms)."""
+    table = {}
+    for dtype in (torch.float32, BF16):
+        for name, shape in VGG_POOLS:
+            x = signed_ties(gen, shape, dtype)
+            check(check_pool_fwd(x, f"{name} {shape}") == "window",
+                  f"{name} {shape}: not planned on the window kernel")
+            win, elem = pool_fwd_turns(x, False)
+            bound = pool_fwd_bound(x, False)
+            check(win <= elem, f"{name} {shape} {dtype}: the window kernel "
+                  f"({win:.4f} ms) is slower than the element kernel "
+                  f"({elem:.4f})")
+            table[str(dtype)[6:], shape] = (win, elem, bound[0])
+            del x
+        phase(f"pool forward without the tap at the VGG pools, B = 64, "
+              f"{str(dtype)[6:]}, window kernel bit-exact against the plain "
+              f"version and the element kernel; alone in turns, ms (window, "
+              f"element, bound, window's share of the bound): " + "; ".join(
+                  f"{name} {list(shape[1:])} {w:.4f} {e:.4f} {b:.4f} "
+                  f"{b / w:.3f}" for name, shape in VGG_POOLS
+                  for w, e, b in [table[str(dtype)[6:], shape]]))
+    return table
 
 
 def bf16_function_phase(gen) -> float:
@@ -2394,6 +2574,7 @@ def bf16_training_phase(f32: dict) -> dict:
     want = {"uint8_normalize.launches": n_eval,
             "uint8_normalize.launches_wide": n_eval,
             "max_pool2d_fwd.launches": fwd, "max_pool2d_fwd.launches_bf16": fwd,
+            "max_pool2d_fwd.launches_bf16_window": fwd,
             "max_pool2d_bwd.launches": TRAIN_STEPS,
             "max_pool2d_bwd.launches_bf16": TRAIN_STEPS,
             "conv2d_bias_relu.launches": 4 * fwd,
@@ -2448,6 +2629,7 @@ def bf16_serving_phase(model) -> dict:
     f32.warmup()
     want1 = {"uint8_normalize.launches": 1, "uint8_normalize.launches_wide": 1,
              "max_pool2d_fwd.launches": 1, "max_pool2d_fwd.launches_bf16": 1,
+             "max_pool2d_fwd.launches_bf16_window": 1,
              "conv2d_bias_relu.launches": 4,
              "conv2d_bias_relu.launches_bf16": 4,
              "conv2d_bias_relu.launches_bf16_strip": 1,
@@ -2644,7 +2826,8 @@ def run_cli(argv, what: str, want: dict, times: CliTimes) -> tuple:
 def cli_want(steps: int, evals: int, bf16: bool, rotate: bool) -> dict:
     """The exact counters of ``steps`` train steps and ``evals`` eval
     batches (conv1 on a strip kernel, conv2-4 on the tiled kernel; in bf16
-    conv2-3 on the wgmma kernel and conv4 on the tma one)."""
+    conv2-3 on the wgmma kernel and conv4 on the tma one; the pool forward
+    and backward on the window kernels)."""
     fwd = steps + evals
     conv = ({"launches_bf16": 4 * fwd, "launches_bf16_strip": fwd,
              "launches_bf16_wgmma": 2 * fwd, "launches_bf16_tma": fwd}
@@ -2658,9 +2841,11 @@ def cli_want(steps: int, evals: int, bf16: bool, rotate: bool) -> dict:
     want.update({f"conv2d_bias_relu.{k}": v for k, v in conv.items()})
     if bf16:
         want.update({"max_pool2d_fwd.launches_bf16": fwd,
+                     "max_pool2d_fwd.launches_bf16_window": fwd,
                      "max_pool2d_bwd.launches_bf16": steps})
     else:
-        want["max_pool2d_bwd.launches_window"] = steps
+        want.update({"max_pool2d_fwd.launches_window": fwd,
+                     "max_pool2d_bwd.launches_window": steps})
     if rotate:
         want["rotate_shear.launches"] = steps
     return {k: v for k, v in want.items() if v}
@@ -2870,14 +3055,15 @@ def counted_run(what: str, main, argv, want) -> tuple:
 
 def f32_want(norm=0, strip=0, tiled=0, pool=0, pool_bwd=0) -> dict:
     """The float32 counters of that many launches of each kernel (the
-    normalize through its wide variant, the pool backward through the
-    window kernel)."""
+    normalize through its wide variant, the pool forward and backward
+    through the window kernels)."""
     want = {"uint8_normalize.launches": norm,
             "uint8_normalize.launches_wide": norm,
             "conv2d_bias_relu.launches": strip + tiled,
             "conv2d_bias_relu.launches_strip": strip,
             "conv2d_bias_relu.launches_tiled": tiled,
             "max_pool2d_fwd.launches": pool,
+            "max_pool2d_fwd.launches_window": pool,
             "max_pool2d_bwd.launches": pool_bwd,
             "max_pool2d_bwd.launches_window": pool_bwd}
     return {k: v for k, v in want.items() if v}
@@ -3316,7 +3502,8 @@ def serve_family(name: str, model, dtype, rng, photos: np.ndarray,
     ``dtype``: one forward's launches (one conv per Conv2D layer, ``stems``
     of them on a padded strip (the stem; AlexNet has none), none on the
     direct kernel or the gather, one pool
-    per MaxPool2D, ATen's conv only for a depthwise conv), every conv
+    per MaxPool2D, on the window kernel, ATen's conv only for a depthwise
+    conv), every conv
     launch against the plain conv (``check_family_convs``), each bucket's
     replay bit-equal to its eager forward (``rng``'s images), a counted
     predict of the six ``photos`` and of ``imgs64``, the photos' eager
@@ -3332,6 +3519,9 @@ def serve_family(name: str, model, dtype, rng, photos: np.ndarray,
     pools = sum(isinstance(m, nn_module.MaxPool2D) for m in model.modules())
     check(per_fwd.get("conv2d_bias_relu.launches") == convs
           and per_fwd.get("max_pool2d_fwd.launches", 0) == pools
+          and per_fwd.get("max_pool2d_fwd.launches_"
+                          + ("bf16_window" if dtype else "window"), 0)
+          == pools
           and sum(per_fwd.get(f"conv2d_bias_relu.{c}", 0)
                   for c in STRIP_PADDED) == stems
           and per_fwd.get("conv2d_bias_relu.launches_direct", 0)
@@ -5137,6 +5327,7 @@ def int8_serving(name, model, fixture, rng, photos, imgs64, f32_engine,
     want1 = {"uint8_normalize.launches": 1, "uint8_normalize.launches_wide": 1}
     if pools:
         want1["max_pool2d_fwd.launches"] = pools
+        want1["max_pool2d_fwd.launches_window"] = pools
     mm, dw = [], []
     real_mm, real_dw = torch._int_mm, quant._depthwise_s32
 
@@ -7611,7 +7802,8 @@ def main() -> int:
         new = [f"conv2d_strip<{r}x{pad}x{k3}>" for r in STRIP_ROWS
                for pad in (0, 1) for k3 in (0, 1)] + [
             "maxpool2x2_bwd_window<f32>", "maxpool2x2_bwd_window<bf16>",
-            "maxpool2x2_fwd<bf16>", "normalize_u8_wide<1>",
+            "maxpool2x2_fwd<bf16>", "maxpool2x2_fwd_window<f32>",
+            "maxpool2x2_fwd_window<bf16>", "normalize_u8_wide<1>",
             "normalize_u8_wide<0>", "resize_linear_u8"] + [
             f"conv2d_bf16<{mt}x{nt}x{v}>" for mt, nt in BF16_TILES
             for v in (0, 1)] + [

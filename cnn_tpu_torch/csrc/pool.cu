@@ -1,6 +1,6 @@
 // 2x2 stride-2 max pool, NHWC, for Hopper: the forward with a 2-bit tap
 // index, and the backward that routes the cotangent through that tap, in
-// float32 and (the forward and the window backward) in bf16.
+// float32 and bf16 (the backward's element kernel in float32 only).
 //
 // Replaces: cnn_tpu/ops/pallas/pool.py, _fwd_call (kernel body _fwd_kernel)
 // and _bwd_call (kernel body _bwd_kernel).
@@ -8,15 +8,43 @@
 // earlier tap wins a tie: every comparison is a strict '>', exactly as in
 // _fwd_kernel. Odd extents crop the last row/col (111 -> 55).
 //
-// Bound on this card: bytes. Each output reads four inputs and does three
-// comparisons.
-//
-// Design: one thread per output element, channel fastest, so a warp reads
-// runs of neighbouring channels and writes one contiguous run. The four
-// taps of a window share cache lines with the neighbouring windows' taps,
-// so each input line comes from device memory about once. The tap index is
-// written as uint8 only when its pointer is not null (the serving path does
-// not need it; training keeps it for the backward).
+// Forward. Bound on this card: bytes. It reads the 2*H2 rows and 2*W2
+// columns of x that the windows cover once, and writes y and (training) the
+// uint8 tap once; three comparisons an output are nothing beside that. At
+// AlexNet's [256,111,111,16] with the tap: 260 MB in float32 (0.078 ms at
+// 3.35 TB/s), 136 MB in bf16 (0.041 ms). Two kernels, chosen by shape,
+// dtype and alignment in ops/hopper/pool.py (pool_fwd_variant):
+//  - the window kernel (C a multiple of the channels in 16 bytes: 4 float32
+//    or 8 bf16; x and y 16-byte aligned): a 2-D block of (tx, ty) threads,
+//    row y of the block on pooled row b*H2 + i (the one division of the
+//    thread splits it; the rest of the index math is 32-bit but for the
+//    row bases), thread x on pooled pixels j and 16-byte channel groups t =
+//    j*G + g of that row (G = C*sizeof(T)/16), striding by tx. A thread
+//    issues its window's four 16-byte read-only loads (rows 2i and 2i+1,
+//    columns 2j and 2j+1) before any comparison, so 64 bytes a thread are
+//    in flight, then one 16-byte store of y and, where the tap pointer is
+//    not null, one 4-byte (float32) or 8-byte (bf16) store of its taps.
+//    y and the tap of one pooled row are contiguous in t, so a warp's
+//    stores are one run. Its loads are not: at C = 16 in bf16 the two
+//    columns of a window are 32 bytes apart, so one load instruction of a
+//    warp takes every other 32-byte sector of 1 KB and the next one the
+//    sectors between. Each sector still comes from L2 once and from device
+//    memory once, and an instruction moves 512 bytes, as a contiguous one
+//    would: tools/pool_probe.py, which reads the same bytes as contiguous
+//    runs, times no difference on this card (PERF.md, row 3b), so the
+//    loads are not staged through shared memory or shuffles. The block
+//    shape (ops/hopper/pool.py:pool_fwd_block): tx the row's groups
+//    rounded up to a warp, at most 512, and ty rows so that a block has
+//    about 256 threads (AlexNet's bf16 row is 110 groups: 128 x 2). Values
+//    are compared as float (bf16 widened exactly, by its bits shifted) and
+//    the stored value is the winning input's own bits, picked by integer
+//    selects, so ties, +-0 and NaN give the element kernel's and
+//    ops/pool.py:max_pool2d_taps's bits.
+//  - the element kernel, the previous design (any C, any alignment): one
+//    thread per output element, channel fastest, with 64-bit index math and
+//    a grid-stride loop. It is bound by instruction issue, not bytes: three
+//    64-bit divisions and modulos, four scalar loads and a one-byte store
+//    per output element.
 //
 // Backward: dx[b, y, x, c] = g[b, y/2, x/2, c] where the window's tap is
 // (y%2)*2 + x%2, else 0; the row and column that an odd extent cropped get
@@ -41,27 +69,33 @@
 //    three 64-bit divisions and three modulos a thread, and g and the tap
 //    loaded again by each of the four threads of a window.
 //
-// bf16 (cnn_maxpool2x2_fwd_bf16, cnn_maxpool2x2_bwd_window_bf16): the same
-// two designs, templated on the element type (Elem<T> below), because
-// _fwd_call and _bwd_call keep x.dtype and g.dtype. A maximum and a route
-// are exact in any type: the forward compares the bf16 values themselves
-// (widened to float, exactly), so its ties and taps are the float32
-// kernel's; the window backward moves 4 channels as 8 bytes (g 8-byte
+// bf16 (the _bf16 entry points): the same designs, templated on the element
+// type, because _fwd_call and _bwd_call keep x.dtype and g.dtype. A maximum
+// and a route are exact in any type: the forward compares the bf16 values
+// widened to float, exactly, so its ties and taps are the float32
+// kernels'; the window backward moves 4 channels as 8 bytes (g 8-byte
 // aligned) and selects each 16-bit half by its tap. Bound on this card:
-// bytes, half the float32 kernels' (at batch 256 the forward with tap and
-// the backward each move about 138 MB: 0.041 ms at 3.35 TB/s).
+// bytes, about half the float32 kernels' (at batch 256 the forward with tap
+// and the backward each move about 138 MB: 0.041 ms at 3.35 TB/s).
 //
-// Tests. On the CPU, the backward's variant choice and a torch emulation
-// of the window kernel's stores, held against the plain backward and the
-// Pallas kernel in interpret mode:
+// Tests. On the CPU, the variant choices, the forward's block shape and a
+// torch emulation of both window kernels' walks, held against the plain
+// versions and the Pallas kernels in interpret mode:
 //   JAX_PLATFORMS=cpu python -m pytest -q (one command)
 //       tests/test_torch_pool_plan.py tests/test_torch_ops.py
-// On the card, python3 chip_smoke.py builds the three kernels and holds
-// each against its plain version, and the two backward kernels against
-// each other, bit for bit.
+// On the card, python3 chip_smoke.py builds the kernels and holds each
+// against its plain version, and each window kernel against its element
+// kernel, bit for bit.
 #include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+// tools/pool_probe.py compiles this file with POOL_FWD_PROBE set to time
+// the window forward without parts of its work (wrong results, timing only):
+// bit 1 reads the same bytes in contiguous runs, bit 2 stores nothing
+#ifndef POOL_FWD_PROBE
+#define POOL_FWD_PROBE 0
+#endif
 
 namespace {
 
@@ -105,6 +139,109 @@ struct Elem<__nv_bfloat16> {
   }
   static __device__ __forceinline__ uint2 zero4() { return make_uint2(0, 0); }
 };
+
+// The window forward's arithmetic on one channel: the four inputs as the
+// float bits of their values (a bf16 value widened: its 16 bits on top),
+// compared as float; returns the winner's bits, picked by integer selects
+// (never a float max, which would not keep -0 against +0 or a NaN's place),
+// and its tap.
+__device__ __forceinline__ uint32_t window1(uint32_t a, uint32_t b,
+                                            uint32_t c, uint32_t d,
+                                            uint32_t& tap) {
+  const bool r0 = __uint_as_float(b) > __uint_as_float(a);
+  const bool r1 = __uint_as_float(d) > __uint_as_float(c);
+  const uint32_t m0 = r0 ? b : a, m1 = r1 ? d : c;
+  const bool down = __uint_as_float(m1) > __uint_as_float(m0);
+  tap = down ? (r1 ? 3u : 2u) : (r0 ? 1u : 0u);
+  return down ? m1 : m0;
+}
+
+// 16 bytes of channels of the four window inputs -> 16 bytes of y and the
+// channels' taps, one byte each (channel order)
+template <typename T>
+struct Window;
+
+template <>
+struct Window<float> {
+  using Taps = uint32_t;   // 4 channels
+  static __device__ __forceinline__ uint4 pool(uint4 a, uint4 b, uint4 c,
+                                               uint4 d, Taps& taps) {
+    uint32_t t0, t1, t2, t3;
+    uint4 o;
+    o.x = window1(a.x, b.x, c.x, d.x, t0);
+    o.y = window1(a.y, b.y, c.y, d.y, t1);
+    o.z = window1(a.z, b.z, c.z, d.z, t2);
+    o.w = window1(a.w, b.w, c.w, d.w, t3);
+    taps = t0 | t1 << 8 | t2 << 16 | t3 << 24;
+    return o;
+  }
+};
+
+template <>
+struct Window<__nv_bfloat16> {
+  using Taps = uint2;      // 8 channels
+  // word k of a load holds channel 2k in its low half and 2k+1 in its high
+  static __device__ __forceinline__ uint32_t pair(uint32_t a, uint32_t b,
+                                                  uint32_t c, uint32_t d,
+                                                  uint32_t& taps) {
+    constexpr uint32_t kHi = 0xffff0000u;
+    uint32_t tl, th;
+    const uint32_t lo = window1(a << 16, b << 16, c << 16, d << 16, tl);
+    const uint32_t hi = window1(a & kHi, b & kHi, c & kHi, d & kHi, th);
+    taps = tl | th << 8;
+    return lo >> 16 | hi;
+  }
+  static __device__ __forceinline__ uint4 pool(uint4 a, uint4 b, uint4 c,
+                                               uint4 d, Taps& taps) {
+    uint32_t p0, p1, p2, p3;
+    uint4 o;
+    o.x = pair(a.x, b.x, c.x, d.x, p0);
+    o.y = pair(a.y, b.y, c.y, d.y, p1);
+    o.z = pair(a.z, b.z, c.z, d.z, p2);
+    o.w = pair(a.w, b.w, c.w, d.w, p3);
+    taps = make_uint2(p0 | p1 << 16, p2 | p3 << 16);
+    return o;
+  }
+};
+
+template <typename T>
+__global__ void maxpool2x2_fwd_window_kernel(const T* __restrict__ x,
+                                             T* __restrict__ y,
+                                             uint8_t* __restrict__ tap,
+                                             int rows, int H, int W, int C,
+                                             int H2, int W2) {
+  using Taps = typename Window<T>::Taps;
+  constexpr int kV = 16 / sizeof(T);   // channels in 16 bytes
+  const int row = blockIdx.x * blockDim.y + threadIdx.y;   // b * H2 + i
+  if (row >= rows) return;
+  const int b = row / H2, i = row - b * H2;
+  const int G = C / kV, n = W2 * G;
+  // rows 2i and 2i+1 of x and pooled row i of y, in 16-byte groups: group
+  // t = j*G + g of y pools groups 2j*G + g and (2j+1)*G + g of both rows
+  const uint4* x0 = reinterpret_cast<const uint4*>(
+      x + ((int64_t)b * H + 2 * i) * W * C);
+  const uint4* x1 = x0 + W * G;
+  uint4* yrow = reinterpret_cast<uint4*>(y + (int64_t)row * W2 * C);
+  for (int t = threadIdx.x; t < n; t += blockDim.x) {
+#if POOL_FWD_PROBE & 1
+    // the same 2n groups of each row, one contiguous run an instruction
+    const int qa = t, qb = t + n;
+#else
+    const int qa = 2 * t - t % G, qb = qa + G;
+#endif
+    const uint4 v00 = __ldg(x0 + qa), v01 = __ldg(x0 + qb);
+    const uint4 v10 = __ldg(x1 + qa), v11 = __ldg(x1 + qb);
+    Taps taps;
+    const uint4 o = Window<T>::pool(v00, v01, v10, v11, taps);
+#if POOL_FWD_PROBE & 2
+    // no stores: a store that no value of the probe's inputs reaches
+    if ((o.x & o.y & o.z & o.w) != 0xffffffffu) continue;
+#endif
+    yrow[t] = o;
+    if (tap != nullptr)
+      reinterpret_cast<Taps*>(tap + (int64_t)row * W2 * C)[t] = taps;
+  }
+}
 
 template <typename T>
 __global__ void maxpool2x2_fwd_kernel(const T* __restrict__ x,
@@ -222,6 +359,26 @@ int launch_bwd_window(void* stream, const void* tap, const void* g, void* dx,
   return (int)cudaGetLastError();
 }
 
+// (tx, ty): ops/hopper/pool.py:pool_fwd_block
+template <typename T>
+int launch_fwd_window(void* stream, const void* x, void* y, void* tap, int B,
+                      int H, int W, int C, int tx, int ty) {
+  constexpr int kV = 16 / sizeof(T);
+  const int H2 = H / 2, W2 = W / 2;
+  if (C % kV != 0 || H2 < 1 || W2 < 1 || B < 1 || tx < 32 || tx % 32 != 0 ||
+      ty < 1 || tx * ty > 1024 ||
+      reinterpret_cast<uintptr_t>(x) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(y) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(tap) % sizeof(typename Window<T>::Taps))
+    return (int)cudaErrorInvalidValue;
+  const int rows = B * H2;
+  maxpool2x2_fwd_window_kernel<T><<<(unsigned)((rows + ty - 1) / ty),
+                                    dim3(tx, ty), 0, (cudaStream_t)stream>>>(
+      static_cast<const T*>(x), static_cast<T*>(y),
+      static_cast<uint8_t*>(tap), rows, H, W, C, H2, W2);
+  return (int)cudaGetLastError();
+}
+
 template <typename T>
 int launch_fwd(void* stream, const void* x, void* y, void* tap, int B, int H,
                int W, int C) {
@@ -274,4 +431,18 @@ extern "C" int cnn_maxpool2x2_fwd_bf16(void* stream, const void* x, void* y,
                                        void* tap, int B, int H, int W,
                                        int C) {
   return launch_fwd<__nv_bfloat16>(stream, x, y, tap, B, H, W, C);
+}
+
+extern "C" int cnn_maxpool2x2_fwd_window(void* stream, const void* x, void* y,
+                                         void* tap, int B, int H, int W,
+                                         int C, int tx, int ty) {
+  return launch_fwd_window<float>(stream, x, y, tap, B, H, W, C, tx, ty);
+}
+
+extern "C" int cnn_maxpool2x2_fwd_window_bf16(void* stream, const void* x,
+                                              void* y, void* tap, int B,
+                                              int H, int W, int C, int tx,
+                                              int ty) {
+  return launch_fwd_window<__nv_bfloat16>(stream, x, y, tap, B, H, W, C, tx,
+                                          ty);
 }

@@ -26,8 +26,10 @@ from cnn_tpu_torch.ops.hopper.normalize import (launch_normalize,  # noqa: F401
                                                 normalize_plan,
                                                 uint8_normalize)
 from cnn_tpu_torch.ops.hopper.pool import (launch_pool_bwd,  # noqa: F401
-                                           max_pool2d_bwd, max_pool2d_fn,
-                                           max_pool2d_fwd, pool_bwd_variant)
+                                           launch_pool_fwd, max_pool2d_bwd,
+                                           max_pool2d_fn, max_pool2d_fwd,
+                                           pool_bwd_variant, pool_fwd_block,
+                                           pool_fwd_variant)
 from cnn_tpu_torch.ops.hopper.resize import (launch_resize,  # noqa: F401
                                              resize_batch_plain,
                                              resize_linear_u8)
@@ -35,7 +37,9 @@ from cnn_tpu_torch.ops.hopper.resize import (launch_resize,  # noqa: F401
 # every counter of each wrapper: all its launches, then each variant's
 COUNTERS = {
     uint8_normalize: ("launches", "launches_wide", "launches_bytes"),
-    max_pool2d_fwd: ("launches", "launches_bf16"),
+    max_pool2d_fwd: ("launches", "launches_window", "launches_element",
+                     "launches_bf16", "launches_bf16_window",
+                     "launches_bf16_element"),
     max_pool2d_bwd: ("launches", "launches_window", "launches_element",
                      "launches_bf16"),
     conv2d_bias_relu: ("launches", "launches_strip", "launches_tiled",

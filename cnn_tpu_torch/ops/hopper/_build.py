@@ -56,6 +56,10 @@ SIGNATURES = {
     "cnn_maxpool2x2_bwd_window": [P, P, P, I, I, I, I],
     # the forward and the window backward on bf16 values
     "cnn_maxpool2x2_fwd_bf16": [P, P, P, I, I, I, I],
+    # the window forward (16 bytes of channels a thread): x, y, tap, B, H,
+    # W, C, then the block's (tx, ty) of ops/hopper/pool.py:pool_fwd_block
+    "cnn_maxpool2x2_fwd_window": [P, P, P, I, I, I, I, I, I],
+    "cnn_maxpool2x2_fwd_window_bf16": [P, P, P, I, I, I, I, I, I],
     "cnn_maxpool2x2_bwd_window_bf16": [P, P, P, I, I, I, I],
     # x, w, b, y, B, H, W, Cin, Cout, k, stride, pad (zero padding), relu
     "cnn_conv2d_bias_relu": [P, P, P, P, I, I, I, I, I, I, I, I, I],

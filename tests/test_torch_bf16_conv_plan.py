@@ -366,13 +366,15 @@ def test_pool_wrappers_launch_and_count_the_bf16_kernels(monkeypatch):
     g = torch.empty((2, 55, 55, 16), dtype=BF16, device="meta")
     dx = max_pool2d_bwd(tap, g, 111, 111)
     assert dx.dtype == BF16 and dx.shape == (2, 111, 111, 16)
-    assert [c[0] for c in calls] == ["cnn_maxpool2x2_fwd_bf16",
+    assert [c[0] for c in calls] == ["cnn_maxpool2x2_fwd_window_bf16",
                                      "cnn_maxpool2x2_bwd_window_bf16"]
     for name, args in calls:
         assert len(args) == len(SIGNATURES[name])
     counts = read_counters()
     assert counts["max_pool2d_fwd.launches"] == 1
     assert counts["max_pool2d_fwd.launches_bf16"] == 1
+    assert counts["max_pool2d_fwd.launches_bf16_window"] == 1
+    assert counts["max_pool2d_fwd.launches_window"] == 0   # the f32 kernels
     assert counts["max_pool2d_bwd.launches"] == 1
     assert counts["max_pool2d_bwd.launches_bf16"] == 1
     assert counts["max_pool2d_bwd.launches_window"] == 0   # the f32 kernels

@@ -118,6 +118,7 @@ def test_capture_counts_nothing_and_replays_add_its_launches(monkeypatch):
     assert delta == {"uint8_normalize.launches": 1,
                      "uint8_normalize.launches_wide": 1,
                      "max_pool2d_fwd.launches": 1,
+                     "max_pool2d_fwd.launches_window": 1,
                      "conv2d_bias_relu.launches": 4,
                      "conv2d_bias_relu.launches_strip": 1,
                      "conv2d_bias_relu.launches_tiled": 3}
